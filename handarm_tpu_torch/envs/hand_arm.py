@@ -1,0 +1,505 @@
+"""UR5+SIH manipulation environment, lift goal (counterpart of
+handarm_tpu/envs/hand_arm.py on the Ur5SihLift path).
+
+One `step(state, actions)` does: actionables -> control -> PD targets,
+`control_freq_inv` sim steps with the heavy mass structure evaluated once
+per control step and FK carried across its sim steps, reward, termination,
+the NaN finite guard, success-rate EWMAs, the auto-reset merged per env,
+and the sanitized observations. Domain randomization, ADR, cameras, point
+clouds and genesis drop-init are off in Ur5SihLift and not ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from handarm_tpu_torch import resolve_device
+from handarm_tpu_torch.math.quat import (
+    cross,
+    quat_from_axis_angle,
+    quat_mul,
+    quat_rotate,
+)
+from handarm_tpu_torch.envs.spec import Observable, Registry, obs_layout
+from handarm_tpu_torch.physics.contacts import StaticGeom
+from handarm_tpu_torch.physics.engine import (
+    ObjectState,
+    PhysicsState,
+    RobotState,
+    SimParams,
+    build_scene,
+    compute_heavy,
+    step as physics_step,
+)
+from handarm_tpu_torch.physics.kinematics import body_velocities, forward_kinematics, site_poses
+from handarm_tpu_torch.physics.shapes import BOX, SPHERE, make_box_object, make_sphere_object, stack_objects
+from handarm_tpu_torch.physics.solver import SolverParams
+from handarm_tpu_torch.robots import get_robot
+from handarm_tpu_torch.robots.ur5sih import SERVO_LOWER, SERVO_UPPER
+
+
+@dataclass(frozen=True)
+class HandArmConfig:
+    """The lift goal on the UR5+SIH, hand-only collision spheres."""
+
+    num_envs: int = 1024
+    episode_length: int = 200
+    control_freq_inv: int = 3  # 20 Hz policy on a 60 Hz sim
+    dt: float = 1.0 / 60.0
+    substeps: int = 2
+    observations: tuple[str, ...] = (
+        "ur5_joint_pos", "ur5_flange_pose", "sih_fingertip_pos",
+        "sih_fingertip_quat", "sih_fingertip_linvel", "dof_position_targets",
+        "object_pos", "object_bounding_box", "target_object_bounding_box",
+        "sih_fingertip_to_target_object_pos", "target_object_to_goal_pos",
+    )
+    actions: tuple[str, ...] = (
+        "ur5_relative_joint_pos", "sih_smoothed_relative_servo_pos",
+    )
+    lifting_threshold: float = 0.05
+    lift_goal_height_above_table: float = 0.3
+    reward: dict = field(default_factory=lambda: {
+        "reaching": 1.0, "lifting": 5.0, "goal": 50.0, "success": 50.0,
+    })
+    objects: tuple = (("box", (0.03, 0.03, 0.045), 0.15),)
+    table_height: float = 0.5
+    rolling_friction: float = 0.003
+    use_bin: bool = False
+    bin_center: tuple = ()
+    bin_half_extent: float = 0.15
+    bin_wall_height: float = 0.10
+    bin_wall_thickness: float = 0.01
+    table_lo: tuple = (-0.5, -0.5)
+    table_hi: tuple = (0.9, 1.1)
+    drop_pos: tuple = (0.28, 0.58, 1.5)
+    goal_pos: tuple = (0.28, 0.58, 0.8)
+    goal_noise: tuple = (0.15, 0.15, 0.1)
+    spawn_noise: tuple = (0.1, 0.1, 0.0)
+    arm_action_scale: float = 1.0
+    servo_smoothing_alpha: float = 0.8
+    solver_iterations: int = 8
+    solver_prep_dtype: str = "bf16"
+    clip_observations: float = 100.0
+    clip_actions: float = 1.0
+
+
+class TaskState(NamedTuple):
+    progress: torch.Tensor  # [B] int64
+    goal_pos: torch.Tensor  # [B, 3]
+    goal_quat: torch.Tensor  # [B, 4]
+    target_obj: torch.Tensor  # [B] int64
+    goal_reached_before: torch.Tensor  # [B] bool
+    initial_obj_pos: torch.Tensor  # [B, K, 3]
+    total_steps: torch.Tensor  # scalar
+
+
+class Metrics(NamedTuple):
+    success_ewma: torch.Tensor  # scalar
+    per_object_ewma: torch.Tensor  # [K]
+    total_resets: torch.Tensor
+    total_successes: torch.Tensor
+    end_success_ewma: torch.Tensor
+
+
+class EnvState(NamedTuple):
+    physics: PhysicsState
+    control: Any  # robot control state
+    task: TaskState
+    metrics: Metrics
+
+
+class StepResult(NamedTuple):
+    obs: torch.Tensor  # [B, num_obs]
+    reward: torch.Tensor  # [B]
+    done: torch.Tensor  # [B] bool
+    info: dict
+
+
+def tree_map(fn, *trees):
+    """Map over nested NamedTuples of tensors (None leaves pass through)."""
+    t0 = trees[0]
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if t0 is None:
+        return None
+    return fn(*trees)
+
+
+class ObsContext:
+    """Lazily computed quantities shared by observation and reward terms."""
+
+    def __init__(self, env: "HandArmEnv", state: EnvState):
+        self.env, self.state = env, state
+        self._cache: dict[str, Any] = {}
+
+    def _get(self, name, fn):
+        if name not in self._cache:
+            self._cache[name] = fn()
+        return self._cache[name]
+
+    @property
+    def batch(self) -> int:
+        return self.state.physics.robot.q.shape[0]
+
+    @property
+    def fk(self):
+        sc = self.env.scene
+        return self._get("fk", lambda: forward_kinematics(
+            sc.model, self.state.physics.robot.q, sc.base_quat[None], sc.base_pos[None]))
+
+    def _sites(self, key, sites):
+        sc = self.env.scene
+        return self._get(key, lambda: site_poses(
+            self.fk, *sites, base_quat=sc.base_quat[None], base_pos=sc.base_pos[None]))
+
+    @property
+    def fingertips(self):
+        return self._sites("tips", self.env.fingertip_sites)
+
+    @property
+    def flange(self):
+        return self._sites("flange", self.env.flange_site)
+
+    def _target(self, x):
+        t = self.state.task.target_obj
+        return torch.gather(x, 1, t[:, None, None].expand(-1, 1, x.shape[-1]))[:, 0]
+
+    @property
+    def target_object_pos(self):
+        return self._target(self.state.physics.objects.pos)
+
+    @property
+    def target_object_quat(self):
+        return self._target(self.state.physics.objects.quat)
+
+    def fingertip_linvel(self):
+        def compute():
+            bv = body_velocities(self.env.scene.model, self.fk,
+                                 self.state.physics.robot.qd)
+            v = bv[:, self.env.fingertip_body_idx]
+            return v[..., 3:] + cross(v[..., :3], self.fingertips[1])
+        return self._get("tipvel", compute)
+
+
+def _obb(ctx: ObsContext, pos, quat, idx=None):
+    """[pos, quat, full extents] of the oriented bounding box(es)."""
+    shapes = ctx.env.scene.shapes
+    obb_p = shapes.obb_pos if idx is None else shapes.obb_pos[idx]
+    obb_q = shapes.obb_quat if idx is None else shapes.obb_quat[idx]
+    ext = 2.0 * (shapes.size if idx is None else shapes.size[idx])
+    p = pos + quat_rotate(quat, obb_p.expand_as(pos))
+    q = quat_mul(quat, obb_q.expand_as(quat))
+    return torch.cat([p, q, ext.expand(p.shape[:-1] + (3,))], dim=-1)
+
+
+def _register_observables(reg: Registry, nv: int, K: int) -> None:
+    def obs(name, size, fn):
+        reg.observables[name] = Observable(name, size, fn)
+
+    obs("ur5_joint_pos", 6, lambda c: c.state.physics.robot.q[:, :6])
+    obs("ur5_flange_pose", 7, lambda c: torch.cat([c.flange[1][:, 0], c.flange[0][:, 0]], -1))
+    obs("sih_fingertip_pos", 15, lambda c: c.fingertips[1].reshape(c.batch, -1))
+    obs("sih_fingertip_quat", 20, lambda c: c.fingertips[0].reshape(c.batch, -1))
+    obs("sih_fingertip_linvel", 15, lambda c: c.fingertip_linvel().reshape(c.batch, -1))
+    obs("dof_position_targets", nv, lambda c: c.state.physics.robot.targets)
+    obs("object_pos", 3 * K, lambda c: c.state.physics.objects.pos.reshape(c.batch, -1))
+    obs("object_bounding_box", 10 * K, lambda c: _obb(
+        c, c.state.physics.objects.pos, c.state.physics.objects.quat).reshape(c.batch, -1))
+    obs("target_object_bounding_box", 10, lambda c: _obb(
+        c, c.target_object_pos, c.target_object_quat, c.state.task.target_obj))
+    obs("sih_fingertip_to_target_object_pos", 15, lambda c: (
+        c.target_object_pos[:, None, :] - c.fingertips[1]).reshape(c.batch, -1))
+    obs("target_object_to_goal_pos", 3,
+        lambda c: c.state.task.goal_pos - c.target_object_pos)
+
+
+def _register_actionables(reg: Registry) -> None:
+    def act_arm_rel(env, control, a):
+        new_target = control.arm_target + env.cfg.dt * env.cfg.arm_action_scale * a
+        return control._replace(arm_target=torch.minimum(
+            torch.maximum(new_target, env.arm_limits[0]), env.arm_limits[1]))
+
+    def act_servo_smooth(env, control, a):
+        alpha = env.cfg.servo_smoothing_alpha
+        smoothed = alpha * a + (1 - alpha) * control.sih_smoothed
+        ticks = torch.minimum(torch.maximum(
+            control.servo_ticks + 100.0 * smoothed, env.servo_lo), env.servo_hi)
+        return control._replace(servo_ticks=ticks, sih_smoothed=smoothed)
+
+    reg.actionable("ur5_relative_joint_pos", 6)(act_arm_rel)
+    reg.actionable("sih_smoothed_relative_servo_pos", 5)(act_servo_smooth)
+
+
+class HandArmEnv:
+    """Vectorized UR5+SIH lift env on one device. Random draws (resets) come
+    from the env's own torch.Generator, seeded by `reset(seed)`."""
+
+    def __init__(self, cfg: HandArmConfig, device=None, urdf_path: str | None = None):
+        self.cfg = cfg
+        self.device = dev = resolve_device(device)
+        self.robot = get_robot("ur5sih", urdf_path, dev)
+        art = self.art = self.robot.art
+        objs = []
+        for kind, size, mass in cfg.objects:
+            if kind == "box":
+                objs.append(make_box_object(list(size), mass))
+            elif kind == "sphere":
+                objs.append(make_sphere_object(size[0], mass))
+            else:
+                raise NotImplementedError(kind)
+        shapes = stack_objects(objs, device=dev)
+        spheres = self.robot.make_spheres(True, dev)  # hand links only
+        walls = []
+        if cfg.use_bin:
+            cx, cy = cfg.bin_center if cfg.bin_center else cfg.drop_pos[:2]
+            e, th = cfg.bin_half_extent, cfg.bin_wall_thickness
+            z0, z1 = cfg.table_height, cfg.table_height + cfg.bin_wall_height
+            walls = [
+                ((cx - e - th, cy - e - th, z0), (cx - e, cy + e + th, z1)),
+                ((cx + e, cy - e - th, z0), (cx + e + th, cy + e + th, z1)),
+                ((cx - e - th, cy - e - th, z0), (cx + e + th, cy - e, z1)),
+                ((cx - e - th, cy + e, z0), (cx + e + th, cy + e + th, z1)),
+            ]
+        geom = StaticGeom(
+            table_lo=torch.tensor(cfg.table_lo, device=dev),
+            table_hi=torch.tensor(cfg.table_hi, device=dev),
+            table_height=float(cfg.table_height),
+            wall_lo=np.asarray([w[0] for w in walls], np.float32).reshape(-1, 3),
+            wall_hi=np.asarray([w[1] for w in walls], np.float32).reshape(-1, 3),
+        )
+        self.scene = build_scene(
+            art, shapes, spheres, geom, kp=self.robot.kp, kd=self.robot.kd,
+            base_pos=(0.0, 0.0, cfg.table_height),  # the arm mounts at the table origin
+            params=SimParams(
+                dt=cfg.dt, substeps=cfg.substeps,
+                solver=SolverParams(iterations=cfg.solver_iterations,
+                                    rolling_friction=cfg.rolling_friction,
+                                    prep_dtype=cfg.solver_prep_dtype),
+                robot_gravity=False,
+            ),
+            device=dev,
+        )
+        self.fingertip_sites = self._sites(self.robot.fingertip_site_names)
+        self.fingertip_body_idx = torch.as_tensor(self.fingertip_sites[0], device=dev)
+        self.flange_site = self._sites([self.robot.flange_site_name])
+        f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
+        self.arm_limits = (f32(art.q_min[:6]), f32(art.q_max[:6]))
+        self.servo_lo, self.servo_hi = f32(SERVO_LOWER), f32(SERVO_UPPER)
+        self.num_objects = shapes.num_objects
+        self.registry = Registry()
+        _register_observables(self.registry, art.nv, self.num_objects)
+        _register_actionables(self.registry)
+        self.active_obs = self.registry.resolve_observables(list(cfg.observations))
+        _, self.num_obs = obs_layout(self.active_obs, list(cfg.observations))
+        self.active_actions = self.registry.resolve_actionables(list(cfg.actions))
+        self.num_actions = sum(a.size for a in self.active_actions)
+        self.reset_q = f32(self.robot.reset_q)
+        self.gen = torch.Generator(device=dev)
+        self.gen.manual_seed(0)
+
+    def _sites(self, names):
+        body, pos, quat = self.art.site_array(names)
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return body, f32(pos), f32(quat)
+
+    # --- reset draws ---------------------------------------------------------
+
+    def _uniform(self, shape, lo, hi):
+        u = torch.rand(shape, generator=self.gen, device=self.device)
+        return lo + (hi - lo) * u
+
+    def _rest_heights(self):
+        shp = self.scene.shapes
+        return torch.stack([
+            shp.size[k, 2] if shp.kind[k] == BOX else
+            shp.size[k, 0] if shp.kind[k] == SPHERE else shp.bound_radius[k]
+            for k in range(self.num_objects)
+        ])
+
+    def _sample_object_poses(self, B: int):
+        K, cfg = self.num_objects, self.cfg
+        noise = self._uniform((B, K, 2), -1.0, 1.0) * torch.tensor(
+            cfg.spawn_noise[:2], device=self.device)
+        spread = (torch.arange(K, device=self.device, dtype=torch.float32) - (K - 1) / 2.0) * 0.12
+        perm = torch.argsort(torch.rand((B, K), generator=self.gen, device=self.device), dim=1)
+        xy = torch.tensor(cfg.drop_pos[:2], device=self.device) + noise
+        xy[..., 0] += spread[perm]
+        z = (cfg.table_height + self._rest_heights())[None].expand(B, K)
+        pos = torch.cat([xy, z[..., None]], dim=-1)
+        yaw = self._uniform((B, K), -np.pi, np.pi)
+        axis = torch.tensor([0.0, 0.0, 1.0], device=self.device).expand(B, K, 3)
+        return pos, quat_from_axis_angle(axis, yaw)
+
+    def fresh_state(self, B: int) -> EnvState:
+        """A new episode's state for B envs (drawn from the env's generator)."""
+        pos, quat = self._sample_object_poses(B)
+        K, nv, C = self.num_objects, self.art.nv, self.scene.slots.num_slots
+        dev = self.device
+        goal = torch.tensor(self.cfg.goal_pos, device=dev) + self._uniform(
+            (B, 3), -1.0, 1.0) * torch.tensor(self.cfg.goal_noise, device=dev)
+        target = torch.randint(0, K, (B,), generator=self.gen, device=dev)
+        physics = PhysicsState(
+            robot=RobotState(q=self.reset_q.expand(B, nv).clone(),
+                             qd=torch.zeros(B, nv, device=dev),
+                             targets=self.reset_q.expand(B, nv).clone()),
+            objects=ObjectState(pos=pos, quat=quat,
+                                linvel=torch.zeros(B, K, 3, device=dev),
+                                angvel=torch.zeros(B, K, 3, device=dev)),
+            contact_impulse=torch.zeros(B, C, 3, device=dev),
+        )
+        task = TaskState(
+            progress=torch.zeros(B, dtype=torch.int64, device=dev),
+            goal_pos=goal,
+            goal_quat=torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(B, 4).clone(),
+            target_obj=target,
+            goal_reached_before=torch.zeros(B, dtype=torch.bool, device=dev),
+            initial_obj_pos=pos,
+            total_steps=torch.zeros((), dtype=torch.int64, device=dev),
+        )
+        z = lambda *s: torch.zeros(s, device=dev)
+        metrics = Metrics(z(), z(K), z(), z(), z())
+        return EnvState(physics, self.robot.init_control(B, dev), task, metrics)
+
+    def reset(self, seed: int = 0):
+        """(state, obs) for cfg.num_envs envs with staggered episode clocks."""
+        self.gen.manual_seed(seed)
+        state = self.fresh_state(self.cfg.num_envs)
+        prog0 = torch.randint(0, self.cfg.episode_length, (self.cfg.num_envs,),
+                              generator=self.gen, device=self.device)
+        state = state._replace(task=state.task._replace(progress=prog0))
+        return state, self._compute_obs(ObsContext(self, state))
+
+    # --- step ----------------------------------------------------------------
+
+    def step(self, state: EnvState, actions: torch.Tensor):
+        cfg = self.cfg
+        B = actions.shape[0]
+        actions = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
+
+        control = state.control
+        off = 0
+        for act in self.active_actions:
+            control = act.apply(self, control, actions[:, off:off + act.size])
+            off += act.size
+        targets = self.robot.compute_targets(control, state.physics.robot.q)
+        physics = state.physics._replace(
+            robot=state.physics.robot._replace(targets=targets))
+
+        heavy = compute_heavy(self.scene, physics)
+        physics, info_last, fk = physics_step(self.scene, physics, heavy,
+                                              heavy.fk0, heavy.contacts0)
+        for _ in range(cfg.control_freq_inv - 1):
+            physics, info_last, fk = physics_step(self.scene, physics, heavy, fk)
+
+        progress = state.task.progress + 1
+        task = state.task._replace(progress=progress,
+                                   total_steps=state.task.total_steps + 1)
+        state2 = state._replace(physics=physics, task=task)
+
+        reward, goal_reached, terms = self._compute_reward(ObsContext(self, state2))
+        goal_reached_before = task.goal_reached_before | goal_reached
+        finite = torch.ones(B, dtype=torch.bool, device=self.device)
+        for x in (physics.robot.q, physics.robot.qd, physics.objects.pos,
+                  physics.objects.quat, physics.objects.linvel,
+                  physics.objects.angvel, physics.contact_impulse):
+            finite &= torch.isfinite(x.reshape(B, -1)).all(dim=-1)
+        reward = torch.where(finite & torch.isfinite(reward), reward,
+                             torch.zeros_like(reward))
+        goal_reached = goal_reached & finite
+        done = (progress >= cfg.episode_length) | ~finite
+        task = task._replace(goal_reached_before=goal_reached_before)
+        metrics = self._update_metrics(state.metrics, done, goal_reached_before,
+                                       task.target_obj, goal_reached)
+
+        fresh = self.fresh_state(B)
+        merged = tree_map(
+            lambda new, old: _where_done(done, new, old),
+            EnvState(fresh.physics, fresh.control, fresh.task, metrics),
+            EnvState(physics, control, task, metrics),
+        )._replace(metrics=metrics)
+
+        obs = self._compute_obs(ObsContext(self, merged))
+        obs = torch.where(torch.isfinite(obs), obs, torch.zeros_like(obs))
+        info = dict(
+            success_rate_ewma=metrics.success_ewma,
+            end_success_rate_ewma=metrics.end_success_ewma,
+            per_object_success_ewma=metrics.per_object_ewma,
+            max_penetration=info_last.max_penetration,
+            **terms,
+        )
+        return merged, StepResult(obs=obs, reward=reward, done=done, info=info)
+
+    # --- internals -------------------------------------------------------------
+
+    def _compute_obs(self, ctx: ObsContext) -> torch.Tensor:
+        outs = {o.name: o.fn(ctx) for o in self.active_obs}
+        obs = torch.cat([outs[n] for n in self.cfg.observations], dim=-1)
+        c = self.cfg.clip_observations
+        return torch.clamp(obs, -c, c)
+
+    def _compute_reward(self, ctx: ObsContext):
+        cfg = self.cfg
+        tip_pos = ctx.fingertips[1]
+        tgt_pos = ctx.target_object_pos
+        goal_height = cfg.table_height + cfg.lift_goal_height_above_table
+        object_goal_distance = torch.clamp(goal_height - tgt_pos[:, 2], min=0.0)
+        goal_reached = tgt_pos[:, 2] > goal_height
+        init_pos = ctx._target(ctx.state.task.initial_obj_pos)
+        delta_z = (tgt_pos - init_pos)[:, 2]
+        lifted = delta_z > cfg.lifting_threshold
+        reward = torch.zeros(ctx.batch, device=self.device)
+        terms = {}
+        for term, scale in cfg.reward.items():
+            if term == "reaching":
+                d = torch.linalg.vector_norm(tip_pos - tgt_pos[:, None, :], dim=-1)
+                d = torch.cat([d[:, :1] * 4.0, d[:, 1:]], dim=1)  # thumb weighs 4x
+                r = scale * torch.exp(-3.0 * d.sum(-1))
+            elif term == "lifting":
+                thr = cfg.lifting_threshold
+                delta_h = torch.clamp(thr - delta_z, 0.0, thr) / thr
+                r = scale * (torch.exp(-3.0 * delta_h) - np.exp(-3.0))
+            elif term == "goal":
+                r = scale * lifted * torch.exp(-5.0 * object_goal_distance)
+            elif term == "success":
+                r = scale * goal_reached
+            else:
+                raise ValueError(f"reward term {term!r} is not ported yet")
+            reward = reward + r
+            terms[f"reward_terms/{term}"] = r.mean()
+        return reward, goal_reached, terms
+
+    def _update_metrics(self, metrics: Metrics, done, goal_reached_before,
+                        target_obj, goal_reached_now) -> Metrics:
+        K, B = self.num_objects, done.shape[0]
+        f = lambda x: x.to(torch.float32)
+        num_resets = f(done).sum()
+        num_succ = f(done & goal_reached_before).sum()
+        any_reset = num_resets > 0
+        alpha = 0.2 * num_resets / B
+        cur = num_succ / torch.clamp(num_resets, min=1)
+        ewma = torch.where(any_reset, alpha * cur + (1 - alpha) * metrics.success_ewma,
+                           metrics.success_ewma)
+        end_cur = f(done & goal_reached_now).sum() / torch.clamp(num_resets, min=1)
+        end_ewma = torch.where(any_reset,
+                               alpha * end_cur + (1 - alpha) * metrics.end_success_ewma,
+                               metrics.end_success_ewma)
+        onehot = torch.nn.functional.one_hot(target_obj, K).to(torch.float32)
+        resets_k = (onehot * f(done)[:, None]).sum(0)
+        succ_k = (onehot * f(done & goal_reached_before)[:, None]).sum(0)
+        cur_k = succ_k / torch.clamp(resets_k, min=1)
+        alpha_k = 0.2 * resets_k / B * K
+        ewma_k = torch.where(resets_k > 0, alpha_k * cur_k + (1 - alpha_k) * metrics.per_object_ewma,
+                             metrics.per_object_ewma)
+        return Metrics(ewma, ewma_k, metrics.total_resets + num_resets,
+                       metrics.total_successes + num_succ, end_ewma)
+
+
+def _where_done(done, new, old):
+    """Per-env where; leaves without a leading env axis keep the old value."""
+    if new.ndim == 0 or new.shape[0] != done.shape[0]:
+        return old
+    return torch.where(done.reshape(done.shape + (1,) * (new.ndim - 1)), new, old)

@@ -1,0 +1,101 @@
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+
+All `csrc/*.cu` files are compiled by ONE `nvcc` command into one shared
+library under `<checkout>/build/handarm_tpu_torch/<sha>/`, where `<sha>` is
+a hash of the sources and the flags: an edited source builds into a fresh
+directory, and a directory is only ever entered complete (the library is
+written to a private temporary name and renamed into place), so a build
+that was cut off leaves nothing that a later run would wait on or reuse.
+Nothing here runs at import: the first kernel launch builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "handarm_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+LIB_NAME = "libhandarm_kernels.so"
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None  # wall time of the last build (None: cached)
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources() + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def build(timeout: float = 600.0) -> Path:
+    """Compile the kernels if this source hash has no library yet."""
+    global build_seconds
+    out_dir = BUILD_ROOT / source_digest()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}\n{res.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.spd_inverse_f32.argtypes = [vp, vp, ci, ci, vp]
+        lib.spd_inverse_f32.restype = ci
+        lib.contact_sweep_f32.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, vp,  # inputs
+            vp, vp, vp,  # outputs
+            ci, ci, ci, ci, ci, ci, ci, cf, ci, vp,
+        ]
+        lib.contact_sweep_f32.restype = ci
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,184 @@
+"""All relaxed-Jacobi sweeps of one anchored contact solve.
+
+Counterpart of handarm_tpu/ops/contact_sweep.py (`fused_jacobi_sweeps`,
+the Pallas `_sweep_kernel`) with `apply_warm`: the same update order and
+the same projection. On CUDA tensors the hand-written kernel in
+csrc/contact_sweep.cu runs (one thread block per env, one thread per slot);
+on CPU tensors the plain version below runs, a tensor transcription of the
+same sweeps (the counterpart of `solver._solve_jacobi_soa`).
+
+Inputs keep the JAX package's layout: planes [NP, B, C] stacked as BASE
+then NSIDE planes per object side, bias [B, C], screws [6, B, nv], qd
+[B, nv], minv2 [B, nv*nv] (row-major Minv), obj [6, B, K] (linear then
+angular velocity), lam0 [3, B, C]. The slot couplings come in two forms:
+`anc` [C, nv] (0/1, plain version) and `anc_bits` [C] int32 (the same mask
+as bits, kernel), and `obj_idx` [S, C] int32 (object of each side, -1 where
+the slot has none; `signs` gives +1 / -1 per side).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from handarm_tpu_torch.ops import build
+
+BASE = dict(n=(0, 1, 2), t1=(3, 4, 5), t2=(6, 7, 8), pos=(9, 10, 11),
+            mu=12, inv_d=(13, 14, 15), gate=16)
+NBASE = 17
+NSIDE = 10  # r(3) + Iinv sym(6) + invm(1)
+
+launches = 0  # kernel launches since the last reset (CUDA path only)
+
+
+def contact_sweep(planes, bias, screws, qd, minv2, obj, lam0, anc, anc_bits,
+                  obj_idx, signs, iterations: int, omega: float,
+                  apply_warm: bool = True):
+    """Returns (qd [B, nv], obj [6, B, K], lam [3, B, C]). CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if planes.device.type == "cpu":
+        return contact_sweep_plain(planes, bias, screws, qd, minv2, obj, lam0,
+                                   anc, obj_idx, signs, iterations, omega,
+                                   apply_warm)
+    return contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0,
+                              anc_bits, obj_idx, signs, iterations, omega,
+                              apply_warm)
+
+
+def contact_sweep_plain(planes, bias, screws, qd, minv2, obj, lam0, anc,
+                        obj_idx, signs, iterations: int, omega: float,
+                        apply_warm: bool = True):
+    NP, B, C = planes.shape
+    nv = qd.shape[1]
+    K = obj.shape[2]
+    P = lambda k: planes[k]
+    nx, ny, nz = (P(k) for k in BASE["n"])
+    t1x, t1y, t1z = (P(k) for k in BASE["t1"])
+    t2x, t2y, t2z = (P(k) for k in BASE["t2"])
+    px, py, pz = (P(k) for k in BASE["pos"])
+    mu, gate = P(BASE["mu"]), P(BASE["gate"])
+    id0, id1, id2 = (P(k) for k in BASE["inv_d"])
+    kk = torch.arange(K, device=planes.device)
+    sides = []
+    for s, sg in enumerate(signs):
+        b = NBASE + s * NSIDE
+        onehot = (obj_idx[s].long()[:, None] == kk[None]).to(planes.dtype)
+        sides.append((sg, (P(b), P(b + 1), P(b + 2)),
+                      tuple(P(b + 3 + i) for i in range(6)), P(b + 9), onehot))
+    sc = [screws[a] for a in range(6)]
+    ancT = anc.T
+    Minv = minv2.reshape(B, nv, nv)
+    lv = [obj[i] for i in range(3)]
+    av = [obj[3 + i] for i in range(3)]
+    lam = [lam0[i] for i in range(3)]
+
+    def rel_velocity(qd, lv, av):
+        wx, wy, wz, lx, ly, lz = ((sc[a] * qd) @ ancT for a in range(6))
+        vx = lx + wy * pz - wz * py
+        vy = ly + wz * px - wx * pz
+        vz = lz + wx * py - wy * px
+        for sg, (rx, ry, rz), _, _, oh in sides:
+            ox = [lv[i] @ oh.T for i in range(3)]
+            aw = [av[i] @ oh.T for i in range(3)]
+            vx = vx + sg * (ox[0] + aw[1] * rz - aw[2] * ry)
+            vy = vy + sg * (ox[1] + aw[2] * rx - aw[0] * rz)
+            vz = vz + sg * (ox[2] + aw[0] * ry - aw[1] * rx)
+        return vx, vy, vz
+
+    def apply_impulse(qd, lv, av, dP):
+        dPx, dPy, dPz = dP
+        mx = py * dPz - pz * dPy
+        my = pz * dPx - px * dPz
+        mz = px * dPy - py * dPx
+        T = [c @ anc for c in (mx, my, mz, dPx, dPy, dPz)]
+        gi = (sc[0] * T[0] + sc[1] * T[1] + sc[2] * T[2]
+              + sc[3] * T[3] + sc[4] * T[4] + sc[5] * T[5])
+        qd = qd + torch.sum(Minv * gi[:, None, :], dim=-1)
+        for sg, (rx, ry, rz), (ixx, ixy, ixz, iyy, iyz, izz), invm, oh in sides:
+            lv = [lv[i] + sg * ((dP[i] * invm) @ oh) for i in range(3)]
+            tx = ry * dPz - rz * dPy
+            ty = rz * dPx - rx * dPz
+            tz = rx * dPy - ry * dPx
+            dw = (ixx * tx + ixy * ty + ixz * tz,
+                  ixy * tx + iyy * ty + iyz * tz,
+                  ixz * tx + iyz * ty + izz * tz)
+            av = [av[i] + sg * (dw[i] @ oh) for i in range(3)]
+        return qd, lv, av
+
+    if apply_warm:
+        dP0 = (lam[0] * nx + lam[1] * t1x + lam[2] * t2x,
+               lam[0] * ny + lam[1] * t1y + lam[2] * t2y,
+               lam[0] * nz + lam[1] * t1z + lam[2] * t2z)
+        qd, lv, av = apply_impulse(qd, lv, av, dP0)
+
+    for _ in range(iterations):
+        vx, vy, vz = rel_velocity(qd, lv, av)
+        vn = vx * nx + vy * ny + vz * nz
+        vt1 = vx * t1x + vy * t1y + vz * t1z
+        vt2 = vx * t2x + vy * t2y + vz * t2z
+        new_n = torch.clamp(lam[0] + (bias - vn) * id0, min=0.0)
+        ft1 = lam[1] - vt1 * id1
+        ft2 = lam[2] - vt2 * id2
+        fmag = torch.sqrt(ft1 * ft1 + ft2 * ft2)
+        fmax = mu * new_n
+        scale = torch.where(fmag > fmax, fmax / torch.clamp(fmag, min=1e-9),
+                            torch.ones_like(fmag))
+        new = (new_n, ft1 * scale, ft2 * scale)
+        dlam = [omega * (new[i] - lam[i]) * gate for i in range(3)]
+        lam = [lam[i] + dlam[i] for i in range(3)]
+        dP = (dlam[0] * nx + dlam[1] * t1x + dlam[2] * t2x,
+              dlam[0] * ny + dlam[1] * t1y + dlam[2] * t2y,
+              dlam[0] * nz + dlam[1] * t1z + dlam[2] * t2z)
+        qd, lv, av = apply_impulse(qd, lv, av, dP)
+
+    return qd, torch.stack(lv + av), torch.stack(lam)
+
+
+def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, anc_bits,
+                       obj_idx, signs, iterations: int, omega: float,
+                       apply_warm: bool = True):
+    global launches
+    NP, B, C = planes.shape
+    nv = qd.shape[1]
+    K = obj.shape[2]
+    S = len(signs)
+    expect = {
+        "planes": (planes, (NBASE + NSIDE * S, B, C), torch.float32),
+        "bias": (bias, (B, C), torch.float32),
+        "screws": (screws, (6, B, nv), torch.float32),
+        "qd": (qd, (B, nv), torch.float32),
+        "minv2": (minv2, (B, nv * nv), torch.float32),
+        "obj": (obj, (6, B, K), torch.float32),
+        "lam0": (lam0, (3, B, C), torch.float32),
+        "anc_bits": (anc_bits, (C,), torch.int32),
+        "obj_idx": (obj_idx, (S, C), torch.int32),
+    }
+    for name, (t, shape, dtype) in expect.items():
+        if t.device != planes.device or t.device.type != "cuda":
+            raise ValueError(f"contact_sweep_cuda: {name} on {t.device}, "
+                             f"expected the CUDA device of planes")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"contact_sweep_cuda: {name} is {tuple(t.shape)} "
+                             f"{t.dtype}, expected {shape} {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"contact_sweep_cuda: {name} is not contiguous")
+    if not (1 <= nv <= 31 and 1 <= K <= 8 and S <= 2 and C <= 1024):
+        raise ValueError(f"contact_sweep_cuda: unsupported sizes nv={nv} K={K} "
+                         f"sides={S} C={C}")
+    qd_out = torch.empty_like(qd)
+    obj_out = torch.empty_like(obj)
+    lam_out = torch.empty_like(lam0)
+    if B == 0:
+        return qd_out, obj_out, lam_out
+    sign_bits = sum(1 << s for s, sg in enumerate(signs) if sg < 0)
+    lib = build.library()
+    err = lib.contact_sweep_f32(
+        planes.data_ptr(), bias.data_ptr(), screws.data_ptr(), qd.data_ptr(),
+        minv2.data_ptr(), obj.data_ptr(), lam0.data_ptr(), anc_bits.data_ptr(),
+        obj_idx.data_ptr(),
+        qd_out.data_ptr(), obj_out.data_ptr(), lam_out.data_ptr(),
+        B, C, nv, K, S, sign_bits, int(iterations), float(omega),
+        int(bool(apply_warm)), torch.cuda.current_stream(planes.device).cuda_stream,
+    )
+    build.check(err, "contact_sweep_f32")
+    launches += 1
+    return qd_out, obj_out, lam_out

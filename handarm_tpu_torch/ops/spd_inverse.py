@@ -1,0 +1,56 @@
+"""Batched inverse of small SPD matrices: M [B, n, n] -> M^-1 [B, n, n].
+
+Counterpart of handarm_tpu/ops/spd_inverse.py (`spd_inverse`, the Pallas
+`_chol_inv_kernel` plus the caller-side W^T W). On CUDA tensors the
+hand-written kernel in csrc/spd_inverse.cu runs: Cholesky with the same
+rsqrt(max(s, 1e-12)) pivot floor, W = L^-1, and Minv = W^T W, all in one
+launch. On CPU tensors the plain version runs: a Cholesky factorization and
+two triangular solves, as the JAX package does off the TPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from handarm_tpu_torch.ops import build
+
+launches = 0  # kernel launches since the last reset (CUDA path only)
+
+
+def spd_inverse_plain(M: torch.Tensor) -> torch.Tensor:
+    n = M.shape[-1]
+    L, _ = torch.linalg.cholesky_ex(M)
+    eye = torch.eye(n, dtype=M.dtype, device=M.device).expand(M.shape)
+    Y = torch.linalg.solve_triangular(L, eye, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True)
+
+
+def spd_inverse(M: torch.Tensor) -> torch.Tensor:
+    """CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if M.device.type == "cpu":
+        return spd_inverse_plain(M)
+    return spd_inverse_cuda(M)
+
+
+def spd_inverse_cuda(M: torch.Tensor) -> torch.Tensor:
+    global launches
+    if M.device.type != "cuda":
+        raise ValueError(f"spd_inverse_cuda needs a CUDA tensor, got {M.device}")
+    if M.dtype != torch.float32:
+        raise TypeError(f"spd_inverse_cuda takes float32, got {M.dtype}")
+    if M.ndim != 3 or M.shape[1] != M.shape[2] or not 1 <= M.shape[1] <= 32:
+        raise ValueError(f"spd_inverse_cuda takes [B, n, n] with n <= 32, got {tuple(M.shape)}")
+    if not M.is_contiguous():
+        raise ValueError("spd_inverse_cuda takes a contiguous tensor")
+    B, n, _ = M.shape
+    out = torch.empty_like(M)
+    if B == 0:
+        return out
+    lib = build.library()
+    err = lib.spd_inverse_f32(
+        M.data_ptr(), out.data_ptr(), B, n,
+        torch.cuda.current_stream(M.device).cuda_stream,
+    )
+    build.check(err, "spd_inverse_f32")
+    launches += 1
+    return out

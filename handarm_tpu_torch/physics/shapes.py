@@ -1,0 +1,140 @@
+"""Free-object collision geometry: sample points + analytic SDFs
+(counterpart of handarm_tpu/physics/shapes.py; the voxel mesh-SDF branch
+belongs to the multi-object slice and is not ported yet)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from handarm_tpu_torch.math.quat import safe_norm
+
+BOX, SPHERE, CYLINDER, MESH_SDF = 0, 1, 2, 3
+
+
+@dataclass
+class ObjectShapes:
+    kind: np.ndarray  # [K] int shape codes (static)
+    size: torch.Tensor  # [K, 3] box half-extents / (radius, 0, 0)
+    points: torch.Tensor  # [K, P, 3] body-frame contact samples
+    point_mask: torch.Tensor  # [K, P]
+    point_radius: torch.Tensor  # [K, P]
+    bound_radius: torch.Tensor  # [K]
+    mass: torch.Tensor  # [K]
+    inv_mass: torch.Tensor  # [K]
+    inertia_diag: torch.Tensor  # [K, 3]
+    friction: torch.Tensor  # [K]
+    obb_pos: torch.Tensor  # [K, 3]
+    obb_quat: torch.Tensor  # [K, 4]
+
+    @property
+    def num_objects(self) -> int:
+        return int(self.kind.shape[0])
+
+    @property
+    def points_per_object(self) -> int:
+        return int(self.points.shape[1])
+
+
+def box_points(half_extents, n_per_edge: int = 0) -> np.ndarray:
+    """8 corners (+ the 6 face centres when n_per_edge) of a box."""
+    h = np.asarray(half_extents)
+    corners = np.array(
+        [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+        dtype=np.float64,
+    )
+    pts = [corners * h]
+    if n_per_edge:
+        pts.append(np.concatenate([np.eye(3), -np.eye(3)]) * h)
+    return np.concatenate(pts, axis=0)
+
+
+def box_inertia_diag(mass: float, half_extents) -> np.ndarray:
+    fx, fy, fz = (2 * np.asarray(half_extents)) ** 2
+    return mass / 12.0 * np.array([fy + fz, fx + fz, fx + fy])
+
+
+def make_box_object(half_extents, mass: float, friction: float = 1.0) -> dict:
+    return dict(
+        kind=BOX,
+        size=np.asarray(half_extents, dtype=np.float64),
+        points=box_points(half_extents, n_per_edge=1),
+        bound_radius=float(np.linalg.norm(half_extents)),
+        mass=mass,
+        inertia_diag=box_inertia_diag(mass, half_extents),
+        friction=friction,
+    )
+
+
+def make_sphere_object(radius: float, mass: float, friction: float = 1.0) -> dict:
+    return dict(
+        kind=SPHERE,
+        size=np.array([radius, 0.0, 0.0]),
+        points=np.zeros((1, 3)),
+        point_radius=np.array([radius]),
+        bound_radius=radius,
+        mass=mass,
+        inertia_diag=np.full(3, 0.4 * mass * radius**2),
+        friction=friction,
+    )
+
+
+def stack_objects(objs: list[dict], dtype=torch.float32, device="cpu") -> ObjectShapes:
+    """Stack per-object dicts into ObjectShapes with zero-padded point sets."""
+    if not objs:
+        raise ValueError("the port's scenes hold at least one object")
+    for o in objs:
+        if o["kind"] not in (BOX, SPHERE):
+            raise NotImplementedError(f"shape kind {o['kind']} is not ported yet")
+    K = len(objs)
+    P = max(o["points"].shape[0] for o in objs)
+    points = np.zeros((K, P, 3))
+    mask = np.zeros((K, P))
+    radius = np.zeros((K, P))
+    for k, o in enumerate(objs):
+        n = o["points"].shape[0]
+        points[k, :n] = o["points"]
+        mask[k, :n] = 1.0
+        radius[k, :n] = o.get("point_radius", np.zeros(n))
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    mass = np.array([o["mass"] for o in objs])
+    return ObjectShapes(
+        kind=np.array([o["kind"] for o in objs], dtype=np.int32),
+        size=f(np.stack([o["size"] for o in objs])),
+        points=f(points), point_mask=f(mask), point_radius=f(radius),
+        bound_radius=f([o["bound_radius"] for o in objs]),
+        mass=f(mass), inv_mass=f(1.0 / np.maximum(mass, 1e-9)),
+        inertia_diag=f(np.stack([o["inertia_diag"] for o in objs])),
+        friction=f([o["friction"] for o in objs]),
+        obb_pos=f(np.zeros((K, 3))),
+        obb_quat=f(np.tile([1.0, 0.0, 0.0, 0.0], (K, 1))),
+    )
+
+
+def sdf_box(p: torch.Tensor, half: torch.Tensor):
+    """SDF and outward unit (sub)gradient of an axis-aligned box."""
+    q = p.abs() - half
+    outside = torch.clamp(q, min=0.0)
+    d_out = torch.linalg.vector_norm(outside, dim=-1)
+    d_in = torch.clamp(q.max(dim=-1).values, max=0.0)
+    sign = torch.sign(p)
+    g_out = sign * outside / torch.clamp(d_out[..., None], min=1e-9)
+    g_in = sign * torch.nn.functional.one_hot(q.argmax(dim=-1), 3).to(p.dtype)
+    normal = torch.where((d_out > 0)[..., None], g_out, g_in)
+    return d_out + d_in, normal
+
+
+def sdf_sphere(p: torch.Tensor, radius):
+    d = safe_norm(p, eps=0.0)
+    return d - radius, p / torch.clamp(d[..., None], min=1e-9)
+
+
+def object_sdf(shapes: ObjectShapes, k: int, p_body: torch.Tensor):
+    kind = int(shapes.kind[k])
+    if kind == BOX:
+        return sdf_box(p_body, shapes.size[k])
+    if kind == SPHERE:
+        return sdf_sphere(p_body, shapes.size[k, 0])
+    raise NotImplementedError(f"shape kind {kind}")

@@ -1,0 +1,55 @@
+"""The port stands alone: no module of handarm_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package; the port's files are small
+and text; every module imports on a machine without CUDA."""
+
+import ast
+import importlib
+import os
+import pkgutil
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "handarm_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "handarm_tpu")
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_imports(path):
+    bad = sorted({r for r in _imported_roots(path) if r in FORBIDDEN})
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_files_small_and_text():
+    """No binaries and no file over 200 KB in the port's package."""
+    for root, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in files:
+            p = os.path.join(root, f)
+            assert os.path.getsize(p) < 200_000, p
+            assert not f.endswith((".so", ".npz", ".npy", ".pt", ".o")), p
+            open(p, encoding="utf-8").read()  # text
+
+
+def test_modules_import_without_cuda():
+    names = [m.name for m in pkgutil.walk_packages([PKG], "handarm_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    assert "handarm_tpu_torch.ops.contact_sweep" in names
