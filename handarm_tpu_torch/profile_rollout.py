@@ -32,7 +32,7 @@ def main(argv=None) -> None:
     a = ap.parse_args(argv)
     dev = resolve_device(None)
     env = make_env("Ur5SihLift", device=dev, num_envs=a.envs)
-    policy = rollout.load_policy(rollout.DEFAULT_CKPT, env.num_obs, env.num_actions, dev)
+    policy = rollout.load_policy(rollout.DEFAULT_CKPT, dev)
     state, obs = env.reset(0)
     for _ in range(a.warmup):  # the policy brings the hand into contact
         state, obs, _, _ = rollout.forward_step(env, policy, state, obs)

@@ -36,21 +36,16 @@ DEFAULT_CKPT = os.path.join(
 class Policy:
     """Observation normalization + the ActorCritic mean action."""
 
-    def __init__(self, net: ActorCritic, obs_stats: RunningStats | None):
+    def __init__(self, net: ActorCritic, obs_stats: RunningStats):
         self.net, self.obs_stats = net, obs_stats
 
     @torch.no_grad()
     def act(self, obs: torch.Tensor) -> torch.Tensor:
-        x = normalize(self.obs_stats, obs) if self.obs_stats is not None else obs
-        return self.net(x)[0]
+        return self.net(normalize(self.obs_stats, obs))[0]
 
 
-def load_policy(ckpt: str | None, num_obs: int, num_actions: int, device,
-                seed: int = 0) -> Policy:
-    """From a JAX checkpoint, or random weights from `seed` when ckpt is None."""
-    if ckpt is None:
-        torch.manual_seed(seed)
-        return Policy(ActorCritic(num_obs, num_actions).to(device), None)
+def load_policy(ckpt: str, device) -> Policy:
+    """The policy of a JAX PPO checkpoint (.npz)."""
     params, (mean, var, count) = read_policy(ckpt)
     return Policy(actor_critic_from_params(params, device),
                   running_stats_from_leaves(mean, var, count, device))
@@ -72,11 +67,11 @@ def launch_counts() -> dict:
             "contact_sweep": contact_sweep.launches}
 
 
-def run(envs: int, steps: int, device=None, ckpt: str | None = DEFAULT_CKPT,
+def run(envs: int, steps: int, device=None, ckpt: str = DEFAULT_CKPT,
         seed: int = 0) -> dict:
     dev = resolve_device(device)
     env = make_env("Ur5SihLift", device=dev, num_envs=envs)
-    policy = load_policy(ckpt, env.num_obs, env.num_actions, dev, seed)
+    policy = load_policy(ckpt, dev)
     state, obs = env.reset(seed)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     state, obs, _, _ = forward_step(env, policy, state, obs)  # warm-up
@@ -103,11 +98,10 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--device", default=None, help="default: cuda")
     ap.add_argument("--ckpt", default=DEFAULT_CKPT,
-                    help="JAX PPO checkpoint (.npz); 'none' for random weights")
+                    help="JAX PPO checkpoint (.npz)")
     ap.add_argument("--seed", type=int, default=0)
     a = ap.parse_args(argv)
-    ckpt = None if a.ckpt == "none" else a.ckpt
-    print(json.dumps(run(a.envs, a.steps, a.device, ckpt, a.seed)), flush=True)
+    print(json.dumps(run(a.envs, a.steps, a.device, a.ckpt, a.seed)), flush=True)
 
 
 if __name__ == "__main__":
