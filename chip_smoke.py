@@ -4,29 +4,51 @@
     python3 chip_smoke.py
 
 Phases, each with a deadline and one flushed progress line:
-  1. device   CUDA must be present; prints the card's name and power limit.
-  2. build    compiles the kernels in handarm_tpu_torch/csrc with one nvcc.
-  3. rollout  the port's main path: Ur5SihLift at 8192 envs on the in-repo
-              stand-in robot, policy weights from
-              docs/evidence/lift_r3a/ckpt_5200.npz, reset + 31 deterministic
-              policy-in-the-loop control steps; every state leaf must stay
-              finite and the launch counters must show both kernels on the
-              path (spd_inverse once and contact_sweep 6 times per step).
-  4. kernels  each kernel against its plain PyTorch version on inputs
-              captured from that rollout (B = 8192), with stated
-              tolerances, then timed with CUDA events beside its bound and
-              the one-call library equivalent where there is one.
-  5. cpu-ref  from one state (25 CPU control steps after reset, the hand
-              in contact), 2 control steps at 16 envs on the card and on
-              the CPU (plain versions) must agree.
+  1. device    CUDA must be present; prints the card's name and power limit.
+  2. build     compiles the kernels in handarm_tpu_torch/csrc (one nvcc per
+               source, all started together, then one link).
+  3. rollout   Ur5SihLift at 8192 envs on the in-repo stand-in robot, policy
+               docs/evidence/lift_r3a/ckpt_5200.npz, reset + 31 deterministic
+               policy-in-the-loop control steps; every state leaf must stay
+               finite and the launch counters must show both of its kernels
+               (spd_inverse once and contact_sweep 6 times per step).
+  4. kernels   spd_inverse and contact_sweep against their plain PyTorch
+               versions on inputs captured from that rollout, then timed.
+  5. cpu-ref   from one state (25 CPU control steps after reset, the hand
+               against the table or the bin), 2 control steps at 16 envs
+               on the card and on the CPU (plain versions) must agree.
+  6. multiobj  Ur5SihMultiObjectManipulation at 8192 envs (3 YCB meshes,
+               372 slots): genesis drop-init builds the pose pool, then a
+               warm-up and 20 timed control steps of the
+               docs/evidence/multiobj_r5a/ckpt_2700.npz policy. Counters are
+               zeroed before genesis and read after the last step: each of
+               the four kernels must show exactly its launches on this path
+               (per genesis sim step: sdf_gather 9, prep_deff 1,
+               spd_inverse 1, contact_sweep 2; per control step: 27, 1, 1,
+               6); every state leaf must stay finite.
+  7. multiobj-kernels  all four kernels against their plain versions on
+               inputs captured from that rollout (the sweep at K = 3 with
+               both object sides), then timed beside their bounds, their
+               plain versions and a one-call library equivalent. A kernel's
+               "ms" is the replay of a CUDA graph of 50 launches (device
+               time; "eager_ms" launches them from Python one by one), as
+               is grid_sample's; plain versions and torch.linalg.inv run
+               eagerly.
+  8. multiobj-ref  2 control steps at 16 envs on the card and on the CPU
+               (the deff path forced at this size) must agree, from the
+               state of 16 envs of that rollout whose last solve pushed on
+               robot-object and object-pair slots; the compared state must
+               have active slots of both kinds.
 The line before the last is a JSON object naming every kernel with its
-numbers; the last line is {"ok": true, "device": {...}}. Any fault prints a
-traceback and exits non-zero; without CUDA it exits 2 before any result.
+numbers (the multi-object path's; the lift path's under "lift"); the last
+line is {"ok": true, "device": {...}}. Any fault prints a traceback and
+exits non-zero; without CUDA it exits 2 before any result.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import signal
@@ -37,12 +59,16 @@ import time
 import traceback
 
 TOTAL_DEADLINE_S = 1100
-PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 420, "kernels": 240,
-                    "cpu-ref": 300}
+PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
+                    "cpu-ref": 240, "multiobj": 480, "multiobj-kernels": 240,
+                    "multiobj-ref": 300}
 ENVS = 8192
-STEPS = 30  # timed control steps, after one warm-up step
+STEPS = 30  # timed lift control steps, after one warm-up step
+MULTI_TASK = "Ur5SihMultiObjectManipulation"
+MULTI_STEPS = 20  # multi-object control steps after genesis and reset
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
+SDF_FLOPS_PER_POINT = 112  # 6 for u, 18 for the excess, 7 lerps x 4 channels x 3, 3 weights, 1
 
 
 def log(msg: str) -> None:
@@ -72,26 +98,49 @@ def phase(name: str):
     log(f"[{name}] ok in {time.perf_counter() - t0:.1f} s")
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, reps: int, warmup: int = 2, graph: bool = False) -> float:
+    """Mean ms per call between CUDA events. With `graph`, the `reps` calls
+    are captured in one CUDA graph and the events bracket its replay: the
+    device time without the host's launch gaps, which bound eager calls of
+    a kernel that runs for tens of microseconds."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        run = g.replay
+    else:
+        def run():
+            for _ in range(reps):
+                fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    run()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_times(fn, reps: int) -> dict:
+    """The kernel's device time (graph replay) and its time when launched
+    eagerly from Python, one launch after another."""
+    return dict(ms=cuda_time_ms(fn, reps, graph=True), eager_ms=cuda_time_ms(fn, reps))
 
 
 def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def spd_inverse_flops(n: int) -> int:
@@ -114,6 +163,273 @@ def contact_sweep_flops(anc_bits, obj_idx, C: int, nv: int, K: int,
     vel = 6 * nv + 6 * bits + 12 * C + 12 * sum(sides) + 45 * C
     apply = 9 * C + 27 * sum(sides) + 6 * bits + 6 * S * C + 12 * nv + 2 * nv * nv + 12 * K * S
     return vel * iterations + apply * (iterations + 1)
+
+
+def prep_deff_flops(anc_bits) -> int:
+    """Flops per env of the robot effective masses these slots need: for a
+    slot with m set dofs, the arms (9 m), then per direction v (5 m), the
+    quadratic form over the set dofs (2 m^2 + 2 m); 0 for a slot with none."""
+    total = 0
+    for b in anc_bits:
+        m = bin(int(b)).count("1")
+        if m:
+            total += 9 * m + 3 * (7 * m + 2 * m * m)
+    return total
+
+
+def max_err(got, want):
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def check_spd(spd_op, M, dev, tag):
+    import torch
+
+    got = spd_op.spd_inverse_cuda(M)
+    want = spd_op.spd_inverse_plain(M)
+    torch.cuda.synchronize()
+    err, scale = max_err(got, want)
+    ident = float((torch.bmm(got, M) - torch.eye(M.shape[1], device=dev)).abs().max())
+    log(f"spd_inverse ({tag}): B={M.shape[0]} n={M.shape[1]} max|kernel-plain| {err:.3e} "
+        f"(scale {scale:.3e}), max|Minv M - I| {ident:.3e}")
+    # float32 Cholesky of 17x17 matrices in two summation orders: 1e-4 of
+    # the largest entry; the identity check is the JAX package's 5e-3
+    if not err <= 1e-4 * scale or not ident <= 5e-3:
+        raise AssertionError("spd_inverse kernel disagrees with its plain version")
+    B, n = M.shape[0], M.shape[1]
+    t_b, by = bound_ms(2 * B * n * n * 4, B * spd_inverse_flops(n))
+    return dict(
+        max_abs_err=err,
+        **kernel_times(lambda: spd_op.spd_inverse_cuda(M), 50),
+        plain_ms=cuda_time_ms(lambda: spd_op.spd_inverse_plain(M), 20),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_time_ms(lambda: torch.linalg.inv(M), 20),
+    )
+
+
+def check_sweep(sweep_op, captured, tag):
+    import torch
+
+    args, kw = captured
+    (planes, bias, screws, qd, minv2, obj, lam0, anc, anc_bits, obj_idx,
+     signs, iters, omega) = args
+    warm = kw.get("apply_warm", True)
+    cuda_args = (planes, bias, screws, qd, minv2, obj, lam0, anc_bits,
+                 obj_idx, signs, iters, omega, warm)
+    plain_args = (planes, bias, screws, qd, minv2, obj, lam0, anc, obj_idx,
+                  signs, iters, omega, warm)
+    got = sweep_op.contact_sweep_cuda(*cuda_args)
+    want = sweep_op.contact_sweep_plain(*plain_args)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, g, w in zip(("qd", "obj", "lam"), got, want):
+        e, s = max_err(g, w)
+        errs[name] = e
+        log(f"contact_sweep ({tag}): {name} max|kernel-plain| {e:.3e} (scale {s:.3e})")
+        # 8 Jacobi sweeps in float32 with the slot sums taken in another
+        # order: 1e-4 of this output's own largest value
+        if not e <= 1e-4 * s:
+            raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag})")
+    active = int((planes[16] > 0).sum())
+    robot_active = int(((planes[16] > 0) & (anc_bits[None] != 0)).sum())
+    log(f"contact_sweep ({tag}): B={planes.shape[1]} C={planes.shape[2]} K={obj.shape[2]} "
+        f"sides={len(signs)} sweeps={iters} warm={warm}; slots with gate > 0: {active}, "
+        f"of them on the robot: {robot_active}")
+    flops = planes.shape[1] * contact_sweep_flops(
+        anc_bits.cpu().numpy(), obj_idx.cpu().numpy(), planes.shape[2],
+        qd.shape[1], obj.shape[2], iters)
+    t_b, by = bound_ms(nbytes(planes, bias, screws, qd, minv2, obj, lam0, anc_bits, obj_idx)
+                       + nbytes(*got), flops)
+    return dict(
+        max_abs_err=max(errs.values()),
+        **kernel_times(lambda: sweep_op.contact_sweep_cuda(*cuda_args), 50),
+        plain_ms=cuda_time_ms(lambda: sweep_op.contact_sweep_plain(*plain_args), 10),
+        bound_ms=t_b, bound_by=by, library_ms=None,
+    )
+
+
+def check_sdf(sdf_op, calls):
+    """Every captured call of one contact generation against the plain
+    version; the largest (spheres vs one object) is timed."""
+    import torch
+
+    errs = []
+    for field, lo, sp, p in calls:
+        got = sdf_op.sdf_sample_cuda(field, lo, sp, p)
+        want = sdf_op.sample_sdf_plain(field, lo, sp.reshape(()), p)
+        torch.cuda.synchronize()
+        e, s = max_err(got, want)
+        errs.append(e)
+        # the same f32 arithmetic in another order: 1e-4 of the largest value
+        if not e <= 1e-4 * s:
+            raise AssertionError(f"sdf_gather kernel disagrees with its plain version "
+                                 f"({e:.3e} at scale {s:.3e}, N = {p.shape[0]})")
+    sizes = sorted({c[3].shape[0] for c in calls})
+    log(f"sdf_gather: {len(calls)} calls of one contact generation, N in {sizes}, "
+        f"max|kernel-plain| {max(errs):.3e}")
+    field, lo, sp, p = max(calls, key=lambda c: c[3].shape[0])
+    N, R = p.shape[0], field.shape[0]
+    # yardstick: grid_sample computes the clamped trilinear part in one call
+    inp = field.permute(3, 2, 1, 0)[None].contiguous()  # [1, 4, z, y, x]
+    grid = (((p - lo) / sp) * (2.0 / (R - 1)) - 1.0).reshape(1, 1, 1, N, 3)
+    lib = lambda: torch.nn.functional.grid_sample(
+        inp, grid, mode="bilinear", padding_mode="border", align_corners=True)
+    lib_vs_plain = float((lib()[0, :, 0, 0].T[:, 1:]
+                          - sdf_op.sample_sdf_plain(field, lo, sp.reshape(()), p)[:, 1:]).abs().max())
+    log(f"sdf_gather: N={N} R={R}; grid_sample vs plain on the gradient channels "
+        f"{lib_vs_plain:.3e} (border clamp at R - 1, not R - 1.001)")
+    t_b, by = bound_ms(nbytes(field, lo, sp, p) + N * 16, N * SDF_FLOPS_PER_POINT)
+    return dict(
+        max_abs_err=max(errs),
+        **kernel_times(lambda: sdf_op.sdf_sample_cuda(field, lo, sp, p), 50),
+        plain_ms=cuda_time_ms(lambda: sdf_op.sample_sdf_plain(field, lo, sp.reshape(()), p), 20),
+        bound_ms=t_b, bound_by=by,
+        library_ms=cuda_time_ms(lib, 50, graph=True),
+    )
+
+
+def check_deff(deff_op, args):
+    import torch
+
+    screws, pos, basis, anc, anc_bits, minv2 = args
+    got = deff_op.robot_deff_cuda(screws, pos, basis, anc_bits, minv2)
+    want = deff_op.robot_deff_plain(screws, pos, basis, anc, minv2)
+    torch.cuda.synchronize()
+    err, scale = max_err(got, want)
+    _, B, C = pos.shape
+    log(f"prep_deff: B={B} C={C} nv={screws.shape[2]} max|kernel-plain| {err:.3e} "
+        f"(scale {scale:.3e}); robot slots {int((anc_bits != 0).sum())} of {C}")
+    # float32 quadratic forms summed in another order: 1e-4 of the largest value
+    if not err <= 1e-4 * scale:
+        raise AssertionError("prep_deff kernel disagrees with its plain version")
+    # a slot with no robot dof gives 0 whatever its point and basis hold:
+    # only the robot slots' 12 pos and basis values per env are needed
+    robot_slots = int((anc_bits != 0).sum())
+    t_b, by = bound_ms(12 * 4 * B * robot_slots + nbytes(screws, anc_bits, minv2, got),
+                       B * prep_deff_flops(anc_bits.cpu().numpy()))
+    return dict(
+        max_abs_err=err,
+        **kernel_times(lambda: deff_op.robot_deff_cuda(screws, pos, basis, anc_bits, minv2), 50),
+        plain_ms=cuda_time_ms(lambda: deff_op.robot_deff_plain(screws, pos, basis, anc, minv2), 5),
+        # no single PyTorch call forms v from screws, points and bases and
+        # contracts it with Minv
+        bound_ms=t_b, bound_by=by, library_ms=None,
+    )
+
+
+class Capture:
+    """Wraps the ops' entry points; while armed, keeps their arguments."""
+
+    def __init__(self, ops: dict):
+        self.ops, self.orig, self.calls, self.armed = ops, {}, {}, False
+
+    def __enter__(self):
+        for key, (mod, attr) in self.ops.items():
+            fn = getattr(mod, attr)
+            self.orig[key] = fn
+
+            def wrapped(*args, _fn=fn, _key=key, **kw):
+                if self.armed:
+                    self.calls.setdefault(_key, []).append((args, kw))
+                return _fn(*args, **kw)
+
+            setattr(mod, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for key, (mod, attr) in self.ops.items():
+            setattr(mod, attr, self.orig[key])
+
+
+def finite_state(tree_map, state, obs):
+    import torch
+
+    leaves = []
+    tree_map(lambda x: leaves.append(x), state)
+    for x in leaves + [obs]:
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError("non-finite state after the rollout")
+
+
+def cpu_start(env_c, policy_c, steps: int):
+    """A CPU state `steps` policy steps after reset, and its observations."""
+    from handarm_tpu_torch import rollout
+
+    st, obs = env_c.reset(1)
+    for _ in range(steps):
+        st, obs, _, _ = rollout.forward_step(env_c, policy_c, st, obs)
+    return st, obs
+
+
+def slot_kinds(slots) -> dict:
+    """[C] bool masks of the slot kinds that touch the robot or couple two
+    objects (the rest hold an object against the table or walls)."""
+    import torch
+
+    rb, oa, ob = (torch.as_tensor(x) for x in (slots.robot_body, slots.obj_a, slots.obj_b))
+    return {"robot-static": (rb >= 0) & (oa < 0) & (ob < 0),
+            "robot-object": (rb >= 0) & (ob >= 0), "object-pair": (oa >= 0) & (ob >= 0)}
+
+
+def card_vs_cpu(env_c, env_g, st_c, obs_c, policy_c, dev, tag: str, need=()):
+    """From one CPU state (clocks zeroed so no env times out), 2 control
+    steps on the card and on the CPU. Logs how many slots of each coupling
+    kind are active (depth above -speculative_margin) in the compared state;
+    each kind in `need` must have some."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.physics.contacts import generate_contacts
+    from handarm_tpu_torch.physics.kinematics import forward_kinematics
+
+    st_c = st_c._replace(task=st_c.task._replace(
+        progress=torch.zeros_like(st_c.task.progress)))
+    sc, ph = env_c.scene, st_c.physics
+    fk = forward_kinematics(sc.model, ph.robot.q, sc.base_quat[None], sc.base_pos[None])
+    con = generate_contacts(sc.slots, sc.shapes, sc.spheres, sc.geom, ph.objects.pos,
+                            ph.objects.quat, fk.body_quat, fk.body_pos)
+    active = con.depth > -sc.params.solver.speculative_margin
+    counts = {k: int(active[:, m].sum()) for k, m in slot_kinds(sc.slots).items()}
+    st_g = tree_map(lambda x: x.to(dev), st_c)
+    for _ in range(2):
+        act = policy_c.act(obs_c)
+        st_c, res_c = env_c.step(st_c, act)
+        st_g, res_g = env_g.step(st_g, act.to(dev))
+        obs_c = res_c.obs
+    err = float((res_g.obs.cpu() - obs_c).abs().max())
+    q_err = float((st_g.physics.robot.q.cpu() - st_c.physics.robot.q).abs().max())
+    p_err = float((st_g.physics.objects.pos.cpu() - st_c.physics.objects.pos).abs().max())
+    small = env_c.cfg.num_envs
+    log(f"{tag}: {small} envs, active slots in the compared state {counts}; 2 control steps: "
+        f"max|obs gpu-cpu| {err:.3e}, max|q gpu-cpu| {q_err:.3e}, "
+        f"max|object pos gpu-cpu| {p_err:.3e}")
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"no active {missing} slot in the compared state ({tag})")
+    # the JAX package's position bound (2e-4) on q and object positions;
+    # 2e-3 on observations, which include fingertip velocities
+    if not (q_err <= 2e-4 and p_err <= 2e-4 and err <= 2e-3):
+        raise AssertionError(f"the card's run disagrees with the CPU reference ({tag})")
+    if not bool(torch.isfinite(res_g.obs).all()) or res_g.obs.shape != (small, env_g.num_obs):
+        raise AssertionError(f"bad observations from the card ({tag})")
+
+
+def pick_contact_envs(slots, state, obs, n: int):
+    """The state and observations of n envs of a rollout, on the CPU: first
+    those whose last solve pushed both robot-object and object-pair slots,
+    then those with either."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    imp = state.physics.contact_impulse.norm(dim=-1) > 0  # [B, C]
+    B = imp.shape[0]
+    pushed = {k: imp[:, m.to(imp.device)].any(1).long() for k, m in slot_kinds(slots).items()}
+    score = 2 * pushed["robot-object"] + pushed["object-pair"]
+    idx = torch.argsort(score, descending=True, stable=True)[:n]
+    log(f"multiobj-ref: envs of the rollout with robot-object and object-pair impulses: "
+        f"{int((score == 3).sum())} of {B}; taking {idx.tolist()}")
+    take = lambda x: (x[idx] if x.dim() and x.shape[0] == B else x).cpu()
+    return tree_map(take, state), take(obs)
 
 
 def main() -> int:
@@ -146,167 +462,153 @@ def main() -> int:
             f"-> {build.BUILD_ROOT / build.source_digest()}")
 
     from handarm_tpu_torch import rollout
+    from handarm_tpu_torch.envs import genesis
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.envs.tasks import make_env
     from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import prep_deff as deff_op
+    from handarm_tpu_torch.ops import sdf_gather as sdf_op
     from handarm_tpu_torch.ops import spd_inverse as spd_op
 
-    captured = {}
-    armed = {"on": False}
-    orig_sweep, orig_spd = sweep_op.contact_sweep, spd_op.spd_inverse
-
-    def capture_sweep(*args, **kw):
-        if armed["on"] and "sweep" not in captured:
-            captured["sweep"] = (args, kw)
-        return orig_sweep(*args, **kw)
-
-    def capture_spd(M):
-        if armed["on"] and "spd" not in captured:
-            captured["spd"] = M
-        return orig_spd(M)
+    ops = {"sweep": (sweep_op, "contact_sweep"), "spd": (spd_op, "spd_inverse"),
+           "sdf": (sdf_op, "sdf_sample"), "deff": (deff_op, "robot_deff")}
 
     with phase("rollout"):
         env = make_env("Ur5SihLift", device=dev, num_envs=ENVS)
         C = env.scene.slots.num_slots
         log(f"scene: {ENVS} envs, nv {env.art.nv}, contact slots C = {C}, "
             f"objects K = {env.num_objects}, obs {env.num_obs}, actions {env.num_actions}")
-        log(f"policy: {os.path.relpath(rollout.DEFAULT_CKPT)}")
-        policy = rollout.load_policy(rollout.DEFAULT_CKPT, dev)
-        sweep_op.contact_sweep, spd_op.spd_inverse = capture_sweep, capture_spd
-        try:
+        log(f"policy: {os.path.relpath(rollout.TASK_CKPTS['Ur5SihLift'])}")
+        policy = rollout.load_policy(rollout.TASK_CKPTS["Ur5SihLift"], dev)
+        with Capture(ops) as cap:
             rollout.reset_launch_counts()
             state, obs = env.reset(0)
             state, obs, _, _ = rollout.forward_step(env, policy, state, obs)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for i in range(STEPS):
-                armed["on"] = i == STEPS - 2  # late: the hand is in contact
+                cap.armed = i == STEPS - 2  # late: the hand is in contact
                 state, obs, reward, done = rollout.forward_step(env, policy, state, obs)
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = rollout.launch_counts()
-        finally:
-            sweep_op.contact_sweep, spd_op.spd_inverse = orig_sweep, orig_spd
         steps_run = STEPS + 1
         sim = env.cfg.control_freq_inv * env.cfg.substeps
         log(f"rollout: {STEPS} control steps in {seconds:.3f} s = "
             f"{ENVS * STEPS / seconds:.0f} env-steps/s; launches {counts} "
             f"over {steps_run} steps; mean reward {float(reward.mean()):.4f}")
-        leaves = []
-        tree_map(lambda x: leaves.append(x), state)
-        for x in leaves + [obs]:
-            if x.is_floating_point() and not bool(torch.isfinite(x).all()):
-                raise AssertionError("non-finite state after the rollout")
-        if counts["spd_inverse"] != steps_run:
-            raise AssertionError(f"spd_inverse ran {counts['spd_inverse']} times, "
-                                 f"expected {steps_run}")
-        if counts["contact_sweep"] != sim * steps_run:
-            raise AssertionError(f"contact_sweep ran {counts['contact_sweep']} times, "
-                                 f"expected {sim * steps_run}")
+        finite_state(tree_map, state, obs)
+        want = {"spd_inverse": steps_run, "contact_sweep": sim * steps_run,
+                "prep_deff": 0, "sdf_gather": 0}  # B * C < 2^21, box objects
+        if counts != want:
+            raise AssertionError(f"lift launches {counts}, expected {want}")
         env_steps_per_s = ENVS * STEPS / seconds
+        lift_calls, lift_counts = cap.calls, counts
+        del env, state, obs
 
-    kernels = []
+    lift = {}
     with phase("kernels"):
-        # spd_inverse on the PD-augmented mass matrices of one control step
-        M = captured["spd"]
-        got = spd_op.spd_inverse_cuda(M)
-        want = spd_op.spd_inverse_plain(M)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        ident = float((torch.bmm(got, M) - torch.eye(M.shape[1], device=dev)).abs().max())
-        log(f"spd_inverse: B={M.shape[0]} n={M.shape[1]} max|kernel-plain| {err:.3e} "
-            f"(scale {scale:.3e}), max|Minv M - I| {ident:.3e}")
-        # float32 Cholesky of 17x17 matrices in two summation orders: 1e-4 of
-        # the largest entry; the identity check is the JAX package's 5e-3
-        if not err <= 1e-4 * scale or not ident <= 5e-3:
-            raise AssertionError("spd_inverse kernel disagrees with its plain version")
-        B, n = M.shape[0], M.shape[1]
-        t_b, by = bound_ms(2 * B * n * n * 4, B * spd_inverse_flops(n))
-        kernels.append(dict(
-            name="spd_inverse", route="cuda",
-            source="handarm_tpu_torch/csrc/spd_inverse.cu",
-            replaces="handarm_tpu/ops/spd_inverse.py:63",
-            launches=counts["spd_inverse"], max_abs_err=err,
-            ms=cuda_time_ms(lambda: spd_op.spd_inverse_cuda(M), 50),
-            plain_ms=cuda_time_ms(lambda: spd_op.spd_inverse_plain(M), 20),
-            bound_ms=t_b, bound_by=by,
-            library_ms=cuda_time_ms(lambda: torch.linalg.inv(M), 20),
-        ))
-
-        # contact_sweep on one anchored solve of the rollout
-        args, kw = captured["sweep"]
-        (planes, bias, screws, qd, minv2, obj, lam0, anc, anc_bits, obj_idx,
-         signs, iters, omega) = args
-        warm = kw.get("apply_warm", True)
-        cuda_args = (planes, bias, screws, qd, minv2, obj, lam0, anc_bits,
-                     obj_idx, signs, iters, omega, warm)
-        plain_args = (planes, bias, screws, qd, minv2, obj, lam0, anc, obj_idx,
-                      signs, iters, omega, warm)
-        got = sweep_op.contact_sweep_cuda(*cuda_args)
-        want = sweep_op.contact_sweep_plain(*plain_args)
-        torch.cuda.synchronize()
-        errs = {}
-        for name, g, w in zip(("qd", "obj", "lam"), got, want):
-            e = float((g - w).abs().max())
-            s = float(w.abs().max())
-            errs[name] = e
-            log(f"contact_sweep: {name} max|kernel-plain| {e:.3e} (scale {s:.3e})")
-            # 8 Jacobi sweeps in float32 with the slot sums taken in another
-            # order: 1e-4 of this output's own largest value
-            if not e <= 1e-4 * s:
-                raise AssertionError(f"contact_sweep kernel disagrees on {name}")
-        active = int((planes[16] > 0).sum())
-        log(f"contact_sweep: B={planes.shape[1]} C={planes.shape[2]} K={obj.shape[2]} "
-            f"sweeps={iters} warm={warm}; slots with gate > 0: {active}")
-        nbytes = sum(t.numel() * t.element_size() for t in
-                     (planes, bias, screws, qd, minv2, obj, lam0, anc_bits, obj_idx))
-        nbytes += sum(t.numel() * t.element_size() for t in got)
-        flops = planes.shape[1] * contact_sweep_flops(
-            anc_bits.cpu().numpy(), obj_idx.cpu().numpy(), planes.shape[2],
-            qd.shape[1], obj.shape[2], iters)
-        t_b, by = bound_ms(nbytes, flops)
-        kernels.append(dict(
-            name="contact_sweep", route="cuda",
-            source="handarm_tpu_torch/csrc/contact_sweep.cu",
-            replaces="handarm_tpu/ops/contact_sweep.py:284",
-            launches=counts["contact_sweep"], max_abs_err=max(errs.values()),
-            ms=cuda_time_ms(lambda: sweep_op.contact_sweep_cuda(*cuda_args), 50),
-            plain_ms=cuda_time_ms(lambda: sweep_op.contact_sweep_plain(*plain_args), 10),
-            bound_ms=t_b, bound_by=by, library_ms=None,
-        ))
+        lift["spd_inverse"] = check_spd(spd_op, lift_calls["spd"][0][0][0], dev, "lift")
+        lift["contact_sweep"] = check_sweep(sweep_op, lift_calls["sweep"][0], "lift")
+        for name, rec in lift.items():
+            rec["launches"] = lift_counts[name]
+        del lift_calls
 
     with phase("cpu-ref"):
-        small = 16
-        env_c = make_env("Ur5SihLift", device="cpu", num_envs=small)
-        env_g = make_env("Ur5SihLift", device=dev, num_envs=small)
-        pol_c = rollout.load_policy(rollout.DEFAULT_CKPT, "cpu")
-        st_c, obs_c = env_c.reset(1)
-        for _ in range(25):  # on the CPU: the policy brings the hand into contact
-            st_c, obs_c, _, _ = rollout.forward_step(env_c, pol_c, st_c, obs_c)
-        # episode clocks at 0: no env times out (and redraws) in the 2 steps
-        st_c = st_c._replace(task=st_c.task._replace(
-            progress=torch.zeros_like(st_c.task.progress)))
-        st_g = tree_map(lambda x: x.to(dev), st_c)
-        for _ in range(2):
-            act = pol_c.act(obs_c)
-            st_c, res_c = env_c.step(st_c, act)
-            st_g, res_g = env_g.step(st_g, act.to(dev))
-            obs_c = res_c.obs
-        err = float((res_g.obs.cpu() - obs_c).abs().max())
-        q_err = float((st_g.physics.robot.q.cpu() - st_c.physics.robot.q).abs().max())
-        log(f"cpu-ref: {small} envs, 2 control steps: max|obs gpu-cpu| {err:.3e}, "
-            f"max|q gpu-cpu| {q_err:.3e}")
-        # the JAX package's position bound (2e-4) on q; 2e-3 on observations,
-        # which include fingertip velocities
-        if not (q_err <= 2e-4 and err <= 2e-3):
-            raise AssertionError("the card's run disagrees with the CPU reference")
-        if not bool(torch.isfinite(res_g.obs).all()) or res_g.obs.shape != (small, env_g.num_obs):
-            raise AssertionError("bad observations from the card")
+        env_c = make_env("Ur5SihLift", device="cpu", num_envs=16)
+        policy_c = rollout.load_policy(rollout.TASK_CKPTS["Ur5SihLift"], "cpu")
+        st_c, obs_c = cpu_start(env_c, policy_c, 25)
+        card_vs_cpu(env_c, make_env("Ur5SihLift", device=dev, num_envs=16), st_c, obs_c,
+                    policy_c, dev, "cpu-ref")
+        del env_c, st_c, obs_c
+
+    with phase("multiobj"):
+        rollout.reset_launch_counts()
+        menv = rollout.make_task_env(MULTI_TASK, ENVS, dev)
+        pool = menv.initial_pool
+        MC, K = menv.scene.slots.num_slots, menv.num_objects
+        log(f"multiobj scene: {ENVS} envs, objects {menv.object_names}, contact slots "
+            f"C = {MC}, obs {menv.num_obs}; genesis: {pool.sim_steps} sim steps in "
+            f"{menv.genesis_seconds:.1f} s ({menv.genesis_seconds / pool.sim_steps * 1e3:.1f} "
+            f"ms per sim step)")
+        log(f"policy: {os.path.relpath(rollout.TASK_CKPTS[MULTI_TASK])}")
+        mpolicy = rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], dev)
+        with Capture(ops) as cap:
+            mstate, mobs = menv.reset(0)
+            mstate, mobs, _, _ = rollout.forward_step(menv, mpolicy, mstate, mobs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(MULTI_STEPS):
+                cap.armed = i == MULTI_STEPS - 2
+                mstate, mobs, mreward, _ = rollout.forward_step(menv, mpolicy, mstate, mobs)
+            torch.cuda.synchronize()
+            mseconds = time.perf_counter() - t0
+            mcounts = rollout.launch_counts()
+        g, n = pool.sim_steps, MULTI_STEPS + 1
+        gsec = menv.genesis_seconds
+        want = {"spd_inverse": g + n, "prep_deff": g + n, "sdf_gather": 9 * (g + 3 * n),
+                "contact_sweep": 2 * g + 6 * n}
+        multi_env_steps_per_s = ENVS * MULTI_STEPS / mseconds
+        log(f"multiobj rollout: {MULTI_STEPS} control steps in {mseconds:.3f} s = "
+            f"{multi_env_steps_per_s:.0f} env-steps/s; launches {mcounts} over genesis + "
+            f"{n} steps; mean reward {float(mreward.mean()):.4f}")
+        finite_state(tree_map, mstate, mobs)
+        if mobs.shape != (ENVS, menv.num_obs) or not bool(torch.isfinite(pool.pos).all()):
+            raise AssertionError("bad multiobj observations or pose pool")
+        if mcounts != want:
+            raise AssertionError(f"multiobj launches {mcounts}, expected {want}")
+        log("multiobj: every state leaf finite")
+        multi_calls = cap.calls
+        ref_state, ref_obs = pick_contact_envs(menv.scene.slots, mstate, mobs, 16)
+        ref_pool = genesis.InitialPool(pool.pos[:, :16].cpu(), pool.quat[:, :16].cpu())
+        del menv, mstate, mobs, pool
+
+    kernels = []
+    with phase("multiobj-kernels"):
+        sdf_calls = [a for a, _ in multi_calls["sdf"][:9]]
+        recs = {
+            "sdf_gather": ("handarm_tpu_torch/csrc/sdf_gather.cu",
+                           "handarm_tpu/ops/sdf_gather.py:98", check_sdf(sdf_op, sdf_calls)),
+            "prep_deff": ("handarm_tpu_torch/csrc/prep_deff.cu",
+                          "handarm_tpu/ops/prep_deff.py:123",
+                          check_deff(deff_op, multi_calls["deff"][0][0])),
+            "contact_sweep": ("handarm_tpu_torch/csrc/contact_sweep.cu",
+                              "handarm_tpu/ops/contact_sweep.py:284",
+                              check_sweep(sweep_op, multi_calls["sweep"][0], "multiobj")),
+            "spd_inverse": ("handarm_tpu_torch/csrc/spd_inverse.cu",
+                            "handarm_tpu/ops/spd_inverse.py:63",
+                            check_spd(spd_op, multi_calls["spd"][0][0][0], dev, "multiobj")),
+        }
+        for name, (src, replaces, rec) in recs.items():
+            entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                         launches=mcounts[name], path=MULTI_TASK, **rec)
+            if name in lift:
+                entry["lift"] = dict(path="Ur5SihLift", **lift[name])
+            kernels.append(entry)
+        del multi_calls
+
+    with phase("multiobj-ref"):
+        def make_multi(d):
+            # the genesis pool's first 16 envs, should an env reset; no
+            # disturbance draws; the deff path forced at this size
+            e = make_env(MULTI_TASK, device=d, num_envs=16, use_drop_init=False,
+                         randomize=False)
+            e.initial_pool = genesis.InitialPool(ref_pool.pos.to(d), ref_pool.quat.to(d))
+            p = e.scene.params
+            e.scene = dataclasses.replace(e.scene, params=p._replace(
+                solver=p.solver._replace(jacobi_impl="pallas")))
+            return e
+        card_vs_cpu(make_multi("cpu"), make_multi(dev), ref_state, ref_obs,
+                    rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu"), dev,
+                    "multiobj-ref", need=("robot-object", "object-pair"))
 
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
-                                "card": smi}}))
+                                "card": smi},
+                    "multiobj": {"envs": ENVS, "control_steps": MULTI_STEPS,
+                                 "env_steps_per_s": multi_env_steps_per_s, "slots": MC,
+                                 "objects": K, "genesis_sim_steps": g,
+                                 "genesis_seconds": gsec, "card": smi}}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,16 @@
-"""UR5+SIH manipulation environment, lift goal (counterpart of
-handarm_tpu/envs/hand_arm.py on the Ur5SihLift path).
+"""UR5+SIH manipulation environment, lift and reposition goals
+(counterpart of handarm_tpu/envs/hand_arm.py on the Ur5SihLift and
+Ur5SihMultiObjectManipulation paths).
 
-One `step(state, actions)` does: actionables -> control -> PD targets,
-`control_freq_inv` sim steps with the heavy mass structure evaluated once
-per control step and FK carried across its sim steps, reward, termination,
-the NaN finite guard, success-rate EWMAs, the auto-reset merged per env,
-and the sanitized observations. Domain randomization, ADR, cameras, point
-clouds and genesis drop-init are off in Ur5SihLift and not ported.
+One `step(state, actions)` does: actionables -> control -> PD targets, the
+random object disturbance impulses (with `randomize`), `control_freq_inv`
+sim steps with the heavy mass structure evaluated once per control step
+and FK carried across its sim steps, reward, termination, the NaN finite
+guard, success-rate EWMAs, the auto-reset merged per env, and the
+sanitized observations. Resets draw object poses from the genesis pool
+(`use_drop_init`, built by the first `reset`) or spawn them on the table.
+Domain randomization, ADR, cameras, point clouds and balanced target
+sampling are not ported.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from handarm_tpu_torch.math.quat import (
     quat_mul,
     quat_rotate,
 )
+from handarm_tpu_torch.envs import genesis, objects as object_records
 from handarm_tpu_torch.envs.spec import Observable, Registry, obs_layout
 from handarm_tpu_torch.physics.contacts import StaticGeom
 from handarm_tpu_torch.physics.engine import (
@@ -44,7 +49,8 @@ from handarm_tpu_torch.robots.ur5sih import SERVO_LOWER, SERVO_UPPER
 
 @dataclass(frozen=True)
 class HandArmConfig:
-    """The lift goal on the UR5+SIH, hand-only collision spheres."""
+    """The UR5+SIH with hand-only collision spheres; the lift or reposition
+    goal; primitive objects or a dataset of baked mesh records."""
 
     num_envs: int = 1024
     episode_length: int = 200
@@ -60,12 +66,16 @@ class HandArmConfig:
     actions: tuple[str, ...] = (
         "ur5_relative_joint_pos", "sih_smoothed_relative_servo_pos",
     )
+    goal: str = "lift"  # lift | reposition
+    goal_threshold: float = 0.05
     lifting_threshold: float = 0.05
     lift_goal_height_above_table: float = 0.3
     reward: dict = field(default_factory=lambda: {
         "reaching": 1.0, "lifting": 5.0, "goal": 50.0, "success": 50.0,
     })
-    objects: tuple = (("box", (0.03, 0.03, 0.045), 0.15),)
+    objects: tuple = (("box", (0.03, 0.03, 0.045), 0.15),)  # (kind, half-extents, mass)
+    object_dataset: tuple = ()  # e.g. (("ycb", ("015_peach", ...)),); replaces objects
+    num_objects: int = 0  # objects per env from the dataset (0 = all)
     table_height: float = 0.5
     rolling_friction: float = 0.003
     use_bin: bool = False
@@ -75,7 +85,10 @@ class HandArmConfig:
     bin_wall_thickness: float = 0.01
     table_lo: tuple = (-0.5, -0.5)
     table_hi: tuple = (0.9, 1.1)
+    workspace_lo: tuple = (-0.07, 0.33, 0.0)
+    workspace_hi: tuple = (0.63, 0.83, 0.6)
     drop_pos: tuple = (0.28, 0.58, 1.5)
+    drop_noise: tuple = (0.1, 0.1, 0.0)
     goal_pos: tuple = (0.28, 0.58, 0.8)
     goal_noise: tuple = (0.15, 0.15, 0.1)
     spawn_noise: tuple = (0.1, 0.1, 0.0)
@@ -83,6 +96,15 @@ class HandArmConfig:
     servo_smoothing_alpha: float = 0.8
     solver_iterations: int = 8
     solver_prep_dtype: str = "bf16"
+    # random object disturbance impulses (off unless randomize)
+    randomize: bool = False
+    disturbance_probability: float = 0.2
+    disturbance_magnitude: float = 15.0
+    # genesis drop initialization (envs/genesis.py)
+    use_drop_init: bool = False
+    num_initial_poses: int = 1
+    drop_num_steps: int = 100
+    settle_num_steps: int = 600  # most settle steps per drop
     clip_observations: float = 100.0
     clip_actions: float = 1.0
 
@@ -235,22 +257,34 @@ def _register_actionables(reg: Registry) -> None:
 
 
 class HandArmEnv:
-    """Vectorized UR5+SIH lift env on one device. Random draws (resets) come
-    from the env's own torch.Generator, seeded by `reset(seed)`."""
+    """Vectorized UR5+SIH env on one device. Random draws (resets,
+    disturbances) come from the env's own torch.Generator, seeded by
+    `reset(seed)`; genesis draws from its own, seeded with 23 + num_envs."""
 
     def __init__(self, cfg: HandArmConfig, device=None, urdf_path: str | None = None):
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         self.robot = get_robot("ur5sih", urdf_path, dev)
         art = self.art = self.robot.art
+        if cfg.goal not in ("lift", "reposition"):
+            raise NotImplementedError(f"goal {cfg.goal!r} is not ported")
         objs = []
-        for kind, size, mass in cfg.objects:
+        self.object_names: list[str] = []
+        if cfg.object_dataset:
+            names = object_records.resolve_object_set(cfg.object_dataset)
+            if cfg.num_objects:
+                names = names[:cfg.num_objects]
+            for name in names:
+                objs.append(object_records.load_object(name))
+                self.object_names.append(name)
+        for kind, size, mass in cfg.objects if not cfg.object_dataset else ():
             if kind == "box":
                 objs.append(make_box_object(list(size), mass))
             elif kind == "sphere":
                 objs.append(make_sphere_object(size[0], mass))
             else:
                 raise NotImplementedError(kind)
+            self.object_names.append(f"{kind}_{len(self.object_names)}")
         shapes = stack_objects(objs, device=dev)
         spheres = self.robot.make_spheres(True, dev)  # hand links only
         walls = []
@@ -300,6 +334,22 @@ class HandArmEnv:
         self.reset_q = f32(self.robot.reset_q)
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(0)
+        self.initial_pool: genesis.InitialPool | None = None
+        self.genesis_seconds: float | None = None
+
+    def initialize_pool(self) -> None:
+        """Run genesis once and keep its pose pool (first-reset drop init)."""
+        import time
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(23 + self.cfg.num_envs)
+        t0 = time.perf_counter()
+        self.initial_pool = genesis.build_initial_pool(
+            self, gen, num_configurations=self.cfg.num_initial_poses,
+            drop_steps=self.cfg.drop_num_steps, settle_steps=self.cfg.settle_num_steps)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.genesis_seconds = time.perf_counter() - t0
 
     def _sites(self, names):
         body, pos, quat = self.art.site_array(names)
@@ -308,8 +358,8 @@ class HandArmEnv:
 
     # --- reset draws ---------------------------------------------------------
 
-    def _uniform(self, shape, lo, hi):
-        u = torch.rand(shape, generator=self.gen, device=self.device)
+    def _uniform(self, shape, lo, hi, gen=None):
+        u = torch.rand(shape, generator=self.gen if gen is None else gen, device=self.device)
         return lo + (hi - lo) * u
 
     def _rest_heights(self):
@@ -320,23 +370,34 @@ class HandArmEnv:
             for k in range(self.num_objects)
         ])
 
-    def _sample_object_poses(self, B: int):
+    def _sample_object_poses(self, B: int, gen=None):
+        """Objects resting on the table around the drop point, in a random
+        slot order along x."""
         K, cfg = self.num_objects, self.cfg
-        noise = self._uniform((B, K, 2), -1.0, 1.0) * torch.tensor(
+        gen = self.gen if gen is None else gen
+        noise = self._uniform((B, K, 2), -1.0, 1.0, gen) * torch.tensor(
             cfg.spawn_noise[:2], device=self.device)
         spread = (torch.arange(K, device=self.device, dtype=torch.float32) - (K - 1) / 2.0) * 0.12
-        perm = torch.argsort(torch.rand((B, K), generator=self.gen, device=self.device), dim=1)
+        perm = torch.argsort(torch.rand((B, K), generator=gen, device=self.device), dim=1)
         xy = torch.tensor(cfg.drop_pos[:2], device=self.device) + noise
         xy[..., 0] += spread[perm]
         z = (cfg.table_height + self._rest_heights())[None].expand(B, K)
         pos = torch.cat([xy, z[..., None]], dim=-1)
-        yaw = self._uniform((B, K), -np.pi, np.pi)
+        yaw = self._uniform((B, K), -np.pi, np.pi, gen)
         axis = torch.tensor([0.0, 0.0, 1.0], device=self.device).expand(B, K, 3)
         return pos, quat_from_axis_angle(axis, yaw)
 
     def fresh_state(self, B: int) -> EnvState:
-        """A new episode's state for B envs (drawn from the env's generator)."""
-        pos, quat = self._sample_object_poses(B)
+        """A new episode's state for B envs (drawn from the env's generator):
+        each env takes one of the pool's settled configurations, else spawns."""
+        if self.initial_pool is not None:
+            pool = self.initial_pool
+            idx = torch.randint(0, pool.pos.shape[0], (B,), generator=self.gen,
+                                device=self.device)
+            envs = torch.arange(B, device=self.device)
+            pos, quat = pool.pos[idx, envs], pool.quat[idx, envs]
+        else:
+            pos, quat = self._sample_object_poses(B)
         K, nv, C = self.num_objects, self.art.nv, self.scene.slots.num_slots
         dev = self.device
         goal = torch.tensor(self.cfg.goal_pos, device=dev) + self._uniform(
@@ -365,7 +426,10 @@ class HandArmEnv:
         return EnvState(physics, self.robot.init_control(B, dev), task, metrics)
 
     def reset(self, seed: int = 0):
-        """(state, obs) for cfg.num_envs envs with staggered episode clocks."""
+        """(state, obs) for cfg.num_envs envs with staggered episode clocks.
+        The first reset of a drop-init task runs genesis."""
+        if self.cfg.use_drop_init and self.initial_pool is None:
+            self.initialize_pool()
         self.gen.manual_seed(seed)
         state = self.fresh_state(self.cfg.num_envs)
         prog0 = torch.randint(0, self.cfg.episode_length, (self.cfg.num_envs,),
@@ -388,6 +452,9 @@ class HandArmEnv:
         targets = self.robot.compute_targets(control, state.physics.robot.q)
         physics = state.physics._replace(
             robot=state.physics.robot._replace(targets=targets))
+        if cfg.randomize and cfg.disturbance_probability > 0:
+            physics = physics._replace(objects=physics.objects._replace(
+                linvel=physics.objects.linvel + self._disturbance(B)))
 
         heavy = compute_heavy(self.scene, physics)
         physics, info_last, fk = physics_step(self.scene, physics, heavy,
@@ -435,6 +502,17 @@ class HandArmEnv:
 
     # --- internals -------------------------------------------------------------
 
+    def _disturbance(self, B: int) -> torch.Tensor:
+        """[B, K, 3] object velocity kicks: with probability p per object, a
+        uniform direction times magnitude * dt (a mass-proportional force
+        for one sim step), else 0."""
+        cfg, K = self.cfg, self.num_objects
+        hit = torch.rand((B, K, 1), generator=self.gen, device=self.device) \
+            < cfg.disturbance_probability
+        u = torch.randn((B, K, 3), generator=self.gen, device=self.device)
+        u = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True), min=1e-9)
+        return torch.where(hit, u * (cfg.disturbance_magnitude * cfg.dt), torch.zeros_like(u))
+
     def _compute_obs(self, ctx: ObsContext) -> torch.Tensor:
         outs = {o.name: o.fn(ctx) for o in self.active_obs}
         obs = torch.cat([outs[n] for n in self.cfg.observations], dim=-1)
@@ -445,9 +523,14 @@ class HandArmEnv:
         cfg = self.cfg
         tip_pos = ctx.fingertips[1]
         tgt_pos = ctx.target_object_pos
-        goal_height = cfg.table_height + cfg.lift_goal_height_above_table
-        object_goal_distance = torch.clamp(goal_height - tgt_pos[:, 2], min=0.0)
-        goal_reached = tgt_pos[:, 2] > goal_height
+        if cfg.goal == "lift":
+            goal_height = cfg.table_height + cfg.lift_goal_height_above_table
+            object_goal_distance = torch.clamp(goal_height - tgt_pos[:, 2], min=0.0)
+            goal_reached = tgt_pos[:, 2] > goal_height
+        else:  # reposition
+            object_goal_distance = torch.linalg.vector_norm(
+                tgt_pos - ctx.state.task.goal_pos, dim=-1)
+            goal_reached = object_goal_distance < cfg.goal_threshold
         init_pos = ctx._target(ctx.state.task.initial_obj_pos)
         delta_z = (tgt_pos - init_pos)[:, 2]
         lifted = delta_z > cfg.lifting_threshold

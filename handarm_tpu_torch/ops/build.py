@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (plain C interface, ctypes).
 
-All `csrc/*.cu` files are compiled by ONE `nvcc` command into one shared
-library under `<checkout>/build/handarm_tpu_torch/<sha>/`, where `<sha>` is
-a hash of the sources and the flags: an edited source builds into a fresh
-directory, and a directory is only ever entered complete (the library is
-written to a private temporary name and renamed into place), so a build
-that was cut off leaves nothing that a later run would wait on or reuse.
-Nothing here runs at import: the first kernel launch builds.
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and one more `nvcc` links the objects into one shared library
+under `<checkout>/build/handarm_tpu_torch/<sha>/`, where `<sha>` is a hash
+of the sources and the flags: an edited source builds into a fresh
+directory, and a directory is only ever entered complete (objects and the
+library are written to private temporary names and the library is renamed
+into place), so a build that was cut off leaves nothing that a later run
+would wait on or reuse. Nothing here runs at import: the first kernel
+launch builds.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "handarm_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 LIB_NAME = "libhandarm_kernels.so"
 
@@ -54,6 +56,25 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
+def _run(cmds: list[list[str]], timeout: float) -> None:
+    """Run the commands in parallel; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    fails = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=timeout)
+            if proc.returncode != 0:
+                fails.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if fails:
+        raise RuntimeError("\n".join(fails))
+
+
 def build(timeout: float = 600.0) -> Path:
     """Compile the kernels if this source hash has no library yet."""
     global build_seconds
@@ -62,17 +83,20 @@ def build(timeout: float = 600.0) -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in _sources()]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
-    if res.returncode != 0:
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for src, o in zip(_sources(), objs)], timeout)
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]], timeout)
+        os.replace(tmp, lib_path)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, lib_path)
+        for o in objs:
+            o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return lib_path
 
@@ -91,6 +115,10 @@ def library() -> ctypes.CDLL:
             ci, ci, ci, ci, ci, ci, ci, cf, ci, vp,
         ]
         lib.contact_sweep_f32.restype = ci
+        lib.sdf_gather_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.sdf_gather_f32.restype = ci
+        lib.prep_deff_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.prep_deff_f32.restype = ci
         _lib = lib
     return _lib
 

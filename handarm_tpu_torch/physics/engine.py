@@ -1,6 +1,7 @@
-"""The lockstep physics engine on the lift path (counterpart of
-handarm_tpu/physics/engine.py: `build_scene`, `compute_heavy`, the heavy +
-carried-FK `step`, and its anchored-substep loop in the fused form).
+"""The lockstep physics engine (counterpart of handarm_tpu/physics/engine.py:
+`build_scene`, `compute_heavy`, the heavy + carried-FK `step`, its
+anchored-substep loop in the fused form, and `step_exact`, the heavy-less
+`step(scene, state)` that genesis drives).
 
 A control step evaluates the heavy mass structure once (`compute_heavy`:
 exact FK, dynamics with the SPD-inverse kernel, contacts, solver prep);
@@ -172,6 +173,15 @@ def compute_heavy(scene: Scene, state: PhysicsState) -> HeavyPrep:
                     scene.shapes, opos, oquat, h, p.solver)
     return HeavyPrep(dyn=dyn, prep=prep0, bias_acc=dyn.solve(dyn.bias),
                      fk0=fk0, contacts0=contacts0)
+
+
+def step_exact(scene: Scene, state: PhysicsState):
+    """One sim step that evaluates the dynamics, contacts and solver prep at
+    its own start: the JAX package's `engine.step(scene, state)` without a
+    HeavyPrep, which genesis drives. Returns (state, info)."""
+    heavy = compute_heavy(scene, state)
+    new_state, info, _ = step(scene, state, heavy, heavy.fk0, heavy.contacts0)
+    return new_state, info
 
 
 def _propagate_fk(m: ModelArrays, body_quat, body_pos, screw, qd, h: float):

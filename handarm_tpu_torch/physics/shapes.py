@@ -1,6 +1,12 @@
-"""Free-object collision geometry: sample points + analytic SDFs
-(counterpart of handarm_tpu/physics/shapes.py; the voxel mesh-SDF branch
-belongs to the multi-object slice and is not ported yet)."""
+"""Free-object collision geometry: sample points + analytic or voxel SDFs
+(counterpart of handarm_tpu/physics/shapes.py for box, sphere and mesh-SDF
+objects).
+
+A mesh-SDF object's field [R, R, R, 4] holds the baked distance and its
+unit gradient, so one trilinear gather (ops/sdf_gather.py: a CUDA kernel
+on the card) gives both. The JAX package's bf16 hi/lo tables for its
+one-hot-matmul TPU kernel are not built here.
+"""
 
 from __future__ import annotations
 
@@ -10,6 +16,8 @@ import numpy as np
 import torch
 
 from handarm_tpu_torch.math.quat import safe_norm
+from handarm_tpu_torch.ops import sdf_gather as sdf_op
+from handarm_tpu_torch.physics.sdf import bake_grad_grid
 
 BOX, SPHERE, CYLINDER, MESH_SDF = 0, 1, 2, 3
 
@@ -26,8 +34,12 @@ class ObjectShapes:
     inv_mass: torch.Tensor  # [K]
     inertia_diag: torch.Tensor  # [K, 3]
     friction: torch.Tensor  # [K]
-    obb_pos: torch.Tensor  # [K, 3]
-    obb_quat: torch.Tensor  # [K, 4]
+    obb_pos: torch.Tensor  # [K, 3] oriented bounding box pose, body frame
+    obb_quat: torch.Tensor  # [K, 4] wxyz body -> obb
+    # voxel SDF fields of MESH_SDF objects (shared resolution), else None
+    sdf_field: torch.Tensor | None = None  # [K, R, R, R, 4] distance + unit grad
+    sdf_lo: torch.Tensor | None = None  # [K, 3] grid lower corner, body frame
+    sdf_spacing: torch.Tensor | None = None  # [K] voxel edge length
 
     @property
     def num_objects(self) -> int:
@@ -86,7 +98,7 @@ def stack_objects(objs: list[dict], dtype=torch.float32, device="cpu") -> Object
     if not objs:
         raise ValueError("the port's scenes hold at least one object")
     for o in objs:
-        if o["kind"] not in (BOX, SPHERE):
+        if o["kind"] not in (BOX, SPHERE, MESH_SDF):
             raise NotImplementedError(f"shape kind {o['kind']} is not ported yet")
     K = len(objs)
     P = max(o["points"].shape[0] for o in objs)
@@ -100,6 +112,24 @@ def stack_objects(objs: list[dict], dtype=torch.float32, device="cpu") -> Object
         radius[k, :n] = o.get("point_radius", np.zeros(n))
     f = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
     mass = np.array([o["mass"] for o in objs])
+    sdf = {}
+    meshes = [o for o in objs if o["kind"] == MESH_SDF]
+    if meshes:
+        res = max(o["sdf_grid"].shape[0] for o in meshes)
+        fields = np.zeros((K, res, res, res, 4), np.float32)
+        los = np.zeros((K, 3), np.float32)
+        spacings = np.ones(K, np.float32)
+        for k, o in enumerate(objs):
+            if o["kind"] != MESH_SDF:
+                continue
+            g = o["sdf_grid"]
+            if g.shape[0] != res:
+                raise ValueError("mixed SDF resolutions are not supported")
+            fields[k, ..., 0] = g
+            fields[k, ..., 1:] = bake_grad_grid(g, float(o["sdf_spacing"]))
+            los[k] = o["sdf_lo"]
+            spacings[k] = o["sdf_spacing"]
+        sdf = dict(sdf_field=f(fields), sdf_lo=f(los), sdf_spacing=f(spacings))
     return ObjectShapes(
         kind=np.array([o["kind"] for o in objs], dtype=np.int32),
         size=f(np.stack([o["size"] for o in objs])),
@@ -108,8 +138,10 @@ def stack_objects(objs: list[dict], dtype=torch.float32, device="cpu") -> Object
         mass=f(mass), inv_mass=f(1.0 / np.maximum(mass, 1e-9)),
         inertia_diag=f(np.stack([o["inertia_diag"] for o in objs])),
         friction=f([o["friction"] for o in objs]),
-        obb_pos=f(np.zeros((K, 3))),
-        obb_quat=f(np.tile([1.0, 0.0, 0.0, 0.0], (K, 1))),
+        obb_pos=f(np.stack([o.get("obb_pos", np.zeros(3)) for o in objs])),
+        obb_quat=f(np.stack([o.get("obb_quat", np.array([1.0, 0.0, 0.0, 0.0]))
+                             for o in objs])),
+        **sdf,
     )
 
 
@@ -137,4 +169,12 @@ def object_sdf(shapes: ObjectShapes, k: int, p_body: torch.Tensor):
         return sdf_box(p_body, shapes.size[k])
     if kind == SPHERE:
         return sdf_sphere(p_body, shapes.size[k, 0])
+    if kind == MESH_SDF:
+        out = sdf_op.sdf_sample(shapes.sdf_field[k], shapes.sdf_lo[k],
+                                shapes.sdf_spacing[k:k + 1],
+                                p_body.reshape(-1, 3).contiguous())
+        out = out.reshape(p_body.shape[:-1] + (4,))
+        g = out[..., 1:4]
+        g = g * torch.rsqrt(torch.sum(g * g, dim=-1, keepdim=True) + 1e-18)
+        return out[..., 0], g
     raise NotImplementedError(f"shape kind {kind}")

@@ -19,6 +19,7 @@ import torch
 
 from handarm_tpu_torch.math.quat import cross
 from handarm_tpu_torch.ops import contact_sweep as sweep_op
+from handarm_tpu_torch.ops import prep_deff as deff_op
 from handarm_tpu_torch.ops.contact_sweep import BASE, NBASE, NSIDE
 from handarm_tpu_torch.physics.contacts import Contacts, ContactSlots
 from handarm_tpu_torch.physics.dynamics import free_body_inv_inertia_world
@@ -36,6 +37,14 @@ class SolverParams(NamedTuple):
     relaxation: float = 1.0
     speculative_margin: float = 0.02
     prep_dtype: str = "f32"  # "bf16": effective-mass chain in bfloat16
+    # robot effective mass: "soa" takes the deff kernel (float32) on CUDA at
+    # B * C >= 2^21, as the JAX package does on its TPU, else the chunked
+    # chain in prep_dtype; "pallas" takes the deff path at any size (the
+    # plain version on the CPU)
+    jacobi_impl: str = "soa"
+
+
+DEFF_KERNEL_MIN_BC = 2 ** 21
 
 
 @dataclass
@@ -138,6 +147,16 @@ def _contact_bias(depth, h: float, params: SolverParams):
     )
 
 
+def use_deff_kernel(params: SolverParams, B: int, C: int, device) -> bool:
+    """The gate of handarm_tpu/physics/solver.py `_prepare`, with the card in
+    place of the TPU."""
+    if params.jacobi_impl == "pallas":
+        return True
+    if params.jacobi_impl != "soa":
+        raise ValueError(f"jacobi_impl {params.jacobi_impl!r} is not ported")
+    return torch.device(device).type == "cuda" and B * C >= DEFF_KERNEL_MIN_BC
+
+
 @dataclass
 class Prep:
     """Solver quantities: heavy terms (d_eff, Minv, inverse inertias) once per
@@ -167,21 +186,22 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
     t1, t2 = _tangent_basis(n)
     basis = torch.stack([n, t1, t2], dim=2)
 
-    d_robot = torch.zeros(B, C, 3, dtype=dtype, device=n.device)
-    if bool((slots.robot_body >= 0).any()):
-        # d[c, d] = v_d^T Minv v_d, v_d[u] = anc[c,u] (s_ang_u x p_c + s_lin_u) . w_d,
-        # chunked over slots to bound the [B, chunk, nv, 3] working set
+    if not bool((slots.robot_body >= 0).any()):
+        d_robot = torch.zeros(B, C, 3, dtype=dtype, device=n.device)
+    elif use_deff_kernel(params, B, C, n.device):
+        # d[c, d] = v_d^T Minv v_d, v_d[u] = anc[c,u] (s_ang_u x p_c + s_lin_u) . w_d
+        # in float32, without the [B, C, nv, 3] intermediates (ops/prep_deff.py)
+        nv = Minv.shape[-1]
+        d_robot = deff_op.robot_deff(
+            fk.screw.permute(2, 0, 1).contiguous(),
+            contacts.pos.permute(2, 0, 1).contiguous(),
+            basis.permute(2, 3, 0, 1).reshape(9, B, C).contiguous(),
+            maps.anc_slot, maps.anc_bits, Minv.reshape(B, nv * nv).contiguous(),
+        ).permute(1, 2, 0)
+    else:
         pd = torch.bfloat16 if params.prep_dtype == "bf16" else dtype
-        sa, sl = fk.screw[..., :3], fk.screw[..., 3:]
-        Minv_pd = Minv.to(pd)
-        for c0 in range(0, C, 128):
-            c1 = min(C, c0 + 128)
-            arm = (cross(sa[:, None], contacts.pos[:, c0:c1, None]) + sl[:, None]) \
-                * maps.anc_slot[None, c0:c1, :, None]  # [B, ch, nv, 3]
-            v = torch.sum(arm[:, :, :, None, :].to(pd)
-                          * basis[:, c0:c1, None].to(pd), dim=-1)  # [B, ch, nv, 3]
-            Minv_v = torch.einsum("buv,bcvd->bcud", Minv_pd, v)
-            d_robot[:, c0:c1] = torch.sum(v * Minv_v, dim=2).to(dtype)
+        d_robot = deff_op.deff_chain(fk.screw, contacts.pos, basis, maps.anc_slot,
+                                     Minv, pd)
 
     d_obj_acc = torch.zeros_like(d_robot)
     sides = []

@@ -19,6 +19,7 @@ class RobotAdapter:
     fingertip_site_names: list[str]
     flange_site_name: str
     reset_q: np.ndarray
+    bringup_q: np.ndarray  # parked pose while genesis drops the objects
     kp: np.ndarray
     kd: np.ndarray
     init_control: Callable[..., Any]  # (B, device) -> control state

@@ -49,6 +49,8 @@ FINGERTIP_SITES = [
 DEFAULT_PROP_GAIN = [120.0] * 6 + [20.0, 10.0, 20.0, 10.0, 20.0, 10.0, 20.0, 10.0, 20.0, 20.0, 10.0]
 DEFAULT_DERIV_GAIN = [20.0] * 6 + [6.0, 2.0, 6.0, 2.0, 6.0, 2.0, 6.0, 2.0, 6.0, 6.0, 2.0]
 RESET_JOINT_CONFIG = [0.6985, -1.4106, 1.2932, 0.1174, 0.6983, 1.5708] + [0.0] * 7 + [0.0, -1.571, 0.0, 0.0]
+# the arm straight up, clear of the table: genesis parks the robot here
+BRINGUP_JOINT_CONFIG = [0.0, -1.571, 0.0, 0.0, 0.0, 0.0] + [0.0] * 8 + [-1.571, 0.0, 0.0]
 
 SERVO_LOWER = np.array([0.0, -2000.0, -1250.0, -400.0, -1350.0])
 SERVO_UPPER = np.array([2650.0, 250.0, 1450.0, 2300.0, 1000.0])

@@ -10,6 +10,7 @@ import torch
 
 from handarm_tpu_torch.robots import RobotAdapter
 from handarm_tpu_torch.robots.ur5sih import (
+    BRINGUP_JOINT_CONFIG,
     DEFAULT_DERIV_GAIN,
     DEFAULT_PROP_GAIN,
     FINGERTIP_SITES,
@@ -55,6 +56,7 @@ def make_adapter(urdf_path: str | None = None, device="cpu") -> RobotAdapter:
         fingertip_site_names=list(FINGERTIP_SITES),
         flange_site_name="flange",
         reset_q=reset_q,
+        bringup_q=np.asarray(BRINGUP_JOINT_CONFIG),
         kp=np.asarray(DEFAULT_PROP_GAIN),
         kd=np.asarray(DEFAULT_DERIV_GAIN),
         init_control=init_control,

@@ -1,13 +1,16 @@
-"""Deterministic policy rollout on Ur5SihLift: the serving path.
+"""Deterministic policy rollout of a task: the serving path.
 
 Counterpart of `__graft_entry__.entry().forward_step` with
 `PPO.act(deterministic=True)`: obs -> normalize -> ActorCritic.mu ->
 env.step, once per control step.
 
-    python -m handarm_tpu_torch.rollout --envs N --steps S [--device cpu]
+    python -m handarm_tpu_torch.rollout [--task NAME] --envs N --steps S [--device cpu]
 
-prints one JSON line with the env-steps per second and the kernel launch
-counts of the run.
+Tasks: Ur5SihLift (default) and Ur5SihMultiObjectManipulation, each with
+its trained checkpoint. A drop-init task first runs genesis
+(`--drop-steps` and `--settle-steps` shorten it). Prints one
+JSON line: the task, contact slots, genesis seconds and sim steps, the
+env-steps per second and the kernel launch counts of the timed steps.
 """
 
 from __future__ import annotations
@@ -24,13 +27,18 @@ from handarm_tpu_torch.convert import actor_critic_from_params, running_stats_fr
 from handarm_tpu_torch.envs.tasks import make_env
 from handarm_tpu_torch.learn.networks import ActorCritic
 from handarm_tpu_torch.learn.running_stats import RunningStats, normalize
-from handarm_tpu_torch.ops import contact_sweep, spd_inverse
+from handarm_tpu_torch.ops import contact_sweep, prep_deff, sdf_gather, spd_inverse
 from handarm_tpu_torch.utils.checkpoint import read_policy
 
-DEFAULT_CKPT = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "docs", "evidence", "lift_r3a", "ckpt_5200.npz",
-)
+EVIDENCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "docs", "evidence")
+DEFAULT_TASK = "Ur5SihLift"
+TASK_CKPTS = {
+    "Ur5SihLift": os.path.join(EVIDENCE, "lift_r3a", "ckpt_5200.npz"),
+    "Ur5SihMultiObjectManipulation": os.path.join(EVIDENCE, "multiobj_r5a", "ckpt_2700.npz"),
+}
+KERNEL_OPS = {"spd_inverse": spd_inverse, "contact_sweep": contact_sweep,
+              "prep_deff": prep_deff, "sdf_gather": sdf_gather}
 
 
 class Policy:
@@ -58,20 +66,29 @@ def forward_step(env, policy: Policy, state, obs):
 
 
 def reset_launch_counts() -> None:
-    spd_inverse.launches = 0
-    contact_sweep.launches = 0
+    for op in KERNEL_OPS.values():
+        op.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"spd_inverse": spd_inverse.launches,
-            "contact_sweep": contact_sweep.launches}
+    return {name: op.launches for name, op in KERNEL_OPS.items()}
 
 
-def run(envs: int, steps: int, device=None, ckpt: str = DEFAULT_CKPT,
-        seed: int = 0) -> dict:
+def make_task_env(task: str, envs: int, device, **overrides):
+    """The task's env (keyword overrides replace config fields); a drop-init
+    task's genesis runs here (the pool is built once, before the first
+    reset)."""
+    env = make_env(task, device=device, num_envs=envs, **overrides)
+    if env.cfg.use_drop_init:
+        env.initialize_pool()
+    return env
+
+
+def run(envs: int, steps: int, device=None, ckpt: str | None = None,
+        seed: int = 0, task: str = DEFAULT_TASK, **overrides) -> dict:
     dev = resolve_device(device)
-    env = make_env("Ur5SihLift", device=dev, num_envs=envs)
-    policy = load_policy(ckpt, dev)
+    env = make_task_env(task, envs, dev, **overrides)
+    policy = load_policy(ckpt or TASK_CKPTS[task], dev)
     state, obs = env.reset(seed)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     state, obs, _, _ = forward_step(env, policy, state, obs)  # warm-up
@@ -84,9 +101,12 @@ def run(envs: int, steps: int, device=None, ckpt: str = DEFAULT_CKPT,
         reward_sum += reward.mean()
     sync()
     seconds = time.perf_counter() - t0
+    pool = env.initial_pool
     return {
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-        "envs": envs, "steps": steps, "slots": env.scene.slots.num_slots,
+        "task": task, "envs": envs, "steps": steps, "slots": env.scene.slots.num_slots,
+        "genesis_seconds": env.genesis_seconds,
+        "genesis_sim_steps": pool.sim_steps if pool is not None else 0,
         "seconds": seconds, "env_steps_per_s": envs * steps / seconds,
         "mean_reward": float(reward_sum) / steps, "launches": launch_counts(),
     }
@@ -94,14 +114,30 @@ def run(envs: int, steps: int, device=None, ckpt: str = DEFAULT_CKPT,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default=DEFAULT_TASK, choices=sorted(TASK_CKPTS))
     ap.add_argument("--envs", type=int, default=8192)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--device", default=None, help="default: cuda")
-    ap.add_argument("--ckpt", default=DEFAULT_CKPT,
-                    help="JAX PPO checkpoint (.npz)")
+    ap.add_argument("--ckpt", default=None,
+                    help="JAX PPO checkpoint (.npz); default: the task's own")
     ap.add_argument("--seed", type=int, default=0)
+    add_genesis_args(ap)
     a = ap.parse_args(argv)
-    print(json.dumps(run(a.envs, a.steps, a.device, a.ckpt, a.seed)), flush=True)
+    print(json.dumps(run(a.envs, a.steps, a.device, a.ckpt, a.seed, a.task,
+                         **genesis_overrides(a))), flush=True)
+
+
+def add_genesis_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--drop-steps", type=int, default=None,
+                    help="genesis drop steps (default: the task's, 100)")
+    ap.add_argument("--settle-steps", type=int, default=None,
+                    help="most genesis settle steps per drop (default: the task's, 600)")
+
+
+def genesis_overrides(a: argparse.Namespace) -> dict:
+    """The config fields that --drop-steps and --settle-steps replace."""
+    over = {"drop_num_steps": a.drop_steps, "settle_num_steps": a.settle_steps}
+    return {k: v for k, v in over.items() if v is not None}
 
 
 if __name__ == "__main__":

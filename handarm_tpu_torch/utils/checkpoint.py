@@ -40,8 +40,9 @@ def read_leaves(path: str) -> list[np.ndarray]:
 
 def read_policy(path: str):
     """(params {name: array}, (obs_mean, obs_var, obs_count)) of an MLP
-    ActorCritic PPO checkpoint."""
-    leaves = read_leaves(path)
-    params = {name: leaves[i] for i, name in enumerate(PARAM_NAMES)}
-    stats = tuple(leaves[i] for i in OBS_STATS_LEAVES)
+    ActorCritic PPO checkpoint. Reads only those 14 leaves: an `.npz`
+    member is decompressed when it is indexed."""
+    with np.load(path, allow_pickle=False) as data:
+        params = {name: np.asarray(data[f"leaf_{i}"]) for i, name in enumerate(PARAM_NAMES)}
+        stats = tuple(np.asarray(data[f"leaf_{i}"]) for i in OBS_STATS_LEAVES)
     return params, stats

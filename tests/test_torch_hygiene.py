@@ -52,4 +52,24 @@ def test_modules_import_without_cuda():
     names = [m.name for m in pkgutil.walk_packages([PKG], "handarm_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    assert "handarm_tpu_torch.ops.contact_sweep" in names
+    for mod in ("ops.contact_sweep", "ops.spd_inverse", "ops.sdf_gather", "ops.prep_deff",
+                "physics.sdf", "envs.objects", "envs.genesis"):
+        assert f"handarm_tpu_torch.{mod}" in names
+
+
+CU_SOURCES = {"contact_sweep.cu": "contact_sweep.py", "spd_inverse.cu": "spd_inverse.py",
+              "sdf_gather.cu": "sdf_gather.py", "prep_deff.cu": "prep_deff.py"}
+
+
+@pytest.mark.parametrize("name", sorted(CU_SOURCES))
+def test_cuda_sources_small_text_and_noted(name):
+    """Each kernel source is a small text file whose note names the TPU
+    kernel it replaces, and the build compiles every one of them."""
+    from handarm_tpu_torch.ops import build
+
+    path = os.path.join(PKG, "csrc", name)
+    assert os.path.getsize(path) < 50_000
+    text = open(path, encoding="utf-8").read()
+    assert f"Replaces: handarm_tpu/ops/{CU_SOURCES[name]}" in text
+    assert "What bounds it on an H100" in text and 'extern "C"' in text
+    assert path in map(str, build._sources())

@@ -85,7 +85,8 @@ def test_rollout_entry_point_on_cpu():
     out = rollout.run(envs=4, steps=2, device="cpu")
     assert out["slots"] == 127 and out["env_steps_per_s"] > 0
     assert np.isfinite(out["mean_reward"])
-    assert out["launches"] == {"spd_inverse": 0, "contact_sweep": 0}
+    assert out["launches"] == {"spd_inverse": 0, "contact_sweep": 0,
+                               "prep_deff": 0, "sdf_gather": 0}
 
 
 def test_default_device_is_cuda():
