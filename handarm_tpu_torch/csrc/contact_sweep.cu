@@ -11,24 +11,37 @@
 // differs from the TPU kernel.
 //
 // What bounds it on an H100: each solve must read the 37 [B, C] planes,
-// bias, lam0, screws, qd, Minv and write qd, object velocities and lam;
-// at B = 8192, C = 127 that is ~200 MB, about 60 us at 3.35 TB/s, against
-// ~2.5 GFLOP of f32 arithmetic (~40 us at 67 TFLOP/s). The sweeps are a
-// dependent chain inside each env, so a simple kernel is bound by the
-// latency of its per-sweep block reductions rather than by either.
+// bias, lam0, screws, qd, Minv and write qd, object velocities and lam; at
+// B = 8192, C = 372 that is ~550 MB, about 0.165 ms at 3.35 TB/s, against
+// a few GFLOP of f32 arithmetic. The sweeps are a dependent chain inside
+// each env, so the kernel is bound by the latency of its per-sweep phases
+// and barriers: what the design cuts is the length of those phases.
 //
-// Design: one thread block per env, one thread per contact slot. The
-// slot's planes, bias and impulses live in registers for all the sweeps, so
-// every plane is read from device memory once per solve (the TPU kernel's
-// VMEM residency, here in registers). The env's screws, qd, Minv (289
-// floats) and object velocities live in shared memory. The one-hot
-// couplings of the TPU kernel (an MXU idiom) become a per-slot dof bitmask
-// and a per-side object index: the robot part of a slot velocity is a
-// masked sum over the dofs, and the impulse apply is a block reduction
-// (one thread per (screw component, dof) and per (side, component,
-// object)) followed by gi = sum_a s_a T_a and qd += Minv gi.
-// __syncthreads separates the phases; the sweep is Jacobi, so every slot
-// reads the same pre-sweep velocities.
+// Design: one thread block per env, one thread per contact slot; the
+// slot's planes, bias and impulses live in registers for all the sweeps,
+// so every plane is read from device memory once per solve. The env's
+// screws, qd, Minv and object velocities are staged in shared memory (all
+// their loads in flight before any store). Every robot coupling goes
+// through per-link aggregates: the slots' dof masks take L distinct values
+// (one per hand link; at most nv on a kinematic tree), and the static
+// tables of physics/solver.py `build_slot_groups` list each link's slots
+// and each (side, object) bin's slots. Once per solve the block forms
+// W = Minv J (nv x 6 L), J_u(a, l) = s_au for the dofs u of link l. Per
+// sweep:
+//   A. 6 L threads form the link velocities V_l = S_l qd over the mask's
+//      set dofs;                                                  barrier 1
+//   B. each slot takes its robot velocity V_lin + V_ang x p from its
+//      link's 6 values, adds the object sides, projects, and writes its
+//      wrench (p x dP, dP) and object velocity deltas;           barrier 2
+//   C. the group sums: 8 lanes per link group, 4 groups to a warp, and a
+//      whole warp per object bin; 6 sums per lane, then a fixed-order
+//      __shfl_xor_sync tree (no atomics: launches are bit-identical);
+//                                                                 barrier 3
+//   D. qd += W F_l: 4 lanes per dof, each summing every 4th of the 6 L
+//      link terms, then an xor tree; other warps add the bins' sums to
+//      the object velocities.                                     barrier 4
+// Four barriers per sweep (the warm apply is B-D: three). Slots are one
+// thread each, so C <= 1024.
 
 #include <cuda_runtime.h>
 
@@ -37,139 +50,188 @@ namespace {
 constexpr int kNBase = 17;
 constexpr int kNSide = 10;
 constexpr int kMaxSides = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
-struct Shared {
-  float *sc, *qd, *minv, *sv, *T, *gi, *ob, *F, *G, *osum;
-  int *bits, *oidx;
+struct Dims {
+  int B, C, nv, K, S, L, NL, NO, sign_bits;
 };
 
-__device__ __forceinline__ Shared carve(float* sm, int C, int nv, int K, int S) {
-  Shared s;
-  s.sc = sm;                 // [6][nv] screws (ang xyz, lin xyz)
-  s.qd = s.sc + 6 * nv;      // [nv]
-  s.minv = s.qd + nv;        // [nv][nv]
-  s.sv = s.minv + nv * nv;   // [6][nv] screw * qd
-  s.T = s.sv + 6 * nv;       // [6][nv] slot sums of (p x dP, dP) per dof
-  s.gi = s.T + 6 * nv;       // [nv] generalized impulse
-  s.ob = s.gi + nv;          // [6][K] object lin / ang velocity
-  s.F = s.ob + 6 * K;        // [6][C] per-slot (p x dP, dP)
-  s.G = s.F + 6 * C;         // [S][6][C] per-slot object velocity deltas
-  s.osum = s.G + S * 6 * C;  // [S][6][K]
-  s.bits = reinterpret_cast<int*>(s.osum + S * 6 * K);  // [C]
-  s.oidx = s.bits + C;       // [S][C]
-  return s;
-}
+struct Shared {
+  float *sc, *qd, *minv, *W, *V, *Fl, *ob, *Ok, *F, *G;
+  int *lbits, *lptr, *lslots, *optr, *oslots;
+};
 
-size_t shared_bytes(int C, int nv, int K, int S) {
-  const size_t floats = 6 * nv + nv + nv * nv + 6 * nv + 6 * nv + nv + 6 * K +
-                        6 * C + (size_t)S * 6 * C + (size_t)S * 6 * K;
-  const size_t ints = C + (size_t)S * C;
+__host__ __device__ inline size_t shared_bytes(const Dims& d) {
+  const size_t floats = 6 * d.nv + d.nv + d.nv * d.nv + 6 * d.L * d.nv + 12 * d.L +
+                        6 * d.K + (size_t)d.S * 6 * d.K + 6 * (size_t)d.C +
+                        (size_t)d.S * 6 * d.C;
+  const size_t ints = d.L + (d.L + 1) + d.NL + (d.S * d.K + 1) + d.NO;
   return (floats + ints) * 4;
 }
 
-// Apply slot impulses (dPx, dPy, dPz) to qd and the objects. Every thread of
-// the block calls it; threads without a slot pass zeros.
-__device__ __forceinline__ void apply_impulse(const Shared& s, bool slot, int c, int C, int nv,
-                              int K, int S, int sign_bits, const float* pl,
-                              const float (*sd)[kNSide], float dPx, float dPy,
-                              float dPz) {
-  const int t = threadIdx.x;
-  if (slot) {
-    const float px = pl[9], py = pl[10], pz = pl[11];
-    s.F[0 * C + c] = py * dPz - pz * dPy;
-    s.F[1 * C + c] = pz * dPx - px * dPz;
-    s.F[2 * C + c] = px * dPy - py * dPx;
-    s.F[3 * C + c] = dPx;
-    s.F[4 * C + c] = dPy;
-    s.F[5 * C + c] = dPz;
-#pragma unroll
-    for (int q = 0; q < kMaxSides; ++q) {
-      if (q < S) {
-        const float* d = sd[q];
-        const float rx = d[0], ry = d[1], rz = d[2], invm = d[9];
-        const float tx = ry * dPz - rz * dPy;
-        const float ty = rz * dPx - rx * dPz;
-        const float tz = rx * dPy - ry * dPx;
-        float* g = s.G + q * 6 * C;
-        g[0 * C + c] = dPx * invm;
-        g[1 * C + c] = dPy * invm;
-        g[2 * C + c] = dPz * invm;
-        g[3 * C + c] = d[3] * tx + d[4] * ty + d[5] * tz;
-        g[4 * C + c] = d[4] * tx + d[6] * ty + d[7] * tz;
-        g[5 * C + c] = d[5] * tx + d[7] * ty + d[8] * tz;
-      }
-    }
-  }
-  __syncthreads();
-  // reductions over the slots
-  const int n_rob = 6 * nv;
-  for (int j = t; j < n_rob + S * 6 * K; j += blockDim.x) {
-    float acc = 0.0f;
-    if (j < n_rob) {
-      const int a = j / nv, u = j % nv;
-      const float* f = s.F + a * C;
-      for (int cc = 0; cc < C; ++cc)
-        if ((s.bits[cc] >> u) & 1) acc += f[cc];
-      s.T[j] = acc;
-    } else {
-      const int jj = j - n_rob;
-      const int q = jj / (6 * K), comp = (jj / K) % 6, k = jj % K;
-      const float* g = s.G + (q * 6 + comp) * C;
-      const int* oi = s.oidx + q * C;
-      for (int cc = 0; cc < C; ++cc)
-        if (oi[cc] == k) acc += g[cc];
-      s.osum[jj] = acc;
-    }
-  }
-  __syncthreads();
-  for (int j = t; j < nv + 6 * K; j += blockDim.x) {
-    if (j < nv) {
-      const int u = j;
-      s.gi[u] = s.sc[0 * nv + u] * s.T[0 * nv + u] + s.sc[1 * nv + u] * s.T[1 * nv + u] +
-                s.sc[2 * nv + u] * s.T[2 * nv + u] + s.sc[3 * nv + u] * s.T[3 * nv + u] +
-                s.sc[4 * nv + u] * s.T[4 * nv + u] + s.sc[5 * nv + u] * s.T[5 * nv + u];
-    } else {
-      const int i = j - nv;  // comp * K + k
-      float v = s.ob[i];
-      for (int q = 0; q < S; ++q) {
-        const float sg = ((sign_bits >> q) & 1) ? -1.0f : 1.0f;
-        v = v + sg * s.osum[q * 6 * K + i];
-      }
-      s.ob[i] = v;
-    }
-  }
-  __syncthreads();
-  for (int u = t; u < nv; u += blockDim.x) {
-    float acc = 0.0f;
-    for (int v = 0; v < nv; ++v) acc += s.minv[u * nv + v] * s.gi[v];
-    s.qd[u] = s.qd[u] + acc;
-  }
-  __syncthreads();
+// The staged words (screws, qd, Minv, object velocities, then the int
+// tables) come first and in one run, so that one loop copies them all.
+__host__ __device__ inline int staged_words(const Dims& d) {
+  return 6 * d.nv + d.nv + d.nv * d.nv + 6 * d.K + d.L + (d.L + 1) + d.NL +
+         (d.S * d.K + 1) + d.NO;
 }
 
-__global__ void contact_sweep_kernel(
+__device__ __forceinline__ Shared carve(float* sm, const Dims& d) {
+  Shared s;
+  s.sc = sm;                        // [6][nv] screws (ang xyz, lin xyz)
+  s.qd = s.sc + 6 * d.nv;           // [nv]
+  s.minv = s.qd + d.nv;             // [nv][nv]
+  s.ob = s.minv + d.nv * d.nv;      // [6][K] object lin / ang velocity
+  s.lbits = reinterpret_cast<int*>(s.ob + 6 * d.K);  // [L]
+  s.lptr = s.lbits + d.L;           // [L + 1]
+  s.lslots = s.lptr + d.L + 1;      // [NL]
+  s.optr = s.lslots + d.NL;         // [S K + 1]
+  s.oslots = s.optr + d.S * d.K + 1;  // [NO]
+  s.W = reinterpret_cast<float*>(s.oslots + d.NO);  // [nv][6][L] Minv J
+  s.V = s.W + 6 * d.L * d.nv;       // [6][L] link velocities (ang, lin)
+  s.Fl = s.V + 6 * d.L;             // [6][L] link sums of (p x dP, dP)
+  s.Ok = s.Fl + 6 * d.L;            // [S][6][K] object bin sums
+  s.F = s.Ok + d.S * 6 * d.K;       // [6][C] per-slot (p x dP, dP)
+  s.G = s.F + 6 * d.C;              // [S][6][C] per-slot object deltas
+  return s;
+}
+
+struct Inputs {
+  const float *screws, *qd, *minv2, *obj;
+  const int *link_bits, *link_ptr, *link_slots, *obj_ptr, *obj_slots;
+};
+
+// Source of staged word i of env b.
+__device__ __forceinline__ const unsigned* staged_src(int i, int b, const Dims& d,
+                                                      const Inputs& in) {
+  const int nv = d.nv, K = d.K;
+  auto f = [](const float* p) { return reinterpret_cast<const unsigned*>(p); };
+  auto n = [](const int* p) { return reinterpret_cast<const unsigned*>(p); };
+  if (i < 6 * nv) return f(in.screws + (size_t)(i / nv) * d.B * nv + (size_t)b * nv + i % nv);
+  i -= 6 * nv;
+  if (i < nv) return f(in.qd + (size_t)b * nv + i);
+  i -= nv;
+  if (i < nv * nv) return f(in.minv2 + (size_t)b * nv * nv + i);
+  i -= nv * nv;
+  if (i < 6 * K) return f(in.obj + (size_t)(i / K) * d.B * K + (size_t)b * K + i % K);
+  i -= 6 * K;
+  if (i < d.L) return n(in.link_bits + i);
+  i -= d.L;
+  if (i <= d.L) return n(in.link_ptr + i);
+  i -= d.L + 1;
+  if (i < d.NL) return n(in.link_slots + i);
+  i -= d.NL;
+  if (i <= d.S * K) return n(in.obj_ptr + i);
+  return n(in.obj_slots + i - (d.S * K + 1));
+}
+
+// Copies the staged words with up to 4 loads in flight per thread before
+// any store (the copies are independent).
+__device__ __forceinline__ void stage(float* sm, int b, const Dims& d, const Inputs& in) {
+  unsigned* dst = reinterpret_cast<unsigned*>(sm);
+  const int n = staged_words(d), bd = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * bd) {
+    unsigned v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int i = i0 + k * bd;
+      v[k] = i < n ? __ldg(staged_src(i, b, d, in)) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (i0 + k * bd < n) dst[i0 + k * bd] = v[k];
+  }
+}
+
+// Phase C, as tasks spread over the warps: a task of 4 link groups, 8
+// lanes each (a link has a few to a few tens of slots), or one object bin
+// on a whole warp (bins hold tens to a hundred). Each lane keeps 6 sums;
+// a fixed-order xor tree inside the group's lanes finishes them.
+template <int kWidth>
+__device__ __forceinline__ void reduce_list(const float* src, const int* list, int p0,
+                                            int p1, int sub, int C, float* dst, int stride,
+                                            bool write) {
+  float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 2
+  for (int p = p0 + sub; p < p1; p += kWidth) {
+    const int c = list[p];
+#pragma unroll
+    for (int a = 0; a < 6; ++a) acc[a] += src[a * C + c];
+  }
+#pragma unroll
+  for (int off = kWidth / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int a = 0; a < 6; ++a) acc[a] += __shfl_xor_sync(kFull, acc[a], off);
+  if (write && sub == 0) {
+#pragma unroll
+    for (int a = 0; a < 6; ++a) dst[a * stride] = acc[a];
+  }
+}
+
+__device__ __forceinline__ void reduce_groups(const Shared& s, const Dims& d) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int link_tasks = (d.L + 3) / 4;
+  for (int task = warp; task < link_tasks + d.S * d.K; task += blockDim.x >> 5) {
+    if (task < link_tasks) {  // warp-uniform branches: all lanes shuffle
+      const int g = 4 * task + lane / 8;
+      const bool ok = g < d.L;
+      reduce_list<8>(s.F, s.lslots, ok ? s.lptr[g] : 0, ok ? s.lptr[g + 1] : 0, lane % 8,
+                     d.C, s.Fl + (ok ? g : 0), d.L, ok);
+    } else {
+      const int j = task - link_tasks, q = j / d.K, k = j % d.K;  // bin q K + k
+      reduce_list<32>(s.G + q * 6 * d.C, s.oslots, s.optr[j], s.optr[j + 1], lane, d.C,
+                      s.Ok + q * 6 * d.K + k, d.K, true);
+    }
+  }
+}
+
+// Phase D: qd += W Fl, with 4 lanes per dof each summing every 4th of the
+// 6 L link terms and a fixed-order xor tree; the object bin sums to the
+// objects. Items [0, R) are the dofs' lanes, R a multiple of 32, so each
+// warp's pass is all dof lanes or all object items.
+__device__ __forceinline__ void to_dofs(const Shared& s, const Dims& d) {
+  const int R = (4 * d.nv + 31) & ~31, n6 = 6 * d.L;
+  for (int i = threadIdx.x; i < R + 6 * d.K; i += blockDim.x) {
+    if (i < R) {
+      const int u = i >> 2, part = i & 3;
+      float acc = 0.0f;
+      if (u < d.nv) {
+        const float* w = s.W + u * n6;
+#pragma unroll 4
+        for (int k = part; k < n6; k += 4) acc += w[k] * s.Fl[k];
+      }
+      acc += __shfl_xor_sync(kFull, acc, 1);
+      acc += __shfl_xor_sync(kFull, acc, 2);
+      if (u < d.nv && part == 0) s.qd[u] += acc;
+    } else {
+      const int j = i - R;
+      float v = s.ob[j];
+      for (int q = 0; q < d.S; ++q) {
+        const float sg = ((d.sign_bits >> q) & 1) ? -1.0f : 1.0f;
+        v = v + sg * s.Ok[q * 6 * d.K + j];
+      }
+      s.ob[j] = v;
+    }
+  }
+}
+
+template <int kMaxThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) contact_sweep_kernel(
     const float* __restrict__ planes, const float* __restrict__ bias,
     const float* __restrict__ screws, const float* __restrict__ qd_in,
     const float* __restrict__ minv2, const float* __restrict__ obj_in,
-    const float* __restrict__ lam0, const int* __restrict__ anc_bits,
-    const int* __restrict__ obj_idx, float* __restrict__ qd_out,
-    float* __restrict__ obj_out, float* __restrict__ lam_out, int B, int C,
-    int nv, int K, int S, int sign_bits, int iterations, float omega,
+    const float* __restrict__ lam0, const int* __restrict__ link_bits,
+    const int* __restrict__ slot_link, const int* __restrict__ link_ptr,
+    const int* __restrict__ link_slots, const int* __restrict__ obj_idx,
+    const int* __restrict__ obj_ptr, const int* __restrict__ obj_slots,
+    float* __restrict__ qd_out, float* __restrict__ obj_out,
+    float* __restrict__ lam_out, const Dims d, int iterations, float omega,
     int apply_warm) {
   extern __shared__ float sm[];
-  const Shared s = carve(sm, C, nv, K, S);
-  const int b = blockIdx.x, t = threadIdx.x;
-  const size_t BC = (size_t)B * C;
-
-  for (int i = t; i < 6 * nv; i += blockDim.x)
-    s.sc[i] = screws[(size_t)(i / nv) * B * nv + (size_t)b * nv + i % nv];
-  for (int i = t; i < nv; i += blockDim.x) s.qd[i] = qd_in[(size_t)b * nv + i];
-  for (int i = t; i < nv * nv; i += blockDim.x)
-    s.minv[i] = minv2[(size_t)b * nv * nv + i];
-  for (int i = t; i < 6 * K; i += blockDim.x)
-    s.ob[i] = obj_in[(size_t)(i / K) * B * K + (size_t)b * K + i % K];
-  for (int i = t; i < C; i += blockDim.x) s.bits[i] = anc_bits[i];
-  for (int i = t; i < S * C; i += blockDim.x) s.oidx[i] = obj_idx[i];
+  const Shared s = carve(sm, d);
+  const int b = blockIdx.x, t = threadIdx.x, bd = blockDim.x;
+  const int C = d.C, nv = d.nv, K = d.K, L = d.L;
+  const size_t BC = (size_t)d.B * C;
 
   const bool slot = t < C;
   const int c = slot ? t : 0;
@@ -178,22 +240,36 @@ __global__ void contact_sweep_kernel(
   float sd[kMaxSides][kNSide];
   float lam[3] = {0.0f, 0.0f, 0.0f};
   float bs = 0.0f;
-  int bits_c = 0;
-  int oidx_c[kMaxSides] = {-1, -1};
+  int link = -1;
+  int oidx[kMaxSides] = {-1, -1};
 #pragma unroll
   for (int p = 0; p < kNBase; ++p) pl[p] = slot ? planes[p * BC + off] : 0.0f;
 #pragma unroll
   for (int q = 0; q < kMaxSides; ++q)
 #pragma unroll
     for (int p = 0; p < kNSide; ++p)
-      sd[q][p] = (slot && q < S) ? planes[(kNBase + q * kNSide + p) * BC + off] : 0.0f;
+      sd[q][p] = (slot && q < d.S) ? planes[(kNBase + q * kNSide + p) * BC + off] : 0.0f;
   if (slot) {
     for (int i = 0; i < 3; ++i) lam[i] = lam0[i * BC + off];
     bs = bias[off];
-    bits_c = anc_bits[c];
+    link = slot_link[c];
 #pragma unroll
     for (int q = 0; q < kMaxSides; ++q)
-      if (q < S) oidx_c[q] = obj_idx[q * C + c];
+      if (q < d.S) oidx[q] = obj_idx[q * C + c];
+  }
+  stage(sm, b, d, Inputs{screws, qd_in, minv2, obj_in, link_bits, link_ptr, link_slots,
+                         obj_ptr, obj_slots});
+  __syncthreads();
+  // W[u][a L + l] = sum over the set dofs v of link l of Minv_uv s_av
+  for (int i = t; i < nv * 6 * L; i += bd) {
+    const int u = i / (6 * L), k = i % (6 * L), m = s.lbits[k % L];
+    const float* mu = s.minv + u * nv;
+    const float* sa = s.sc + (k / L) * nv;
+    float acc = 0.0f;
+#pragma unroll 4
+    for (int v = 0; v < nv; ++v)
+      if ((m >> v) & 1) acc += mu[v] * sa[v];
+    s.W[i] = acc;
   }
   __syncthreads();
 
@@ -205,34 +281,77 @@ __global__ void contact_sweep_kernel(
   const float px = pl[9], py = pl[10], pz = pl[11];
   const float mu = pl[12], id0 = pl[13], id1 = pl[14], id2 = pl[15], gate = pl[16];
 
+  // Phase B's writes: the slot's wrench and its object velocity deltas.
+  auto write_slot = [&](float dPx, float dPy, float dPz) {
+    if (!slot) return;
+    if (link >= 0) {
+      s.F[0 * C + c] = py * dPz - pz * dPy;
+      s.F[1 * C + c] = pz * dPx - px * dPz;
+      s.F[2 * C + c] = px * dPy - py * dPx;
+      s.F[3 * C + c] = dPx;
+      s.F[4 * C + c] = dPy;
+      s.F[5 * C + c] = dPz;
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxSides; ++q) {
+      if (q < d.S && oidx[q] >= 0) {
+        const float* r = sd[q];
+        const float rx = r[0], ry = r[1], rz = r[2], invm = r[9];
+        const float tx = ry * dPz - rz * dPy;
+        const float ty = rz * dPx - rx * dPz;
+        const float tz = rx * dPy - ry * dPx;
+        float* g = s.G + q * 6 * C;
+        g[0 * C + c] = dPx * invm;
+        g[1 * C + c] = dPy * invm;
+        g[2 * C + c] = dPz * invm;
+        g[3 * C + c] = r[3] * tx + r[4] * ty + r[5] * tz;
+        g[4 * C + c] = r[4] * tx + r[6] * ty + r[7] * tz;
+        g[5 * C + c] = r[5] * tx + r[7] * ty + r[8] * tz;
+      }
+    }
+  };
+  auto apply = [&]() {  // phases C and D, after phase B's writes
+    __syncthreads();
+    reduce_groups(s, d);
+    __syncthreads();
+    to_dofs(s, d);
+    __syncthreads();
+  };
+
   if (apply_warm) {
-    apply_impulse(s, slot, c, C, nv, K, S, sign_bits, pl, sd,
-                  lam[0] * nx + lam[1] * t1x + lam[2] * t2x,
-                  lam[0] * ny + lam[1] * t1y + lam[2] * t2y,
-                  lam[0] * nz + lam[1] * t1z + lam[2] * t2z);
+    write_slot(lam[0] * nx + lam[1] * t1x + lam[2] * t2x,
+               lam[0] * ny + lam[1] * t1y + lam[2] * t2y,
+               lam[0] * nz + lam[1] * t1z + lam[2] * t2z);
+    apply();
   }
 
   for (int it = 0; it < iterations; ++it) {
-    for (int j = t; j < 6 * nv; j += blockDim.x) s.sv[j] = s.sc[j] * s.qd[j % nv];
+    // Phase A: link velocities over each mask's set dofs.
+    for (int j = t; j < 6 * L; j += bd) {
+      const float* sa = s.sc + (j / L) * nv;
+      const int m = s.lbits[j % L];
+      float acc = 0.0f;
+#pragma unroll 4
+      for (int u = 0; u < nv; ++u)
+        if ((m >> u) & 1) acc += sa[u] * s.qd[u];
+      s.V[j] = acc;
+    }
     __syncthreads();
-    float dPx = 0.0f, dPy = 0.0f, dPz = 0.0f;
+    // Phase B: per slot.
     if (slot) {
-      float w[6];
+      float w[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+      if (link >= 0) {
 #pragma unroll
-      for (int a = 0; a < 6; ++a) {
-        float acc = 0.0f;
-        for (int u = 0; u < nv; ++u)
-          if ((bits_c >> u) & 1) acc += s.sv[a * nv + u];
-        w[a] = acc;
+        for (int a = 0; a < 6; ++a) w[a] = s.V[a * L + link];
       }
       float vx = w[3] + w[1] * pz - w[2] * py;
       float vy = w[4] + w[2] * px - w[0] * pz;
       float vz = w[5] + w[0] * py - w[1] * px;
 #pragma unroll
       for (int q = 0; q < kMaxSides; ++q) {
-        if (q < S && oidx_c[q] >= 0) {
-          const int k = oidx_c[q];
-          const float sg = ((sign_bits >> q) & 1) ? -1.0f : 1.0f;
+        if (q < d.S && oidx[q] >= 0) {
+          const int k = oidx[q];
+          const float sg = ((d.sign_bits >> q) & 1) ? -1.0f : 1.0f;
           const float rx = sd[q][0], ry = sd[q][1], rz = sd[q][2];
           const float o0 = s.ob[0 * K + k], o1 = s.ob[1 * K + k], o2 = s.ob[2 * K + k];
           const float a0 = s.ob[3 * K + k], a1 = s.ob[4 * K + k], a2 = s.ob[5 * K + k];
@@ -256,44 +375,89 @@ __global__ void contact_sweep_kernel(
       lam[0] += d0;
       lam[1] += d1;
       lam[2] += d2;
-      dPx = d0 * nx + d1 * t1x + d2 * t2x;
-      dPy = d0 * ny + d1 * t1y + d2 * t2y;
-      dPz = d0 * nz + d1 * t1z + d2 * t2z;
+      write_slot(d0 * nx + d1 * t1x + d2 * t2x, d0 * ny + d1 * t1y + d2 * t2y,
+                 d0 * nz + d1 * t1z + d2 * t2z);
     }
-    apply_impulse(s, slot, c, C, nv, K, S, sign_bits, pl, sd, dPx, dPy, dPz);
+    apply();
   }
 
-  for (int i = t; i < nv; i += blockDim.x) qd_out[(size_t)b * nv + i] = s.qd[i];
-  for (int i = t; i < 6 * K; i += blockDim.x)
-    obj_out[(size_t)(i / K) * B * K + (size_t)b * K + i % K] = s.ob[i];
+  for (int i = t; i < nv; i += bd) qd_out[(size_t)b * nv + i] = s.qd[i];
+  for (int i = t; i < 6 * K; i += bd)
+    obj_out[(size_t)(i / K) * d.B * K + (size_t)b * K + i % K] = s.ob[i];
   if (slot)
     for (int i = 0; i < 3; ++i) lam_out[i * BC + off] = lam[i];
 }
 
+using Kernel = void (*)(const float*, const float*, const float*, const float*,
+                        const float*, const float*, const float*, const int*,
+                        const int*, const int*, const int*, const int*, const int*,
+                        const int*, float*, float*, float*, const Dims, int, float, int);
+
+// The instantiation for a block of `threads` threads, its shared memory
+// allowed; the launch and the occupancy query both take it from here. The
+// register caps trade spills for resident blocks: on the card, 6 blocks of
+// 128 threads (80 registers, a few spilled) and 2 of 384 beat the
+// spill-free 4 and 1, and 3 of 384 spill too much.
+int pick_kernel(int threads, size_t smem, Kernel* kernel) {
+  if (threads <= 128)
+    *kernel = contact_sweep_kernel<128, 6>;
+  else if (threads <= 384)
+    *kernel = contact_sweep_kernel<384, 2>;
+  else
+    *kernel = contact_sweep_kernel<1024, 1>;
+  if (smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(*kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+  return 0;
+}
+
+bool valid(const Dims& d) {
+  return d.B >= 1 && d.nv >= 1 && d.nv <= 31 && d.K >= 1 && d.K <= 8 && d.S >= 0 &&
+         d.S <= kMaxSides && d.C >= 1 && d.C <= 1024 && d.L >= 0 && d.L <= 32 &&
+         d.NL >= 0 && d.NL <= d.C && d.NO >= 0 && d.NO <= d.S * d.C &&
+         shared_bytes(d) <= 227 * 1024;
+}
+
+int threads_for(int C) { return C < 64 ? 64 : (C + 31) / 32 * 32; }
+
 }  // namespace
 
+// Limits (checked again by ops/contact_sweep.py): nv <= 31 (a dof mask is
+// an int), L <= 32, K <= 8, S <= 2, C <= 1024 (one thread per slot).
 extern "C" int contact_sweep_f32(
     const float* planes, const float* bias, const float* screws,
     const float* qd, const float* minv2, const float* obj, const float* lam0,
-    const int* anc_bits, const int* obj_idx, float* qd_out, float* obj_out,
-    float* lam_out, int B, int C, int nv, int K, int S, int sign_bits,
+    const int* link_bits, const int* slot_link, const int* link_ptr,
+    const int* link_slots, const int* obj_idx, const int* obj_ptr,
+    const int* obj_slots, float* qd_out, float* obj_out, float* lam_out,
+    int B, int C, int nv, int K, int S, int L, int NL, int NO, int sign_bits,
     int iterations, float omega, int apply_warm, void* stream) {
-  if (nv < 1 || nv > 31 || K < 1 || S < 0 || S > kMaxSides || C < 1)
-    return (int)cudaErrorInvalidValue;
-  int threads = C;
-  if (6 * nv + S * 6 * K > threads) threads = 6 * nv + S * 6 * K;
-  threads = (threads + 31) / 32 * 32;
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = shared_bytes(C, nv, K, S);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        contact_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  contact_sweep_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      planes, bias, screws, qd, minv2, obj, lam0, anc_bits, obj_idx, qd_out,
-      obj_out, lam_out, B, C, nv, K, S, sign_bits, iterations, omega,
-      apply_warm);
+  const Dims d{B, C, nv, K, S, L, NL, NO, sign_bits};
+  if (!valid(d)) return (int)cudaErrorInvalidValue;
+  const int threads = threads_for(C);
+  const size_t smem = shared_bytes(d);
+  Kernel kernel;
+  const int e = pick_kernel(threads, smem, &kernel);
+  if (e != 0) return e;
+  kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
+      planes, bias, screws, qd, minv2, obj, lam0, link_bits, slot_link,
+      link_ptr, link_slots, obj_idx, obj_ptr, obj_slots, qd_out, obj_out,
+      lam_out, d, iterations, omega, apply_warm);
   return (int)cudaGetLastError();
+}
+
+// The launch at these sizes: info = {threads per block, dynamic shared
+// bytes, resident blocks per SM from the occupancy calculator}.
+extern "C" int contact_sweep_launch_info(int C, int nv, int K, int S, int L, int NL,
+                                         int NO, int* info) {
+  const Dims d{1, C, nv, K, S, L, NL, NO, 0};
+  info[0] = info[1] = info[2] = 0;
+  if (!valid(d)) return (int)cudaErrorInvalidValue;
+  info[0] = threads_for(C);
+  const size_t smem = shared_bytes(d);
+  info[1] = (int)smem;
+  Kernel kernel;
+  const int e = pick_kernel(info[0], smem, &kernel);
+  if (e != 0) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], kernel, info[0], smem);
 }

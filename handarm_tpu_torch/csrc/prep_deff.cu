@@ -6,110 +6,146 @@
 // `robot_deff`, called from solver._prepare at B * C >= 2^21 or with
 // jacobi_impl="pallas"). Like the TPU kernel it never writes the
 // [B, C, nv, 3] intermediates to device memory, and it is float32
-// throughout. The dof mask anc[c, :] (0/1) comes as one bit per dof.
+// throughout.
 //
 // What bounds it on an H100: at B = 8192, C = 372, nv = 17 it must read
 // pos and basis (12 floats per env) only for the slots with a robot dof
 // (132 of the 372; the others give 0 whatever they hold), the screws and
 // Minv, and write 3 [B, C] planes: ~101 MB, about 30 us at 3.35 TB/s.
-// The arithmetic is ~2 m^2 flops per (robot slot, direction) for the
-// quadratic form over the slot's m set dofs, about 1 GFLOP at these
-// shapes: the bytes set the bound (chip_smoke.py counts both from the
-// run's masks).
+// The work below is ~25K multiply-adds per env (~0.4 GFLOP in all), so
+// the bytes set the bound (chip_smoke.py counts both from the run's masks).
 //
-// Design: one thread block per env; the env's screws (6 nv floats) and
-// Minv (nv^2) are staged in shared memory, and each thread walks slots
-// c = t, t + blockDim, ... A slot with no robot dof writes zeros. For a
-// robot slot and each direction the thread builds
-// v_u = (s_ang_u x p + s_lin_u) . w for the set dofs in registers (nv is a
-// template parameter, so the dof loops unroll and v stays in registers;
-// the arm is rebuilt per direction rather than held, to keep the register
-// count down), then d = sum_u v_u sum_w Minv_uw v_w, the screws and Minv
-// read as broadcasts from shared memory. Planes are read and written with
-// neighbouring threads on neighbouring slots.
+// Design: the slots' dof masks take L distinct values (one per hand link;
+// the tables of physics/solver.py `build_slot_groups` give each mask and
+// each slot's group). With xi = (p x w, w), v_u = s_u . xi, so
+// d = xi^T Phi_l xi with Phi_l = S_l Minv S_l^T, a symmetric 6 x 6 matrix
+// per (env, link) over the mask's set dofs. One thread block per env:
+//   1. the screws and Minv are staged in shared memory;
+//   2. X_l[a][v] = sum_{u in l} s_au Minv_uv for the set dofs v of each
+//      link (one thread per (l, v, a)), then the upper triangle of Phi_l
+//      (one thread per entry), each loop walking only the mask's set bits;
+//   3. one thread per slot: a slot without a robot dof writes zeros, a
+//      robot slot reads its link's 21 values once and forms xi and
+//      xi^T Phi xi for its 3 directions.
+// Planes are read and written with neighbouring threads on neighbouring
+// slots. nv needs no template: the loops run over set bits (nv <= 31).
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kPhi = 37;  // floats per link of Phi (6 x 6, odd stride)
 
-template <int NV>
-__global__ void prep_deff_kernel(const float* __restrict__ screws,
-                                 const float* __restrict__ pos,
-                                 const float* __restrict__ basis,
-                                 const int* __restrict__ anc_bits,
-                                 const float* __restrict__ minv2,
-                                 float* __restrict__ out, int B, int C) {
-  __shared__ float sc[6 * NV];
-  __shared__ float mv[NV * NV];
+__global__ void __launch_bounds__(kThreads) prep_deff_kernel(
+    const float* __restrict__ screws, const float* __restrict__ pos,
+    const float* __restrict__ basis, const int* __restrict__ link_bits,
+    const int* __restrict__ slot_link, const float* __restrict__ minv2,
+    float* __restrict__ out, int B, int C, int nv, int L) {
+  extern __shared__ float sm[];
+  float* sc = sm;                  // [6][nv]
+  float* mv = sc + 6 * nv;         // [nv][nv]
+  float* X = mv + nv * nv;         // [L][6][nv]
+  float* phi = X + L * 6 * nv;     // [L][kPhi], row-major 6 x 6, upper part
+  int* bits = reinterpret_cast<int*>(phi + L * kPhi);  // [L]
   const int b = blockIdx.x, t = threadIdx.x;
-  for (int i = t; i < 6 * NV; i += blockDim.x)
-    sc[i] = screws[(size_t)(i / NV) * B * NV + (size_t)b * NV + i % NV];
-  for (int i = t; i < NV * NV; i += blockDim.x)
-    mv[i] = minv2[(size_t)b * NV * NV + i];
+  for (int i = t; i < 6 * nv; i += kThreads)
+    sc[i] = screws[(size_t)(i / nv) * B * nv + (size_t)b * nv + i % nv];
+  for (int i = t; i < nv * nv; i += kThreads) mv[i] = minv2[(size_t)b * nv * nv + i];
+  for (int i = t; i < L; i += kThreads) bits[i] = link_bits[i];
+  __syncthreads();
+
+  for (int j = t; j < L * nv * 6; j += kThreads) {
+    const int l = j / (6 * nv), v = (j / 6) % nv, a = j % 6;
+    const int m = bits[l];
+    if (!((m >> v) & 1)) continue;
+    float acc = 0.0f;
+    for (int r = m; r; r &= r - 1) {
+      const int u = __ffs(r) - 1;
+      acc += sc[a * nv + u] * mv[u * nv + v];
+    }
+    X[(l * 6 + a) * nv + v] = acc;
+  }
+  __syncthreads();
+  for (int j = t; j < L * 36; j += kThreads) {
+    const int l = j / 36, a = (j / 6) % 6, e = j % 6;
+    if (e < a) continue;
+    float acc = 0.0f;
+    for (int r = bits[l]; r; r &= r - 1) {
+      const int v = __ffs(r) - 1;
+      acc += X[(l * 6 + a) * nv + v] * sc[e * nv + v];
+    }
+    phi[l * kPhi + a * 6 + e] = acc;
+  }
   __syncthreads();
 
   const size_t BC = (size_t)B * C;
-  for (int c = t; c < C; c += blockDim.x) {
+  for (int c = t; c < C; c += kThreads) {
     const size_t off = (size_t)b * C + c;
-    const int bits = __ldg(anc_bits + c);
-    if (bits == 0) {
+    const int l = __ldg(slot_link + c);
+    if (l < 0) {
       out[off] = 0.0f;
       out[BC + off] = 0.0f;
       out[2 * BC + off] = 0.0f;
       continue;
     }
+    const float* f = phi + l * kPhi;
+    float P[21];
+    int n = 0;
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int e = a; e < 6; ++e) P[n++] = f[a * 6 + e];
     const float px = pos[off], py = pos[BC + off], pz = pos[2 * BC + off];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
       const float wx = basis[(3 * d + 0) * BC + off];
       const float wy = basis[(3 * d + 1) * BC + off];
       const float wz = basis[(3 * d + 2) * BC + off];
-      float v[NV];
-#pragma unroll
-      for (int u = 0; u < NV; ++u) {
-        const float sax = sc[0 * NV + u], say = sc[1 * NV + u], saz = sc[2 * NV + u];
-        const float ax = (say * pz - saz * py) + sc[3 * NV + u];
-        const float ay = (saz * px - sax * pz) + sc[4 * NV + u];
-        const float az = (sax * py - say * px) + sc[5 * NV + u];
-        v[u] = ((bits >> u) & 1) ? ax * wx + ay * wy + az * wz : 0.0f;
-      }
+      const float xi[6] = {py * wz - pz * wy, pz * wx - px * wz, px * wy - py * wx,
+                           wx, wy, wz};
       float acc = 0.0f;
+      int k = 0;
 #pragma unroll
-      for (int u = 0; u < NV; ++u) {
-        float y = 0.0f;
+      for (int a = 0; a < 6; ++a) {
+        float y = P[k++] * xi[a];
 #pragma unroll
-        for (int w = 0; w < NV; ++w) y += mv[u * NV + w] * v[w];
-        acc += v[u] * y;
+        for (int e = a + 1; e < 6; ++e) y += 2.0f * P[k++] * xi[e];
+        acc += xi[a] * y;
       }
       out[d * BC + off] = acc;
     }
   }
 }
 
-template <int NV>
-int launch(const float* screws, const float* pos, const float* basis,
-           const int* anc_bits, const float* minv2, float* out, int B, int C,
-           cudaStream_t stream) {
-  prep_deff_kernel<NV><<<B, kThreads, 0, stream>>>(screws, pos, basis, anc_bits,
-                                                   minv2, out, B, C);
-  return (int)cudaGetLastError();
+size_t shared_bytes(int nv, int L) {
+  return (size_t)(6 * nv + nv * nv + L * 6 * nv + L * kPhi + L) * 4;
 }
+
+bool valid(int nv, int L) { return nv >= 1 && nv <= 31 && L >= 0 && L <= 32; }
 
 }  // namespace
 
-// nv must be one of the instantiated dof counts (ops/prep_deff.py KERNEL_NV).
+// Limits (checked again by ops/prep_deff.py): nv <= 31 (a dof mask is an
+// int), L <= 32.
 extern "C" int prep_deff_f32(const float* screws, const float* pos,
-                             const float* basis, const int* anc_bits,
-                             const float* minv2, float* out, int B, int C,
-                             int nv, void* stream) {
-  if (B < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (nv) {
-    case 17:
-      return launch<17>(screws, pos, basis, anc_bits, minv2, out, B, C, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+                             const float* basis, const int* link_bits,
+                             const int* slot_link, const float* minv2,
+                             float* out, int B, int C, int nv, int L,
+                             void* stream) {
+  if (B < 1 || C < 1 || !valid(nv, L)) return (int)cudaErrorInvalidValue;
+  prep_deff_kernel<<<B, kThreads, shared_bytes(nv, L), (cudaStream_t)stream>>>(
+      screws, pos, basis, link_bits, slot_link, minv2, out, B, C, nv, L);
+  return (int)cudaGetLastError();
+}
+
+// The launch at these sizes: info = {threads per block, dynamic shared
+// bytes, resident blocks per SM from the occupancy calculator}.
+extern "C" int prep_deff_launch_info(int nv, int L, int* info) {
+  info[0] = info[1] = info[2] = 0;
+  if (!valid(nv, L)) return (int)cudaErrorInvalidValue;
+  info[0] = kThreads;
+  info[1] = (int)shared_bytes(nv, L);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], prep_deff_kernel,
+                                                            kThreads, shared_bytes(nv, L));
 }

@@ -8,7 +8,8 @@ directory, and a directory is only ever entered complete (objects and the
 library are written to private temporary names and the library is renamed
 into place), so a build that was cut off leaves nothing that a later run
 would wait on or reuse. Nothing here runs at import: the first kernel
-launch builds.
+launch builds. `-Xptxas -v` makes each compile report its kernels'
+registers, spills and shared memory; `ptxas_report` returns that text.
 """
 
 from __future__ import annotations
@@ -25,9 +26,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "handarm_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 LIB_NAME = "libhandarm_kernels.so"
+REPORT_NAME = "ptxas.txt"
 
 _lib: ctypes.CDLL | None = None
 build_seconds: float | None = None  # wall time of the last build (None: cached)
@@ -56,14 +58,16 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def _run(cmds: list[list[str]], timeout: float) -> None:
-    """Run the commands in parallel; raise with the output of any that fails."""
+def _run(cmds: list[list[str]], timeout: float) -> list[str]:
+    """Run the commands in parallel and return their outputs; raise with the
+    output of any that fails."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for c in cmds]
-    fails = []
+    outs, fails = [], []
     try:
         for cmd, proc in zip(cmds, procs):
             out, _ = proc.communicate(timeout=timeout)
+            outs.append(out)
             if proc.returncode != 0:
                 fails.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     finally:
@@ -73,6 +77,7 @@ def _run(cmds: list[list[str]], timeout: float) -> None:
                 proc.wait()
     if fails:
         raise RuntimeError("\n".join(fails))
+    return outs
 
 
 def build(timeout: float = 600.0) -> Path:
@@ -89,9 +94,11 @@ def build(timeout: float = 600.0) -> Path:
     nvcc = _nvcc()
     t0 = time.perf_counter()
     try:
-        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-              for src, o in zip(_sources(), objs)], timeout)
+        outs = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                     for src, o in zip(_sources(), objs)], timeout)
         _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]], timeout)
+        (out_dir / REPORT_NAME).write_text("".join(
+            f"== {src.name}\n{out}" for src, out in zip(_sources(), outs)))
         os.replace(tmp, lib_path)
     finally:
         tmp.unlink(missing_ok=True)
@@ -99,6 +106,12 @@ def build(timeout: float = 600.0) -> Path:
             o.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return lib_path
+
+
+def ptxas_report() -> str:
+    """The compiler's register, spill and shared-memory lines of the built
+    kernels, one block per source."""
+    return (build().parent / REPORT_NAME).read_text()
 
 
 def library() -> ctypes.CDLL:
@@ -110,15 +123,20 @@ def library() -> ctypes.CDLL:
         lib.spd_inverse_f32.argtypes = [vp, vp, ci, ci, vp]
         lib.spd_inverse_f32.restype = ci
         lib.contact_sweep_f32.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp, vp,  # inputs
+            vp, vp, vp, vp, vp, vp, vp,  # float inputs
+            vp, vp, vp, vp, vp, vp, vp,  # slot tables
             vp, vp, vp,  # outputs
-            ci, ci, ci, ci, ci, ci, ci, cf, ci, vp,
+            ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, vp,
         ]
         lib.contact_sweep_f32.restype = ci
         lib.sdf_gather_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
         lib.sdf_gather_f32.restype = ci
-        lib.prep_deff_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.prep_deff_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.prep_deff_f32.restype = ci
+        lib.contact_sweep_launch_info.argtypes = [ci, ci, ci, ci, ci, ci, ci, vp]
+        lib.contact_sweep_launch_info.restype = ci
+        lib.prep_deff_launch_info.argtypes = [ci, ci, vp]
+        lib.prep_deff_launch_info.restype = ci
         _lib = lib
     return _lib
 

@@ -3,20 +3,25 @@
 Counterpart of handarm_tpu/ops/contact_sweep.py (`fused_jacobi_sweeps`,
 the Pallas `_sweep_kernel`) with `apply_warm`: the same update order and
 the same projection. On CUDA tensors the hand-written kernel in
-csrc/contact_sweep.cu runs (one thread block per env, one thread per slot);
-on CPU tensors the plain version below runs, a tensor transcription of the
-same sweeps (the counterpart of `solver._solve_jacobi_soa`).
+csrc/contact_sweep.cu runs (one thread block per env, one thread per slot,
+reductions over per-link and per-object slot groups); on CPU tensors the
+plain version below runs, a tensor transcription of the same sweeps (the
+counterpart of `solver._solve_jacobi_soa`).
 
 Inputs keep the JAX package's layout: planes [NP, B, C] stacked as BASE
 then NSIDE planes per object side, bias [B, C], screws [6, B, nv], qd
 [B, nv], minv2 [B, nv*nv] (row-major Minv), obj [6, B, K] (linear then
-angular velocity), lam0 [3, B, C]. The slot couplings come in two forms:
-`anc` [C, nv] (0/1, plain version) and `anc_bits` [C] int32 (the same mask
-as bits, kernel), and `obj_idx` [S, C] int32 (object of each side, -1 where
-the slot has none; `signs` gives +1 / -1 per side).
+angular velocity), lam0 [3, B, C]. The slot couplings come as `anc`
+[C, nv] (0/1, plain version), `obj_idx` [S, C] int32 (object of each side,
+-1 where the slot has none; `signs` gives +1 / -1 per side) and, for the
+kernel, the `SlotGroups` tables built by physics/solver.py
+`build_slot_groups`.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,10 +32,47 @@ BASE = dict(n=(0, 1, 2), t1=(3, 4, 5), t2=(6, 7, 8), pos=(9, 10, 11),
 NBASE = 17
 NSIDE = 10  # r(3) + Iinv sym(6) + invm(1)
 
+MAX_LINKS = 32  # distinct dof masks; a kinematic tree has at most nv
+
 launches = 0  # kernel launches since the last reset (CUDA path only)
 
 
-def contact_sweep(planes, bias, screws, qd, minv2, obj, lam0, anc, anc_bits,
+class SlotGroups(NamedTuple):
+    """A scene's static slot groups, int32 on its device: one group per
+    distinct nonzero dof mask (a hand link) and one per (side, object) bin,
+    each an ascending CSR list of slots."""
+
+    link_bits: torch.Tensor  # [L] the distinct nonzero dof masks
+    slot_link: torch.Tensor  # [C] group of each slot's mask, -1 without a robot dof
+    link_ptr: torch.Tensor  # [L + 1] offsets of each group's slots in link_slots
+    link_slots: torch.Tensor  # [NL]
+    obj_ptr: torch.Tensor  # [S * K + 1] offsets of bin q * K + k in obj_slots
+    obj_slots: torch.Tensor  # [NO]
+
+
+def check_groups(groups: SlotGroups, C: int, device, who: str,
+                 bins: tuple[int, int] | None = None) -> None:
+    """Raise unless the tables have the shapes and types the kernels take:
+    the masks and each slot's group, and with `bins` = (S, K) the slot lists."""
+    L = groups.link_bits.shape[0]
+    expect = {"link_bits": (L,), "slot_link": (C,)}
+    if bins is not None:
+        expect.update(link_ptr=(L + 1,), link_slots=(groups.link_slots.shape[0],),
+                      obj_ptr=(bins[0] * bins[1] + 1,), obj_slots=(groups.obj_slots.shape[0],))
+    for name, shape in expect.items():
+        t = getattr(groups, name)
+        if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{who}: groups.{name} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}, expected {shape} int32 contiguous on {device}")
+    if L > MAX_LINKS:
+        raise ValueError(f"{who}: {L} distinct dof masks, the kernels take {MAX_LINKS}")
+    if bins is not None and (groups.link_slots.shape[0] > C
+                             or groups.obj_slots.shape[0] > bins[0] * C):
+        raise ValueError(f"{who}: slot lists longer than the slots they group")
+
+
+def contact_sweep(planes, bias, screws, qd, minv2, obj, lam0, anc, groups,
                   obj_idx, signs, iterations: int, omega: float,
                   apply_warm: bool = True):
     """Returns (qd [B, nv], obj [6, B, K], lam [3, B, C]). CPU tensors take
@@ -40,7 +82,7 @@ def contact_sweep(planes, bias, screws, qd, minv2, obj, lam0, anc, anc_bits,
                                    anc, obj_idx, signs, iterations, omega,
                                    apply_warm)
     return contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0,
-                              anc_bits, obj_idx, signs, iterations, omega,
+                              groups, obj_idx, signs, iterations, omega,
                               apply_warm)
 
 
@@ -133,7 +175,7 @@ def contact_sweep_plain(planes, bias, screws, qd, minv2, obj, lam0, anc,
     return qd, torch.stack(lv + av), torch.stack(lam)
 
 
-def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, anc_bits,
+def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, groups,
                        obj_idx, signs, iterations: int, omega: float,
                        apply_warm: bool = True):
     global launches
@@ -149,7 +191,6 @@ def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, anc_bits,
         "minv2": (minv2, (B, nv * nv), torch.float32),
         "obj": (obj, (6, B, K), torch.float32),
         "lam0": (lam0, (3, B, C), torch.float32),
-        "anc_bits": (anc_bits, (C,), torch.int32),
         "obj_idx": (obj_idx, (S, C), torch.int32),
     }
     for name, (t, shape, dtype) in expect.items():
@@ -164,6 +205,7 @@ def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, anc_bits,
     if not (1 <= nv <= 31 and 1 <= K <= 8 and S <= 2 and C <= 1024):
         raise ValueError(f"contact_sweep_cuda: unsupported sizes nv={nv} K={K} "
                          f"sides={S} C={C}")
+    check_groups(groups, C, planes.device, "contact_sweep_cuda", bins=(S, K))
     qd_out = torch.empty_like(qd)
     obj_out = torch.empty_like(obj)
     lam_out = torch.empty_like(lam0)
@@ -173,12 +215,25 @@ def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, anc_bits,
     lib = build.library()
     err = lib.contact_sweep_f32(
         planes.data_ptr(), bias.data_ptr(), screws.data_ptr(), qd.data_ptr(),
-        minv2.data_ptr(), obj.data_ptr(), lam0.data_ptr(), anc_bits.data_ptr(),
-        obj_idx.data_ptr(),
+        minv2.data_ptr(), obj.data_ptr(), lam0.data_ptr(),
+        groups.link_bits.data_ptr(), groups.slot_link.data_ptr(),
+        groups.link_ptr.data_ptr(), groups.link_slots.data_ptr(), obj_idx.data_ptr(),
+        groups.obj_ptr.data_ptr(), groups.obj_slots.data_ptr(),
         qd_out.data_ptr(), obj_out.data_ptr(), lam_out.data_ptr(),
-        B, C, nv, K, S, sign_bits, int(iterations), float(omega),
+        B, C, nv, K, S, groups.link_bits.shape[0], groups.link_slots.shape[0],
+        groups.obj_slots.shape[0], sign_bits, int(iterations), float(omega),
         int(bool(apply_warm)), torch.cuda.current_stream(planes.device).cuda_stream,
     )
     build.check(err, "contact_sweep_f32")
     launches += 1
     return qd_out, obj_out, lam_out
+
+
+def launch_info(C: int, nv: int, K: int, S: int, groups: SlotGroups) -> dict:
+    """The kernel's launch at these sizes: threads per block, dynamic shared
+    bytes and resident blocks per SM (CUDA's occupancy calculator)."""
+    info = (ctypes.c_int * 3)()
+    build.check(build.library().contact_sweep_launch_info(
+        C, nv, K, S, groups.link_bits.shape[0], groups.link_slots.shape[0],
+        groups.obj_slots.shape[0], info), "contact_sweep_launch_info")
+    return dict(threads=info[0], shared_bytes=info[1], blocks_per_sm=info[2])

@@ -6,21 +6,24 @@ Counterpart of handarm_tpu/ops/prep_deff.py (`robot_deff`, the Pallas
 `_deff_kernel`), in its layout: screws [6, B, nv] (angular xyz, linear
 xyz), pos [3, B, C], basis [9, B, C] (w_0 xyz, w_1 xyz, w_2 xyz), Minv as
 [B, nv * nv] (row-major) -> [3, B, C], all float32. The dof mask comes as
-`anc` [C, nv] (0/1, plain version) and as `anc_bits` [C] int32 (the same
-mask as bits, kernel). On CUDA tensors the hand-written kernel in
-csrc/prep_deff.cu runs; on CPU tensors the plain version runs, the chunked
-tensor chain of solver._prepare (`deff_chain`) in float32.
+`anc` [C, nv] (0/1, plain version) and, for the kernel, as the scene's
+`SlotGroups` (ops/contact_sweep.py): the distinct masks and each slot's
+mask. On CUDA tensors the hand-written kernel in csrc/prep_deff.cu runs;
+on CPU tensors the plain version runs, the chunked tensor chain of
+solver._prepare (`deff_chain`) in float32.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from handarm_tpu_torch.math.quat import cross
 from handarm_tpu_torch.ops import build
+from handarm_tpu_torch.ops.contact_sweep import check_groups
 
 launches = 0  # kernel launches since the last reset (CUDA path only)
-KERNEL_NV = (17,)  # dof counts the kernel is built for (the UR5+SIH)
 CHUNK = 128  # slots per step of the plain chain
 
 
@@ -43,12 +46,12 @@ def deff_chain(screw, pos, basis, anc, Minv, dtype) -> torch.Tensor:
     return out
 
 
-def robot_deff(screws, pos, basis, anc, anc_bits, minv2) -> torch.Tensor:
+def robot_deff(screws, pos, basis, anc, groups, minv2) -> torch.Tensor:
     """[3, B, C]. CPU tensors take the plain version; CUDA tensors launch
     the kernel."""
     if pos.device.type == "cpu":
         return robot_deff_plain(screws, pos, basis, anc, minv2)
-    return robot_deff_cuda(screws, pos, basis, anc_bits, minv2)
+    return robot_deff_cuda(screws, pos, basis, groups, minv2)
 
 
 def robot_deff_plain(screws, pos, basis, anc, minv2) -> torch.Tensor:
@@ -60,7 +63,7 @@ def robot_deff_plain(screws, pos, basis, anc, minv2) -> torch.Tensor:
     return d.permute(2, 0, 1)
 
 
-def robot_deff_cuda(screws, pos, basis, anc_bits, minv2) -> torch.Tensor:
+def robot_deff_cuda(screws, pos, basis, groups, minv2) -> torch.Tensor:
     global launches
     _, B, nv = screws.shape
     C = pos.shape[2]
@@ -68,7 +71,6 @@ def robot_deff_cuda(screws, pos, basis, anc_bits, minv2) -> torch.Tensor:
         "screws": (screws, (6, B, nv), torch.float32),
         "pos": (pos, (3, B, C), torch.float32),
         "basis": (basis, (9, B, C), torch.float32),
-        "anc_bits": (anc_bits, (C,), torch.int32),
         "minv2": (minv2, (B, nv * nv), torch.float32),
     }
     for name, (t, shape, dtype) in expect.items():
@@ -80,17 +82,27 @@ def robot_deff_cuda(screws, pos, basis, anc_bits, minv2) -> torch.Tensor:
                              f"expected {shape} {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"robot_deff_cuda: {name} is not contiguous")
-    if nv not in KERNEL_NV:
-        raise ValueError(f"robot_deff_cuda: built for nv in {KERNEL_NV}, got {nv}")
+    if not 1 <= nv <= 31:
+        raise ValueError(f"robot_deff_cuda: nv={nv}, the dof masks hold 1 to 31 dofs")
+    check_groups(groups, C, pos.device, "robot_deff_cuda")
     out = torch.empty(3, B, C, dtype=torch.float32, device=pos.device)
     if B == 0 or C == 0:
         return out
     lib = build.library()
     err = lib.prep_deff_f32(
-        screws.data_ptr(), pos.data_ptr(), basis.data_ptr(), anc_bits.data_ptr(),
-        minv2.data_ptr(), out.data_ptr(), B, C, nv,
+        screws.data_ptr(), pos.data_ptr(), basis.data_ptr(),
+        groups.link_bits.data_ptr(), groups.slot_link.data_ptr(),
+        minv2.data_ptr(), out.data_ptr(), B, C, nv, groups.link_bits.shape[0],
         torch.cuda.current_stream(pos.device).cuda_stream,
     )
     build.check(err, "prep_deff_f32")
     launches += 1
     return out
+
+
+def launch_info(nv: int, L: int) -> dict:
+    """The kernel's launch at these sizes: threads per block, dynamic shared
+    bytes and resident blocks per SM (CUDA's occupancy calculator)."""
+    info = (ctypes.c_int * 3)()
+    build.check(build.library().prep_deff_launch_info(nv, L, info), "prep_deff_launch_info")
+    return dict(threads=info[0], shared_bytes=info[1], blocks_per_sm=info[2])

@@ -20,7 +20,7 @@ import torch
 from handarm_tpu_torch.math.quat import cross
 from handarm_tpu_torch.ops import contact_sweep as sweep_op
 from handarm_tpu_torch.ops import prep_deff as deff_op
-from handarm_tpu_torch.ops.contact_sweep import BASE, NBASE, NSIDE
+from handarm_tpu_torch.ops.contact_sweep import BASE, NBASE, NSIDE, SlotGroups
 from handarm_tpu_torch.physics.contacts import Contacts, ContactSlots
 from handarm_tpu_torch.physics.dynamics import free_body_inv_inertia_world
 from handarm_tpu_torch.physics.kinematics import FK, ModelArrays
@@ -52,7 +52,7 @@ class SlotMaps:
     """Static slot couplings, built once per scene from ContactSlots."""
 
     anc_slot: torch.Tensor  # [C, nv] dof u moves slot c's robot body
-    anc_bits: torch.Tensor  # [C] int32 bitmask of anc_slot (the kernel's form)
+    anc_bits: torch.Tensor  # [C] int32 bitmask of anc_slot
     robot_mask: torch.Tensor  # [C]
     group_onehot: torch.Tensor  # [C, G]
     group_obj: torch.Tensor  # [G, K]
@@ -62,6 +62,7 @@ class SlotMaps:
     side_onehot: tuple  # per present side: [C, K]
     obj_idx: torch.Tensor  # [S, C] int32 object per side, -1 where absent
     signs: tuple  # per present side: +1.0 (a) / -1.0 (b)
+    groups: SlotGroups  # the kernels' per-link and per-object slot lists
 
 
 def _group_onehot(slots: ContactSlots) -> np.ndarray:
@@ -73,6 +74,32 @@ def _group_onehot(slots: ContactSlots) -> np.ndarray:
     onehot = np.zeros((slots.num_slots, len(keys)), np.float32)
     onehot[np.arange(slots.num_slots), gid] = 1.0
     return onehot
+
+
+def build_slot_groups(anc_bits: np.ndarray, obj_idx: np.ndarray, num_objects: int,
+                      device="cpu") -> SlotGroups:
+    """The slot groups the sweep and deff kernels reduce over: one group per
+    distinct nonzero dof mask (grouped by the mask itself, so any tree and
+    slot layout stay exact; on a kinematic tree one per hand link), and one
+    per (side, object) bin, each as an ascending CSR list of slots."""
+    anc_bits = np.asarray(anc_bits, np.int64)
+    obj_idx = np.asarray(obj_idx, np.int64).reshape(-1, anc_bits.shape[0])
+    link_bits, inverse = np.unique(anc_bits, return_inverse=True)
+    inverse = inverse.reshape(-1) - int(link_bits[0] == 0)
+    link_bits = link_bits[link_bits != 0]
+    slot_link = np.where(anc_bits != 0, inverse, -1)
+
+    def csr(lists):
+        ptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
+        return ptr, np.concatenate(lists + [np.zeros(0, np.int64)])
+
+    K = max(num_objects, 1)
+    link_ptr, link_slots = csr([np.flatnonzero(slot_link == g) for g in range(len(link_bits))])
+    # bin q * K + k: the slots whose side q holds object k
+    obj_ptr, obj_slots = csr([np.flatnonzero(row == k) for row in obj_idx for k in range(K)])
+    i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
+    return SlotGroups(i32(link_bits), i32(slot_link), i32(link_ptr), i32(link_slots),
+                      i32(obj_ptr), i32(obj_slots))
 
 
 def build_slot_maps(slots: ContactSlots, ancestor_mask: np.ndarray,
@@ -113,10 +140,11 @@ def build_slot_maps(slots: ContactSlots, ancestor_mask: np.ndarray,
         slot_obj=(t(slot_a), t(slot_b)), side_kidx=tuple(kidx),
         side_mask=tuple(masks), side_onehot=tuple(onehots),
         obj_idx=t(obj_idx, torch.int32), signs=tuple(signs),
+        groups=build_slot_groups(bits, obj_idx, num_objects, device),
     )
 
 
-def _mass_split(active, maps: SlotMaps):
+def mass_split(active, maps: SlotMaps):
     """Two-level mass splitting: within contact groups, then across the
     distinct active groups touching each slot's objects."""
     counts = active @ maps.group_onehot  # [B, G]
@@ -196,7 +224,7 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
             fk.screw.permute(2, 0, 1).contiguous(),
             contacts.pos.permute(2, 0, 1).contiguous(),
             basis.permute(2, 3, 0, 1).reshape(9, B, C).contiguous(),
-            maps.anc_slot, maps.anc_bits, Minv.reshape(B, nv * nv).contiguous(),
+            maps.anc_slot, maps.groups, Minv.reshape(B, nv * nv).contiguous(),
         ).permute(1, 2, 0)
     else:
         pd = torch.bfloat16 if params.prep_dtype == "bf16" else dtype
@@ -221,7 +249,7 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
     mu = torch.as_tensor(slots.friction, dtype=dtype, device=n.device)[None].expand(B, C)
     return Prep(
         active=active, basis=basis, inv_d=active[..., None] / d_eff,
-        split=_mass_split(active, maps),
+        split=mass_split(active, maps),
         bias=_contact_bias(contacts.depth, h, params), mu=mu,
         pos=contacts.pos, screw=fk.screw, Minv=Minv, d_eff=d_eff,
         sides=tuple(sides),
@@ -243,7 +271,7 @@ def refresh_prep(prep: Prep, fk: FK, maps: SlotMaps, contacts: Contacts,
         prep, active=active, basis=torch.stack([n, t1, t2], dim=2),
         inv_d=active[..., None] / prep.d_eff,
         bias=_contact_bias(contacts.depth, h, params),
-        split=_mass_split(active, maps), pos=contacts.pos, screw=fk.screw,
+        split=mass_split(active, maps), pos=contacts.pos, screw=fk.screw,
         sides=sides,
     )
 
@@ -293,7 +321,7 @@ def solve_anchored(pack: AnchoredPack, maps: SlotMaps, bias, qd, lv, av,
                        av[..., 0], av[..., 1], av[..., 2]]).contiguous()
     qd_o, obj_o, lam_o = sweep_op.contact_sweep(
         planes, bias.contiguous(), pack.screws, qd.contiguous(), pack.minv2,
-        obj, lam0, maps.anc_slot, maps.anc_bits, maps.obj_idx, maps.signs,
+        obj, lam0, maps.anc_slot, maps.groups, maps.obj_idx, maps.signs,
         params.iterations, params.relaxation, apply_warm=params.warm_start > 0.0,
     )
     if maps.signs:

@@ -102,7 +102,7 @@ def test_contact_sweep_matches_pallas(tmp_path):
         signs=signs, iterations=8, omega=1.0, interpret=True, apply_warm=True)
     t = {k: torch.tensor(v) for k, v in a.items()}
     got = tsw.contact_sweep(t["planes"], t["bias"], t["screws"], t["qd"], t["minv2"],
-                            t["obj"], t["lam0"], torch.tensor(anc), maps.anc_bits,
+                            t["obj"], t["lam0"], torch.tensor(anc), maps.groups,
                             maps.obj_idx, signs, 8, 1.0, apply_warm=True)
     for name, g, w, tol in zip(("qd", "obj", "lam"), got, want, (2e-4, 2e-3, 2e-3)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol, err_msg=name)

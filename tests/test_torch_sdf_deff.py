@@ -163,9 +163,10 @@ def test_deff_plain_matches_jax(B, C, nv, seed):
     dense formula of tests/test_prep_deff.py, at that file's bounds
     (rtol/atol 2e-4, float32 sums in other orders)."""
     screws, pos, basis, anc, minv2 = _deff_inputs(B, C, nv, seed)
-    bits = torch.as_tensor((anc > 0).astype(np.int64) @ (1 << np.arange(nv)), dtype=torch.int32)
+    bits = (anc > 0).astype(np.int64) @ (1 << np.arange(nv))
+    groups = tsv.build_slot_groups(bits, np.zeros((0, C), np.int64), 0)
     t = torch.as_tensor
-    got = tdeff.robot_deff(t(screws), t(pos), t(basis), t(anc), bits, t(minv2)).numpy()
+    got = tdeff.robot_deff(t(screws), t(pos), t(basis), t(anc), groups, t(minv2)).numpy()
     want = np.asarray(j_robot_deff(*map(jnp.asarray, (screws, pos, basis, anc, minv2)),
                                    interpret=True))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)

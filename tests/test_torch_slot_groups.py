@@ -1,0 +1,246 @@
+"""The static slot groups that the sweep and deff kernels reduce over
+(physics/solver.py `build_slot_groups`), and the kernels' grouped algebra.
+
+For the slots of the two UR5+SIH scenes and of a random scene with an
+arbitrary set of dof masks, the tables must list every robot slot under
+exactly the group of its mask and every object side under exactly its
+(side, object) bin, in ascending slot order. A torch emulation of the
+kernels' data flow, written here and reading only those tables (link
+velocities V_l = S_l qd gathered per slot, sums over the groups' slot
+lists, qd += Minv J F_l with J the screws under the link masks,
+d = xi^T Phi_l xi),
+must agree with the plain versions `contact_sweep_plain` and
+`robot_deff_plain` within 1e-5 of each output's largest value (float32
+sums in another order). The CUDA kernels themselves are held against the
+plain versions on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from handarm_tpu_torch.envs.tasks import make_env
+from handarm_tpu_torch.ops import contact_sweep as tsw
+from handarm_tpu_torch.ops import prep_deff as tdeff
+from handarm_tpu_torch.physics.solver import build_slot_groups
+
+torch.set_num_threads(1)
+SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random"]
+B = 6
+
+
+def _scene(name):
+    """(anc [C, nv] float, anc_bits [C], obj_idx [S, C], K, signs, groups)."""
+    if name == "random":
+        rng = np.random.default_rng(3)
+        C, nv, K = 70, 20, 3
+        masks = rng.integers(1, 1 << nv, size=6)
+        bits = np.where(rng.uniform(size=C) < 0.3, 0, masks[rng.integers(0, 6, C)])
+        obj_idx = np.where(rng.uniform(size=(2, C)) < 0.4, -1, rng.integers(0, K, (2, C)))
+        anc = ((bits[:, None] >> np.arange(nv)) & 1).astype(np.float32)
+        return (torch.tensor(anc), bits, obj_idx, K, (1.0, -1.0),
+                build_slot_groups(bits, obj_idx, K))
+    env = make_env(name, device="cpu", num_envs=1, use_drop_init=False, randomize=False)
+    m = env.scene.maps
+    return (m.anc_slot, m.anc_bits.numpy(), m.obj_idx.numpy(), max(env.num_objects, 1),
+            m.signs, m.groups)
+
+
+@pytest.fixture(scope="module", params=SCENES)
+def scene(request):
+    return request.param, _scene(request.param)
+
+
+def _lists(ptr, slots):
+    ptr, slots = ptr.numpy(), slots.numpy()
+    return [slots[ptr[g]:ptr[g + 1]] for g in range(len(ptr) - 1)]
+
+
+def test_tables_group_every_slot_once(scene):
+    name, (anc, bits, obj_idx, K, signs, g) = scene
+    C = bits.shape[0]
+    link_bits, slot_link = g.link_bits.numpy(), g.slot_link.numpy()
+    assert all(t.dtype == torch.int32 for t in g)
+    assert len(set(link_bits.tolist())) == len(link_bits) and np.all(link_bits != 0)
+    assert len(link_bits) <= tsw.MAX_LINKS
+    if name != "random":  # one group per hand link
+        assert len(link_bits) == 11 and len(link_bits) <= anc.shape[1]
+    links = _lists(g.link_ptr, g.link_slots)
+    seen = np.concatenate(links)
+    assert sorted(seen.tolist()) == np.flatnonzero(bits != 0).tolist()  # each once
+    for l, lst in enumerate(links):
+        assert np.all(np.diff(lst) > 0) and np.all(bits[lst] == link_bits[l])
+        assert np.all(slot_link[lst] == l)
+    assert np.all(slot_link[bits == 0] == -1)
+    bins = _lists(g.obj_ptr, g.obj_slots)
+    assert len(bins) == len(obj_idx) * K
+    for j, lst in enumerate(bins):
+        q, k = divmod(j, K)
+        assert np.all(np.diff(lst) > 0)
+        assert lst.tolist() == np.flatnonzero(obj_idx[q] == k).tolist()
+    assert len(g.obj_slots) == int((obj_idx >= 0).sum()) and len(g.slot_link) == C
+
+
+def _cross(a, b):
+    return (a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2], a[0] * b[1] - a[1] * b[0])
+
+
+def _link_mask(g, nv):
+    return ((g.link_bits.long()[:, None] >> torch.arange(nv)) & 1).float()  # [L, nv]
+
+
+def emulate_sweep(planes, bias, screws, qd, minv2, obj, lam0, g, signs, iterations, omega):
+    """The sweep kernel's data flow in torch (warm apply + `iterations`
+    sweeps), reading the slot couplings only from the group tables."""
+    NP, Bn, C = planes.shape
+    nv, K, S = qd.shape[1], obj.shape[2], len(signs)
+    mask = _link_mask(g, nv)
+    slot_link = g.slot_link.long()
+    robot = (slot_link >= 0).float()
+    links = _lists(g.link_ptr, g.link_slots)
+    bins = _lists(g.obj_ptr, g.obj_slots)
+    side_obj = torch.full((S, C), -1, dtype=torch.long)
+    for j, lst in enumerate(bins):
+        side_obj[j // K, torch.as_tensor(lst, dtype=torch.long)] = j % K
+    P = [planes[i] for i in range(NP)]
+    n, t1, t2, p = P[0:3], P[3:6], P[6:9], P[9:12]
+    mu, inv_d, gate = P[12], P[13:16], P[16]
+    Minv = minv2.reshape(Bn, nv, nv)
+    ob = obj.clone()
+    lam = [lam0[i] for i in range(3)]
+
+    def group_sum(x, lst):  # [..., C] -> [...] over one group's slots
+        return x[..., torch.as_tensor(lst, dtype=torch.long)].sum(-1)
+
+    # W = Minv J with J_u(a, l) = s_au for the dofs u of link l: qd += W Fl
+    J = screws.permute(1, 2, 0)[:, :, :, None] * mask.T[None, :, None, :]  # [B, nv, 6, L]
+    W = torch.einsum("buv,bvk->buk", Minv, J.reshape(Bn, nv, -1))
+
+    def apply(qd, ob, dP):
+        F = torch.stack(list(_cross(p, dP)) + list(dP))  # [6, B, C]
+        Fl = torch.stack([group_sum(F, lst) for lst in links], -1)  # [6, B, L]
+        qd = qd + torch.einsum("buk,bk->bu", W, Fl.permute(1, 0, 2).reshape(Bn, -1))
+        ob = ob.clone()
+        for q in range(S):
+            base = 17 + 10 * q
+            r, Iv, invm = P[base:base + 3], P[base + 3:base + 9], P[base + 9]
+            tq = _cross(r, dP)
+            G = torch.stack([dP[0] * invm, dP[1] * invm, dP[2] * invm,
+                             Iv[0] * tq[0] + Iv[1] * tq[1] + Iv[2] * tq[2],
+                             Iv[1] * tq[0] + Iv[3] * tq[1] + Iv[4] * tq[2],
+                             Iv[2] * tq[0] + Iv[4] * tq[1] + Iv[5] * tq[2]])
+            for k in range(K):
+                ob[:, :, k] += signs[q] * group_sum(G, bins[q * K + k])
+        return qd, ob
+
+    def velocity(qd, ob):
+        V = torch.stack([(screws[a] * qd) @ mask.T for a in range(6)])  # [6, B, L]
+        w = V[:, :, slot_link.clamp(min=0)] * robot  # [6, B, C]
+        wx = _cross(w[0:3], p)
+        v = [w[3 + i] + wx[i] for i in range(3)]
+        for q in range(S):
+            k, has = side_obj[q].clamp(min=0), (side_obj[q] >= 0).float()
+            r = P[17 + 10 * q:20 + 10 * q]
+            lin, ang = ob[0:3][:, :, k], ob[3:6][:, :, k]
+            aw = _cross(ang, r)
+            v = [v[i] + signs[q] * has * (lin[i] + aw[i]) for i in range(3)]
+        return v
+
+    comb = lambda c: tuple(c[0] * n[i] + c[1] * t1[i] + c[2] * t2[i] for i in range(3))
+    qd, ob = apply(qd, ob, comb(lam))
+    for _ in range(iterations):
+        v = velocity(qd, ob)
+        dot = lambda e: v[0] * e[0] + v[1] * e[1] + v[2] * e[2]
+        new_n = torch.clamp(lam[0] + (bias - dot(n)) * inv_d[0], min=0.0)
+        ft1, ft2 = lam[1] - dot(t1) * inv_d[1], lam[2] - dot(t2) * inv_d[2]
+        fmag, fmax = torch.sqrt(ft1 * ft1 + ft2 * ft2), mu * new_n
+        sc = torch.where(fmag > fmax, fmax / torch.clamp(fmag, min=1e-9), torch.ones_like(fmag))
+        dl = [omega * (new - old) * gate for new, old in zip((new_n, ft1 * sc, ft2 * sc), lam)]
+        lam = [a + b for a, b in zip(lam, dl)]
+        qd, ob = apply(qd, ob, comb(dl))
+    return qd, ob, torch.stack(lam)
+
+
+def emulate_deff(screws, pos, basis, g, minv2):
+    """d = xi^T Phi_l xi with Phi_l = S_l Minv S_l^T over each link's mask."""
+    _, Bn, nv = screws.shape
+    mask = _link_mask(g, nv)
+    Sl = screws.permute(1, 0, 2)[:, None] * mask[None, :, None]  # [B, L, 6, nv]
+    Phi = torch.einsum("blau,buv,blev->blae", Sl, minv2.reshape(Bn, nv, nv), Sl)
+    slot_link = g.slot_link.long()
+    Phi_c = Phi[:, slot_link.clamp(min=0)]  # [B, C, 6, 6]
+    out = []
+    for d in range(3):
+        w = basis[3 * d:3 * d + 3]
+        xi = torch.stack(list(_cross(pos, w)) + list(w), -1)  # [B, C, 6]
+        out.append(torch.einsum("bca,bcae,bce->bc", xi, Phi_c, xi) * (slot_link >= 0))
+    return torch.stack(out)
+
+
+def _unit(x):
+    return x / np.linalg.norm(x, axis=0, keepdims=True)
+
+
+def _sweep_inputs(C, nv, K, S, seed):
+    rng = np.random.default_rng(seed)
+    n = _unit(rng.standard_normal((3, B, C)))
+    t1 = _unit(np.cross(n, rng.standard_normal((3, B, C)), axis=0))
+    t2 = np.cross(n, t1, axis=0)
+    pos = rng.normal(0.0, 0.3, (3, B, C)) + np.array([0.5, 0.0, 0.6])[:, None, None]
+    mu = rng.uniform(0.3, 1.0, (1, B, C))
+    inv_d = rng.uniform(0.5, 5.0, (3, B, C))
+    gate = np.where(rng.uniform(size=(1, B, C)) < 0.3, 0.0, rng.uniform(0.2, 1.0, (1, B, C)))
+    planes = [n, t1, t2, pos, mu, inv_d, gate]
+    for _ in range(S):
+        A = rng.standard_normal((B, C, 3, 3))
+        I = A @ np.swapaxes(A, -1, -2) + np.eye(3)
+        sym = np.stack([I[..., i, j] for i, j in ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))])
+        planes += [rng.normal(0.0, 0.05, (3, B, C)), sym, rng.uniform(1.0, 10.0, (1, B, C))]
+    A = rng.standard_normal((B, nv, nv))
+    minv = (A @ A.transpose(0, 2, 1) + nv * np.eye(nv)) / nv
+    ln = np.abs(rng.normal(0.0, 0.05, (B, C)))
+    lt = rng.normal(0.0, 0.05, (2, B, C))
+    fmag = np.sqrt((lt ** 2).sum(0))
+    sc = np.where(fmag > mu[0] * ln, mu[0] * ln / np.maximum(fmag, 1e-9), 1.0)
+    f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)
+    return dict(planes=f(np.concatenate(planes)), bias=f(rng.normal(0.0, 0.1, (B, C))),
+                screws=f(rng.standard_normal((6, B, nv))), qd=f(rng.normal(0.0, 0.5, (B, nv))),
+                minv2=f(minv.reshape(B, nv * nv)), obj=f(rng.normal(0.0, 0.2, (6, B, K))),
+                lam0=f(np.stack([ln, lt[0] * sc, lt[1] * sc])))
+
+
+def test_grouped_sweep_matches_plain(scene):
+    """Warm apply + 2 sweeps with both object sides, at B = 6."""
+    name, (anc, bits, obj_idx, K, signs, g) = scene
+    C, nv, S = anc.shape[0], anc.shape[1], len(signs)
+    a = _sweep_inputs(C, nv, K, S, seed=SCENES.index(name))
+    args = (a["planes"], a["bias"], a["screws"], a["qd"], a["minv2"], a["obj"], a["lam0"])
+    want = tsw.contact_sweep_plain(*args, anc, torch.as_tensor(obj_idx, dtype=torch.int32),
+                                   signs, 2, 1.0, apply_warm=True)
+    got = emulate_sweep(*args, g, signs, 2, 1.0)
+    for out, gt, wt in zip(("qd", "obj", "lam"), got, want):
+        scale = float(wt.abs().max())
+        assert scale > 0, out
+        err = float((gt - wt).abs().max())
+        assert err <= 1e-5 * scale, f"{out}: {err:.3e} at scale {scale:.3e}"
+    assert float(want[2].abs().max()) > 1e-3  # impulses flowed
+    assert tsw.launches == 0  # CPU tensors: no kernel
+
+
+def test_grouped_deff_matches_plain(scene):
+    name, (anc, bits, obj_idx, K, signs, g) = scene
+    C, nv = anc.shape
+    rng = np.random.default_rng(10 + SCENES.index(name))
+    f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32)
+    A = rng.standard_normal((B, nv, nv))
+    minv2 = f(((A @ A.transpose(0, 2, 1) + nv * np.eye(nv)) / nv).reshape(B, nv * nv))
+    screws = f(rng.standard_normal((6, B, nv)))
+    pos = f(rng.normal(0.0, 0.3, (3, B, C)) + np.array([0.5, 0.0, 0.6])[:, None, None])
+    basis = f(rng.standard_normal((9, B, C)))
+    want = tdeff.robot_deff(screws, pos, basis, anc, g, minv2)
+    got = emulate_deff(screws, pos, basis, g, minv2)
+    scale = float(want.abs().max())
+    assert scale > 0
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert np.all(want[:, :, bits == 0].numpy() == 0.0)
+    assert tdeff.launches == 0
