@@ -30,18 +30,22 @@ Phases, each with a deadline and one flushed progress line:
                docs/evidence/multiobj_r5a/ckpt_2700.npz policy. Counters are
                zeroed before genesis and read after the last step: each of
                the four kernels must show exactly its launches on this path
-               (per genesis sim step: sdf_gather 9, prep_deff 1,
-               spd_inverse 1, contact_sweep 2; per control step: 27, 1, 1,
-               6); every state leaf must stay finite.
+               (per genesis sim step: sdf_gather 1 (one per contact
+               generation), prep_deff 1, spd_inverse 1, contact_sweep 2;
+               per control step: 3, 1, 1, 6); every state leaf must stay
+               finite.
   7. multiobj-kernels  all four kernels against their plain versions on
-               inputs captured from that rollout (the sweep at K = 3 with
-               both object sides, and its dense case), bit-identical over
-               two launches, then timed beside their bounds, their
-               plain versions and a one-call library equivalent. A kernel's
-               "ms" is the replay of a CUDA graph of 50 launches (device
-               time; "eager_ms" launches them from Python one by one), as
-               is grid_sample's; plain versions and torch.linalg.inv run
-               eagerly.
+               inputs captured from that rollout (sdf_gather: the one call
+               of a contact generation, every output channel; the sweep at
+               K = 3 with both object sides, and its dense case),
+               bit-identical over two launches, then timed beside their
+               bounds, their plain versions and a one-call library
+               equivalent. A kernel's "ms" is the replay of a CUDA graph of
+               50 launches (device time; "eager_ms" launches them from
+               Python one by one), as is grid_sample's; plain versions run
+               eagerly. torch.linalg.inv is timed as a graph where capture
+               works, else as the device time of its eager call
+               (profiler), beside its eager time.
   8. multiobj-ref  2 control steps at 16 envs on the card and on the CPU
                (the deff path forced at this size) must agree, from the
                state of 16 envs of that rollout whose last solve pushed on
@@ -173,10 +177,11 @@ def nbytes(*tensors) -> int:
 
 
 def spd_inverse_flops(n: int) -> int:
-    """Flops of one n x n inverse as the kernel computes it (FMA = 2)."""
+    """Flops of one n x n inverse as the kernel computes it (FMA = 2): the
+    factorization, W = L^-1, and the upper half of the symmetric W^T W."""
     chol = sum(2 * j * (n - j) for j in range(n)) + n * (n - 1) // 2 + n
     inv = sum(2 * (i - r) + 1 for r in range(n) for i in range(r + 1, n))
-    gram = sum(2 * (n - max(a, c)) for a in range(n) for c in range(n))
+    gram = sum(2 * (n - c) for a in range(n) for c in range(a, n))
     return chol + inv + gram
 
 
@@ -223,6 +228,34 @@ def bitwise(fn, name: str) -> bool:
     return True
 
 
+def library_graph_ms(fn, reps: int):
+    """fn's time as a replayed CUDA graph, or None with the reason where
+    capture is refused (a call that reads back to the host)."""
+    import torch
+
+    try:
+        return cuda_time_ms(fn, reps, graph=True), None
+    except RuntimeError as e:  # the capture is invalidated, not the context
+        torch.cuda.synchronize()
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one eager call: its kernels' summed time under the
+    profiler, averaged over `reps` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
+
+
 def check_spd(spd_op, M, dev, tag):
     import torch
 
@@ -239,12 +272,24 @@ def check_spd(spd_op, M, dev, tag):
         raise AssertionError("spd_inverse kernel disagrees with its plain version")
     B, n = M.shape[0], M.shape[1]
     t_b, by = bound_ms(2 * B * n * n * 4, B * spd_inverse_flops(n))
+    # yardstick like for like: torch.linalg.inv as a CUDA graph where capture
+    # works, else the device time of its eager call (profiler), and its
+    # eager time between events
+    inv = lambda: torch.linalg.inv(M)
+    lib_graph, refused = library_graph_ms(inv, 20)
+    lib_device = device_ms(inv, 10)
+    lib_eager = cuda_time_ms(inv, 20)
+    log(f"spd_inverse ({tag}): torch.linalg.inv graph "
+        f"{'refused: ' + refused if refused else f'{lib_graph:.4f} ms'}; device time per "
+        f"eager call {lib_device:.4f} ms; eager {lib_eager:.4f} ms")
     return dict(
         max_abs_err=err, bitwise=bitwise(lambda: spd_op.spd_inverse_cuda(M), "spd_inverse"),
         **kernel_times(lambda: spd_op.spd_inverse_cuda(M), 50),
         plain_ms=cuda_time_ms(lambda: spd_op.spd_inverse_plain(M), 20),
         bound_ms=t_b, bound_by=by,
-        library_ms=cuda_time_ms(lambda: torch.linalg.inv(M), 20),
+        library_ms=lib_graph if lib_graph is not None else lib_device,
+        library_timing="graph" if lib_graph is not None else "device time of an eager call",
+        library_graph_refused=refused, library_eager_ms=lib_eager,
     )
 
 
@@ -332,42 +377,57 @@ def check_sweep(sweep_op, captured, maps, tag):
     )
 
 
-def check_sdf(sdf_op, calls):
-    """Every captured call of one contact generation against the plain
-    version; the largest (spheres vs one object) is timed."""
+def check_sdf(sdf_op, call):
+    """The one captured call of a contact generation (every mesh-SDF query
+    of it) against the plain version, then timed beside its byte bound,
+    the same call with its table in slot order, and grid_sample."""
     import torch
 
+    field, lo, sp, p, table = call
+    got = sdf_op.sdf_sample_cuda(*call)
+    want = sdf_op.sdf_sample_plain(*call)
+    torch.cuda.synchronize()
     errs = []
-    for field, lo, sp, p in calls:
-        got = sdf_op.sdf_sample_cuda(field, lo, sp, p)
-        want = sdf_op.sample_sdf_plain(field, lo, sp.reshape(()), p)
-        torch.cuda.synchronize()
-        e, s = max_err(got, want)
+    for c, name in enumerate(("distance", "grad x", "grad y", "grad z")):
+        e, s = max_err(got[..., c], want[..., c])
         errs.append(e)
-        # the same f32 arithmetic in another order: 1e-4 of the largest value
+        # the same f32 arithmetic in another order: 1e-4 of this channel's
+        # largest value
         if not e <= 1e-4 * s:
-            raise AssertionError(f"sdf_gather kernel disagrees with its plain version "
-                                 f"({e:.3e} at scale {s:.3e}, N = {p.shape[0]})")
-    sizes = sorted({c[3].shape[0] for c in calls})
-    log(f"sdf_gather: {len(calls)} calls of one contact generation, N in {sizes}, "
-        f"max|kernel-plain| {max(errs):.3e}")
-    field, lo, sp, p = max(calls, key=lambda c: c[3].shape[0])
-    N, R = p.shape[0], field.shape[0]
-    # yardstick: grid_sample computes the clamped trilinear part in one call
-    inp = field.permute(3, 2, 1, 0)[None].contiguous()  # [1, 4, z, y, x]
-    grid = (((p - lo) / sp) * (2.0 / (R - 1)) - 1.0).reshape(1, 1, 1, N, 3)
+            raise AssertionError(f"sdf_gather kernel disagrees with its plain version on "
+                                 f"{name} ({e:.3e} at scale {s:.3e})")
+    (B, L, _), (Lq, _), (K, R) = p.shape, table.shape, field.shape[:2]
+    N = B * Lq
+    pos = [table[table[:, 1] == k, 0].long() for k in range(K)]
+    u = [(p[:, j] - lo[k]) / sp[k] for k, j in enumerate(pos)]
+    off = sum(int(((x < 0) | (x > R - 1)).any(-1).sum()) for x in u)
+    log(f"sdf_gather: one call of a contact generation, B={B} rows of L={L} queries, "
+        f"{Lq} mesh queries per row (N = {N}), K={K} R={R}; {off} queries off the grid; "
+        f"max|kernel-plain| per channel {[f'{e:.3e}' for e in errs]}")
+    # yardstick: one grid_sample over the K fields computes the clamped
+    # trilinear part of every query, each object's queries as one batch
+    per = {int(j.numel()) for j in pos}
+    if len(per) != 1:
+        raise AssertionError(f"objects with unequal query counts {per}: no [K, ...] grid")
+    inp = field.permute(0, 4, 3, 2, 1).contiguous()  # [K, 4, z, y, x]
+    grid = torch.stack([x * (2.0 / (R - 1)) - 1.0 for x in u]).reshape(K, 1, 1, -1, 3)
     lib = lambda: torch.nn.functional.grid_sample(
         inp, grid, mode="bilinear", padding_mode="border", align_corners=True)
-    lib_vs_plain = float((lib()[0, :, 0, 0].T[:, 1:]
-                          - sdf_op.sample_sdf_plain(field, lo, sp.reshape(()), p)[:, 1:]).abs().max())
-    log(f"sdf_gather: N={N} R={R}; grid_sample vs plain on the gradient channels "
-        f"{lib_vs_plain:.3e} (border clamp at R - 1, not R - 1.001)")
-    t_b, by = bound_ms(nbytes(field, lo, sp, p) + N * 16, N * SDF_FLOPS_PER_POINT)
+    lib_vs_plain = max(float((lib()[k, :, 0, 0].T.reshape(B, -1, 4)[..., 1:]
+                              - want[:, j, 1:]).abs().max()) for k, j in enumerate(pos))
+    log(f"sdf_gather: grid_sample [K, 4, R, R, R] with a [K, 1, 1, {per.pop()}, 3] grid vs "
+        f"plain on the gradient channels {lib_vs_plain:.3e} (border clamp at R - 1, not "
+        f"R - 1.001)")
+    slot_order = table[torch.argsort(table[:, 0])].contiguous()
+    slot_ms = cuda_time_ms(lambda: sdf_op.sdf_sample_cuda(field, lo, sp, p, slot_order), 50,
+                           graph=True)
+    t_b, by = bound_ms(nbytes(field, lo, sp, table) + N * (12 + 16), N * SDF_FLOPS_PER_POINT)
     return dict(
-        max_abs_err=max(errs),
-        bitwise=bitwise(lambda: sdf_op.sdf_sample_cuda(field, lo, sp, p), "sdf_gather"),
-        **kernel_times(lambda: sdf_op.sdf_sample_cuda(field, lo, sp, p), 50),
-        plain_ms=cuda_time_ms(lambda: sdf_op.sample_sdf_plain(field, lo, sp.reshape(()), p), 20),
+        max_abs_err=max(errs), queries=N, off_grid=off,
+        bitwise=bitwise(lambda: sdf_op.sdf_sample_cuda(*call), "sdf_gather"),
+        **kernel_times(lambda: sdf_op.sdf_sample_cuda(*call), 50),
+        slot_order_ms=slot_ms,
+        plain_ms=cuda_time_ms(lambda: sdf_op.sdf_sample_plain(*call), 10),
         bound_ms=t_b, bound_by=by,
         library_ms=cuda_time_ms(lib, 50, graph=True),
     )
@@ -650,7 +710,7 @@ def main() -> int:
             mcounts = rollout.launch_counts()
         g, n = pool.sim_steps, MULTI_STEPS + 1
         gsec = menv.genesis_seconds
-        want = {"spd_inverse": g + n, "prep_deff": g + n, "sdf_gather": 9 * (g + 3 * n),
+        want = {"spd_inverse": g + n, "prep_deff": g + n, "sdf_gather": g + 3 * n,
                 "contact_sweep": 2 * g + 6 * n}
         multi_env_steps_per_s = ENVS * MULTI_STEPS / mseconds
         log(f"multiobj rollout: {MULTI_STEPS} control steps in {mseconds:.3f} s = "
@@ -670,10 +730,10 @@ def main() -> int:
 
     kernels = []
     with phase("multiobj-kernels"):
-        sdf_calls = [a for a, _ in multi_calls["sdf"][:9]]
         recs = {
             "sdf_gather": ("handarm_tpu_torch/csrc/sdf_gather.cu",
-                           "handarm_tpu/ops/sdf_gather.py:98", check_sdf(sdf_op, sdf_calls)),
+                           "handarm_tpu/ops/sdf_gather.py:98",
+                           check_sdf(sdf_op, multi_calls["sdf"][0][0])),
             "prep_deff": ("handarm_tpu_torch/csrc/prep_deff.cu",
                           "handarm_tpu/ops/prep_deff.py:123",
                           check_deff(deff_op, multi_calls["deff"][0][0])),

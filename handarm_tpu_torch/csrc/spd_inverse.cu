@@ -3,96 +3,126 @@
 // Replaces: handarm_tpu/ops/spd_inverse.py `_chol_inv_kernel` (launched by
 // `_linv_pallas` via `spd_inverse`), together with the W^T W product that
 // the JAX op forms after the Pallas call. The pivot floor is the same:
-// 1/L_jj = rsqrt(max(s, 1e-12)).
+// 1/L_jj = rsqrt(max(s, 1e-12)), and so is the subtraction order of every
+// sum of the factorization and of W = L^-1.
 //
 // What bounds it on an H100: per env it reads n*n floats and writes n*n
-// floats (17x17: 2.3 KB) against ~10 k flops, so at B = 8192 the least
-// time is the 19 MB of traffic over 3.35 TB/s, about 6 us; the flops
-// (~80 MFLOP) take a tenth of that at 67 TFLOP/s f32. The Cholesky itself is
-// a chain of n dependent column steps, so latency, not bandwidth, is what a
-// simple kernel actually pays.
+// floats (17x17: 2.3 KB) against ~5.2 k flops, so at B = 8192 the least
+// time is the 19 MB of traffic over 3.35 TB/s, about 5.7 us; the flops
+// (~43 MFLOP) take under 1 us at 67 TFLOP/s f32.
 //
-// Design: one warp per matrix, the matrix staged in shared memory with a
-// padded row stride. Lane i owns row i during the right-looking Cholesky
-// (each column step is one rsqrt, a scale of the column and a rank-1
-// update of the trailing rows, with __syncwarp between steps); lane r owns
-// column r of W = L^-1 during the forward substitution (columns are
-// independent); the 32 lanes then share the n*n dot products of W^T W.
-// Loads and stores of the matrix are coalesced over the flat n*n block.
-// The subtraction order of every sum matches the TPU kernel's.
+// Design: the TPU kernel's own formulation, with the batch on the lanes.
+// Each thread owns one matrix and runs the fully unrolled left-looking
+// Cholesky-Crout for a compile-time n, W = L^-1 in place, and Minv = W^T W,
+// all in registers (the lower triangle: 153 floats at n = 17), with no
+// synchronization between the steps. A block is one warp of 32 matrices,
+// so B = 8192 gives 256 blocks and every SM gets work. The block's 32
+// matrices are one contiguous span of the flat [B, n, n] input: it is
+// staged into shared memory with 16-byte asynchronous copies (no register
+// holds a load in flight, so all of them are), each thread then reads its
+// own matrix at a stride of n*n floats, odd for odd n, which puts the 32
+// threads on 32 banks; Minv goes back through the same buffer so the
+// stores are coalesced 16-byte writes.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxN = 32;
-constexpr int kWarpsPerBlock = 4;
-constexpr int kStride = kMaxN + 1;  // padded row stride (bank spread)
+constexpr int kMats = 32;  // matrices (= threads) per block
 
-__global__ void spd_inverse_kernel(const float* __restrict__ M,
-                                   float* __restrict__ Minv, int B, int n) {
-  __shared__ float A_s[kWarpsPerBlock][kMaxN * kStride];
-  __shared__ float W_s[kWarpsPerBlock][kMaxN * kStride];
-  __shared__ float D_s[kWarpsPerBlock][kMaxN];  // 1 / L_jj
+__host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.x * kWarpsPerBlock + warp;
-  if (b >= B) return;  // whole warp exits together
+template <int N>
+__global__ void __launch_bounds__(kMats)
+    spd_inverse_kernel(const float* __restrict__ M, float* __restrict__ Minv, int B) {
+  static_assert(N % 2 == 1, "the per-matrix stride N*N must be odd (bank spread)");
+  constexpr int NN = N * N;
+  __shared__ __align__(16) float S[kMats * NN];
+  const int t = threadIdx.x;
+  const int b0 = blockIdx.x * kMats;
+  const int count = min(kMats, B - b0);
+  const int nfloat = count * NN;
+  const int nvec = nfloat / 4;  // b0 * NN * 4 bytes is a multiple of 16
+  const float* src = M + (size_t)b0 * NN;
+  float* dst = Minv + (size_t)b0 * NN;
 
-  float* A = A_s[warp];
-  float* W = W_s[warp];
-  float* D = D_s[warp];
-  const int nn = n * n;
-  const float* Mb = M + (size_t)b * nn;
-  for (int e = lane; e < nn; e += 32) A[(e / n) * kStride + e % n] = Mb[e];
-  __syncwarp();
+  for (int v = t; v < nvec; v += kMats) __pipeline_memcpy_async(S + 4 * v, src + 4 * v, 16);
+  __pipeline_commit();
+  for (int e = 4 * nvec + t; e < nfloat; e += kMats) S[e] = src[e];
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
-  // right-looking Cholesky on the lower triangle, lane = row
-  for (int j = 0; j < n; ++j) {
-    const float inv = rsqrtf(fmaxf(A[j * kStride + j], 1e-12f));
-    if (lane == j) D[j] = inv;
-    if (lane > j && lane < n) A[lane * kStride + j] *= inv;
-    __syncwarp();
-    if (lane > j && lane < n) {
-      const float lij = A[lane * kStride + j];
-      for (int k = j + 1; k <= lane; ++k)
-        A[lane * kStride + k] -= lij * A[k * kStride + j];
+  if (t < count) {
+    float* A = S + t * NN;
+    float L[tri(N, 0)];  // lower triangle, row-packed
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int j = 0; j <= i; ++j) L[tri(i, j)] = A[i * N + j];
+
+    // Cholesky-Crout, column by column; the diagonal holds 1 / L_jj
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float s = L[tri(j, j)];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - L[tri(j, k)] * L[tri(j, k)];
+      const float inv = rsqrtf(fmaxf(s, 1e-12f));
+      L[tri(j, j)] = inv;
+#pragma unroll
+      for (int i = j + 1; i < N; ++i) {
+        float a = L[tri(i, j)];
+#pragma unroll
+        for (int k = 0; k < j; ++k) a = a - L[tri(i, k)] * L[tri(j, k)];
+        L[tri(i, j)] = a * inv;
+      }
     }
-    __syncwarp();
-  }
 
-  // W = L^-1 column by column, lane = column
-  if (lane < n) {
-    const int r = lane;
-    for (int i = 0; i < r; ++i) W[i * kStride + r] = 0.0f;
-    W[r * kStride + r] = D[r];
-    for (int i = r + 1; i < n; ++i) {
-      float s = 0.0f;
-      for (int k = r; k < i; ++k) s -= A[i * kStride + k] * W[k * kStride + r];
-      W[i * kStride + r] = s * D[i];
-    }
-  }
-  __syncwarp();
+    // W = L^-1 in place, column r ascending: W_ir replaces L_ir once row i
+    // of column r is done, and no later column reads L_ir
+#pragma unroll
+    for (int r = 0; r < N; ++r)
+#pragma unroll
+      for (int i = r + 1; i < N; ++i) {
+        float s = 0.0f;
+#pragma unroll
+        for (int k = r; k < i; ++k) s = s - L[tri(i, k)] * L[tri(k, r)];
+        L[tri(i, r)] = s * L[tri(i, i)];
+      }
 
-  // Minv = W^T W (W lower triangular: the sum starts at max(a, c))
-  float* Ob = Minv + (size_t)b * nn;
-  for (int e = lane; e < nn; e += 32) {
-    const int a = e / n, c = e % n;
-    float s = 0.0f;
-    for (int k = a > c ? a : c; k < n; ++k)
-      s += W[k * kStride + a] * W[k * kStride + c];
-    Ob[e] = s;
+    // Minv = W^T W: entry (a, c) sums W_ka W_kc over k >= max(a, c)
+#pragma unroll
+    for (int a = 0; a < N; ++a)
+#pragma unroll
+      for (int c = a; c < N; ++c) {
+        float s = 0.0f;
+#pragma unroll
+        for (int k = c; k < N; ++k) s += L[tri(k, a)] * L[tri(k, c)];
+        A[a * N + c] = s;
+        A[c * N + a] = s;
+      }
   }
+  __syncthreads();
+
+  const float4* S4 = reinterpret_cast<const float4*>(S);
+  float4* dst4 = reinterpret_cast<float4*>(dst);
+  for (int v = t; v < nvec; v += kMats) dst4[v] = S4[v];
+  for (int e = 4 * nvec + t; e < nfloat; e += kMats) dst[e] = S[e];
 }
 
 }  // namespace
 
 extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
                                void* stream) {
-  if (n < 1 || n > kMaxN) return (int)cudaErrorInvalidValue;
-  const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  spd_inverse_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                       (cudaStream_t)stream>>>(M, Minv, B, n);
+  if (B < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
+  const int blocks = (B + kMats - 1) / kMats;
+  switch (n) {  // the n the port runs: the UR5+SIH's 17 dofs
+    case 17:
+      spd_inverse_kernel<17><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -129,7 +129,7 @@ def library() -> ctypes.CDLL:
             ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, cf, ci, vp,
         ]
         lib.contact_sweep_f32.restype = ci
-        lib.sdf_gather_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.sdf_gather_f32.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.sdf_gather_f32.restype = ci
         lib.prep_deff_f32.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
         lib.prep_deff_f32.restype = ci

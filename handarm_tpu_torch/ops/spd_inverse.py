@@ -2,10 +2,12 @@
 
 Counterpart of handarm_tpu/ops/spd_inverse.py (`spd_inverse`, the Pallas
 `_chol_inv_kernel` plus the caller-side W^T W). On CUDA tensors the
-hand-written kernel in csrc/spd_inverse.cu runs: Cholesky with the same
-rsqrt(max(s, 1e-12)) pivot floor, W = L^-1, and Minv = W^T W, all in one
-launch. On CPU tensors the plain version runs: a Cholesky factorization and
-two triangular solves, as the JAX package does off the TPU.
+hand-written kernel in csrc/spd_inverse.cu runs: one thread per matrix,
+the unrolled Cholesky with the same rsqrt(max(s, 1e-12)) pivot floor,
+W = L^-1, and Minv = W^T W, all in one launch, compiled for the n in
+`KERNEL_N` only. On CPU tensors the plain version runs: a Cholesky
+factorization and two triangular solves, as the JAX package does off the
+TPU.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 from handarm_tpu_torch.ops import build
 
 launches = 0  # kernel launches since the last reset (CUDA path only)
+KERNEL_N = (17,)  # matrix sizes the kernel is instantiated for (the UR5+SIH)
 
 
 def spd_inverse_plain(M: torch.Tensor) -> torch.Tensor:
@@ -38,10 +41,11 @@ def spd_inverse_cuda(M: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"spd_inverse_cuda needs a CUDA tensor, got {M.device}")
     if M.dtype != torch.float32:
         raise TypeError(f"spd_inverse_cuda takes float32, got {M.dtype}")
-    if M.ndim != 3 or M.shape[1] != M.shape[2] or not 1 <= M.shape[1] <= 32:
-        raise ValueError(f"spd_inverse_cuda takes [B, n, n] with n <= 32, got {tuple(M.shape)}")
-    if not M.is_contiguous():
-        raise ValueError("spd_inverse_cuda takes a contiguous tensor")
+    if M.ndim != 3 or M.shape[1] != M.shape[2] or M.shape[1] not in KERNEL_N:
+        raise ValueError(f"spd_inverse_cuda takes [B, n, n] with n in {KERNEL_N} (the "
+                         f"kernel's instantiations), got {tuple(M.shape)}")
+    if not M.is_contiguous() or M.data_ptr() % 16:
+        raise ValueError("spd_inverse_cuda takes a contiguous, 16-byte aligned tensor")
     B, n, _ = M.shape
     out = torch.empty_like(M)
     if B == 0:

@@ -6,6 +6,12 @@ Every potential contact pair owns a static slot; a step only fills
 robot spheres: object points vs table [K*P], spheres vs table [S], spheres
 vs object SDFs [S*K], object-pair points [K*(K-1)*Q], then with walls:
 object points vs nearest wall [K*P] and spheres vs nearest wall [S].
+
+The two object-SDF blocks (spheres vs objects, object-pair points) are
+one row of L = S*K + K*(K-1)*Q queries per env, described once per scene
+by `ObjectQueries`: one gather brings every query's world point into its
+object's frame, and one `objects_sdf` pass (a single sdf_gather launch
+for the mesh objects) samples them all.
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import numpy as np
 import torch
 
 from handarm_tpu_torch.math.quat import quat_rotate, quat_rotate_inv
-from handarm_tpu_torch.physics.shapes import ObjectShapes, object_sdf
+from handarm_tpu_torch.physics.shapes import ObjectShapes, SdfQueries, objects_sdf, sdf_queries
 
 
 @dataclass
@@ -43,12 +49,24 @@ class RobotSpheres:
     friction: np.ndarray  # [S]
 
 
+class ObjectQueries(NamedTuple):
+    """The object-SDF slots in slot order: query j takes row src[j] of
+    [sphere centres S | object points K*Q] and samples object sdf.obj[j]."""
+
+    src: torch.Tensor  # [L] int64
+    radius: torch.Tensor  # [L] the sphere's or the object point's radius
+    valid: torch.Tensor  # [L] bool: false on padded object points
+    pair_points: int  # Q
+    sdf: SdfQueries
+
+
 class ContactSlots(NamedTuple):
     robot_body: np.ndarray  # [C] moving-body index or -1
     obj_a: np.ndarray  # [C] object receiving +normal impulse, or -1
     obj_b: np.ndarray  # [C] object receiving -normal impulse, or -1
     friction: np.ndarray  # [C]
     num_slots: int
+    queries: ObjectQueries
 
 
 class Contacts(NamedTuple):
@@ -78,22 +96,35 @@ def make_contact_slots(shapes: ObjectShapes, spheres: RobotSpheres,
         add(-1, k, -1, np.sqrt(fr_obj[k] * static_friction), P)
     for s in range(S):
         add(int(spheres.body[s]), -1, -1, np.sqrt(fr_sph[s] * static_friction))
+    src, obj = [], []
     for s in range(S):
         for k in range(K):
             add(int(spheres.body[s]), -1, k, np.sqrt(fr_sph[s] * fr_obj[k]))
+            src.append(s)
+            obj.append(k)
     for ka in range(K):
         for kb in range(K):
             if ka != kb:
                 add(-1, ka, kb, np.sqrt(fr_obj[ka] * fr_obj[kb]), Q)
+                src.extend(S + ka * Q + np.arange(Q))
+                obj.extend([kb] * Q)
     if num_walls > 0:
         for k in range(K):
             add(-1, k, -1, np.sqrt(fr_obj[k] * static_friction), P)
         for s in range(S):
             add(int(spheres.body[s]), -1, -1, np.sqrt(fr_sph[s] * static_friction))
+    src_t = torch.as_tensor(np.array(src, dtype=np.int64), device=shapes.points.device)
+    ones = torch.ones(S, dtype=torch.bool, device=src_t.device)
+    queries = ObjectQueries(
+        src=src_t,
+        radius=torch.cat([spheres.radius, shapes.point_radius[:, :Q].reshape(-1)])[src_t],
+        valid=torch.cat([ones, shapes.point_mask[:, :Q].reshape(-1) > 0])[src_t],
+        pair_points=Q, sdf=sdf_queries(shapes, obj),
+    )
     return ContactSlots(
         robot_body=np.array(rb, dtype=np.int32), obj_a=np.array(oa, dtype=np.int32),
         obj_b=np.array(ob, dtype=np.int32), friction=np.array(fr, dtype=np.float32),
-        num_slots=len(fr),
+        num_slots=len(fr), queries=queries,
     )
 
 
@@ -146,11 +177,11 @@ def _wall_surface(geom: StaticGeom, p: torch.Tensor):
 
 def generate_contacts(slots: ContactSlots, shapes: ObjectShapes,
                       spheres: RobotSpheres, geom: StaticGeom, obj_pos, obj_quat,
-                      body_quat, body_pos, obj_pair_points: int = 8) -> Contacts:
+                      body_quat, body_pos) -> Contacts:
     B, K, _ = obj_pos.shape
     P = shapes.points_per_object
     S = spheres.body.shape[0]
-    Q = min(obj_pair_points, P)
+    qr = slots.queries
     normals, poss, depths = [], [], []
     big = torch.full((), 1e6, dtype=obj_pos.dtype, device=obj_pos.device)
 
@@ -172,32 +203,19 @@ def generate_contacts(slots: ContactSlots, shapes: ObjectShapes,
     poss.append(centers - n_s * dist_s[..., None])
     depths.append(spheres.radius[None] - dist_s)
 
-    per_n, per_d, per_p = [], [], []
-    for k in range(K):
-        qk = obj_quat[:, k:k + 1, :].expand(B, S, 4)
-        c_body = quat_rotate_inv(qk, centers - obj_pos[:, k:k + 1, :])
-        d_k, g_k = object_sdf(shapes, k, c_body)
-        n_w = quat_rotate(qk, g_k)
-        per_n.append(n_w)
-        per_d.append(spheres.radius[None] - d_k)
-        per_p.append(centers - n_w * d_k[..., None])
-    normals.append(torch.stack(per_n, 2).reshape(B, S * K, 3))
-    depths.append(torch.stack(per_d, 2).reshape(B, S * K))
-    poss.append(torch.stack(per_p, 2).reshape(B, S * K, 3))
-
-    for ka in range(K):
-        for kb in range(K):
-            if ka == kb:
-                continue
-            pts_a = pts_w[:, ka, :Q]
-            qb = obj_quat[:, kb:kb + 1, :].expand(B, Q, 4)
-            d_ab, g_ab = object_sdf(
-                shapes, kb, quat_rotate_inv(qb, pts_a - obj_pos[:, kb:kb + 1, :])
-            )
-            d_ab = torch.where(shapes.point_mask[ka, :Q][None] > 0, d_ab, big)
-            normals.append(quat_rotate(qb, g_ab))
-            poss.append(pts_a)
-            depths.append(shapes.point_radius[ka, :Q][None] - d_ab)
+    # spheres vs objects [S*K] and object-pair points [K*(K-1)*Q], in slot
+    # order: every query in its object's frame, one objects_sdf pass
+    Q, obj = qr.pair_points, qr.sdf.obj
+    src = torch.cat([centers, pts_w[:, :, :Q].reshape(B, K * Q, 3)], 1)[:, qr.src]
+    q_obj = obj_quat[:, obj]
+    d, g = objects_sdf(shapes, qr.sdf, quat_rotate_inv(q_obj, src - obj_pos[:, obj]))
+    n_w = quat_rotate(q_obj, g)
+    d = torch.where(qr.valid, d, big)
+    SK = S * K
+    normals.append(n_w)
+    poss.append(src[:, :SK] - n_w[:, :SK] * d[:, :SK, None])
+    poss.append(src[:, SK:])
+    depths.append(qr.radius - d)
 
     if geom.num_walls > 0:
         dist_w, n_w = _wall_surface(geom, pts_w)

@@ -6,11 +6,17 @@ A mesh-SDF object's field [R, R, R, 4] holds the baked distance and its
 unit gradient, so one trilinear gather (ops/sdf_gather.py: a CUDA kernel
 on the card) gives both. The JAX package's bf16 hi/lo tables for its
 one-hot-matmul TPU kernel are not built here.
+
+`objects_sdf` evaluates a fixed row of queries per env, each against its
+own object, in one pass: every mesh-SDF query of the row goes to one
+sdf_gather launch, driven by the static table `sdf_queries` builds once
+per scene; box and sphere queries take their analytic branch.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -163,18 +169,55 @@ def sdf_sphere(p: torch.Tensor, radius):
     return d - radius, p / torch.clamp(d[..., None], min=1e-9)
 
 
-def object_sdf(shapes: ObjectShapes, k: int, p_body: torch.Tensor):
-    kind = int(shapes.kind[k])
-    if kind == BOX:
-        return sdf_box(p_body, shapes.size[k])
-    if kind == SPHERE:
-        return sdf_sphere(p_body, shapes.size[k, 0])
-    if kind == MESH_SDF:
-        out = sdf_op.sdf_sample(shapes.sdf_field[k], shapes.sdf_lo[k],
-                                shapes.sdf_spacing[k:k + 1],
-                                p_body.reshape(-1, 3).contiguous())
-        out = out.reshape(p_body.shape[:-1] + (4,))
-        g = out[..., 1:4]
-        g = g * torch.rsqrt(torch.sum(g * g, dim=-1, keepdim=True) + 1e-18)
-        return out[..., 0], g
-    raise NotImplementedError(f"shape kind {kind}")
+class SdfQueries(NamedTuple):
+    """A fixed row of L object-SDF queries per env, static per scene."""
+
+    obj: torch.Tensor  # [L] int64: the object query j samples
+    size: torch.Tensor  # [L, 3] that object's size row (the analytic kinds)
+    kinds: tuple  # (kind, [L] bool mask, or None where all queries are of it)
+    # [Lq, 2] int32 (position j in the row, object) of the mesh-SDF queries,
+    # grouped by object: the sdf_gather kernel's thread order; None if none
+    table: torch.Tensor | None
+
+
+def sdf_queries(shapes: ObjectShapes, obj) -> SdfQueries:
+    """The table of a row of queries whose j-th samples object obj[j]."""
+    obj = np.asarray(obj, dtype=np.int64)
+    if obj.size and not (obj.min() >= 0 and obj.max() < shapes.num_objects):
+        raise ValueError("sdf_queries: object index out of range")
+    dev = shapes.size.device
+    kind_q = shapes.kind[obj]
+    kinds = []
+    for kind in sorted(set(kind_q.tolist())):
+        sel = kind_q == kind
+        kinds.append((int(kind), None if sel.all() else torch.as_tensor(sel, device=dev)))
+    mesh = kind_q == MESH_SDF
+    table = None
+    if mesh.any():
+        rows = [(j, k) for k in range(shapes.num_objects)
+                for j in np.flatnonzero(mesh & (obj == k))]
+        table = torch.as_tensor(np.array(rows, dtype=np.int32), device=dev)
+    obj_t = torch.as_tensor(obj, device=dev)
+    return SdfQueries(obj=obj_t, size=shapes.size[obj_t], kinds=tuple(kinds), table=table)
+
+
+def objects_sdf(shapes: ObjectShapes, queries: SdfQueries, p_body: torch.Tensor):
+    """Distance [B, L] and unit outward gradient [B, L, 3] at body-frame
+    points p_body [B, L, 3], query j against object queries.obj[j]."""
+    d = g = None
+    for kind, sel in queries.kinds:
+        if kind == BOX:
+            dk, gk = sdf_box(p_body, queries.size)
+        elif kind == SPHERE:
+            dk, gk = sdf_sphere(p_body, queries.size[:, 0])
+        else:  # MESH_SDF: one kernel launch samples every mesh query
+            out = sdf_op.sdf_sample(shapes.sdf_field, shapes.sdf_lo, shapes.sdf_spacing,
+                                    p_body, queries.table)
+            dk, gk = out[..., 0], out[..., 1:4]
+            gk = gk * torch.rsqrt(torch.sum(gk * gk, dim=-1, keepdim=True) + 1e-18)
+        if d is None:
+            d, g = dk, gk
+        else:
+            d = torch.where(sel, dk, d)
+            g = torch.where(sel[..., None], gk, g)
+    return d, g

@@ -84,12 +84,20 @@ def test_sdf_plain_matches_jax(records, k):
     field, lo, sp = shapes.sdf_field[k], shapes.sdf_lo[k], shapes.sdf_spacing[k]
     want = _jax_sample_with_excess(field, lo, sp, p)
     t = lambda x: torch.tensor(np.asarray(x))
-    got = tsdf.sdf_sample(t(field), t(lo), t(sp).reshape(1), torch.as_tensor(p)).numpy()
+    got = _sample_one(t(field), t(lo), t(sp), torch.as_tensor(p)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
     assert got[:, 0].max() > 0.01 and got[:, 0].min() < 0.0  # outside and inside
     pal = np.asarray(sdf_sample_pallas(shapes.sdf_table_hi[k], shapes.sdf_table_lo[k], lo, sp,
                                        jnp.asarray(p), R=R, interpret=True))
     np.testing.assert_allclose(got[:, 0], pal[:, 0], atol=1e-3)
+
+
+def _sample_one(field, lo, sp, p):
+    """The port's sampler (the plain version on the CPU) on one object's
+    field: a row of N queries, all of object 0."""
+    table = torch.stack([torch.arange(p.shape[0], dtype=torch.int32),
+                         torch.zeros(p.shape[0], dtype=torch.int32)], 1)
+    return tsdf.sdf_sample(field[None], lo[None], sp.reshape(1), p[None], table)[0]
 
 
 def _jax_sample_with_excess(field, lo, sp, p):
@@ -116,8 +124,8 @@ def test_sdf_plain_matches_pallas_on_its_test_field():
     p = np.asarray(rng.uniform(-0.09, 0.09, size=(7, 513, 3)), np.float32).reshape(-1, 3)
     pal = np.asarray(sdf_sample_pallas(jnp.asarray(hi), jnp.asarray(lo_t), lo, spacing,
                                        jnp.asarray(p), R=R, interpret=True))
-    got = tsdf.sdf_sample(torch.as_tensor(field), torch.tensor(np.asarray(lo, np.float32)),
-                          torch.tensor([0.004], dtype=torch.float32), torch.as_tensor(p)).numpy()
+    got = _sample_one(torch.as_tensor(field), torch.tensor(np.asarray(lo, np.float32)),
+                      torch.tensor(0.004, dtype=torch.float32), torch.as_tensor(p)).numpy()
     np.testing.assert_allclose(got, pal, atol=2e-3)
     np.testing.assert_allclose(got[:, 0], pal[:, 0], atol=1e-3)
     np.testing.assert_allclose(got, _jax_sample_with_excess(field, lo, spacing, p), atol=1e-5)
@@ -125,8 +133,9 @@ def test_sdf_plain_matches_pallas_on_its_test_field():
 
 def test_stack_objects_and_object_sdf_match(records):
     """stack_objects of the three records gives the JAX package's fields,
-    grid corners, spacings, OBB poses and point sets; object_sdf (sample +
-    gradient normalization) agrees within 1e-5."""
+    grid corners, spacings, OBB poses and point sets; the port's
+    objects_sdf (sample + gradient normalization) on a row of queries of one
+    object agrees with its object_sdf within 1e-5."""
     js = jsh.stack_objects(records)
     ts = tsh.stack_objects(records)
     for name in ("sdf_field", "sdf_lo", "sdf_spacing", "obb_pos", "obb_quat", "size",
@@ -138,9 +147,9 @@ def test_stack_objects_and_object_sdf_match(records):
     for k in range(3):
         p = _query_points(records[k], 64, seed=10 + k)
         dj, gj = jsh.object_sdf(js, k, jnp.asarray(p))
-        dt, gt = tsh.object_sdf(ts, k, torch.as_tensor(p))
-        np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
-        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=1e-5)
+        dt, gt = tsh.objects_sdf(ts, tsh.sdf_queries(ts, [k] * len(p)), torch.as_tensor(p)[None])
+        np.testing.assert_allclose(dt[0].numpy(), np.asarray(dj), atol=1e-5)
+        np.testing.assert_allclose(gt[0].numpy(), np.asarray(gj), atol=1e-5)
 
 
 def _deff_inputs(B, C, nv, seed):
