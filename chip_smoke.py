@@ -51,10 +51,43 @@ Phases, each with a deadline and one flushed progress line:
                state of 16 envs of that rollout whose last solve pushed on
                robot-object and object-pair slots; the compared state must
                have active slots of both kinds.
+  9. train     Ur5SihLift PPO at 8192 envs (horizon 16, minibatch 8192: 16
+               minibatches x 4 mini-epochs, the 768-512-256 MLP), from
+               ckpt_5200's params, Adam state, stats, lr and epoch read by
+               the port's own loader, on a fresh reset: one warm-up
+               train_iter, 3 iterations timed as rollout and update (each
+               part between torch.cuda.synchronize calls), then one
+               untimed iteration whose steps are kept. Counters are zeroed
+               before each iteration and read after it: spd_inverse 16,
+               contact_sweep 96, prep_deff 0, sdf_gather 0. Params and Adam
+               moments must stay finite, Adam's count rise by 64 per
+               iteration less the non-finite skips, the params move. The
+               kept iteration against the CPU: each of its 64 minibatch
+               steps rerun there from the card's inputs (loss terms and KL
+               at every step, the first step's gradients, the optimizer
+               step at every step: `compare_steps`); its prepared samples
+               and stats, and its first minibatch's gather, against the
+               CPU's from the same learner and trajectory
+               (`compare_prepared`); and its first 4 minibatch steps,
+               chained on each side, against the CPU's: params, Adam
+               moments, counters and lr (`compare_prefix`). Then the user's
+               entry point,
+               `python -m handarm_tpu_torch.train` resumed from ckpt_5200
+               for 2 iterations, must write its checkpoint (launches 32 and
+               192).
+ 10. eval      handarm_tpu_torch.eval_policy for ckpt_5200 on Ur5SihLift at
+               8192 envs: a zero-action step, a burn-in of 200 steps, 200
+               counted steps (spd_inverse 401 launches, contact_sweep
+               2,406); at least 3,000 episodes, every state leaf finite.
+ 11. reach     Ur5SihReach from a flax-default init at its preset size (64
+               envs), 20 train iterations; reward_mean per iteration;
+               every param and stat finite; spd_inverse 16 and
+               contact_sweep 96 launches per iteration.
 The line before the last is a JSON object naming every kernel with its
-numbers (the multi-object path's; the lift path's under "lift"); the last
-line is {"ok": true, "device": {...}}. Any fault prints a traceback and
-exits non-zero; without CUDA it exits 2 before any result.
+numbers (the multi-object path's; the lift path's under "lift"), with the
+training phases' numbers under "train" and the evaluation's under "eval";
+the last line is {"ok": true, "device": {...}}. Any fault prints a
+traceback and exits non-zero; without CUDA it exits 2 before any result.
 """
 
 from __future__ import annotations
@@ -74,14 +107,20 @@ import traceback
 TOTAL_DEADLINE_S = 1100
 PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "cpu-ref": 240, "multiobj": 480, "multiobj-kernels": 240,
-                    "multiobj-ref": 300}
+                    "multiobj-ref": 300, "train": 420, "eval": 300, "reach": 300}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
 MULTI_TASK = "Ur5SihMultiObjectManipulation"
 MULTI_STEPS = 20  # multi-object control steps after genesis and reset
+TRAIN_ITERS = 3  # timed lift train iterations, after one warm-up iteration
+ENTRY_ITERS = 2  # iterations of the train entry point, resumed from ckpt_5200
+EVAL_STEPS = 200  # counted eval steps, after a burn-in of one episode (200)
+REACH_ITERS = 20
+PREFIX_STEPS = 4  # chained minibatch steps of the kept update rerun on the CPU
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
+FLOAT32_EPS = 2.0 ** -23  # one ulp of a float32 in [1, 2)
 SDF_FLOPS_PER_POINT = 112  # 6 for u, 18 for the excess, 7 lerps x 4 channels x 3, 3 weights, 1
 
 
@@ -581,6 +620,423 @@ def pick_contact_envs(slots, state, obs, n: int, tag: str):
     return tree_map(take, state), take(obs)
 
 
+def learner_cpu(ts):
+    """The learner part of a TrainState (params, optimizer state, stats, lr,
+    epoch) on the CPU; no env state or observations."""
+    return to_cpu(ts._replace(env_state=None, last_obs=None))
+
+
+def learner_tensors(ts) -> dict:
+    """name -> tensor of every float leaf of the learner."""
+    out = {f"param {k}": v for k, v in ts.params.items()}
+    out.update({f"adam mu {k}": v for k, v in ts.opt_state.mu.items()})
+    out.update({f"adam nu {k}": v for k, v in ts.opt_state.nu.items()})
+    for tag, st in (("obs", ts.obs_stats), ("value", ts.value_stats)):
+        out.update({f"{tag} stats {f}": x for f, x in zip(st._fields, st)})
+    return out
+
+
+class StepRecorder:
+    """While active, keeps the inputs and outputs of `ppo`'s sample
+    preparation (`PPO._prepare`) and of every minibatch step: its gradients
+    (`PPO._grads`) and its optimizer step (`PPO._apply`)."""
+
+    def __init__(self, ppo):
+        self.ppo, self.prepares, self.grads, self.applies = ppo, [], [], []
+
+    def __enter__(self):
+        def recording(fn, calls):
+            def wrapped(*args):
+                out = fn(*args)
+                calls.append((args, out))
+                return out
+            return wrapped
+
+        self.ppo._prepare = recording(self.ppo._prepare, self.prepares)
+        self.ppo._grads = recording(self.ppo._grads, self.grads)
+        self.ppo._apply = recording(self.ppo._apply, self.applies)
+        return self
+
+    def __exit__(self, *exc):
+        del self.ppo._prepare, self.ppo._grads, self.ppo._apply
+
+    @property
+    def kls(self) -> list:
+        import torch
+
+        return torch.stack([aux["kl"] for _, (_, aux) in self.grads]).tolist()
+
+
+def to_cpu(x):
+    """Tensors of nested tuples, NamedTuples and dicts, on the CPU."""
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [to_cpu(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def same_lr(a: float, b: float, kls, kl_threshold, tag: str) -> None:
+    """Equal within 1e-6 relative, unless a KL (printed) lies within 1e-6
+    relative of a branch threshold."""
+    from handarm_tpu_torch.update_precision import kl_margin
+
+    if abs(a - b) > 1e-6 * abs(b):
+        log(f"{tag}: lr {a:.9e} vs {b:.9e}; KLs {kls}")
+        if kl_margin(kls, kl_threshold) >= 1e-6:
+            raise AssertionError(f"{tag}: the lr differs with no KL at a threshold")
+
+
+def compare_steps(ppo, rec_card, kl_threshold) -> dict:
+    """Each of the card's minibatch steps rerun on the CPU from the card's
+    inputs: the same functions of the same inputs.
+    - The loss terms and the KL from the card's params, stats and minibatch,
+      at every step: within 1e-4 relative plus 1e-6 absolute (float32 means
+      of 8192 per-sample terms of order 1 in another order: the normalized
+      advantages have unit spread, and the policy loss, a mean near 0,
+      keeps the rounding of its O(1) terms).
+    - The gradients of the first step, where every sample's ratio is 1 up
+      to rounding, far from the clip edges: each tensor within 1e-4 of its
+      largest value (each side is within 6.5e-6 of float64 on the CPU).
+      Later steps' gradients are reported, not held: a sample whose ratio
+      or value sits within rounding of a clip edge switches its term on one
+      side and not the other (on an H100, up to 2-3e-2 of a tensor's
+      largest gradient at later steps).
+    - The optimizer step from the card's params, Adam state, lr and
+      gradients, at every step (elementwise float32 arithmetic, the one
+      global norm a sum in another order): params within 2 float32 ulps of
+      each tensor's largest value, Adam's mu and nu within 1e-5 of theirs,
+      the optax counters equal, the lr by `same_lr`."""
+    # held checks: the largest fraction of its tolerance used; later
+    # gradients: the largest difference relative to the tensor's scale
+    worst = {k: 0.0 for k in ("loss terms", "first-step grad", "param", "adam mu",
+                              "adam nu", "later grad")}
+
+    def check(kind, got, want, tol, k, name, atol=0.0):
+        err, scale = max_err(got, want.cpu())
+        if tol is None:
+            worst[kind] = max(worst[kind], err / max(scale, 1e-30))
+            return
+        allowed = tol * scale + atol
+        worst[kind] = max(worst[kind], err / allowed if allowed else float(err > 0))
+        if not err <= allowed:
+            raise AssertionError(f"step {k}: card and CPU differ on {kind} {name}: {err:.3e} "
+                                 f"at scale {scale:.3e}")
+
+    for k, (args, (grads, aux)) in enumerate(rec_card.grads):
+        c_grads, c_aux = ppo._grads(*to_cpu(args))
+        for name in aux:
+            check("loss terms", c_aux[name], aux[name], 1e-4, k, name, atol=1e-6)
+        for name, g in grads.items():
+            if k == 0:
+                check("first-step grad", c_grads[name], g, 1e-4, k, name)
+            else:
+                check("later grad", c_grads[name], g, None, k, name)
+    for k, (args, (params, opt, lr)) in enumerate(rec_card.applies):
+        c_params, c_opt, c_lr = ppo._apply(*to_cpu(args))
+        for name, p in params.items():
+            check("param", c_params[name], p, 2 * FLOAT32_EPS, k, name)
+        for kind, card_m, cpu_m in (("adam mu", opt.mu, c_opt.mu), ("adam nu", opt.nu, c_opt.nu)):
+            for name, m in card_m.items():
+                check(kind, cpu_m[name], m, 1e-5, k, name)
+        for a, b in zip(opt[:4], c_opt[:4]):
+            if not bool((a.cpu() == b).all()):
+                raise AssertionError(f"step {k}: card and CPU optax counters differ")
+        same_lr(float(lr), float(c_lr), [float(args[4])], kl_threshold, f"step {k}")
+    log(f"train card-vs-cpu, step by step ({len(rec_card.grads)} minibatch steps, each rerun "
+        f"on the CPU from the card's inputs): largest fraction of each tolerance used "
+        f"{({k: round(v, 5) for k, v in worst.items() if k != 'later grad'})}; later steps' "
+        f"gradients up to {worst['later grad']:.3e} of scale (not held)")
+    return worst
+
+
+def compare_prepared(card, cpu, old, card_mb, cpu_mb) -> dict:
+    """The card's samples of the update (GAE, the normalized advantages,
+    returns and values, flattened env-major) and updated stats against the
+    CPU's, from the same learner and trajectory; and the card's first
+    minibatch (its `index_select` gather) against the CPU's gather of the
+    same indices.
+    - The rollout's own fields (obs, action, logp, mu, sigma) bit-identical:
+      both sides flatten and gather the same numbers.
+    - adv, return_n and value_n within 1e-5 of each tensor's largest value
+      (float32 against float64 on the CPU: 1.2e-6).
+    - The stats within 4 float32 ulps of each tensor's largest value plus
+      1e-3 of its largest change in this update (float32 against float64:
+      0.8 ulp; at a count of 6.8e8 a batch moves them by ~1e-5, so the
+      ulps bound a batch term wrong by a few percent), the counts equal."""
+    import torch
+
+    card_data, card_obs, card_value = card
+    cpu_data, cpu_obs, cpu_value = cpu
+    worst = {"samples": 0.0, "first minibatch": 0.0, "stats": 0.0}
+
+    def samples(kind, got, want):
+        for name, w in want.items():
+            g = got[name].cpu()
+            if name in ("adv", "return_n", "value_n"):
+                err, scale = max_err(g, w)
+                worst[kind] = max(worst[kind], err / (1e-5 * scale))
+                if not err <= 1e-5 * scale:
+                    raise AssertionError(f"card and CPU differ on {name} of the {kind}: "
+                                         f"{err:.3e} at scale {scale:.3e}")
+            elif not torch.equal(g, w):
+                raise AssertionError(f"the card's {kind} {name} is not the CPU's")
+
+    samples("samples", card_data, cpu_data)
+    samples("first minibatch", card_mb, cpu_mb)
+    for tag, got, want, before in (("obs", card_obs, cpu_obs, old.obs_stats),
+                                   ("value", card_value, cpu_value, old.value_stats)):
+        for field, g, w, b in zip(want._fields, got, want, before):
+            g, b = g.cpu(), b.cpu()
+            if field == "count":
+                if not torch.equal(g, w):
+                    raise AssertionError(f"card and CPU {tag} stats counts differ")
+                continue
+            err, scale = max_err(g, w)
+            allowed = 4 * FLOAT32_EPS * scale + 1e-3 * float((w - b).abs().max())
+            worst["stats"] = max(worst["stats"], err / allowed)
+            if not err <= allowed:
+                raise AssertionError(f"card and CPU differ on {tag} stats {field}: "
+                                     f"{err:.3e}, allowed {allowed:.3e}")
+    log(f"train card-vs-cpu, prepared samples ({cpu_data['adv'].shape[0]}) and stats from the "
+        f"same learner and trajectory: largest fraction of each tolerance used "
+        f"{({k: round(v, 5) for k, v in worst.items()})}")
+    return worst
+
+
+def compare_prefix(card, cpu, kls_card, kls_cpu, kl_threshold) -> dict:
+    """The card's update after its first PREFIX_STEPS minibatch steps
+    against the CPU's, each chained on its own side from the same learner
+    and its own prepared samples. Params within 1e-6 of each tensor's
+    largest value, Adam's mu and nu within 1e-5 of theirs (float32 against
+    float64 on the CPU, 4 steps of 8192 samples: 1.1e-7, 1.5e-6, 2.0e-7),
+    the optax counters equal; the lr equal unless a KL of either side lies
+    within 1e-6 relative of a branch threshold (printed). Further on, the
+    clip edges and the lr branches make two correct updates part (PERF.md
+    §6, PR 8); the steps there are held one by one (`compare_steps`)."""
+    import torch
+
+    from handarm_tpu_torch.update_precision import kl_margin
+
+    (params, opt, lr), (c_params, c_opt, c_lr) = card, cpu
+    worst, worst_at = {"param": 0.0, "adam mu": 0.0, "adam nu": 0.0}, {}
+    for kind, got, want, tol in (("param", params, c_params, 1e-6),
+                                 ("adam mu", opt.mu, c_opt.mu, 1e-5),
+                                 ("adam nu", opt.nu, c_opt.nu, 1e-5)):
+        for name, w in want.items():
+            err, scale = max_err(got[name].cpu(), w)
+            if err / (tol * scale) >= worst[kind]:
+                worst[kind], worst_at[kind] = err / (tol * scale), name
+            if not err <= tol * scale:
+                raise AssertionError(f"after {PREFIX_STEPS} steps card and CPU differ on "
+                                     f"{kind} {name}: {err:.3e} at scale {scale:.3e}")
+    for a, b in zip(opt[:4], c_opt[:4]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"after {PREFIX_STEPS} steps the optax counters differ")
+    margin = kl_margin(kls_card + kls_cpu, kl_threshold)
+    lrs = dict(card=float(lr), cpu=float(c_lr))
+    log(f"train card-vs-cpu, the first {PREFIX_STEPS} minibatch steps chained on each side: "
+        f"largest fraction of each tolerance used {({k: round(v, 5) for k, v in worst.items()})}"
+        f" (at {worst_at}); lr {lrs}; KLs card {kls_card}, CPU {kls_cpu}; smallest relative "
+        f"margin to a threshold {margin:.3e}")
+    if lrs["card"] != lrs["cpu"] and margin >= 1e-6:
+        raise AssertionError(f"after {PREFIX_STEPS} steps the lr differs with no KL at a "
+                             "threshold")
+    return dict(worst, lr=lrs, kl_min_margin=margin)
+
+
+def check_learner(ts, tag: str) -> None:
+    import torch
+
+    for name, x in learner_tensors(ts).items():
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{tag}: non-finite {name}")
+
+
+def check_launches(counts: dict, per: dict, n: int, tag: str) -> None:
+    want = {k: v * n for k, v in per.items()}
+    if counts != want:
+        raise AssertionError(f"{tag} launches {counts}, expected {want}")
+
+
+def train_phase(rollout, dev) -> dict:
+    """Phase 9 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.envs.tasks import make_env, ppo_overrides
+    from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
+    from handarm_tpu_torch.utils.checkpoint import (load_train_state, read_leaves,
+                                                    wait_for_pending_saves)
+
+    ckpt = rollout.TASK_CKPTS["Ur5SihLift"]
+    per_iter = {"spd_inverse": 16, "contact_sweep": 96, "prep_deff": 0, "sdf_gather": 0}
+    env = make_env("Ur5SihLift", device=dev, num_envs=ENVS)
+    cfg = PPOConfig(**ppo_overrides("Ur5SihLift"))
+    ppo = PPO(env, cfg)
+    fresh = ppo.init(0)
+    ts = start = load_train_state(ckpt, dev, fresh.env_state, fresh.last_obs)
+    n = ENVS * cfg.horizon
+    log(f"train: Ur5SihLift {ENVS} envs, horizon {cfg.horizon}, {ppo.num_minibatches} "
+        f"minibatches of {ppo.mb_size} x {cfg.mini_epochs} mini-epochs, hidden {cfg.hidden}; "
+        f"from {os.path.relpath(ckpt)} (epoch {int(ts.epoch)}, Adam count "
+        f"{int(ts.opt_state.count)}, lr {float(ts.lr):.4e})")
+    rollout.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, _ = ppo.train_iter(ts)
+    torch.cuda.synchronize()
+    log(f"train: warm-up iteration {time.perf_counter() - t0:.3f} s")
+    check_launches(rollout.launch_counts(), per_iter, 1, "train warm-up")
+    iters, skips = [], 0
+    for i in range(TRAIN_ITERS + 1):
+        last = i == TRAIN_ITERS  # untimed: its steps are kept for the CPU checks
+        before = ts
+        rollout.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj, env_state, last_obs, info = ppo.rollout(ts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        perms = torch.stack([torch.randperm(n, generator=ppo.gen, device=dev)
+                             for _ in range(cfg.mini_epochs)]) if last else None
+        with StepRecorder(ppo) if last else contextlib.nullcontext() as recorder:
+            ts, stats = ppo._update_from_traj(ts, traj, env_state, last_obs, perms, info)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = rollout.launch_counts()
+        check_launches(counts, per_iter, 1, f"train iteration {i}")
+        skipped = int(ts.opt_state.total_notfinite - before.opt_state.total_notfinite)
+        steps = int(ts.opt_state.count - before.opt_state.count)
+        skips += skipped
+        if steps != ppo.num_minibatches * cfg.mini_epochs - skipped:
+            raise AssertionError(f"Adam count rose by {steps} with {skipped} skips")
+        rec = dict(rollout_s=t1 - t0, update_s=t2 - t1, env_steps_per_s=n / (t2 - t0),
+                   adam_steps=steps, adam_skips=skipped, launches=counts,
+                   **train.drain_stats({k: stats[k] for k in (
+                       "reward_mean", "kl", "lr", "policy_loss", "value_loss",
+                       "kl_guard_triggered", "success_rate_ewma")}))
+        timing = "untimed (kept for the CPU checks)" if last else (
+            f"rollout {rec['rollout_s']:.3f} s, update {rec['update_s']:.3f} s, "
+            f"{rec['env_steps_per_s']:.0f} env-steps/s")
+        log(f"train iteration {i}: {timing}; reward_mean "
+            f"{rec['reward_mean']:.5f} kl {rec['kl']:.5f} lr {rec['lr']:.4e} policy_loss "
+            f"{rec['policy_loss']:.5f} value_loss {rec['value_loss']:.5f} kl_guard "
+            f"{rec['kl_guard_triggered']:.0f} success_rate_ewma {rec['success_rate_ewma']:.4f}; "
+            f"Adam steps {steps} (skipped {skipped}); launches {counts}")
+        check_learner(ts, "train")
+        if last:
+            capture, rec_card = (before, traj, last_obs, perms), recorder
+            captured_iter = rec
+        else:
+            iters.append(rec)
+    moved = max(float((ts.params[k] - start.params[k]).abs().max()) for k in ts.params)
+    if not moved > 0:
+        raise AssertionError("the params did not move in training")
+    log(f"train: max |params - start| after {2 + TRAIN_ITERS} iterations {moved:.4e}; Adam "
+        f"skips {skips}")
+
+    before, traj, last_obs, perms = capture
+    steps = compare_steps(ppo, rec_card, cfg.kl_threshold)
+    learner_c = learner_cpu(before)
+    minibatches = perms.cpu().reshape(-1, ppo.mb_size)
+    t0 = time.perf_counter()
+    with StepRecorder(ppo) as rec_cpu:
+        prepared = ppo._prepare(learner_c, to_cpu(traj), last_obs.cpu())
+        cpu_prefix = ppo._sgd(learner_c, prepared[0], minibatches[:PREFIX_STEPS])
+    cpu_s = time.perf_counter() - t0
+    match = dict(prepared=compare_prepared(
+        rec_card.prepares[0][1], prepared, before, rec_card.grads[0][0][2],
+        {k: v.index_select(0, minibatches[0]) for k, v in prepared[0].items()}))
+    match["prefix"] = compare_prefix(rec_card.applies[PREFIX_STEPS - 1][1], cpu_prefix[:3],
+                                     rec_card.kls[:PREFIX_STEPS], rec_cpu.kls, cfg.kl_threshold)
+    match["step_by_step"] = steps
+    log(f"train: the CPU's preparation and {PREFIX_STEPS} steps took {cpu_s:.1f} s")
+    del capture, before, traj, rec_card, rec_cpu, prepared, cpu_prefix
+
+    # the user's entry point, resumed from the checkpoint (runs/ is ignored by git)
+    exp = "chip_smoke_train"
+    rollout.reset_launch_counts()
+    t0 = time.perf_counter()
+    train.main(["task=Ur5SihLift", f"num_envs={ENVS}", f"resume={ckpt}", f"experiment={exp}",
+                f"max_iterations={int(start.epoch) + ENTRY_ITERS}", "seed=1", f"device={dev}"])
+    wait_for_pending_saves()
+    entry_s = time.perf_counter() - t0
+    check_launches(rollout.launch_counts(), per_iter, ENTRY_ITERS, "train entry point")
+    out = os.path.join("runs", exp, "nn", f"ckpt_{int(start.epoch) + ENTRY_ITERS}.npz")
+    leaves = read_leaves(out)
+    if len(leaves) != 71 or int(leaves[70]) != int(start.epoch) + ENTRY_ITERS:
+        raise AssertionError(f"bad checkpoint from the train entry point: {out}")
+    log(f"train entry point: {ENTRY_ITERS} iterations resumed from ckpt_5200 in "
+        f"{entry_s:.1f} s (env build and reset included), wrote {out}")
+    mean = lambda k: sum(r[k] for r in iters) / len(iters)
+    return dict(task="Ur5SihLift", envs=ENVS, horizon=cfg.horizon,
+                minibatches=ppo.num_minibatches, minibatch_size=ppo.mb_size,
+                mini_epochs=cfg.mini_epochs, iterations=iters,
+                rollout_s=mean("rollout_s"), update_s=mean("update_s"),
+                env_steps_per_s=n * len(iters) / sum(r["rollout_s"] + r["update_s"]
+                                                     for r in iters),
+                captured_iteration=captured_iter, adam_skips=skips, params_moved=moved,
+                card_vs_cpu=match, cpu_check_s=cpu_s,
+                launches_per_iteration=per_iter, entry_point_s=entry_s)
+
+
+def eval_phase(rollout, dev) -> dict:
+    """Phase 10 (see the module docstring)."""
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.eval_policy import evaluate
+
+    rollout.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, state = evaluate(task="Ur5SihLift", envs=ENVS, steps=EVAL_STEPS, device=dev)
+    seconds = time.perf_counter() - t0
+    counts = rollout.launch_counts()
+    steps = 1 + 200 + EVAL_STEPS
+    check_launches(counts, {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0,
+                            "sdf_gather": 0}, steps, "eval")
+    finite_state(tree_map, state, state.physics.robot.q)
+    log(f"eval: {out['policy']} on Ur5SihLift, {ENVS} envs, burn-in 200 + {EVAL_STEPS} steps "
+        f"in {seconds:.1f} s: episodes {out['episodes']}, successes {out['successes']}, "
+        f"success rate {out['success_rate']:.6f}, success_ewma {out['success_ewma']:.6f}; "
+        f"launches {counts}")
+    if out["episodes"] < 3000:
+        raise AssertionError(f"eval counted {out['episodes']} episodes, fewer than 3,000")
+    return dict(out, policy=os.path.relpath(out["policy"]), envs=ENVS, steps=EVAL_STEPS,
+                seconds=seconds, launches=counts)
+
+
+def reach_phase(rollout, dev) -> dict:
+    """Phase 11 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.envs.tasks import make_env, ppo_overrides
+    from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
+
+    env = make_env("Ur5SihReach", device=dev)
+    ppo = PPO(env, PPOConfig(**ppo_overrides("Ur5SihReach")))
+    ts = ppo.init(0)
+    rollout.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = []
+    for _ in range(REACH_ITERS):
+        ts, st = ppo.train_iter(ts)
+        stats.append(st)
+    rewards = [train.drain_stats(st)["reward_mean"] for st in stats]
+    seconds = time.perf_counter() - t0
+    check_launches(rollout.launch_counts(), {"spd_inverse": 16, "contact_sweep": 96,
+                                             "prep_deff": 0, "sdf_gather": 0},
+                   REACH_ITERS, "reach")
+    check_learner(ts, "reach")
+    first, last = sum(rewards[:5]) / 5, sum(rewards[-5:]) / 5
+    log(f"reach: Ur5SihReach {env.cfg.num_envs} envs, {REACH_ITERS} iterations in "
+        f"{seconds:.1f} s; reward_mean per iteration {[round(r, 5) for r in rewards]}; mean "
+        f"of the first 5 {first:.5f}, of the last 5 {last:.5f}")
+    return dict(task="Ur5SihReach", envs=env.cfg.num_envs, iterations=REACH_ITERS,
+                seconds=seconds, reward_mean=rewards, first5=first, last5=last)
+
+
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
 
@@ -768,6 +1224,13 @@ def main() -> int:
                     rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu"), dev,
                     "multiobj-ref", need=("robot-object", "object-pair"))
 
+    with phase("train"):
+        train_rec = train_phase(rollout, dev)
+    with phase("eval"):
+        eval_rec = eval_phase(rollout, dev)
+    with phase("reach"):
+        train_rec["reach"] = reach_phase(rollout, dev)
+
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
                                 "card": smi},
@@ -776,7 +1239,7 @@ def main() -> int:
                                  "objects": K, "genesis_sim_steps": g,
                                  "genesis_seconds": gsec, "card": smi}}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

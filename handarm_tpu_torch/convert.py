@@ -1,14 +1,21 @@
-"""Carry weights and state from the JAX package's numpy leaves to the port.
+"""Carry weights and state between the JAX package's numpy leaves and the
+port, both ways: JAX -> port to read its checkpoints and states, port -> JAX
+to write checkpoints its loader reads.
 
-- flax `Dense` kernels are [in, out]; `nn.Linear` weights are [out, in].
+- flax `Dense` kernels are [in, out]; `nn.Linear` weights are [out, in]. The
+  same holds for Adam's moments of each kernel.
 - PhysicsState / EnvState leaves arrive in JAX's flattening order (NamedTuple
   fields in order, None fields absent): physics (q, qd, targets, object pos,
   quat, linvel, angvel, contact_impulse), control (arm_target, servo_ticks,
   sih_smoothed), task (progress, goal_pos, goal_quat, target_obj,
   goal_reached_before, initial_obj_pos, PRNG key, total_steps), metrics
   (success_ewma, per_object_ewma, total_resets, total_successes,
-  end_success_ewma). The PRNG key is dropped: the port draws from a
-  torch.Generator.
+  end_success_ewma). The PRNG key is dropped on the way in: the port draws
+  from a torch.Generator. On the way out it is written as the JAX file has
+  it, a [2] uint32 key from the seed (`jax.random.PRNGKey(seed)`'s value).
+- A PPO TrainState is 71 leaves (`utils/checkpoint.py` documents them):
+  params, optax state, both running stats, lr, env state, last obs, key,
+  epoch.
 """
 
 from __future__ import annotations
@@ -19,29 +26,24 @@ import numpy as np
 import torch
 
 from handarm_tpu_torch.envs.hand_arm import EnvState, Metrics, TaskState
-from handarm_tpu_torch.learn.networks import ActorCritic
+from handarm_tpu_torch.learn import optim
+from handarm_tpu_torch.learn.networks import ActorCritic, flax_names
+from handarm_tpu_torch.learn.ppo import TrainState
 from handarm_tpu_torch.learn.running_stats import RunningStats
 from handarm_tpu_torch.physics.engine import ObjectState, PhysicsState, RobotState
 from handarm_tpu_torch.robots.ur5sih_adapter import ControlState
 
 N_PHYSICS_LEAVES = 8
 N_ENV_LEAVES = 24
+OPT_SCALARS = (np.int32, np.bool_, np.int32, np.int32)  # optax's, in its order
 
 
 def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
     """Build an ActorCritic from flax params named as in utils.checkpoint."""
-    kernels = [params[f"dense_{i}.kernel"] for i in range(3)]
-    net = ActorCritic(kernels[0].shape[0], params["mu.kernel"].shape[1],
-                      hidden=[k.shape[1] for k in kernels])
-    t = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32)
-    with torch.no_grad():
-        for i, layer in enumerate(net.trunk):
-            layer.weight.copy_(t(params[f"dense_{i}.kernel"]).T)
-            layer.bias.copy_(t(params[f"dense_{i}.bias"]))
-        for name in ("mu", "value"):
-            getattr(net, name).weight.copy_(t(params[f"{name}.kernel"]).T)
-            getattr(net, name).bias.copy_(t(params[f"{name}.bias"]))
-        net.log_std.copy_(t(params["log_std"]))
+    L = _num_hidden(len(params))
+    net = ActorCritic(params["dense_0.kernel"].shape[0], params["mu.kernel"].shape[1],
+                      hidden=[params[f"dense_{i}.kernel"].shape[1] for i in range(L)])
+    net.load_state_dict({t: _to_torch_layout(f, params[f], "cpu") for f, t in flax_names(L)})
     return net.to(device)
 
 
@@ -73,3 +75,91 @@ def env_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> EnvStat
     )
     metrics = Metrics(*(f(x) for x in leaves[19:24]))
     return EnvState(physics, control, task, metrics)
+
+
+def _num_hidden(n_params: int) -> int:
+    return (n_params - 5) // 2  # bias and kernel per layer, mu and value, log_std
+
+
+def _to_torch_layout(name: str, x, device) -> torch.Tensor:
+    t = torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+    return t.T.contiguous() if name.endswith(".kernel") else t
+
+
+def _to_flax_layout(name: str, t: torch.Tensor) -> np.ndarray:
+    x = t.detach().cpu()
+    return np.ascontiguousarray((x.T if name.endswith(".kernel") else x).numpy())
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """`jax.random.PRNGKey(seed)` for a seed below 2^32: [0, seed] uint32."""
+    return np.asarray([0, seed], np.uint32)
+
+
+def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
+                            device="cpu") -> TrainState:
+    """The learner part of a PPO checkpoint's leaves (params, optax state,
+    running stats, lr and epoch) with the given env state and observations."""
+    # P params, 4 optax scalars, 2 P moments, 7 stats and lr, the env
+    # state, last obs, key, epoch
+    P, rest = divmod(len(leaves) - 4 - 7 - N_ENV_LEAVES - 3, 3)
+    if rest or P < 7:
+        raise ValueError(f"{len(leaves)} leaves are not a PPO TrainState")
+    names = flax_names(_num_hidden(P))
+    params = {t: _to_torch_layout(f, leaves[i], device) for i, (f, t) in enumerate(names)}
+    s = torch.tensor(np.asarray(leaves[P]), dtype=torch.int32, device=device)
+    moment = lambda off: {t: _to_torch_layout(f, leaves[off + i], device)
+                          for i, (f, t) in enumerate(names)}
+    opt = optim.OptState(
+        notfinite_count=s, last_finite=torch.tensor(bool(leaves[P + 1]), device=device),
+        total_notfinite=torch.tensor(np.asarray(leaves[P + 2]), dtype=torch.int32,
+                                     device=device),
+        count=torch.tensor(np.asarray(leaves[P + 3]), dtype=torch.int32, device=device),
+        mu=moment(P + 4), nu=moment(P + 4 + P))
+    k = P + 4 + 2 * P  # 37
+    return TrainState(
+        params=params, opt_state=opt,
+        obs_stats=running_stats_from_leaves(*leaves[k:k + 3], device=device),
+        value_stats=running_stats_from_leaves(*leaves[k + 3:k + 6], device=device),
+        lr=torch.tensor(np.asarray(leaves[k + 6]), dtype=torch.float32, device=device),
+        env_state=env_state, last_obs=last_obs,
+        epoch=torch.tensor(np.asarray(leaves[-1]), dtype=torch.int32, device=device),
+    )
+
+
+def env_state_to_leaves(state: EnvState, seed: int = 0) -> list[np.ndarray]:
+    """The 24 EnvState leaves in the JAX package's order and dtypes."""
+    np_ = lambda x: x.detach().cpu().numpy()
+    f = lambda x: np_(x).astype(np.float32)
+    i32 = lambda x: np_(x).astype(np.int32)
+    p, c, t, m = state.physics, state.control, state.task, state.metrics
+    return [
+        f(p.robot.q), f(p.robot.qd), f(p.robot.targets), f(p.objects.pos),
+        f(p.objects.quat), f(p.objects.linvel), f(p.objects.angvel), f(p.contact_impulse),
+        *(f(x) for x in c),
+        i32(t.progress), f(t.goal_pos), f(t.goal_quat), i32(t.target_obj),
+        np_(t.goal_reached_before).astype(np.bool_), f(t.initial_obj_pos), prng_key(seed),
+        i32(t.total_steps),
+        *(f(x) for x in m),
+    ]
+
+
+def learner_to_leaves(ts: TrainState) -> list[np.ndarray]:
+    """Leaves 0-43 of a PPO TrainState (params, optax state, both running
+    stats, lr) in the JAX package's order, layouts and dtypes."""
+    names = flax_names(_num_hidden(len(ts.params)))
+    o = ts.opt_state
+    f = lambda x: x.detach().cpu().numpy().astype(np.float32)
+    leaves = [_to_flax_layout(fn, ts.params[t]) for fn, t in names]
+    leaves += [x.detach().cpu().numpy().astype(dt) for x, dt in zip(o[:4], OPT_SCALARS)]
+    leaves += [_to_flax_layout(fn, o.mu[t]) for fn, t in names]
+    leaves += [_to_flax_layout(fn, o.nu[t]) for fn, t in names]
+    return leaves + [f(x) for x in (*ts.obs_stats, *ts.value_stats, ts.lr)]
+
+
+def train_state_to_leaves(ts: TrainState, seed: int = 0) -> list[np.ndarray]:
+    """The 71 leaves of a PPO TrainState; both PRNG keys are
+    `prng_key(seed)`."""
+    return (learner_to_leaves(ts) + env_state_to_leaves(ts.env_state, seed)
+            + [ts.last_obs.detach().cpu().numpy().astype(np.float32), prng_key(seed),
+               ts.epoch.detach().cpu().numpy().astype(np.int32)])

@@ -235,6 +235,7 @@ def _register_observables(reg: Registry, nv: int, K: int) -> None:
         c, c.target_object_pos, c.target_object_quat, c.state.task.target_obj))
     obs("sih_fingertip_to_target_object_pos", 15, lambda c: (
         c.target_object_pos[:, None, :] - c.fingertips[1]).reshape(c.batch, -1))
+    obs("target_object_pos", 3, lambda c: c.target_object_pos)
     obs("target_object_to_goal_pos", 3,
         lambda c: c.state.task.goal_pos - c.target_object_pos)
 

@@ -1,0 +1,74 @@
+"""Deterministic evaluation of a PPO checkpoint: success rate over the
+episodes completed in a window (counterpart of scripts/eval_policy.py, PPO
+checkpoint mode):
+
+    python -m handarm_tpu_torch.eval_policy [--ckpt PATH] [--task Ur5SihLift]
+        [--envs 1024] [--steps 600] [--seed 123] [--episode-length N] [--device cpu]
+
+The policy's mean action drives the env. One zero-action step, then a
+burn-in of one episode length, after which the env's `total_resets` and
+`total_successes` counters are zeroed, then `--steps` more control steps;
+the rate is total_successes / total_resets over that window. Prints one
+JSON line: task, policy, episodes, successes, success_rate, success_ewma,
+per_object_ewma. Runs on `cuda` unless given `--device cpu`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from handarm_tpu_torch import resolve_device
+from handarm_tpu_torch.rollout import TASK_CKPTS, forward_step, load_policy, make_task_env
+
+
+def evaluate(ckpt: str | None = None, task: str = "Ur5SihLift", envs: int = 1024,
+             steps: int = 600, seed: int = 123, device=None,
+             episode_length: int | None = None):
+    """(the JSON record, the env's final state)."""
+    dev = resolve_device(device)
+    over = {} if episode_length is None else {"episode_length": episode_length}
+    env = make_task_env(task, envs, dev, **over)
+    ckpt = ckpt or TASK_CKPTS[task]
+    policy = load_policy(ckpt, dev)
+    state, _ = env.reset(seed)
+    state, res = env.step(state, torch.zeros(envs, env.num_actions, device=dev))
+    obs = res.obs
+    ep = env.cfg.episode_length
+    for t in range(steps + ep):
+        state, obs, _, _ = forward_step(env, policy, state, obs)
+        if t == ep - 1:  # burn-in done: count only policy-driven episodes
+            zero = torch.zeros_like(state.metrics.total_resets)
+            state = state._replace(metrics=state.metrics._replace(
+                total_resets=zero, total_successes=zero.clone()))
+    m = state.metrics
+    resets, succ, ewma, *per_object = torch.cat(
+        [m.total_resets[None], m.total_successes[None], m.success_ewma[None],
+         m.per_object_ewma]).tolist()
+    return {
+        "task": task, "policy": ckpt, "episodes": int(resets), "successes": int(succ),
+        "success_rate": succ / max(resets, 1.0), "success_ewma": ewma,
+        "per_object_ewma": per_object,
+    }, state
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ckpt", default=None, help="PPO checkpoint .npz (default: the task's)")
+    ap.add_argument("--task", default="Ur5SihLift")
+    ap.add_argument("--envs", type=int, default=1024)
+    ap.add_argument("--steps", type=int, default=600,
+                    help="control steps after the burn-in (600 = 3 episodes of 200)")
+    ap.add_argument("--seed", type=int, default=123)
+    ap.add_argument("--episode-length", type=int, default=None,
+                    help="default: the task's (200)")
+    ap.add_argument("--device", default=None, help="default: cuda")
+    a = ap.parse_args(argv)
+    out, _ = evaluate(a.ckpt, a.task, a.envs, a.steps, a.seed, a.device, a.episode_length)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

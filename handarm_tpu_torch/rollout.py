@@ -74,11 +74,13 @@ def launch_counts() -> dict:
     return {name: op.launches for name, op in KERNEL_OPS.items()}
 
 
-def make_task_env(task: str, envs: int, device, **overrides):
-    """The task's env (keyword overrides replace config fields); a drop-init
-    task's genesis runs here (the pool is built once, before the first
-    reset)."""
-    env = make_env(task, device=device, num_envs=envs, **overrides)
+def make_task_env(task: str, envs: int | None, device, **overrides):
+    """The task's env at `envs` envs (None: the preset's count; keyword
+    overrides replace config fields); a drop-init task's genesis runs here
+    (the pool is built once, before the first reset)."""
+    if envs is not None:
+        overrides["num_envs"] = envs
+    env = make_env(task, device=device, **overrides)
     if env.cfg.use_drop_init:
         env.initialize_pool()
     return env

@@ -1,0 +1,167 @@
+"""Training entry point of the port (counterpart of the root `train.py`,
+single device, registry presets only):
+
+    python -m handarm_tpu_torch.train [task=Ur5SihLift] [num_envs=N]
+        [max_iterations=1000] [seed=42] [experiment=NAME]
+        [resume=auto|PATH] [save_every=100] [device=cpu] [ppo.<field>=VALUE ...]
+
+Tasks are those of `envs/tasks.py`, each with its PPO overrides; a
+`ppo.<field>` key replaces one PPOConfig field (`ppo.hidden=256,128,64`).
+The run writes `runs/<experiment>/` (relative to the working directory):
+`config.json`, `metrics.jsonl` (and TensorBoard scalars when tensorboardX
+imports), and checkpoints in `nn/`: `ckpt_<i>.npz` every `save_every`
+iterations, `best_0.npz` when the reward improves (after iteration 50, at
+most every 25 iterations), and `ckpt_<max_iterations>.npz` at the end. The
+checkpoint named step i holds the learner after exactly i iterations.
+
+`resume=auto` continues from the newest periodic checkpoint of the
+experiment, `resume=PATH` from any PPO checkpoint in the JAX package's
+format (for example docs/evidence/lift_r3a/ckpt_5200.npz): params,
+optimizer state, running stats, lr and epoch are restored, the env is
+reset fresh and the iteration count starts at the file's step.
+
+Stats are read back one iteration behind, in one host transfer, after the
+next iteration has been queued, so no iteration waits on a host read. It
+runs on `cuda` unless given `device=cpu`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import torch
+
+from handarm_tpu_torch import resolve_device
+from handarm_tpu_torch.envs.tasks import ppo_overrides
+from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
+from handarm_tpu_torch.rollout import make_task_env
+from handarm_tpu_torch.utils.checkpoint import (
+    checkpoint_step,
+    latest_checkpoint,
+    load_train_state,
+    save_checkpoint,
+)
+from handarm_tpu_torch.utils.logging import MetricsLogger
+
+TOP_KEYS = ("task", "num_envs", "max_iterations", "seed", "experiment", "resume",
+            "save_every", "device")
+
+
+def parse_field(default, text: str):
+    """A PPOConfig value from text, typed as the field's default."""
+    if isinstance(default, tuple):
+        return tuple(int(x) for x in text.strip("()[] ").split(",") if x.strip())
+    return type(default)(text)
+
+
+def parse_args(argv: list[str]) -> tuple[dict, dict]:
+    """(top-level keys, PPOConfig overrides) of `key=value` arguments."""
+    top, ppo = {}, {}
+    fields = PPOConfig._field_defaults
+    for arg in argv:
+        key, sep, val = arg.partition("=")
+        if not sep:
+            raise ValueError(f"arguments are key=value, got {arg!r}")
+        if key.startswith("ppo."):
+            name = key[4:]
+            if name not in fields:
+                raise ValueError(f"unknown PPOConfig field {name!r}")
+            ppo[name] = parse_field(fields[name], val)
+        elif key in TOP_KEYS:
+            top[key] = val
+        else:
+            raise ValueError(f"unknown key {key!r} (known: {', '.join(TOP_KEYS)}, ppo.<field>)")
+    return top, ppo
+
+
+def drain_stats(stats: dict) -> dict:
+    """The device stats of one iteration as floats: one host transfer."""
+    vals = torch.stack([v.to(torch.float32).reshape(()) for v in stats.values()]).tolist()
+    return dict(zip(stats, vals))
+
+
+def main(argv: list[str]) -> None:
+    top, ppo_kv = parse_args(argv)
+    task = top.get("task", "Ur5SihLift")
+    max_iterations = int(top.get("max_iterations", 1000))
+    seed = int(top.get("seed", 42))
+    exp_name = top.get("experiment", task)
+    resume = top.get("resume", "")
+    save_every = int(top.get("save_every", 100))
+    dev = resolve_device(top.get("device"))
+
+    env = make_task_env(task, int(top["num_envs"]) if "num_envs" in top else None, dev)
+    cfg = PPOConfig(**{**ppo_overrides(task), **ppo_kv})
+    ppo = PPO(env, cfg)
+
+    run_dir = os.path.join("runs", exp_name)
+    nn_dir = os.path.join(run_dir, "nn")
+    os.makedirs(run_dir, exist_ok=True)
+    with open(os.path.join(run_dir, "config.json"), "w") as f:
+        json.dump({"task": task, "experiment": exp_name, "seed": seed,
+                   "max_iterations": max_iterations, "num_envs": env.cfg.num_envs,
+                   "device": str(dev), "ppo": cfg._asdict()}, f, indent=1)
+    logger = MetricsLogger(run_dir)
+
+    ts = ppo.init(seed)
+    start_it = 0
+    path = latest_checkpoint(nn_dir) if resume == "auto" else resume
+    if path:
+        ts = load_train_state(path, dev, ts.env_state, ts.last_obs)
+        start_it = checkpoint_step(path)
+        print(f"resumed from {path} at iter {start_it}", flush=True)
+
+    steps_per_iter = env.cfg.num_envs * cfg.horizon
+    print(f"task={task} envs={env.cfg.num_envs} obs={env.num_obs} act={env.num_actions} "
+          f"device={dev} steps/iter={steps_per_iter}", flush=True)
+
+    def report(it, stats):
+        print(f"it {it:5d} | {stats['env_steps_per_s']:>10,.0f} sps | "
+              f"rew {stats['reward_mean']:.4f} | kl {stats['kl']:.4f} | "
+              f"lr {stats['lr']:.2e} | succ {stats['success_rate_ewma']:.3f}", flush=True)
+
+    best_reward, last_best_it = float("-inf"), -(10**9)
+    t_start = time.time()
+    pending = None  # (iteration, device stats, its dispatch time)
+
+    def drain(next_t0):
+        p_it, p_stats, p_t0 = pending
+        s = drain_stats(p_stats)
+        s["env_steps_per_s"] = steps_per_iter / max(next_t0 - p_t0, 1e-9)
+        s["total_env_steps"] = (p_it + 1) * steps_per_iter
+        return p_it, s
+
+    for loop_it in range(start_it, max_iterations):
+        t0 = time.time()
+        # the learner after exactly loop_it iterations: what a checkpoint
+        # named step=loop_it holds (the drained stats below are loop_it-1's)
+        ts_at_loop_it = ts
+        ts, stats_d = ppo.train_iter(ts)
+        if pending is None:
+            drain_stats({"kl": stats_d["kl"]})  # the first: an honest timing base
+            pending = (loop_it, stats_d, t0)
+            continue
+        it, stats = drain(t0)
+        pending = (loop_it, stats_d, t0)
+        logger.log(it, stats)
+        if it % 10 == 0 or it == max_iterations - 1:
+            report(it, stats)
+        if (it + 1) % save_every == 0:
+            save_checkpoint(nn_dir, ts_at_loop_it, step=it + 1, seed=seed)
+        if it > 50 and stats["reward_mean"] > best_reward and it - last_best_it >= 25:
+            best_reward, last_best_it = stats["reward_mean"], it
+            save_checkpoint(nn_dir, ts_at_loop_it, step=0, name="best", seed=seed)
+    if pending is not None:
+        it, stats = drain(time.time())
+        logger.log(it, stats)
+        report(it, stats)
+    print(f"done in {time.time() - t_start:.0f}s", flush=True)
+    logger.close()
+    save_checkpoint(nn_dir, ts, step=max_iterations, seed=seed, sync=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,8 +1,10 @@
-"""Reader for the JAX package's checkpoints (`<name>_<step>.npz`, arrays
-`leaf_0`, `leaf_1`, ... in the flattening order of its TrainState).
+"""Checkpoints in the JAX package's format (`<name>_<step>.npz`, arrays
+`leaf_0`, `leaf_1`, ... in the flattening order of its TrainState), read
+and written by the port.
 
-Leaves are read BY INDEX ONLY: the `.tree` file beside each checkpoint is a
-pickled JAX tree definition and is never opened here. For a PPO TrainState
+Leaves are read BY INDEX ONLY: the `.tree` file beside a JAX checkpoint is a
+pickled JAX tree definition and is never opened here, and the port writes
+none (the JAX loader reads the port's files given an `example_tree`). For a PPO TrainState
 of the MLP ActorCritic (768-512-256, as in docs/evidence/lift_r3a) the
 flattening order is
 
@@ -15,18 +17,32 @@ flattening order is
   68     last obs; 69 PRNG key; 70 epoch
 
 (tests/test_torch_policy.py holds this map against the JAX package's own
-loader.)
+loader.) Leaf dtypes: float32 but for the int32 optax counters, the bool
+`last_finite`, the int32 episode clocks, target index, step count and
+epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
+69).
+
+`save_checkpoint` copies the state to the host at once and writes the file
+on one background thread (atomically: `.tmp`, then `os.replace`), so the
+training loop never waits on the disk; `wait_for_pending_saves` joins it.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import os
+import threading
 
-PARAM_NAMES = (
-    "dense_0.bias", "dense_0.kernel", "dense_1.bias", "dense_1.kernel",
-    "dense_2.bias", "dense_2.kernel", "log_std", "mu.bias", "mu.kernel",
-    "value.bias", "value.kernel",
+import numpy as np
+import torch
+
+from handarm_tpu_torch.convert import (
+    env_state_from_leaves,
+    train_state_from_leaves,
+    train_state_to_leaves,
 )
+from handarm_tpu_torch.learn.networks import flax_names
+
+PARAM_NAMES = tuple(f for f, _ in flax_names(3))  # dense_0.bias ... value.kernel
 OBS_STATS_LEAVES = (37, 38, 39)  # mean, var, count
 ENV_STATE_LEAVES = (44, 68)  # [start, stop)
 
@@ -46,3 +62,71 @@ def read_policy(path: str):
         params = {name: np.asarray(data[f"leaf_{i}"]) for i, name in enumerate(PARAM_NAMES)}
         stats = tuple(np.asarray(data[f"leaf_{i}"]) for i in OBS_STATS_LEAVES)
     return params, stats
+
+
+# one background writer: at most one write in flight, saves land in order
+_writer_lock = threading.Lock()
+_writer: threading.Thread | None = None
+
+
+def wait_for_pending_saves() -> None:
+    """Block until the in-flight checkpoint write, if any, is on disk."""
+    with _writer_lock:
+        w = _writer
+    if w is not None:
+        w.join()
+
+
+def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int = 0,
+                    sync: bool = False) -> str:
+    """Write a PPO TrainState as `<dirpath>/<name>_<step>.npz` (71 leaves,
+    uncompressed). The PRNG-key leaves hold `seed`'s key."""
+    global _writer
+    os.makedirs(dirpath, exist_ok=True)
+    leaves = train_state_to_leaves(ts, seed)  # the host copy happens here
+    path = os.path.join(dirpath, f"{name}_{step}.npz")
+
+    def write():
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, **{f"leaf_{i}": x for i, x in enumerate(leaves)})
+        os.replace(tmp, path)  # a reader never sees a torn file
+
+    wait_for_pending_saves()
+    if sync:
+        write()
+        return path
+    t = threading.Thread(target=write, daemon=True)
+    with _writer_lock:
+        _writer = t
+    t.start()
+    return path
+
+
+def load_train_state(path: str, device="cpu", env_state=None, last_obs=None):
+    """A whole PPO checkpoint as the port's TrainState; the given env state
+    and observations replace the checkpoint's own."""
+    wait_for_pending_saves()
+    leaves = read_leaves(path)
+    if env_state is None:
+        lo, hi = ENV_STATE_LEAVES
+        env_state = env_state_from_leaves(leaves[lo:hi], device)
+        last_obs = torch.tensor(leaves[hi], dtype=torch.float32, device=device)
+    return train_state_from_leaves(leaves, env_state, last_obs, device)
+
+
+def latest_checkpoint(dirpath: str) -> str | None:
+    """The periodic checkpoint (`ckpt_<step>.npz`) in dirpath with the largest
+    step, or None."""
+    wait_for_pending_saves()
+    if not os.path.isdir(dirpath):
+        return None
+    cands = [f for f in os.listdir(dirpath) if f.startswith("ckpt_") and f.endswith(".npz")]
+    if not cands:
+        return None
+    return os.path.join(dirpath, max(cands, key=checkpoint_step))
+
+
+def checkpoint_step(path: str) -> int:
+    """The step in a `<name>_<step>.npz` file name."""
+    return int(os.path.basename(path).rsplit("_", 1)[1].split(".")[0])
