@@ -24,8 +24,9 @@ Phases, each with a deadline and one flushed progress line:
                steps on the card and on the CPU (plain versions) must
                agree, and the compared state must have active robot-object
                slots.
-  6. multiobj  Ur5SihMultiObjectManipulation at 8192 envs (3 YCB meshes,
-               372 slots): genesis drop-init builds the pose pool, then a
+  6. multiobj  Ur5SihMultiObjectManipulation at 8192 envs as the entry
+               points compose it from configs/ (3 YCB meshes, 372 slots, 16
+               solver sweeps): genesis drop-init builds the pose pool, then a
                warm-up and 20 timed control steps of the
                docs/evidence/multiobj_r5a/ckpt_2700.npz policy. Counters are
                zeroed before genesis and read after the last step: each of
@@ -83,11 +84,40 @@ Phases, each with a deadline and one flushed progress line:
                envs), 20 train iterations; reward_mean per iteration;
                every param and stat finite; spd_inverse 16 and
                contact_sweep 96 launches per iteration.
-The line before the last is a JSON object naming every kernel with its
-numbers (the multi-object path's; the lift path's under "lift"), with the
-training phases' numbers under "train" and the evaluation's under "eval";
-the last line is {"ok": true, "device": {...}}. Any fault prints a
-traceback and exits non-zero; without CUDA it exits 2 before any result.
+ 12. family    Ur5SihReposition, OrientedReposition, Repose and Throw, each
+               composed from configs/ at 8192 envs: one warm-up and 2 timed
+               train iterations from a flax-default init (launches exactly
+               spd_inverse 16 and contact_sweep 96 per iteration; prep_deff
+               and sdf_gather 0, checked from the built scene: B * C < 2^21,
+               no mesh object), params and stats finite; then 2 control
+               steps of 16 of its envs on the card and on the CPU with
+               actions from a numpy seed. Then the user's entry point in
+               its own process at full width for one iteration:
+               `python -m handarm_tpu_torch.train task=Ur5SihThrow
+               env.num_envs=8192 max_iterations=1`.
+ 13. multiobj-train  Ur5SihMultiObjectManipulation as `train.py` composes
+               it (16 sweeps; minibatch 32768 and every switch of its train
+               yaml: 4 minibatches x 4 mini-epochs) at 8192 envs, on the
+               multiobj phase's genesis pool, from ckpt_2700's learner:
+               as phase 9 (1 warm-up, 3 timed, 1 kept iteration held
+               against the CPU step by step), launches per iteration
+               exactly spd_inverse 16, prep_deff 16, sdf_gather 48,
+               contact_sweep 96. (Run before phase 9.)
+ 14. multiobj-eval  ckpt_2700's deterministic success rate in that composed
+               environment on the same pool, as phase 10: at least 3,000
+               episodes; launches per step 1, 1, 3, 6. (Run before phase 9.)
+ 15. multiobj-entry  the user's entry point in its own process, with its
+               own genesis: `python -m handarm_tpu_torch.train
+               task=Ur5SihMultiObjectManipulation
+               resume=docs/evidence/multiobj_r5a/ckpt_2700.npz
+               max_iterations=2701` must write ckpt_2701.npz.
+Each phase prints its seconds ("[phase] ok in ..."). The line before the
+last is a JSON object naming every kernel with its numbers (the
+multi-object path's, at 16 sweeps; the lift path's under "lift"), with
+the training phases' numbers under "train", "multiobj_train" and
+"family", and the evaluations' under "eval" and "multiobj_eval"; the last
+line is {"ok": true, "device": {...}}. Any fault prints a traceback and
+exits non-zero; without CUDA it exits 2 before any result.
 """
 
 from __future__ import annotations
@@ -107,7 +137,9 @@ import traceback
 TOTAL_DEADLINE_S = 1100
 PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "cpu-ref": 240, "multiobj": 480, "multiobj-kernels": 240,
-                    "multiobj-ref": 300, "train": 420, "eval": 300, "reach": 300}
+                    "multiobj-ref": 300, "multiobj-train": 420, "multiobj-eval": 300,
+                    "train": 420, "eval": 300, "reach": 300, "family": 480,
+                    "multiobj-entry": 480}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -117,6 +149,8 @@ TRAIN_ITERS = 3  # timed lift train iterations, after one warm-up iteration
 ENTRY_ITERS = 2  # iterations of the train entry point, resumed from ckpt_5200
 EVAL_STEPS = 200  # counted eval steps, after a burn-in of one episode (200)
 REACH_ITERS = 20
+FAMILY = ("Ur5SihReposition", "Ur5SihOrientedReposition", "Ur5SihRepose", "Ur5SihThrow")
+FAMILY_ITERS = 2  # timed family train iterations, after one warm-up iteration
 PREFIX_STEPS = 4  # chained minibatch steps of the kept update rerun on the CPU
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
@@ -366,8 +400,9 @@ def check_sweep(sweep_op, captured, maps, tag):
             e, sc = max_err(g, w)
             errs[name] = e
             log(f"contact_sweep ({tag}, {case}): {name} max|kernel-plain| {e:.3e} (scale {sc:.3e})")
-            # 8 Jacobi sweeps in float32 with the slot sums taken in another
-            # order: 1e-4 of this output's own largest value
+            # 8 (lift) or 16 (multi-object) Jacobi sweeps in float32 with
+            # the slot sums taken in another order: 1e-4 of this output's
+            # own largest value
             if not e <= 1e-4 * sc:
                 raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, {case})")
         bitwise(lambda: sweep_op.contact_sweep_cuda(*cuda_args), f"contact_sweep ({tag}, {case})")
@@ -688,7 +723,7 @@ def same_lr(a: float, b: float, kls, kl_threshold, tag: str) -> None:
             raise AssertionError(f"{tag}: the lr differs with no KL at a threshold")
 
 
-def compare_steps(ppo, rec_card, kl_threshold) -> dict:
+def compare_steps(ppo, rec_card, kl_threshold, tag: str) -> dict:
     """Each of the card's minibatch steps rerun on the CPU from the card's
     inputs: the same functions of the same inputs.
     - The loss terms and the KL from the card's params, stats and minibatch,
@@ -712,9 +747,12 @@ def compare_steps(ppo, rec_card, kl_threshold) -> dict:
     # gradients: the largest difference relative to the tensor's scale
     worst = {k: 0.0 for k in ("loss terms", "first-step grad", "param", "adam mu",
                               "adam nu", "later grad")}
+    grad_dev = [0.0] * len(rec_card.grads)  # per step: the largest gradient error over scale
 
     def check(kind, got, want, tol, k, name, atol=0.0):
         err, scale = max_err(got, want.cpu())
+        if kind.endswith("grad"):
+            grad_dev[k] = max(grad_dev[k], err / max(scale, 1e-30))
         if tol is None:
             worst[kind] = max(worst[kind], err / max(scale, 1e-30))
             return
@@ -744,14 +782,15 @@ def compare_steps(ppo, rec_card, kl_threshold) -> dict:
             if not bool((a.cpu() == b).all()):
                 raise AssertionError(f"step {k}: card and CPU optax counters differ")
         same_lr(float(lr), float(c_lr), [float(args[4])], kl_threshold, f"step {k}")
-    log(f"train card-vs-cpu, step by step ({len(rec_card.grads)} minibatch steps, each rerun "
+    log(f"{tag} card-vs-cpu, step by step ({len(rec_card.grads)} minibatch steps, each rerun "
         f"on the CPU from the card's inputs): largest fraction of each tolerance used "
         f"{({k: round(v, 5) for k, v in worst.items() if k != 'later grad'})}; later steps' "
-        f"gradients up to {worst['later grad']:.3e} of scale (not held)")
-    return worst
+        f"gradients up to {worst['later grad']:.3e} of scale (not held); gradient error "
+        f"over scale by step {[float(f'{d:.3g}') for d in grad_dev]}")
+    return dict(worst, grad_dev=grad_dev)
 
 
-def compare_prepared(card, cpu, old, card_mb, cpu_mb) -> dict:
+def compare_prepared(card, cpu, old, card_mb, cpu_mb, tag: str) -> dict:
     """The card's samples of the update (GAE, the normalized advantages,
     returns and values, flattened env-major) and updated stats against the
     CPU's, from the same learner and trajectory; and the card's first
@@ -785,65 +824,74 @@ def compare_prepared(card, cpu, old, card_mb, cpu_mb) -> dict:
 
     samples("samples", card_data, cpu_data)
     samples("first minibatch", card_mb, cpu_mb)
-    for tag, got, want, before in (("obs", card_obs, cpu_obs, old.obs_stats),
-                                   ("value", card_value, cpu_value, old.value_stats)):
+    for kind, got, want, before in (("obs", card_obs, cpu_obs, old.obs_stats),
+                                    ("value", card_value, cpu_value, old.value_stats)):
         for field, g, w, b in zip(want._fields, got, want, before):
             g, b = g.cpu(), b.cpu()
             if field == "count":
                 if not torch.equal(g, w):
-                    raise AssertionError(f"card and CPU {tag} stats counts differ")
+                    raise AssertionError(f"card and CPU {kind} stats counts differ")
                 continue
             err, scale = max_err(g, w)
             allowed = 4 * FLOAT32_EPS * scale + 1e-3 * float((w - b).abs().max())
             worst["stats"] = max(worst["stats"], err / allowed)
             if not err <= allowed:
-                raise AssertionError(f"card and CPU differ on {tag} stats {field}: "
+                raise AssertionError(f"card and CPU differ on {kind} stats {field}: "
                                      f"{err:.3e}, allowed {allowed:.3e}")
-    log(f"train card-vs-cpu, prepared samples ({cpu_data['adv'].shape[0]}) and stats from the "
+    log(f"{tag} card-vs-cpu, prepared samples ({cpu_data['adv'].shape[0]}) and stats from the "
         f"same learner and trajectory: largest fraction of each tolerance used "
         f"{({k: round(v, 5) for k, v in worst.items()})}")
     return worst
 
 
-def compare_prefix(card, cpu, kls_card, kls_cpu, kl_threshold) -> dict:
-    """The card's update after its first PREFIX_STEPS minibatch steps
-    against the CPU's, each chained on its own side from the same learner
-    and its own prepared samples. Params within 1e-6 of each tensor's
-    largest value, Adam's mu and nu within 1e-5 of theirs (float32 against
-    float64 on the CPU, 4 steps of 8192 samples: 1.1e-7, 1.5e-6, 2.0e-7),
-    the optax counters equal; the lr equal unless a KL of either side lies
-    within 1e-6 relative of a branch threshold (printed). Further on, the
-    clip edges and the lr branches make two correct updates part (PERF.md
-    §6, PR 8); the steps there are held one by one (`compare_steps`)."""
+LIFT_PREFIX_TOLS = {"param": 1e-6, "adam mu": 1e-5, "adam nu": 1e-5}
+# update_precision at minibatch 32768 (Ur5SihMultiObjectManipulation, ckpt_2700,
+# 8192 envs, 4 steps, on the H100): float32 lies 1.26e-7, 6.65e-6 and 2.27e-7
+# of scale from float64 (params, Adam mu, nu); card and CPU are two float32
+# computations, so Adam mu may lie up to 1.33e-5 apart
+MULTI_PREFIX_TOLS = {"param": 1e-6, "adam mu": 2e-5, "adam nu": 1e-5}
+
+
+def compare_prefix(card, cpu, kls_card, kls_cpu, kl_threshold, tag: str, n: int,
+                   tols: dict) -> dict:
+    """The card's update after its first `n` minibatch steps against the
+    CPU's, each chained on its own side from the same learner and its own
+    prepared samples. Params, Adam's mu and nu each within `tols` of each
+    tensor's largest value (`LIFT_PREFIX_TOLS`: float32 against float64 on
+    the CPU, 4 steps of 8192 samples, lie 1.1e-7, 1.5e-6, 2.0e-7 apart;
+    `MULTI_PREFIX_TOLS` from the same probe at minibatch 32768), the optax
+    counters equal; the lr equal unless a KL of either side lies within
+    1e-6 relative of a branch threshold (printed). Further on, the clip
+    edges and the lr branches make two correct updates part (PERF.md §6);
+    the steps there are held one by one (`compare_steps`)."""
     import torch
 
     from handarm_tpu_torch.update_precision import kl_margin
 
     (params, opt, lr), (c_params, c_opt, c_lr) = card, cpu
     worst, worst_at = {"param": 0.0, "adam mu": 0.0, "adam nu": 0.0}, {}
-    for kind, got, want, tol in (("param", params, c_params, 1e-6),
-                                 ("adam mu", opt.mu, c_opt.mu, 1e-5),
-                                 ("adam nu", opt.nu, c_opt.nu, 1e-5)):
+    for kind, got, want in (("param", params, c_params), ("adam mu", opt.mu, c_opt.mu),
+                            ("adam nu", opt.nu, c_opt.nu)):
+        tol = tols[kind]
         for name, w in want.items():
             err, scale = max_err(got[name].cpu(), w)
             if err / (tol * scale) >= worst[kind]:
                 worst[kind], worst_at[kind] = err / (tol * scale), name
             if not err <= tol * scale:
-                raise AssertionError(f"after {PREFIX_STEPS} steps card and CPU differ on "
+                raise AssertionError(f"after {n} steps card and CPU differ on "
                                      f"{kind} {name}: {err:.3e} at scale {scale:.3e}")
     for a, b in zip(opt[:4], c_opt[:4]):
         if not torch.equal(a.cpu(), b):
-            raise AssertionError(f"after {PREFIX_STEPS} steps the optax counters differ")
+            raise AssertionError(f"after {n} steps the optax counters differ")
     margin = kl_margin(kls_card + kls_cpu, kl_threshold)
     lrs = dict(card=float(lr), cpu=float(c_lr))
-    log(f"train card-vs-cpu, the first {PREFIX_STEPS} minibatch steps chained on each side: "
+    log(f"{tag} card-vs-cpu, the first {n} minibatch steps chained on each side: "
         f"largest fraction of each tolerance used {({k: round(v, 5) for k, v in worst.items()})}"
         f" (at {worst_at}); lr {lrs}; KLs card {kls_card}, CPU {kls_cpu}; smallest relative "
         f"margin to a threshold {margin:.3e}")
     if lrs["card"] != lrs["cpu"] and margin >= 1e-6:
-        raise AssertionError(f"after {PREFIX_STEPS} steps the lr differs with no KL at a "
-                             "threshold")
-    return dict(worst, lr=lrs, kl_min_margin=margin)
+        raise AssertionError(f"after {n} steps the lr differs with no KL at a threshold")
+    return dict(worst, steps=n, lr=lrs, kl_min_margin=margin)
 
 
 def check_learner(ts, tag: str) -> None:
@@ -860,35 +908,31 @@ def check_launches(counts: dict, per: dict, n: int, tag: str) -> None:
         raise AssertionError(f"{tag} launches {counts}, expected {want}")
 
 
-def train_phase(rollout, dev) -> dict:
-    """Phase 9 (see the module docstring)."""
+def learner_run(rollout, ppo, ts, per_iter: dict, tag: str, prefix_tols=LIFT_PREFIX_TOLS,
+                prefix_until_switch: bool = False) -> dict:
+    """From TrainState `ts`: one warm-up train_iter, TRAIN_ITERS iterations
+    timed as rollout and update, then one untimed iteration whose steps are
+    kept and held against the CPU (`compare_steps`, `compare_prepared`,
+    `compare_prefix` over PREFIX_STEPS chained steps; with
+    `prefix_until_switch`, over fewer if an earlier step's gradients, from
+    the card's own inputs, already lie more than the first step's 1e-4 of
+    scale from the CPU's: a sample within rounding of a clip edge switched
+    its term on one side only, and chained steps part from there).
+    Counters are zeroed before each iteration and read after it: exactly
+    `per_iter`. Returns the record, with the final TrainState under "ts"."""
     import torch
 
     from handarm_tpu_torch import train
-    from handarm_tpu_torch.envs.tasks import make_env, ppo_overrides
-    from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
-    from handarm_tpu_torch.utils.checkpoint import (load_train_state, read_leaves,
-                                                    wait_for_pending_saves)
 
-    ckpt = rollout.TASK_CKPTS["Ur5SihLift"]
-    per_iter = {"spd_inverse": 16, "contact_sweep": 96, "prep_deff": 0, "sdf_gather": 0}
-    env = make_env("Ur5SihLift", device=dev, num_envs=ENVS)
-    cfg = PPOConfig(**ppo_overrides("Ur5SihLift"))
-    ppo = PPO(env, cfg)
-    fresh = ppo.init(0)
-    ts = start = load_train_state(ckpt, dev, fresh.env_state, fresh.last_obs)
-    n = ENVS * cfg.horizon
-    log(f"train: Ur5SihLift {ENVS} envs, horizon {cfg.horizon}, {ppo.num_minibatches} "
-        f"minibatches of {ppo.mb_size} x {cfg.mini_epochs} mini-epochs, hidden {cfg.hidden}; "
-        f"from {os.path.relpath(ckpt)} (epoch {int(ts.epoch)}, Adam count "
-        f"{int(ts.opt_state.count)}, lr {float(ts.lr):.4e})")
+    cfg, dev, start = ppo.cfg, ppo.device, ts
+    n = ppo.env.cfg.num_envs * cfg.horizon
     rollout.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ts, _ = ppo.train_iter(ts)
     torch.cuda.synchronize()
-    log(f"train: warm-up iteration {time.perf_counter() - t0:.3f} s")
-    check_launches(rollout.launch_counts(), per_iter, 1, "train warm-up")
+    log(f"{tag}: warm-up iteration {time.perf_counter() - t0:.3f} s")
+    check_launches(rollout.launch_counts(), per_iter, 1, f"{tag} warm-up")
     iters, skips = [], 0
     for i in range(TRAIN_ITERS + 1):
         last = i == TRAIN_ITERS  # untimed: its steps are kept for the CPU checks
@@ -906,12 +950,12 @@ def train_phase(rollout, dev) -> dict:
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts = rollout.launch_counts()
-        check_launches(counts, per_iter, 1, f"train iteration {i}")
+        check_launches(counts, per_iter, 1, f"{tag} iteration {i}")
         skipped = int(ts.opt_state.total_notfinite - before.opt_state.total_notfinite)
         steps = int(ts.opt_state.count - before.opt_state.count)
         skips += skipped
         if steps != ppo.num_minibatches * cfg.mini_epochs - skipped:
-            raise AssertionError(f"Adam count rose by {steps} with {skipped} skips")
+            raise AssertionError(f"{tag}: Adam count rose by {steps} with {skipped} skips")
         rec = dict(rollout_s=t1 - t0, update_s=t2 - t1, env_steps_per_s=n / (t2 - t0),
                    adam_steps=steps, adam_skips=skipped, launches=counts,
                    **train.drain_stats({k: stats[k] for k in (
@@ -920,12 +964,12 @@ def train_phase(rollout, dev) -> dict:
         timing = "untimed (kept for the CPU checks)" if last else (
             f"rollout {rec['rollout_s']:.3f} s, update {rec['update_s']:.3f} s, "
             f"{rec['env_steps_per_s']:.0f} env-steps/s")
-        log(f"train iteration {i}: {timing}; reward_mean "
+        log(f"{tag} iteration {i}: {timing}; reward_mean "
             f"{rec['reward_mean']:.5f} kl {rec['kl']:.5f} lr {rec['lr']:.4e} policy_loss "
             f"{rec['policy_loss']:.5f} value_loss {rec['value_loss']:.5f} kl_guard "
             f"{rec['kl_guard_triggered']:.0f} success_rate_ewma {rec['success_rate_ewma']:.4f}; "
             f"Adam steps {steps} (skipped {skipped}); launches {counts}")
-        check_learner(ts, "train")
+        check_learner(ts, tag)
         if last:
             capture, rec_card = (before, traj, last_obs, perms), recorder
             captured_iter = rec
@@ -933,27 +977,65 @@ def train_phase(rollout, dev) -> dict:
             iters.append(rec)
     moved = max(float((ts.params[k] - start.params[k]).abs().max()) for k in ts.params)
     if not moved > 0:
-        raise AssertionError("the params did not move in training")
-    log(f"train: max |params - start| after {2 + TRAIN_ITERS} iterations {moved:.4e}; Adam "
+        raise AssertionError(f"{tag}: the params did not move in training")
+    log(f"{tag}: max |params - start| after {2 + TRAIN_ITERS} iterations {moved:.4e}; Adam "
         f"skips {skips}")
 
     before, traj, last_obs, perms = capture
-    steps = compare_steps(ppo, rec_card, cfg.kl_threshold)
+    steps = compare_steps(ppo, rec_card, cfg.kl_threshold, tag)
+    n_prefix = PREFIX_STEPS
+    if prefix_until_switch:
+        switch = [k for k, d in enumerate(steps["grad_dev"]) if k and d > 1e-4]
+        n_prefix = min([PREFIX_STEPS] + switch)
+        log(f"{tag}: first step whose gradients lie over 1e-4 of scale from the CPU's "
+            f"{switch[0] if switch else None}: {n_prefix} chained steps held")
     learner_c = learner_cpu(before)
     minibatches = perms.cpu().reshape(-1, ppo.mb_size)
     t0 = time.perf_counter()
     with StepRecorder(ppo) as rec_cpu:
         prepared = ppo._prepare(learner_c, to_cpu(traj), last_obs.cpu())
-        cpu_prefix = ppo._sgd(learner_c, prepared[0], minibatches[:PREFIX_STEPS])
+        cpu_prefix = ppo._sgd(learner_c, prepared[0], minibatches[:n_prefix])
     cpu_s = time.perf_counter() - t0
     match = dict(prepared=compare_prepared(
         rec_card.prepares[0][1], prepared, before, rec_card.grads[0][0][2],
-        {k: v.index_select(0, minibatches[0]) for k, v in prepared[0].items()}))
-    match["prefix"] = compare_prefix(rec_card.applies[PREFIX_STEPS - 1][1], cpu_prefix[:3],
-                                     rec_card.kls[:PREFIX_STEPS], rec_cpu.kls, cfg.kl_threshold)
+        {k: v.index_select(0, minibatches[0]) for k, v in prepared[0].items()}, tag))
+    match["prefix"] = compare_prefix(rec_card.applies[n_prefix - 1][1], cpu_prefix[:3],
+                                     rec_card.kls[:n_prefix], rec_cpu.kls, cfg.kl_threshold,
+                                     tag, n_prefix, prefix_tols)
     match["step_by_step"] = steps
-    log(f"train: the CPU's preparation and {PREFIX_STEPS} steps took {cpu_s:.1f} s")
-    del capture, before, traj, rec_card, rec_cpu, prepared, cpu_prefix
+    log(f"{tag}: the CPU's preparation and {n_prefix} steps took {cpu_s:.1f} s")
+    mean = lambda k: sum(r[k] for r in iters) / len(iters)
+    return dict(envs=ppo.env.cfg.num_envs, horizon=cfg.horizon,
+                minibatches=ppo.num_minibatches, minibatch_size=ppo.mb_size,
+                mini_epochs=cfg.mini_epochs, solver_iterations=ppo.env.cfg.solver_iterations,
+                iterations=iters, rollout_s=mean("rollout_s"), update_s=mean("update_s"),
+                env_steps_per_s=n * len(iters) / sum(r["rollout_s"] + r["update_s"]
+                                                     for r in iters),
+                captured_iteration=captured_iter, adam_skips=skips, params_moved=moved,
+                card_vs_cpu=match, cpu_check_s=cpu_s, launches_per_iteration=per_iter, ts=ts)
+
+
+def train_phase(rollout, dev) -> dict:
+    """Phase 9 (see the module docstring)."""
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.envs.tasks import make_env, ppo_overrides
+    from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
+    from handarm_tpu_torch.utils.checkpoint import (load_train_state, read_leaves,
+                                                    wait_for_pending_saves)
+
+    ckpt = rollout.TASK_CKPTS["Ur5SihLift"]
+    per_iter = {"spd_inverse": 16, "contact_sweep": 96, "prep_deff": 0, "sdf_gather": 0}
+    env = make_env("Ur5SihLift", device=dev, num_envs=ENVS)
+    cfg = PPOConfig(**ppo_overrides("Ur5SihLift"))
+    ppo = PPO(env, cfg)
+    fresh = ppo.init(0)
+    start = load_train_state(ckpt, dev, fresh.env_state, fresh.last_obs)
+    log(f"train: Ur5SihLift {ENVS} envs, horizon {cfg.horizon}, {ppo.num_minibatches} "
+        f"minibatches of {ppo.mb_size} x {cfg.mini_epochs} mini-epochs, hidden {cfg.hidden}; "
+        f"from {os.path.relpath(ckpt)} (epoch {int(start.epoch)}, Adam count "
+        f"{int(start.opt_state.count)}, lr {float(start.lr):.4e})")
+    rec = learner_run(rollout, ppo, start, per_iter, "train")
+    del rec["ts"], ppo, env, fresh
 
     # the user's entry point, resumed from the checkpoint (runs/ is ignored by git)
     exp = "chip_smoke_train"
@@ -970,40 +1052,177 @@ def train_phase(rollout, dev) -> dict:
         raise AssertionError(f"bad checkpoint from the train entry point: {out}")
     log(f"train entry point: {ENTRY_ITERS} iterations resumed from ckpt_5200 in "
         f"{entry_s:.1f} s (env build and reset included), wrote {out}")
-    mean = lambda k: sum(r[k] for r in iters) / len(iters)
-    return dict(task="Ur5SihLift", envs=ENVS, horizon=cfg.horizon,
-                minibatches=ppo.num_minibatches, minibatch_size=ppo.mb_size,
-                mini_epochs=cfg.mini_epochs, iterations=iters,
-                rollout_s=mean("rollout_s"), update_s=mean("update_s"),
-                env_steps_per_s=n * len(iters) / sum(r["rollout_s"] + r["update_s"]
-                                                     for r in iters),
-                captured_iteration=captured_iter, adam_skips=skips, params_moved=moved,
-                card_vs_cpu=match, cpu_check_s=cpu_s,
-                launches_per_iteration=per_iter, entry_point_s=entry_s)
+    return dict(task="Ur5SihLift", **rec, entry_point_s=entry_s)
 
 
-def eval_phase(rollout, dev) -> dict:
-    """Phase 10 (see the module docstring)."""
+LIFT_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0, "sdf_gather": 0}
+MULTI_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gather": 3}
+
+
+def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=None) -> dict:
+    """Phases 10 and 14 (see the module docstring)."""
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.eval_policy import evaluate
 
     rollout.reset_launch_counts()
     t0 = time.perf_counter()
-    out, state = evaluate(task="Ur5SihLift", envs=ENVS, steps=EVAL_STEPS, device=dev)
+    out, state = evaluate(task=task, envs=ENVS, steps=EVAL_STEPS, device=dev, pool=pool)
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
     steps = 1 + 200 + EVAL_STEPS
-    check_launches(counts, {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0,
-                            "sdf_gather": 0}, steps, "eval")
+    check_launches(counts, per_step, steps, f"eval {task}")
     finite_state(tree_map, state, state.physics.robot.q)
-    log(f"eval: {out['policy']} on Ur5SihLift, {ENVS} envs, burn-in 200 + {EVAL_STEPS} steps "
-        f"in {seconds:.1f} s: episodes {out['episodes']}, successes {out['successes']}, "
-        f"success rate {out['success_rate']:.6f}, success_ewma {out['success_ewma']:.6f}; "
-        f"launches {counts}")
-    if out["episodes"] < 3000:
-        raise AssertionError(f"eval counted {out['episodes']} episodes, fewer than 3,000")
+    n, p = out["episodes"], out["success_rate"]
+    se = (p * (1 - p) / max(n, 1)) ** 0.5
+    log(f"eval: {out['policy']} on {task}, {ENVS} envs, burn-in 200 + {EVAL_STEPS} steps "
+        f"in {seconds:.1f} s: episodes {n}, successes {out['successes']}, "
+        f"success rate {p:.6f} (standard error {se:.6f}), success_ewma "
+        f"{out['success_ewma']:.6f}, per-object ewma {out['per_object_ewma']}; launches {counts}")
+    if n < 3000:
+        raise AssertionError(f"eval counted {n} episodes, fewer than 3,000")
     return dict(out, policy=os.path.relpath(out["policy"]), envs=ENVS, steps=EVAL_STEPS,
-                seconds=seconds, launches=counts)
+                seconds=seconds, launches=counts, standard_error=se)
+
+
+def multiobj_train_phase(rollout, dev, pool) -> dict:
+    """Phase 13 (see the module docstring)."""
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.utils.checkpoint import load_train_state
+
+    ckpt = rollout.TASK_CKPTS[MULTI_TASK]
+    env = rollout.make_task_env(MULTI_TASK, ENVS, dev, pool=pool)
+    cfg = ppo_config(resolve_task(MULTI_TASK)[1])
+    ppo = PPO(env, cfg)
+    if (env.cfg.solver_iterations, cfg.minibatch_size) != (16, 32768):
+        raise AssertionError(f"the composed {MULTI_TASK} is not the yamls' (16 sweeps, "
+                             "minibatch 32768)")
+    fresh = ppo.init(0)
+    start = load_train_state(ckpt, dev, fresh.env_state, fresh.last_obs)
+    del fresh
+    log(f"multiobj-train: {MULTI_TASK} composed from configs/ ({env.cfg.solver_iterations} "
+        f"sweeps, dt {env.cfg.dt}), {ENVS} envs, horizon {cfg.horizon}, "
+        f"{ppo.num_minibatches} minibatches of {ppo.mb_size} x {cfg.mini_epochs} mini-epochs, "
+        f"hidden {cfg.hidden}; from {os.path.relpath(ckpt)} (epoch {int(start.epoch)}, Adam "
+        f"count {int(start.opt_state.count)}, lr {float(start.lr):.4e}); the multiobj "
+        f"phase's genesis pool")
+    per_iter = {k: 16 * v for k, v in MULTI_PER_STEP.items()}
+    rec = learner_run(rollout, ppo, start, per_iter, "multiobj-train", MULTI_PREFIX_TOLS,
+                      prefix_until_switch=True)
+    del rec["ts"]
+    return dict(task=MULTI_TASK, **rec)
+
+
+class SeededActions:
+    """Actions uniform in [-1, 1] from a numpy seed, whatever the obs."""
+
+    def __init__(self, num_actions: int, seed: int):
+        import numpy as np
+
+        self.rng, self.num_actions = np.random.default_rng(seed), num_actions
+
+    def act(self, obs):
+        import torch
+
+        a = self.rng.uniform(-1.0, 1.0, (obs.shape[0], self.num_actions))
+        return torch.as_tensor(a, dtype=torch.float32)
+
+
+def family_phase(rollout, dev) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import HandArmEnv, tree_map
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.physics.shapes import MESH_SDF
+
+    out = {}
+    for task in FAMILY:
+        env_cfg, over = resolve_task(task, [f"env.num_envs={ENVS}"])
+        env = HandArmEnv(env_cfg, dev)
+        C = env.scene.slots.num_slots
+        meshes = int((env.scene.shapes.kind == MESH_SDF).sum())
+        # prep_deff runs at B * C >= 2^21 only, sdf_gather on mesh objects only
+        per_iter = {"spd_inverse": 16, "contact_sweep": 96,
+                    "prep_deff": 16 if ENVS * C >= 2 ** 21 else 0,
+                    "sdf_gather": 48 if meshes else 0}
+        if per_iter["prep_deff"] or per_iter["sdf_gather"]:
+            raise AssertionError(f"{task}: B * C = {ENVS * C}, {meshes} mesh objects")
+        cfg = ppo_config(over)
+        ppo = PPO(env, cfg)
+        ts = ppo.init(1)
+        rollout.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = ppo.train_iter(ts)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        check_launches(rollout.launch_counts(), per_iter, 1, f"{task} warm-up")
+        iters = []
+        for i in range(FAMILY_ITERS):
+            rollout.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, st = ppo.train_iter(ts)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = rollout.launch_counts()
+            check_launches(counts, per_iter, 1, f"{task} iteration {i}")
+            check_learner(ts, task)
+            iters.append(dict(seconds=sec, env_steps_per_s=ENVS * cfg.horizon / sec,
+                              launches=counts, **{k: float(st[k]) for k in (
+                                  "reward_mean", "kl", "lr", "success_rate_ewma")}))
+        log(f"family {task}: {ENVS} envs, C = {C}, obs {env.num_obs}, actions "
+            f"{env.num_actions}, {env_cfg.solver_iterations} sweeps, minibatch "
+            f"{ppo.mb_size}; warm-up {warm:.3f} s; iterations "
+            f"{[(round(r['seconds'], 3), round(r['reward_mean'], 4)) for r in iters]}; "
+            f"launches per iteration {per_iter}")
+        ref_state, ref_obs = pick_contact_envs(env.scene.slots, ts.env_state, ts.last_obs, 16,
+                                               f"family {task}")
+        actions = SeededActions(env.num_actions, seed=0)
+        del ts, ppo, env
+        small = dataclasses.replace(env_cfg, num_envs=16)
+        card_vs_cpu(HandArmEnv(small, "cpu"), HandArmEnv(small, dev), ref_state, ref_obs,
+                    actions, dev, f"family {task} card-vs-cpu")
+        out[task] = dict(envs=ENVS, slots=C, obs=int(ref_obs.shape[1]), warmup_s=warm,
+                         iterations=iters, launches_per_iteration=per_iter)
+    return out
+
+
+def entry_subprocess(args: list[str], out: str, tag: str, timeout: int) -> float:
+    """`python -m handarm_tpu_torch.train ARGS` as a user runs it, in its own
+    process (output indented here); it must exit 0 within `timeout` s and
+    write the checkpoint `out`, 71 finite leaves. Returns its seconds and
+    its last iteration's kl, KL-guard flag and reward_mean."""
+    import numpy as np
+
+    from handarm_tpu_torch.utils.checkpoint import read_leaves
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "handarm_tpu_torch.train", *args],
+                         capture_output=True, text=True, timeout=timeout,
+                         env=dict(os.environ, PYTHONPATH=path))
+    seconds = time.perf_counter() - t0
+    for line in (res.stdout + res.stderr).splitlines()[-12:]:
+        log(f"  | {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"{tag}: the train entry point exited {res.returncode}")
+    leaves = read_leaves(out)
+    if len(leaves) != 71 or not all(np.isfinite(x).all() for x in leaves
+                                    if np.issubdtype(x.dtype, np.floating)):
+        raise AssertionError(f"{tag}: bad checkpoint {out}")
+    metrics = os.path.join(os.path.dirname(os.path.dirname(out)), "metrics.jsonl")
+    with open(metrics) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    log(f"{tag}: `python -m handarm_tpu_torch.train {' '.join(args)}` in {seconds:.1f} s "
+        f"(process start, kernel load, env build and reset included), wrote {out}; its "
+        f"last iteration: kl {last['kl']:.5f}, kl_guard {last['kl_guard_triggered']:.0f}, "
+        f"reward_mean {last['reward_mean']:.5f}")
+    return dict(seconds=seconds, kl=last["kl"], kl_guard=last["kl_guard_triggered"],
+                reward_mean=last["reward_mean"])
 
 
 def reach_phase(rollout, dev) -> dict:
@@ -1148,7 +1367,8 @@ def main() -> int:
         pool = menv.initial_pool
         MC, K = menv.scene.slots.num_slots, menv.num_objects
         log(f"multiobj scene: {ENVS} envs, objects {menv.object_names}, contact slots "
-            f"C = {MC}, obs {menv.num_obs}; genesis: {pool.sim_steps} sim steps in "
+            f"C = {MC}, obs {menv.num_obs}, {menv.cfg.solver_iterations} solver sweeps "
+            f"(composed from configs/); genesis: {pool.sim_steps} sim steps in "
             f"{menv.genesis_seconds:.1f} s ({menv.genesis_seconds / pool.sim_steps * 1e3:.1f} "
             f"ms per sim step)")
         log(f"policy: {os.path.relpath(rollout.TASK_CKPTS[MULTI_TASK])}")
@@ -1182,7 +1402,7 @@ def main() -> int:
         multi_maps = menv.scene.maps
         ref_state, ref_obs = pick_contact_envs(menv.scene.slots, mstate, mobs, 16, "multiobj-ref")
         ref_pool = genesis.InitialPool(pool.pos[:, :16].cpu(), pool.quat[:, :16].cpu())
-        del menv, mstate, mobs, pool
+        del menv, mstate, mobs  # the pool is kept for multiobj-train and -eval
 
     kernels = []
     with phase("multiobj-kernels"):
@@ -1211,11 +1431,10 @@ def main() -> int:
 
     with phase("multiobj-ref"):
         def make_multi(d):
-            # the genesis pool's first 16 envs, should an env reset; no
-            # disturbance draws; the deff path forced at this size
-            e = make_env(MULTI_TASK, device=d, num_envs=16, use_drop_init=False,
-                         randomize=False)
-            e.initial_pool = genesis.InitialPool(ref_pool.pos.to(d), ref_pool.quat.to(d))
+            # the composed task; the genesis pool's first 16 envs, should an
+            # env reset; no disturbance draws; the deff path forced at this size
+            e = rollout.make_task_env(MULTI_TASK, 16, d, pool=genesis.InitialPool(
+                ref_pool.pos.to(d), ref_pool.quat.to(d)), randomize=False)
             p = e.scene.params
             e.scene = dataclasses.replace(e.scene, params=p._replace(
                 solver=p.solver._replace(jacobi_impl="pallas")))
@@ -1224,12 +1443,32 @@ def main() -> int:
                     rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu"), dev,
                     "multiobj-ref", need=("robot-object", "object-pair"))
 
+    with phase("multiobj-train"):
+        multi_train_rec = multiobj_train_phase(rollout, dev, pool)
+    with phase("multiobj-eval"):
+        multi_eval_rec = eval_phase(rollout, dev, MULTI_TASK, MULTI_PER_STEP, pool)
+        del pool
     with phase("train"):
         train_rec = train_phase(rollout, dev)
     with phase("eval"):
         eval_rec = eval_phase(rollout, dev)
     with phase("reach"):
         train_rec["reach"] = reach_phase(rollout, dev)
+    with phase("family"):
+        family_rec = family_phase(rollout, dev)
+        family_rec["entry_point"] = entry_subprocess(
+            ["task=Ur5SihThrow", f"env.num_envs={ENVS}", "max_iterations=1",
+             "experiment=chip_smoke_throw"],
+            os.path.join("runs", "chip_smoke_throw", "nn", "ckpt_1.npz"), "family entry point",
+            PHASE_DEADLINE_S["family"] // 2)
+    with phase("multiobj-entry"):
+        ckpt = os.path.relpath(rollout.TASK_CKPTS[MULTI_TASK])
+        step = int(os.path.basename(ckpt)[5:-4]) + 1
+        multi_train_rec["entry_point"] = entry_subprocess(
+            [f"task={MULTI_TASK}", f"resume={ckpt}", f"max_iterations={step}",
+             "experiment=chip_smoke_multiobj", "seed=1"],
+            os.path.join("runs", "chip_smoke_multiobj", "nn", f"ckpt_{step}.npz"),
+            "multiobj entry point", PHASE_DEADLINE_S["multiobj-entry"] - 30)
 
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
@@ -1239,7 +1478,9 @@ def main() -> int:
                                  "objects": K, "genesis_sim_steps": g,
                                  "genesis_seconds": gsec, "card": smi}}))
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
-    log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec}))
+    log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec,
+                    "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
+                    "family": family_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

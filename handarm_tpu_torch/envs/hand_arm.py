@@ -1,6 +1,6 @@
-"""UR5+SIH manipulation environment, lift and reposition goals
-(counterpart of handarm_tpu/envs/hand_arm.py on the Ur5SihLift and
-Ur5SihMultiObjectManipulation paths).
+"""UR5+SIH manipulation environment: the lift, reposition,
+oriented_reposition, repose and throw goals (counterpart of
+handarm_tpu/envs/hand_arm.py on the UR5+SIH task family).
 
 One `step(state, actions)` does: actionables -> control -> PD targets, the
 random object disturbance impulses (with `randomize`), `control_freq_inv`
@@ -8,9 +8,12 @@ sim steps with the heavy mass structure evaluated once per control step
 and FK carried across its sim steps, reward, termination, the NaN finite
 guard, success-rate EWMAs, the auto-reset merged per env, and the
 sanitized observations. Resets draw object poses from the genesis pool
-(`use_drop_init`, built by the first `reset`) or spawn them on the table.
-Domain randomization, ADR, cameras, point clouds and balanced target
-sampling are not ported.
+(`use_drop_init`, built by the first `reset`) or spawn them on the table,
+the target object uniformly or (`balanced_target_sampling`) by failure
+rate, and for the orientation goals a goal quaternion. Domain
+randomization, ADR, cameras, point clouds, teacher observations and the
+engine options other than the defaults are not ported: `HandArmConfig`
+refuses them by name.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ import torch
 from handarm_tpu_torch import resolve_device
 from handarm_tpu_torch.math.quat import (
     cross,
+    quat_diff_rad,
     quat_from_axis_angle,
     quat_mul,
     quat_rotate,
 )
 from handarm_tpu_torch.envs import genesis, objects as object_records
+from handarm_tpu_torch.envs.randomization import AdrConfig, DRConfig
 from handarm_tpu_torch.envs.spec import Observable, Registry, obs_layout
 from handarm_tpu_torch.physics.contacts import StaticGeom
 from handarm_tpu_torch.physics.engine import (
@@ -47,11 +52,23 @@ from handarm_tpu_torch.robots import get_robot
 from handarm_tpu_torch.robots.ur5sih import SERVO_LOWER, SERVO_UPPER
 
 
+GOALS = ("lift", "reposition", "oriented_reposition", "throw", "repose")
+# observables of features not ported yet, refused by name
+POINTCLOUD_OBSERVABLES = (
+    "object_synthetic_pointcloud", "target_object_synthetic_pointcloud",
+    "target_object_interval_pos", "target_object_synthetic_interval_pointcloud",
+    "ur5sih_synthetic_pointcloud", "goal_synthetic_pointcloud",
+    "scene_synthetic_pointcloud",
+)
+
+
 @dataclass(frozen=True)
 class HandArmConfig:
-    """The UR5+SIH with hand-only collision spheres; the lift or reposition
-    goal; primitive objects or a dataset of baked mesh records."""
+    """The UR5+SIH with hand-only collision spheres; one of the goals;
+    primitive objects or a dataset of baked mesh records. Fields and
+    defaults as the JAX package's; `settle_num_steps` is the port's own."""
 
+    robot: str = "ur5sih"
     num_envs: int = 1024
     episode_length: int = 200
     control_freq_inv: int = 3  # 20 Hz policy on a 60 Hz sim
@@ -63,11 +80,13 @@ class HandArmConfig:
         "object_pos", "object_bounding_box", "target_object_bounding_box",
         "sih_fingertip_to_target_object_pos", "target_object_to_goal_pos",
     )
+    teacher_observations: tuple[str, ...] = ()
     actions: tuple[str, ...] = (
         "ur5_relative_joint_pos", "sih_smoothed_relative_servo_pos",
     )
-    goal: str = "lift"  # lift | reposition
+    goal: str = "lift"  # one of GOALS
     goal_threshold: float = 0.05
+    repose_threshold: float = 0.1  # rad
     lifting_threshold: float = 0.05
     lift_goal_height_above_table: float = 0.3
     reward: dict = field(default_factory=lambda: {
@@ -96,17 +115,57 @@ class HandArmConfig:
     servo_smoothing_alpha: float = 0.8
     solver_iterations: int = 8
     solver_prep_dtype: str = "bf16"
+    # engine options: only the defaults are ported (ROADMAP §1.2b)
+    heavy_prep_per_control: bool = True
+    carry_fk: bool = True
+    hand_only_collision: bool = True
     # random object disturbance impulses (off unless randomize)
     randomize: bool = False
     disturbance_probability: float = 0.2
     disturbance_magnitude: float = 15.0
+    dr: DRConfig = field(default_factory=DRConfig)  # not ported: ROADMAP §1.2a
+    adr: AdrConfig = field(default_factory=AdrConfig)  # not ported: ROADMAP §1.2a
+    clip_observations: float = 100.0
+    clip_actions: float = 1.0
+    # reset targets drawn by per-object failure rate instead of uniformly
+    balanced_target_sampling: bool = False
+    pointcloud_average_points: int = 100  # point clouds: ROADMAP §1.3
+    pointcloud_max_points: int = 128
     # genesis drop initialization (envs/genesis.py)
     use_drop_init: bool = False
     num_initial_poses: int = 1
     drop_num_steps: int = 100
     settle_num_steps: int = 600  # most settle steps per drop
-    clip_observations: float = 100.0
-    clip_actions: float = 1.0
+    cameras: tuple = ()  # camera sensors: ROADMAP §1.5
+
+    def __post_init__(self):
+        if self.goal not in GOALS:
+            raise ValueError(f"unknown goal {self.goal!r} (goals: {', '.join(GOALS)})")
+        for name, (default, item) in NOT_PORTED.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"HandArmConfig.{name}={getattr(self, name)!r} is not ported "
+                    f"(only {default!r}; ROADMAP {item})")
+        clouds = [o for o in self.observations if o in POINTCLOUD_OBSERVABLES]
+        if clouds:
+            raise NotImplementedError(
+                f"point-cloud observables {clouds} are not ported (ROADMAP §1.3)")
+
+
+# fields whose features are not ported: the only value taken, and the
+# ROADMAP item that ports the rest
+NOT_PORTED = {
+    "robot": ("ur5sih", "§1.4"),
+    "teacher_observations": ((), "§1.3"),
+    "heavy_prep_per_control": (True, "§1.2b"),
+    "carry_fk": (True, "§1.2b"),
+    "hand_only_collision": (True, "§1.2b"),
+    "dr": (DRConfig(), "§1.2a"),
+    "adr": (AdrConfig(), "§1.2a"),
+    "pointcloud_average_points": (100, "§1.3"),
+    "pointcloud_max_points": (128, "§1.3"),
+    "cameras": ((), "§1.5"),
+}
 
 
 class TaskState(NamedTuple):
@@ -152,10 +211,11 @@ def tree_map(fn, *trees):
 
 
 class ObsContext:
-    """Lazily computed quantities shared by observation and reward terms."""
+    """Lazily computed quantities shared by observation and reward terms;
+    `info` is the last sim step's StepInfo (None on a reset)."""
 
-    def __init__(self, env: "HandArmEnv", state: EnvState):
-        self.env, self.state = env, state
+    def __init__(self, env: "HandArmEnv", state: EnvState, info=None):
+        self.env, self.state, self.info = env, state, info
         self._cache: dict[str, Any] = {}
 
     def _get(self, name, fn):
@@ -198,12 +258,15 @@ class ObsContext:
     def target_object_quat(self):
         return self._target(self.state.physics.objects.quat)
 
-    def fingertip_linvel(self):
+    def fingertip_vel(self):
+        """(linear [B, 5, 3], angular [B, 5, 3]) velocity of the fingertip
+        sites."""
         def compute():
             bv = body_velocities(self.env.scene.model, self.fk,
                                  self.state.physics.robot.qd)
             v = bv[:, self.env.fingertip_body_idx]
-            return v[..., 3:] + cross(v[..., :3], self.fingertips[1])
+            ang = v[..., :3]
+            return v[..., 3:] + cross(ang, self.fingertips[1]), ang
         return self._get("tipvel", compute)
 
 
@@ -218,24 +281,63 @@ def _obb(ctx: ObsContext, pos, quat, idx=None):
     return torch.cat([p, q, ext.expand(p.shape[:-1] + (3,))], dim=-1)
 
 
+# OBB corner signs, sz fastest: the keypoints' order
+_CORNERS = [[sx, sy, sz] for sx in (-1.0, 1.0) for sy in (-1.0, 1.0) for sz in (-1.0, 1.0)]
+
+
+def _keypoints(ctx: ObsContext, pos, quat):
+    """[B, 24]: the 8 corners of the target object's OBB posed at
+    (pos, quat), in the world frame."""
+    shapes, t = ctx.env.scene.shapes, ctx.state.task.target_obj
+    corners = pos.new_tensor(_CORNERS)
+    half = shapes.size[t]
+    pts = shapes.obb_pos[t][:, None, :] + quat_rotate(
+        shapes.obb_quat[t][:, None, :], corners[None] * half[:, None, :])
+    world = quat_rotate(quat[:, None, :], pts) + pos[:, None, :]
+    return world.reshape(ctx.batch, -1)
+
+
 def _register_observables(reg: Registry, nv: int, K: int) -> None:
     def obs(name, size, fn):
         reg.observables[name] = Observable(name, size, fn)
 
-    obs("ur5_joint_pos", 6, lambda c: c.state.physics.robot.q[:, :6])
+    phys = lambda c: c.state.physics
+    flat = lambda c, x: x.reshape(c.batch, -1)
+    obs("ur5_joint_pos", 6, lambda c: phys(c).robot.q[:, :6])
+    obs("ur5_joint_vel", 6, lambda c: phys(c).robot.qd[:, :6])
+    obs("ur5_joint_state", 12, lambda c: torch.cat(
+        [phys(c).robot.q[:, :6], phys(c).robot.qd[:, :6]], -1))
     obs("ur5_flange_pose", 7, lambda c: torch.cat([c.flange[1][:, 0], c.flange[0][:, 0]], -1))
-    obs("sih_fingertip_pos", 15, lambda c: c.fingertips[1].reshape(c.batch, -1))
-    obs("sih_fingertip_quat", 20, lambda c: c.fingertips[0].reshape(c.batch, -1))
-    obs("sih_fingertip_linvel", 15, lambda c: c.fingertip_linvel().reshape(c.batch, -1))
-    obs("dof_position_targets", nv, lambda c: c.state.physics.robot.targets)
-    obs("object_pos", 3 * K, lambda c: c.state.physics.objects.pos.reshape(c.batch, -1))
-    obs("object_bounding_box", 10 * K, lambda c: _obb(
-        c, c.state.physics.objects.pos, c.state.physics.objects.quat).reshape(c.batch, -1))
+    obs("sih_fingertip_pos", 15, lambda c: flat(c, c.fingertips[1]))
+    obs("sih_fingertip_quat", 20, lambda c: flat(c, c.fingertips[0]))
+    obs("sih_fingertip_linvel", 15, lambda c: flat(c, c.fingertip_vel()[0]))
+    obs("sih_fingertip_angvel", 15, lambda c: flat(c, c.fingertip_vel()[1]))
+    obs("dof_position_targets", nv, lambda c: phys(c).robot.targets)
+    obs("dof_pos", nv, lambda c: phys(c).robot.q)
+    obs("dof_vel", nv, lambda c: phys(c).robot.qd)
+    obs("object_pos", 3 * K, lambda c: flat(c, phys(c).objects.pos))
+    obs("object_quat", 4 * K, lambda c: flat(c, phys(c).objects.quat))
+    obs("object_linvel", 3 * K, lambda c: flat(c, phys(c).objects.linvel))
+    obs("object_angvel", 3 * K, lambda c: flat(c, phys(c).objects.angvel))
+    obs("object_mass", K, lambda c: c.env.scene.shapes.mass[None].expand(c.batch, K))
+    # object body frames are COM-centred: the local COM offset is zero
+    obs("object_com", 3 * K, lambda c: phys(c).objects.pos.new_zeros(c.batch, 3 * K))
+    obs("object_inertia", 9 * K, lambda c: torch.diag_embed(
+        c.env.scene.shapes.inertia_diag).reshape(1, -1).expand(c.batch, 9 * K))
+    obs("object_bounding_box", 10 * K, lambda c: flat(c, _obb(
+        c, phys(c).objects.pos, phys(c).objects.quat)))
     obs("target_object_bounding_box", 10, lambda c: _obb(
         c, c.target_object_pos, c.target_object_quat, c.state.task.target_obj))
-    obs("sih_fingertip_to_target_object_pos", 15, lambda c: (
-        c.target_object_pos[:, None, :] - c.fingertips[1]).reshape(c.batch, -1))
     obs("target_object_pos", 3, lambda c: c.target_object_pos)
+    obs("target_object_quat", 4, lambda c: c.target_object_quat)
+    obs("goal_pos", 3, lambda c: c.state.task.goal_pos)
+    obs("goal_quat", 4, lambda c: c.state.task.goal_quat)
+    obs("target_object_keypoints", 24, lambda c: _keypoints(
+        c, c.target_object_pos, c.target_object_quat))
+    obs("goal_keypoints", 24, lambda c: _keypoints(
+        c, c.state.task.goal_pos, c.state.task.goal_quat))
+    obs("sih_fingertip_to_target_object_pos", 15, lambda c: flat(
+        c, c.target_object_pos[:, None, :] - c.fingertips[1]))
     obs("target_object_to_goal_pos", 3,
         lambda c: c.state.task.goal_pos - c.target_object_pos)
 
@@ -253,7 +355,17 @@ def _register_actionables(reg: Registry) -> None:
             control.servo_ticks + 100.0 * smoothed, env.servo_lo), env.servo_hi)
         return control._replace(servo_ticks=ticks, sih_smoothed=smoothed)
 
+    def act_servo_abs(env, control, a):
+        return control._replace(servo_ticks=env.servo_lo + (a * 0.5 + 0.5) * (
+            env.servo_hi - env.servo_lo))
+
+    def act_servo_rel(env, control, a):
+        return control._replace(servo_ticks=torch.minimum(torch.maximum(
+            control.servo_ticks + 100.0 * a, env.servo_lo), env.servo_hi))
+
     reg.actionable("ur5_relative_joint_pos", 6)(act_arm_rel)
+    reg.actionable("sih_absolute_servo_pos", 5)(act_servo_abs)
+    reg.actionable("sih_relative_servo_pos", 5)(act_servo_rel)
     reg.actionable("sih_smoothed_relative_servo_pos", 5)(act_servo_smooth)
 
 
@@ -267,8 +379,6 @@ class HandArmEnv:
         self.device = dev = resolve_device(device)
         self.robot = get_robot("ur5sih", urdf_path, dev)
         art = self.art = self.robot.art
-        if cfg.goal not in ("lift", "reposition"):
-            raise NotImplementedError(f"goal {cfg.goal!r} is not ported")
         objs = []
         self.object_names: list[str] = []
         if cfg.object_dataset:
@@ -329,7 +439,7 @@ class HandArmEnv:
         _register_observables(self.registry, art.nv, self.num_objects)
         _register_actionables(self.registry)
         self.active_obs = self.registry.resolve_observables(list(cfg.observations))
-        _, self.num_obs = obs_layout(self.active_obs, list(cfg.observations))
+        self.obs_slices, self.num_obs = obs_layout(self.active_obs, list(cfg.observations))
         self.active_actions = self.registry.resolve_actionables(list(cfg.actions))
         self.num_actions = sum(a.size for a in self.active_actions)
         self.reset_q = f32(self.robot.reset_q)
@@ -388,9 +498,27 @@ class HandArmEnv:
         axis = torch.tensor([0.0, 0.0, 1.0], device=self.device).expand(B, K, 3)
         return pos, quat_from_axis_angle(axis, yaw)
 
-    def fresh_state(self, B: int) -> EnvState:
+    def sample_target(self, B: int, per_object_ewma=None) -> torch.Tensor:
+        """[B] target objects: uniform, or with `balanced_target_sampling`
+        (given the metrics' per-object success EWMAs, K > 1) drawn with
+        weights `target_weights`."""
+        K = self.num_objects
+        if per_object_ewma is None or not self.cfg.balanced_target_sampling or K <= 1:
+            return torch.randint(0, K, (B,), generator=self.gen, device=self.device)
+        return torch.multinomial(target_weights(per_object_ewma), B, replacement=True,
+                                 generator=self.gen)
+
+    def sample_goal_quat(self, B: int) -> torch.Tensor:
+        """[B, 4] goals of the orientation goals (oriented_reposition,
+        repose), from u ~ U(-1, 1)^2; the identity for the others."""
+        if self.cfg.goal not in ("oriented_reposition", "repose"):
+            return torch.tensor([1.0, 0.0, 0.0, 0.0], device=self.device).expand(B, 4).clone()
+        return goal_quat_from_uniform(self._uniform((B, 2), -1.0, 1.0))
+
+    def fresh_state(self, B: int, per_object_ewma=None) -> EnvState:
         """A new episode's state for B envs (drawn from the env's generator):
-        each env takes one of the pool's settled configurations, else spawns."""
+        each env takes one of the pool's settled configurations, else spawns.
+        `per_object_ewma` feeds balanced target sampling."""
         if self.initial_pool is not None:
             pool = self.initial_pool
             idx = torch.randint(0, pool.pos.shape[0], (B,), generator=self.gen,
@@ -403,7 +531,8 @@ class HandArmEnv:
         dev = self.device
         goal = torch.tensor(self.cfg.goal_pos, device=dev) + self._uniform(
             (B, 3), -1.0, 1.0) * torch.tensor(self.cfg.goal_noise, device=dev)
-        target = torch.randint(0, K, (B,), generator=self.gen, device=dev)
+        goal_quat = self.sample_goal_quat(B)
+        target = self.sample_target(B, per_object_ewma)
         physics = PhysicsState(
             robot=RobotState(q=self.reset_q.expand(B, nv).clone(),
                              qd=torch.zeros(B, nv, device=dev),
@@ -416,7 +545,7 @@ class HandArmEnv:
         task = TaskState(
             progress=torch.zeros(B, dtype=torch.int64, device=dev),
             goal_pos=goal,
-            goal_quat=torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(B, 4).clone(),
+            goal_quat=goal_quat,
             target_obj=target,
             goal_reached_before=torch.zeros(B, dtype=torch.bool, device=dev),
             initial_obj_pos=pos,
@@ -468,7 +597,7 @@ class HandArmEnv:
                                    total_steps=state.task.total_steps + 1)
         state2 = state._replace(physics=physics, task=task)
 
-        reward, goal_reached, terms = self._compute_reward(ObsContext(self, state2))
+        reward, goal_reached, terms = self._compute_reward(ObsContext(self, state2, info_last))
         goal_reached_before = task.goal_reached_before | goal_reached
         finite = torch.ones(B, dtype=torch.bool, device=self.device)
         for x in (physics.robot.q, physics.robot.qd, physics.objects.pos,
@@ -483,14 +612,14 @@ class HandArmEnv:
         metrics = self._update_metrics(state.metrics, done, goal_reached_before,
                                        task.target_obj, goal_reached)
 
-        fresh = self.fresh_state(B)
+        fresh = self.fresh_state(B, metrics.per_object_ewma)
         merged = tree_map(
             lambda new, old: _where_done(done, new, old),
             EnvState(fresh.physics, fresh.control, fresh.task, metrics),
             EnvState(physics, control, task, metrics),
         )._replace(metrics=metrics)
 
-        obs = self._compute_obs(ObsContext(self, merged))
+        obs = self._compute_obs(ObsContext(self, merged, info_last))
         obs = torch.where(torch.isfinite(obs), obs, torch.zeros_like(obs))
         info = dict(
             success_rate_ewma=metrics.success_ewma,
@@ -524,17 +653,25 @@ class HandArmEnv:
         cfg = self.cfg
         tip_pos = ctx.fingertips[1]
         tgt_pos = ctx.target_object_pos
+        goal_pos = ctx.state.task.goal_pos
         if cfg.goal == "lift":
             goal_height = cfg.table_height + cfg.lift_goal_height_above_table
             object_goal_distance = torch.clamp(goal_height - tgt_pos[:, 2], min=0.0)
             goal_reached = tgt_pos[:, 2] > goal_height
-        else:  # reposition
-            object_goal_distance = torch.linalg.vector_norm(
-                tgt_pos - ctx.state.task.goal_pos, dim=-1)
+        elif cfg.goal == "repose":  # the target's orientation to the goal's
+            object_goal_distance = quat_diff_rad(ctx.state.task.goal_quat,
+                                                 ctx.target_object_quat)
+            goal_reached = object_goal_distance < cfg.repose_threshold
+        else:  # reposition, oriented_reposition, throw
+            object_goal_distance = torch.linalg.vector_norm(tgt_pos - goal_pos, dim=-1)
+            if cfg.goal == "oriented_reposition":  # plus the flange's rotation
+                object_goal_distance = object_goal_distance + 0.1 * quat_diff_rad(
+                    ctx.state.task.goal_quat, ctx.flange[0][:, 0])
             goal_reached = object_goal_distance < cfg.goal_threshold
         init_pos = ctx._target(ctx.state.task.initial_obj_pos)
         delta_z = (tgt_pos - init_pos)[:, 2]
         lifted = delta_z > cfg.lifting_threshold
+        phys = ctx.state.physics
         reward = torch.zeros(ctx.batch, device=self.device)
         terms = {}
         for term, scale in cfg.reward.items():
@@ -547,11 +684,21 @@ class HandArmEnv:
                 delta_h = torch.clamp(thr - delta_z, 0.0, thr) / thr
                 r = scale * (torch.exp(-3.0 * delta_h) - np.exp(-3.0))
             elif term == "goal":
-                r = scale * lifted * torch.exp(-5.0 * object_goal_distance)
+                gate = 1.0 if cfg.goal == "repose" else lifted
+                r = scale * gate * torch.exp(-5.0 * object_goal_distance)
             elif term == "success":
                 r = scale * goal_reached
+            elif term == "object_velocity_penalty":
+                v = torch.linalg.vector_norm(phys.objects.linvel, dim=-1).sum(-1)
+                r = -scale * _soft_excess(v, 0.25, 10.0)
+            elif term == "dof_velocity_penalty":
+                v = phys.robot.qd[:, :6].abs().amax(-1)
+                r = -scale * _soft_excess(v, 0.5, 10.0)
+            elif term == "collision_penalty":
+                f = torch.linalg.vector_norm(ctx.info.body_contact_force, dim=-1).amax(-1)
+                r = -scale * _soft_excess(f, 1.0, 1.0)
             else:
-                raise ValueError(f"reward term {term!r} is not ported yet")
+                raise ValueError(f"unknown reward term {term}")
             reward = reward + r
             terms[f"reward_terms/{term}"] = r.mean()
         return reward, goal_reached, terms
@@ -580,6 +727,26 @@ class HandArmEnv:
                              metrics.per_object_ewma)
         return Metrics(ewma, ewma_k, metrics.total_resets + num_resets,
                        metrics.total_successes + num_succ, end_ewma)
+
+
+def target_weights(per_object_ewma: torch.Tensor) -> torch.Tensor:
+    """Balanced target sampling's weights: the failure rate plus a 0.15
+    floor that keeps mastered objects in play."""
+    return 1.0 - per_object_ewma + 0.15
+
+
+def goal_quat_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """[B, 4] goal quaternions qx(u0 pi) * qy(u1 pi) of u [B, 2] in [-1, 1]."""
+    B = u.shape[0]
+    qx = quat_from_axis_angle(u.new_tensor([1.0, 0.0, 0.0]).expand(B, 3), u[:, 0] * np.pi)
+    qy = quat_from_axis_angle(u.new_tensor([0.0, 1.0, 0.0]).expand(B, 3), u[:, 1] * np.pi)
+    return quat_mul(qx, qy)
+
+
+def _soft_excess(v, thr: float, cap: float):
+    """clip(exp(v - thr) - 1 where v > thr, else 0, 0, cap)."""
+    return torch.clamp(torch.where(v > thr, torch.exp(v - thr) - 1.0, torch.zeros_like(v)),
+                       0.0, cap)
 
 
 def _where_done(done, new, old):

@@ -1,6 +1,12 @@
 """Task presets over HandArmEnv, each with its PPO overrides (counterpart of
-the Ur5SihLift, Ur5SihMultiObjectManipulation and Ur5SihReach entries of
-handarm_tpu/envs/registry.py)."""
+the UR5+SIH entries of the TASKS table of handarm_tpu/envs/registry.py).
+
+These are the code presets. The entry points compose a task through its
+yaml config group instead (`envs/registry.py` `compose_task`), as the JAX
+package's do; for Ur5SihMultiObjectManipulation the two differ (the yaml
+gives 16 solver sweeps and minibatch 32768). `make_env` here is the
+keyword form over the presets.
+"""
 
 from __future__ import annotations
 
@@ -14,6 +20,31 @@ TASKS: dict[str, tuple[HandArmConfig, dict]] = {
         HandArmConfig(objects=(("box", (0.03, 0.03, 0.03), 0.15),), use_bin=True),
         dict(minibatch_size=8192),
     ),
+    "Ur5SihReposition": (HandArmConfig(goal="reposition"), dict(minibatch_size=8192)),
+    # reposition plus 0.1 x the flange's rotation distance to a goal quaternion
+    "Ur5SihOrientedReposition": (
+        HandArmConfig(goal="oriented_reposition",
+                      observations=HandArmConfig.observations + ("goal_quat",)),
+        dict(minibatch_size=8192),
+    ),
+    # in-hand reorientation: fingertip and keypoint observations
+    "Ur5SihRepose": (
+        HandArmConfig(
+            goal="repose",
+            observations=(
+                "ur5_joint_pos", "ur5_flange_pose", "sih_fingertip_pos",
+                "sih_fingertip_quat", "sih_fingertip_linvel",
+                "dof_position_targets", "target_object_pos",
+                "target_object_quat", "target_object_keypoints",
+                "goal_quat", "goal_keypoints",
+            ),
+            reward={"reaching": 1.0, "goal": 50.0, "success": 50.0},
+        ),
+        dict(minibatch_size=8192),
+    ),
+    # throw goals lie 0.5 m further along y
+    "Ur5SihThrow": (HandArmConfig(goal="throw", goal_pos=(0.28, 1.08, 0.8)),
+                    dict(minibatch_size=8192)),
     # three YCB meshes on the open table, reposition goal, drop-init pool,
     # object disturbances
     "Ur5SihMultiObjectManipulation": (

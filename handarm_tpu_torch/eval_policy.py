@@ -5,12 +5,15 @@ checkpoint mode):
     python -m handarm_tpu_torch.eval_policy [--ckpt PATH] [--task Ur5SihLift]
         [--envs 1024] [--steps 600] [--seed 123] [--episode-length N] [--device cpu]
 
-The policy's mean action drives the env. One zero-action step, then a
-burn-in of one episode length, after which the env's `total_resets` and
-`total_successes` counters are zeroed, then `--steps` more control steps;
-the rate is total_successes / total_resets over that window. Prints one
-JSON line: task, policy, episodes, successes, success_rate, success_ewma,
-per_object_ewma. Runs on `cuda` unless given `--device cpu`.
+The task is composed from its yaml config group as the training entry
+point composes it (the multi-object task: 16 solver sweeps, as
+scripts/eval_policy.py evaluates it). The policy's mean action drives
+the env. One zero-action step, then a burn-in of one episode length,
+after which the env's `total_resets` and `total_successes` counters are
+zeroed, then `--steps` more control steps; the rate is total_successes /
+total_resets over that window. Prints one JSON line: task, policy,
+episodes, successes, success_rate, success_ewma, per_object_ewma. Runs on
+`cuda` unless given `--device cpu`.
 """
 
 from __future__ import annotations
@@ -26,11 +29,12 @@ from handarm_tpu_torch.rollout import TASK_CKPTS, forward_step, load_policy, mak
 
 def evaluate(ckpt: str | None = None, task: str = "Ur5SihLift", envs: int = 1024,
              steps: int = 600, seed: int = 123, device=None,
-             episode_length: int | None = None):
-    """(the JSON record, the env's final state)."""
+             episode_length: int | None = None, pool=None):
+    """(the JSON record, the env's final state). `pool`: a genesis pose
+    pool to use instead of running genesis (drop-init tasks)."""
     dev = resolve_device(device)
     over = {} if episode_length is None else {"episode_length": episode_length}
-    env = make_task_env(task, envs, dev, **over)
+    env = make_task_env(task, envs, dev, pool=pool, **over)
     ckpt = ckpt or TASK_CKPTS[task]
     policy = load_policy(ckpt, dev)
     state, _ = env.reset(seed)

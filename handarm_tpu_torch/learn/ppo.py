@@ -1,16 +1,17 @@
 """PPO with GAE, MLP policy (counterpart of handarm_tpu/learn/ppo.py
-without its recurrent and asymmetric-critic paths; one data shard; the
-switches every config of the repository leaves at their defaults are
-fixed: observation and value normalization, advantage normalization, the
-timeout value bootstrap, the clipped value loss, the adaptive lr).
+without its recurrent and asymmetric-critic paths; one data shard).
 
 One `train_iter` is a rollout of `horizon` stochastic policy steps through
 the env, then `_update_from_traj`: the bootstrap value of the last
 observation, GAE, the env-major flatten, the once-per-iteration updates of
 the observation and value statistics, and `mini_epochs` passes of
-minibatched SGD with the clipped surrogate, the clipped value loss, the
-bounds loss and a KL-adaptive learning rate, then the KL guard that
-discards a catastrophic iteration.
+minibatched SGD with the clipped surrogate, the (clipped) value loss, the
+bounds loss and a KL-adaptive (or fixed) learning rate, then the KL guard
+that discards a catastrophic iteration. The switches of the JAX
+PPOConfig are ported with their branches: input and value normalization,
+advantage normalization, the timeout value bootstrap, the clipped value
+loss, the lr schedule and a fixed minibatch count; the recurrent,
+asymmetric and sharding fields are refused (`ppo_config`).
 
 Parameters are a dict of tensors by module name, in flax order, applied
 through `torch.func.functional_call`. The learning rate, the epoch, the
@@ -42,24 +43,59 @@ from handarm_tpu_torch.learn.running_stats import (
 
 class PPOConfig(NamedTuple):
     horizon: int = 16
-    minibatch_size: int = 32768  # num_envs * horizon must be a multiple
+    num_minibatches: int = 0  # 0: num_envs * horizon // minibatch_size
+    minibatch_size: int = 32768
     mini_epochs: int = 4
     gamma: float = 0.99
     tau: float = 0.95  # GAE lambda
     learning_rate: float = 3e-4
     kl_threshold: float = 0.016  # adaptive LR target
+    lr_schedule: str = "adaptive"  # adaptive | fixed
     e_clip: float = 0.15
+    clip_value: bool = True
     critic_coef: float = 4.0
     entropy_coef: float = 0.0
     bounds_loss_coef: float = 0.0001
     grad_norm: float = 1.0
     reward_scale: float = 0.01
+    normalize_input: bool = True
+    normalize_value: bool = True
+    normalize_advantage: bool = True
+    value_bootstrap: bool = True  # a timed-out episode earns its value
     max_lr: float = 1e-2
     min_lr: float = 1e-6
     # an iteration whose mean policy KL exceeds this is discarded whole
     # (params, optimizer state, both stats), from epoch 8 on
     kl_guard: float = 1.0
     hidden: tuple = (768, 512, 256)
+
+
+# the JAX PPOConfig's fields of paths not ported, with their defaults
+NOT_PORTED = {
+    "asymmetric_critic": (False, "§1.3"), "rnn_units": (0, "§1.3"), "seq_len": (4, "§1.3"),
+    "zero_rnn_on_done": (True, "§1.3"), "critic_rnn_units": (0, "§1.3"),
+    "data_shards": (1, "§1.6"),
+}
+
+
+def ppo_config(overrides: dict) -> PPOConfig:
+    """A PPOConfig from the overrides a task composes to (`hidden` as a
+    list or tuple). A field of a path not ported raises NotImplementedError
+    unless it has its default; any other unknown field raises KeyError."""
+    kw = {}
+    for k, v in overrides.items():
+        if k in NOT_PORTED:
+            default, item = NOT_PORTED[k]
+            if v != default:
+                raise NotImplementedError(
+                    f"PPOConfig.{k}={v!r} is not ported (only {default!r}; ROADMAP {item})")
+        elif k not in PPOConfig._fields:
+            raise KeyError(f"unknown PPOConfig field {k!r}")
+        else:
+            kw[k] = tuple(v) if k == "hidden" else v
+    if kw.get("lr_schedule", "adaptive") not in ("adaptive", "fixed"):
+        raise ValueError(f"lr_schedule {kw['lr_schedule']!r} is not adaptive or fixed")
+    return PPOConfig(**kw)
 
 
 class TrainState(NamedTuple):
@@ -120,7 +156,7 @@ class PPO:
         self.device = resolve_device(device) if device is not None else env.device
         self.net = ActorCritic(env.num_obs, env.num_actions, cfg.hidden).to(self.device)
         batch = env.cfg.num_envs * cfg.horizon
-        self.num_minibatches = max(1, batch // cfg.minibatch_size)
+        self.num_minibatches = cfg.num_minibatches or max(1, batch // cfg.minibatch_size)
         if batch % self.num_minibatches:
             raise ValueError(f"{batch} samples do not split into {self.num_minibatches} "
                              "minibatches")
@@ -148,11 +184,14 @@ class PPO:
 
     def policy_value(self, params: dict, obs_stats: RunningStats, obs: torch.Tensor):
         """(mu, log_std, value) of raw observations."""
-        return functional_call(self.net, params, (normalize(obs_stats, obs),))
+        if self.cfg.normalize_input:
+            obs = normalize(obs_stats, obs)
+        return functional_call(self.net, params, (obs,))
 
     def value_of(self, value_stats: RunningStats, value: torch.Tensor) -> torch.Tensor:
         """The critic's output in reward units; a non-finite value becomes 0."""
-        value = denormalize(value_stats, value)
+        if self.cfg.normalize_value:
+            value = denormalize(value_stats, value)
         return torch.where(torch.isfinite(value), value, torch.zeros_like(value))
 
     # --- one train iteration ------------------------------------------------
@@ -182,11 +221,12 @@ class PPO:
             value = self.value_of(ts.value_stats, value)
             zero = torch.zeros_like(res.reward)
             reward = torch.where(torch.isfinite(res.reward), res.reward, zero) * cfg.reward_scale
-            # a timed-out episode earns the discounted value of where it
-            # stopped; `where`, not a multiply by the done mask: a non-finite
-            # value times 0 is still NaN
-            reward = reward + cfg.gamma * torch.where(
-                res.done & torch.isfinite(value), value, zero)
+            if cfg.value_bootstrap:
+                # a timed-out episode earns the discounted value of where it
+                # stopped; `where`, not a multiply by the done mask: a
+                # non-finite value times 0 is still NaN
+                reward = reward + cfg.gamma * torch.where(
+                    res.done & torch.isfinite(value), value, zero)
             steps.append(Transition(obs, a, logp, value, reward, res.done, mu, sigma))
             info = res.info
             obs = torch.where(torch.isfinite(res.obs), res.obs, torch.zeros_like(res.obs))
@@ -248,11 +288,14 @@ class PPO:
         adv = flatten_env_major(advantages)
         ret = flatten_env_major(returns)
 
-        obs_stats = update_stats(ts.obs_stats, batch.obs)
-        value_stats = update_stats(ts.value_stats, ret)
-        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)  # jnp.std: ddof 0
-        returns_n = normalize(value_stats, ret, clip=math.inf)
-        values_n = normalize(value_stats, batch.value, clip=math.inf)
+        obs_stats = update_stats(ts.obs_stats, batch.obs) if cfg.normalize_input else ts.obs_stats
+        value_stats = update_stats(ts.value_stats, ret) if cfg.normalize_value else ts.value_stats
+        if cfg.normalize_advantage:
+            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)  # jnp.std: ddof 0
+        returns_n, values_n = ret, batch.value
+        if cfg.normalize_value:
+            returns_n = normalize(value_stats, ret, clip=math.inf)
+            values_n = normalize(value_stats, batch.value, clip=math.inf)
         data = dict(obs=batch.obs, action=batch.action, logp=batch.logp, adv=adv,
                     return_n=returns_n, value_n=values_n, mu=batch.mu, sigma=batch.sigma)
         return data, obs_stats, value_stats
@@ -292,10 +335,11 @@ class PPO:
         cfg = self.cfg
         updates, opt_state = optim.update(grads, opt_state, cfg.grad_norm)
         params = {k: p + updates[k] * lr for k, p in params.items()}
-        lr = torch.where(
-            kl > 2.0 * cfg.kl_threshold, torch.clamp(lr / 1.5, min=cfg.min_lr),
-            torch.where(kl < 0.5 * cfg.kl_threshold,
-                        torch.clamp(lr * 1.5, max=cfg.max_lr), lr))
+        if cfg.lr_schedule == "adaptive":
+            lr = torch.where(
+                kl > 2.0 * cfg.kl_threshold, torch.clamp(lr / 1.5, min=cfg.min_lr),
+                torch.where(kl < 0.5 * cfg.kl_threshold,
+                            torch.clamp(lr * 1.5, max=cfg.max_lr), lr))
         return params, opt_state, lr
 
     def _loss(self, params, obs_stats, mb):
@@ -307,8 +351,11 @@ class PPO:
         surr1 = ratio * mb["adv"]
         surr2 = torch.clamp(ratio, 1.0 - cfg.e_clip, 1.0 + cfg.e_clip) * mb["adv"]
         policy_loss = -torch.mean(torch.minimum(surr1, surr2))
-        v_clipped = mb["value_n"] + torch.clamp(value - mb["value_n"], -cfg.e_clip, cfg.e_clip)
-        v_loss = torch.maximum((value - mb["return_n"]) ** 2, (v_clipped - mb["return_n"]) ** 2)
+        v_loss = (value - mb["return_n"]) ** 2
+        if cfg.clip_value:
+            v_clipped = mb["value_n"] + torch.clamp(value - mb["value_n"], -cfg.e_clip,
+                                                    cfg.e_clip)
+            v_loss = torch.maximum(v_loss, (v_clipped - mb["return_n"]) ** 2)
         value_loss = 0.5 * torch.mean(v_loss)
         entropy = torch.mean(torch.sum(log_std + 0.5 * math.log(2.0 * math.pi * math.e),
                                        dim=-1))

@@ -93,3 +93,18 @@ def quat_integrate(q: torch.Tensor, omega: torch.Tensor, dt) -> torch.Tensor:
     dq = torch.cat([torch.cos(angle), k * w], dim=-1)
     return quat_normalize(quat_mul(dq, q))
 
+
+
+def quat_to_axis_angle(q: torch.Tensor, eps: float = 1e-8):
+    """(axis, angle) with the angle in [0, pi]: the sign of q flips where
+    w < 0."""
+    q = torch.where(q[..., 0:1] < 0, -q, q)
+    sin_half = safe_norm(q[..., 1:4])
+    angle = 2.0 * torch.atan2(sin_half, q[..., 0])
+    axis = q[..., 1:4] / torch.clamp(sin_half[..., None], min=eps)
+    return axis, angle
+
+
+def quat_diff_rad(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Angular distance between two rotations, in radians."""
+    return quat_to_axis_angle(quat_mul(a, quat_conj(b)))[1]

@@ -7,7 +7,9 @@ env.step, once per control step.
     python -m handarm_tpu_torch.rollout [--task NAME] --envs N --steps S [--device cpu]
 
 Tasks: Ur5SihLift (default) and Ur5SihMultiObjectManipulation, each with
-its trained checkpoint. A drop-init task first runs genesis
+its trained checkpoint, composed from its yaml config group as the
+training entry point composes it (the multi-object task: 16 solver
+sweeps). A drop-init task first runs genesis
 (`--drop-steps` and `--settle-steps` shorten it). Prints one
 JSON line: the task, contact slots, genesis seconds and sim steps, the
 env-steps per second and the kernel launch counts of the timed steps.
@@ -16,6 +18,7 @@ env-steps per second and the kernel launch counts of the timed steps.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -24,7 +27,8 @@ import torch
 
 from handarm_tpu_torch import resolve_device
 from handarm_tpu_torch.convert import actor_critic_from_params, running_stats_from_leaves
-from handarm_tpu_torch.envs.tasks import make_env
+from handarm_tpu_torch.envs.hand_arm import HandArmEnv
+from handarm_tpu_torch.envs.registry import resolve_task
 from handarm_tpu_torch.learn.networks import ActorCritic
 from handarm_tpu_torch.learn.running_stats import RunningStats, normalize
 from handarm_tpu_torch.ops import contact_sweep, prep_deff, sdf_gather, spd_inverse
@@ -74,15 +78,19 @@ def launch_counts() -> dict:
     return {name: op.launches for name, op in KERNEL_OPS.items()}
 
 
-def make_task_env(task: str, envs: int | None, device, **overrides):
-    """The task's env at `envs` envs (None: the preset's count; keyword
-    overrides replace config fields); a drop-init task's genesis runs here
-    (the pool is built once, before the first reset)."""
-    if envs is not None:
-        overrides["num_envs"] = envs
-    env = make_env(task, device=device, **overrides)
+def make_task_env(task: str, envs: int | None, device, pool=None, **overrides):
+    """The task's env, composed as the entry points compose it
+    (`envs/registry.py` `resolve_task`), at `envs` envs (None: the
+    composed count); keyword overrides then replace config fields. A
+    drop-init task takes `pool` (a genesis.InitialPool) if given, else runs
+    genesis here (the pool is built once, before the first reset)."""
+    cfg, _ = resolve_task(task, [] if envs is None else [f"env.num_envs={envs}"])
+    env = HandArmEnv(dataclasses.replace(cfg, **overrides), device)
     if env.cfg.use_drop_init:
-        env.initialize_pool()
+        if pool is not None:
+            env.initial_pool = pool
+        else:
+            env.initialize_pool()
     return env
 
 

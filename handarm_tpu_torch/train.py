@@ -1,14 +1,23 @@
 """Training entry point of the port (counterpart of the root `train.py`,
-single device, registry presets only):
+single device):
 
-    python -m handarm_tpu_torch.train [task=Ur5SihLift] [num_envs=N]
-        [max_iterations=1000] [seed=42] [experiment=NAME]
-        [resume=auto|PATH] [save_every=100] [device=cpu] [ppo.<field>=VALUE ...]
+    python -m handarm_tpu_torch.train [task=Ur5SihLift] [max_iterations=1000]
+        [seed=42] [experiment=NAME] [resume=auto|PATH] [save_every=100]
+        [device=cpu] [OVERRIDE ...]
 
-Tasks are those of `envs/tasks.py`, each with its PPO overrides; a
-`ppo.<field>` key replaces one PPOConfig field (`ppo.hidden=256,128,64`).
+The task is composed as the root `train.py` composes it (`envs/registry.py`
+`compose_task`): its yaml config group under `configs/`, or a yaml path
+given as `task=`. Every other `key=value` is an override of that
+composition: `env.<field>=`, `<field>=`, `rl.<key>=`, `sim.<key>=` and
+`ppo.<field>=` (values parse as yaml: `ppo.hidden=[256,128,64]`). A
+full-config yaml (Ur5SihMultiObjectManipulation) takes dotted yaml keys
+only, so its env count is `env.num_envs=N`; a preset-backed yaml (Ur5SihLift,
+the family, Ur5SihReach) also takes a bare `num_envs=N`. An unknown key
+raises.
+
 The run writes `runs/<experiment>/` (relative to the working directory):
-`config.json`, `metrics.jsonl` (and TensorBoard scalars when tensorboardX
+`config.json` (the task, the overrides, the resolved env config and PPO
+overrides), `metrics.jsonl` (and TensorBoard scalars when tensorboardX
 imports), and checkpoints in `nn/`: `ckpt_<i>.npz` every `save_every`
 iterations, `best_0.npz` when the reward improves (after iteration 50, at
 most every 25 iterations), and `ckpt_<max_iterations>.npz` at the end. The
@@ -16,9 +25,12 @@ checkpoint named step i holds the learner after exactly i iterations.
 
 `resume=auto` continues from the newest periodic checkpoint of the
 experiment, `resume=PATH` from any PPO checkpoint in the JAX package's
-format (for example docs/evidence/lift_r3a/ckpt_5200.npz): params,
-optimizer state, running stats, lr and epoch are restored, the env is
-reset fresh and the iteration count starts at the file's step.
+format (for example docs/evidence/lift_r3a/ckpt_5200.npz). As the root
+`train.py` resumes, the whole TrainState is restored: params, optimizer
+state, running stats, lr, epoch, and the env state and last observations
+the run stopped at (the env's random draws restart from `seed`); a file
+whose env or contact-slot count is not the run's keeps only its learner,
+and the env is reset fresh. The iteration count starts at the file's step.
 
 Stats are read back one iteration behind, in one host transfer, after the
 next iteration has been queued, so no iteration waits on a host read. It
@@ -27,6 +39,7 @@ runs on `cuda` unless given `device=cpu`.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -35,9 +48,9 @@ import time
 import torch
 
 from handarm_tpu_torch import resolve_device
-from handarm_tpu_torch.envs.tasks import ppo_overrides
-from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
-from handarm_tpu_torch.rollout import make_task_env
+from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
+from handarm_tpu_torch.envs.registry import resolve_task
+from handarm_tpu_torch.learn.ppo import PPO, PPOConfig, ppo_config
 from handarm_tpu_torch.utils.checkpoint import (
     checkpoint_step,
     latest_checkpoint,
@@ -46,35 +59,45 @@ from handarm_tpu_torch.utils.checkpoint import (
 )
 from handarm_tpu_torch.utils.logging import MetricsLogger
 
-TOP_KEYS = ("task", "num_envs", "max_iterations", "seed", "experiment", "resume",
-            "save_every", "device")
+TOP_KEYS = ("task", "max_iterations", "seed", "experiment", "resume", "save_every", "device")
 
 
-def parse_field(default, text: str):
-    """A PPOConfig value from text, typed as the field's default."""
-    if isinstance(default, tuple):
-        return tuple(int(x) for x in text.strip("()[] ").split(",") if x.strip())
-    return type(default)(text)
-
-
-def parse_args(argv: list[str]) -> tuple[dict, dict]:
-    """(top-level keys, PPOConfig overrides) of `key=value` arguments."""
-    top, ppo = {}, {}
-    fields = PPOConfig._field_defaults
+def parse_args(argv: list[str]) -> tuple[dict, list[str]]:
+    """(top-level keys, composition overrides) of `key=value` arguments."""
+    top, overrides = {}, []
     for arg in argv:
         key, sep, val = arg.partition("=")
         if not sep:
             raise ValueError(f"arguments are key=value, got {arg!r}")
-        if key.startswith("ppo."):
-            name = key[4:]
-            if name not in fields:
-                raise ValueError(f"unknown PPOConfig field {name!r}")
-            ppo[name] = parse_field(fields[name], val)
-        elif key in TOP_KEYS:
+        if key in TOP_KEYS:
             top[key] = val
         else:
-            raise ValueError(f"unknown key {key!r} (known: {', '.join(TOP_KEYS)}, ppo.<field>)")
-    return top, ppo
+            overrides.append(arg)
+    return top, overrides
+
+
+def compose(argv: list[str]) -> tuple[dict, list[str], HandArmConfig, dict, PPOConfig]:
+    """(top-level keys, overrides, env config, PPO overrides, PPOConfig) of
+    the arguments; nothing is built."""
+    top, overrides = parse_args(argv)
+    env_cfg, ppo_over = resolve_task(top.get("task", "Ur5SihLift"), overrides)
+    return top, overrides, env_cfg, ppo_over, ppo_config(ppo_over)
+
+
+def resolved_config(top: dict, overrides: list[str], env_cfg: HandArmConfig,
+                    ppo_over: dict, cfg: PPOConfig, device) -> dict:
+    """What `config.json` holds, as the root train.py's `config.yaml`: the
+    task, the overrides, the env config's plain fields and the PPO
+    overrides (and the whole PPOConfig and the device)."""
+    task = top.get("task", "Ur5SihLift")
+    plain = (int, float, str, bool, tuple, list)
+    return {
+        "task": task, "experiment": top.get("experiment", task),
+        "seed": int(top.get("seed", 42)), "max_iterations": int(top.get("max_iterations", 1000)),
+        "cli_overrides": dict(o.split("=", 1) for o in overrides),
+        "env": {k: v for k, v in dataclasses.asdict(env_cfg).items() if isinstance(v, plain)},
+        "ppo_overrides": ppo_over, "ppo": cfg._asdict(), "device": str(device),
+    }
 
 
 def drain_stats(stats: dict) -> dict:
@@ -84,7 +107,7 @@ def drain_stats(stats: dict) -> dict:
 
 
 def main(argv: list[str]) -> None:
-    top, ppo_kv = parse_args(argv)
+    top, overrides, env_cfg, ppo_over, cfg = compose(argv)
     task = top.get("task", "Ur5SihLift")
     max_iterations = int(top.get("max_iterations", 1000))
     seed = int(top.get("seed", 42))
@@ -93,26 +116,29 @@ def main(argv: list[str]) -> None:
     save_every = int(top.get("save_every", 100))
     dev = resolve_device(top.get("device"))
 
-    env = make_task_env(task, int(top["num_envs"]) if "num_envs" in top else None, dev)
-    cfg = PPOConfig(**{**ppo_overrides(task), **ppo_kv})
+    env = HandArmEnv(env_cfg, dev)  # a drop-init task runs genesis at its first reset
     ppo = PPO(env, cfg)
 
     run_dir = os.path.join("runs", exp_name)
     nn_dir = os.path.join(run_dir, "nn")
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump({"task": task, "experiment": exp_name, "seed": seed,
-                   "max_iterations": max_iterations, "num_envs": env.cfg.num_envs,
-                   "device": str(dev), "ppo": cfg._asdict()}, f, indent=1)
+        json.dump(resolved_config(top, overrides, env_cfg, ppo_over, cfg, dev), f, indent=1)
     logger = MetricsLogger(run_dir)
 
     ts = ppo.init(seed)
     start_it = 0
     path = latest_checkpoint(nn_dir) if resume == "auto" else resume
     if path:
-        ts = load_train_state(path, dev, ts.env_state, ts.last_obs)
+        ck = load_train_state(path, dev)
+        same = (ck.last_obs.shape == ts.last_obs.shape and
+                ck.env_state.physics.contact_impulse.shape
+                == ts.env_state.physics.contact_impulse.shape)
+        ts = ck if same else ck._replace(env_state=ts.env_state, last_obs=ts.last_obs)
         start_it = checkpoint_step(path)
-        print(f"resumed from {path} at iter {start_it}", flush=True)
+        print(f"resumed from {path} at iter {start_it}"
+              + ("" if same else " (its env state is another size: the env is reset fresh)"),
+              flush=True)
 
     steps_per_iter = env.cfg.num_envs * cfg.horizon
     print(f"task={task} envs={env.cfg.num_envs} obs={env.num_obs} act={env.num_actions} "

@@ -1,9 +1,13 @@
 """How far float32 rounding alone moves the PPO update: float32 against
 float64 on one device.
 
-    python -m handarm_tpu_torch.update_precision --envs 512 --minibatch 8192 --steps 4
+    python -m handarm_tpu_torch.update_precision [--task Ur5SihLift] --envs 512
+        --minibatch 8192 --steps 4
 
-From ckpt_5200's learner on a fresh Ur5SihLift reset, one train iteration,
+From the task's checkpoint's learner (Ur5SihLift: ckpt_5200,
+Ur5SihMultiObjectManipulation: ckpt_2700, its genesis run first) on a
+fresh reset of the task composed as the train entry point composes it,
+with its PPO overrides but `--minibatch`: one train iteration,
 then one more rollout whose update is computed twice, in float32 and in
 float64 (the learner, the trajectory and the last observations converted):
 the prepared samples and stats (`PPO._prepare`), then `--steps` minibatch
@@ -24,9 +28,9 @@ import json
 import torch
 
 from handarm_tpu_torch import resolve_device
-from handarm_tpu_torch.envs.tasks import make_env, ppo_overrides
-from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
-from handarm_tpu_torch.rollout import TASK_CKPTS
+from handarm_tpu_torch.envs.registry import resolve_task
+from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+from handarm_tpu_torch.rollout import TASK_CKPTS, make_task_env
 from handarm_tpu_torch.utils.checkpoint import load_train_state
 
 FLOAT32_EPS = 2.0 ** -23  # one ulp of a float32 in [1, 2)
@@ -48,15 +52,16 @@ def kl_margin(kls, kl_threshold: float) -> float:
     return min(abs(k - t) / t for k in kls for t in (0.5 * kl_threshold, 2 * kl_threshold))
 
 
-def measure(envs: int, minibatch: int, steps: int, device=None) -> dict:
+def measure(envs: int, minibatch: int, steps: int, device=None,
+            task: str = "Ur5SihLift") -> dict:
     dev = resolve_device(device)
-    env = make_env("Ur5SihLift", device=dev, num_envs=envs)
-    ppo = PPO(env, PPOConfig(**{**ppo_overrides("Ur5SihLift"), "minibatch_size": minibatch}))
+    env = make_task_env(task, envs, dev)
+    ppo = PPO(env, ppo_config({**resolve_task(task)[1], "minibatch_size": minibatch}))
     if steps > ppo.cfg.mini_epochs * ppo.num_minibatches:
         raise ValueError(f"{steps} steps: the update has {ppo.cfg.mini_epochs} mini-epochs of "
                          f"{ppo.num_minibatches} minibatches")
     fresh = ppo.init(0)
-    ts = load_train_state(TASK_CKPTS["Ur5SihLift"], dev, fresh.env_state, fresh.last_obs)
+    ts = load_train_state(TASK_CKPTS[task], dev, fresh.env_state, fresh.last_obs)
     ts, _ = ppo.train_iter(ts)
     traj, _, last_obs, _ = ppo.rollout(ts)
     n = envs * ppo.cfg.horizon
@@ -70,7 +75,8 @@ def measure(envs: int, minibatch: int, steps: int, device=None) -> dict:
     scale = lambda x: float(x.abs().max())
     diff = lambda a, b: float((a.double() - b).abs().max())
 
-    report = {"envs": envs, "minibatch": ppo.mb_size, "steps": steps, "device": str(dev)}
+    report = {"task": task, "envs": envs, "minibatch": ppo.mb_size, "steps": steps,
+              "device": str(dev)}
     report["samples"] = {k: diff(data32[k], data64[k]) / scale(data64[k])
                          for k in ("adv", "return_n", "value_n")}
     stats = {}
@@ -102,12 +108,13 @@ def measure(envs: int, minibatch: int, steps: int, device=None) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default="Ur5SihLift", choices=sorted(TASK_CKPTS))
     ap.add_argument("--envs", type=int, default=512)
     ap.add_argument("--minibatch", type=int, default=8192)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--device", default=None, help="cuda unless given, e.g. cpu")
     a = ap.parse_args(argv)
-    print(json.dumps(measure(a.envs, a.minibatch, a.steps, a.device)), flush=True)
+    print(json.dumps(measure(a.envs, a.minibatch, a.steps, a.device, a.task)), flush=True)
 
 
 if __name__ == "__main__":

@@ -380,3 +380,126 @@ def test_jax_loader_reads_port_checkpoint(tmp_path, jax_ts):
     assert int(loaded.epoch) == 5201 and int(loaded.opt_state.inner_state[1].count) == 332800
     assert loaded.env_state.physics.robot.q.shape == (8192, 17)
 
+
+
+# --- the PPOConfig switches, each at its non-default value --------------------
+
+FLAG_CASES = {
+    "num_minibatches": dict(num_minibatches=2),  # 2 minibatches of 512, not 4 of 256
+    "lr_schedule": dict(lr_schedule="fixed"),
+    "clip_value": dict(clip_value=False),
+    "normalize_input": dict(normalize_input=False),
+    "normalize_value": dict(normalize_value=False),
+    "normalize_advantage": dict(normalize_advantage=False),
+    "value_bootstrap": dict(value_bootstrap=False),
+}
+
+
+class _JaxTableEnv:
+    """An env whose step t returns row t of fixed tables, whatever the
+    action: observations obs[t + 1], rewards, done flags. Its state is t."""
+
+    def __init__(self, obs, reward, done):
+        self.obs, self.reward, self.done = (jnp.asarray(x) for x in (obs, reward, done))
+        self.num_obs, self.num_actions, self.num_teacher_obs = NUM_OBS, NUM_ACTIONS, 0
+        self.cfg = SimpleNamespace(num_envs=obs.shape[1])
+
+    def step(self, t, a):
+        B = self.cfg.num_envs
+        return t + 1, SimpleNamespace(obs=self.obs[t + 1], reward=self.reward[t],
+                                      done=self.done[t], info={},
+                                      teacher_obs=jnp.zeros((B, 0), jnp.float32))
+
+
+class _TorchTableEnv(_JaxTableEnv):
+    def __init__(self, obs, reward, done):
+        self.obs, self.reward, self.done = _t(obs), _t(reward), _t(done)
+        self.num_obs, self.num_actions = NUM_OBS, NUM_ACTIONS
+        self.cfg = SimpleNamespace(num_envs=obs.shape[1])
+
+    def step(self, t, a):
+        return t + 1, SimpleNamespace(obs=self.obs[t + 1], reward=self.reward[t],
+                                      done=self.done[t], info={})
+
+
+@pytest.mark.parametrize("flag", sorted(FLAG_CASES))
+def test_ppo_flags_match(flag, jax_ts, leaves):
+    """One train iteration from ckpt_5200's learner at B = 64, T = 16,
+    minibatch 256, with one PPOConfig switch at its non-default value, on a
+    table env (observations from the checkpoint's own, rewards 0-6 and 10 %
+    done flags from a numpy seed). The rollout on each side, with the JAX
+    package's noise: every observation the same, so mu and logp within
+    1e-4 and values and rewards within 1e-3 (float32 matmuls in two
+    libraries; values denormalized by a sigma of 7.6). Then one
+    `_update_from_traj` on the JAX package's trajectory with its
+    permutations, held as `test_update_from_traj_matches` holds it, but
+    Adam's moments within 1e-6 or 1e-4 of each one's largest value, the
+    larger: without input normalization the raw observations drive the mu
+    head's gradient moments to 4e-2, float32 sums of 256 per-sample terms
+    taken in another order by each library (measured: 3.1e-5 of that
+    scale; every other case within 1e-6)."""
+    T, B, key = 16, 64, jax.random.PRNGKey(9)
+    rng = np.random.default_rng(5)
+    all_obs = np.asarray(jax_ts.last_obs)
+    obs = np.stack([all_obs[200 + t * B: 200 + (t + 1) * B] for t in range(T + 1)])
+    reward = rng.uniform(0.0, 6.0, (T, B)).astype(np.float32)
+    done = rng.uniform(size=(T, B)) < 0.1
+    cfg = dict(horizon=T, minibatch_size=256, **FLAG_CASES[flag])
+    jp = jppo.PPO(_JaxTableEnv(obs, reward, done), jppo.PPOConfig(**cfg))
+    captured = {}
+    update = jp._update_from_traj
+
+    def capture(ts_, traj, *args, **kw):
+        captured["traj"] = traj
+        return update(ts_, traj, *args, **kw)
+
+    jp._update_from_traj = capture
+    jts = jax_ts._replace(env_state=jnp.int32(0), last_obs=jnp.asarray(obs[0]), key=key)
+    j_new, j_stats = jp.train_iter(jts)
+    k_next, k_roll, _ = jax.random.split(key, 3)
+    noise = np.stack([np.asarray(jax.random.normal(k, (B, NUM_ACTIONS)))
+                      for k in jax.random.split(k_roll, T)])
+
+    tp = tppo.PPO(_TorchTableEnv(obs, reward, done), tppo.PPOConfig(**cfg), device="cpu")
+    tts = train_state_from_leaves(leaves, 0, _t(obs[0]))
+    traj, env_state, last_obs, _ = tp.rollout(tts, _t(noise))
+    want = captured["traj"]
+    assert env_state == T and torch.equal(last_obs, _t(obs[T]))
+    for k, tol in (("mu", 1e-4), ("logp", 1e-4), ("value", 1e-3), ("reward", 1e-3)):
+        np.testing.assert_allclose(getattr(traj, k).numpy(), np.asarray(getattr(want, k)),
+                                   atol=tol, err_msg=k)
+    if flag == "value_bootstrap":  # no done step earns its value
+        np.testing.assert_allclose(traj.reward.numpy(), reward * 0.01, rtol=1e-6)
+
+    kls = record_kls(tp)
+    t_new, t_stats = tp._update_from_traj(
+        tts, _port_traj({k: np.asarray(getattr(want, k)) for k in tppo.Transition._fields}),
+        env_state, last_obs, perms=_t(_perms(k_next, 4, T * B)).long())
+    assert tp.num_minibatches == jp.num_minibatches == (2 if flag == "num_minibatches" else 4)
+    got = learner_to_leaves(t_new)
+    want_leaves = jax.tree.leaves((j_new.params, j_new.opt_state, j_new.obs_stats,
+                                   j_new.value_stats, j_new.lr))
+    assert bool(t_stats["kl_guard_triggered"]) == bool(j_stats["kl_guard_triggered"])
+    for i, w in enumerate(want_leaves):
+        w = np.asarray(w)
+        assert got[i].dtype == w.dtype and got[i].shape == w.shape, i
+        if i < 11:  # params
+            np.testing.assert_allclose(got[i], w, atol=1e-6, err_msg=f"leaf {i}")
+        elif 15 <= i < 37:  # Adam moments
+            tol = max(1e-6, 1e-4 * float(np.abs(w).max()))
+            np.testing.assert_allclose(got[i], w, atol=tol, err_msg=f"leaf {i}")
+        elif i < 15:  # optax counters
+            np.testing.assert_array_equal(got[i], w, err_msg=f"leaf {i}")
+        elif i < 43:  # running stats
+            np.testing.assert_allclose(got[i], w, rtol=1e-5, err_msg=f"leaf {i}")
+    if flag == "lr_schedule":
+        assert float(got[43]) == float(want_leaves[43]) == np.float32(float(jax_ts.lr))
+    assert_same_lr(float(got[43]), float(want_leaves[43]), kls)
+    if flag in ("normalize_input", "normalize_value"):  # those stats stay as they were
+        old = learner_to_leaves(tts)
+        idx = range(37, 40) if flag == "normalize_input" else range(40, 43)
+        for i in idx:
+            np.testing.assert_array_equal(got[i], old[i], err_msg=f"leaf {i}")
+    for k, v in j_stats.items():
+        np.testing.assert_allclose(float(t_stats[k]), float(v), rtol=1e-4, atol=1e-7,
+                                   err_msg=k)

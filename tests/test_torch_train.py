@@ -283,16 +283,180 @@ def test_train_entry_point_on_cpu(tmp_path, monkeypatch):
 
 
 def test_train_rejects_unknown_keys():
+    """The arguments compose the task as the root train.py composes it: the
+    top keys apart, every other key an override of the composition. An
+    unknown HandArmConfig field raises KeyError, as the JAX package's
+    make_env; a PPOConfig field of a path not ported raises
+    NotImplementedError, an unknown one KeyError; values parse as yaml."""
     from handarm_tpu_torch import train
 
-    with pytest.raises(ValueError, match="unknown key"):
-        train.parse_args(["num_env=8"])
-    with pytest.raises(ValueError, match="PPOConfig field"):
-        train.parse_args(["ppo.rnn_units=8"])
-    top, ppo = train.parse_args(["task=Ur5SihReach", "ppo.hidden=256,128,64",
-                                 "ppo.e_clip=0.2", "ppo.mini_epochs=2"])
-    assert top == {"task": "Ur5SihReach"}
-    assert ppo == {"hidden": (256, 128, 64), "e_clip": 0.2, "mini_epochs": 2}
+    with pytest.raises(ValueError, match="key=value"):
+        train.parse_args(["num_envs"])
+    with pytest.raises(KeyError, match="unknown config key"):
+        train.compose(["task=Ur5SihReach", "num_env=8"])
+    with pytest.raises(NotImplementedError, match="rnn_units"):
+        train.compose(["task=Ur5SihReach", "ppo.rnn_units=8"])
+    with pytest.raises(KeyError, match="PPOConfig field"):
+        train.compose(["task=Ur5SihReach", "ppo.rnn_unit=8"])
+    args = ["task=Ur5SihReach", "num_envs=8", "ppo.hidden=[256,128,64]", "ppo.e_clip=0.2",
+            "ppo.mini_epochs=2", "seed=3"]
+    top, over = train.parse_args(args)
+    assert top == {"task": "Ur5SihReach", "seed": "3"}
+    assert over == args[1:5]
+    _, _, env_cfg, _, cfg = train.compose(args)
+    assert env_cfg.num_envs == 8 and env_cfg.actions == ("ur5_relative_joint_pos",)
+    assert (cfg.hidden, cfg.e_clip, cfg.mini_epochs, cfg.minibatch_size) == \
+        ((256, 128, 64), 0.2, 2, 256)
+
+
+def test_train_entry_point_composes_family_task(tmp_path, monkeypatch):
+    """`python -m handarm_tpu_torch.train task=Ur5SihReposition
+    env.num_envs=8 max_iterations=2 device=cpu`: the task composed from its
+    yaml group (the reposition goal, the registry's minibatch 8192, which
+    8 x 16 samples cut to one minibatch); config.json holds the task, the
+    overrides, the resolved env fields and the PPO overrides; two
+    iterations logged and the final checkpoint written. Resumed from that
+    checkpoint, the run starts from its whole TrainState, env state and
+    last observations included; at 4 envs from its learner only."""
+    torch.set_num_threads(1)
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.utils.checkpoint import load_train_state
+
+    monkeypatch.chdir(tmp_path)
+    train.main(["task=Ur5SihReposition", "env.num_envs=8", "max_iterations=2", "device=cpu"])
+    run = tmp_path / "runs" / "Ur5SihReposition"
+    cfg = json.loads((run / "config.json").read_text())
+    assert cfg["task"] == "Ur5SihReposition" and cfg["cli_overrides"] == {"env.num_envs": "8"}
+    assert cfg["env"]["goal"] == "reposition" and cfg["env"]["num_envs"] == 8
+    assert cfg["env"]["solver_iterations"] == 8 and cfg["ppo_overrides"] == {"minibatch_size": 8192}
+    lines = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [x["step"] for x in lines] == [0, 1]
+    assert all(np.isfinite(x["reward_mean"]) for x in lines)
+    ts = load_train_state(str(run / "nn" / "ckpt_2.npz"))
+    assert int(ts.epoch) == 2 and int(ts.opt_state.count) == 8
+    assert ts.last_obs.shape == (8, 121)
+
+    # resuming restores the whole TrainState, env state included, as the
+    # root train.py does; at another env count only the learner
+    from handarm_tpu_torch.learn.ppo import PPO
+
+    seen, train_iter = [], PPO.train_iter
+    monkeypatch.setattr(PPO, "train_iter", lambda self, t, *a, **k: (
+        seen.append(t), train_iter(self, t, *a, **k))[1])
+    ckpt = str(run / "nn" / "ckpt_2.npz")
+    for envs in (8, 4):
+        train.main(["task=Ur5SihReposition", f"env.num_envs={envs}", "max_iterations=3",
+                    "device=cpu", f"resume={ckpt}", f"experiment=resumed{envs}"])
+    same, fresh = seen
+    assert torch.equal(same.last_obs, ts.last_obs) and int(same.epoch) == 2
+    assert torch.equal(same.env_state.physics.robot.q, ts.env_state.physics.robot.q)
+    assert fresh.last_obs.shape == (4, 121) and int(fresh.epoch) == 2
+    assert torch.equal(fresh.params["mu.weight"], ts.params["mu.weight"])
+
+
+MULTI_CKPT = os.path.join(REPO, "docs", "evidence", "multiobj_r5a", "ckpt_2700.npz")
+
+
+def test_multiobject_update_matches():
+    """One `_update_from_traj` with the PPOConfig that
+    Ur5SihMultiObjectManipulation composes to (its train yaml: every switch
+    on, 4 mini-epochs, the adaptive lr) but its minibatch cut with the env
+    count, 64 envs x horizon 16 in 4 minibatches of 256 as 8192 x 16 are 4
+    of 32768, from ckpt_2700's learner, against the JAX package's composed
+    config. The trajectory is ckpt_2700's policy on its own observations,
+    with noise, rewards and done flags from a numpy seed (no genesis). Held
+    as tests/test_torch_ppo.py holds the PPOConfig switches: params within
+    1e-6, Adam moments within 1e-6 or 1e-4 of each one's largest value (the
+    mu head's gradient moment reaches 1.6e-2 here; measured 1.3e-6 apart,
+    float32 sums of 256 per-sample terms in another order), counters exact,
+    stats 1e-5 relative, the lr equal unless a KL lay at a branch
+    threshold, the stats dict 1e-4 relative."""
+    torch.set_num_threads(1)
+    import jax
+    import jax.numpy as jnp
+
+    import handarm_tpu.learn.ppo as jppo
+    from handarm_tpu.utils.checkpoint import load_checkpoint
+    from handarm_tpu_torch.convert import learner_to_leaves, train_state_from_leaves
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn import ppo as tppo
+    from handarm_tpu_torch.utils.checkpoint import read_leaves
+    from test_torch_ppo import _jax_traj, _perms, _port_traj, _trajectory
+
+    T, B, key = 16, 64, jax.random.PRNGKey(21)
+    over = [f"env.num_envs={B}", "ppo.minibatch_size=256"]
+    import handarm_tpu.envs.registry as jreg
+
+    build = jreg.HandArmEnv
+    jreg.HandArmEnv = lambda cfg: cfg
+    try:
+        _, jover = jreg.compose_task("Ur5SihMultiObjectManipulation", over)
+    finally:
+        jreg.HandArmEnv = build
+    env_cfg, tover = resolve_task("Ur5SihMultiObjectManipulation", over)
+    assert tover == jover and env_cfg.num_envs == B and env_cfg.solver_iterations == 16
+    stub = lambda: type("Stub", (), dict(num_obs=147, num_actions=11, cfg=env_cfg))()
+    jax_ts = load_checkpoint(MULTI_CKPT)
+    leaves = read_leaves(MULTI_CKPT)
+    tr = _trajectory(jax_ts, np.random.default_rng(8), T, B, offset=300)
+    jp = jppo.PPO(stub(), jppo.PPOConfig(**jover))
+    j_new, j_stats = jax.jit(jp._update_from_traj)(
+        jax_ts._replace(env_state=None, last_obs=None, key=key), _jax_traj(tr), None,
+        jnp.asarray(tr["last_obs"]), None, key)
+    tp = tppo.PPO(stub(), tppo.ppo_config(tover), device="cpu")
+    assert tp.num_minibatches == jp.num_minibatches == 4 and tp.mb_size == 256
+    tts = train_state_from_leaves(leaves, None, None)
+    kls = record_kls(tp)
+    t_new, t_stats = tp._update_from_traj(
+        tts, _port_traj(tr), None, torch.as_tensor(tr["last_obs"]),
+        perms=torch.as_tensor(_perms(key, 4, T * B)).long())
+    assert len(kls) == 16
+    got = learner_to_leaves(t_new)
+    want = jax.tree.leaves((j_new.params, j_new.opt_state, j_new.obs_stats,
+                            j_new.value_stats, j_new.lr))
+    for i, w in enumerate(want):
+        w = np.asarray(w)
+        assert got[i].dtype == w.dtype and got[i].shape == w.shape, i
+        if i < 11:  # params
+            np.testing.assert_allclose(got[i], w, atol=1e-6, err_msg=f"leaf {i}")
+        elif 15 <= i < 37:  # Adam moments
+            tol = max(1e-6, 1e-4 * float(np.abs(w).max()))
+            np.testing.assert_allclose(got[i], w, atol=tol, err_msg=f"leaf {i}")
+        elif i < 15:  # optax counters
+            np.testing.assert_array_equal(got[i], w, err_msg=f"leaf {i}")
+        elif i < 43:  # running stats
+            np.testing.assert_allclose(got[i], w, rtol=1e-5, err_msg=f"leaf {i}")
+    assert_same_lr(float(got[43]), float(want[43]), kls)
+    assert int(t_new.epoch) == int(j_new.epoch) == int(tts.epoch) + 1
+    assert not bool(t_stats["kl_guard_triggered"])
+    for k, v in j_stats.items():
+        np.testing.assert_allclose(float(t_stats[k]), float(v), rtol=1e-4, atol=1e-7,
+                                   err_msg=k)
+
+
+def test_jax_loader_reads_port_multiobject_checkpoint(tmp_path):
+    """The port reads ckpt_2700 and writes `ckpt_2701.npz` after a change
+    of its params, as the train entry point resumed from it writes one;
+    `handarm_tpu.utils.checkpoint.load_checkpoint(path,
+    example_tree=<ckpt_2700>)` loads it, params and epoch equal to the
+    port's, its env state the multi-object one (8192 envs, 372 slots)."""
+    import jax
+
+    from handarm_tpu.utils.checkpoint import load_checkpoint
+    from handarm_tpu_torch.learn.networks import flax_names
+    from handarm_tpu_torch.utils import checkpoint as tck
+
+    ts = tck.load_train_state(MULTI_CKPT)
+    ts = ts._replace(params={k: p * 0.5 for k, p in ts.params.items()}, epoch=ts.epoch + 1)
+    path = tck.save_checkpoint(str(tmp_path), ts, 2701, sync=True)
+    assert os.path.basename(path) == "ckpt_2701.npz"
+    loaded = load_checkpoint(path, example_tree=load_checkpoint(MULTI_CKPT))
+    for (f, t), w in zip(flax_names(3), jax.tree.leaves(loaded.params)):
+        p = ts.params[t].numpy()
+        np.testing.assert_array_equal(p.T if f.endswith(".kernel") else p, np.asarray(w))
+    assert int(loaded.epoch) == int(ts.epoch)
+    assert loaded.env_state.physics.contact_impulse.shape == (8192, 372, 3)
+    assert loaded.last_obs.shape == (8192, 147)
 
 
 def test_eval_policy_on_cpu():
