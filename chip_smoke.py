@@ -81,7 +81,7 @@ Phases, each with a deadline and one flushed progress line:
                counted steps (spd_inverse 401 launches, contact_sweep
                2,406); at least 3,000 episodes, every state leaf finite.
  11. reach     Ur5SihReach from a flax-default init at its preset size (64
-               envs), 20 train iterations; reward_mean per iteration;
+               envs), 10 train iterations; reward_mean per iteration;
                every param and stat finite; spd_inverse 16 and
                contact_sweep 96 launches per iteration.
  12. family    Ur5SihReposition, OrientedReposition, Repose and Throw, each
@@ -111,12 +111,39 @@ Phases, each with a deadline and one flushed progress line:
                task=Ur5SihMultiObjectManipulation
                resume=docs/evidence/multiobj_r5a/ckpt_2700.npz
                max_iterations=2701` must write ckpt_2701.npz.
+ 16. clouds    every synthetic point-cloud observable (object, target,
+               target interval and its position, robot, goal, scene) and
+               the teacher observations of Ur5SihLift, 2 control steps of
+               ckpt_5200 at 16 envs on the card and on the CPU from the
+               cpu-ref state, with the same subsampling scores on both
+               sides: every cloud by key (types and row order exact, xyz
+               within 5e-4), the flat and teacher observations within 2e-3.
+               (Run after phase 5.)
+ 17. distill-train  DAgger (`learn/distill.py`) distilling ckpt_5200 into a
+               PointNet student on Ur5SihLift at 8192 envs, as
+               `train_distill` builds it (horizon 16, 4 minibatches of
+               32768 x 2 mini-epochs): one warm-up iteration, 3 timed as
+               rollout and update, then one whose first minibatch step is
+               rerun on the CPU from the card's inputs (loss terms,
+               gradients, and the optimizer step: `distill_step_check`).
+               Launches per iteration exactly spd_inverse 16,
+               contact_sweep 96, prep_deff 0, sdf_gather 0.
+ 18. distill-eval  the student docs/evidence/distill_r5a/student.npz
+               (`eval_policy --student`, teacher ckpt_5200) at 8192 envs,
+               as phase 10: at least 8,192 episodes; launches per step 1
+               spd_inverse and 6 contact_sweep.
+ 19. distill-entry  the user's entry points, each in its own process:
+               `python -m handarm_tpu_torch.train_distill --teacher
+               ckpt_5200 --envs 8192 --iters 2` must write student.npz (18
+               finite leaves) and metrics; `python -m
+               handarm_tpu_torch.eval_policy --student` of that file at
+               8192 envs, 5-step episodes, must count 16,384 episodes.
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
-the training phases' numbers under "train", "multiobj_train" and
-"family", and the evaluations' under "eval" and "multiobj_eval"; the last
-line is {"ok": true, "device": {...}}. Any fault prints a traceback and
+the training phases' numbers under "train", "multiobj_train", "family"
+and "distill", and the evaluations' under "eval", "multiobj_eval" and
+"distill" -> "eval"; the last line is {"ok": true, "device": {...}}. Any fault prints a traceback and
 exits non-zero; without CUDA it exits 2 before any result.
 """
 
@@ -136,10 +163,11 @@ import traceback
 
 TOTAL_DEADLINE_S = 1100
 PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
-                    "cpu-ref": 240, "multiobj": 480, "multiobj-kernels": 240,
+                    "cpu-ref": 240, "clouds": 180, "multiobj": 480, "multiobj-kernels": 240,
                     "multiobj-ref": 300, "multiobj-train": 420, "multiobj-eval": 300,
                     "train": 420, "eval": 300, "reach": 300, "family": 480,
-                    "multiobj-entry": 480}
+                    "multiobj-entry": 480, "distill-train": 360, "distill-eval": 300,
+                    "distill-entry": 360}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -148,10 +176,13 @@ MULTI_STEPS = 20  # multi-object control steps after genesis and reset
 TRAIN_ITERS = 3  # timed lift train iterations, after one warm-up iteration
 ENTRY_ITERS = 2  # iterations of the train entry point, resumed from ckpt_5200
 EVAL_STEPS = 200  # counted eval steps, after a burn-in of one episode (200)
-REACH_ITERS = 20
+REACH_ITERS = 10
 FAMILY = ("Ur5SihReposition", "Ur5SihOrientedReposition", "Ur5SihRepose", "Ur5SihThrow")
 FAMILY_ITERS = 2  # timed family train iterations, after one warm-up iteration
 PREFIX_STEPS = 4  # chained minibatch steps of the kept update rerun on the CPU
+DISTILL_ITERS = 3  # timed DAgger iterations, after one warm-up iteration
+DISTILL_ENTRY_ITERS = 2  # iterations of the train_distill entry point
+STUDENT = os.path.join("docs", "evidence", "distill_r5a", "student.npz")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
 FLOAT32_EPS = 2.0 ** -23  # one ulp of a float32 in [1, 2)
@@ -1059,14 +1090,17 @@ LIFT_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0, "sdf_gath
 MULTI_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gather": 3}
 
 
-def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=None) -> dict:
-    """Phases 10 and 14 (see the module docstring)."""
+def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=None,
+               student=None, min_episodes=3000) -> dict:
+    """Phases 10, 14 and 18 (see the module docstring)."""
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.eval_policy import evaluate
 
     rollout.reset_launch_counts()
     t0 = time.perf_counter()
-    out, state = evaluate(task=task, envs=ENVS, steps=EVAL_STEPS, device=dev, pool=pool)
+    out, state = evaluate(task=task, envs=ENVS, steps=EVAL_STEPS, device=dev, pool=pool,
+                          student=student,
+                          teacher=rollout.TASK_CKPTS["Ur5SihLift"] if student else None)
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
     steps = 1 + 200 + EVAL_STEPS
@@ -1078,8 +1112,8 @@ def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=Non
         f"in {seconds:.1f} s: episodes {n}, successes {out['successes']}, "
         f"success rate {p:.6f} (standard error {se:.6f}), success_ewma "
         f"{out['success_ewma']:.6f}, per-object ewma {out['per_object_ewma']}; launches {counts}")
-    if n < 3000:
-        raise AssertionError(f"eval counted {n} episodes, fewer than 3,000")
+    if n < min_episodes:
+        raise AssertionError(f"eval counted {n} episodes, fewer than {min_episodes}")
     return dict(out, policy=os.path.relpath(out["policy"]), envs=ENVS, steps=EVAL_STEPS,
                 seconds=seconds, launches=counts, standard_error=se)
 
@@ -1190,26 +1224,35 @@ def family_phase(rollout, dev) -> dict:
     return out
 
 
-def entry_subprocess(args: list[str], out: str, tag: str, timeout: int) -> float:
-    """`python -m handarm_tpu_torch.train ARGS` as a user runs it, in its own
-    process (output indented here); it must exit 0 within `timeout` s and
-    write the checkpoint `out`, 71 finite leaves. Returns its seconds and
-    its last iteration's kl, KL-guard flag and reward_mean."""
-    import numpy as np
-
-    from handarm_tpu_torch.utils.checkpoint import read_leaves
-
+def run_module(module: str, args: list[str], tag: str, timeout: int):
+    """`python -m MODULE ARGS` as a user runs it, in its own process (the
+    last lines of its output indented here); it must exit 0 within
+    `timeout` s. Returns (seconds, its standard output)."""
     here = os.path.dirname(os.path.abspath(__file__))
     path = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "handarm_tpu_torch.train", *args],
-                         capture_output=True, text=True, timeout=timeout,
-                         env=dict(os.environ, PYTHONPATH=path))
+    res = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
+                         text=True, timeout=timeout, env=dict(os.environ, PYTHONPATH=path))
     seconds = time.perf_counter() - t0
     for line in (res.stdout + res.stderr).splitlines()[-12:]:
         log(f"  | {line}")
     if res.returncode != 0:
-        raise AssertionError(f"{tag}: the train entry point exited {res.returncode}")
+        raise AssertionError(f"{tag}: {module} exited {res.returncode}")
+    log(f"{tag}: `python -m {module} {' '.join(args)}` in {seconds:.1f} s (process start, "
+        "kernel load, env build and reset included)")
+    return seconds, res.stdout
+
+
+def entry_subprocess(args: list[str], out: str, tag: str, timeout: int) -> dict:
+    """`python -m handarm_tpu_torch.train ARGS` in its own process
+    (`run_module`); it must write the checkpoint `out`, 71 finite leaves.
+    Returns its seconds and its last iteration's kl, KL-guard flag and
+    reward_mean."""
+    import numpy as np
+
+    from handarm_tpu_torch.utils.checkpoint import read_leaves
+
+    seconds, _ = run_module("handarm_tpu_torch.train", args, tag, timeout)
     leaves = read_leaves(out)
     if len(leaves) != 71 or not all(np.isfinite(x).all() for x in leaves
                                     if np.issubdtype(x.dtype, np.floating)):
@@ -1217,10 +1260,8 @@ def entry_subprocess(args: list[str], out: str, tag: str, timeout: int) -> float
     metrics = os.path.join(os.path.dirname(os.path.dirname(out)), "metrics.jsonl")
     with open(metrics) as f:
         last = json.loads(f.read().splitlines()[-1])
-    log(f"{tag}: `python -m handarm_tpu_torch.train {' '.join(args)}` in {seconds:.1f} s "
-        f"(process start, kernel load, env build and reset included), wrote {out}; its "
-        f"last iteration: kl {last['kl']:.5f}, kl_guard {last['kl_guard_triggered']:.0f}, "
-        f"reward_mean {last['reward_mean']:.5f}")
+    log(f"{tag}: wrote {out}; its last iteration: kl {last['kl']:.5f}, kl_guard "
+        f"{last['kl_guard_triggered']:.0f}, reward_mean {last['reward_mean']:.5f}")
     return dict(seconds=seconds, kl=last["kl"], kl_guard=last["kl_guard_triggered"],
                 reward_mean=last["reward_mean"])
 
@@ -1254,6 +1295,254 @@ def reach_phase(rollout, dev) -> dict:
         f"of the first 5 {first:.5f}, of the last 5 {last:.5f}")
     return dict(task="Ur5SihReach", envs=env.cfg.num_envs, iterations=REACH_ITERS,
                 seconds=seconds, reward_mean=rewards, first5=first, last5=last)
+
+
+CLOUD_OBS = ("ur5_joint_pos", "ur5_flange_pose", "dof_position_targets",
+             "target_object_interval_pos", "target_object_to_goal_pos",
+             "object_synthetic_pointcloud", "target_object_synthetic_pointcloud",
+             "target_object_synthetic_interval_pointcloud", "ur5sih_synthetic_pointcloud",
+             "goal_synthetic_pointcloud", "scene_synthetic_pointcloud")
+
+
+def clouds_phase(rollout, dev, ref_state) -> dict:
+    """Phase 16 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch.envs import pointcloud as pc
+    from handarm_tpu_torch.envs.hand_arm import HandArmEnv, tree_map
+    from handarm_tpu_torch.envs.tasks import make_env
+
+    lift = make_env("Ur5SihLift", device="cpu", num_envs=16).cfg
+    cfg = dataclasses.replace(lift, observations=CLOUD_OBS,
+                              teacher_observations=lift.observations)
+    env_c, env_g = HandArmEnv(cfg, "cpu"), HandArmEnv(cfg, dev)
+    st_c = ref_state._replace(task=ref_state.task._replace(
+        progress=torch.arange(16, dtype=ref_state.task.progress.dtype)))
+    st_g = tree_map(lambda x: x.to(dev), st_c)
+    teacher = rollout.load_policy(rollout.TASK_CKPTS["Ur5SihLift"], "cpu")
+    counts = sorted({pc.padded_points(len(env_c.robot_cloud[0]), cfg.pointcloud_max_points),
+                     cfg.pointcloud_max_points})
+    gen = torch.Generator().manual_seed(0)
+    teacher_obs = env_c.observe(st_c)[1]
+    for _ in range(2):
+        act = teacher.act(teacher_obs)
+        scores = {P: torch.rand((16, P), generator=gen) for P in counts}
+        st_c, res_c = env_c.step(st_c, act, scores)
+        st_g, res_g = env_g.step(st_g, act.to(dev), {P: x.to(dev) for P, x in scores.items()})
+        teacher_obs = res_c.teacher_obs
+    errs = {}
+    for key, want in res_c.obs_dict.items():
+        got = res_g.obs_dict[key].cpu()
+        if got.shape != want.shape or not torch.equal(got[..., 3], want[..., 3]):
+            raise AssertionError(f"clouds: {key} rows differ between the card and the CPU")
+        errs[key] = float((got[..., :3] - want[..., :3]).abs().max())
+    errs["teacher_obs"] = float((res_g.teacher_obs.cpu() - res_c.teacher_obs).abs().max())
+    errs["obs"] = float((res_g.obs.cpu() - res_c.obs).abs().max())
+    valid = {k: sorted(set((v[..., 3] > 0).sum(1).tolist())) for k, v in res_c.obs_dict.items()}
+    shown = (st_c.task.progress % 4 == 0).tolist()
+    log(f"clouds: 16 envs, 2 control steps of ckpt_5200 from the cpu-ref state, scores over "
+        f"{counts} points; valid rows per cloud {valid}; interval shown {shown}; max|card-cpu| "
+        f"{({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+    # the clouds are positions (2e-4 after 2 steps, as card_vs_cpu, plus the
+    # rotation of points up to 0.1 m from their body's origin); the vectors
+    # hold fingertip velocities: card_vs_cpu's observation bound
+    if max(errs[k] for k in res_c.obs_dict) > 5e-4 or errs["teacher_obs"] > 2e-3 \
+            or errs["obs"] > 2e-3:
+        raise AssertionError("clouds: the card's observations disagree with the CPU's")
+    if valid["target_object_synthetic_pointcloud"] != [14] or all(shown) or not any(shown):
+        raise AssertionError("clouds: unexpected valid rows or interval clocks")
+    return dict(envs=16, steps=2, max_abs_err=errs, valid_rows=valid)
+
+
+class DistillRecorder:
+    """While active, keeps the inputs and outputs of the DAgger's first
+    gradient (`DAgger.grads`) and optimizer step (`DAgger.apply`)."""
+
+    def __init__(self, dagger):
+        self.dagger, self.grads, self.applies = dagger, [], []
+
+    def __enter__(self):
+        def recording(fn, calls):
+            def wrapped(*args):
+                out = fn(*args)
+                if not calls:
+                    calls.append((args, out))
+                return out
+            return wrapped
+
+        self.dagger.grads = recording(self.dagger.grads, self.grads)
+        self.dagger.apply = recording(self.dagger.apply, self.applies)
+        return self
+
+    def __exit__(self, *exc):
+        del self.dagger.grads, self.dagger.apply
+
+
+def distill_step_check(dagger, rec) -> dict:
+    """The card's first minibatch step of a DAgger update, rerun on the CPU
+    from the card's inputs, and in float64 there to size float32's own error
+    (as update_precision sizes the PPO update's):
+    - bc_loss and aux_loss within 1e-4 relative (float32 means of 32768 x 11
+      and x 18 squared errors in another order);
+    - the gradients of each tensor within 1e-4 of its largest value, as the
+      PPO step's first gradients (compare_steps); the float64 errors of both
+      sides are printed beside them;
+    - the optimizer step from the card's params, Adam state and gradients:
+      params within 2 float32 ulps of each tensor's largest value, Adam's
+      moments within 1e-5 of theirs, the counters equal (compare_steps)."""
+    import torch
+
+    (params, mb), (grads, terms) = rec.grads[0]
+    c_params, c_mb = to_cpu(params), to_cpu(mb)
+    t0 = time.perf_counter()
+    c_grads, c_terms = dagger.grads(c_params, c_mb)
+    d = lambda x: {k: d(v) for k, v in x.items()} if isinstance(x, dict) else x.double()
+    g64, t64 = dagger.grads(d(c_params), d(c_mb))
+    cpu_s = time.perf_counter() - t0
+    out = {"loss": {}, "grad": {}, "grad_card_f64": {}, "grad_cpu_f64": {}}
+    for name, v in terms.items():
+        err = abs(float(v) - float(c_terms[name]))
+        out["loss"][name] = err / max(abs(float(c_terms[name])), 1e-30)
+        if not err <= 1e-4 * abs(float(c_terms[name])):
+            raise AssertionError(f"distill: card and CPU differ on {name}: {float(v)} vs "
+                                 f"{float(c_terms[name])}")
+    for name, g in grads.items():
+        err, scale = max_err(g.cpu(), c_grads[name])
+        out["grad"][name] = err / scale
+        out["grad_card_f64"][name] = max_err(g.cpu().double(), g64[name])[0] / scale
+        out["grad_cpu_f64"][name] = max_err(c_grads[name].double(), g64[name])[0] / scale
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"distill: card and CPU gradients of {name} differ: {err:.3e} "
+                                 f"at scale {scale:.3e}")
+    (a_params, a_opt, a_grads), (n_params, n_opt) = rec.applies[0]
+    c_new, c_opt = dagger.apply(to_cpu(a_params), to_cpu(a_opt), to_cpu(a_grads))
+    worst = {"param": 0.0, "adam mu": 0.0, "adam nu": 0.0}
+    for kind, got, want, tol in (("param", n_params, c_new, 2 * FLOAT32_EPS),
+                                 ("adam mu", n_opt.mu, c_opt.mu, 1e-5),
+                                 ("adam nu", n_opt.nu, c_opt.nu, 1e-5)):
+        for name, w in want.items():
+            err, scale = max_err(got[name].cpu(), w)
+            worst[kind] = max(worst[kind], err / (tol * scale))
+            if not err <= tol * scale:
+                raise AssertionError(f"distill: card and CPU {kind} {name} differ after the "
+                                     f"step: {err:.3e} at scale {scale:.3e}")
+    for a, b in zip(n_opt[:4], c_opt[:4]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("distill: card and CPU optax counters differ")
+    moved = max(float((n_params[k] - a_params[k]).abs().max()) for k in n_params)
+    rel = lambda m: float(f"{max(m.values()):.3g}")
+    log(f"distill card-vs-cpu, the first minibatch step ({c_mb['obs'].shape[0]} samples) from "
+        f"the card's inputs: loss terms {({k: float(f'{v:.3g}') for k, v in out['loss'].items()})}"
+        f" relative; gradients up to {rel(out['grad'])} of scale (card vs float64 "
+        f"{rel(out['grad_card_f64'])}, CPU vs float64 {rel(out['grad_cpu_f64'])}); optimizer "
+        f"step: largest fraction of each tolerance used "
+        f"{({k: round(v, 5) for k, v in worst.items()})}; params moved up to {moved:.3e}; "
+        f"the CPU's float32 and float64 steps took {cpu_s:.1f} s")
+    return dict(out, step=worst, params_moved=moved, cpu_s=cpu_s)
+
+
+def distill_train_phase(rollout, dev) -> dict:
+    """Phase 17 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.learn.distill import DAgger
+    from handarm_tpu_torch.train_distill import (DEFAULT_STUDENT_OBS, distill_config,
+                                                 student_setup)
+
+    ckpt = rollout.TASK_CKPTS["Ur5SihLift"]
+    env, teacher, cloud_keys, aux = student_setup("Ur5SihLift", ENVS, ckpt,
+                                                  DEFAULT_STUDENT_OBS, dev)
+    dagger = DAgger(env, teacher, distill_config(ENVS, 400, cloud_keys), aux_from_obs=aux)
+    cfg = dagger.cfg
+    ds = dagger.init(0)
+    n = ENVS * cfg.horizon
+    mb, n_mb = dagger.minibatches(n)
+    log(f"distill-train: Ur5SihLift {ENVS} envs, student obs {env.num_obs} + clouds "
+        f"{cloud_keys}, teacher obs {env.num_teacher_obs} ({os.path.relpath(ckpt)}), aux "
+        f"{aux}; horizon {cfg.horizon}, {n_mb} minibatches of {mb} x {cfg.mini_epochs} "
+        f"mini-epochs")
+    per_iter = {"spd_inverse": 16, "contact_sweep": 96, "prep_deff": 0, "sdf_gather": 0}
+    rollout.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds, _ = dagger.train_iter(ds)
+    torch.cuda.synchronize()
+    log(f"distill-train: warm-up iteration {time.perf_counter() - t0:.3f} s")
+    check_launches(rollout.launch_counts(), per_iter, 1, "distill warm-up")
+    start, iters = ds.params, []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DISTILL_ITERS + 1):
+        last = i == DISTILL_ITERS  # untimed: its first step is held against the CPU
+        rollout.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beta = dagger.beta(ds.iteration)
+        collected = dagger.rollout(ds, beta)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with DistillRecorder(dagger) if last else contextlib.nullcontext() as recorder:
+            ds, stats = dagger.update(ds, beta, *collected)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del collected
+        counts = rollout.launch_counts()
+        check_launches(counts, per_iter, 1, f"distill iteration {i}")
+        rec = dict(rollout_s=t1 - t0, update_s=t2 - t1, env_steps_per_s=n / (t2 - t0),
+                   launches=counts, **train.drain_stats(stats))
+        for name, p in ds.params.items():
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"distill: non-finite param {name}")
+        timing = "untimed (its first step is held against the CPU)" if last else (
+            f"rollout {rec['rollout_s']:.3f} s, update {rec['update_s']:.3f} s, "
+            f"{rec['env_steps_per_s']:.0f} env-steps/s")
+        log(f"distill iteration {i}: {timing}; bc_loss {rec['bc_loss']:.5f} aux_loss "
+            f"{rec['aux_loss']:.5f} beta {rec['beta']:.5f} success_rate_ewma "
+            f"{rec['success_rate_ewma']:.4f}; launches {counts}")
+        if not last:
+            iters.append(rec)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = max(float((ds.params[k] - start[k]).abs().max()) for k in start)
+    if not moved > 0:
+        raise AssertionError("distill: the student did not move")
+    log(f"distill-train: peak device memory {peak:.2f} GiB; max |params - start| after "
+        f"{DISTILL_ITERS + 1} iterations {moved:.4e}")
+    check = distill_step_check(dagger, recorder)
+    mean = lambda k: sum(r[k] for r in iters) / len(iters)
+    return dict(task="Ur5SihLift", envs=ENVS, horizon=cfg.horizon, minibatches=n_mb,
+                minibatch_size=mb, mini_epochs=cfg.mini_epochs, iterations=iters,
+                rollout_s=mean("rollout_s"), update_s=mean("update_s"),
+                env_steps_per_s=n * len(iters) / sum(r["rollout_s"] + r["update_s"]
+                                                     for r in iters),
+                peak_memory_gib=peak, params_moved=moved, card_vs_cpu=check,
+                launches_per_iteration=per_iter)
+
+
+def distill_entry_phase(rollout) -> dict:
+    """Phase 19 (see the module docstring)."""
+    import numpy as np
+
+    ckpt = os.path.relpath(rollout.TASK_CKPTS["Ur5SihLift"])
+    out = os.path.join("runs", "chip_smoke_distill")
+    train_s, _ = run_module("handarm_tpu_torch.train_distill", [
+        "--teacher", ckpt, "--envs", str(ENVS), "--iters", str(DISTILL_ENTRY_ITERS),
+        "--out", out, "--seed", "1"], "distill entry point", 150)
+    with np.load(os.path.join(out, "student.npz")) as data:
+        leaves = [data[k] for k in data.files]
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        row = json.loads(f.read().splitlines()[-1])
+    if len(leaves) != 18 or not all(np.isfinite(x).all() for x in leaves) \
+            or row["step"] != DISTILL_ENTRY_ITERS:
+        raise AssertionError(f"distill entry point: bad output in {out}")
+    eval_s, stdout = run_module("handarm_tpu_torch.eval_policy", [
+        "--student", os.path.join(out, "student.npz"), "--teacher", ckpt, "--envs", str(ENVS),
+        "--steps", "10", "--episode-length", "5"], "student eval entry point", 150)
+    res = json.loads(stdout.strip().splitlines()[-1])
+    if res["episodes"] != 2 * ENVS:
+        raise AssertionError(f"student eval entry point: {res['episodes']} episodes, "
+                             f"expected {2 * ENVS}")
+    log(f"distill entry points: train_distill's last row {row}; the student's eval {res}")
+    return dict(train_distill_s=train_s, last_row=row, eval_policy_s=eval_s, eval=res)
 
 
 def main() -> int:
@@ -1359,7 +1648,11 @@ def main() -> int:
         policy_c = rollout.load_policy(rollout.TASK_CKPTS["Ur5SihLift"], "cpu")
         card_vs_cpu(env_c, make_env("Ur5SihLift", device=dev, num_envs=16), *lift_ref,
                     policy_c, dev, "cpu-ref", need=("robot-object",))
-        del env_c, lift_ref
+        del env_c
+
+    with phase("clouds"):
+        clouds_rec = clouds_phase(rollout, dev, lift_ref[0])
+        del lift_ref
 
     with phase("multiobj"):
         rollout.reset_launch_counts()
@@ -1470,6 +1763,14 @@ def main() -> int:
             os.path.join("runs", "chip_smoke_multiobj", "nn", f"ckpt_{step}.npz"),
             "multiobj entry point", PHASE_DEADLINE_S["multiobj-entry"] - 30)
 
+    with phase("distill-train"):
+        distill_rec = distill_train_phase(rollout, dev)
+    with phase("distill-eval"):
+        distill_rec["eval"] = eval_phase(rollout, dev, student=STUDENT, min_episodes=ENVS)
+    with phase("distill-entry"):
+        distill_rec["entry_points"] = distill_entry_phase(rollout)
+    distill_rec["clouds"] = clouds_rec
+
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
                                 "card": smi},
@@ -1480,7 +1781,7 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec,
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
-                    "family": family_rec}))
+                    "family": family_rec, "distill": distill_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -16,6 +16,8 @@ to write checkpoints its loader reads.
 - A PPO TrainState is 71 leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch.
+- A distilled student (`student.npz`) is its params alone, in flax order
+  (`StudentPolicy.flax_names`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,27 @@ def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
                       hidden=[params[f"dense_{i}.kernel"].shape[1] for i in range(L)])
     net.load_state_dict({t: _to_torch_layout(f, params[f], "cpu") for f, t in flax_names(L)})
     return net.to(device)
+
+
+def student_params_from_leaves(net, leaves: Sequence[np.ndarray], device="cpu") -> dict:
+    """A StudentPolicy's params (module name -> tensor) from its leaves in
+    flax order; each leaf's shape must be the net's."""
+    names = net.flax_names()
+    if len(leaves) != len(names):
+        raise ValueError(f"expected {len(names)} student leaves, got {len(leaves)}")
+    own = dict(net.named_parameters())
+    params = {}
+    for (f, t), x in zip(names, leaves):
+        params[t] = _to_torch_layout(f, x, device)
+        if params[t].shape != own[t].shape:
+            raise ValueError(f"student leaf {f}: shape {tuple(np.shape(x))} does not fit "
+                             f"{tuple(own[t].shape)}")
+    return params
+
+
+def student_params_to_leaves(net, params: dict) -> list[np.ndarray]:
+    """A StudentPolicy's params as its leaves in flax order and layout."""
+    return [_to_flax_layout(f, params[t]) for f, t in net.flax_names()]
 
 
 def running_stats_from_leaves(mean, var, count, device="cpu") -> RunningStats:

@@ -7,12 +7,14 @@ random object disturbance impulses (with `randomize`), `control_freq_inv`
 sim steps with the heavy mass structure evaluated once per control step
 and FK carried across its sim steps, reward, termination, the NaN finite
 guard, success-rate EWMAs, the auto-reset merged per env, and the
-sanitized observations. Resets draw object poses from the genesis pool
-(`use_drop_init`, built by the first `reset`) or spawn them on the table,
-the target object uniformly or (`balanced_target_sampling`) by failure
-rate, and for the orientation goals a goal quaternion. Domain
-randomization, ADR, cameras, point clouds, teacher observations and the
-engine options other than the defaults are not ported: `HandArmConfig`
+sanitized observations: the flat vector (clipped), the teacher's flat
+vector (`teacher_observations`, for a distilled student's teacher) and the
+synthetic point clouds, which go to `obs_dict` under their own names,
+unclipped. Resets draw object poses from the genesis pool (`use_drop_init`,
+built by the first `reset`) or spawn them on the table, the target object
+uniformly or (`balanced_target_sampling`) by failure rate, and for the
+orientation goals a goal quaternion. Domain randomization, ADR, cameras and
+the engine options other than the defaults are not ported: `HandArmConfig`
 refuses them by name.
 """
 
@@ -32,7 +34,7 @@ from handarm_tpu_torch.math.quat import (
     quat_mul,
     quat_rotate,
 )
-from handarm_tpu_torch.envs import genesis, objects as object_records
+from handarm_tpu_torch.envs import genesis, objects as object_records, pointcloud as pc
 from handarm_tpu_torch.envs.randomization import AdrConfig, DRConfig
 from handarm_tpu_torch.envs.spec import Observable, Registry, obs_layout
 from handarm_tpu_torch.physics.contacts import StaticGeom
@@ -46,20 +48,20 @@ from handarm_tpu_torch.physics.engine import (
     step as physics_step,
 )
 from handarm_tpu_torch.physics.kinematics import body_velocities, forward_kinematics, site_poses
-from handarm_tpu_torch.physics.shapes import BOX, SPHERE, make_box_object, make_sphere_object, stack_objects
+from handarm_tpu_torch.physics.shapes import (
+    BOX,
+    SPHERE,
+    make_box_object,
+    make_sphere_object,
+    sphere_points,
+    stack_objects,
+)
 from handarm_tpu_torch.physics.solver import SolverParams
 from handarm_tpu_torch.robots import get_robot
 from handarm_tpu_torch.robots.ur5sih import SERVO_LOWER, SERVO_UPPER
 
 
 GOALS = ("lift", "reposition", "oriented_reposition", "throw", "repose")
-# observables of features not ported yet, refused by name
-POINTCLOUD_OBSERVABLES = (
-    "object_synthetic_pointcloud", "target_object_synthetic_pointcloud",
-    "target_object_interval_pos", "target_object_synthetic_interval_pointcloud",
-    "ur5sih_synthetic_pointcloud", "goal_synthetic_pointcloud",
-    "scene_synthetic_pointcloud",
-)
 
 
 @dataclass(frozen=True)
@@ -129,8 +131,8 @@ class HandArmConfig:
     clip_actions: float = 1.0
     # reset targets drawn by per-object failure rate instead of uniformly
     balanced_target_sampling: bool = False
-    pointcloud_average_points: int = 100  # point clouds: ROADMAP §1.3
-    pointcloud_max_points: int = 128
+    pointcloud_average_points: int = 100
+    pointcloud_max_points: int = 128  # points of every subsampled cloud
     # genesis drop initialization (envs/genesis.py)
     use_drop_init: bool = False
     num_initial_poses: int = 1
@@ -146,24 +148,17 @@ class HandArmConfig:
                 raise NotImplementedError(
                     f"HandArmConfig.{name}={getattr(self, name)!r} is not ported "
                     f"(only {default!r}; ROADMAP {item})")
-        clouds = [o for o in self.observations if o in POINTCLOUD_OBSERVABLES]
-        if clouds:
-            raise NotImplementedError(
-                f"point-cloud observables {clouds} are not ported (ROADMAP §1.3)")
 
 
 # fields whose features are not ported: the only value taken, and the
 # ROADMAP item that ports the rest
 NOT_PORTED = {
     "robot": ("ur5sih", "§1.4"),
-    "teacher_observations": ((), "§1.3"),
     "heavy_prep_per_control": (True, "§1.2b"),
     "carry_fk": (True, "§1.2b"),
     "hand_only_collision": (True, "§1.2b"),
     "dr": (DRConfig(), "§1.2a"),
     "adr": (AdrConfig(), "§1.2a"),
-    "pointcloud_average_points": (100, "§1.3"),
-    "pointcloud_max_points": (128, "§1.3"),
     "cameras": ((), "§1.5"),
 }
 
@@ -195,9 +190,11 @@ class EnvState(NamedTuple):
 
 class StepResult(NamedTuple):
     obs: torch.Tensor  # [B, num_obs]
+    teacher_obs: torch.Tensor  # [B, num_teacher_obs] ([B, 0] without teacher observations)
     reward: torch.Tensor  # [B]
     done: torch.Tensor  # [B] bool
     info: dict
+    obs_dict: dict  # the point clouds, by observable name
 
 
 def tree_map(fn, *trees):
@@ -212,11 +209,28 @@ def tree_map(fn, *trees):
 
 class ObsContext:
     """Lazily computed quantities shared by observation and reward terms;
-    `info` is the last sim step's StepInfo (None on a reset)."""
+    `info` is the last sim step's StepInfo (None on a reset). `scores`
+    maps a point count P to the [B, P] uniform scores of every cloud
+    subsampled from P points in this context; a count it lacks is drawn
+    from the env's generator, once."""
 
-    def __init__(self, env: "HandArmEnv", state: EnvState, info=None):
+    def __init__(self, env: "HandArmEnv", state: EnvState, info=None, scores=None):
         self.env, self.state, self.info = env, state, info
         self._cache: dict[str, Any] = {}
+        self._scores = dict(scores or {})
+
+    def uniform(self, num_points: int) -> torch.Tensor:
+        """[B, num_points] scores of this context's subsampling: one draw
+        per point count, shared by every cloud of that count (as the JAX
+        package's clouds share one observation key)."""
+        if num_points not in self._scores:
+            self._scores[num_points] = torch.rand(
+                (self.batch, num_points), generator=self.env.gen, device=self.env.device)
+        return self._scores[num_points]
+
+    def subsample(self, cloud: torch.Tensor) -> torch.Tensor:
+        out = self.env.cfg.pointcloud_max_points
+        return pc.subsample_pad(cloud, self.uniform(pc.padded_points(cloud.shape[1], out)), out)
 
     def _get(self, name, fn):
         if name not in self._cache:
@@ -342,6 +356,53 @@ def _register_observables(reg: Registry, nv: int, K: int) -> None:
         lambda c: c.state.task.goal_pos - c.target_object_pos)
 
 
+def _register_pointcloud_observables(reg: Registry, K: int, P_out: int) -> None:
+    """The synthetic point clouds, each routed to `obs_dict` under its own
+    name: every object's samples (REGULAR), the target object's (TARGET),
+    the target's cloud and position blanked on 3 of every 4 steps, the
+    robot's surface samples, the goal's sphere (GOAL, not subsampled) and
+    the objects with the goal. All but the goal's are subsampled to
+    `pointcloud_max_points`."""
+    def obs(name, size, fn, routed=True):
+        reg.observables[name] = Observable(name, size, fn, name if routed else "obs")
+
+    def object_cloud(c):
+        shapes, objs = c.env.scene.shapes, c.state.physics.objects
+        return pc.merge_clouds(*(pc.transform_cloud(
+            shapes.points[k], shapes.point_mask[k], objs.quat[:, k], objs.pos[:, k], pc.REGULAR)
+            for k in range(K)))
+
+    def target_cloud(c):
+        shapes, t = c.env.scene.shapes, c.state.task.target_obj
+        return c.subsample(pc.transform_cloud(shapes.points[t], shapes.point_mask[t],
+                                              c.target_object_quat, c.target_object_pos,
+                                              pc.TARGET))
+
+    def robot_cloud(c):
+        bodies, offsets = c.env.robot_cloud
+        fk = c.fk
+        pts = fk.body_pos[:, bodies] + quat_rotate(fk.body_quat[:, bodies], offsets[None])
+        return c.subsample(torch.cat([pts, torch.full_like(pts[..., :1], float(pc.REGULAR))], -1))
+
+    def goal_cloud(c):
+        pts = c.env.goal_cloud_points
+        ident = pts.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(c.batch, 4)
+        return pc.transform_cloud(pts, torch.ones_like(pts[:, 0]), ident,
+                                  c.state.task.goal_pos, pc.GOAL)
+
+    progress = lambda c: c.state.task.progress
+    obs("object_synthetic_pointcloud", P_out * 4, lambda c: c.subsample(object_cloud(c)))
+    obs("target_object_synthetic_pointcloud", P_out * 4, target_cloud)
+    obs("target_object_interval_pos", 3, lambda c: pc.interval_sample(
+        c.target_object_pos, progress(c), 4), routed=False)
+    obs("target_object_synthetic_interval_pointcloud", P_out * 4,
+        lambda c: pc.interval_sample(target_cloud(c), progress(c), 4))
+    obs("ur5sih_synthetic_pointcloud", P_out * 4, robot_cloud)
+    obs("goal_synthetic_pointcloud", 0, goal_cloud)
+    obs("scene_synthetic_pointcloud", P_out * 4, lambda c: c.subsample(
+        pc.merge_clouds(object_cloud(c), goal_cloud(c))))
+
+
 def _register_actionables(reg: Registry) -> None:
     def act_arm_rel(env, control, a):
         new_target = control.arm_target + env.cfg.dt * env.cfg.arm_action_scale * a
@@ -435,11 +496,19 @@ class HandArmEnv:
         self.arm_limits = (f32(art.q_min[:6]), f32(art.q_max[:6]))
         self.servo_lo, self.servo_hi = f32(SERVO_LOWER), f32(SERVO_UPPER)
         self.num_objects = shapes.num_objects
+        self.goal_cloud_points = f32(sphere_points(0.02, 16))
+        self._robot_cloud = None
         self.registry = Registry()
         _register_observables(self.registry, art.nv, self.num_objects)
+        _register_pointcloud_observables(self.registry, self.num_objects,
+                                         cfg.pointcloud_max_points)
         _register_actionables(self.registry)
         self.active_obs = self.registry.resolve_observables(list(cfg.observations))
         self.obs_slices, self.num_obs = obs_layout(self.active_obs, list(cfg.observations))
+        self.active_teacher_obs = self.registry.resolve_observables(
+            list(cfg.teacher_observations))
+        self.teacher_obs_slices, self.num_teacher_obs = obs_layout(
+            self.active_teacher_obs, list(cfg.teacher_observations))
         self.active_actions = self.registry.resolve_actionables(list(cfg.actions))
         self.num_actions = sum(a.size for a in self.active_actions)
         self.reset_q = f32(self.robot.reset_q)
@@ -461,6 +530,18 @@ class HandArmEnv:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.genesis_seconds = time.perf_counter() - t0
+
+    @property
+    def robot_cloud(self):
+        """(body index [P], body-frame offsets [P, 3]) of the robot's surface
+        samples, `pointcloud_max_points` of them spread by link area; loaded
+        on first use."""
+        if self._robot_cloud is None:
+            bodies, offsets = self.robot.surface_cloud(self.cfg.pointcloud_max_points)
+            self._robot_cloud = (torch.as_tensor(bodies, dtype=torch.int64, device=self.device),
+                                 torch.as_tensor(offsets, dtype=torch.float32,
+                                                 device=self.device))
+        return self._robot_cloud
 
     def _sites(self, names):
         body, pos, quat = self.art.site_array(names)
@@ -567,9 +648,21 @@ class HandArmEnv:
         state = state._replace(task=state.task._replace(progress=prog0))
         return state, self._compute_obs(ObsContext(self, state))
 
+    def observe(self, state: EnvState, scores=None):
+        """(obs, teacher_obs, obs_dict) of a state, without stepping;
+        `scores` as `step`'s."""
+        ctx = ObsContext(self, state, None, scores)
+        obs, obs_dict = self._compute_obs(ctx, self.active_obs, self.cfg.observations,
+                                          with_dict=True)
+        teacher = self._compute_obs(ctx, self.active_teacher_obs,
+                                    self.cfg.teacher_observations)
+        return obs, teacher, obs_dict
+
     # --- step ----------------------------------------------------------------
 
-    def step(self, state: EnvState, actions: torch.Tensor):
+    def step(self, state: EnvState, actions: torch.Tensor, scores=None):
+        """(new state, StepResult). `scores` {P: [B, P]} replaces the
+        uniform draws of the point-cloud subsampling (`ObsContext`)."""
         cfg = self.cfg
         B = actions.shape[0]
         actions = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
@@ -619,8 +712,13 @@ class HandArmEnv:
             EnvState(physics, control, task, metrics),
         )._replace(metrics=metrics)
 
-        obs = self._compute_obs(ObsContext(self, merged, info_last))
+        ctx = ObsContext(self, merged, info_last, scores)
+        obs, obs_dict = self._compute_obs(ctx, self.active_obs, cfg.observations,
+                                          with_dict=True)
+        teacher_obs = self._compute_obs(ctx, self.active_teacher_obs, cfg.teacher_observations)
         obs = torch.where(torch.isfinite(obs), obs, torch.zeros_like(obs))
+        teacher_obs = torch.where(torch.isfinite(teacher_obs), teacher_obs,
+                                  torch.zeros_like(teacher_obs))
         info = dict(
             success_rate_ewma=metrics.success_ewma,
             end_success_rate_ewma=metrics.end_success_ewma,
@@ -628,7 +726,8 @@ class HandArmEnv:
             max_penetration=info_last.max_penetration,
             **terms,
         )
-        return merged, StepResult(obs=obs, reward=reward, done=done, info=info)
+        return merged, StepResult(obs=obs, teacher_obs=teacher_obs, reward=reward, done=done,
+                                  info=info, obs_dict=obs_dict)
 
     # --- internals -------------------------------------------------------------
 
@@ -643,11 +742,22 @@ class HandArmEnv:
         u = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True), min=1e-9)
         return torch.where(hit, u * (cfg.disturbance_magnitude * cfg.dt), torch.zeros_like(u))
 
-    def _compute_obs(self, ctx: ObsContext) -> torch.Tensor:
-        outs = {o.name: o.fn(ctx) for o in self.active_obs}
-        obs = torch.cat([outs[n] for n in self.cfg.observations], dim=-1)
+    def _compute_obs(self, ctx: ObsContext, active=None, requested=None,
+                     with_dict: bool = False):
+        """The flat vector of the `requested` observables (default: the
+        env's observations) routed to it, in that order, clipped to
+        `clip_observations` ([B, 0] if none); with `with_dict`, also the
+        others by name, unclipped (without it they are not computed)."""
+        if active is None:
+            active, requested = self.active_obs, self.cfg.observations
+        flat = {o.name: o.fn(ctx) for o in active if o.key == "obs"}
+        parts = [flat[n] for n in requested if n in flat]
+        obs = torch.cat(parts, dim=-1) if parts else torch.zeros(ctx.batch, 0, device=self.device)
         c = self.cfg.clip_observations
-        return torch.clamp(obs, -c, c)
+        obs = torch.clamp(obs, -c, c)
+        if not with_dict:
+            return obs
+        return obs, {o.key: o.fn(ctx) for o in active if o.key != "obs"}
 
     def _compute_reward(self, ctx: ObsContext):
         cfg = self.cfg

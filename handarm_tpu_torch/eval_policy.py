@@ -1,14 +1,20 @@
-"""Deterministic evaluation of a PPO checkpoint: success rate over the
-episodes completed in a window (counterpart of scripts/eval_policy.py, PPO
-checkpoint mode):
+"""Deterministic evaluation of a PPO checkpoint or a distilled student:
+success rate over the episodes completed in a window (counterpart of
+scripts/eval_policy.py):
 
     python -m handarm_tpu_torch.eval_policy [--ckpt PATH] [--task Ur5SihLift]
         [--envs 1024] [--steps 600] [--seed 123] [--episode-length N] [--device cpu]
+    python -m handarm_tpu_torch.eval_policy --student runs/distill/student.npz
+        --teacher PATH [--student-obs NAME,NAME,...] [the options above]
 
 The task is composed from its yaml config group as the training entry
 point composes it (the multi-object task: 16 solver sweeps, as
 scripts/eval_policy.py evaluates it). The policy's mean action drives
-the env. One zero-action step, then a burn-in of one episode length,
+the env; a student (`student.npz` of train_distill, or of the JAX
+package's) acts in the env that train_distill builds: the student's
+observations, the teacher's as teacher observations (the teacher's
+checkpoint only defines those; its width is checked). One zero-action
+step, then a burn-in of one episode length,
 after which the env's `total_resets` and `total_successes` counters are
 zeroed, then `--steps` more control steps; the rate is total_successes /
 total_resets over that window. Prints one JSON line: task, policy,
@@ -24,22 +30,42 @@ import json
 import torch
 
 from handarm_tpu_torch import resolve_device
-from handarm_tpu_torch.rollout import TASK_CKPTS, forward_step, load_policy, make_task_env
+from handarm_tpu_torch.learn.distill import StudentPolicy
+from handarm_tpu_torch.rollout import (
+    TASK_CKPTS,
+    Student,
+    forward_step,
+    load_policy,
+    make_task_env,
+)
+from handarm_tpu_torch.train_distill import DEFAULT_STUDENT_OBS, student_setup
+from handarm_tpu_torch.utils.checkpoint import read_student
 
 
 def evaluate(ckpt: str | None = None, task: str = "Ur5SihLift", envs: int = 1024,
              steps: int = 600, seed: int = 123, device=None,
-             episode_length: int | None = None, pool=None):
+             episode_length: int | None = None, pool=None, student: str | None = None,
+             teacher: str | None = None, student_obs: str = DEFAULT_STUDENT_OBS):
     """(the JSON record, the env's final state). `pool`: a genesis pose
-    pool to use instead of running genesis (drop-init tasks)."""
+    pool to use instead of running genesis (drop-init tasks). With
+    `student`, that student.npz is evaluated (`teacher` required)."""
     dev = resolve_device(device)
     over = {} if episode_length is None else {"episode_length": episode_length}
-    env = make_task_env(task, envs, dev, pool=pool, **over)
-    ckpt = ckpt or TASK_CKPTS[task]
-    policy = load_policy(ckpt, dev)
+    if student:
+        if not teacher:
+            raise ValueError("a student's evaluation needs its --teacher")
+        env, _, cloud_keys, aux = student_setup(task, envs, teacher, student_obs, dev, pool,
+                                                **over)
+        net = StudentPolicy(env.num_obs, env.num_actions, cloud_keys,
+                            aux_heads={k: e - s for k, (s, e) in aux.items()}).to(dev)
+        policy, ckpt = Student(net, read_student(student, net, dev)), student
+    else:
+        env = make_task_env(task, envs, dev, pool=pool, **over)
+        ckpt = ckpt or TASK_CKPTS[task]
+        policy = load_policy(ckpt, dev)
     state, _ = env.reset(seed)
     state, res = env.step(state, torch.zeros(envs, env.num_actions, device=dev))
-    obs = res.obs
+    obs = policy.observe(res)
     ep = env.cfg.episode_length
     for t in range(steps + ep):
         state, obs, _, _ = forward_step(env, policy, state, obs)
@@ -61,6 +87,10 @@ def evaluate(ckpt: str | None = None, task: str = "Ur5SihLift", envs: int = 1024
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", default=None, help="PPO checkpoint .npz (default: the task's)")
+    ap.add_argument("--student", default=None, help="distilled student.npz")
+    ap.add_argument("--teacher", default=None,
+                    help="the student's teacher checkpoint (defines its observations)")
+    ap.add_argument("--student-obs", default=DEFAULT_STUDENT_OBS)
     ap.add_argument("--task", default="Ur5SihLift")
     ap.add_argument("--envs", type=int, default=1024)
     ap.add_argument("--steps", type=int, default=600,
@@ -70,7 +100,8 @@ def main(argv=None) -> None:
                     help="default: the task's (200)")
     ap.add_argument("--device", default=None, help="default: cuda")
     a = ap.parse_args(argv)
-    out, _ = evaluate(a.ckpt, a.task, a.envs, a.steps, a.seed, a.device, a.episode_length)
+    out, _ = evaluate(a.ckpt, a.task, a.envs, a.steps, a.seed, a.device, a.episode_length,
+                      student=a.student, teacher=a.teacher, student_obs=a.student_obs)
     print(json.dumps(out), flush=True)
 
 

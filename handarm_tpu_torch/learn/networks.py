@@ -64,10 +64,17 @@ class ActorCritic(nn.Module):
         sqrt(1 / fan_in) / TRUNCATED_STD), zero biases, log_std =
         sigma_init. Not nn.Linear's own default (kaiming uniform)."""
         for layer in (*self.trunk, self.mu, self.value):
-            w = layer.weight
-            t = torch.empty(w.shape, device=w.device)
-            nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            w.copy_(t * ((1.0 / w.shape[1]) ** 0.5 / TRUNCATED_STD))
-            layer.bias.zero_()
+            init_dense_flax_default(layer, gen)
         self.log_std.fill_(self.sigma_init)
         return self
+
+
+@torch.no_grad()
+def init_dense_flax_default(layer: nn.Linear, gen: torch.Generator) -> None:
+    """flax `Dense`'s default init of an nn.Linear, drawn from `gen`: a
+    lecun normal kernel, a zero bias."""
+    w = layer.weight
+    t = torch.empty(w.shape, device=w.device)
+    nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    w.copy_(t * ((1.0 / w.shape[1]) ** 0.5 / TRUNCATED_STD))
+    layer.bias.zero_()

@@ -60,13 +60,19 @@ def init(params: dict) -> OptState:
 
 
 def update(grads: dict, state: OptState, max_norm: float, b1: float = 0.9,
-           b2: float = 0.999, eps: float = 1e-8) -> tuple[dict, OptState]:
+           b2: float = 0.999, eps: float = 1e-8,
+           skip_nonfinite: bool = True) -> tuple[dict, OptState]:
     """(updates, new state) for one step; updates are already sign-flipped
-    (add updates * lr to the parameters)."""
+    (add updates * lr to the parameters). With `skip_nonfinite` False the
+    step is the bare chain(clip_by_global_norm, adam) (the distillation
+    learner's): a non-finite gradient goes through; the counters still
+    count it."""
     finite = torch.stack([torch.isfinite(g).all() for g in grads.values()]).all()
     notfinite_count = torch.where(finite, torch.zeros_like(state.notfinite_count),
                                   _safe_increment(state.notfinite_count))
     apply = finite | (notfinite_count > MAX_CONSECUTIVE_ERRORS)
+    if not skip_nonfinite:
+        apply = torch.ones_like(apply)
 
     g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
     keep = g_norm < max_norm

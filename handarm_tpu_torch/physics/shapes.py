@@ -69,6 +69,16 @@ def box_points(half_extents, n_per_edge: int = 0) -> np.ndarray:
     return np.concatenate(pts, axis=0)
 
 
+def sphere_points(radius: float, n: int = 12) -> np.ndarray:
+    """n Fibonacci-sphere samples of a sphere's surface, [n, 3]."""
+    i = np.arange(n, dtype=np.float64) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    theta = np.pi * (1 + 5**0.5) * i
+    pts = np.stack(
+        [np.sin(phi) * np.cos(theta), np.sin(phi) * np.sin(theta), np.cos(phi)], axis=-1)
+    return pts * radius
+
+
 def box_inertia_diag(mass: float, half_extents) -> np.ndarray:
     fx, fy, fz = (2 * np.asarray(half_extents)) ** 2
     return mass / 12.0 * np.array([fy + fz, fx + fz, fx + fy])

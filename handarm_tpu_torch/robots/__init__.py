@@ -25,6 +25,8 @@ class RobotAdapter:
     init_control: Callable[..., Any]  # (B, device) -> control state
     # compute_targets(control, q) -> [B, nv] PD position targets
     compute_targets: Callable[[Any, torch.Tensor], torch.Tensor]
+    # surface_cloud(total_points) -> (body index [P], body-frame offsets [P, 3])
+    surface_cloud: Callable[[int], tuple] | None = None
 
 
 def get_robot(name: str, urdf_path: str | None = None,

@@ -21,6 +21,7 @@ from handarm_tpu_torch.robots.ur5sih import (
     load_ur5sih,
     make_robot_spheres,
     servo_to_joint_targets,
+    ur5sih_surface_cloud,
 )
 
 
@@ -61,4 +62,5 @@ def make_adapter(urdf_path: str | None = None, device="cpu") -> RobotAdapter:
         kd=np.asarray(DEFAULT_DERIV_GAIN),
         init_control=init_control,
         compute_targets=compute_targets,
+        surface_cloud=lambda total_points: ur5sih_surface_cloud(total_points, path),
     )

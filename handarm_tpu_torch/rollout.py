@@ -2,7 +2,8 @@
 
 Counterpart of `__graft_entry__.entry().forward_step` with
 `PPO.act(deterministic=True)`: obs -> normalize -> ActorCritic.mu ->
-env.step, once per control step.
+env.step, once per control step. A distilled student (`Student`) acts on
+the flat observations and the clouds of `obs_dict` instead.
 
     python -m handarm_tpu_torch.rollout [--task NAME] --envs N --steps S [--device cpu]
 
@@ -55,6 +56,28 @@ class Policy:
     def act(self, obs: torch.Tensor) -> torch.Tensor:
         return self.net(normalize(self.obs_stats, obs))[0]
 
+    @staticmethod
+    def observe(res):
+        """What `act` reads of a StepResult: the flat observations."""
+        return res.obs
+
+
+class Student:
+    """A distilled StudentPolicy's mean action; it reads the flat
+    observations and the clouds of `obs_dict`."""
+
+    def __init__(self, net, params: dict):
+        self.net, self.params = net, params
+
+    @torch.no_grad()
+    def act(self, obs) -> torch.Tensor:
+        flat, obs_dict = obs
+        return torch.func.functional_call(self.net, self.params, (flat, obs_dict))[0]
+
+    @staticmethod
+    def observe(res):
+        return res.obs, res.obs_dict
+
 
 def load_policy(ckpt: str, device) -> Policy:
     """The policy of a JAX PPO checkpoint (.npz)."""
@@ -63,10 +86,12 @@ def load_policy(ckpt: str, device) -> Policy:
                   running_stats_from_leaves(mean, var, count, device))
 
 
-def forward_step(env, policy: Policy, state, obs):
-    """One policy-in-the-loop env step."""
+def forward_step(env, policy, state, obs):
+    """One policy-in-the-loop env step: (state, what the policy reads next
+    (`policy.observe`: the flat observations, or for a Student those and
+    `obs_dict`), reward, done)."""
     state, res = env.step(state, policy.act(obs))
-    return state, res.obs, res.reward, res.done
+    return state, policy.observe(res), res.reward, res.done
 
 
 def reset_launch_counts() -> None:

@@ -22,6 +22,10 @@ loader.) Leaf dtypes: float32 but for the int32 optax counters, the bool
 epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 69).
 
+A distilled student is written as the JAX package's `train_distill.py`
+writes it: `student.npz` with one array per parameter, keys "0", "1", ...
+in flax order (`read_student`, `save_student`).
+
 `save_checkpoint` copies the state to the host at once and writes the file
 on one background thread (atomically: `.tmp`, then `os.replace`), so the
 training loop never waits on the disk; `wait_for_pending_saves` joins it.
@@ -37,6 +41,8 @@ import torch
 
 from handarm_tpu_torch.convert import (
     env_state_from_leaves,
+    student_params_from_leaves,
+    student_params_to_leaves,
     train_state_from_leaves,
     train_state_to_leaves,
 )
@@ -130,3 +136,20 @@ def latest_checkpoint(dirpath: str) -> str | None:
 def checkpoint_step(path: str) -> int:
     """The step in a `<name>_<step>.npz` file name."""
     return int(os.path.basename(path).rsplit("_", 1)[1].split(".")[0])
+
+
+def read_student(path: str, net, device="cpu") -> dict:
+    """The params of a `student.npz` for StudentPolicy `net`."""
+    with np.load(path, allow_pickle=False) as data:
+        leaves = [np.asarray(data[str(i)]) for i in range(len(data.files))]
+    return student_params_from_leaves(net, leaves, device)
+
+
+def save_student(path: str, net, params: dict) -> str:
+    """Write a StudentPolicy's params as `student.npz` (atomically)."""
+    leaves = student_params_to_leaves(net, params)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **{str(i): x for i, x in enumerate(leaves)})
+    os.replace(tmp, path)
+    return path

@@ -54,7 +54,8 @@ def test_modules_import_without_cuda():
         importlib.import_module(name)
     for mod in ("ops.contact_sweep", "ops.spd_inverse", "ops.sdf_gather", "ops.prep_deff",
                 "physics.sdf", "envs.objects", "envs.genesis", "envs.registry",
-                "envs.randomization", "utils.config"):
+                "envs.randomization", "utils.config", "envs.pointcloud", "learn.distill",
+                "train_distill"):
         assert f"handarm_tpu_torch.{mod}" in names
 
 
