@@ -138,13 +138,40 @@ Phases, each with a deadline and one flushed progress line:
                finite leaves) and metrics; `python -m
                handarm_tpu_torch.eval_policy --student` of that file at
                8192 envs, 5-step episodes, must count 16,384 episodes.
+ 20. rnn-train  ShadowHandOpenAI_LSTM's learner on Ur5SihLift as `train.py`
+               composes it from the `envs.tasks.LSTM_LIFT` overrides
+               (an LSTM 1024 actor on 33 observations, an LSTM 1024
+               central-value critic on the 121 teacher observations, MLP
+               [512], seq_len 4, gamma 0.998; 4 minibatches of 8,192
+               sequences x 4 mini-epochs) at 8192 envs from a flax-default
+               init: one warm-up, 3 timed iterations (rollout and update
+               seconds, train env-steps/s, peak device memory), launches
+               exactly 16 / 96 / 0 / 0 per iteration; then a kept
+               iteration's first minibatch step from the card's inputs
+               (`rnn_step_check`): its first 1,024 sequences' loss terms
+               and gradients on the card, on the CPU and in float64,
+               within tolerances set from update_precision's float32
+               error, and its optimizer step as `compare_steps` holds it.
+ 21. rnn-serve  30 deterministic `PPO.act` control steps of that learner
+               at 8192 envs, the carry threaded (zeroed where an episode
+               ends): serving env-steps/s, launches 1 / 6 per step; then
+               16 of its envs (clocks zeroed) 2 control steps on the card
+               and on the CPU, each side acting on its own observations
+               and carry: actions, carries, q and observations held.
+ 22. rnn-entry  `python -m handarm_tpu_torch.train task=Ur5SihLift
+               num_envs=8192` with the LSTM_LIFT overrides in its own
+               process for 2 iterations, then `resume=auto` for a third:
+               both checkpoints read back with the PPOConfig (teacher
+               stats, last teacher observations, carry), epoch 3, Adam
+               count 48 less skips, metrics rows 0-2.
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
 the training phases' numbers under "train", "multiobj_train", "family"
 and "distill", and the evaluations' under "eval", "multiobj_eval" and
-"distill" -> "eval"; the last line is {"ok": true, "device": {...}}. Any fault prints a traceback and
-exits non-zero; without CUDA it exits 2 before any result.
+"distill" -> "eval", the recurrent learner's under "rnn"; the last line
+is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
+non-zero; without CUDA it exits 2 before any result.
 """
 
 from __future__ import annotations
@@ -167,7 +194,7 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "multiobj-ref": 300, "multiobj-train": 420, "multiobj-eval": 300,
                     "train": 420, "eval": 300, "reach": 300, "family": 480,
                     "multiobj-entry": 480, "distill-train": 360, "distill-eval": 300,
-                    "distill-entry": 360}
+                    "distill-entry": 360, "rnn-train": 360, "rnn-serve": 240, "rnn-entry": 330}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -697,8 +724,14 @@ def learner_tensors(ts) -> dict:
     out = {f"param {k}": v for k, v in ts.params.items()}
     out.update({f"adam mu {k}": v for k, v in ts.opt_state.mu.items()})
     out.update({f"adam nu {k}": v for k, v in ts.opt_state.nu.items()})
-    for tag, st in (("obs", ts.obs_stats), ("value", ts.value_stats)):
-        out.update({f"{tag} stats {f}": x for f, x in zip(st._fields, st)})
+    for tag, st in (("obs", ts.obs_stats), ("value", ts.value_stats),
+                    ("teacher", ts.teacher_obs_stats)):
+        if st is not None:
+            out.update({f"{tag} stats {f}": x for f, x in zip(st._fields, st)})
+    if ts.hidden is not None:
+        from handarm_tpu_torch.learn.ppo import carry_items
+
+        out.update(carry_items(ts.hidden, "carry"))
     return out
 
 
@@ -813,7 +846,7 @@ def compare_steps(ppo, rec_card, kl_threshold, tag: str) -> dict:
             if not bool((a.cpu() == b).all()):
                 raise AssertionError(f"step {k}: card and CPU optax counters differ")
         same_lr(float(lr), float(c_lr), [float(args[4])], kl_threshold, f"step {k}")
-    log(f"{tag} card-vs-cpu, step by step ({len(rec_card.grads)} minibatch steps, each rerun "
+    log(f"{tag} card-vs-cpu, step by step ({len(rec_card.applies)} minibatch steps, each rerun "
         f"on the CPU from the card's inputs): largest fraction of each tolerance used "
         f"{({k: round(v, 5) for k, v in worst.items() if k != 'later grad'})}; later steps' "
         f"gradients up to {worst['later grad']:.3e} of scale (not held); gradient error "
@@ -837,8 +870,8 @@ def compare_prepared(card, cpu, old, card_mb, cpu_mb, tag: str) -> dict:
       ulps bound a batch term wrong by a few percent), the counts equal."""
     import torch
 
-    card_data, card_obs, card_value = card
-    cpu_data, cpu_obs, cpu_value = cpu
+    card_data, card_obs, card_value = card[:3]
+    cpu_data, cpu_obs, cpu_value = cpu[:3]
     worst = {"samples": 0.0, "first minibatch": 0.0, "stats": 0.0}
 
     def samples(kind, got, want):
@@ -940,7 +973,7 @@ def check_launches(counts: dict, per: dict, n: int, tag: str) -> None:
 
 
 def learner_run(rollout, ppo, ts, per_iter: dict, tag: str, prefix_tols=LIFT_PREFIX_TOLS,
-                prefix_until_switch: bool = False) -> dict:
+                prefix_until_switch: bool = False, step_check=None) -> dict:
     """From TrainState `ts`: one warm-up train_iter, TRAIN_ITERS iterations
     timed as rollout and update, then one untimed iteration whose steps are
     kept and held against the CPU (`compare_steps`, `compare_prepared`,
@@ -948,15 +981,19 @@ def learner_run(rollout, ppo, ts, per_iter: dict, tag: str, prefix_tols=LIFT_PRE
     `prefix_until_switch`, over fewer if an earlier step's gradients, from
     the card's own inputs, already lie more than the first step's 1e-4 of
     scale from the CPU's: a sample within rounding of a clip edge switched
-    its term on one side only, and chained steps part from there).
-    Counters are zeroed before each iteration and read after it: exactly
-    `per_iter`. Returns the record, with the final TrainState under "ts"."""
+    its term on one side only, and chained steps part from there). With
+    `step_check`, `step_check(ppo, recorder)` replaces those three (the
+    recurrent learner: `rnn_step_check`). Counters are zeroed before each
+    iteration and read after it: exactly `per_iter`. Peak device memory
+    from the first timed iteration on. Returns the record, with the final
+    TrainState under "ts"."""
     import torch
 
     from handarm_tpu_torch import train
 
     cfg, dev, start = ppo.cfg, ppo.device, ts
     n = ppo.env.cfg.num_envs * cfg.horizon
+    rows = n // cfg.seq_len if ppo.recurrent else n  # samples, or sequences
     rollout.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -965,19 +1002,21 @@ def learner_run(rollout, ppo, ts, per_iter: dict, tag: str, prefix_tols=LIFT_PRE
     log(f"{tag}: warm-up iteration {time.perf_counter() - t0:.3f} s")
     check_launches(rollout.launch_counts(), per_iter, 1, f"{tag} warm-up")
     iters, skips = [], 0
+    torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_ITERS + 1):
         last = i == TRAIN_ITERS  # untimed: its steps are kept for the CPU checks
         before = ts
         rollout.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        traj, env_state, last_obs, info = ppo.rollout(ts)
+        r = ppo.rollout(ts)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        perms = torch.stack([torch.randperm(n, generator=ppo.gen, device=dev)
+        perms = torch.stack([torch.randperm(rows, generator=ppo.gen, device=dev)
                              for _ in range(cfg.mini_epochs)]) if last else None
         with StepRecorder(ppo) if last else contextlib.nullcontext() as recorder:
-            ts, stats = ppo._update_from_traj(ts, traj, env_state, last_obs, perms, info)
+            ts, stats = ppo._update_from_traj(ts, r.traj, r.env_state, r.last_obs, perms, r.info,
+                                              r.last_teacher_obs, r.last_hidden)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts = rollout.launch_counts()
@@ -1002,15 +1041,31 @@ def learner_run(rollout, ppo, ts, per_iter: dict, tag: str, prefix_tols=LIFT_PRE
             f"Adam steps {steps} (skipped {skipped}); launches {counts}")
         check_learner(ts, tag)
         if last:
-            capture, rec_card = (before, traj, last_obs, perms), recorder
+            capture, rec_card = (before, r.traj, r.last_obs, perms), recorder
             captured_iter = rec
         else:
             iters.append(rec)
+        del r
+    peak = torch.cuda.max_memory_allocated() / 2**30
     moved = max(float((ts.params[k] - start.params[k]).abs().max()) for k in ts.params)
     if not moved > 0:
         raise AssertionError(f"{tag}: the params did not move in training")
     log(f"{tag}: max |params - start| after {2 + TRAIN_ITERS} iterations {moved:.4e}; Adam "
-        f"skips {skips}")
+        f"skips {skips}; peak device memory {peak:.2f} GiB")
+    mean = lambda k: sum(r[k] for r in iters) / len(iters)
+    out = dict(envs=ppo.env.cfg.num_envs, horizon=cfg.horizon,
+               minibatches=ppo.num_minibatches, minibatch_size=ppo.mb_size,
+               mini_epochs=cfg.mini_epochs, solver_iterations=ppo.env.cfg.solver_iterations,
+               iterations=iters, rollout_s=mean("rollout_s"), update_s=mean("update_s"),
+               env_steps_per_s=n * len(iters) / sum(r["rollout_s"] + r["update_s"]
+                                                    for r in iters),
+               captured_iteration=captured_iter, adam_skips=skips, params_moved=moved,
+               peak_memory_gib=peak, launches_per_iteration=per_iter, ts=ts)
+    if step_check is not None:
+        t0 = time.perf_counter()
+        out["card_vs_cpu"] = step_check(ppo, rec_card)
+        out["cpu_check_s"] = time.perf_counter() - t0
+        return out
 
     before, traj, last_obs, perms = capture
     steps = compare_steps(ppo, rec_card, cfg.kl_threshold, tag)
@@ -1035,15 +1090,7 @@ def learner_run(rollout, ppo, ts, per_iter: dict, tag: str, prefix_tols=LIFT_PRE
                                      tag, n_prefix, prefix_tols)
     match["step_by_step"] = steps
     log(f"{tag}: the CPU's preparation and {n_prefix} steps took {cpu_s:.1f} s")
-    mean = lambda k: sum(r[k] for r in iters) / len(iters)
-    return dict(envs=ppo.env.cfg.num_envs, horizon=cfg.horizon,
-                minibatches=ppo.num_minibatches, minibatch_size=ppo.mb_size,
-                mini_epochs=cfg.mini_epochs, solver_iterations=ppo.env.cfg.solver_iterations,
-                iterations=iters, rollout_s=mean("rollout_s"), update_s=mean("update_s"),
-                env_steps_per_s=n * len(iters) / sum(r["rollout_s"] + r["update_s"]
-                                                     for r in iters),
-                captured_iteration=captured_iter, adam_skips=skips, params_moved=moved,
-                card_vs_cpu=match, cpu_check_s=cpu_s, launches_per_iteration=per_iter, ts=ts)
+    return dict(out, card_vs_cpu=match, cpu_check_s=cpu_s)
 
 
 def train_phase(rollout, dev) -> dict:
@@ -1087,6 +1134,7 @@ def train_phase(rollout, dev) -> dict:
 
 
 LIFT_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0, "sdf_gather": 0}
+LIFT_PER_ITER = {k: 16 * v for k, v in LIFT_PER_STEP.items()}
 MULTI_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gather": 3}
 
 
@@ -1544,6 +1592,185 @@ def distill_entry_phase(rollout) -> dict:
     log(f"distill entry points: train_distill's last row {row}; the student's eval {res}")
     return dict(train_distill_s=train_s, last_row=row, eval_policy_s=eval_s, eval=res)
 
+# float32 against float64 for the recurrent learner's first minibatch step,
+# `python -m handarm_tpu_torch.update_precision --recurrent --envs 256 --seqs
+# 1024 --device cpu` (on the CPU): gradients 2.4e-6 of each tensor's largest
+# value, loss terms 2.8e-7 relative (entropy; the rest under 1e-7). Each
+# side is held to 8x that on the gradients, 35x on the loss terms (plus
+# 1e-8 for terms near 0: the policy loss and KL of a first step)
+RNN_CHECK_SEQS = 1024
+RNN_GRAD_TOL = 2e-5
+RNN_LOSS_TOL = (1e-5, 1e-8)  # relative to the float64 term, absolute
+
+
+def rnn_step_check(ppo, rec) -> dict:
+    """The recurrent learner's first minibatch step from the card's inputs:
+    its first RNN_CHECK_SEQS sequences' loss terms and gradients on the
+    card, on the CPU and in float64 on the CPU (`grad_errors`), each pair
+    within RNN_LOSS_TOL and RNN_GRAD_TOL; then the optimizer step from the
+    card's params, Adam state, lr and gradients, as `compare_steps` holds
+    it (params 2 float32 ulps of scale, Adam moments 1e-5, counters equal,
+    the lr)."""
+    from types import SimpleNamespace
+
+    from handarm_tpu_torch.update_precision import grad_errors
+
+    (stats, params, mb), _ = rec.grads[0]
+    sub = {k: v[:RNN_CHECK_SEQS] for k, v in mb.items()}
+    t0 = time.perf_counter()
+    errs = grad_errors(ppo, (stats, params, sub))
+    worst = {}
+    for pair in ("device vs f64", "cpu vs f64", "device vs cpu"):
+        e = errs[pair]
+        loss = max(v / (RNN_LOSS_TOL[0] * abs(errs["loss_f64"][k]) + RNN_LOSS_TOL[1])
+                   for k, v in e["loss"].items())
+        worst[pair] = dict(loss=loss, grad=e["grad"] / RNN_GRAD_TOL)
+        if not (loss <= 1.0 and e["grad"] <= RNN_GRAD_TOL):
+            raise AssertionError(f"rnn-train: {pair} differ on the first step: {e}")
+    grad_s = time.perf_counter() - t0
+    steps = compare_steps(ppo, SimpleNamespace(grads=[], applies=rec.applies[:1]),
+                          ppo.cfg.kl_threshold, "rnn-train first optimizer step")
+    log(f"rnn-train card-vs-cpu-vs-float64, the first minibatch step's first {RNN_CHECK_SEQS} "
+        f"sequences from the card's inputs ({grad_s:.1f} s): gradients card "
+        f"{errs['device vs f64']['grad']:.3e}, CPU {errs['cpu vs f64']['grad']:.3e} of scale "
+        f"from float64, card vs CPU {errs['device vs cpu']['grad']:.3e}; loss terms (float64 "
+        f"{errs['loss_f64']}) apart by {({p: errs[p]['loss'] for p in worst})}; largest "
+        f"fraction of each tolerance used {worst}")
+    return dict(errs, tolerance_used=worst, optimizer_step=steps, seconds=grad_s)
+
+
+def rnn_train_phase(rollout, dev):
+    """Phase 20 (see the module docstring). Returns (record, PPO, TrainState)."""
+    from handarm_tpu_torch.envs.hand_arm import HandArmEnv
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.envs.tasks import LSTM_LIFT
+
+    env_cfg, over = resolve_task("Ur5SihLift", [f"num_envs={ENVS}", *LSTM_LIFT])
+    ppo = PPO(HandArmEnv(env_cfg, dev), ppo_config(over))
+    cfg, env = ppo.cfg, ppo.env
+    log(f"rnn-train: Ur5SihLift {ENVS} envs; actor obs {env.num_obs}, critic obs "
+        f"{env.num_teacher_obs}; LSTM {cfg.rnn_units} / {cfg.critic_rnn_units}, hidden "
+        f"{cfg.hidden}, seq_len {cfg.seq_len}, gamma {cfg.gamma}; horizon {cfg.horizon}, "
+        f"{ppo.num_minibatches} minibatches of {ppo.mb_rows} sequences x {cfg.mini_epochs} "
+        f"mini-epochs; {sum(p.numel() for p in ppo.net.parameters())} params, flax-default "
+        f"init")
+    rec = learner_run(rollout, ppo, ppo.init(0), LIFT_PER_ITER, "rnn-train",
+                      step_check=rnn_step_check)
+    ts = rec.pop("ts")
+    return dict(task="Ur5SihLift", overrides=LSTM_LIFT, **rec), ppo, ts
+
+
+def rnn_serve_phase(rollout, ppo, ts, dev) -> dict:
+    """Phase 21 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import HandArmEnv, tree_map
+    from handarm_tpu_torch.learn.ppo import carry_map, zero_where
+
+    env = ppo.env
+
+    def serve(env, ts, state, obs, hidden):
+        a, hidden = ppo.act(ts, obs, True, hidden)
+        state, res = env.step(state, a)
+        if ppo.cfg.zero_rnn_on_done:
+            hidden = zero_where(res.done, hidden)
+        return state, res.obs, hidden, a
+
+    state, obs = env.reset(1)
+    state, obs, hidden, _ = serve(env, ts, state, obs, None)  # warm-up
+    torch.cuda.synchronize()
+    rollout.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, obs, hidden, _ = serve(env, ts, state, obs, hidden)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = rollout.launch_counts()
+    check_launches(counts, LIFT_PER_STEP, STEPS, "rnn-serve")
+    finite_state(tree_map, state, obs)
+    if not all(bool(torch.isfinite(x).all()) for x in carry_leaves(hidden)):
+        raise AssertionError("rnn-serve: non-finite carry")
+    rate = ENVS * STEPS / seconds
+    log(f"rnn-serve: {STEPS} deterministic PPO.act control steps at {ENVS} envs, the carry "
+        f"threaded (zeroed where an episode ended) in {seconds:.3f} s = {rate:.0f} "
+        f"env-steps/s; launches {counts}")
+
+    # card against CPU: 16 envs of that state, clocks zeroed, 2 control steps
+    take = lambda x: x[:16] if x.dim() and x.shape[0] == ENVS else x
+    st_g = tree_map(take, state)
+    st_g = st_g._replace(task=st_g.task._replace(progress=torch.zeros_like(st_g.task.progress)))
+    small = dataclasses.replace(env.cfg, num_envs=16)
+    env_g, env_c = HandArmEnv(small, dev), HandArmEnv(small, "cpu")
+    st_c, ts_c = to_cpu(st_g), learner_cpu(ts)
+    h_g = carry_map(take, hidden)
+    h_c, obs_g = to_cpu(h_g), take(obs)
+    obs_c = obs_g.cpu()
+    errs = []
+    for k in range(2):
+        a_g, h_g = ppo.act(ts, obs_g, True, h_g)
+        a_c, h_c = ppo.act(ts_c, obs_c, True, h_c)
+        carry = max(float((x.cpu() - y).abs().max()) for x, y in
+                    zip(carry_leaves(h_g), carry_leaves(h_c)))
+        st_g, res_g = env_g.step(st_g, a_g)
+        st_c, res_c = env_c.step(st_c, a_c)
+        obs_g, obs_c = res_g.obs, res_c.obs
+        errs.append(dict(action=float((a_g.cpu() - a_c).abs().max()), carry=carry,
+                         q=float((st_g.physics.robot.q.cpu() - st_c.physics.robot.q).abs().max()),
+                         obs=float((obs_g.cpu() - obs_c).abs().max())))
+    log(f"rnn-serve card-vs-cpu, 16 envs, 2 control steps, each side acting on its own "
+        f"observations and carry: {errs}")
+    # step 1 from the same inputs: float32 nets, 1e-4; step 2 from each
+    # side's observations (the env-step bound, 2e-3); q the JAX package's 2e-4
+    first, second = errs
+    if not (first["action"] <= 1e-4 and first["carry"] <= 1e-4 and second["action"] <= 2e-3
+            and second["carry"] <= 2e-3 and max(e["q"] for e in errs) <= 2e-4
+            and max(e["obs"] for e in errs) <= 2e-3):
+        raise AssertionError("rnn-serve: the card's recurrent policy disagrees with the CPU's")
+    return dict(envs=ENVS, control_steps=STEPS, seconds=seconds, env_steps_per_s=rate,
+                launches=counts, card_vs_cpu=errs)
+
+
+def carry_leaves(carry) -> list:
+    """The tensors of a carry, (c, h) or {"actor": ..., "critic": ...}."""
+    from handarm_tpu_torch.learn.ppo import carry_items
+
+    return list(carry_items(carry).values())
+
+
+def rnn_entry_phase(ppo) -> dict:
+    """Phase 22 (see the module docstring)."""
+    import numpy as np
+
+    from handarm_tpu_torch.envs.tasks import LSTM_LIFT
+    from handarm_tpu_torch.utils.checkpoint import load_train_state
+
+    exp = "chip_smoke_rnn"
+    args = ["task=Ur5SihLift", f"num_envs={ENVS}", *LSTM_LIFT, f"experiment={exp}", "seed=1"]
+    nn_dir = os.path.join("runs", exp, "nn")
+    first_s, _ = run_module("handarm_tpu_torch.train", args + ["max_iterations=2"],
+                            "rnn entry point", 150)
+    resume_s, _ = run_module("handarm_tpu_torch.train", args + ["max_iterations=3",
+                                                                 "resume=auto"],
+                             "rnn entry point resumed", 150)
+    ts2, ts3 = (load_train_state(os.path.join(nn_dir, f"ckpt_{i}.npz"), cfg=ppo.cfg)
+                for i in (2, 3))
+    steps = ppo.num_minibatches * ppo.cfg.mini_epochs
+    check_learner(ts3, "rnn entry point")
+    with open(os.path.join("runs", exp, "metrics.jsonl")) as f:
+        rows = [json.loads(x) for x in f.read().splitlines()]
+    ok = (int(ts2.epoch) == 2 and int(ts3.epoch) == 3
+          and int(ts3.opt_state.count) == 3 * steps - int(ts3.opt_state.total_notfinite)
+          and float(ts3.teacher_obs_stats.count) > float(ts2.teacher_obs_stats.count)
+          and [r["step"] for r in rows] == [0, 1, 2]
+          and all(np.isfinite(r["kl"]) for r in rows)
+          and any(float(x.abs().max()) > 0 for x in carry_leaves(ts3.hidden)))
+    if not ok:
+        raise AssertionError(f"rnn entry point: bad checkpoints or metrics in runs/{exp}")
+    log(f"rnn entry point: 2 iterations in {first_s:.1f} s, resumed for a third in "
+        f"{resume_s:.1f} s; its rows {[(r['step'], round(r['kl'], 5)) for r in rows]}")
+    return dict(first_s=first_s, resume_s=resume_s, rows=rows)
+
 
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
@@ -1771,6 +1998,14 @@ def main() -> int:
         distill_rec["entry_points"] = distill_entry_phase(rollout)
     distill_rec["clouds"] = clouds_rec
 
+    with phase("rnn-train"):
+        rnn_rec, rnn_ppo, rnn_ts = rnn_train_phase(rollout, dev)
+    with phase("rnn-serve"):
+        rnn_rec["serve"] = rnn_serve_phase(rollout, rnn_ppo, rnn_ts, dev)
+        del rnn_ts
+    with phase("rnn-entry"):
+        rnn_rec["entry_point"] = rnn_entry_phase(rnn_ppo)
+
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
                                 "card": smi},
@@ -1781,7 +2016,7 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec,
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
-                    "family": family_rec, "distill": distill_rec}))
+                    "family": family_rec, "distill": distill_rec, "rnn": rnn_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -13,11 +13,17 @@ to write checkpoints its loader reads.
   end_success_ewma). The PRNG key is dropped on the way in: the port draws
   from a torch.Generator. On the way out it is written as the JAX file has
   it, a [2] uint32 key from the seed (`jax.random.PRNGKey(seed)`'s value).
-- A PPO TrainState is 71 leaves (`utils/checkpoint.py` documents them):
+- A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
-  epoch.
+  epoch (71 for the 768-512-256 MLP), then with an asymmetric critic the
+  teacher-observation stats and the last teacher observations, then on
+  the recurrent path the carry: (c, h), or actor (c, h) and critic (c, h).
+  Its params and their order follow from the PPOConfig
+  (`learn.ppo.param_names`), not from the leaf count: readers and writers
+  of the asymmetric and recurrent layouts take the config.
 - A distilled student (`student.npz`) is its params alone, in flax order
-  (`StudentPolicy.flax_names`).
+  (`StudentPolicy.flax_names`; `params_from_leaves` reads any net that
+  lists its flax names).
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch
 from handarm_tpu_torch.envs.hand_arm import EnvState, Metrics, TaskState
 from handarm_tpu_torch.learn import optim
 from handarm_tpu_torch.learn.networks import ActorCritic, flax_names
-from handarm_tpu_torch.learn.ppo import TrainState
+from handarm_tpu_torch.learn.ppo import PPOConfig, TrainState, param_names
 from handarm_tpu_torch.learn.running_stats import RunningStats
 from handarm_tpu_torch.physics.engine import ObjectState, PhysicsState, RobotState
 from handarm_tpu_torch.robots.ur5sih_adapter import ControlState
@@ -49,24 +55,26 @@ def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
     return net.to(device)
 
 
-def student_params_from_leaves(net, leaves: Sequence[np.ndarray], device="cpu") -> dict:
-    """A StudentPolicy's params (module name -> tensor) from its leaves in
-    flax order; each leaf's shape must be the net's."""
+def params_from_leaves(net, leaves: Sequence[np.ndarray], device="cpu") -> dict:
+    """The params (module name -> tensor) of a net with `flax_names()` (a
+    StudentPolicy, or a net of learn/networks.py) from its leaves in flax
+    order; each leaf's shape must be the net's."""
     names = net.flax_names()
     if len(leaves) != len(names):
-        raise ValueError(f"expected {len(names)} student leaves, got {len(leaves)}")
+        raise ValueError(f"expected {len(names)} leaves, got {len(leaves)}")
     own = dict(net.named_parameters())
     params = {}
     for (f, t), x in zip(names, leaves):
         params[t] = _to_torch_layout(f, x, device)
         if params[t].shape != own[t].shape:
-            raise ValueError(f"student leaf {f}: shape {tuple(np.shape(x))} does not fit "
+            raise ValueError(f"leaf {f}: shape {tuple(np.shape(x))} does not fit "
                              f"{tuple(own[t].shape)}")
     return params
 
 
-def student_params_to_leaves(net, params: dict) -> list[np.ndarray]:
-    """A StudentPolicy's params as its leaves in flax order and layout."""
+def params_to_leaves(net, params: dict) -> list[np.ndarray]:
+    """The params of a net with `flax_names()` as its leaves in flax order
+    and layout."""
     return [_to_flax_layout(f, params[t]) for f, t in net.flax_names()]
 
 
@@ -119,34 +127,88 @@ def prng_key(seed: int) -> np.ndarray:
     return np.asarray([0, seed], np.uint32)
 
 
-def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
-                            device="cpu") -> TrainState:
-    """The learner part of a PPO checkpoint's leaves (params, optax state,
-    running stats, lr and epoch) with the given env state and observations."""
-    # P params, 4 optax scalars, 2 P moments, 7 stats and lr, the env
-    # state, last obs, key, epoch
-    P, rest = divmod(len(leaves) - 4 - 7 - N_ENV_LEAVES - 3, 3)
-    if rest or P < 7:
-        raise ValueError(f"{len(leaves)} leaves are not a PPO TrainState")
-    names = flax_names(_num_hidden(P))
+def learner_leaf_count(n_params: int) -> int:
+    """Leaves of params, optax state (4 scalars, Adam's mu and nu), both
+    running stats and lr: where the env state starts."""
+    return 3 * n_params + 4 + 7
+
+
+def names_of(cfg: PPOConfig | None, n_params: int | None = None) -> list[tuple[str, str]]:
+    """The learner's parameter names: `cfg`'s, or without one those of the
+    MLP ActorCritic with `n_params` parameters."""
+    return param_names(cfg) if cfg is not None else flax_names(_num_hidden(n_params))
+
+
+def learner_from_leaves(leaves: Sequence[np.ndarray], names, device="cpu") -> tuple:
+    """(params, optax state, obs stats, value stats, lr) of the first
+    `learner_leaf_count` leaves."""
+    P = len(names)
     params = {t: _to_torch_layout(f, leaves[i], device) for i, (f, t) in enumerate(names)}
-    s = torch.tensor(np.asarray(leaves[P]), dtype=torch.int32, device=device)
+    i32 = lambda x: torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
     moment = lambda off: {t: _to_torch_layout(f, leaves[off + i], device)
                           for i, (f, t) in enumerate(names)}
     opt = optim.OptState(
-        notfinite_count=s, last_finite=torch.tensor(bool(leaves[P + 1]), device=device),
-        total_notfinite=torch.tensor(np.asarray(leaves[P + 2]), dtype=torch.int32,
-                                     device=device),
-        count=torch.tensor(np.asarray(leaves[P + 3]), dtype=torch.int32, device=device),
+        notfinite_count=i32(leaves[P]),
+        last_finite=torch.tensor(bool(leaves[P + 1]), device=device),
+        total_notfinite=i32(leaves[P + 2]), count=i32(leaves[P + 3]),
         mu=moment(P + 4), nu=moment(P + 4 + P))
-    k = P + 4 + 2 * P  # 37
+    k = P + 4 + 2 * P
+    return (params, opt, running_stats_from_leaves(*leaves[k:k + 3], device=device),
+            running_stats_from_leaves(*leaves[k + 3:k + 6], device=device),
+            torch.tensor(np.asarray(leaves[k + 6]), dtype=torch.float32, device=device))
+
+
+def extra_leaf_count(cfg: PPOConfig | None) -> int:
+    """Leaves after the epoch: the teacher-observation stats and the last
+    teacher observations (asymmetric), the carry (recurrent)."""
+    if cfg is None:
+        return 0
+    carry = 2 * (1 + cfg.asymmetric_critic) if cfg.rnn_units > 0 else 0
+    return 4 * cfg.asymmetric_critic + carry
+
+
+def extra_from_leaves(leaves: Sequence[np.ndarray], cfg: PPOConfig, device="cpu") -> dict:
+    """TrainState fields (teacher_obs_stats, last_teacher_obs, hidden) of
+    the `extra_leaf_count` leaves after the epoch."""
+    f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+    out, i = {}, 0
+    if cfg.asymmetric_critic:
+        out["teacher_obs_stats"] = running_stats_from_leaves(*leaves[:3], device=device)
+        out["last_teacher_obs"] = f(leaves[3])
+        i = 4
+    if cfg.rnn_units > 0:
+        c = [f(x) for x in leaves[i:]]
+        out["hidden"] = ({"actor": (c[0], c[1]), "critic": (c[2], c[3])}
+                         if cfg.asymmetric_critic else (c[0], c[1]))
+    return out
+
+
+def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
+                            device="cpu", cfg: PPOConfig | None = None) -> TrainState:
+    """The learner part of a PPO checkpoint's leaves (params, optax state,
+    running stats, lr, epoch, and `cfg`'s teacher stats, last teacher
+    observations and carry) with the given env state and observations.
+    Without `cfg`, an MLP ActorCritic checkpoint (its size from the leaf
+    count)."""
+    extra = extra_leaf_count(cfg)
+    if cfg is None:
+        # P params, 4 optax scalars, 2 P moments, 7 stats and lr, the env
+        # state, last obs, key, epoch
+        P, rest = divmod(len(leaves) - 4 - 7 - N_ENV_LEAVES - 3, 3)
+        if rest or P < 7:
+            raise ValueError(f"{len(leaves)} leaves are not a PPO TrainState")
+    else:
+        P = len(param_names(cfg))
+        if len(leaves) != learner_leaf_count(P) + N_ENV_LEAVES + 3 + extra:
+            raise ValueError(f"{len(leaves)} leaves are not a PPO TrainState of {cfg}")
+    names = names_of(cfg, P)
+    params, opt, obs_stats, value_stats, lr = learner_from_leaves(leaves, names, device)
+    k = learner_leaf_count(P) + N_ENV_LEAVES + 2
     return TrainState(
-        params=params, opt_state=opt,
-        obs_stats=running_stats_from_leaves(*leaves[k:k + 3], device=device),
-        value_stats=running_stats_from_leaves(*leaves[k + 3:k + 6], device=device),
-        lr=torch.tensor(np.asarray(leaves[k + 6]), dtype=torch.float32, device=device),
+        params=params, opt_state=opt, obs_stats=obs_stats, value_stats=value_stats, lr=lr,
         env_state=env_state, last_obs=last_obs,
-        epoch=torch.tensor(np.asarray(leaves[-1]), dtype=torch.int32, device=device),
+        epoch=torch.tensor(np.asarray(leaves[k]), dtype=torch.int32, device=device),
+        **(extra_from_leaves(leaves[k + 1:], cfg, device) if extra else {}),
     )
 
 
@@ -167,10 +229,12 @@ def env_state_to_leaves(state: EnvState, seed: int = 0) -> list[np.ndarray]:
     ]
 
 
-def learner_to_leaves(ts: TrainState) -> list[np.ndarray]:
-    """Leaves 0-43 of a PPO TrainState (params, optax state, both running
-    stats, lr) in the JAX package's order, layouts and dtypes."""
-    names = flax_names(_num_hidden(len(ts.params)))
+def learner_to_leaves(ts: TrainState, cfg: PPOConfig | None = None) -> list[np.ndarray]:
+    """The leading leaves of a PPO TrainState (params, optax state, both
+    running stats, lr: 0-43 for the 768-512-256 MLP) in the JAX package's
+    order, layouts and dtypes; the params are `cfg`'s, or without it the
+    MLP ActorCritic's."""
+    names = names_of(cfg, len(ts.params))
     o = ts.opt_state
     f = lambda x: x.detach().cpu().numpy().astype(np.float32)
     leaves = [_to_flax_layout(fn, ts.params[t]) for fn, t in names]
@@ -180,9 +244,25 @@ def learner_to_leaves(ts: TrainState) -> list[np.ndarray]:
     return leaves + [f(x) for x in (*ts.obs_stats, *ts.value_stats, ts.lr)]
 
 
-def train_state_to_leaves(ts: TrainState, seed: int = 0) -> list[np.ndarray]:
-    """The 71 leaves of a PPO TrainState; both PRNG keys are
-    `prng_key(seed)`."""
-    return (learner_to_leaves(ts) + env_state_to_leaves(ts.env_state, seed)
+def extra_to_leaves(ts: TrainState) -> list[np.ndarray]:
+    """The leaves after the epoch: the teacher-observation stats and the
+    last teacher observations, then the carry, those the state has."""
+    f = lambda x: x.detach().cpu().numpy().astype(np.float32)
+    out = []
+    if ts.teacher_obs_stats is not None:
+        out += [f(x) for x in ts.teacher_obs_stats]
+    if ts.last_teacher_obs is not None:
+        out.append(f(ts.last_teacher_obs))
+    h = ts.hidden
+    if h is not None:
+        out += [f(x) for x in ((*h["actor"], *h["critic"]) if isinstance(h, dict) else h)]
+    return out
+
+
+def train_state_to_leaves(ts: TrainState, seed: int = 0,
+                          cfg: PPOConfig | None = None) -> list[np.ndarray]:
+    """The leaves of a PPO TrainState (71 for the 768-512-256 MLP); both
+    PRNG keys are `prng_key(seed)`."""
+    return (learner_to_leaves(ts, cfg) + env_state_to_leaves(ts.env_state, seed)
             + [ts.last_obs.detach().cpu().numpy().astype(np.float32), prng_key(seed),
-               ts.epoch.detach().cpu().numpy().astype(np.int32)])
+               ts.epoch.detach().cpu().numpy().astype(np.int32)] + extra_to_leaves(ts))

@@ -71,6 +71,22 @@ TASKS: dict[str, tuple[HandArmConfig, dict]] = {
 }
 
 
+# ShadowHandOpenAI_LSTM's learner (handarm_tpu/envs/registry.py:755-762:
+# asymmetric critic, LSTM 1024 actor and critic, MLP [512], seq_len 4,
+# gamma 0.998) on Ur5SihLift, as overrides of its composition
+# (`registry.resolve_task`, `python -m handarm_tpu_torch.train`): the actor
+# sees the distilled student's four non-cloud observables (33 values), the
+# critic the Lift's eleven default observables (121); the Lift's horizon 16
+# and 4 mini-epochs, minibatches of 32768 samples (8,192 sequences)
+LSTM_LIFT = [
+    "observations=[ur5_joint_pos,ur5_flange_pose,dof_position_targets,"
+    "target_object_to_goal_pos]",
+    f"teacher_observations=[{','.join(HandArmConfig.observations)}]",
+    "ppo.asymmetric_critic=true", "ppo.rnn_units=1024", "ppo.critic_rnn_units=1024",
+    "ppo.hidden=[512]", "ppo.seq_len=4", "ppo.minibatch_size=32768", "ppo.gamma=0.998",
+]
+
+
 def _preset(name: str) -> tuple[HandArmConfig, dict]:
     if name not in TASKS:
         raise KeyError(f"unknown task {name!r} (ported: {sorted(TASKS)})")

@@ -20,6 +20,12 @@ zeroed, then `--steps` more control steps; the rate is total_successes /
 total_resets over that window. Prints one JSON line: task, policy,
 episodes, successes, success_rate, success_ewma, per_object_ewma. Runs on
 `cuda` unless given `--device cpu`.
+
+A checkpoint of the asymmetric or recurrent learner raises
+NotImplementedError: the JAX package's scripts/eval_policy.py cannot
+evaluate one either (it feeds the critic no teacher observations and
+carries no LSTM state), so the port offers no other way. A recurrent
+policy is served through `PPO.act`, which threads its carry.
 """
 
 from __future__ import annotations
@@ -60,9 +66,9 @@ def evaluate(ckpt: str | None = None, task: str = "Ur5SihLift", envs: int = 1024
                             aux_heads={k: e - s for k, (s, e) in aux.items()}).to(dev)
         policy, ckpt = Student(net, read_student(student, net, dev)), student
     else:
-        env = make_task_env(task, envs, dev, pool=pool, **over)
         ckpt = ckpt or TASK_CKPTS[task]
         policy = load_policy(ckpt, dev)
+        env = make_task_env(task, envs, dev, pool=pool, **over)
     state, _ = env.reset(seed)
     state, res = env.step(state, torch.zeros(envs, env.num_actions, device=dev))
     obs = policy.observe(res)

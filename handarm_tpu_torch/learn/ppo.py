@@ -1,17 +1,29 @@
-"""PPO with GAE, MLP policy (counterpart of handarm_tpu/learn/ppo.py
-without its recurrent and asymmetric-critic paths; one data shard).
+"""PPO with GAE (counterpart of handarm_tpu/learn/ppo.py; one data shard).
 
 One `train_iter` is a rollout of `horizon` stochastic policy steps through
 the env, then `_update_from_traj`: the bootstrap value of the last
 observation, GAE, the env-major flatten, the once-per-iteration updates of
-the observation and value statistics, and `mini_epochs` passes of
-minibatched SGD with the clipped surrogate, the (clipped) value loss, the
-bounds loss and a KL-adaptive (or fixed) learning rate, then the KL guard
-that discards a catastrophic iteration. The switches of the JAX
-PPOConfig are ported with their branches: input and value normalization,
-advantage normalization, the timeout value bootstrap, the clipped value
-loss, the lr schedule and a fixed minibatch count; the recurrent,
-asymmetric and sharding fields are refused (`ppo_config`).
+the observation, teacher-observation and value statistics, and
+`mini_epochs` passes of minibatched SGD with the clipped surrogate, the
+(clipped) value loss, the bounds loss and a KL-adaptive (or fixed) learning
+rate, then the KL guard that discards a catastrophic iteration. Every
+switch of the JAX PPOConfig is ported with its branch but `data_shards`
+(refused, `ppo_config`).
+
+Four layouts of the learner:
+- the MLP `ActorCritic` (`rnn_units=0`);
+- with `asymmetric_critic`, a `ValueNet` on the env's teacher observations
+  is the critic, and the params are {"actor": ..., "critic": ...}
+  (`AsymmetricActorCritic`; module names prefixed `actor.` and `critic.`);
+- with `rnn_units > 0`, the LSTM-before-MLP `RecurrentActorCritic` (and,
+  asymmetric, a `RecurrentValueNet` of `critic_rnn_units or rnn_units`).
+  The rollout threads the carry (c, h) through the env steps, stores each
+  step's pre-step carry, and zeroes the post-step carry of an env whose
+  episode ended (with `zero_rnn_on_done`). The update cuts the env-major
+  samples into sequences of `seq_len` steps, permutes sequences, and
+  unrolls each from the carry stored at its first step, zeroing it again
+  after a done inside the sequence (with `zero_rnn_on_done`): truncated
+  BPTT from the stored chunk-start states, as the JAX package.
 
 Parameters are a dict of tensors by module name, in flax order, applied
 through `torch.func.functional_call`. The learning rate, the epoch, the
@@ -31,7 +43,17 @@ from torch.func import functional_call
 
 from handarm_tpu_torch import resolve_device
 from handarm_tpu_torch.learn import optim
-from handarm_tpu_torch.learn.networks import ActorCritic
+from handarm_tpu_torch.learn.networks import (
+    ActorCritic,
+    AsymmetricActorCritic,
+    RecurrentActorCritic,
+    RecurrentValueNet,
+    ValueNet,
+    asymmetric_names,
+    flax_names,
+    recurrent_names,
+    value_net_names,
+)
 from handarm_tpu_torch.learn.running_stats import (
     RunningStats,
     denormalize,
@@ -68,14 +90,28 @@ class PPOConfig(NamedTuple):
     # (params, optimizer state, both stats), from epoch 8 on
     kl_guard: float = 1.0
     hidden: tuple = (768, 512, 256)
+    asymmetric_critic: bool = False  # the critic sees the teacher observations
+    rnn_units: int = 0  # LSTM width; 0: the MLP policy
+    seq_len: int = 4  # BPTT sequence length
+    zero_rnn_on_done: bool = True
+    critic_rnn_units: int = 0  # the recurrent critic's LSTM width; 0: rnn_units
 
 
 # the JAX PPOConfig's fields of paths not ported, with their defaults
-NOT_PORTED = {
-    "asymmetric_critic": (False, "§1.3"), "rnn_units": (0, "§1.3"), "seq_len": (4, "§1.3"),
-    "zero_rnn_on_done": (True, "§1.3"), "critic_rnn_units": (0, "§1.3"),
-    "data_shards": (1, "§1.6"),
-}
+NOT_PORTED = {"data_shards": (1, "§1.6")}
+
+
+def param_names(cfg: PPOConfig) -> list[tuple[str, str]]:
+    """(flax name, module name) of every parameter of the learner `cfg`
+    builds, in flax order: the order of optax's state and of a checkpoint's
+    param leaves."""
+    n = len(cfg.hidden)
+    if cfg.rnn_units > 0:
+        actor = recurrent_names(n, actor=True)
+        critic = recurrent_names(n, actor=False)
+    else:
+        actor, critic = flax_names(n), value_net_names(n)
+    return asymmetric_names(actor, critic) if cfg.asymmetric_critic else actor
 
 
 def ppo_config(overrides: dict) -> PPOConfig:
@@ -107,6 +143,11 @@ class TrainState(NamedTuple):
     env_state: Any
     last_obs: torch.Tensor
     epoch: torch.Tensor  # int32 scalar
+    teacher_obs_stats: RunningStats | None = None  # asymmetric only
+    last_teacher_obs: torch.Tensor | None = None  # asymmetric only
+    # the LSTM carry per env: (c, h), or {"actor": (c, h), "critic": (c, h)}
+    # when asymmetric; None for the MLP
+    hidden: Any = None
 
 
 class Transition(NamedTuple):
@@ -118,6 +159,17 @@ class Transition(NamedTuple):
     done: torch.Tensor
     mu: torch.Tensor
     sigma: torch.Tensor
+    teacher_obs: torch.Tensor | None = None  # asymmetric only
+    hidden: Any = None  # the pre-step carry (recurrent only)
+
+
+class Rollout(NamedTuple):
+    traj: Transition  # [horizon, B, ...]
+    env_state: Any
+    last_obs: torch.Tensor  # the observations after the last step
+    info: dict | None  # the last step's
+    last_teacher_obs: torch.Tensor | None  # asymmetric only
+    last_hidden: Any  # the carry after the last step, zeroed where done
 
 
 def gaussian_logp(mu, log_std, a):
@@ -143,50 +195,127 @@ def flatten_env_major(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(0, 1).reshape((-1,) + tuple(x.shape[2:]))
 
 
-def where_stats(cond, a: RunningStats, b: RunningStats) -> RunningStats:
+def where_stats(cond, a: RunningStats | None, b: RunningStats | None):
+    if a is None:
+        return None
     return RunningStats(*(torch.where(cond, x, y) for x, y in zip(a, b)))
+
+
+def carry_map(fn, *carries):
+    """Map over the tensors of LSTM carries: (c, h) tuples, or dicts of them."""
+    c0 = carries[0]
+    if c0 is None:
+        return None
+    if isinstance(c0, dict):
+        return {k: carry_map(fn, *(c[k] for c in carries)) for k in c0}
+    if isinstance(c0, tuple):
+        return tuple(carry_map(fn, *xs) for xs in zip(*carries))
+    return fn(*carries)
+
+
+def zero_where(done: torch.Tensor, carry):
+    """The carry with the rows of envs where `done` set to 0."""
+    return carry_map(lambda x: torch.where(done[:, None], torch.zeros_like(x), x), carry)
+
+
+def carry_items(carry, prefix: str = "h0") -> dict:
+    """The carry's tensors by flat name: `h0.c`, `h0.h`, or `h0.actor.c` ..."""
+    if isinstance(carry, dict):
+        return {k: v for name, c in carry.items()
+                for k, v in carry_items(c, f"{prefix}.{name}").items()}
+    return {f"{prefix}.c": carry[0], f"{prefix}.h": carry[1]}
+
+
+def _finite(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(x), x, torch.zeros_like(x))
 
 
 class PPO:
     """Ties an env (`step`, `reset`, `num_obs`, `num_actions`,
-    `cfg.num_envs`) to the train iteration. `device` defaults to the env's."""
+    `cfg.num_envs`; with an asymmetric critic also `observe` and
+    `num_teacher_obs`) to the train iteration. `device` defaults to the
+    env's."""
 
     def __init__(self, env, cfg: PPOConfig = PPOConfig(), device=None):
         self.env, self.cfg = env, cfg
         self.device = resolve_device(device) if device is not None else env.device
-        self.net = ActorCritic(env.num_obs, env.num_actions, cfg.hidden).to(self.device)
+        self.asymmetric, self.recurrent = cfg.asymmetric_critic, cfg.rnn_units > 0
+        num_teacher = getattr(env, "num_teacher_obs", 0)
+        if self.asymmetric and num_teacher <= 0:
+            raise ValueError("asymmetric_critic requires env teacher_observations")
+        if self.recurrent:
+            if cfg.horizon % cfg.seq_len:
+                raise ValueError(f"seq_len {cfg.seq_len} does not divide horizon {cfg.horizon}")
+            actor = RecurrentActorCritic(env.num_obs, env.num_actions, cfg.rnn_units, cfg.hidden)
+            critic = RecurrentValueNet(num_teacher, cfg.critic_rnn_units or cfg.rnn_units,
+                                       cfg.hidden) if self.asymmetric else None
+        else:
+            actor = ActorCritic(env.num_obs, env.num_actions, cfg.hidden)
+            critic = ValueNet(num_teacher, cfg.hidden) if self.asymmetric else None
+        net = AsymmetricActorCritic(actor, critic) if self.asymmetric else actor
+        self.net = net.to(self.device)
+        self.actor = self.net.actor if self.asymmetric else self.net
         batch = env.cfg.num_envs * cfg.horizon
         self.num_minibatches = cfg.num_minibatches or max(1, batch // cfg.minibatch_size)
         if batch % self.num_minibatches:
             raise ValueError(f"{batch} samples do not split into {self.num_minibatches} "
                              "minibatches")
         self.mb_size = batch // self.num_minibatches
+        if self.recurrent and self.mb_size % cfg.seq_len:
+            raise ValueError(f"seq_len {cfg.seq_len} does not divide the minibatch "
+                             f"{self.mb_size}")
+        # rows of the prepared samples per minibatch: samples, or sequences
+        self.mb_rows = self.mb_size // cfg.seq_len if self.recurrent else self.mb_size
         self.gen = torch.Generator(device=self.device)
 
     # --- init ---------------------------------------------------------------
 
+    def init_carry(self, batch: int):
+        """A zero LSTM carry of `batch` envs (None for the MLP)."""
+        return self.net.init_carry(batch, self.device) if self.recurrent else None
+
     def init(self, seed: int) -> TrainState:
         """Env reset, flax-default params, a fresh optimizer and fresh
-        stats, the configured learning rate; draws from `seed`."""
+        stats, the configured learning rate, a zero carry; draws from
+        `seed`. With an asymmetric critic, the teacher observations of the
+        reset state (`env.observe`)."""
         self.gen.manual_seed(seed)
         env_state, obs = self.env.reset(seed)
         params = self.net.init_flax_default(self.gen).param_dict()
         dev = self.device
+        teacher_stats = last_teacher = None
+        if self.asymmetric:
+            _, last_teacher, _ = self.env.observe(env_state)
+            teacher_stats = init_stats((self.env.num_teacher_obs,), dev)
         return TrainState(
             params=params, opt_state=optim.init(params),
             obs_stats=init_stats((self.env.num_obs,), dev), value_stats=init_stats((), dev),
             lr=torch.tensor(self.cfg.learning_rate, dtype=torch.float32, device=dev),
             env_state=env_state, last_obs=obs,
             epoch=torch.zeros((), dtype=torch.int32, device=dev),
+            teacher_obs_stats=teacher_stats, last_teacher_obs=last_teacher,
+            hidden=self.init_carry(obs.shape[0]),
         )
 
     # --- net helpers --------------------------------------------------------
 
+    def forward(self, params: dict, stats: tuple, obs: torch.Tensor, teacher_obs=None,
+                carry=None):
+        """(mu, log_std, value, new carry or None) of raw observations (and
+        teacher observations); `stats` = (observation stats, teacher
+        observation stats or None)."""
+        obs_stats, teacher_stats = stats
+        norm = self.cfg.normalize_input
+        args = (normalize(obs_stats, obs) if norm else obs,)
+        if self.asymmetric:
+            args += (normalize(teacher_stats, teacher_obs) if norm else teacher_obs,)
+        if self.recurrent:
+            return functional_call(self.net, params, args + (carry,))
+        return (*functional_call(self.net, params, args), None)
+
     def policy_value(self, params: dict, obs_stats: RunningStats, obs: torch.Tensor):
-        """(mu, log_std, value) of raw observations."""
-        if self.cfg.normalize_input:
-            obs = normalize(obs_stats, obs)
-        return functional_call(self.net, params, (obs,))
+        """(mu, log_std, value) of raw observations (the MLP ActorCritic)."""
+        return self.forward(params, (obs_stats, None), obs)[:3]
 
     def value_of(self, value_stats: RunningStats, value: torch.Tensor) -> torch.Tensor:
         """The critic's output in reward units; a non-finite value becomes 0."""
@@ -198,20 +327,22 @@ class PPO:
 
     def train_iter(self, ts: TrainState, noise=None, perms=None):
         """(new TrainState, stats). `noise` [horizon, B, A] replaces the
-        policy's normal draws, `perms` [mini_epochs, B * horizon] the
-        minibatch permutations."""
-        traj, env_state, last_obs, info = self.rollout(ts, noise)
-        return self._update_from_traj(ts, traj, env_state, last_obs, perms, info)
+        policy's normal draws, `perms` [mini_epochs, rows] the minibatch
+        permutations: of the B * horizon samples, or on the recurrent path
+        of the B * horizon / seq_len sequences."""
+        r = self.rollout(ts, noise)
+        return self._update_from_traj(ts, r.traj, r.env_state, r.last_obs, perms, r.info,
+                                      r.last_teacher_obs, r.last_hidden)
 
     @torch.no_grad()
-    def rollout(self, ts: TrainState, noise=None):
-        """(trajectory [horizon, B, ...], env state, next observations, the
-        last step's info) of `horizon` stochastic policy steps."""
+    def rollout(self, ts: TrainState, noise=None) -> Rollout:
+        """`horizon` stochastic policy steps (see `Rollout`)."""
         cfg = self.cfg
-        env_state, obs = ts.env_state, ts.last_obs
+        stats = (ts.obs_stats, ts.teacher_obs_stats)
+        env_state, obs, teacher, h = ts.env_state, ts.last_obs, ts.last_teacher_obs, ts.hidden
         steps, info = [], None
         for t in range(cfg.horizon):
-            mu, log_std, value = self.policy_value(ts.params, ts.obs_stats, obs)
+            mu, log_std, value, h_next = self.forward(ts.params, stats, obs, teacher, h)
             eps = noise[t] if noise is not None else torch.randn(
                 mu.shape, generator=self.gen, device=mu.device)
             sigma = torch.exp(log_std)
@@ -227,25 +358,32 @@ class PPO:
                 # non-finite value times 0 is still NaN
                 reward = reward + cfg.gamma * torch.where(
                     res.done & torch.isfinite(value), value, zero)
-            steps.append(Transition(obs, a, logp, value, reward, res.done, mu, sigma))
-            info = res.info
-            obs = torch.where(torch.isfinite(res.obs), res.obs, torch.zeros_like(res.obs))
-        traj = Transition(*(torch.stack(x) for x in zip(*steps)))
-        return traj, env_state, obs, info
+            steps.append(Transition(obs, a, logp, value, reward, res.done, mu, sigma,
+                                    teacher, h))
+            if self.recurrent and cfg.zero_rnn_on_done:
+                h_next = zero_where(res.done, h_next)
+            h, info = h_next, res.info
+            obs = _finite(res.obs)
+            if self.asymmetric:
+                teacher = _finite(res.teacher_obs)
+        traj = Transition(*(carry_map(lambda *xs: torch.stack(xs), *field)
+                            for field in zip(*steps)))
+        return Rollout(traj, env_state, obs, info, teacher, h)
 
     @torch.no_grad()
     def _update_from_traj(self, ts: TrainState, traj: Transition, env_state, last_obs,
-                          perms=None, info=None):
+                          perms=None, info=None, last_teacher_obs=None, last_hidden=None):
         """GAE, the stats updates and the minibatched PPO epochs on a
         collected trajectory; (new TrainState, stats)."""
         cfg = self.cfg
-        data, obs_stats, value_stats = self._prepare(ts, traj, last_obs)
+        data, obs_stats, value_stats, teacher_stats = self._prepare(
+            ts, traj, last_obs, last_teacher_obs, last_hidden)
         if perms is None:
             n = data["adv"].shape[0]
             perms = torch.stack([torch.randperm(n, generator=self.gen, device=data["adv"].device)
                                  for _ in range(cfg.mini_epochs)])
         # one permutation per mini-epoch, contiguous minibatches of it
-        params, opt_state, lr, aux = self._sgd(ts, data, perms.reshape(-1, self.mb_size))
+        params, opt_state, lr, aux = self._sgd(ts, data, perms.reshape(-1, self.mb_rows))
 
         kl_mean = aux["kl"].mean()
         guard = (ts.epoch >= 8) & (~torch.isfinite(kl_mean) | (kl_mean > cfg.kl_guard))
@@ -253,6 +391,7 @@ class PPO:
         opt_state = optim.where(guard, ts.opt_state, opt_state)
         obs_stats = where_stats(guard, ts.obs_stats, obs_stats)
         value_stats = where_stats(guard, ts.value_stats, value_stats)
+        teacher_stats = where_stats(guard, ts.teacher_obs_stats, teacher_stats)
         lr = torch.where(guard, torch.clamp(ts.lr / 2.0, min=cfg.min_lr), lr)
 
         stats = dict(
@@ -271,25 +410,39 @@ class PPO:
         if info is not None and "per_object_success_ewma" in info:
             for k, v in enumerate(info["per_object_success_ewma"]):
                 stats[f"success_ewma_obj{k}"] = v
-        new_ts = TrainState(params, opt_state, obs_stats, value_stats, lr, env_state,
-                            last_obs, ts.epoch + 1)
+        new_ts = TrainState(
+            params, opt_state, obs_stats, value_stats, lr, env_state, last_obs, ts.epoch + 1,
+            teacher_obs_stats=teacher_stats,
+            last_teacher_obs=last_teacher_obs if self.asymmetric else ts.last_teacher_obs,
+            hidden=last_hidden)
         return new_ts, stats
 
-    def _prepare(self, ts: TrainState, traj: Transition, last_obs):
+    def _prepare(self, ts: TrainState, traj: Transition, last_obs, last_teacher_obs=None,
+                 last_hidden=None):
         """(the samples of the update, flattened env-major: the rollout's
-        fields with the normalized advantages, returns and values; the
-        updated observation and value stats)."""
+        fields with the normalized advantages, returns and values, and the
+        teacher observations when asymmetric; the updated observation,
+        value and teacher-observation stats). On the recurrent path every
+        field is [sequences, seq_len, ...], with `dprev` (the previous
+        step's done within each sequence) and the carry stored at each
+        sequence's first step (`carry_items`, [sequences, R])."""
         cfg = self.cfg
-        _, _, last_value = self.policy_value(ts.params, ts.obs_stats, last_obs)
+        _, _, last_value, _ = self.forward(ts.params, (ts.obs_stats, ts.teacher_obs_stats),
+                                           last_obs, last_teacher_obs, last_hidden)
         last_value = self.value_of(ts.value_stats, last_value)
         advantages = gae(traj.reward, traj.value, traj.done, last_value, cfg.gamma, cfg.tau)
         returns = advantages + traj.value
-        batch = Transition(*(flatten_env_major(x) for x in traj))
+        batch = Transition(*(flatten_env_major(x) for x in traj[:8]))
         adv = flatten_env_major(advantages)
         ret = flatten_env_major(returns)
 
         obs_stats = update_stats(ts.obs_stats, batch.obs) if cfg.normalize_input else ts.obs_stats
         value_stats = update_stats(ts.value_stats, ret) if cfg.normalize_value else ts.value_stats
+        teacher_stats = ts.teacher_obs_stats
+        if self.asymmetric:
+            teacher = flatten_env_major(traj.teacher_obs)
+            if cfg.normalize_input:
+                teacher_stats = update_stats(teacher_stats, teacher)
         if cfg.normalize_advantage:
             adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)  # jnp.std: ddof 0
         returns_n, values_n = ret, batch.value
@@ -298,36 +451,50 @@ class PPO:
             values_n = normalize(value_stats, batch.value, clip=math.inf)
         data = dict(obs=batch.obs, action=batch.action, logp=batch.logp, adv=adv,
                     return_n=returns_n, value_n=values_n, mu=batch.mu, sigma=batch.sigma)
-        return data, obs_stats, value_stats
+        if self.asymmetric:
+            data["teacher_obs"] = teacher
+        if self.recurrent:
+            # env-major samples b * T + t are sequence b * T / L + t // L,
+            # step t % L
+            L = cfg.seq_len
+            data = {k: v.reshape((-1, L) + tuple(v.shape[1:])) for k, v in data.items()}
+            done = batch.done.reshape(-1, L)
+            data["dprev"] = torch.cat([torch.zeros_like(done[:, :1]), done[:, :-1]], dim=1)
+            chunk_start = lambda h: flatten_env_major(h[::L])  # [T, B, R] -> [B * T / L, R]
+            data.update(carry_items(carry_map(chunk_start, traj.hidden)))
+        return data, obs_stats, value_stats, teacher_stats
 
     def _sgd(self, ts: TrainState, data: dict, minibatches: torch.Tensor):
         """(params, optimizer state, lr, aux stacked by step) after one
-        minibatch step per row of sample indices `minibatches`, from the
-        learner of `ts`."""
+        minibatch step per row of sample (or sequence) indices
+        `minibatches`, from the learner of `ts`."""
         params, opt_state, lr = ts.params, ts.opt_state, ts.lr
+        # the loss normalizes with the ROLLOUT-time stats: mu and logp were
+        # recorded under them; the new stats take effect on the next rollout
+        stats = (ts.obs_stats, ts.teacher_obs_stats)
         auxs = []
         for idx in minibatches:
             mb = {k: v.index_select(0, idx) for k, v in data.items()}
-            # the loss normalizes with the ROLLOUT-time stats: mu and logp
-            # were recorded under them; the new stats take effect on the
-            # next rollout
-            params, opt_state, lr, aux = self._mb_step(ts.obs_stats, params, opt_state, lr, mb)
+            params, opt_state, lr, aux = self._mb_step(stats, params, opt_state, lr, mb)
             auxs.append(aux)
         aux = {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
         return params, opt_state, lr, aux
 
-    def _mb_step(self, obs_stats, params, opt_state, lr, mb):
-        grads, aux = self._grads(obs_stats, params, mb)
+    def _mb_step(self, stats, params, opt_state, lr, mb):
+        grads, aux = self._grads(stats, params, mb)
         params, opt_state, lr = self._apply(params, opt_state, lr, grads, aux["kl"])
         return params, opt_state, lr, aux
 
-    def _grads(self, obs_stats, params, mb):
-        """(gradients of the loss by parameter, detached aux)."""
+    def _grads(self, stats, params, mb):
+        """(gradients of the loss by parameter, detached aux). A parameter
+        the loss does not reach (the asymmetric actor's value head) gets a
+        zero gradient, as under jax.grad."""
         with torch.enable_grad():
             leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
-            total, aux = self._loss(leaves, obs_stats, mb)
-            grads = torch.autograd.grad(total, list(leaves.values()))
-        return dict(zip(leaves, grads)), aux
+            total, aux = self._loss(leaves, stats, mb)
+            grads = torch.autograd.grad(total, list(leaves.values()), allow_unused=True)
+        return {k: torch.zeros_like(p) if g is None else g
+                for (k, p), g in zip(leaves.items(), grads)}, aux
 
     def _apply(self, params, opt_state, lr, grads, kl):
         """One optimizer step, then the adaptive lr from this minibatch's KL
@@ -342,10 +509,30 @@ class PPO:
                             torch.clamp(lr * 1.5, max=cfg.max_lr), lr))
         return params, opt_state, lr
 
-    def _loss(self, params, obs_stats, mb):
+    def _unroll(self, params, stats, mb):
+        """(mu, log_std, value), each [sequences, seq_len, ...], of the nets
+        run over each sequence from its stored first carry."""
+        if self.asymmetric:
+            carry = {k: (mb[f"h0.{k}.c"], mb[f"h0.{k}.h"]) for k in ("actor", "critic")}
+        else:
+            carry = mb["h0.c"], mb["h0.h"]
+        teacher = mb.get("teacher_obs")
+        outs = []
+        for t in range(self.cfg.seq_len):
+            if self.cfg.zero_rnn_on_done:
+                carry = zero_where(mb["dprev"][:, t], carry)
+            *out, carry = self.forward(params, stats, mb["obs"][:, t],
+                                       None if teacher is None else teacher[:, t], carry)
+            outs.append(out)
+        return tuple(torch.stack(x, dim=1) for x in zip(*outs))
+
+    def _loss(self, params, stats, mb):
         """(total loss, detached aux) of one minibatch, as the JAX loss_fn."""
         cfg = self.cfg
-        mu, log_std, value = self.policy_value(params, obs_stats, mb["obs"])
+        if self.recurrent:
+            mu, log_std, value = self._unroll(params, stats, mb)
+        else:
+            mu, log_std, value, _ = self.forward(params, stats, mb["obs"], mb.get("teacher_obs"))
         logp = gaussian_logp(mu, log_std, mb["action"])
         ratio = torch.exp(logp - mb["logp"])
         surr1 = ratio * mb["adv"]
@@ -373,3 +560,32 @@ class PPO:
         aux = dict(policy_loss=policy_loss.detach(), value_loss=value_loss.detach(),
                    entropy=entropy.detach(), kl=kl, bounds_loss=bounds_loss.detach())
         return total, aux
+
+    # --- inference ----------------------------------------------------------
+
+    @torch.no_grad()
+    def act(self, ts: TrainState, obs: torch.Tensor, deterministic: bool = True,
+            hidden=None, noise=None):
+        """The policy's action for raw observations: the mean, or with
+        `deterministic` False the mean plus sigma times `noise` (default: a
+        draw from `gen`). A recurrent policy threads the carry: it takes
+        `hidden` (default: zeros) and returns (action, new hidden); with an
+        asymmetric critic only the actor's carry is replaced."""
+        nobs = normalize(ts.obs_stats, obs) if self.cfg.normalize_input else obs
+        params = ts.params
+        if self.asymmetric:
+            params = {k[len("actor."):]: v for k, v in params.items() if k.startswith("actor.")}
+        if self.recurrent:
+            if hidden is None:
+                hidden = self.init_carry(obs.shape[0])
+            carry = hidden["actor"] if self.asymmetric else hidden
+            mu, log_std, _, carry = functional_call(self.actor, params, (nobs, carry))
+            hidden = {**hidden, "actor": carry} if self.asymmetric else carry
+        else:
+            mu, log_std, _ = functional_call(self.actor, params, (nobs,))
+        a = mu
+        if not deterministic:
+            eps = noise if noise is not None else torch.randn(
+                mu.shape, generator=self.gen, device=mu.device)
+            a = mu + torch.exp(log_std) * eps
+        return (a, hidden) if self.recurrent else a

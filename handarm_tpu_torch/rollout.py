@@ -80,7 +80,9 @@ class Student:
 
 
 def load_policy(ckpt: str, device) -> Policy:
-    """The policy of a JAX PPO checkpoint (.npz)."""
+    """The policy of a JAX PPO checkpoint (.npz) of the MLP ActorCritic; an
+    asymmetric or recurrent learner's raises NotImplementedError
+    (`utils.checkpoint.read_policy`)."""
     params, (mean, var, count) = read_policy(ckpt)
     return Policy(actor_critic_from_params(params, device),
                   running_stats_from_leaves(mean, var, count, device))
@@ -122,8 +124,8 @@ def make_task_env(task: str, envs: int | None, device, pool=None, **overrides):
 def run(envs: int, steps: int, device=None, ckpt: str | None = None,
         seed: int = 0, task: str = DEFAULT_TASK, **overrides) -> dict:
     dev = resolve_device(device)
-    env = make_task_env(task, envs, dev, **overrides)
     policy = load_policy(ckpt or TASK_CKPTS[task], dev)
+    env = make_task_env(task, envs, dev, **overrides)
     state, obs = env.reset(seed)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     state, obs, _, _ = forward_step(env, policy, state, obs)  # warm-up

@@ -25,12 +25,23 @@ checkpoint named step i holds the learner after exactly i iterations.
 
 `resume=auto` continues from the newest periodic checkpoint of the
 experiment, `resume=PATH` from any PPO checkpoint in the JAX package's
-format (for example docs/evidence/lift_r3a/ckpt_5200.npz). As the root
-`train.py` resumes, the whole TrainState is restored: params, optimizer
-state, running stats, lr, epoch, and the env state and last observations
-the run stopped at (the env's random draws restart from `seed`); a file
-whose env or contact-slot count is not the run's keeps only its learner,
-and the env is reset fresh. The iteration count starts at the file's step.
+format of the run's learner (for example docs/evidence/lift_r3a/ckpt_5200.npz
+for the MLP). As the root `train.py` resumes, the whole TrainState is
+restored: params, optimizer state, running stats, lr, epoch, and the env
+state, last observations, last teacher observations and LSTM carry the
+run stopped at (the env's random draws restart from `seed`); a file whose
+env or contact-slot count is not the run's keeps only its learner, and the
+env is reset fresh. The iteration count starts at the file's step.
+
+The recurrent and asymmetric learners compose from `ppo.` overrides, as
+ShadowHandOpenAI_LSTM's on Ur5SihLift (the observables are listed in
+`envs.tasks.LSTM_LIFT`):
+
+    python -m handarm_tpu_torch.train task=Ur5SihLift num_envs=8192
+        observations='[<the actor's observables>]'
+        teacher_observations='[<the critic's observables>]'
+        ppo.asymmetric_critic=true ppo.rnn_units=1024 ppo.critic_rnn_units=1024
+        ppo.hidden='[512]' ppo.seq_len=4 ppo.minibatch_size=32768 ppo.gamma=0.998
 
 Stats are read back one iteration behind, in one host transfer, after the
 next iteration has been queued, so no iteration waits on a host read. It
@@ -130,11 +141,13 @@ def main(argv: list[str]) -> None:
     start_it = 0
     path = latest_checkpoint(nn_dir) if resume == "auto" else resume
     if path:
-        ck = load_train_state(path, dev)
+        ck = load_train_state(path, dev, cfg=cfg)
         same = (ck.last_obs.shape == ts.last_obs.shape and
                 ck.env_state.physics.contact_impulse.shape
                 == ts.env_state.physics.contact_impulse.shape)
-        ts = ck if same else ck._replace(env_state=ts.env_state, last_obs=ts.last_obs)
+        ts = ck if same else ck._replace(env_state=ts.env_state, last_obs=ts.last_obs,
+                                         last_teacher_obs=ts.last_teacher_obs,
+                                         hidden=ts.hidden)
         start_it = checkpoint_step(path)
         print(f"resumed from {path} at iter {start_it}"
               + ("" if same else " (its env state is another size: the env is reset fresh)"),
@@ -176,17 +189,17 @@ def main(argv: list[str]) -> None:
         if it % 10 == 0 or it == max_iterations - 1:
             report(it, stats)
         if (it + 1) % save_every == 0:
-            save_checkpoint(nn_dir, ts_at_loop_it, step=it + 1, seed=seed)
+            save_checkpoint(nn_dir, ts_at_loop_it, step=it + 1, seed=seed, cfg=cfg)
         if it > 50 and stats["reward_mean"] > best_reward and it - last_best_it >= 25:
             best_reward, last_best_it = stats["reward_mean"], it
-            save_checkpoint(nn_dir, ts_at_loop_it, step=0, name="best", seed=seed)
+            save_checkpoint(nn_dir, ts_at_loop_it, step=0, name="best", seed=seed, cfg=cfg)
     if pending is not None:
         it, stats = drain(time.time())
         logger.log(it, stats)
         report(it, stats)
     print(f"done in {time.time() - t_start:.0f}s", flush=True)
     logger.close()
-    save_checkpoint(nn_dir, ts, step=max_iterations, seed=seed, sync=True)
+    save_checkpoint(nn_dir, ts, step=max_iterations, seed=seed, sync=True, cfg=cfg)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,15 @@ flattening order is
   68     last obs; 69 PRNG key; 70 epoch
 
 (tests/test_torch_policy.py holds this map against the JAX package's own
-loader.) Leaf dtypes: float32 but for the int32 optax counters, the bool
+loader.) The asymmetric and recurrent learners' TrainStates (`PPOConfig`
+`asymmetric_critic`, `rnn_units`) flatten the same way: their params
+(`{"actor", "critic"}` when asymmetric, `learn.ppo.param_names`), the
+optax state over them, both stats, lr, the env state, last obs, key and
+epoch; then the teacher-observation stats (mean, var, count) and the last
+teacher observations when asymmetric; then the carry, (c, h) or actor
+(c, h) and critic (c, h), when recurrent. The leaf count does not tell
+these layouts apart, so their reader and writer take the PPOConfig.
+Leaf dtypes: float32 but for the int32 optax counters, the bool
 `last_finite`, the int32 episode clocks, target index, step count and
 epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 69).
@@ -33,6 +41,7 @@ training loop never waits on the disk; `wait_for_pending_saves` joins it.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 
@@ -40,17 +49,19 @@ import numpy as np
 import torch
 
 from handarm_tpu_torch.convert import (
+    N_ENV_LEAVES,
     env_state_from_leaves,
-    student_params_from_leaves,
-    student_params_to_leaves,
+    learner_leaf_count,
+    params_from_leaves,
+    params_to_leaves,
     train_state_from_leaves,
     train_state_to_leaves,
 )
 from handarm_tpu_torch.learn.networks import flax_names
+from handarm_tpu_torch.learn.ppo import param_names
 
 PARAM_NAMES = tuple(f for f, _ in flax_names(3))  # dense_0.bias ... value.kernel
-OBS_STATS_LEAVES = (37, 38, 39)  # mean, var, count
-ENV_STATE_LEAVES = (44, 68)  # [start, stop)
+ENV_STATE_LEAVES = (44, 68)  # [start, stop) for the 768-512-256 MLP
 
 
 def read_leaves(path: str) -> list[np.ndarray]:
@@ -61,13 +72,58 @@ def read_leaves(path: str) -> list[np.ndarray]:
 
 
 def read_policy(path: str):
-    """(params {name: array}, (obs_mean, obs_var, obs_count)) of an MLP
-    ActorCritic PPO checkpoint. Reads only those 14 leaves: an `.npz`
-    member is decompressed when it is indexed."""
+    """(params {flax name: array}, (obs_mean, obs_var, obs_count)) of an MLP
+    ActorCritic PPO checkpoint. Decompresses only its params and the
+    observation stats (an `.npz` member is decompressed when it is indexed;
+    the layout is checked from the members' headers). Raises
+    NotImplementedError for another learner's checkpoint (asymmetric or
+    recurrent): the JAX package's scripts/eval_policy.py evaluates the MLP
+    ActorCritic alone, so the port's eval and serving paths do too
+    (ROADMAP §1.8); a recurrent policy is served by `PPO.act`."""
     with np.load(path, allow_pickle=False) as data:
-        params = {name: np.asarray(data[f"leaf_{i}"]) for i, name in enumerate(PARAM_NAMES)}
-        stats = tuple(np.asarray(data[f"leaf_{i}"]) for i in OBS_STATS_LEAVES)
+        header = functools.lru_cache(maxsize=None)(lambda i: _leaf_header(data, i))
+        L = mlp_hidden_layers(header, len(data.files))
+        names = [f for f, _ in flax_names(L)]
+        params = {name: np.asarray(data[f"leaf_{i}"]) for i, name in enumerate(names)}
+        k = 3 * len(names) + 4
+        stats = tuple(np.asarray(data[f"leaf_{i}"]) for i in range(k, k + 3))
     return params, stats
+
+
+def _leaf_header(data, i: int) -> tuple:
+    """(shape, dtype) of member `leaf_i` of an open `.npz`, from its header."""
+    with data.zip.open(f"leaf_{i}.npy") as f:
+        major, _ = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if major == 1
+                else np.lib.format.read_array_header_2_0)
+        shape, _, dtype = read(f)
+    return shape, dtype
+
+
+def mlp_hidden_layers(header, n: int) -> int:
+    """The hidden layers of the MLP ActorCritic whose checkpoint has `n`
+    leaves, `header(i)` the (shape, dtype) of the i-th: its params must
+    chain (dense_i bias and kernel, then log_std, mu, value) and be
+    followed by optax's int32 and bool scalars. NotImplementedError
+    otherwise."""
+    shape = lambda i: header(i)[0] if i < n else None
+    L, width = 0, None
+    while (shape(2 * L + 1) is not None and len(shape(2 * L)) == 1
+           and len(shape(2 * L + 1)) == 2 and shape(2 * L + 1)[1] == shape(2 * L)[0]
+           and (width is None or shape(2 * L + 1)[0] == width)):
+        width, L = shape(2 * L)[0], L + 1
+    a = (shape(2 * L) or (None,))[0]
+    ok = L > 0 and 2 * L + 7 <= n and [shape(2 * L + i) for i in range(5)] == [
+        (a,), (a,), (width, a), (1,), (width, 1)]
+    if ok:
+        ok = [header(2 * L + 5), header(2 * L + 6)] == [((), np.int32), ((), np.bool_)]
+    if not ok:
+        raise NotImplementedError(
+            "not an MLP ActorCritic checkpoint (an asymmetric or recurrent learner's?): the "
+            "JAX package's scripts/eval_policy.py cannot evaluate one, and neither do the "
+            "port's eval_policy and rollout (ROADMAP §1.8); serve a recurrent policy through "
+            "PPO.act")
+    return L
 
 
 # one background writer: at most one write in flight, saves land in order
@@ -84,12 +140,13 @@ def wait_for_pending_saves() -> None:
 
 
 def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int = 0,
-                    sync: bool = False) -> str:
-    """Write a PPO TrainState as `<dirpath>/<name>_<step>.npz` (71 leaves,
-    uncompressed). The PRNG-key leaves hold `seed`'s key."""
+                    sync: bool = False, cfg=None) -> str:
+    """Write a PPO TrainState as `<dirpath>/<name>_<step>.npz` (uncompressed;
+    71 leaves for the 768-512-256 MLP). The PRNG-key leaves hold `seed`'s
+    key. `cfg`: the PPOConfig of an asymmetric or recurrent learner."""
     global _writer
     os.makedirs(dirpath, exist_ok=True)
-    leaves = train_state_to_leaves(ts, seed)  # the host copy happens here
+    leaves = train_state_to_leaves(ts, seed, cfg)  # the host copy happens here
     path = os.path.join(dirpath, f"{name}_{step}.npz")
 
     def write():
@@ -109,16 +166,23 @@ def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int =
     return path
 
 
-def load_train_state(path: str, device="cpu", env_state=None, last_obs=None):
+def load_train_state(path: str, device="cpu", env_state=None, last_obs=None, cfg=None):
     """A whole PPO checkpoint as the port's TrainState; the given env state
-    and observations replace the checkpoint's own."""
+    and observations replace the checkpoint's own. `cfg`: the PPOConfig of
+    an asymmetric or recurrent learner (without it, an MLP ActorCritic:
+    another layout raises NotImplementedError)."""
     wait_for_pending_saves()
+    if cfg is None:
+        with np.load(path, allow_pickle=False) as data:
+            P = 2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), len(data.files)) + 5
+    else:
+        P = len(param_names(cfg))
     leaves = read_leaves(path)
     if env_state is None:
-        lo, hi = ENV_STATE_LEAVES
-        env_state = env_state_from_leaves(leaves[lo:hi], device)
-        last_obs = torch.tensor(leaves[hi], dtype=torch.float32, device=device)
-    return train_state_from_leaves(leaves, env_state, last_obs, device)
+        lo = learner_leaf_count(P)
+        env_state = env_state_from_leaves(leaves[lo:lo + N_ENV_LEAVES], device)
+        last_obs = torch.tensor(leaves[lo + N_ENV_LEAVES], dtype=torch.float32, device=device)
+    return train_state_from_leaves(leaves, env_state, last_obs, device, cfg)
 
 
 def latest_checkpoint(dirpath: str) -> str | None:
@@ -142,12 +206,12 @@ def read_student(path: str, net, device="cpu") -> dict:
     """The params of a `student.npz` for StudentPolicy `net`."""
     with np.load(path, allow_pickle=False) as data:
         leaves = [np.asarray(data[str(i)]) for i in range(len(data.files))]
-    return student_params_from_leaves(net, leaves, device)
+    return params_from_leaves(net, leaves, device)
 
 
 def save_student(path: str, net, params: dict) -> str:
     """Write a StudentPolicy's params as `student.npz` (atomically)."""
-    leaves = student_params_to_leaves(net, params)
+    leaves = params_to_leaves(net, params)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **{str(i): x for i, x in enumerate(leaves)})

@@ -150,20 +150,29 @@ RETIRED = {
     "point clouds": ("Ur5SihLift", ["observations=[object_synthetic_pointcloud]"],
                      "observations", ("object_synthetic_pointcloud",)),
     "point count": (FULL, ["pointclouds.max_num_points=64"], "pointcloud_max_points", 64),
+    # PPOConfig fields, refused until the recurrent and asymmetric learner
+    "recurrent policy": ("Ur5SihLift", ["ppo.rnn_units=256", "ppo.seq_len=8",
+                                        "ppo.zero_rnn_on_done=false"], "rnn_units", 256),
+    "asymmetric critic": ("Ur5SihLift", ["teacher_observations=[dof_pos]",
+                                         "ppo.asymmetric_critic=true",
+                                         "ppo.critic_rnn_units=512"], "asymmetric_critic", True),
 }
 
 
 @pytest.mark.parametrize("case", sorted(RETIRED))
 def test_retired_refusals_compose_equal(case, jax_compose):
     """A feature once refused composes: every HandArmConfig field equal to
-    the JAX package's, value and type, the feature's field as asked."""
+    the JAX package's, value and type, the PPO overrides equal, and the
+    feature's field (of the HandArmConfig, or of the PPOConfig the
+    overrides build) as asked."""
     task, over, name, value = RETIRED[case]
     jcfg, jppo = jax_compose(task, over)
     tcfg, tppo = treg.resolve_task(task, over)
     want, got = _fields(jcfg), _fields(tcfg)
     for k in want:
         assert type(got[k]) is type(want[k]) and got[k] == want[k], (k, got[k], want[k])
-    assert getattr(tcfg, name) == value and tppo == jppo
+    owner = tcfg if name in got else ppo_config(tppo)
+    assert getattr(owner, name) == value and tppo == jppo
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
@@ -176,10 +185,11 @@ def test_unported_features_refused(case):
 
 
 def test_ppo_config_refuses_unported_fields():
-    """Recurrent, asymmetric and sharded PPO fields raise unless at their
-    defaults; an unknown field raises KeyError; hidden becomes a tuple."""
-    with pytest.raises(NotImplementedError, match="rnn_units"):
-        ppo_config({"rnn_units": 256})
+    """The sharded PPO field raises unless at its default (the recurrent and
+    asymmetric ones are ported); an unknown field raises KeyError; hidden
+    becomes a tuple."""
+    with pytest.raises(NotImplementedError, match="data_shards"):
+        ppo_config({"data_shards": 2})
     with pytest.raises(NotImplementedError, match="data_shards"):
         ppo_config({"data_shards": 4})
     with pytest.raises(KeyError):

@@ -290,11 +290,11 @@ def test_dagger_update_matches(ref, port):
     to lr = 1e-3 per step, whatever its gradient's size, so an element
     whose gradient is mostly rounding passes that rounding on at lr scale;
     measured 3.1e-6)."""
-    from handarm_tpu_torch.convert import student_params_to_leaves
+    from handarm_tpu_torch.convert import params_to_leaves
 
     dagger, start, new, stats = port
-    got = student_params_to_leaves(dagger.net, new.params)
-    moved = student_params_to_leaves(dagger.net, start)
+    got = params_to_leaves(dagger.net, new.params)
+    moved = params_to_leaves(dagger.net, start)
     want = _leaves(ref, "params")
     assert len(got) == len(want) == 18
     print("params: max |port - jax|", max(float(np.abs(g - w).max()) for g, w in zip(got, want)),

@@ -131,8 +131,11 @@ def _jax_traj(tr):
         teacher_obs=jnp.zeros((T, B, 0), jnp.float32))
 
 
+TRAJ_FIELDS = ("obs", "action", "logp", "value", "reward", "done", "mu", "sigma")
+
+
 def _port_traj(tr):
-    return tppo.Transition(*(_t(tr[k]) for k in tppo.Transition._fields))
+    return tppo.Transition(*(_t(tr[k]) for k in TRAJ_FIELDS))
 
 
 def _jax_ppo(jax_ts, B, **cfg):
@@ -462,7 +465,7 @@ def test_ppo_flags_match(flag, jax_ts, leaves):
 
     tp = tppo.PPO(_TorchTableEnv(obs, reward, done), tppo.PPOConfig(**cfg), device="cpu")
     tts = train_state_from_leaves(leaves, 0, _t(obs[0]))
-    traj, env_state, last_obs, _ = tp.rollout(tts, _t(noise))
+    traj, env_state, last_obs = tp.rollout(tts, _t(noise))[:3]
     want = captured["traj"]
     assert env_state == T and torch.equal(last_obs, _t(obs[T]))
     for k, tol in (("mu", 1e-4), ("logp", 1e-4), ("value", 1e-3), ("reward", 1e-3)):
@@ -473,7 +476,7 @@ def test_ppo_flags_match(flag, jax_ts, leaves):
 
     kls = record_kls(tp)
     t_new, t_stats = tp._update_from_traj(
-        tts, _port_traj({k: np.asarray(getattr(want, k)) for k in tppo.Transition._fields}),
+        tts, _port_traj({k: np.asarray(getattr(want, k)) for k in TRAJ_FIELDS}),
         env_state, last_obs, perms=_t(_perms(k_next, 4, T * B)).long())
     assert tp.num_minibatches == jp.num_minibatches == (2 if flag == "num_minibatches" else 4)
     got = learner_to_leaves(t_new)

@@ -294,8 +294,8 @@ def test_train_rejects_unknown_keys():
         train.parse_args(["num_envs"])
     with pytest.raises(KeyError, match="unknown config key"):
         train.compose(["task=Ur5SihReach", "num_env=8"])
-    with pytest.raises(NotImplementedError, match="rnn_units"):
-        train.compose(["task=Ur5SihReach", "ppo.rnn_units=8"])
+    with pytest.raises(NotImplementedError, match="data_shards"):
+        train.compose(["task=Ur5SihReach", "ppo.data_shards=2"])
     with pytest.raises(KeyError, match="PPOConfig field"):
         train.compose(["task=Ur5SihReach", "ppo.rnn_unit=8"])
     args = ["task=Ur5SihReach", "num_envs=8", "ppo.hidden=[256,128,64]", "ppo.e_clip=0.2",
