@@ -164,12 +164,60 @@ Phases, each with a deadline and one flushed progress line:
                both checkpoints read back with the PPOConfig (teacher
                stats, last teacher observations, carry), epoch 3, Adam
                count 48 less skips, metrics rows 0-2.
+ 23. dr-train  Ur5SihMultiObjectManipulation as `train.py` composes it with
+               IsaacGymEnvs' ShadowHand domain randomization
+               (`envs.tasks.DR_SHADOWHAND`: observation and action noise,
+               gravity, mass, friction and PD gain scales) at 8192 envs, on
+               the multiobj phase's pool, from ckpt_2700's learner on a
+               fresh reset: one warm-up and 1 timed iteration (rollout and
+               update seconds, train env-steps/s, peak memory); launches
+               exactly spd_inverse 16, prep_deff 16, sdf_gather 48,
+               contact_sweep 96 per iteration; every param, stat and state
+               leaf finite. The DRState in play, read back from the state:
+               each leaf's min and max, the scales inside their ranges,
+               gravity_z's spread over the envs within 10 % of 0.4. The
+               TrainState round-trips through `save_checkpoint` and the
+               port's reader: the 30 env leaves come back equal. (Run after
+               phase 14, on its pool.)
+ 24. dr-kernels  spd_inverse, prep_deff and contact_sweep against their
+               plain versions on inputs captured from that rollout's last
+               control step, as in phase 7 (tolerances, bit-identical
+               launches, times). DR reached them: the sweep's mu plane over
+               the base friction spans more than half of [0.7, 1.3] for one
+               slot across envs; its invm planes over the base inverse
+               masses lie in [1/1.5, 1/0.5] and vary; the SPD inverse's
+               input differs from the same state's unscaled matrix by the
+               scaled PD terms on its diagonal alone.
+ 25. dr-ref    16 envs of that rollout whose last solve pushed robot-object
+               and object-pair slots (at least two distinct mass scales per
+               object among them): 2 control steps with DR on the card and
+               on the CPU with the same noise draws, at phase 8's bounds.
+ 26. adr       the same with `rl.randomization_params.adr.enabled=true`
+               (AdrConfig's defaults over DR's noise): one warm-up and one
+               timed iteration, the same launches; then `adr_step` on the
+               card against the CPU at 8192 envs (queue 256) from the same
+               state and draws, every env done at objective 1 for 3 steps,
+               then 0 for 4: the bounds move out by delta a step and back;
+               lo, hi, queues and worker modes exact, values within 1e-6;
+               adr_entropy before, at the widest and after.
+ 27. dr-entry  the user's entry point in its own process, with its own
+               genesis: `python -m handarm_tpu_torch.train
+               task=Ur5SihMultiObjectManipulation
+               resume=docs/evidence/multiobj_r5a/ckpt_2700.npz
+               max_iterations=2701 <DR_SHADOWHAND>
+               rl.randomization_params.adr.enabled=true` (the file has no
+               DR: its learner is kept, the env reset) must write
+               ckpt_2701.npz with 36 env leaves (83 in all); the port's
+               reader reads it with the run's config, and refuses it given
+               the config without DR. (Run after phase 15.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
 the training phases' numbers under "train", "multiobj_train", "family"
 and "distill", and the evaluations' under "eval", "multiobj_eval" and
-"distill" -> "eval", the recurrent learner's under "rnn"; the last line
+"distill" -> "eval", the recurrent learner's under "rnn", domain
+randomization's and ADR's under "dr" (and each kernel's dr-kernels numbers
+under its "dr" key in "kernels"); the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
 """
@@ -188,13 +236,15 @@ import threading
 import time
 import traceback
 
-TOTAL_DEADLINE_S = 1100
+TOTAL_DEADLINE_S = 1170
 PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "cpu-ref": 240, "clouds": 180, "multiobj": 480, "multiobj-kernels": 240,
                     "multiobj-ref": 300, "multiobj-train": 420, "multiobj-eval": 300,
                     "train": 420, "eval": 300, "reach": 300, "family": 480,
                     "multiobj-entry": 480, "distill-train": 360, "distill-eval": 300,
-                    "distill-entry": 360, "rnn-train": 360, "rnn-serve": 240, "rnn-entry": 330}
+                    "distill-entry": 360, "rnn-train": 360, "rnn-serve": 240, "rnn-entry": 330,
+                    "dr-train": 300, "dr-kernels": 240, "dr-ref": 300, "adr": 240,
+                    "dr-entry": 480}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -601,10 +651,12 @@ def check_deff(deff_op, args):
 
 
 class Capture:
-    """Wraps the ops' entry points; while armed, keeps their arguments."""
+    """Wraps the ops' entry points; while armed, keeps their arguments (with
+    `last_only`, only each op's latest call's)."""
 
-    def __init__(self, ops: dict):
+    def __init__(self, ops: dict, last_only: bool = False):
         self.ops, self.orig, self.calls, self.armed = ops, {}, {}, False
+        self.last_only = last_only
 
     def __enter__(self):
         for key, (mod, attr) in self.ops.items():
@@ -613,6 +665,8 @@ class Capture:
 
             def wrapped(*args, _fn=fn, _key=key, **kw):
                 if self.armed:
+                    if self.last_only:
+                        self.calls[_key] = []
                     self.calls.setdefault(_key, []).append((args, kw))
                 return _fn(*args, **kw)
 
@@ -644,11 +698,12 @@ def slot_kinds(slots) -> dict:
             "robot-object": (rb >= 0) & (ob >= 0), "object-pair": (oa >= 0) & (ob >= 0)}
 
 
-def card_vs_cpu(env_c, env_g, st_c, obs_c, policy_c, dev, tag: str, need=()):
+def card_vs_cpu(env_c, env_g, st_c, obs_c, policy_c, dev, tag: str, need=(), draws=None):
     """From one CPU state (clocks zeroed so no env times out), 2 control
-    steps on the card and on the CPU. Logs how many slots of each coupling
-    kind are active (depth above -speculative_margin) in the compared state;
-    each kind in `need` must have some."""
+    steps on the card and on the CPU (`draws`: each step's StepDraws, the
+    same on both sides). Logs how many slots of each coupling kind are
+    active (depth above -speculative_margin) in the compared state; each
+    kind in `need` must have some."""
     import torch
 
     from handarm_tpu_torch.envs.hand_arm import tree_map
@@ -664,10 +719,12 @@ def card_vs_cpu(env_c, env_g, st_c, obs_c, policy_c, dev, tag: str, need=()):
     active = con.depth > -sc.params.solver.speculative_margin
     counts = {k: int(active[:, m].sum()) for k, m in slot_kinds(sc.slots).items()}
     st_g = tree_map(lambda x: x.to(dev), st_c)
-    for _ in range(2):
+    for i in range(2):
         act = policy_c.act(obs_c)
-        st_c, res_c = env_c.step(st_c, act)
-        st_g, res_g = env_g.step(st_g, act.to(dev))
+        d = draws[i] if draws else None
+        st_c, res_c = env_c.step(st_c, act, draws=d)
+        st_g, res_g = env_g.step(st_g, act.to(dev),
+                                 draws=tree_map(lambda x: x.to(dev), d) if d else None)
         obs_c = res_c.obs
     err = float((res_g.obs.cpu() - obs_c).abs().max())
     q_err = float((st_g.physics.robot.q.cpu() - st_c.physics.robot.q).abs().max())
@@ -1291,9 +1348,11 @@ def run_module(module: str, args: list[str], tag: str, timeout: int):
     return seconds, res.stdout
 
 
-def entry_subprocess(args: list[str], out: str, tag: str, timeout: int) -> dict:
+def entry_subprocess(args: list[str], out: str, tag: str, timeout: int,
+                     n_leaves: int = 71) -> dict:
     """`python -m handarm_tpu_torch.train ARGS` in its own process
-    (`run_module`); it must write the checkpoint `out`, 71 finite leaves.
+    (`run_module`); it must write the checkpoint `out`, `n_leaves` finite
+    leaves (71 for the MLP learner without DR or ADR).
     Returns its seconds and its last iteration's kl, KL-guard flag and
     reward_mean."""
     import numpy as np
@@ -1302,7 +1361,7 @@ def entry_subprocess(args: list[str], out: str, tag: str, timeout: int) -> dict:
 
     seconds, _ = run_module("handarm_tpu_torch.train", args, tag, timeout)
     leaves = read_leaves(out)
-    if len(leaves) != 71 or not all(np.isfinite(x).all() for x in leaves
+    if len(leaves) != n_leaves or not all(np.isfinite(x).all() for x in leaves
                                     if np.issubdtype(x.dtype, np.floating)):
         raise AssertionError(f"{tag}: bad checkpoint {out}")
     metrics = os.path.join(os.path.dirname(os.path.dirname(out)), "metrics.jsonl")
@@ -1772,6 +1831,353 @@ def rnn_entry_phase(ppo) -> dict:
     return dict(first_s=first_s, resume_s=resume_s, rows=rows)
 
 
+ADR_ON = "rl.randomization_params.adr.enabled=true"
+DR_ITERS = 1  # timed dr-train iterations, after one warm-up iteration
+ADR_ITERS = 1  # timed adr iterations, after one warm-up iteration
+ADR_CHECK_STEPS = 3  # adr_step check: steps at objective 1, then as many at 0
+
+
+def timed_iterations(rollout, ppo, ts, n: int, per_iter: dict, tag: str, capture=None):
+    """One warm-up train_iter, then n iterations timed as rollout and update
+    (each part between torch.cuda.synchronize calls); counters zeroed before
+    each iteration and read after it: exactly `per_iter`; params, stats and
+    every state leaf finite. `capture` (a Capture with last_only) is armed
+    for the last timed rollout. Returns (record, TrainState)."""
+    import torch
+
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    samples = ppo.env.cfg.num_envs * ppo.cfg.horizon
+    rollout.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, _ = ppo.train_iter(ts)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    check_launches(rollout.launch_counts(), per_iter, 1, f"{tag} warm-up")
+    torch.cuda.reset_peak_memory_stats()
+    iters = []
+    for i in range(n):
+        rollout.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if capture is not None:
+            capture.armed = i == n - 1
+        r = ppo.rollout(ts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if capture is not None:
+            capture.armed = False
+        ts, stats = ppo._update_from_traj(ts, r.traj, r.env_state, r.last_obs, None, r.info,
+                                          r.last_teacher_obs, r.last_hidden)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = rollout.launch_counts()
+        check_launches(counts, per_iter, 1, f"{tag} iteration {i}")
+        check_learner(ts, tag)
+        finite_state(tree_map, ts.env_state, ts.last_obs)
+        rec = dict(rollout_s=t1 - t0, update_s=t2 - t1, env_steps_per_s=samples / (t2 - t0),
+                   launches=counts, **train.drain_stats({k: stats[k] for k in (
+                       "reward_mean", "kl", "lr", "kl_guard_triggered", "success_rate_ewma")}))
+        log(f"{tag} iteration {i}: rollout {rec['rollout_s']:.3f} s, update "
+            f"{rec['update_s']:.3f} s, {rec['env_steps_per_s']:.0f} env-steps/s; reward_mean "
+            f"{rec['reward_mean']:.5f} kl {rec['kl']:.5f} kl_guard "
+            f"{rec['kl_guard_triggered']:.0f}; launches {counts}")
+        iters.append(rec)
+        del r
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{tag}: warm-up iteration {warm:.3f} s; peak device memory {peak:.2f} GiB; every "
+        "param, stat and state leaf finite")
+    mean = lambda k: sum(r[k] for r in iters) / len(iters)
+    return dict(envs=ppo.env.cfg.num_envs, horizon=ppo.cfg.horizon,
+                minibatches=ppo.num_minibatches, minibatch_size=ppo.mb_size,
+                mini_epochs=ppo.cfg.mini_epochs, warmup_s=warm, iterations=iters,
+                rollout_s=mean("rollout_s"), update_s=mean("update_s"),
+                env_steps_per_s=samples * n / sum(r["rollout_s"] + r["update_s"] for r in iters),
+                peak_memory_gib=peak, launches_per_iteration=per_iter), ts
+
+
+def randomized_learner(rollout, dev, pool, compose, tag):
+    """Ur5SihMultiObjectManipulation at ENVS envs as `train.py` composes it
+    with the `compose` overrides, on the multiobj phase's pool, and
+    ckpt_2700's learner on a fresh reset: (env, PPO, TrainState)."""
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.utils.checkpoint import load_train_state
+
+    ckpt = rollout.TASK_CKPTS[MULTI_TASK]
+    env = rollout.make_task_env(MULTI_TASK, ENVS, dev, pool=pool, compose=compose)
+    ppo = PPO(env, ppo_config(resolve_task(MULTI_TASK, list(compose))[1]))
+    fresh = ppo.init(0)
+    start = load_train_state(ckpt, dev, fresh.env_state, fresh.last_obs)
+    log(f"{tag}: {MULTI_TASK} composed with {len(compose)} overrides, {ENVS} envs, "
+        f"{env.cfg.solver_iterations} sweeps, {ppo.num_minibatches} minibatches of "
+        f"{ppo.mb_size}; DR {env.cfg.dr}; ADR {env.cfg.adr}; from {os.path.relpath(ckpt)}'s "
+        f"learner (epoch {int(start.epoch)}) on a fresh reset")
+    return env, ppo, start
+
+
+def dr_train_phase(rollout, dev, pool, ops) -> tuple:
+    """Phase 23 (see the module docstring). Returns (record, env, final
+    TrainState, the kernels' captured calls)."""
+    import numpy as np
+    import torch
+
+    from handarm_tpu_torch.convert import env_state_to_leaves
+    from handarm_tpu_torch.envs.randomization import DRState
+    from handarm_tpu_torch.envs.tasks import DR_SHADOWHAND
+    from handarm_tpu_torch.utils.checkpoint import load_train_state, save_checkpoint
+
+    env, ppo, start = randomized_learner(rollout, dev, pool, DR_SHADOWHAND, "dr-train")
+    dr = env.cfg.dr
+    if not (dr.enabled and dr.mass_scale_range == (0.5, 1.5) and dr.gravity_noise == 0.4
+            and not env.cfg.adr.enabled):
+        raise AssertionError(f"dr-train: the composed DR is not ShadowHand's: {dr}")
+    per_iter = {k: 16 * v for k, v in MULTI_PER_STEP.items()}
+    with Capture(ops, last_only=True) as cap:
+        rec, ts = timed_iterations(rollout, ppo, start, DR_ITERS, per_iter, "dr-train", cap)
+    # the DRState in play, read back from the state
+    ranges = {"mass_scale": dr.mass_scale_range, "friction_scale": dr.friction_scale_range,
+              "gain_scale": dr.gain_scale_range}
+    spans = {}
+    for name, x in zip(DRState._fields, ts.env_state.task.dr):
+        lo, hi = float(x.min()), float(x.max())
+        spans[name] = (lo, hi)
+        log(f"dr-train: DRState.{name} {tuple(x.shape)} min {lo:.6f} max {hi:.6f}")
+        if name in ranges and not ranges[name][0] <= lo <= hi <= ranges[name][1]:
+            raise AssertionError(f"dr-train: {name} outside {ranges[name]}")
+    g_std = float(ts.env_state.task.dr.gravity_z.std())
+    log(f"dr-train: std of gravity_z over {ENVS} envs {g_std:.5f} (gravity_noise 0.4)")
+    if not abs(g_std - 0.4) <= 0.04:
+        raise AssertionError("dr-train: gravity_z's spread is not gravity_noise's")
+    path = save_checkpoint(os.path.join("runs", "chip_smoke_dr_roundtrip"), ts, 1, sync=True,
+                           cfg=ppo.cfg, env_cfg=env.cfg)
+    back = load_train_state(path, dev, cfg=ppo.cfg, env_cfg=env.cfg)
+    a, b = env_state_to_leaves(ts.env_state), env_state_to_leaves(back.env_state)
+    if len(a) != 30 or len(b) != 30 or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("dr-train: the env state did not survive the checkpoint")
+    log(f"dr-train: the TrainState round-trips through {path}: 30 env leaves equal")
+    rec.update(drstate_ranges=spans, gravity_z_std=g_std, checkpoint_env_leaves=30)
+    calls = cap.calls
+    del ppo, start
+    torch.cuda.empty_cache()
+    return rec, env, ts, calls
+
+
+def dr_reached(env, ts, calls, dev) -> dict:
+    """Where DR's scales reach the kernels: the sweep's mu plane over the
+    slots' base friction spans more than half of the friction range for one
+    slot across envs; its invm planes over the base inverse masses lie in
+    [1/1.5, 1/0.5] and vary; the SPD inverse's matrices of the final state
+    differ from the same state's unscaled ones by exactly the scaled PD
+    terms on the diagonal (h kd (g - 1) + h^2 kp (g - 1))."""
+    import torch
+
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+    from handarm_tpu_torch.physics.engine import compute_heavy
+
+    sc = env.scene
+    planes = calls["sweep"][0][0][0]
+    fric = torch.as_tensor(sc.slots.friction, device=dev)
+    c = int(torch.nonzero(fric > 0)[0])
+    mu = planes[sweep_op.BASE["mu"], :, c] / fric[c]
+    lo, hi = env.cfg.dr.friction_scale_range
+    mu_span = float(mu.max() - mu.min())
+    log(f"dr-kernels: slot {c}'s mu over its base friction across {ENVS} envs: "
+        f"{float(mu.min()):.5f}-{float(mu.max()):.5f} (span {mu_span:.5f})")
+    if not (mu_span > 0.5 * (hi - lo) and float(mu.min()) >= lo - 1e-5
+            and float(mu.max()) <= hi + 1e-5):
+        raise AssertionError("dr-kernels: the friction scale did not reach the sweep's mu plane")
+    invm = {}
+    for s, (kidx, mask) in enumerate(zip(sc.maps.side_kidx, sc.maps.side_mask)):
+        has = mask > 0
+        r = planes[sweep_op.NBASE + s * sweep_op.NSIDE + 9][:, has] / \
+            sc.shapes.inv_mass[kidx][has]
+        invm[f"side {s}"] = (float(r.min()), float(r.max()), float(r.std()))
+        if not (float(r.min()) >= 1 / 1.5 - 1e-5 and float(r.max()) <= 1 / 0.5 + 1e-5
+                and float(r.std()) > 0):
+            raise AssertionError("dr-kernels: the mass scale did not reach the sweep's invm planes")
+    log(f"dr-kernels: invm over the base inverse mass (min, max, std) per side {invm}")
+    st = ts.env_state
+    ovr = env.overrides(st.task, ENVS)
+    with Capture({"spd": (spd_op, "spd_inverse")}) as cap:
+        cap.armed = True
+        compute_heavy(sc, st.physics, ovr)
+        compute_heavy(sc, st.physics)
+    m_dr, m_plain = cap.calls["spd"][0][0][0], cap.calls["spd"][1][0][0]
+    h = env.cfg.dt / env.cfg.substeps
+    g = ovr.gain_scale
+    want = h * sc.kd * (g - 1.0) + h * h * sc.kp * (g - 1.0)
+    diff = m_dr - m_plain
+    diag = torch.diagonal(diff, dim1=1, dim2=2)
+    err = float((diag - want).abs().max())
+    off = float((diff - torch.diag_embed(diag)).abs().max())
+    scale = float(want.abs().max())
+    log(f"dr-kernels: spd_inverse input minus the unscaled matrix of the same state: diagonal "
+        f"{scale:.4e} at most, off its PD terms by {err:.3e}; off-diagonal {off:.3e}")
+    top = float(m_plain.abs().max())
+    if not (scale > 0 and err <= 1e-5 * top and off <= 1e-6 * top):
+        raise AssertionError("dr-kernels: the gain scale did not reach the SPD inverse's input")
+    return dict(mu_span=mu_span, invm_over_base=invm, spd_pd_diagonal_max=scale,
+                spd_pd_diagonal_err=err)
+
+
+def dr_kernels_phase(env, ts, calls, dev) -> dict:
+    """Phase 24 (see the module docstring)."""
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import prep_deff as deff_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    out = {"reached": dr_reached(env, ts, calls, dev)}
+    out["spd_inverse"] = check_spd(spd_op, calls["spd"][0][0][0], dev, "dr")
+    out["prep_deff"] = check_deff(deff_op, calls["deff"][0][0])
+    out["contact_sweep"] = check_sweep(sweep_op, calls["sweep"][0], env.scene.maps, "dr")
+    return out
+
+
+def dr_ref_phase(rollout, dev, env, ts, pool) -> dict:
+    """Phase 25 (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from handarm_tpu_torch.envs import genesis
+    from handarm_tpu_torch.envs.hand_arm import StepDraws
+    from handarm_tpu_torch.envs.tasks import DR_SHADOWHAND
+
+    ref_state, ref_obs = pick_contact_envs(env.scene.slots, ts.env_state, ts.last_obs, 16,
+                                           "dr-ref")
+    ms = ref_state.task.dr.mass_scale
+    distinct = [int(torch.unique(ms[:, k]).numel()) for k in range(ms.shape[1])]
+    log(f"dr-ref: distinct mass scales per object among the 16 envs {distinct}")
+    if min(distinct) < 2:
+        raise AssertionError("dr-ref: an object has one mass scale in the compared envs")
+    small = genesis.InitialPool(pool.pos[:, :16].cpu(), pool.quat[:, :16].cpu())
+
+    def make(d):
+        # as multiobj-ref, with ShadowHand's DR
+        e = rollout.make_task_env(MULTI_TASK, 16, d, pool=genesis.InitialPool(
+            small.pos.to(d), small.quat.to(d)), compose=DR_SHADOWHAND, randomize=False)
+        p = e.scene.params
+        e.scene = dataclasses.replace(e.scene, params=p._replace(
+            solver=p.solver._replace(jacobi_impl="pallas")))
+        return e
+
+    env_c = make("cpu")
+    rng = np.random.default_rng(5)
+    f = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+    draws = [StepDraws(act_noise=f(16, env_c.num_actions), obs_noise=f(16, env_c.num_obs))
+             for _ in range(2)]
+    card_vs_cpu(env_c, make(dev), ref_state, ref_obs,
+                rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu"), dev, "dr-ref",
+                need=("robot-object", "object-pair"), draws=draws)
+    return dict(envs=16, control_steps=2, distinct_mass_scales=distinct)
+
+
+def adr_step_check(cfg, dev) -> dict:
+    """adr_step on the card against the CPU from the same state and draws at
+    ENVS envs, every env done: ADR_CHECK_STEPS steps at objective 1, then
+    one more at 0 (every queue fills each step at this size: the bounds move
+    out by delta a step, then back in and clip at their initial values).
+    lo, hi, the queues and the modes exact, values within 1e-6."""
+    import torch
+
+    from handarm_tpu_torch.envs.adr import adr_draws, adr_entropy, adr_step, init_adr_state
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    gen = torch.Generator().manual_seed(0)
+    s_c = init_adr_state(cfg, ENVS, gen)
+    s_g = tree_map(lambda x: x.to(dev), s_c)
+    done = torch.ones(ENVS, dtype=torch.bool)
+    entropy = [float(adr_entropy(s_g))]
+    worst = 0.0
+    for i, obj in enumerate([1.0] * ADR_CHECK_STEPS + [0.0] * (ADR_CHECK_STEPS + 1)):
+        d = adr_draws(cfg, ENVS, gen, "cpu")
+        objective = torch.full((ENVS,), obj)
+        s_c = adr_step(cfg, s_c, done, objective, draws=d)
+        s_g = adr_step(cfg, s_g, done.to(dev), objective.to(dev),
+                       draws=tree_map(lambda x: x.to(dev), d))
+        for name, g, c in zip(s_c._fields, s_g, s_c):
+            g = g.cpu()
+            if name == "values":
+                worst = max(worst, float((g - c).abs().max()))
+                if worst > 1e-6:
+                    raise AssertionError(f"adr_step: values card vs CPU {worst:.3e}")
+            elif not torch.equal(g, c):
+                raise AssertionError(f"adr_step: {name} differs between card and CPU")
+        entropy.append(float(adr_entropy(s_g)))
+        log(f"adr_step {i} (objective {obj}): lo {[round(x, 6) for x in s_g.lo.tolist()]} hi "
+            f"{[round(x, 6) for x in s_g.hi.tolist()]}; entropy {entropy[-1]:.4f} nats")
+        if i == ADR_CHECK_STEPS - 1:
+            widest = (s_c.lo.clone(), s_c.hi.clone())
+    t = lambda x: torch.tensor(x, dtype=torch.float32)
+    n = ADR_CHECK_STEPS
+    delta = t(cfg.delta)
+    want_lo = torch.maximum(t(cfg.init_lo) - n * delta, t(cfg.limit_lo))
+    want_hi = torch.minimum(t(cfg.init_hi) + n * delta, t(cfg.limit_hi))
+    ok = (float((widest[0] - want_lo).abs().max()) <= 1e-6
+          and float((widest[1] - want_hi).abs().max()) <= 1e-6
+          and torch.equal(s_c.lo, t(cfg.init_lo)) and torch.equal(s_c.hi, t(cfg.init_hi)))
+    if not ok:
+        raise AssertionError("adr_step: the bounds did not move out by delta and back")
+    log(f"adr_step: {2 * n + 1} steps at {ENVS} envs, card and CPU agree (lo, hi, queues, modes "
+        f"exact; values within {worst:.1e}); adr_entropy {entropy[0]:.4f} -> "
+        f"{max(entropy):.4f} -> {entropy[-1]:.4f} nats")
+    return dict(steps=2 * n + 1, values_max_err=worst, entropy=entropy)
+
+
+def adr_phase(rollout, dev, pool) -> dict:
+    """Phase 26 (see the module docstring)."""
+    from handarm_tpu_torch.envs.adr import AdrConfig
+    from handarm_tpu_torch.envs.tasks import DR_SHADOWHAND
+
+    env, ppo, start = randomized_learner(rollout, dev, pool, DR_SHADOWHAND + [ADR_ON], "adr")
+    if env.cfg.adr != AdrConfig(enabled=True) or not env.cfg.dr.enabled:
+        raise AssertionError(f"adr: the composed ADR is not the defaults over DR: {env.cfg.adr}")
+    per_iter = {k: 16 * v for k, v in MULTI_PER_STEP.items()}
+    rec, ts = timed_iterations(rollout, ppo, start, ADR_ITERS, per_iter, "adr")
+    a = ts.env_state.task.adr
+    log(f"adr: after {1 + ADR_ITERS} iterations: lo {a.lo.tolist()} hi {a.hi.tolist()} queue "
+        f"counts {a.q_cnt.tolist()}; boundary workers {int((a.worker_mode >= 0).sum())} of "
+        f"{ENVS}")
+    rec["queue_counts"] = a.q_cnt.tolist()
+    del ppo, start, ts, env
+    rec["adr_step"] = adr_step_check(AdrConfig(enabled=True), dev)
+    return rec
+
+
+def dr_entry_phase(rollout) -> dict:
+    """Phase 27 (see the module docstring)."""
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.envs.tasks import DR_SHADOWHAND
+    from handarm_tpu_torch.utils.checkpoint import file_env_leaves, load_train_state, read_leaves
+
+    ckpt = os.path.relpath(rollout.TASK_CKPTS[MULTI_TASK])
+    step = int(os.path.basename(ckpt)[5:-4]) + 1
+    out = os.path.join("runs", "chip_smoke_dr", "nn", f"ckpt_{step}.npz")
+    rec = entry_subprocess(
+        [f"task={MULTI_TASK}", f"resume={ckpt}", f"max_iterations={step}", *DR_SHADOWHAND,
+         ADR_ON, "experiment=chip_smoke_dr", "seed=1"],
+        out, "dr entry point", PHASE_DEADLINE_S["dr-entry"] - 30, n_leaves=83)
+    env_cfg, _ = resolve_task(MULTI_TASK, DR_SHADOWHAND + [ADR_ON])
+    ts = load_train_state(out, env_cfg=env_cfg)
+    task = ts.env_state.task
+    epoch = int(read_leaves(ckpt)[70]) + 1  # the resumed file's, one iteration on
+    if not (file_env_leaves(out) == 36 and int(ts.epoch) == epoch and task.adr is not None
+            and task.dr is not None):
+        raise AssertionError(f"dr entry point: {out} is not a DR + ADR TrainState")
+    try:
+        load_train_state(out, env_cfg=resolve_task(MULTI_TASK)[0])
+    except ValueError as e:
+        log(f"dr entry point: a reader given the config without DR refuses the file: {e}")
+    else:
+        raise AssertionError("dr entry point: a reader without DR read a DR + ADR file")
+    log(f"dr entry point: {out} holds 36 env leaves, epoch {int(ts.epoch)}; ADR lo "
+        f"{task.adr.lo.tolist()} hi {task.adr.hi.tolist()}")
+    return dict(rec, env_leaves=36)
+
+
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
 
@@ -1967,6 +2373,23 @@ def main() -> int:
         multi_train_rec = multiobj_train_phase(rollout, dev, pool)
     with phase("multiobj-eval"):
         multi_eval_rec = eval_phase(rollout, dev, MULTI_TASK, MULTI_PER_STEP, pool)
+    dr_rec = {}
+    with phase("dr-train"):
+        dr_rec["train"], dr_env, dr_ts, dr_calls = dr_train_phase(rollout, dev, pool, ops)
+    with phase("dr-kernels"):
+        dr_rec["kernels"] = dr_kernels_phase(dr_env, dr_ts, dr_calls, dev)
+        del dr_calls
+        for entry in kernels:
+            if entry["name"] in dr_rec["kernels"]:
+                entry["dr"] = dict(path=f"{MULTI_TASK} with envs.tasks.DR_SHADOWHAND",
+                                   launches=dr_rec["train"]["launches_per_iteration"][
+                                       entry["name"]] * (1 + DR_ITERS),
+                                   **dr_rec["kernels"][entry["name"]])
+    with phase("dr-ref"):
+        dr_rec["ref"] = dr_ref_phase(rollout, dev, dr_env, dr_ts, pool)
+        del dr_env, dr_ts
+    with phase("adr"):
+        dr_rec["adr"] = adr_phase(rollout, dev, pool)
         del pool
     with phase("train"):
         train_rec = train_phase(rollout, dev)
@@ -1989,6 +2412,8 @@ def main() -> int:
              "experiment=chip_smoke_multiobj", "seed=1"],
             os.path.join("runs", "chip_smoke_multiobj", "nn", f"ckpt_{step}.npz"),
             "multiobj entry point", PHASE_DEADLINE_S["multiobj-entry"] - 30)
+    with phase("dr-entry"):
+        dr_rec["entry_point"] = dr_entry_phase(rollout)
 
     with phase("distill-train"):
         distill_rec = distill_train_phase(rollout, dev)
@@ -2016,7 +2441,8 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi gives them
     log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec,
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
-                    "family": family_rec, "distill": distill_rec, "rnn": rnn_rec}))
+                    "family": family_rec, "distill": distill_rec, "rnn": rnn_rec,
+                    "dr": dr_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -8,11 +8,16 @@ to write checkpoints its loader reads.
   fields in order, None fields absent): physics (q, qd, targets, object pos,
   quat, linvel, angvel, contact_impulse), control (arm_target, servo_ticks,
   sih_smoothed), task (progress, goal_pos, goal_quat, target_obj,
-  goal_reached_before, initial_obj_pos, PRNG key, total_steps), metrics
-  (success_ewma, per_object_ewma, total_resets, total_successes,
-  end_success_ewma). The PRNG key is dropped on the way in: the port draws
-  from a torch.Generator. On the way out it is written as the JAX file has
-  it, a [2] uint32 key from the seed (`jax.random.PRNGKey(seed)`'s value).
+  goal_reached_before, initial_obj_pos, PRNG key, total_steps, then with
+  domain randomization the DRState (mass_scale, friction_scale,
+  gain_scale, gravity_z, obs_corr, act_corr) and with ADR the AdrState
+  (lo, hi, worker_mode, values, q_sum, q_cnt)), metrics (success_ewma,
+  per_object_ewma, total_resets, total_successes, end_success_ewma): 24
+  leaves, 30 or 36 with DR and ADR (`env_leaf_count`). The leaf count does
+  not tell DR from ADR, so the readers take the HandArmConfig. The PRNG key
+  is dropped on the way in: the port draws from a torch.Generator. On the
+  way out it is written as the JAX file has it, a [2] uint32 key from the
+  seed (`jax.random.PRNGKey(seed)`'s value).
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch (71 for the 768-512-256 MLP), then with an asymmetric critic the
@@ -33,7 +38,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from handarm_tpu_torch.envs.hand_arm import EnvState, Metrics, TaskState
+from handarm_tpu_torch.envs.adr import AdrState
+from handarm_tpu_torch.envs.hand_arm import EnvState, HandArmConfig, Metrics, TaskState
+from handarm_tpu_torch.envs.randomization import DRState
 from handarm_tpu_torch.learn import optim
 from handarm_tpu_torch.learn.networks import ActorCritic, flax_names
 from handarm_tpu_torch.learn.ppo import PPOConfig, TrainState, param_names
@@ -42,7 +49,8 @@ from handarm_tpu_torch.physics.engine import ObjectState, PhysicsState, RobotSta
 from handarm_tpu_torch.robots.ur5sih_adapter import ControlState
 
 N_PHYSICS_LEAVES = 8
-N_ENV_LEAVES = 24
+N_ENV_LEAVES = 24  # without DR and ADR
+N_RAND_LEAVES = 6  # of a DRState, and of an AdrState
 OPT_SCALARS = (np.int32, np.bool_, np.int32, np.int32)  # optax's, in its order
 
 
@@ -89,22 +97,44 @@ def physics_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> Phy
     return PhysicsState(RobotState(q, qd, tg), ObjectState(pos, quat, lv, av), imp)
 
 
-def env_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> EnvState:
-    if len(leaves) != N_ENV_LEAVES:
-        raise ValueError(f"expected {N_ENV_LEAVES} EnvState leaves, got {len(leaves)}")
+def env_leaf_count(env_cfg: HandArmConfig | None = None) -> int:
+    """EnvState leaves of an env with `env_cfg` (None: without DR and ADR)."""
+    if env_cfg is None:
+        return N_ENV_LEAVES
+    return N_ENV_LEAVES + N_RAND_LEAVES * (env_cfg.dr.enabled + env_cfg.adr.enabled)
+
+
+def env_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu",
+                          env_cfg: HandArmConfig | None = None) -> EnvState:
+    """The EnvState of an env with `env_cfg` (None: without DR and ADR) from
+    its leaves; ValueError if their count is not that layout's."""
+    n = env_leaf_count(env_cfg)
+    if len(leaves) != n:
+        raise ValueError(f"expected {n} EnvState leaves for this config (DR "
+                         f"{bool(env_cfg and env_cfg.dr.enabled)}, ADR "
+                         f"{bool(env_cfg and env_cfg.adr.enabled)}), got {len(leaves)}")
     f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
     i = lambda x: torch.tensor(np.asarray(x).astype(np.int64), device=device)
     physics = physics_state_from_leaves(leaves[:N_PHYSICS_LEAVES], device)
     control = ControlState(*(f(x) for x in leaves[8:11]))
     (progress, goal_pos, goal_quat, target, reached, init_pos, _key,
      total) = leaves[11:19]
+    k = 19
+    dr = adr = None
+    if env_cfg is not None and env_cfg.dr.enabled:
+        dr = DRState(*(f(x) for x in leaves[k:k + N_RAND_LEAVES]))
+        k += N_RAND_LEAVES
+    if env_cfg is not None and env_cfg.adr.enabled:
+        lo, hi, mode, values, q_sum, q_cnt = leaves[k:k + N_RAND_LEAVES]
+        adr = AdrState(f(lo), f(hi), i(mode), f(values), f(q_sum), f(q_cnt))
+        k += N_RAND_LEAVES
     task = TaskState(
         progress=i(progress), goal_pos=f(goal_pos), goal_quat=f(goal_quat),
         target_obj=i(target),
         goal_reached_before=torch.tensor(np.asarray(reached), device=device),
-        initial_obj_pos=f(init_pos), total_steps=i(total),
+        initial_obj_pos=f(init_pos), total_steps=i(total), dr=dr, adr=adr,
     )
-    metrics = Metrics(*(f(x) for x in leaves[19:24]))
+    metrics = Metrics(*(f(x) for x in leaves[k:k + 5]))
     return EnvState(physics, control, task, metrics)
 
 
@@ -184,26 +214,27 @@ def extra_from_leaves(leaves: Sequence[np.ndarray], cfg: PPOConfig, device="cpu"
 
 
 def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
-                            device="cpu", cfg: PPOConfig | None = None) -> TrainState:
+                            device="cpu", cfg: PPOConfig | None = None,
+                            n_env: int = N_ENV_LEAVES) -> TrainState:
     """The learner part of a PPO checkpoint's leaves (params, optax state,
     running stats, lr, epoch, and `cfg`'s teacher stats, last teacher
-    observations and carry) with the given env state and observations.
-    Without `cfg`, an MLP ActorCritic checkpoint (its size from the leaf
-    count)."""
+    observations and carry) with the given env state and observations; the
+    file's env state has `n_env` leaves. Without `cfg`, an MLP ActorCritic
+    checkpoint (its size from the leaf count)."""
     extra = extra_leaf_count(cfg)
     if cfg is None:
         # P params, 4 optax scalars, 2 P moments, 7 stats and lr, the env
         # state, last obs, key, epoch
-        P, rest = divmod(len(leaves) - 4 - 7 - N_ENV_LEAVES - 3, 3)
+        P, rest = divmod(len(leaves) - 4 - 7 - n_env - 3, 3)
         if rest or P < 7:
             raise ValueError(f"{len(leaves)} leaves are not a PPO TrainState")
     else:
         P = len(param_names(cfg))
-        if len(leaves) != learner_leaf_count(P) + N_ENV_LEAVES + 3 + extra:
+        if len(leaves) != learner_leaf_count(P) + n_env + 3 + extra:
             raise ValueError(f"{len(leaves)} leaves are not a PPO TrainState of {cfg}")
     names = names_of(cfg, P)
     params, opt, obs_stats, value_stats, lr = learner_from_leaves(leaves, names, device)
-    k = learner_leaf_count(P) + N_ENV_LEAVES + 2
+    k = learner_leaf_count(P) + n_env + 2
     return TrainState(
         params=params, opt_state=opt, obs_stats=obs_stats, value_stats=value_stats, lr=lr,
         env_state=env_state, last_obs=last_obs,
@@ -212,19 +243,29 @@ def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
     )
 
 
-def env_state_to_leaves(state: EnvState, seed: int = 0) -> list[np.ndarray]:
-    """The 24 EnvState leaves in the JAX package's order and dtypes."""
+def env_state_to_leaves(state: EnvState, seed: int = 0,
+                        env_cfg: HandArmConfig | None = None) -> list[np.ndarray]:
+    """The EnvState leaves (24, with DR and ADR 30 or 36) in the JAX
+    package's order and dtypes. Given `env_cfg`, the state must hold its DR
+    and ADR states, and only those."""
     np_ = lambda x: x.detach().cpu().numpy()
     f = lambda x: np_(x).astype(np.float32)
     i32 = lambda x: np_(x).astype(np.int32)
     p, c, t, m = state.physics, state.control, state.task, state.metrics
+    if env_cfg is not None and ((t.dr is None) == env_cfg.dr.enabled
+                                or (t.adr is None) == env_cfg.adr.enabled):
+        raise ValueError("the env state's DR and ADR states are not its config's")
+    rand = [f(x) for x in t.dr] if t.dr is not None else []
+    if t.adr is not None:
+        a = t.adr
+        rand += [f(a.lo), f(a.hi), i32(a.worker_mode), f(a.values), f(a.q_sum), f(a.q_cnt)]
     return [
         f(p.robot.q), f(p.robot.qd), f(p.robot.targets), f(p.objects.pos),
         f(p.objects.quat), f(p.objects.linvel), f(p.objects.angvel), f(p.contact_impulse),
         *(f(x) for x in c),
         i32(t.progress), f(t.goal_pos), f(t.goal_quat), i32(t.target_obj),
         np_(t.goal_reached_before).astype(np.bool_), f(t.initial_obj_pos), prng_key(seed),
-        i32(t.total_steps),
+        i32(t.total_steps), *rand,
         *(f(x) for x in m),
     ]
 
@@ -259,10 +300,10 @@ def extra_to_leaves(ts: TrainState) -> list[np.ndarray]:
     return out
 
 
-def train_state_to_leaves(ts: TrainState, seed: int = 0,
-                          cfg: PPOConfig | None = None) -> list[np.ndarray]:
-    """The leaves of a PPO TrainState (71 for the 768-512-256 MLP); both
-    PRNG keys are `prng_key(seed)`."""
-    return (learner_to_leaves(ts, cfg) + env_state_to_leaves(ts.env_state, seed)
+def train_state_to_leaves(ts: TrainState, seed: int = 0, cfg: PPOConfig | None = None,
+                          env_cfg: HandArmConfig | None = None) -> list[np.ndarray]:
+    """The leaves of a PPO TrainState (71 for the 768-512-256 MLP, 12 more
+    with DR and ADR); both PRNG keys are `prng_key(seed)`."""
+    return (learner_to_leaves(ts, cfg) + env_state_to_leaves(ts.env_state, seed, env_cfg)
             + [ts.last_obs.detach().cpu().numpy().astype(np.float32), prng_key(seed),
                ts.epoch.detach().cpu().numpy().astype(np.int32)] + extra_to_leaves(ts))

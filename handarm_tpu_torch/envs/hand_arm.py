@@ -2,20 +2,23 @@
 oriented_reposition, repose and throw goals (counterpart of
 handarm_tpu/envs/hand_arm.py on the UR5+SIH task family).
 
-One `step(state, actions)` does: actionables -> control -> PD targets, the
-random object disturbance impulses (with `randomize`), `control_freq_inv`
-sim steps with the heavy mass structure evaluated once per control step
-and FK carried across its sim steps, reward, termination, the NaN finite
-guard, success-rate EWMAs, the auto-reset merged per env, and the
-sanitized observations: the flat vector (clipped), the teacher's flat
+One `step(state, actions)` does: the action noise of domain randomization
+(`dr`), actionables -> control -> PD targets, the random object
+disturbance impulses (with `randomize`), `control_freq_inv` sim steps with
+the heavy mass structure evaluated once per control step and FK carried
+across its sim steps, under the per-env physical parameters of DR or of
+ADR (`adr`, which then replaces DR's), reward, termination, the NaN finite
+guard, success-rate EWMAs, the auto-reset merged per env, the ADR
+transition on the episodes that ended, and the sanitized observations:
+the flat vector (clipped, with DR's observation noise), the teacher's flat
 vector (`teacher_observations`, for a distilled student's teacher) and the
 synthetic point clouds, which go to `obs_dict` under their own names,
 unclipped. Resets draw object poses from the genesis pool (`use_drop_init`,
 built by the first `reset`) or spawn them on the table, the target object
-uniformly or (`balanced_target_sampling`) by failure rate, and for the
-orientation goals a goal quaternion. Domain randomization, ADR, cameras and
-the engine options other than the defaults are not ported: `HandArmConfig`
-refuses them by name.
+uniformly or (`balanced_target_sampling`) by failure rate, for the
+orientation goals a goal quaternion, and with DR a fresh `DRState`.
+Cameras and the engine options other than the defaults are not ported:
+`HandArmConfig` refuses them by name.
 """
 
 from __future__ import annotations
@@ -35,10 +38,19 @@ from handarm_tpu_torch.math.quat import (
     quat_rotate,
 )
 from handarm_tpu_torch.envs import genesis, objects as object_records, pointcloud as pc
-from handarm_tpu_torch.envs.randomization import AdrConfig, DRConfig
+from handarm_tpu_torch.envs.adr import AdrConfig, AdrDraws, AdrState, adr_step, init_adr_state
+from handarm_tpu_torch.envs.randomization import (
+    DRConfig,
+    DRState,
+    apply_noise,
+    init_dr_state,
+    merge_on_reset,
+    schedule_strength,
+)
 from handarm_tpu_torch.envs.spec import Observable, Registry, obs_layout
 from handarm_tpu_torch.physics.contacts import StaticGeom
 from handarm_tpu_torch.physics.engine import (
+    EnvOverrides,
     ObjectState,
     PhysicsState,
     RobotState,
@@ -125,8 +137,8 @@ class HandArmConfig:
     randomize: bool = False
     disturbance_probability: float = 0.2
     disturbance_magnitude: float = 15.0
-    dr: DRConfig = field(default_factory=DRConfig)  # not ported: ROADMAP §1.2a
-    adr: AdrConfig = field(default_factory=AdrConfig)  # not ported: ROADMAP §1.2a
+    dr: DRConfig = field(default_factory=DRConfig)  # domain randomization
+    adr: AdrConfig = field(default_factory=AdrConfig)  # adaptive DR; replaces DR's scales
     clip_observations: float = 100.0
     clip_actions: float = 1.0
     # reset targets drawn by per-object failure rate instead of uniformly
@@ -157,8 +169,6 @@ NOT_PORTED = {
     "heavy_prep_per_control": (True, "§1.2b"),
     "carry_fk": (True, "§1.2b"),
     "hand_only_collision": (True, "§1.2b"),
-    "dr": (DRConfig(), "§1.2a"),
-    "adr": (AdrConfig(), "§1.2a"),
     "cameras": ((), "§1.5"),
 }
 
@@ -171,6 +181,8 @@ class TaskState(NamedTuple):
     goal_reached_before: torch.Tensor  # [B] bool
     initial_obj_pos: torch.Tensor  # [B, K, 3]
     total_steps: torch.Tensor  # scalar
+    dr: DRState | None = None  # per-env frozen randomizations (with `dr`)
+    adr: AdrState | None = None  # ADR's ranges, queues and workers (with `adr`)
 
 
 class Metrics(NamedTuple):
@@ -186,6 +198,19 @@ class EnvState(NamedTuple):
     control: Any  # robot control state
     task: TaskState
     metrics: Metrics
+
+
+class StepDraws(NamedTuple):
+    """Draws of one `step` or `reset` that replace the env generator's
+    (None: from the generator): the standard draws of the per-step action
+    and observation noise ([B, num_actions], [B, num_obs]), of the fresh
+    DRState (`randomization.init_dr_state`'s `std`) and of ADR (the
+    recycling of `adr_step`, or at reset `init_adr_state`)."""
+
+    act_noise: torch.Tensor | None = None
+    obs_noise: torch.Tensor | None = None
+    dr: DRState | None = None
+    adr: AdrDraws | None = None
 
 
 class StepResult(NamedTuple):
@@ -432,8 +457,9 @@ def _register_actionables(reg: Registry) -> None:
 
 class HandArmEnv:
     """Vectorized UR5+SIH env on one device. Random draws (resets,
-    disturbances) come from the env's own torch.Generator, seeded by
-    `reset(seed)`; genesis draws from its own, seeded with 23 + num_envs."""
+    disturbances, DR and ADR) come from the env's own torch.Generator, seeded
+    by `reset(seed)`, unless `draws` are given; genesis draws from its own,
+    seeded with 23 + num_envs."""
 
     def __init__(self, cfg: HandArmConfig, device=None, urdf_path: str | None = None):
         self.cfg = cfg
@@ -596,10 +622,12 @@ class HandArmEnv:
             return torch.tensor([1.0, 0.0, 0.0, 0.0], device=self.device).expand(B, 4).clone()
         return goal_quat_from_uniform(self._uniform((B, 2), -1.0, 1.0))
 
-    def fresh_state(self, B: int, per_object_ewma=None) -> EnvState:
+    def fresh_state(self, B: int, per_object_ewma=None, dr_draws=None) -> EnvState:
         """A new episode's state for B envs (drawn from the env's generator):
         each env takes one of the pool's settled configurations, else spawns.
-        `per_object_ewma` feeds balanced target sampling."""
+        `per_object_ewma` feeds balanced target sampling; with DR, a fresh
+        DRState (from the standard draws `dr_draws` if given). No ADR state:
+        `reset` and `step` make it."""
         if self.initial_pool is not None:
             pool = self.initial_pool
             idx = torch.randint(0, pool.pos.shape[0], (B,), generator=self.gen,
@@ -631,21 +659,29 @@ class HandArmEnv:
             goal_reached_before=torch.zeros(B, dtype=torch.bool, device=dev),
             initial_obj_pos=pos,
             total_steps=torch.zeros((), dtype=torch.int64, device=dev),
+            dr=init_dr_state(self.cfg.dr, B, K, nv, self.num_obs, self.num_actions, self.gen,
+                             dr_draws, dev) if self.cfg.dr.enabled else None,
         )
         z = lambda *s: torch.zeros(s, device=dev)
         metrics = Metrics(z(), z(K), z(), z(), z())
         return EnvState(physics, self.robot.init_control(B, dev), task, metrics)
 
-    def reset(self, seed: int = 0):
-        """(state, obs) for cfg.num_envs envs with staggered episode clocks.
-        The first reset of a drop-init task runs genesis."""
+    def reset(self, seed: int = 0, draws: StepDraws | None = None):
+        """(state, obs) for cfg.num_envs envs with staggered episode clocks,
+        with ADR's initial state when it is on; `draws.dr` and `draws.adr`
+        replace the generator's DR and ADR draws. The first reset of a
+        drop-init task runs genesis."""
         if self.cfg.use_drop_init and self.initial_pool is None:
             self.initialize_pool()
         self.gen.manual_seed(seed)
-        state = self.fresh_state(self.cfg.num_envs)
-        prog0 = torch.randint(0, self.cfg.episode_length, (self.cfg.num_envs,),
+        draws = draws or StepDraws()
+        B = self.cfg.num_envs
+        state = self.fresh_state(B, dr_draws=draws.dr)
+        prog0 = torch.randint(0, self.cfg.episode_length, (B,),
                               generator=self.gen, device=self.device)
-        state = state._replace(task=state.task._replace(progress=prog0))
+        adr = (init_adr_state(self.cfg.adr, B, self.gen, draws.adr, self.device)
+               if self.cfg.adr.enabled else None)
+        state = state._replace(task=state.task._replace(progress=prog0, adr=adr))
         return state, self._compute_obs(ObsContext(self, state))
 
     def observe(self, state: EnvState, scores=None):
@@ -660,12 +696,22 @@ class HandArmEnv:
 
     # --- step ----------------------------------------------------------------
 
-    def step(self, state: EnvState, actions: torch.Tensor, scores=None):
+    def step(self, state: EnvState, actions: torch.Tensor, scores=None,
+             draws: StepDraws | None = None):
         """(new state, StepResult). `scores` {P: [B, P]} replaces the
-        uniform draws of the point-cloud subsampling (`ObsContext`)."""
+        uniform draws of the point-cloud subsampling (`ObsContext`), `draws`
+        those of DR and ADR."""
         cfg = self.cfg
+        draws = draws or StepDraws()
         B = actions.shape[0]
-        actions = torch.clamp(actions, -cfg.clip_actions, cfg.clip_actions)
+        clip = cfg.clip_actions
+        actions = torch.clamp(actions, -clip, clip)
+        strength = None
+        if cfg.dr.enabled:  # with the episode's correlated draw, then clipped again
+            strength = schedule_strength(cfg.dr, state.task.total_steps)
+            actions = torch.clamp(apply_noise(
+                cfg.dr.action_noise, actions, state.task.dr.act_corr, strength, self.gen,
+                draws.act_noise), -clip, clip)
 
         control = state.control
         off = 0
@@ -679,11 +725,12 @@ class HandArmEnv:
             physics = physics._replace(objects=physics.objects._replace(
                 linvel=physics.objects.linvel + self._disturbance(B)))
 
-        heavy = compute_heavy(self.scene, physics)
+        ovr = self.overrides(state.task, B)
+        heavy = compute_heavy(self.scene, physics, ovr)
         physics, info_last, fk = physics_step(self.scene, physics, heavy,
-                                              heavy.fk0, heavy.contacts0)
+                                              heavy.fk0, heavy.contacts0, ovr)
         for _ in range(cfg.control_freq_inv - 1):
-            physics, info_last, fk = physics_step(self.scene, physics, heavy, fk)
+            physics, info_last, fk = physics_step(self.scene, physics, heavy, fk, ovr=ovr)
 
         progress = state.task.progress + 1
         task = state.task._replace(progress=progress,
@@ -705,16 +752,28 @@ class HandArmEnv:
         metrics = self._update_metrics(state.metrics, done, goal_reached_before,
                                        task.target_obj, goal_reached)
 
-        fresh = self.fresh_state(B, metrics.per_object_ewma)
+        fresh = self.fresh_state(B, metrics.per_object_ewma, draws.dr)
+        no_rand = dict(dr=None, adr=None)  # merged below, not by tree_map
         merged = tree_map(
             lambda new, old: _where_done(done, new, old),
-            EnvState(fresh.physics, fresh.control, fresh.task, metrics),
-            EnvState(physics, control, task, metrics),
+            EnvState(fresh.physics, fresh.control, fresh.task._replace(**no_rand), metrics),
+            EnvState(physics, control, task._replace(**no_rand), metrics),
         )._replace(metrics=metrics)
+        # ADR moves on the pre-reset outcomes; its result replaces the state
+        # whole (ranges and queues are not per env: never merged by done)
+        merged = merged._replace(task=merged.task._replace(
+            dr=merge_on_reset(done, fresh.task.dr, task.dr) if cfg.dr.enabled else None,
+            adr=adr_step(cfg.adr, state.task.adr, done, goal_reached_before.to(torch.float32),
+                         self.gen, draws.adr) if cfg.adr.enabled else None))
 
         ctx = ObsContext(self, merged, info_last, scores)
         obs, obs_dict = self._compute_obs(ctx, self.active_obs, cfg.observations,
                                           with_dict=True)
+        if cfg.dr.enabled:  # with the post-reset correlated draw, then clipped again
+            c = cfg.clip_observations
+            obs = torch.clamp(apply_noise(
+                cfg.dr.observation_noise, obs, merged.task.dr.obs_corr, strength, self.gen,
+                draws.obs_noise), -c, c)
         teacher_obs = self._compute_obs(ctx, self.active_teacher_obs, cfg.teacher_observations)
         obs = torch.where(torch.isfinite(obs), obs, torch.zeros_like(obs))
         teacher_obs = torch.where(torch.isfinite(teacher_obs), teacher_obs,
@@ -730,6 +789,26 @@ class HandArmEnv:
                                   info=info, obs_dict=obs_dict)
 
     # --- internals -------------------------------------------------------------
+
+    def overrides(self, task: TaskState, B: int) -> EnvOverrides:
+        """The physical parameters in play: ADR's values (mass, friction,
+        gain, gravity z: one each per env) when ADR is on, else DR's scales
+        and, with gravity noise, its gravity; none without either."""
+        cfg = self.cfg
+        g = self.scene.gravity.expand(B, 3)
+        with_z = lambda dz: torch.cat([g[:, :2], g[:, 2:] + dz[:, None]], dim=-1)
+        if cfg.adr.enabled:
+            v = task.adr.values
+            return EnvOverrides(gain_scale=v[:, 2:3].expand(B, self.art.nv),
+                                gravity=with_z(v[:, 3]),
+                                mass_scale=v[:, 0:1].expand(B, self.num_objects),
+                                friction_scale=v[:, 1])
+        if cfg.dr.enabled:
+            d = task.dr
+            return EnvOverrides(gain_scale=d.gain_scale,
+                                gravity=with_z(d.gravity_z) if cfg.dr.gravity_noise > 0 else None,
+                                mass_scale=d.mass_scale, friction_scale=d.friction_scale)
+        return EnvOverrides()
 
     def _disturbance(self, B: int) -> torch.Tensor:
         """[B, K, 3] object velocity kicks: with probability p per object, a

@@ -29,7 +29,9 @@ import dataclasses
 import json
 import os
 
+from handarm_tpu_torch.envs.adr import AdrConfig
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
+from handarm_tpu_torch.envs.randomization import DRConfig, NoiseSpec
 from handarm_tpu_torch.envs.tasks import TASKS
 from handarm_tpu_torch.utils.config import _parse_value, get, load_config
 
@@ -96,8 +98,6 @@ def config_from_yaml(path: str, overrides: list[str] | None = None
         if pats
     )
     rand_params = get(cfg, "rl.randomization_params.object_disturbance", {})
-    _dr_from_yaml(get(cfg, "rl.randomization_params.dr", {}))
-    _adr_from_yaml(get(cfg, "rl.randomization_params.adr", {}))
     _cameras_from_yaml(env_block.get("cameras", {}))
     hc = HandArmConfig(
         robot=cfg.get("robot", "ur5sih"),
@@ -129,6 +129,8 @@ def config_from_yaml(path: str, overrides: list[str] | None = None
         balanced_target_sampling=bool(get(cfg, "rl.balanced_target_sampling", False)),
         disturbance_probability=float(rand_params.get("probability", 0.0)),
         disturbance_magnitude=float(rand_params.get("magnitude", 0.0)),
+        dr=_dr_from_yaml(get(cfg, "rl.randomization_params.dr", {})),
+        adr=_adr_from_yaml(get(cfg, "rl.randomization_params.adr", {})),
         pointcloud_average_points=int(get(cfg, "pointclouds.average_num_points", 100)),
         pointcloud_max_points=int(get(cfg, "pointclouds.max_num_points", 128)),
         use_bin=bool(get(cfg, "objects.bin.enabled", False)),
@@ -162,12 +164,36 @@ def _cameras_from_yaml(block: dict) -> None:
     _not_ported(block, "env.cameras", "§1.5")
 
 
-def _dr_from_yaml(block: dict) -> None:
-    _not_ported(block, "rl.randomization_params.dr", "§1.2a")
+def _dr_from_yaml(block: dict) -> DRConfig:
+    """`rl.randomization_params.dr`: enabled unless it says otherwise when
+    not empty. Every key of a noise block is read as a float, as in the JAX
+    package, so `dist: uniform` there raises ValueError."""
+    if not block:
+        return DRConfig()
+
+    def noise(b):
+        return NoiseSpec(**{k: float(v) for k, v in (b or {}).items()})
+
+    return DRConfig(
+        enabled=bool(block.get("enabled", True)),
+        observation_noise=noise(block.get("observation_noise")),
+        action_noise=noise(block.get("action_noise")),
+        mass_scale_range=tuple(block.get("mass_scale_range", (1.0, 1.0))),
+        friction_scale_range=tuple(block.get("friction_scale_range", (1.0, 1.0))),
+        gain_scale_range=tuple(block.get("gain_scale_range", (1.0, 1.0))),
+        gravity_noise=float(block.get("gravity_noise", 0.0)),
+        schedule_steps=int(block.get("schedule_steps", 0)),
+    )
 
 
-def _adr_from_yaml(block: dict) -> None:
-    _not_ported(block, "rl.randomization_params.adr", "§1.2a")
+def _adr_from_yaml(block: dict) -> AdrConfig:
+    """`rl.randomization_params.adr`: AdrConfig fields (lists become tuples),
+    enabled unless it says otherwise when not empty."""
+    if not block:
+        return AdrConfig()
+    kw = {k: (tuple(v) if isinstance(v, list) else v) for k, v in block.items()}
+    kw.setdefault("enabled", True)
+    return AdrConfig(**kw)
 
 
 def _warn_unknown_yaml_keys(cfg: dict) -> None:

@@ -87,6 +87,28 @@ LSTM_LIFT = [
 ]
 
 
+# The domain randomization of IsaacGymEnvs' cfg/task/ShadowHand.yaml
+# (task.randomization_params), as `rl.randomization_params.dr` overrides of
+# Ur5SihMultiObjectManipulation's composition (`registry._dr_from_yaml`):
+# observations and actions gaussian additive (range 0.002 and 0.05,
+# range_correlated 0.001 and 0.015), gravity additive gaussian 0.4 (on z),
+# rigid-body mass scaled uniformly in [0.5, 1.5], rigid-shape friction in
+# [0.7, 1.3], dof stiffness (here kp and kd) in [0.75, 1.5]. Its schedule
+# lines are commented out there: no schedule. Add
+# `rl.randomization_params.adr.enabled=true` for ADR (AdrConfig's defaults,
+# DeXtreme's adr_vec_task.py) over these noise channels.
+DR_SHADOWHAND = [
+    "rl.randomization_params.dr.observation_noise.amount=0.002",
+    "rl.randomization_params.dr.observation_noise.correlated=0.001",
+    "rl.randomization_params.dr.action_noise.amount=0.05",
+    "rl.randomization_params.dr.action_noise.correlated=0.015",
+    "rl.randomization_params.dr.gravity_noise=0.4",
+    "rl.randomization_params.dr.mass_scale_range=[0.5,1.5]",
+    "rl.randomization_params.dr.friction_scale_range=[0.7,1.3]",
+    "rl.randomization_params.dr.gain_scale_range=[0.75,1.5]",
+]
+
+
 def _preset(name: str) -> tuple[HandArmConfig, dict]:
     if name not in TASKS:
         raise KeyError(f"unknown task {name!r} (ported: {sorted(TASKS)})")

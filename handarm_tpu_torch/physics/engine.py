@@ -11,6 +11,13 @@ kernel, with the contact set frozen at step start and depths advanced from
 the post-clamp normal velocity. The JAX package takes this fused form only
 on a TPU; here it is the only form, and on CPU tensors the kernels' plain
 versions run inside it.
+
+`EnvOverrides` carries the per-env physical parameters of domain
+randomization: PD gain scales (kp and kd, in the SPD inverse's matrices
+and every substep's PD torque), per-env gravity on the objects, and object
+mass and friction scales (in the solver prep, hence in the sweep kernel's
+planes and the robot effective masses). `step_exact` takes none: genesis
+builds its pose pool without randomization, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -90,6 +97,15 @@ class PhysicsState(NamedTuple):
     contact_impulse: torch.Tensor  # [B, C, 3] world frame, warm-start cache
 
 
+class EnvOverrides(NamedTuple):
+    """Per-env physical parameters over the scene's (None: the scene's)."""
+
+    gain_scale: torch.Tensor | None = None  # [B, nv] multiplies kp and kd
+    gravity: torch.Tensor | None = None  # [B, 3]
+    mass_scale: torch.Tensor | None = None  # [B, K] object mass multiplier
+    friction_scale: torch.Tensor | None = None  # [B] contact friction multiplier
+
+
 class StepInfo(NamedTuple):
     body_contact_force: torch.Tensor  # [B, nb, 3]
     obj_contact_force: torch.Tensor  # [B, K, 3]
@@ -122,6 +138,8 @@ class HeavyPrep(NamedTuple):
     bias_acc: torch.Tensor  # Mtilde^-1 bias
     fk0: FK
     contacts0: Contacts
+    kp: torch.Tensor  # [nv], or [B, nv] under a gain scale
+    kd: torch.Tensor
 
 
 def build_scene(art: Articulation, shapes: ObjectShapes, spheres: RobotSpheres,
@@ -155,24 +173,34 @@ def _base_pose(scene: Scene):
     return scene.base_quat[None], scene.base_pos[None]
 
 
-def compute_heavy(scene: Scene, state: PhysicsState) -> HeavyPrep:
+def _gravity(scene: Scene, ovr: EnvOverrides) -> torch.Tensor:
+    return scene.gravity if ovr.gravity is None else ovr.gravity
+
+
+def compute_heavy(scene: Scene, state: PhysicsState,
+                  ovr: EnvOverrides = EnvOverrides()) -> HeavyPrep:
     """Exact FK, dynamics (SPD-inverse kernel), contacts and solver prep at
-    the start of a control step."""
+    the start of a control step, under the overrides `ovr`."""
     m, p = scene.model, scene.params
     h = p.dt / p.substeps
     rob = state.robot
+    kp, kd = scene.kp, scene.kd
+    if ovr.gain_scale is not None:
+        kp, kd = kp[None] * ovr.gain_scale, kd[None] * ovr.gain_scale
     bq, bp = _base_pose(scene)
     fk0 = forward_kinematics(m, rob.q, bq, bp)
-    g_rob = scene.gravity if p.robot_gravity else torch.zeros_like(scene.gravity)
-    dyn = compute_dyn(m, fk0, rob.qd, g_rob, scene.kp, scene.kd, h)
+    gravity = _gravity(scene, ovr)
+    g_rob = gravity if p.robot_gravity else torch.zeros_like(gravity)
+    dyn = compute_dyn(m, fk0, rob.qd, g_rob, kp, kd, h)
     opos, oquat = state.objects.pos, state.objects.quat
     contacts0 = generate_contacts(scene.slots, scene.shapes, scene.spheres,
                                   scene.geom, opos, oquat, fk0.body_quat,
                                   fk0.body_pos)
     prep0 = prepare(m, fk0, dyn.Minv, scene.maps, scene.slots, contacts0,
-                    scene.shapes, opos, oquat, h, p.solver)
+                    scene.shapes, opos, oquat, h, p.solver,
+                    mass_scale=ovr.mass_scale, friction_scale=ovr.friction_scale)
     return HeavyPrep(dyn=dyn, prep=prep0, bias_acc=dyn.solve(dyn.bias),
-                     fk0=fk0, contacts0=contacts0)
+                     fk0=fk0, contacts0=contacts0, kp=kp, kd=kd)
 
 
 def step_exact(scene: Scene, state: PhysicsState):
@@ -228,12 +256,14 @@ def _clip(x, lim):
 
 
 def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep, fk0: FK,
-         contacts0: Contacts | None = None):
+         contacts0: Contacts | None = None, ovr: EnvOverrides = EnvOverrides()):
     """One sim step (dt) of `substeps` anchored substeps against `heavy`.
 
     `fk0` is this step's start kinematics: compute_heavy's exact FK for the
     first sim step of a control step (then `contacts0` may pass its contact
-    set), else the propagated FK the previous step returned. Returns
+    set), else the propagated FK the previous step returned. `ovr` must be
+    the overrides `heavy` was computed under: the gains and the scaled
+    masses and friction come from `heavy`, the gravity from `ovr`. Returns
     (state, info, fk_next)."""
     m, p = scene.model, scene.params
     h = p.dt / p.substeps
@@ -241,7 +271,8 @@ def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep, fk0: FK,
     rob = state.robot
     q, qd, targets = rob.q, rob.qd, rob.targets
     opos, oquat, olin, oang = state.objects
-    g_obj = scene.gravity
+    gravity = _gravity(scene, ovr)
+    g_obj = gravity if gravity.dim() == 1 else gravity[:, None, :]
     if contacts0 is None:
         contacts0 = generate_contacts(scene.slots, scene.shapes, scene.spheres,
                                       scene.geom, opos, oquat, fk0.body_quat,
@@ -264,7 +295,7 @@ def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep, fk0: FK,
                         max=sp.max_depenetration_vel),
             depth / h,
         )
-        tau = stable_pd_torque(q, qd, targets, scene.kp, scene.kd, h, m.effort_limit)
+        tau = stable_pd_torque(q, qd, targets, heavy.kp, heavy.kd, h, m.effort_limit)
         qd_free = qd - h * bias_acc + h * dyn.solve(tau)
         olin_free = olin * (1.0 - h * p.obj_linear_damping) + h * g_obj
         oang_free = oang * (1.0 - h * p.obj_angular_damping) + gyroscopic_delta(

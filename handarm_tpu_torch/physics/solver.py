@@ -206,7 +206,10 @@ class Prep:
 
 def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
             contacts: Contacts, shapes, obj_pos, obj_quat, h: float,
-            params: SolverParams) -> Prep:
+            params: SolverParams, mass_scale=None, friction_scale=None) -> Prep:
+    """The solver quantities of one control step. `mass_scale` [B, K]
+    divides each object's inverse mass and inverse inertia, `friction_scale`
+    [B] multiplies every slot's friction (domain randomization)."""
     B, C = contacts.depth.shape
     dtype = contacts.depth.dtype
     active = (contacts.depth > -params.speculative_margin).to(dtype)
@@ -239,6 +242,10 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
         r = contacts.pos - obj_pos[:, kidx]
         Iinv_c = Iinv_w[:, kidx]
         invm_c = shapes.inv_mass[kidx].expand(B, C)
+        if mass_scale is not None:
+            ms = mass_scale[:, kidx]  # [B, C]
+            invm_c = invm_c / ms
+            Iinv_c = Iinv_c / ms[..., None, None]
         cr = cross(r[:, :, None, :], basis)  # [B, C, 3(dir), 3]
         Icr = torch.sum(Iinv_c[:, :, None] * cr[:, :, :, None, :], dim=-1)
         d_obj = invm_c[..., None] + torch.sum(cr * Icr, dim=-1)
@@ -247,6 +254,8 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
 
     d_eff = torch.clamp(d_robot + d_obj_acc, min=1e-8)
     mu = torch.as_tensor(slots.friction, dtype=dtype, device=n.device)[None].expand(B, C)
+    if friction_scale is not None:
+        mu = mu * friction_scale[:, None]
     return Prep(
         active=active, basis=basis, inv_d=active[..., None] / d_eff,
         split=mass_split(active, maps),
@@ -258,7 +267,10 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
 
 def refresh_prep(prep: Prep, fk: FK, maps: SlotMaps, contacts: Contacts,
                  obj_pos, h: float, params: SolverParams) -> Prep:
-    """Fresh geometry against the frozen mass terms of `prep`."""
+    """Fresh geometry against the frozen mass terms of `prep`. The friction
+    `prep.mu` is kept: it depends on the slots and the per-episode friction
+    scale alone, so it equals the JAX package's re-multiplication by the
+    scale here."""
     dtype = contacts.depth.dtype
     active = (contacts.depth > -params.speculative_margin).to(dtype)
     n = contacts.normal

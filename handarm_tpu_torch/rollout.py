@@ -105,13 +105,15 @@ def launch_counts() -> dict:
     return {name: op.launches for name, op in KERNEL_OPS.items()}
 
 
-def make_task_env(task: str, envs: int | None, device, pool=None, **overrides):
+def make_task_env(task: str, envs: int | None, device, pool=None, compose=(), **overrides):
     """The task's env, composed as the entry points compose it
-    (`envs/registry.py` `resolve_task`), at `envs` envs (None: the
-    composed count); keyword overrides then replace config fields. A
-    drop-init task takes `pool` (a genesis.InitialPool) if given, else runs
-    genesis here (the pool is built once, before the first reset)."""
-    cfg, _ = resolve_task(task, [] if envs is None else [f"env.num_envs={envs}"])
+    (`envs/registry.py` `resolve_task`, with the `compose` overrides, such
+    as `envs.tasks.DR_SHADOWHAND`), at `envs` envs (None: the composed
+    count); keyword overrides then replace config fields. A drop-init task
+    takes `pool` (a genesis.InitialPool) if given, else runs genesis here
+    (the pool is built once, before the first reset)."""
+    cfg, _ = resolve_task(task, list(compose) + ([] if envs is None
+                                                  else [f"env.num_envs={envs}"]))
     env = HandArmEnv(dataclasses.replace(cfg, **overrides), device)
     if env.cfg.use_drop_init:
         if pool is not None:

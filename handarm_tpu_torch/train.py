@@ -30,8 +30,19 @@ for the MLP). As the root `train.py` resumes, the whole TrainState is
 restored: params, optimizer state, running stats, lr, epoch, and the env
 state, last observations, last teacher observations and LSTM carry the
 run stopped at (the env's random draws restart from `seed`); a file whose
-env or contact-slot count is not the run's keeps only its learner, and the
-env is reset fresh. The iteration count starts at the file's step.
+env or contact-slot count is not the run's, or whose env state was saved
+with other domain randomization or ADR settings (a file without DR resumed
+into a DR run), keeps only its learner, and the env is reset fresh. The JAX
+package's loader cannot do the last: it reads a file only into a tree of
+the same layout. The iteration count starts at the file's step.
+
+Domain randomization and ADR come through the composition as well, as
+`rl.randomization_params.dr.<key>=` and `rl.randomization_params.adr.<key>=`
+overrides of a full-config yaml; `envs.tasks.DR_SHADOWHAND` lists
+IsaacGymEnvs' ShadowHand randomization in that form:
+
+    python -m handarm_tpu_torch.train task=Ur5SihMultiObjectManipulation
+        env.num_envs=8192 <DR_SHADOWHAND> [rl.randomization_params.adr.enabled=true]
 
 The recurrent and asymmetric learners compose from `ppo.` overrides, as
 ShadowHandOpenAI_LSTM's on Ur5SihLift (the observables are listed in
@@ -59,11 +70,13 @@ import time
 import torch
 
 from handarm_tpu_torch import resolve_device
+from handarm_tpu_torch.convert import env_leaf_count
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
 from handarm_tpu_torch.envs.registry import resolve_task
 from handarm_tpu_torch.learn.ppo import PPO, PPOConfig, ppo_config
 from handarm_tpu_torch.utils.checkpoint import (
     checkpoint_step,
+    file_env_leaves,
     latest_checkpoint,
     load_train_state,
     save_checkpoint,
@@ -101,7 +114,7 @@ def resolved_config(top: dict, overrides: list[str], env_cfg: HandArmConfig,
     task, the overrides, the env config's plain fields and the PPO
     overrides (and the whole PPOConfig and the device)."""
     task = top.get("task", "Ur5SihLift")
-    plain = (int, float, str, bool, tuple, list)
+    plain = (int, float, str, bool, tuple, list, dict)  # dict: reward, dr, adr
     return {
         "task": task, "experiment": top.get("experiment", task),
         "seed": int(top.get("seed", 42)), "max_iterations": int(top.get("max_iterations", 1000)),
@@ -141,16 +154,21 @@ def main(argv: list[str]) -> None:
     start_it = 0
     path = latest_checkpoint(nn_dir) if resume == "auto" else resume
     if path:
-        ck = load_train_state(path, dev, cfg=cfg)
-        same = (ck.last_obs.shape == ts.last_obs.shape and
-                ck.env_state.physics.contact_impulse.shape
-                == ts.env_state.physics.contact_impulse.shape)
+        if file_env_leaves(path, cfg) == env_leaf_count(env_cfg):
+            ck = load_train_state(path, dev, cfg=cfg, env_cfg=env_cfg)
+            same = (ck.last_obs.shape == ts.last_obs.shape and
+                    ck.env_state.physics.contact_impulse.shape
+                    == ts.env_state.physics.contact_impulse.shape)
+        else:  # its env state has another DR / ADR layout
+            ck = load_train_state(path, dev, ts.env_state, ts.last_obs, cfg=cfg)
+            same = False
         ts = ck if same else ck._replace(env_state=ts.env_state, last_obs=ts.last_obs,
                                          last_teacher_obs=ts.last_teacher_obs,
                                          hidden=ts.hidden)
         start_it = checkpoint_step(path)
         print(f"resumed from {path} at iter {start_it}"
-              + ("" if same else " (its env state is another size: the env is reset fresh)"),
+              + ("" if same else " (its env state is another size or layout: the env is reset "
+                                   "fresh)"),
               flush=True)
 
     steps_per_iter = env.cfg.num_envs * cfg.horizon
@@ -189,17 +207,20 @@ def main(argv: list[str]) -> None:
         if it % 10 == 0 or it == max_iterations - 1:
             report(it, stats)
         if (it + 1) % save_every == 0:
-            save_checkpoint(nn_dir, ts_at_loop_it, step=it + 1, seed=seed, cfg=cfg)
+            save_checkpoint(nn_dir, ts_at_loop_it, step=it + 1, seed=seed, cfg=cfg,
+                            env_cfg=env_cfg)
         if it > 50 and stats["reward_mean"] > best_reward and it - last_best_it >= 25:
             best_reward, last_best_it = stats["reward_mean"], it
-            save_checkpoint(nn_dir, ts_at_loop_it, step=0, name="best", seed=seed, cfg=cfg)
+            save_checkpoint(nn_dir, ts_at_loop_it, step=0, name="best", seed=seed, cfg=cfg,
+                            env_cfg=env_cfg)
     if pending is not None:
         it, stats = drain(time.time())
         logger.log(it, stats)
         report(it, stats)
     print(f"done in {time.time() - t_start:.0f}s", flush=True)
     logger.close()
-    save_checkpoint(nn_dir, ts, step=max_iterations, seed=seed, sync=True, cfg=cfg)
+    save_checkpoint(nn_dir, ts, step=max_iterations, seed=seed, sync=True, cfg=cfg,
+                    env_cfg=env_cfg)
 
 
 if __name__ == "__main__":

@@ -30,6 +30,12 @@ Leaf dtypes: float32 but for the int32 optax counters, the bool
 epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 69).
 
+An env with domain randomization or ADR has 6 more env-state leaves for
+each, after the step count (the DRState; the AdrState with its int32
+`worker_mode`): 30 or 36 in all, and every later leaf moves up by as many.
+The leaf count does not tell DR from ADR, so the reader takes the env's
+HandArmConfig (`env_cfg`) and refuses a file of another layout.
+
 A distilled student is written as the JAX package's `train_distill.py`
 writes it: `student.npz` with one array per parameter, keys "0", "1", ...
 in flax order (`read_student`, `save_student`).
@@ -50,7 +56,10 @@ import torch
 
 from handarm_tpu_torch.convert import (
     N_ENV_LEAVES,
+    N_RAND_LEAVES,
+    env_leaf_count,
     env_state_from_leaves,
+    extra_leaf_count,
     learner_leaf_count,
     params_from_leaves,
     params_to_leaves,
@@ -140,13 +149,15 @@ def wait_for_pending_saves() -> None:
 
 
 def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int = 0,
-                    sync: bool = False, cfg=None) -> str:
+                    sync: bool = False, cfg=None, env_cfg=None) -> str:
     """Write a PPO TrainState as `<dirpath>/<name>_<step>.npz` (uncompressed;
     71 leaves for the 768-512-256 MLP). The PRNG-key leaves hold `seed`'s
-    key. `cfg`: the PPOConfig of an asymmetric or recurrent learner."""
+    key. `cfg`: the PPOConfig of an asymmetric or recurrent learner;
+    `env_cfg`: the env's HandArmConfig, whose DR and ADR states the env
+    state must hold (without it, those it holds are written)."""
     global _writer
     os.makedirs(dirpath, exist_ok=True)
-    leaves = train_state_to_leaves(ts, seed, cfg)  # the host copy happens here
+    leaves = train_state_to_leaves(ts, seed, cfg, env_cfg)  # the host copy happens here
     path = os.path.join(dirpath, f"{name}_{step}.npz")
 
     def write():
@@ -166,23 +177,39 @@ def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int =
     return path
 
 
-def load_train_state(path: str, device="cpu", env_state=None, last_obs=None, cfg=None):
+def file_env_leaves(path: str, cfg=None) -> int:
+    """The env-state leaves of a PPO checkpoint of the learner `cfg` (the
+    PPOConfig; None: an MLP ActorCritic): 24, 30 or 36."""
+    with np.load(path, allow_pickle=False) as data:
+        n = len(data.files)
+        P = (2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), n) + 5 if cfg is None
+             else len(param_names(cfg)))
+    n_env = n - learner_leaf_count(P) - 3 - extra_leaf_count(cfg)
+    if n_env not in (N_ENV_LEAVES + N_RAND_LEAVES * k for k in range(3)):
+        raise ValueError(f"{path}: {n} leaves are not a PPO TrainState of this learner")
+    return n_env
+
+
+def load_train_state(path: str, device="cpu", env_state=None, last_obs=None, cfg=None,
+                     env_cfg=None):
     """A whole PPO checkpoint as the port's TrainState; the given env state
-    and observations replace the checkpoint's own. `cfg`: the PPOConfig of
-    an asymmetric or recurrent learner (without it, an MLP ActorCritic:
-    another layout raises NotImplementedError)."""
+    and observations replace the checkpoint's own (then its env state may
+    have any layout). `cfg`: the PPOConfig of an asymmetric or recurrent
+    learner (without it, an MLP ActorCritic: another layout raises
+    NotImplementedError). `env_cfg`: the HandArmConfig of the env the state
+    is read for (None: without DR and ADR); a file whose env state has
+    another layout raises ValueError."""
     wait_for_pending_saves()
-    if cfg is None:
-        with np.load(path, allow_pickle=False) as data:
-            P = 2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), len(data.files)) + 5
-    else:
-        P = len(param_names(cfg))
+    n_env = file_env_leaves(path, cfg)
     leaves = read_leaves(path)
     if env_state is None:
-        lo = learner_leaf_count(P)
-        env_state = env_state_from_leaves(leaves[lo:lo + N_ENV_LEAVES], device)
-        last_obs = torch.tensor(leaves[lo + N_ENV_LEAVES], dtype=torch.float32, device=device)
-    return train_state_from_leaves(leaves, env_state, last_obs, device, cfg)
+        if n_env != env_leaf_count(env_cfg):
+            raise ValueError(f"{path}: its env state has {n_env} leaves, this env's "
+                             f"{env_leaf_count(env_cfg)} (domain randomization or ADR differ)")
+        lo = len(leaves) - n_env - 3 - extra_leaf_count(cfg)  # where the env state starts
+        env_state = env_state_from_leaves(leaves[lo:lo + n_env], device, env_cfg)
+        last_obs = torch.tensor(leaves[lo + n_env], dtype=torch.float32, device=device)
+    return train_state_from_leaves(leaves, env_state, last_obs, device, cfg, n_env)
 
 
 def latest_checkpoint(dirpath: str) -> str | None:

@@ -18,7 +18,10 @@ import os
 import pytest
 
 from handarm_tpu_torch.envs import registry as treg
+from handarm_tpu_torch.envs.adr import AdrConfig
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig
+from handarm_tpu_torch.envs.randomization import DRConfig, NoiseSpec
+from handarm_tpu_torch.envs.tasks import DR_SHADOWHAND
 from handarm_tpu_torch.learn.ppo import PPOConfig, ppo_config
 from handarm_tpu_torch.utils import config as tconfig
 
@@ -41,6 +44,9 @@ ERRORS = {
     "rl key on a preset yaml": ("Ur5SihLift", ["rl.goal=throw"], KeyError),
     "unknown field": ("Ur5SihReach", ["env.num_env=8"], KeyError),
     "unknown task": ("Ur5SihJuggle", [], KeyError),
+    # every key of a DR noise block is read as a float
+    "uniform noise dist": (FULL, ["rl.randomization_params.dr.observation_noise.dist=uniform"],
+                           ValueError),
 }
 
 
@@ -135,14 +141,13 @@ def test_compose_errors_match(case, jax_compose):
 REFUSED = {
     "engine option": ("Ur5SihLift", ["carry_fk=false"], "carry_fk"),
     "collision set": ("Ur5SihLift", ["hand_only_collision=false"], "hand_only_collision"),
-    "domain randomization": (FULL, ["rl.randomization_params.dr.enabled=true"], "dr"),
-    "adaptive randomization": (FULL, ["rl.randomization_params.adr.enabled=true"], "adr"),
     "cameras": (FULL, ["env.cameras.top.width=64"], "cameras"),
     "robot": (FULL, ["robot=stretch"], "robot"),
 }
 
 
-# refused until the point clouds and teacher observations were ported;
+# refused until the point clouds and teacher observations, the recurrent
+# and asymmetric learner, and domain randomization and ADR were ported;
 # each now composes as the JAX package composes it
 RETIRED = {
     "teacher observations": ("Ur5SihLift", ["teacher_observations=[dof_pos]"],
@@ -156,6 +161,18 @@ RETIRED = {
     "asymmetric critic": ("Ur5SihLift", ["teacher_observations=[dof_pos]",
                                          "ppo.asymmetric_critic=true",
                                          "ppo.critic_rnn_units=512"], "asymmetric_critic", True),
+    "domain randomization": (FULL, ["rl.randomization_params.dr.enabled=true"], "dr",
+                             DRConfig(enabled=True)),
+    "adaptive randomization": (FULL, ["rl.randomization_params.adr.enabled=true"], "adr",
+                               AdrConfig(enabled=True)),
+    # IsaacGymEnvs' ShadowHand randomization with ADR over it
+    "ShadowHand DR with ADR": (FULL, DR_SHADOWHAND + ["rl.randomization_params.adr.enabled=true"],
+                               "dr", DRConfig(
+                                   enabled=True,
+                                   observation_noise=NoiseSpec(amount=0.002, correlated=0.001),
+                                   action_noise=NoiseSpec(amount=0.05, correlated=0.015),
+                                   mass_scale_range=(0.5, 1.5), friction_scale_range=(0.7, 1.3),
+                                   gain_scale_range=(0.75, 1.5), gravity_noise=0.4)),
 }
 
 
@@ -173,6 +190,8 @@ def test_retired_refusals_compose_equal(case, jax_compose):
         assert type(got[k]) is type(want[k]) and got[k] == want[k], (k, got[k], want[k])
     owner = tcfg if name in got else ppo_config(tppo)
     assert getattr(owner, name) == value and tppo == jppo
+    if name == "dr" and "adr" in case:  # ADR on, at its defaults (DeXtreme's)
+        assert tcfg.adr == AdrConfig(enabled=True) and tcfg.adr.queue_len == 256
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))

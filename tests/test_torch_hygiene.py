@@ -53,7 +53,7 @@ def test_modules_import_without_cuda():
     for name in names:
         importlib.import_module(name)
     for mod in ("ops.contact_sweep", "ops.spd_inverse", "ops.sdf_gather", "ops.prep_deff",
-                "physics.sdf", "envs.objects", "envs.genesis", "envs.registry",
+                "physics.sdf", "envs.objects", "envs.genesis", "envs.registry", "envs.adr",
                 "envs.randomization", "utils.config", "envs.pointcloud", "learn.distill",
                 "train_distill"):
         assert f"handarm_tpu_torch.{mod}" in names
