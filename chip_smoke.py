@@ -16,7 +16,9 @@ Phases, each with a deadline and one flushed progress line:
   4. kernels   spd_inverse and contact_sweep against their plain PyTorch
                versions on inputs captured from that rollout, then timed.
                The sweep also runs a dense case (every slot made active, all
-               link groups and object bins carrying impulses); two launches
+               link groups and object bins carrying impulses) and a robot
+               case (only the robot's slots active, 2 sweeps: every link
+               group carrying impulses at an ordinary scale); two launches
                of each kernel on the same inputs must be bit-identical.
   5. cpu-ref   16 envs of that rollout picked for robot-object impulses,
                at the step (the last timed one or one of 20 more, untimed)
@@ -210,6 +212,47 @@ Phases, each with a deadline and one flushed progress line:
                ckpt_2701.npz with 36 env leaves (83 in all); the port's
                reader reads it with the run's config, and refuses it given
                the config without DR. (Run after phase 15.)
+ 28. engine-env  Ur5SihMultiObjectManipulation as `train.py` composes it
+               (16 sweeps) at 8192 envs on the multiobj phase's pool, with
+               ckpt_2700's policy, under each engine option alone:
+               `heavy_prep_per_control=False` (dynamics and prep every sim
+               step), `carry_fk=False` (exact FK and contacts every sim
+               step) and `hand_only_collision=False` (the arm's spheres
+               too: 456 slots). One warm-up and 5 timed control steps each
+               (env-steps/s); every state leaf finite; launches per control
+               step exactly spd_inverse / contact_sweep / prep_deff /
+               sdf_gather 3 / 6 / 3 / 3, 1 / 6 / 1 / 4 and 1 / 6 / 1 / 3.
+               (Run after phase 8.)
+ 29. engine-api  `engine.step` on that scene at 8192 envs from the exact-FK
+               run's state, 3 sim steps with `SimParams(substep_contacts=
+               True)` (launches 3 / 6 / 3 / 9: every solve through
+               `solve_prepared`, the sweep with apply_warm=False), then 3
+               with `shared_prep=False` (`engine.substep`: 6 / 6 / 6 / 6);
+               every state leaf finite.
+ 30. engine-kernels  as phase 7 (tolerances, bit-identical launches,
+               times): the sweep kernel with apply_warm=False on the
+               substep_contacts run's last solve, and the sweep and
+               prep_deff at the arm-sphere slot groups (17 dof masks, 456
+               slots) on the second control step of the arm-sphere scene
+               with the table's edge off the mount (phase 31's), at 8192
+               envs: the composed scene's shoulder impulses (~4e9) would
+               make 1e-4 of scale meaningless; the captured impulses must
+               stay under 1e3.
+ 31. engine-ref  from multiobj-ref's 16 envs: 2 control steps under each
+               option on the card and on the CPU at phase 8's bounds (the
+               arm-sphere scene with the table's edge moved off the mount
+               on both sides: at the mount its shoulder spheres have zero
+               effective mass and impulses past 1e9); then one sim step of
+               `substep`, of `substep_contacts`, of restitution 0.8 and of
+               Gauss-Seidel (`mode="gs"`, a Python loop over the slots: at
+               16 envs only), q and positions within 2e-4, velocities 2e-3.
+ 32. engine-entry  `python -m handarm_tpu_torch.train task=Ur5SihLift
+               num_envs=8192 heavy_prep_per_control=false carry_fk=false
+               hand_only_collision=false max_iterations=1` in its own
+               process must write ckpt_1.npz (190 contact slots), and a
+               second process with `max_iterations=2 resume=auto` must
+               resume it, env state included, and write ckpt_2.npz. (Run
+               after phase 27.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -217,7 +260,9 @@ the training phases' numbers under "train", "multiobj_train", "family"
 and "distill", and the evaluations' under "eval", "multiobj_eval" and
 "distill" -> "eval", the recurrent learner's under "rnn", domain
 randomization's and ADR's under "dr" (and each kernel's dr-kernels numbers
-under its "dr" key in "kernels"); the last line
+under its "dr" key in "kernels"), the engine phases' under "engine" (and
+each kernel's launches on those paths and engine-kernels numbers under its
+"engine" key in "kernels"); the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
 """
@@ -244,7 +289,8 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "multiobj-entry": 480, "distill-train": 360, "distill-eval": 300,
                     "distill-entry": 360, "rnn-train": 360, "rnn-serve": 240, "rnn-entry": 330,
                     "dr-train": 300, "dr-kernels": 240, "dr-ref": 300, "adr": 240,
-                    "dr-entry": 480}
+                    "dr-entry": 480, "engine-env": 300, "engine-api": 180,
+                    "engine-kernels": 240, "engine-ref": 300, "engine-entry": 330}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -495,18 +541,18 @@ def check_sweep(sweep_op, captured, maps, tag):
      signs, iters, omega) = args
     warm = kw.get("apply_warm", True)
 
-    def compare(P, bs, case):
-        cuda_args = (P, bs, screws, qd, minv2, obj, lam0, groups, obj_idx, signs, iters,
-                     omega, warm)
-        plain_args = (P, bs, screws, qd, minv2, obj, lam0, anc, obj_idx, signs, iters,
-                      omega, warm)
+    def compare(P, bs, case, n=iters):
+        cuda_args = (P, bs, screws, qd, minv2, obj, lam0, groups, obj_idx, signs, n, omega,
+                     warm)
+        plain_args = (P, bs, screws, qd, minv2, obj, lam0, anc, obj_idx, signs, n, omega,
+                      warm)
         got = sweep_op.contact_sweep_cuda(*cuda_args)
         want = sweep_op.contact_sweep_plain(*plain_args)
         torch.cuda.synchronize()
-        errs = {}
+        errs, scales = {}, {}
         for name, g, w in zip(("qd", "obj", "lam"), got, want):
             e, sc = max_err(g, w)
-            errs[name] = e
+            errs[name], scales[name] = e, sc
             log(f"contact_sweep ({tag}, {case}): {name} max|kernel-plain| {e:.3e} (scale {sc:.3e})")
             # 8 (lift) or 16 (multi-object) Jacobi sweeps in float32 with
             # the slot sums taken in another order: 1e-4 of this output's
@@ -514,9 +560,9 @@ def check_sweep(sweep_op, captured, maps, tag):
             if not e <= 1e-4 * sc:
                 raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, {case})")
         bitwise(lambda: sweep_op.contact_sweep_cuda(*cuda_args), f"contact_sweep ({tag}, {case})")
-        return got, errs, cuda_args, plain_args
+        return got, errs, scales, cuda_args, plain_args
 
-    got, errs, cuda_args, plain_args = compare(planes, bias, "captured")
+    got, errs, scales, cuda_args, plain_args = compare(planes, bias, "captured")
     gate = sweep_op.BASE["gate"]
     active = int((planes[gate] > 0).sum())
     robot_active = int(((planes[gate] > 0) & (groups.slot_link[None] >= 0)).sum())
@@ -529,11 +575,12 @@ def check_sweep(sweep_op, captured, maps, tag):
     act = planes[gate] > 0
     dense = planes.clone()
     dense[gate] = mass_split(torch.ones_like(planes[gate]), maps)
-    for k in sweep_op.BASE["inv_d"]:
-        med = dense[k][act].median() if bool(act.any()) else dense.new_tensor(1.0)
+    meds = {k: dense[k][act].median() if bool(act.any()) else dense.new_tensor(1.0)
+            for k in sweep_op.BASE["inv_d"]}
+    for k, med in meds.items():
         dense[k] = torch.where(act, dense[k], med)
     dense_bias = torch.where(act, bias, torch.full_like(bias, 0.1))
-    dgot, derrs, _, _ = compare(dense, dense_bias, "dense")
+    dgot, derrs, _, _, _ = compare(dense, dense_bias, "dense")
     pushed = int((dgot[2].abs().sum(0) > 0).sum())
     lg, ln, ob, on = sweep_groups_pushed(dgot[2], groups)
     log(f"contact_sweep ({tag}, dense): slots with gate > 0: {int((dense[gate] > 0).sum())}, "
@@ -541,6 +588,22 @@ def check_sweep(sweep_op, captured, maps, tag):
         f"{lg} of {ln}, object bins {ob} of {on}")
     if lg < ln or ob < on:
         raise AssertionError(f"contact_sweep dense case left a group without impulses ({tag})")
+    # robot case: only the robot's slots active, each with its mass split,
+    # that median effective mass and that bias, over 2 sweeps (the dense
+    # case's coupled slots overshoot over many, to scales where 1e-4 of
+    # the largest value hides a slot): every link group at an ordinary scale
+    on_robot = (groups.slot_link >= 0)[None].expand_as(act)
+    robot = planes.clone()
+    robot[gate] = mass_split(on_robot.to(planes.dtype), maps)
+    for k, med in meds.items():
+        robot[k] = torch.full_like(robot[k], float(med))
+    rgot, rerrs, rscales, _, _ = compare(robot, torch.full_like(bias, 0.1), "robot", 2)
+    rlg, _, _, _ = sweep_groups_pushed(rgot[2], groups)
+    log(f"contact_sweep ({tag}, robot): {int(on_robot[0].sum())} robot slots active over 2 "
+        f"sweeps; link groups with impulses {rlg} of {ln}")
+    if rlg < ln:
+        raise AssertionError(f"contact_sweep robot case left a link group without impulses "
+                             f"({tag})")
     B, C, nv, K = planes.shape[1], planes.shape[2], qd.shape[1], obj.shape[2]
     launch = sweep_op.launch_info(C, nv, K, len(signs), groups)
     log(f"contact_sweep ({tag}): blocks of {launch['threads']} threads, "
@@ -550,9 +613,10 @@ def check_sweep(sweep_op, captured, maps, tag):
     t_b, by = bound_ms(nbytes(planes, bias, screws, qd, minv2, obj, lam0, obj_idx, *groups)
                        + nbytes(*got), flops)
     return dict(
-        max_abs_err=max(errs.values()), bitwise=True, launch=launch,
+        max_abs_err=max(errs.values()), scale=scales, bitwise=True, launch=launch,
         dense=dict(max_abs_err=max(derrs.values()), slots_pushed=pushed,
                    link_groups_pushed=lg, object_bins_pushed=ob),
+        robot=dict(max_abs_err=max(rerrs.values()), scale=rscales, link_groups_pushed=rlg),
         **kernel_times(lambda: sweep_op.contact_sweep_cuda(*cuda_args), 50),
         plain_ms=cuda_time_ms(lambda: sweep_op.contact_sweep_plain(*plain_args), 10),
         bound_ms=t_b, bound_by=by, library_ms=None,
@@ -742,6 +806,34 @@ def card_vs_cpu(env_c, env_g, st_c, obs_c, policy_c, dev, tag: str, need=(), dra
         raise AssertionError(f"the card's run disagrees with the CPU reference ({tag})")
     if not bool(torch.isfinite(res_g.obs).all()) or res_g.obs.shape != (small, env_g.num_obs):
         raise AssertionError(f"bad observations from the card ({tag})")
+    return dict(active_slots=counts, obs_err=err, q_err=q_err, pos_err=p_err)
+
+
+@contextlib.contextmanager
+def deff_at_any_size():
+    """The deff kernel at any B * C on the card while inside (the solver's
+    threshold lowered to 0; on the CPU the chain runs, in the prep dtype)."""
+    from handarm_tpu_torch.physics import solver
+
+    threshold = solver.DEFF_KERNEL_MIN_BC
+    solver.DEFF_KERNEL_MIN_BC = 0
+    try:
+        yield
+    finally:
+        solver.DEFF_KERNEL_MIN_BC = threshold
+
+
+def small_multi_env(rollout, d, pool16, compose=(), **over):
+    """The composed multi-object task at 16 envs on device `d` for a card
+    vs CPU comparison: the genesis pool's first 16 envs (should an env
+    reset), no disturbance draws, float32 solver prep (with
+    `deff_at_any_size` the CPU's chain then computes the deff kernel's
+    plain version), `over` replacing config fields."""
+    from handarm_tpu_torch.envs import genesis
+
+    return rollout.make_task_env(MULTI_TASK, 16, d, pool=genesis.InitialPool(
+        pool16.pos.to(d), pool16.quat.to(d)), compose=compose, randomize=False,
+        solver_prep_dtype="f32", **over)
 
 
 def contact_scores(slots, state):
@@ -2054,24 +2146,16 @@ def dr_ref_phase(rollout, dev, env, ts, pool) -> dict:
     if min(distinct) < 2:
         raise AssertionError("dr-ref: an object has one mass scale in the compared envs")
     small = genesis.InitialPool(pool.pos[:, :16].cpu(), pool.quat[:, :16].cpu())
-
-    def make(d):
-        # as multiobj-ref, with ShadowHand's DR
-        e = rollout.make_task_env(MULTI_TASK, 16, d, pool=genesis.InitialPool(
-            small.pos.to(d), small.quat.to(d)), compose=DR_SHADOWHAND, randomize=False)
-        p = e.scene.params
-        e.scene = dataclasses.replace(e.scene, params=p._replace(
-            solver=p.solver._replace(jacobi_impl="pallas")))
-        return e
-
-    env_c = make("cpu")
+    # as multiobj-ref, with ShadowHand's DR
+    env_c = small_multi_env(rollout, "cpu", small, DR_SHADOWHAND)
     rng = np.random.default_rng(5)
     f = lambda *shape: torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
     draws = [StepDraws(act_noise=f(16, env_c.num_actions), obs_noise=f(16, env_c.num_obs))
              for _ in range(2)]
-    card_vs_cpu(env_c, make(dev), ref_state, ref_obs,
-                rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu"), dev, "dr-ref",
-                need=("robot-object", "object-pair"), draws=draws)
+    with deff_at_any_size():
+        card_vs_cpu(env_c, small_multi_env(rollout, dev, small, DR_SHADOWHAND), ref_state,
+                    ref_obs, rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu"), dev,
+                    "dr-ref", need=("robot-object", "object-pair"), draws=draws)
     return dict(envs=16, control_steps=2, distinct_mass_scales=distinct)
 
 
@@ -2176,6 +2260,250 @@ def dr_entry_phase(rollout) -> dict:
     log(f"dr entry point: {out} holds 36 env leaves, epoch {int(ts.epoch)}; ADR lo "
         f"{task.adr.lo.tolist()} hi {task.adr.hi.tolist()}")
     return dict(rec, env_leaves=36)
+
+
+# the engine's other cadences and collision set (phases 28-32)
+ENGINE_OPTIONS = {
+    "heavy every sim step": dict(heavy_prep_per_control=False),
+    "exact FK": dict(carry_fk=False),
+    "arm spheres": dict(hand_only_collision=False),
+}
+# launches per control step (3 sim steps x 2 substeps; sdf_gather once per
+# contact generation): the mass structure every sim step; exact FK and
+# contacts every sim step against compute_heavy's (whose own contact set
+# feeds its prep: 1 + 3); the default cadence on the arm's 456 slots
+ENGINE_PER_STEP = {
+    "heavy every sim step": {"spd_inverse": 3, "contact_sweep": 6, "prep_deff": 3,
+                             "sdf_gather": 3},
+    "exact FK": {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gather": 4},
+    "arm spheres": {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gather": 3},
+}
+ENGINE_STEPS = 5  # timed control steps per option, after one warm-up step
+ENGINE_API_SIM_STEPS = 3
+# launches over those 3 sim steps: substep_contacts (dynamics and prep at
+# each step's start, contacts at its start and every substep), substep
+# (everything every substep)
+ENGINE_API_LAUNCHES = {
+    "substep contacts": {"spd_inverse": 3, "contact_sweep": 6, "prep_deff": 3,
+                         "sdf_gather": 9},
+    "substep": {"spd_inverse": 6, "contact_sweep": 6, "prep_deff": 6, "sdf_gather": 6},
+}
+# the composed arm-sphere scene's shoulder spheres sit in the table at the
+# mount with zero effective mass (tests/test_torch_engine_lift.py): its
+# card-vs-CPU comparison moves the table's edge off the mount on both sides
+ARM_TABLE_LO = (-0.5, 0.15)
+ENGINE_ENTRY = ["task=Ur5SihLift", f"num_envs={ENVS}", "heavy_prep_per_control=false",
+                "carry_fk=false", "hand_only_collision=false", "experiment=chip_smoke_engine",
+                "seed=1"]
+
+
+def engine_env_phase(rollout, dev, pool, policy) -> tuple:
+    """Phase 28 (see the module docstring). Returns (record, the exact-FK
+    run's env and final state)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    recs = {}
+    for name, over in ENGINE_OPTIONS.items():
+        env = rollout.make_task_env(MULTI_TASK, ENVS, dev, pool=pool, **over)
+        C = env.scene.slots.num_slots
+        state, obs = env.reset(0)
+        state, obs, _, _ = rollout.forward_step(env, policy, state, obs)
+        torch.cuda.synchronize()
+        rollout.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(ENGINE_STEPS):
+            state, obs, reward, _ = rollout.forward_step(env, policy, state, obs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = rollout.launch_counts()
+        finite_state(tree_map, state, obs)
+        per = {k: v / ENGINE_STEPS for k, v in counts.items()}
+        rate = ENVS * ENGINE_STEPS / seconds
+        log(f"engine-env {name}: {MULTI_TASK} with {over}, {ENVS} envs, C = {C} slots, "
+            f"{env.cfg.solver_iterations} sweeps: {ENGINE_STEPS} control steps in {seconds:.3f} s "
+            f"= {rate:.0f} env-steps/s; launches per control step {per} (predicted "
+            f"{ENGINE_PER_STEP[name]}); mean reward {float(reward.mean()):.4f}; every state "
+            f"leaf finite")
+        if counts != {k: ENGINE_STEPS * v for k, v in ENGINE_PER_STEP[name].items()}:
+            raise AssertionError(f"engine-env {name}: launches {counts}, expected "
+                                 f"{ENGINE_STEPS} x {ENGINE_PER_STEP[name]}")
+        recs[name] = dict(overrides=over, slots=C, control_steps=ENGINE_STEPS, seconds=seconds,
+                          env_steps_per_s=rate, launches=counts,
+                          launches_per_control_step=ENGINE_PER_STEP[name])
+        if name == "exact FK":
+            exact = (env, state)
+        del env, state, obs
+        torch.cuda.empty_cache()
+    return recs, exact
+
+
+def engine_api_phase(rollout, dev, run, ops) -> tuple:
+    """Phase 29 (see the module docstring). Returns (record, the kernels'
+    calls of the last substep_contacts sim step)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.physics import engine as te
+
+    env, state = run
+    sc = env.scene
+    recs, calls = {}, None
+    for name, (sub, shared) in (("substep contacts", (True, True)), ("substep", (False, False))):
+        s = dataclasses.replace(sc, params=sc.params._replace(substep_contacts=sub))
+        ph = state.physics
+        with Capture(ops, last_only=True) as cap:
+            rollout.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(ENGINE_API_SIM_STEPS):
+                cap.armed = i == ENGINE_API_SIM_STEPS - 1
+                ph, info = te.step(s, ph, shared_prep=shared)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = rollout.launch_counts()
+        finite_state(tree_map, ph, info.max_penetration)
+        log(f"engine-api {name}: engine.step(scene, state{'' if shared else ', shared_prep=False'})"
+            f" with substep_contacts={sub}, {ENVS} envs, {ENGINE_API_SIM_STEPS} sim steps in "
+            f"{seconds:.3f} s; launches {counts} (predicted {ENGINE_API_LAUNCHES[name]}); max "
+            f"penetration {float(info.max_penetration.max()):.4f} m; every state leaf finite")
+        if counts != ENGINE_API_LAUNCHES[name]:
+            raise AssertionError(f"engine-api {name}: launches {counts}, expected "
+                                 f"{ENGINE_API_LAUNCHES[name]}")
+        recs[name] = dict(sim_steps=ENGINE_API_SIM_STEPS, seconds=seconds, launches=counts)
+        if sub:
+            calls = cap.calls
+            if calls["sweep"][0][1].get("apply_warm", True):
+                raise AssertionError("engine-api: the substep solve did not pre-apply its warm "
+                                     "start (apply_warm=False)")
+    return recs, calls
+
+
+def engine_kernels_phase(rollout, dev, pool, policy, ops, api_calls, api_maps) -> dict:
+    """Phase 30 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import prep_deff as deff_op
+
+    # the arm's groups on inputs from the arm-sphere scene with the table's
+    # edge off the mount: in the composed one the shoulder's table slots
+    # carry impulses ~4e9, and 1e-4 of that scale would pass any error on
+    # the other slots
+    env = rollout.make_task_env(MULTI_TASK, ENVS, dev, pool=pool, hand_only_collision=False,
+                                table_lo=ARM_TABLE_LO)
+    state, obs = env.reset(0)
+    state, obs, _, _ = rollout.forward_step(env, policy, state, obs)
+    with Capture(ops, last_only=True) as cap:
+        cap.armed = True
+        state, obs, _, _ = rollout.forward_step(env, policy, state, obs)
+    torch.cuda.synchronize()
+    arm = env.scene.maps
+    out = {"contact_sweep": {}, "prep_deff": {}}
+    out["contact_sweep"]["apply_warm_false"] = check_sweep(
+        sweep_op, api_calls["sweep"][0], api_maps, "engine, apply_warm=False")
+    out["contact_sweep"]["arm"] = rec = check_sweep(sweep_op, cap.calls["sweep"][0], arm,
+                                                    "engine, arm")
+    # an ordinary contact's impulse per substep is well under 1 N s
+    if not rec["scale"]["lam"] < 1e3:
+        raise AssertionError(f"engine-kernels: the arm scene's impulses reach "
+                             f"{rec['scale']['lam']:.3e}: a degenerate contact")
+    out["prep_deff"]["arm"] = check_deff(deff_op, cap.calls["deff"][0][0])
+    log(f"engine-kernels: arm-sphere slot groups: {arm.groups.link_bits.shape[0]} dof masks "
+        f"(at most {sweep_op.MAX_LINKS}), C = {arm.anc_slot.shape[0]} (at most 1024)")
+    return out
+
+
+def engine_ref_phase(rollout, dev, ref_state, ref_obs, pool16) -> dict:
+    """Phase 31 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.physics import engine as te
+
+    policy_c = rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu")
+    out = {}
+    with deff_at_any_size():
+        for name, over in ENGINE_OPTIONS.items():
+            over = dict(over, table_lo=ARM_TABLE_LO) if name == "arm spheres" else over
+            env_c = small_multi_env(rollout, "cpu", pool16, **over)
+            st = ref_state
+            C = env_c.scene.slots.num_slots
+            if C != st.physics.contact_impulse.shape[1]:
+                st = st._replace(physics=st.physics._replace(
+                    contact_impulse=torch.zeros(16, C, 3)))
+            out[name] = card_vs_cpu(env_c, small_multi_env(rollout, dev, pool16, **over), st,
+                                    ref_obs, policy_c, dev, f"engine-ref {name}",
+                                    need=("robot-object",))
+        env_c = small_multi_env(rollout, "cpu", pool16)
+        env_g = small_multi_env(rollout, dev, pool16)
+        sp = env_c.scene.params
+        for name, params, shared in (
+                ("substep", sp, False),
+                ("substep contacts", sp._replace(substep_contacts=True), True),
+                ("restitution 0.8", sp._replace(solver=sp.solver._replace(restitution=0.8)), True),
+                ("gs", sp._replace(solver=sp.solver._replace(mode="gs")), True)):
+            ph_c = ref_state.physics
+            t0 = time.perf_counter()
+            got, _ = te.step(dataclasses.replace(env_g.scene, params=params),
+                             tree_map(lambda x: x.to(dev), ph_c), shared_prep=shared)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            want, _ = te.step(dataclasses.replace(env_c.scene, params=params), ph_c,
+                              shared_prep=shared)
+            errs = {k: float((g.cpu() - w).abs().max()) for k, g, w in (
+                ("q", got.robot.q, want.robot.q), ("pos", got.objects.pos, want.objects.pos),
+                ("qd", got.robot.qd, want.robot.qd),
+                ("linvel", got.objects.linvel, want.objects.linvel))}
+            log(f"engine-ref {name}: one sim step at 16 envs, card ({card_s:.2f} s) vs CPU: "
+                f"max|gpu-cpu| {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}")
+            # 2e-4 on q and positions (multiobj-ref's), 2e-3 on velocities
+            if not (errs["q"] <= 2e-4 and errs["pos"] <= 2e-4 and errs["qd"] <= 2e-3
+                    and errs["linvel"] <= 2e-3):
+                raise AssertionError(f"engine-ref {name}: the card disagrees with the CPU")
+            out[name] = dict(errs, card_seconds=card_s)
+    return out
+
+
+def engine_entry_phase() -> dict:
+    """Phase 32 (see the module docstring)."""
+    import shutil
+
+    from handarm_tpu_torch.utils.checkpoint import file_contact_slots, load_train_state
+
+    run = os.path.join("runs", "chip_smoke_engine")
+    shutil.rmtree(run, ignore_errors=True)
+    first = entry_subprocess(ENGINE_ENTRY + ["max_iterations=1"],
+                             os.path.join(run, "nn", "ckpt_1.npz"), "engine entry point", 150)
+    second_s, stdout = run_module("handarm_tpu_torch.train",
+                                  ENGINE_ENTRY + ["max_iterations=2", "resume=auto"],
+                                  "engine entry point resumed", 150)
+    with open(os.path.join(run, "config.json")) as f:
+        env_cfg = json.load(f)["env"]
+    slots = [file_contact_slots(os.path.join(run, "nn", f"ckpt_{i}.npz")) for i in (1, 2)]
+    ts = load_train_state(os.path.join(run, "nn", "ckpt_2.npz"))
+    check_learner(ts, "engine entry point")
+    ok = ("resumed from" in stdout and "reset fresh" not in stdout and slots == [190, 190]
+          and int(ts.epoch) == 2 and ts.env_state.physics.contact_impulse.shape[0] == ENVS
+          and not any(env_cfg[k] for k in ("heavy_prep_per_control", "carry_fk",
+                                           "hand_only_collision")))
+    if not ok:
+        raise AssertionError(f"engine entry point: bad checkpoints or config in {run}")
+    log(f"engine entry point: 1 iteration in {first['seconds']:.1f} s, resumed (its env state "
+        f"too) for a second in {second_s:.1f} s; both checkpoints hold {slots[0]} contact slots")
+    return dict(first, resume_seconds=second_s, slots=slots[0])
+
+
+def add_engine_records(kernels: list, engine: dict) -> None:
+    """Each kernel's record gains its launches on the engine's paths (and
+    the engine-kernels checks) under "engine"."""
+    for entry in kernels:
+        name = entry["name"]
+        launches = {k: r["launches"][name] for k, r in engine["env"].items()}
+        launches.update({k: r["launches"][name] for k, r in engine["api"].items()})
+        entry["engine"] = dict(launches=sum(launches.values()), launches_by_path=launches,
+                               **engine["kernels"].get(name, {}))
 
 
 def main() -> int:
@@ -2355,19 +2683,24 @@ def main() -> int:
             kernels.append(entry)
         del multi_calls
 
-    with phase("multiobj-ref"):
-        def make_multi(d):
-            # the composed task; the genesis pool's first 16 envs, should an
-            # env reset; no disturbance draws; the deff path forced at this size
-            e = rollout.make_task_env(MULTI_TASK, 16, d, pool=genesis.InitialPool(
-                ref_pool.pos.to(d), ref_pool.quat.to(d)), randomize=False)
-            p = e.scene.params
-            e.scene = dataclasses.replace(e.scene, params=p._replace(
-                solver=p.solver._replace(jacobi_impl="pallas")))
-            return e
-        card_vs_cpu(make_multi("cpu"), make_multi(dev), ref_state, ref_obs,
+    with phase("multiobj-ref"), deff_at_any_size():
+        card_vs_cpu(small_multi_env(rollout, "cpu", ref_pool),
+                    small_multi_env(rollout, dev, ref_pool), ref_state, ref_obs,
                     rollout.load_policy(rollout.TASK_CKPTS[MULTI_TASK], "cpu"), dev,
                     "multiobj-ref", need=("robot-object", "object-pair"))
+
+    engine = {}
+    with phase("engine-env"):
+        engine["env"], exact_run = engine_env_phase(rollout, dev, pool, mpolicy)
+    with phase("engine-api"):
+        engine["api"], api_calls = engine_api_phase(rollout, dev, exact_run, ops)
+    with phase("engine-kernels"):
+        engine["kernels"] = engine_kernels_phase(rollout, dev, pool, mpolicy, ops, api_calls,
+                                                 exact_run[0].scene.maps)
+        del api_calls, exact_run
+    with phase("engine-ref"):
+        engine["ref"] = engine_ref_phase(rollout, dev, ref_state, ref_obs, ref_pool)
+        add_engine_records(kernels, engine)
 
     with phase("multiobj-train"):
         multi_train_rec = multiobj_train_phase(rollout, dev, pool)
@@ -2414,6 +2747,8 @@ def main() -> int:
             "multiobj entry point", PHASE_DEADLINE_S["multiobj-entry"] - 30)
     with phase("dr-entry"):
         dr_rec["entry_point"] = dr_entry_phase(rollout)
+    with phase("engine-entry"):
+        engine["entry_point"] = engine_entry_phase()
 
     with phase("distill-train"):
         distill_rec = distill_train_phase(rollout, dev)
@@ -2442,7 +2777,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec,
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
                     "family": family_rec, "distill": distill_rec, "rnn": rnn_rec,
-                    "dr": dr_rec}))
+                    "dr": dr_rec, "engine": engine}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -4,10 +4,13 @@ handarm_tpu/envs/hand_arm.py on the UR5+SIH task family).
 
 One `step(state, actions)` does: the action noise of domain randomization
 (`dr`), actionables -> control -> PD targets, the random object
-disturbance impulses (with `randomize`), `control_freq_inv` sim steps with
-the heavy mass structure evaluated once per control step and FK carried
-across its sim steps, under the per-env physical parameters of DR or of
-ADR (`adr`, which then replaces DR's), reward, termination, the NaN finite
+disturbance impulses (with `randomize`), `control_freq_inv` sim steps at
+the engine cadence the config picks (the heavy mass structure once per
+control step with FK carried across its sim steps, the default; with
+exact FK and fresh contacts every sim step, `carry_fk=False`; or all of it
+every sim step, `heavy_prep_per_control=False`), under the per-env
+physical parameters of DR or of ADR (`adr`, which then replaces DR's),
+reward, termination, the NaN finite
 guard, success-rate EWMAs, the auto-reset merged per env, the ADR
 transition on the episodes that ended, and the sanitized observations:
 the flat vector (clipped, with DR's observation noise), the teacher's flat
@@ -16,9 +19,10 @@ synthetic point clouds, which go to `obs_dict` under their own names,
 unclipped. Resets draw object poses from the genesis pool (`use_drop_init`,
 built by the first `reset`) or spawn them on the table, the target object
 uniformly or (`balanced_target_sampling`) by failure rate, for the
-orientation goals a goal quaternion, and with DR a fresh `DRState`.
-Cameras and the engine options other than the defaults are not ported:
-`HandArmConfig` refuses them by name.
+orientation goals a goal quaternion, and with DR a fresh `DRState`. The
+robot's collision spheres cover the hand's links, or with
+`hand_only_collision=False` the arm's as well. Cameras and robots other
+than the UR5+SIH are not ported: `HandArmConfig` refuses them by name.
 """
 
 from __future__ import annotations
@@ -129,7 +133,10 @@ class HandArmConfig:
     servo_smoothing_alpha: float = 0.8
     solver_iterations: int = 8
     solver_prep_dtype: str = "bf16"
-    # engine options: only the defaults are ported (ROADMAP §1.2b)
+    # engine cadence: the mass structure once per control step (else every
+    # sim step), FK carried across its sim steps (else exact FK and fresh
+    # contacts every sim step); collision spheres on the hand only (else
+    # the arm's too)
     heavy_prep_per_control: bool = True
     carry_fk: bool = True
     hand_only_collision: bool = True
@@ -166,9 +173,6 @@ class HandArmConfig:
 # ROADMAP item that ports the rest
 NOT_PORTED = {
     "robot": ("ur5sih", "§1.4"),
-    "heavy_prep_per_control": (True, "§1.2b"),
-    "carry_fk": (True, "§1.2b"),
-    "hand_only_collision": (True, "§1.2b"),
     "cameras": ((), "§1.5"),
 }
 
@@ -484,7 +488,7 @@ class HandArmEnv:
                 raise NotImplementedError(kind)
             self.object_names.append(f"{kind}_{len(self.object_names)}")
         shapes = stack_objects(objs, device=dev)
-        spheres = self.robot.make_spheres(True, dev)  # hand links only
+        spheres = self.robot.make_spheres(cfg.hand_only_collision, dev)
         walls = []
         if cfg.use_bin:
             cx, cy = cfg.bin_center if cfg.bin_center else cfg.drop_pos[:2]
@@ -726,11 +730,7 @@ class HandArmEnv:
                 linvel=physics.objects.linvel + self._disturbance(B)))
 
         ovr = self.overrides(state.task, B)
-        heavy = compute_heavy(self.scene, physics, ovr)
-        physics, info_last, fk = physics_step(self.scene, physics, heavy,
-                                              heavy.fk0, heavy.contacts0, ovr)
-        for _ in range(cfg.control_freq_inv - 1):
-            physics, info_last, fk = physics_step(self.scene, physics, heavy, fk, ovr=ovr)
+        physics, info_last = self._physics(physics, ovr)
 
         progress = state.task.progress + 1
         task = state.task._replace(progress=progress,
@@ -789,6 +789,26 @@ class HandArmEnv:
                                   info=info, obs_dict=obs_dict)
 
     # --- internals -------------------------------------------------------------
+
+    def _physics(self, physics: PhysicsState, ovr: EnvOverrides):
+        """`control_freq_inv` sim steps at the config's cadence: (state, the
+        last sim step's info)."""
+        cfg, sc, n = self.cfg, self.scene, self.cfg.control_freq_inv
+        if not cfg.heavy_prep_per_control:  # dynamics and prep every sim step
+            for _ in range(n):
+                physics, info = physics_step(sc, physics, ovr=ovr)
+            return physics, info
+        heavy = compute_heavy(sc, physics, ovr)
+        if not cfg.carry_fk:  # exact FK and contacts every sim step
+            for _ in range(n):
+                physics, info = physics_step(sc, physics, heavy, ovr=ovr)
+            return physics, info
+        # sim step 1 on compute_heavy's FK and contacts, the rest on the
+        # FK the previous sim step propagated
+        physics, info, fk = physics_step(sc, physics, heavy, heavy.fk0, heavy.contacts0, ovr)
+        for _ in range(n - 1):
+            physics, info, fk = physics_step(sc, physics, heavy, fk, ovr=ovr)
+        return physics, info
 
     def overrides(self, task: TaskState, B: int) -> EnvOverrides:
         """The physical parameters in play: ADR's values (mass, friction,

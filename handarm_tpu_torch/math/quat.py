@@ -15,6 +15,14 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(v.shape[:-1] + (3, 3))
+
+
 def safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False,
               eps: float = 1e-20) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim) + eps)

@@ -86,19 +86,26 @@ def contact_sweep(planes, bias, screws, qd, minv2, obj, lam0, anc, groups,
                               apply_warm)
 
 
-def contact_sweep_plain(planes, bias, screws, qd, minv2, obj, lam0, anc,
-                        obj_idx, signs, iterations: int, omega: float,
-                        apply_warm: bool = True):
-    NP, B, C = planes.shape
-    nv = qd.shape[1]
-    K = obj.shape[2]
+class _Soa(NamedTuple):
+    """The planes of one solve, unpacked for the plain version."""
+
+    n: tuple  # 3 x [B, C]
+    t1: tuple
+    t2: tuple
+    pos: tuple
+    mu: torch.Tensor
+    inv_d: tuple
+    gate: torch.Tensor
+    sides: list  # per side: (sign, r (3), Iinv sym (6), invm, onehot [C, K])
+    screws: list  # 6 x [B, nv]
+    anc: torch.Tensor  # [C, nv]
+    Minv: torch.Tensor  # [B, nv, nv]
+
+
+def _soa(planes, screws, minv2, anc, obj_idx, signs, K: int) -> _Soa:
+    _, B, C = planes.shape
+    nv = screws.shape[2]
     P = lambda k: planes[k]
-    nx, ny, nz = (P(k) for k in BASE["n"])
-    t1x, t1y, t1z = (P(k) for k in BASE["t1"])
-    t2x, t2y, t2z = (P(k) for k in BASE["t2"])
-    px, py, pz = (P(k) for k in BASE["pos"])
-    mu, gate = P(BASE["mu"]), P(BASE["gate"])
-    id0, id1, id2 = (P(k) for k in BASE["inv_d"])
     kk = torch.arange(K, device=planes.device)
     sides = []
     for s, sg in enumerate(signs):
@@ -106,54 +113,88 @@ def contact_sweep_plain(planes, bias, screws, qd, minv2, obj, lam0, anc,
         onehot = (obj_idx[s].long()[:, None] == kk[None]).to(planes.dtype)
         sides.append((sg, (P(b), P(b + 1), P(b + 2)),
                       tuple(P(b + 3 + i) for i in range(6)), P(b + 9), onehot))
-    sc = [screws[a] for a in range(6)]
-    ancT = anc.T
-    Minv = minv2.reshape(B, nv, nv)
+    return _Soa(
+        n=tuple(P(k) for k in BASE["n"]), t1=tuple(P(k) for k in BASE["t1"]),
+        t2=tuple(P(k) for k in BASE["t2"]), pos=tuple(P(k) for k in BASE["pos"]),
+        mu=P(BASE["mu"]), inv_d=tuple(P(k) for k in BASE["inv_d"]), gate=P(BASE["gate"]),
+        sides=sides, screws=[screws[a] for a in range(6)], anc=anc,
+        Minv=minv2.reshape(B, nv, nv),
+    )
+
+
+def _rel_velocity(s: _Soa, qd, lv, av):
+    """Relative velocity components (A side minus B side): 3 x [B, C]."""
+    ancT = s.anc.T
+    px, py, pz = s.pos
+    wx, wy, wz, lx, ly, lz = ((s.screws[a] * qd) @ ancT for a in range(6))
+    vx = lx + wy * pz - wz * py
+    vy = ly + wz * px - wx * pz
+    vz = lz + wx * py - wy * px
+    for sg, (rx, ry, rz), _, _, oh in s.sides:
+        ox = [lv[i] @ oh.T for i in range(3)]
+        aw = [av[i] @ oh.T for i in range(3)]
+        vx = vx + sg * (ox[0] + aw[1] * rz - aw[2] * ry)
+        vy = vy + sg * (ox[1] + aw[2] * rx - aw[0] * rz)
+        vz = vz + sg * (ox[2] + aw[0] * ry - aw[1] * rx)
+    return vx, vy, vz
+
+
+def _apply_impulse(s: _Soa, qd, lv, av, dP):
+    """Apply world impulse components dP (3 x [B, C]): + to the robot and
+    side a, - to side b."""
+    dPx, dPy, dPz = dP
+    px, py, pz = s.pos
+    sc = s.screws
+    mx = py * dPz - pz * dPy
+    my = pz * dPx - px * dPz
+    mz = px * dPy - py * dPx
+    T = [c @ s.anc for c in (mx, my, mz, dPx, dPy, dPz)]
+    gi = (sc[0] * T[0] + sc[1] * T[1] + sc[2] * T[2]
+          + sc[3] * T[3] + sc[4] * T[4] + sc[5] * T[5])
+    qd = qd + torch.sum(s.Minv * gi[:, None, :], dim=-1)
+    for sg, (rx, ry, rz), (ixx, ixy, ixz, iyy, iyz, izz), invm, oh in s.sides:
+        lv = [lv[i] + sg * ((dP[i] * invm) @ oh) for i in range(3)]
+        tx = ry * dPz - rz * dPy
+        ty = rz * dPx - rx * dPz
+        tz = rx * dPy - ry * dPx
+        dw = (ixx * tx + ixy * ty + ixz * tz,
+              ixy * tx + iyy * ty + iyz * tz,
+              ixz * tx + iyz * ty + izz * tz)
+        av = [av[i] + sg * (dw[i] @ oh) for i in range(3)]
+    return qd, lv, av
+
+
+def apply_impulse_plain(planes, screws, qd, minv2, obj, anc, obj_idx, signs, dP):
+    """The plain version's impulse application on its own: world impulse
+    components dP (3 x [B, C]) through the planes' couplings. Returns
+    (qd [B, nv], obj [6, B, K]); the warm start of a solve whose sweeps
+    run with `apply_warm=False`."""
+    s = _soa(planes, screws, minv2, anc, obj_idx, signs, obj.shape[2])
+    qd, lv, av = _apply_impulse(s, qd, [obj[i] for i in range(3)],
+                                [obj[3 + i] for i in range(3)], dP)
+    return qd, torch.stack(lv + av)
+
+
+def contact_sweep_plain(planes, bias, screws, qd, minv2, obj, lam0, anc,
+                        obj_idx, signs, iterations: int, omega: float,
+                        apply_warm: bool = True):
+    s = _soa(planes, screws, minv2, anc, obj_idx, signs, obj.shape[2])
+    nx, ny, nz = s.n
+    t1x, t1y, t1z = s.t1
+    t2x, t2y, t2z = s.t2
+    id0, id1, id2 = s.inv_d
     lv = [obj[i] for i in range(3)]
     av = [obj[3 + i] for i in range(3)]
     lam = [lam0[i] for i in range(3)]
-
-    def rel_velocity(qd, lv, av):
-        wx, wy, wz, lx, ly, lz = ((sc[a] * qd) @ ancT for a in range(6))
-        vx = lx + wy * pz - wz * py
-        vy = ly + wz * px - wx * pz
-        vz = lz + wx * py - wy * px
-        for sg, (rx, ry, rz), _, _, oh in sides:
-            ox = [lv[i] @ oh.T for i in range(3)]
-            aw = [av[i] @ oh.T for i in range(3)]
-            vx = vx + sg * (ox[0] + aw[1] * rz - aw[2] * ry)
-            vy = vy + sg * (ox[1] + aw[2] * rx - aw[0] * rz)
-            vz = vz + sg * (ox[2] + aw[0] * ry - aw[1] * rx)
-        return vx, vy, vz
-
-    def apply_impulse(qd, lv, av, dP):
-        dPx, dPy, dPz = dP
-        mx = py * dPz - pz * dPy
-        my = pz * dPx - px * dPz
-        mz = px * dPy - py * dPx
-        T = [c @ anc for c in (mx, my, mz, dPx, dPy, dPz)]
-        gi = (sc[0] * T[0] + sc[1] * T[1] + sc[2] * T[2]
-              + sc[3] * T[3] + sc[4] * T[4] + sc[5] * T[5])
-        qd = qd + torch.sum(Minv * gi[:, None, :], dim=-1)
-        for sg, (rx, ry, rz), (ixx, ixy, ixz, iyy, iyz, izz), invm, oh in sides:
-            lv = [lv[i] + sg * ((dP[i] * invm) @ oh) for i in range(3)]
-            tx = ry * dPz - rz * dPy
-            ty = rz * dPx - rx * dPz
-            tz = rx * dPy - ry * dPx
-            dw = (ixx * tx + ixy * ty + ixz * tz,
-                  ixy * tx + iyy * ty + iyz * tz,
-                  ixz * tx + iyz * ty + izz * tz)
-            av = [av[i] + sg * (dw[i] @ oh) for i in range(3)]
-        return qd, lv, av
 
     if apply_warm:
         dP0 = (lam[0] * nx + lam[1] * t1x + lam[2] * t2x,
                lam[0] * ny + lam[1] * t1y + lam[2] * t2y,
                lam[0] * nz + lam[1] * t1z + lam[2] * t2z)
-        qd, lv, av = apply_impulse(qd, lv, av, dP0)
+        qd, lv, av = _apply_impulse(s, qd, lv, av, dP0)
 
     for _ in range(iterations):
-        vx, vy, vz = rel_velocity(qd, lv, av)
+        vx, vy, vz = _rel_velocity(s, qd, lv, av)
         vn = vx * nx + vy * ny + vz * nz
         vt1 = vx * t1x + vy * t1y + vz * t1z
         vt2 = vx * t2x + vy * t2y + vz * t2z
@@ -161,16 +202,16 @@ def contact_sweep_plain(planes, bias, screws, qd, minv2, obj, lam0, anc,
         ft1 = lam[1] - vt1 * id1
         ft2 = lam[2] - vt2 * id2
         fmag = torch.sqrt(ft1 * ft1 + ft2 * ft2)
-        fmax = mu * new_n
+        fmax = s.mu * new_n
         scale = torch.where(fmag > fmax, fmax / torch.clamp(fmag, min=1e-9),
                             torch.ones_like(fmag))
         new = (new_n, ft1 * scale, ft2 * scale)
-        dlam = [omega * (new[i] - lam[i]) * gate for i in range(3)]
+        dlam = [omega * (new[i] - lam[i]) * s.gate for i in range(3)]
         lam = [lam[i] + dlam[i] for i in range(3)]
         dP = (dlam[0] * nx + dlam[1] * t1x + dlam[2] * t2x,
               dlam[0] * ny + dlam[1] * t1y + dlam[2] * t2y,
               dlam[0] * nz + dlam[1] * t1z + dlam[2] * t2z)
-        qd, lv, av = apply_impulse(qd, lv, av, dP)
+        qd, lv, av = _apply_impulse(s, qd, lv, av, dP)
 
     return qd, torch.stack(lv + av), torch.stack(lam)
 

@@ -1,28 +1,43 @@
-"""The lockstep physics engine (counterpart of handarm_tpu/physics/engine.py:
-`build_scene`, `compute_heavy`, the heavy + carried-FK `step`, its
-anchored-substep loop in the fused form, and `step_exact`, the heavy-less
-`step(scene, state)` that genesis drives).
+"""The lockstep physics engine (counterpart of handarm_tpu/physics/engine.py
+for fixed-base models): `build_scene`, `initial_state`, `compute_heavy`,
+`step` with every cadence of the JAX package's, and `substep`.
 
-A control step evaluates the heavy mass structure once (`compute_heavy`:
-exact FK, dynamics with the SPD-inverse kernel, contacts, solver prep);
-each sim step refreshes the contact geometry against it and runs
-`substeps` anchored substeps, each one solve through the contact-sweep
-kernel, with the contact set frozen at step start and depths advanced from
-the post-clamp normal velocity. The JAX package takes this fused form only
-on a TPU; here it is the only form, and on CPU tensors the kernels' plain
-versions run inside it.
+One sim step (dt) is `substeps` contact-resolved substeps. Its cadences:
+
+- `step(scene, state, heavy, fk0, contacts0)`, the env's default: the
+  heavy mass structure of a control step (`compute_heavy`: exact FK,
+  dynamics with the SPD-inverse kernel, contacts, solver prep) reused over
+  its sim steps, FK carried from one sim step to the next (`fk0`, and the
+  propagated FK returned), the contact geometry refreshed once per sim
+  step;
+- `step(scene, state, heavy)`: exact FK and fresh contacts every sim step
+  against the control step's mass structure;
+- `step(scene, state)`: dynamics and solver prep every sim step (genesis,
+  the JAX physics suite; `step_exact` is its alias);
+- `SimParams.substep_contacts`: contacts regenerated every substep from
+  the propagated FK, each solve through `solver.solve_prepared`;
+- `step(..., shared_prep=False)`: `substep` `substeps` times, everything
+  evaluated per substep (`solver.solve_contacts`).
+
+Without `substep_contacts` the substeps are anchored: they solve against
+the contact set frozen at step start, with depths advanced from the
+post-clamp normal velocity. The fused form (`anchored_pack` once per sim
+step, warm start in the frozen basis, `solve_anchored` through the sweep
+kernel) runs where the JAX package's conditions for its TPU fast path hold
+(Jacobi, `jacobi_impl="soa"`, no restitution), on CUDA and CPU tensors
+alike (the kernels' plain versions run on the CPU); otherwise the generic
+anchored loop, which carries world-frame impulses into `solve_prepared`.
 
 `EnvOverrides` carries the per-env physical parameters of domain
 randomization: PD gain scales (kp and kd, in the SPD inverse's matrices
-and every substep's PD torque), per-env gravity on the objects, and object
-mass and friction scales (in the solver prep, hence in the sweep kernel's
-planes and the robot effective masses). `step_exact` takes none: genesis
-builds its pose pool without randomization, as the JAX package's does.
+and every substep's PD torque), per-env gravity, and object mass and
+friction scales (in the solver prep, hence in the sweep kernel's planes
+and the robot effective masses).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import numpy as np
@@ -60,9 +75,13 @@ from handarm_tpu_torch.physics.solver import (
     anchored_pack,
     anchored_vn,
     build_slot_maps,
+    contact_bias,
     prepare,
     refresh_prep,
+    rel_velocity,
     solve_anchored,
+    solve_contacts,
+    solve_prepared,
 )
 
 
@@ -76,6 +95,9 @@ class SimParams(NamedTuple):
     obj_linear_damping: float = 0.03
     obj_angular_damping: float = 0.1
     robot_gravity: bool = True
+    # contacts regenerated every substep (from the propagated FK) instead of
+    # frozen at step start
+    substep_contacts: bool = False
 
 
 class RobotState(NamedTuple):
@@ -177,6 +199,43 @@ def _gravity(scene: Scene, ovr: EnvOverrides) -> torch.Tensor:
     return scene.gravity if ovr.gravity is None else ovr.gravity
 
 
+def _gains(scene: Scene, ovr: EnvOverrides):
+    """kp and kd, scaled per env under a gain scale."""
+    if ovr.gain_scale is None:
+        return scene.kp, scene.kd
+    return scene.kp[None] * ovr.gain_scale, scene.kd[None] * ovr.gain_scale
+
+
+def _robot_gravity(scene: Scene, ovr: EnvOverrides) -> torch.Tensor:
+    gravity = _gravity(scene, ovr)
+    return gravity if scene.params.robot_gravity else torch.zeros_like(gravity)
+
+
+def initial_state(scene: Scene, B: int, q0=None, obj_pos0=None, obj_quat0=None,
+                  base_pos0=None, base_quat0=None,
+                  dtype=torch.float32) -> PhysicsState:
+    """A state at rest: q = q0 (zeros) with its targets, objects at obj_pos0
+    (the origin) and obj_quat0 (identity), no impulses. A base pose belongs
+    to a floating base, which the port does not take (ROADMAP §1.7)."""
+    if base_pos0 is not None or base_quat0 is not None:
+        raise NotImplementedError("floating-base initial state: not ported (ROADMAP §1.7)")
+    nv, K = scene.model.nv, scene.shapes.num_objects
+    dev = scene.kp.device
+
+    def full(x, shape, default=0.0):
+        x = default if x is None else x
+        return torch.as_tensor(x, dtype=dtype, device=dev).expand(shape).clone()
+
+    q = full(q0, (B, nv))
+    return PhysicsState(
+        robot=RobotState(q=q, qd=full(None, (B, nv)), targets=q),
+        objects=ObjectState(pos=full(obj_pos0, (B, K, 3)),
+                            quat=full(obj_quat0, (B, K, 4), [1.0, 0.0, 0.0, 0.0]),
+                            linvel=full(None, (B, K, 3)), angvel=full(None, (B, K, 3))),
+        contact_impulse=full(None, (B, scene.slots.num_slots, 3)),
+    )
+
+
 def compute_heavy(scene: Scene, state: PhysicsState,
                   ovr: EnvOverrides = EnvOverrides()) -> HeavyPrep:
     """Exact FK, dynamics (SPD-inverse kernel), contacts and solver prep at
@@ -184,14 +243,9 @@ def compute_heavy(scene: Scene, state: PhysicsState,
     m, p = scene.model, scene.params
     h = p.dt / p.substeps
     rob = state.robot
-    kp, kd = scene.kp, scene.kd
-    if ovr.gain_scale is not None:
-        kp, kd = kp[None] * ovr.gain_scale, kd[None] * ovr.gain_scale
-    bq, bp = _base_pose(scene)
-    fk0 = forward_kinematics(m, rob.q, bq, bp)
-    gravity = _gravity(scene, ovr)
-    g_rob = gravity if p.robot_gravity else torch.zeros_like(gravity)
-    dyn = compute_dyn(m, fk0, rob.qd, g_rob, kp, kd, h)
+    kp, kd = _gains(scene, ovr)
+    fk0 = forward_kinematics(m, rob.q, *_base_pose(scene))
+    dyn = compute_dyn(m, fk0, rob.qd, _robot_gravity(scene, ovr), kp, kd, h)
     opos, oquat = state.objects.pos, state.objects.quat
     contacts0 = generate_contacts(scene.slots, scene.shapes, scene.spheres,
                                   scene.geom, opos, oquat, fk0.body_quat,
@@ -204,12 +258,10 @@ def compute_heavy(scene: Scene, state: PhysicsState,
 
 
 def step_exact(scene: Scene, state: PhysicsState):
-    """One sim step that evaluates the dynamics, contacts and solver prep at
-    its own start: the JAX package's `engine.step(scene, state)` without a
-    HeavyPrep, which genesis drives. Returns (state, info)."""
-    heavy = compute_heavy(scene, state)
-    new_state, info, _ = step(scene, state, heavy, heavy.fk0, heavy.contacts0)
-    return new_state, info
+    """`step(scene, state)`: the sim step that evaluates the dynamics,
+    contacts and solver prep at its own start, which genesis drives.
+    Returns (state, info)."""
+    return step(scene, state)
 
 
 def _propagate_fk(m: ModelArrays, body_quat, body_pos, screw, qd, h: float):
@@ -255,39 +307,183 @@ def _clip(x, lim):
     return torch.minimum(torch.maximum(x, -lim), lim)
 
 
-def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep, fk0: FK,
-         contacts0: Contacts | None = None, ovr: EnvOverrides = EnvOverrides()):
-    """One sim step (dt) of `substeps` anchored substeps against `heavy`.
+def _free_velocities(scene: Scene, q, qd, targets, kp, kd, dyn: Dyn, bias_acc,
+                     olin, oang, oquat, g_obj, h: float):
+    """Velocities after one substep of PD, bias, gravity and damping, before
+    contacts: (qd_free, olin_free, oang_free)."""
+    m, p = scene.model, scene.params
+    tau = stable_pd_torque(q, qd, targets, kp, kd, h, m.effort_limit)
+    qd_free = qd - h * bias_acc + h * dyn.solve(tau)
+    olin_free = olin * (1.0 - h * p.obj_linear_damping) + h * g_obj
+    oang_free = oang * (1.0 - h * p.obj_angular_damping) + gyroscopic_delta(
+        oquat, scene.shapes.inertia_diag, oang, h)
+    return qd_free, olin_free, oang_free
 
+
+def _integrate(scene: Scene, q, qd_s, olv, oav, olin_free, oang_free, opos, oquat,
+               h: float, rolling=None):
+    """Clamp the solved velocities (joint velocity and position limits, the
+    contact-gain cap, object speed limits, rolling resistance from
+    `rolling` = (world impulses, normals) thunk) and integrate one substep.
+    Returns (q, qd, opos, oquat, olv, oav)."""
+    m, p = scene.model, scene.params
+    sp = p.solver
+    low = m.q_min + p.joint_limit_margin
+    high = m.q_max - p.joint_limit_margin
+    qd_new = _clip(qd_s, m.velocity_limit)
+    q_new = q + h * qd_new
+    below, above = q_new < low, q_new > high
+    q_new = torch.minimum(torch.maximum(q_new, low), high)
+    qd_new = torch.where(below, torch.clamp(qd_new, min=0.0), qd_new)
+    qd_new = torch.where(above, torch.clamp(qd_new, max=0.0), qd_new)
+    olv, oav = _cap_contact_gain(olv, olin_free, oav, oang_free, scene.shapes, sp)
+    olv = torch.clamp(olv, -p.max_obj_linvel, p.max_obj_linvel)
+    oav = torch.clamp(oav, -p.max_obj_angvel, p.max_obj_angvel)
+    if sp.rolling_friction > 0.0:
+        impulse, normal = rolling()
+        oav = _rolling_resistance(oav, impulse, normal, scene.slot_to_obj,
+                                  scene.shapes.inertia_diag, sp.rolling_friction)
+    opos, oquat = free_body_integrate(opos, oquat, olv, oav, h)
+    return q_new, qd_new, opos, oquat, olv, oav
+
+
+def _info(scene: Scene, impulse, depth, h: float) -> StepInfo:
+    f_slot = impulse / h
+    return StepInfo(
+        body_contact_force=torch.einsum("bci,cn->bni", f_slot, scene.slot_to_body),
+        obj_contact_force=torch.einsum("bci,ck->bki", -f_slot, scene.slot_to_obj),
+        max_penetration=torch.clamp(depth, min=0.0).amax(dim=-1),
+    )
+
+
+def _state(targets, q, qd, opos, oquat, olin, oang, impulse) -> PhysicsState:
+    return PhysicsState(
+        robot=RobotState(q=q, qd=qd, targets=targets),
+        objects=ObjectState(pos=opos, quat=oquat, linvel=olin, angvel=oang),
+        contact_impulse=impulse,
+    )
+
+
+def substep(scene: Scene, state: PhysicsState, ovr: EnvOverrides = EnvOverrides()):
+    """One substep (dt / substeps) that evaluates everything at its own
+    start: exact FK, dynamics (SPD-inverse kernel), contacts (the SDF kernel
+    on mesh objects) and a whole contact solve (`solver.solve_contacts`:
+    the deff kernel at its threshold, then the sweep kernel). Returns
+    (state, info)."""
+    m, p = scene.model, scene.params
+    h = p.dt / p.substeps
+    rob = state.robot
+    q, qd, targets = rob.q, rob.qd, rob.targets
+    opos, oquat, olin, oang = state.objects
+    kp, kd = _gains(scene, ovr)
+    gravity = _gravity(scene, ovr)
+    fk = forward_kinematics(m, q, *_base_pose(scene))
+    dyn = compute_dyn(m, fk, qd, _robot_gravity(scene, ovr), kp, kd, h)
+    tau = stable_pd_torque(q, qd, targets, kp, kd, h, m.effort_limit)
+    qd_free = qd + h * dyn.solve(tau - dyn.bias)
+    g_obj = gravity if gravity.dim() == 1 else gravity[:, None, :]
+    olin_free = olin * (1.0 - h * p.obj_linear_damping) + h * g_obj
+    oang_free = oang * (1.0 - h * p.obj_angular_damping) + gyroscopic_delta(
+        oquat, scene.shapes.inertia_diag, oang, h)
+    contacts = generate_contacts(scene.slots, scene.shapes, scene.spheres, scene.geom,
+                                 opos, oquat, fk.body_quat, fk.body_pos)
+    out = solve_contacts(m, fk, dyn.Minv, scene.maps, scene.slots, contacts, scene.shapes,
+                         opos, oquat, qd_free, olin_free, oang_free, h, p.solver,
+                         warm_lam=state.contact_impulse, mass_scale=ovr.mass_scale,
+                         friction_scale=ovr.friction_scale)
+    q, qd, opos, oquat, olv, oav = _integrate(
+        scene, q, out.qd, out.obj_linvel, out.obj_angvel, olin_free, oang_free, opos,
+        oquat, h, rolling=lambda: (out.impulse, contacts.normal))
+    return (_state(targets, q, qd, opos, oquat, olv, oav, out.impulse),
+            _info(scene, out.impulse, contacts.depth, h))
+
+
+def fused_anchored(params: SimParams) -> bool:
+    """Whether the anchored substeps take the fused form: the conditions of
+    the JAX package's TPU fast path (`engine._step_anchored`), read on CUDA
+    and CPU tensors alike."""
+    sp = params.solver
+    return sp.mode == "jacobi" and sp.jacobi_impl == "soa" and sp.restitution == 0.0
+
+
+def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep | None = None,
+         fk0: FK | None = None, contacts0: Contacts | None = None,
+         ovr: EnvOverrides = EnvOverrides(), shared_prep: bool = True,
+         carry_fk: bool | None = None):
+    """One sim step (dt) of `substeps` substeps.
+
+    `heavy` (from `compute_heavy`) supplies the control step's mass
+    structure; without it the dynamics and solver prep are evaluated here.
     `fk0` is this step's start kinematics: compute_heavy's exact FK for the
     first sim step of a control step (then `contacts0` may pass its contact
-    set), else the propagated FK the previous step returned. `ovr` must be
-    the overrides `heavy` was computed under: the gains and the scaled
-    masses and friction come from `heavy`, the gravity from `ovr`. Returns
-    (state, info, fk_next)."""
+    set), else the propagated FK the previous step returned; without it the
+    exact FK is evaluated, and without `contacts0` the contacts. `ovr` must
+    be the overrides `heavy` was computed under: the gains and the scaled
+    masses and friction come from `heavy`, the gravity from `ovr`.
+    `shared_prep=False` runs `substep` `substeps` times. `carry_fk` (by
+    default: whether `fk0` was given) returns, third, the FK propagated to
+    the step's end for the next sim step. Returns (state, info[, fk])."""
+    if carry_fk is None:
+        carry_fk = fk0 is not None
+    if not shared_prep:
+        if carry_fk or heavy is not None:
+            raise ValueError("shared_prep=False evaluates everything per substep: no heavy "
+                             "prep, no carried FK")
+        for _ in range(scene.params.substeps):
+            state, info = substep(scene, state, ovr)
+        return state, info
+
     m, p = scene.model, scene.params
+    h = p.dt / p.substeps
+    sp = p.solver
+    rob = state.robot
+    opos, oquat = state.objects.pos, state.objects.quat
+    if fk0 is None:
+        fk0 = forward_kinematics(m, rob.q, *_base_pose(scene))
+    if contacts0 is None:
+        contacts0 = generate_contacts(scene.slots, scene.shapes, scene.spheres,
+                                      scene.geom, opos, oquat, fk0.body_quat,
+                                      fk0.body_pos)
+    if heavy is not None:
+        dyn, bias_acc, kp, kd = heavy.dyn, heavy.bias_acc, heavy.kp, heavy.kd
+        prep0 = refresh_prep(heavy.prep, fk0, scene.maps, contacts0, opos, h, sp)
+    else:
+        kp, kd = _gains(scene, ovr)
+        dyn = compute_dyn(m, fk0, rob.qd, _robot_gravity(scene, ovr), kp, kd, h)
+        prep0 = prepare(m, fk0, dyn.Minv, scene.maps, scene.slots, contacts0, scene.shapes,
+                        opos, oquat, h, sp, mass_scale=ovr.mass_scale,
+                        friction_scale=ovr.friction_scale)
+        bias_acc = dyn.solve(dyn.bias)
+    gravity = _gravity(scene, ovr)
+    g_obj = gravity if gravity.dim() == 1 else gravity[:, None, :]
+    run = (_step_substep_contacts if p.substep_contacts
+           else _step_anchored_fused if fused_anchored(p) else _step_anchored)
+    new_state, info, fk_next = run(scene, state, fk0, dyn, bias_acc, kp, kd, g_obj,
+                                   contacts0, prep0)
+    if not carry_fk:
+        return new_state, info
+    if fk_next is None:  # propagate by the realized joint displacement
+        fk_next = FK(*_propagate_fk(m, fk0.body_quat, fk0.body_pos, fk0.screw,
+                                    (new_state.robot.q - rob.q) / p.dt, p.dt))
+    return new_state, info, fk_next
+
+
+def _step_anchored_fused(scene: Scene, state: PhysicsState, fk0: FK, dyn: Dyn, bias_acc,
+                         kp, kd, g_obj, contacts0: Contacts, prep0: Prep):
+    """Anchored substeps in the fused form: one `anchored_pack` per sim step,
+    impulses carried in the frozen basis, every solve one sweep-kernel
+    launch with the warm start applied in the kernel."""
+    p = scene.params
     h = p.dt / p.substeps
     sp = p.solver
     rob = state.robot
     q, qd, targets = rob.q, rob.qd, rob.targets
     opos, oquat, olin, oang = state.objects
-    gravity = _gravity(scene, ovr)
-    g_obj = gravity if gravity.dim() == 1 else gravity[:, None, :]
-    if contacts0 is None:
-        contacts0 = generate_contacts(scene.slots, scene.shapes, scene.spheres,
-                                      scene.geom, opos, oquat, fk0.body_quat,
-                                      fk0.body_pos)
-    prep0 = refresh_prep(heavy.prep, fk0, scene.maps, contacts0, opos, h, sp)
-    dyn, bias_acc = heavy.dyn, heavy.bias_acc
-
     pack = anchored_pack(prep0)
     # previous step's world impulses -> this step's (frozen) basis
     lam = tuple(torch.sum(state.contact_impulse * prep0.basis[:, :, d], dim=-1)
                 for d in range(3))
     depth = contacts0.depth
-    q0 = q
-    low = m.q_min + p.joint_limit_margin
-    high = m.q_max - p.joint_limit_margin
     for _ in range(p.substeps):
         bias = torch.where(
             depth >= 0.0,
@@ -295,45 +491,78 @@ def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep, fk0: FK,
                         max=sp.max_depenetration_vel),
             depth / h,
         )
-        tau = stable_pd_torque(q, qd, targets, heavy.kp, heavy.kd, h, m.effort_limit)
-        qd_free = qd - h * bias_acc + h * dyn.solve(tau)
-        olin_free = olin * (1.0 - h * p.obj_linear_damping) + h * g_obj
-        oang_free = oang * (1.0 - h * p.obj_angular_damping) + gyroscopic_delta(
-            oquat, scene.shapes.inertia_diag, oang, h)
+        qd_free, olin_free, oang_free = _free_velocities(
+            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h)
         qd_s, olv, oav, lam = solve_anchored(pack, scene.maps, bias, qd_free,
                                              olin_free, oang_free, lam, sp)
-        qd_new = _clip(qd_s, m.velocity_limit)
-        q_new = q + h * qd_new
-        below, above = q_new < low, q_new > high
-        q_new = torch.minimum(torch.maximum(q_new, low), high)
-        qd_new = torch.where(below, torch.clamp(qd_new, min=0.0), qd_new)
-        qd_new = torch.where(above, torch.clamp(qd_new, max=0.0), qd_new)
-        olv, oav = _cap_contact_gain(olv, olin_free, oav, oang_free, scene.shapes, sp)
-        olv = torch.clamp(olv, -p.max_obj_linvel, p.max_obj_linvel)
-        oav = torch.clamp(oav, -p.max_obj_angvel, p.max_obj_angvel)
-        if sp.rolling_friction > 0.0:
-            n0 = torch.stack([pack.planes[i] for i in (0, 1, 2)], dim=-1)
-            oav = _rolling_resistance(oav, anchored_impulse_world(pack, lam), n0,
-                                      scene.slot_to_obj, scene.shapes.inertia_diag,
-                                      sp.rolling_friction)
-        opos, oquat = free_body_integrate(opos, oquat, olv, oav, h)
+        n0 = lambda: torch.stack([pack.planes[i] for i in (0, 1, 2)], dim=-1)
+        q, qd, opos, oquat, olin, oang = _integrate(
+            scene, q, qd_s, olv, oav, olin_free, oang_free, opos, oquat, h,
+            rolling=lambda: (anchored_impulse_world(pack, lam), n0()))
         # TGS anchor advance from the post-clamp velocities
-        depth = depth - h * anchored_vn(pack, scene.maps, qd_new, olv, oav)
-        q, qd, olin, oang = q_new, qd_new, olv, oav
+        depth = depth - h * anchored_vn(pack, scene.maps, qd, olin, oang)
 
     impulse = anchored_impulse_world(pack, lam)
-    f_slot = impulse / h
-    info = StepInfo(
-        body_contact_force=torch.einsum("bci,cn->bni", f_slot, scene.slot_to_body),
-        obj_contact_force=torch.einsum("bci,ck->bki", -f_slot, scene.slot_to_obj),
-        max_penetration=torch.clamp(depth, min=0.0).amax(dim=-1),
-    )
-    new_state = PhysicsState(
-        robot=RobotState(q=q, qd=qd, targets=targets),
-        objects=ObjectState(pos=opos, quat=oquat, linvel=olin, angvel=oang),
-        contact_impulse=impulse,
-    )
-    # propagate by the realized joint displacement
-    bq2, bp2, screw2 = _propagate_fk(m, fk0.body_quat, fk0.body_pos, fk0.screw,
-                                     (q - q0) / p.dt, p.dt)
-    return new_state, info, FK(bq2, bp2, screw2)
+    return (_state(targets, q, qd, opos, oquat, olin, oang, impulse),
+            _info(scene, impulse, depth, h), None)
+
+
+def _step_anchored(scene: Scene, state: PhysicsState, fk0: FK, dyn: Dyn, bias_acc,
+                   kp, kd, g_obj, contacts0: Contacts, prep0: Prep):
+    """Anchored substeps in the generic form: world-frame impulses carried
+    from solve to solve, each solve `solve_prepared` against the frozen
+    prep with this substep's depth bias (restitution, Gauss-Seidel and the
+    jacobi_impl values other than "soa" take it)."""
+    p = scene.params
+    h = p.dt / p.substeps
+    sp = p.solver
+    rob = state.robot
+    q, qd, targets = rob.q, rob.qd, rob.targets
+    opos, oquat, olin, oang = state.objects
+    lam = state.contact_impulse
+    depth, n0 = contacts0.depth, contacts0.normal
+    for _ in range(p.substeps):
+        prep = replace(prep0, bias=contact_bias(depth, h, sp))
+        qd_free, olin_free, oang_free = _free_velocities(
+            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h)
+        out = solve_prepared(prep, scene.maps, qd_free, olin_free, oang_free, sp, lam)
+        q, qd, opos, oquat, olin, oang = _integrate(
+            scene, q, out.qd, out.obj_linvel, out.obj_angvel, olin_free, oang_free, opos,
+            oquat, h, rolling=lambda: (out.impulse, n0))
+        # TGS anchor advance (A side minus B side along the frozen normal)
+        vrel = rel_velocity(prep, scene.maps, qd, olin, oang)
+        depth = depth - h * torch.sum(vrel * n0, dim=-1)
+        lam = out.impulse
+    return (_state(targets, q, qd, opos, oquat, olin, oang, lam),
+            _info(scene, lam, depth, h), None)
+
+
+def _step_substep_contacts(scene: Scene, state: PhysicsState, fk0: FK, dyn: Dyn, bias_acc,
+                           kp, kd, g_obj, contacts0: Contacts, prep0: Prep):
+    """Substeps that regenerate the contacts from the propagated FK (the SDF
+    kernel on mesh objects) and refresh the prep against its frozen mass
+    terms, each solve `solve_prepared` with world-frame impulses. Returns
+    the FK propagated to the step's end as well."""
+    m, p = scene.model, scene.params
+    h = p.dt / p.substeps
+    sp = p.solver
+    rob = state.robot
+    q, qd, targets = rob.q, rob.qd, rob.targets
+    opos, oquat, olin, oang = state.objects
+    lam = state.contact_impulse
+    bq, bp, screw = fk0
+    for _ in range(p.substeps):
+        fk = FK(bq, bp, screw)
+        contacts = generate_contacts(scene.slots, scene.shapes, scene.spheres, scene.geom,
+                                     opos, oquat, fk.body_quat, fk.body_pos)
+        prep = refresh_prep(prep0, fk, scene.maps, contacts, opos, h, sp)
+        qd_free, olin_free, oang_free = _free_velocities(
+            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h)
+        out = solve_prepared(prep, scene.maps, qd_free, olin_free, oang_free, sp, lam)
+        q, qd, opos, oquat, olin, oang = _integrate(
+            scene, q, out.qd, out.obj_linvel, out.obj_angvel, olin_free, oang_free, opos,
+            oquat, h, rolling=lambda: (out.impulse, contacts.normal))
+        bq, bp, screw = _propagate_fk(m, bq, bp, screw, qd, h)
+        lam = out.impulse
+    return (_state(targets, q, qd, opos, oquat, olin, oang, lam),
+            _info(scene, lam, contacts.depth, h), FK(bq, bp, screw))

@@ -1,12 +1,19 @@
-"""Batched relaxed-Jacobi contact solver, anchored-substep form (counterpart
-of handarm_tpu/physics/solver.py on the lift path).
+"""Batched contact solver (counterpart of handarm_tpu/physics/solver.py):
+relaxed Jacobi (default) or sequential-impulse Gauss-Seidel.
 
-Per sim step `prepare` (or `refresh_prep` against frozen mass terms)
-builds the solver quantities, `anchored_pack` lays them out as [B, C]
-planes once, and every substep `solve_anchored` runs all the sweeps of one
-solve through `ops.contact_sweep` (a CUDA kernel on the card). The depth
-advance `anchored_vn` stays plain tensor code and reads the post-clamp
-velocities.
+`prepare` builds the solver quantities of one contact set (`refresh_prep`
+refreshes their geometry against frozen mass terms). The engine's fast
+path lays them out as [B, C] planes once per sim step (`anchored_pack`)
+and every substep runs all the sweeps of one solve through
+`ops.contact_sweep` (`solve_anchored`; a CUDA kernel on the card), with
+the depth advance `anchored_vn` in plain tensor code on the post-clamp
+velocities. The general entry points are `solve_prepared` and
+`solve_contacts` (prepare, then solve), with the JAX package's dispatch:
+`mode="jacobi"` with `jacobi_impl="soa"` takes `solve_jacobi_soa`
+(restitution, the world-frame warm start reprojected and pre-applied,
+then the sweep kernel with `apply_warm=False`); any other `jacobi_impl`
+takes the [B, C, 3] formulation `solve_jacobi`, and `mode="gs"` the
+sequential `solve_gs`, both plain tensor code as in the JAX package.
 """
 
 from __future__ import annotations
@@ -17,13 +24,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from handarm_tpu_torch.math.quat import cross
+from handarm_tpu_torch.math.quat import cross, skew
 from handarm_tpu_torch.ops import contact_sweep as sweep_op
 from handarm_tpu_torch.ops import prep_deff as deff_op
 from handarm_tpu_torch.ops.contact_sweep import BASE, NBASE, NSIDE, SlotGroups
 from handarm_tpu_torch.physics.contacts import Contacts, ContactSlots
 from handarm_tpu_torch.physics.dynamics import free_body_inv_inertia_world
-from handarm_tpu_torch.physics.kinematics import FK, ModelArrays
+from handarm_tpu_torch.physics.kinematics import FK, ModelArrays, point_jacobian
 
 
 class SolverParams(NamedTuple):
@@ -37,11 +44,20 @@ class SolverParams(NamedTuple):
     relaxation: float = 1.0
     speculative_margin: float = 0.02
     prep_dtype: str = "f32"  # "bf16": effective-mass chain in bfloat16
-    # robot effective mass: "soa" takes the deff kernel (float32) on CUDA at
-    # B * C >= 2^21, as the JAX package does on its TPU, else the chunked
-    # chain in prep_dtype; "pallas" takes the deff path at any size (the
-    # plain version on the CPU)
+    # "soa": [B, C] planes, the sweep kernel (the plain sweep on CPU
+    # tensors), and the deff kernel (float32) on CUDA at B * C >= 2^21, as
+    # the JAX package does on its TPU, else the chunked chain in
+    # prep_dtype. "pallas": the deff path at any size. solve_prepared takes
+    # solve_jacobi_soa for "soa" only, as the JAX package does: "pallas",
+    # "pallas_off" and "aos" take the [B, C, 3] solve_jacobi.
     jacobi_impl: str = "soa"
+    mode: str = "jacobi"  # "jacobi" (vectorized) | "gs" (sequential impulses)
+    # Newtonian bounce: the target separating velocity is -restitution x
+    # the pre-solve approach velocity, for approaches faster than the
+    # threshold
+    restitution: float = 0.0
+    restitution_threshold: float = 0.2
+    activation_margin: float = 0.0  # read nowhere, as in the JAX package
 
 
 DEFF_KERNEL_MIN_BC = 2 ** 21
@@ -166,7 +182,7 @@ def _tangent_basis(n: torch.Tensor):
     return t1, cross(n, t1)
 
 
-def _contact_bias(depth, h: float, params: SolverParams):
+def contact_bias(depth, h: float, params: SolverParams):
     return torch.where(
         depth >= 0.0,
         torch.clamp(params.baumgarte / h * torch.clamp(depth - params.slop, min=0.0),
@@ -177,12 +193,13 @@ def _contact_bias(depth, h: float, params: SolverParams):
 
 def use_deff_kernel(params: SolverParams, B: int, C: int, device) -> bool:
     """The gate of handarm_tpu/physics/solver.py `_prepare`, with the card in
-    place of the TPU."""
+    place of the TPU: never under Gauss-Seidel."""
+    if params.mode == "gs":
+        return False
     if params.jacobi_impl == "pallas":
         return True
-    if params.jacobi_impl != "soa":
-        raise ValueError(f"jacobi_impl {params.jacobi_impl!r} is not ported")
-    return torch.device(device).type == "cuda" and B * C >= DEFF_KERNEL_MIN_BC
+    return (params.jacobi_impl == "soa" and torch.device(device).type == "cuda"
+            and B * C >= DEFF_KERNEL_MIN_BC)
 
 
 @dataclass
@@ -202,6 +219,8 @@ class Prep:
     d_eff: torch.Tensor  # [B, C, 3]
     # per present side: (r [B, C, 3], Iinv_c [B, C, 3, 3], invm_c [B, C])
     sides: tuple
+    J: torch.Tensor | None = None  # [B, C, 3, nv] (mode "gs" only)
+    MinvJT: torch.Tensor | None = None  # [B, C, nv, 3] (mode "gs" only)
 
 
 def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
@@ -216,6 +235,19 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
     n = contacts.normal
     t1, t2 = _tangent_basis(n)
     basis = torch.stack([n, t1, t2], dim=2)
+
+    J = MinvJT = None
+    if params.mode == "gs":
+        # Gauss-Seidel reads each slot's Jacobian and its Minv J^T columns
+        body = torch.as_tensor(np.where(slots.robot_body >= 0, slots.robot_body, 0),
+                               device=n.device)
+        J = point_jacobian(m, fk, body[None].expand(B, C), contacts.pos) \
+            * maps.robot_mask[None, :, None, None]
+        f_unit = torch.cat([skew(contacts.pos),
+                            torch.eye(3, dtype=dtype, device=n.device).expand(B, C, 3, 3)],
+                           dim=-2)  # [B, C, 6, 3]
+        Bc = torch.einsum("bua,bcai->bcui", fk.screw, f_unit) * maps.anc_slot[None, :, :, None]
+        MinvJT = torch.einsum("buv,bcvi->bcui", Minv, Bc)
 
     if not bool((slots.robot_body >= 0).any()):
         d_robot = torch.zeros(B, C, 3, dtype=dtype, device=n.device)
@@ -259,9 +291,9 @@ def prepare(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
     return Prep(
         active=active, basis=basis, inv_d=active[..., None] / d_eff,
         split=mass_split(active, maps),
-        bias=_contact_bias(contacts.depth, h, params), mu=mu,
+        bias=contact_bias(contacts.depth, h, params), mu=mu,
         pos=contacts.pos, screw=fk.screw, Minv=Minv, d_eff=d_eff,
-        sides=tuple(sides),
+        sides=tuple(sides), J=J, MinvJT=MinvJT,
     )
 
 
@@ -282,7 +314,7 @@ def refresh_prep(prep: Prep, fk: FK, maps: SlotMaps, contacts: Contacts,
     return replace(
         prep, active=active, basis=torch.stack([n, t1, t2], dim=2),
         inv_d=active[..., None] / prep.d_eff,
-        bias=_contact_bias(contacts.depth, h, params),
+        bias=contact_bias(contacts.depth, h, params),
         split=mass_split(active, maps), pos=contacts.pos, screw=fk.screw,
         sides=sides,
     )
@@ -371,3 +403,202 @@ def anchored_impulse_world(pack: AnchoredPack, lam3):
         [lam3[0] * n[i] + lam3[1] * t1[i] + lam3[2] * t2[i] for i in range(3)],
         dim=-1,
     )
+
+
+# --- the general solve: solve_prepared, solve_contacts -----------------------
+
+
+class SolverOut(NamedTuple):
+    qd: torch.Tensor  # [B, nv]
+    obj_linvel: torch.Tensor  # [B, K, 3]
+    obj_angvel: torch.Tensor  # [B, K, 3]
+    impulse: torch.Tensor  # [B, C, 3] accumulated impulses, world frame
+
+
+def rel_velocity(prep: Prep, maps: SlotMaps, qd, lv, av):
+    """World relative velocity at every slot (A side minus B side): [B, C, 3].
+    The robot side from the dof -> slot coupling `anc_slot`."""
+    bvc = torch.einsum("cu,bua->bca", maps.anc_slot, prep.screw * qd[..., None])
+    v = bvc[..., 3:] + cross(bvc[..., :3], prep.pos)
+    for sg, kidx, mask, (r, _, _) in zip(maps.signs, maps.side_kidx, maps.side_mask,
+                                         prep.sides):
+        v = v + sg * (lv[:, kidx] + cross(av[:, kidx], r)) * mask[None, :, None]
+    return v
+
+
+def apply_impulses(prep: Prep, maps: SlotMaps, qd, lv, av, dP):
+    """Apply world impulses dP [B, C, 3] (+ to the robot and side a, - to
+    side b): the robot's through generalized impulses and Minv."""
+    f = torch.cat([cross(prep.pos, dP), dP], dim=-1)  # [B, C, 6]
+    W = torch.einsum("cu,bca->bua", maps.anc_slot, f)  # [B, nv, 6]
+    gi = torch.sum(prep.screw * W, dim=-1)
+    qd = qd + torch.einsum("buv,bv->bu", prep.Minv, gi)
+    for sg, mask, oh, (r, Iinv_c, invm_c) in zip(maps.signs, maps.side_mask,
+                                                 maps.side_onehot, prep.sides):
+        dPm = dP * mask[None, :, None]
+        lv = lv + sg * torch.einsum("bci,ck->bki", dPm * invm_c[..., None], oh)
+        dw = torch.einsum("bcij,bcj->bci", Iinv_c, cross(r, dPm))
+        av = av + sg * torch.einsum("bci,ck->bki", dw, oh)
+    return qd, lv, av
+
+
+def _cone(ln, lt1, lt2, mu):
+    """The friction-disk scale of tangential impulses (1 inside the cone)."""
+    fmag = torch.sqrt(lt1 * lt1 + lt2 * lt2)
+    fmax = mu * ln
+    return torch.where(fmag > fmax, fmax / torch.clamp(fmag, min=1e-9), torch.ones_like(fmag))
+
+
+def project(prep: Prep, lam, v):
+    """One projected update of the accumulated impulses lam [B, C, 3] (n, t1,
+    t2) given the slot velocities v: the new lambda before relaxation."""
+    vn, vt1, vt2 = (torch.sum(v * prep.basis[:, :, d], dim=-1) for d in range(3))
+    new_n = torch.clamp(lam[..., 0] + (prep.bias - vn) * prep.inv_d[..., 0], min=0.0)
+    ft1 = lam[..., 1] - vt1 * prep.inv_d[..., 1]
+    ft2 = lam[..., 2] - vt2 * prep.inv_d[..., 2]
+    sc = _cone(new_n, ft1, ft2, prep.mu)
+    return torch.stack([new_n, ft1 * sc, ft2 * sc], dim=-1)
+
+
+def solve_jacobi(prep: Prep, maps: SlotMaps, qd, lv, av, lam, params: SolverParams):
+    """The [B, C, 3] relaxed-Jacobi sweeps (`jacobi_impl` other than "soa")."""
+    gate = (prep.active * prep.split)[..., None]
+    for _ in range(params.iterations):
+        lam_new = project(prep, lam, rel_velocity(prep, maps, qd, lv, av))
+        dlam = params.relaxation * (lam_new - lam) * gate
+        lam = lam + dlam
+        dP = torch.einsum("bcd,bcdi->bci", dlam, prep.basis)
+        qd, lv, av = apply_impulses(prep, maps, qd, lv, av, dP)
+    return qd, lv, av, lam
+
+
+def solve_gs(prep: Prep, maps: SlotMaps, qd, lv, av, lam, params: SolverParams):
+    """Sequential impulses, one slot at a time in slot order (`mode="gs"`):
+    a Python loop over the slots, as the JAX package's scan over them."""
+    C = prep.active.shape[1]
+    sides = [(sg, kidx.tolist(), mask.tolist(), r, Iinv_c, invm_c)
+             for sg, kidx, mask, (r, Iinv_c, invm_c)
+             in zip(maps.signs, maps.side_kidx, maps.side_mask, prep.sides)]
+    lam = list(lam.unbind(1))
+    lvs, avs = list(lv.unbind(1)), list(av.unbind(1))  # per object
+    for _ in range(params.iterations):
+        for c in range(C):
+            basis_c = prep.basis[:, c]  # [B, 3, 3]
+            v = torch.einsum("biv,bv->bi", prep.J[:, c], qd)
+            # a side the slot lacks adds nothing (the JAX package adds it
+            # times a zero mask)
+            for sg, kidx, mask, r, _, _ in sides:
+                if mask[c]:
+                    k = kidx[c]
+                    v = v + sg * (lvs[k] + cross(avs[k], r[:, c]))
+            vn, vt1, vt2 = (torch.sum(v * basis_c[:, d], dim=-1) for d in range(3))
+            lam_c = lam[c]
+            new_n = torch.clamp(lam_c[:, 0] + (prep.bias[:, c] - vn) * prep.inv_d[:, c, 0],
+                                min=0.0)
+            ft1 = lam_c[:, 1] - vt1 * prep.inv_d[:, c, 1]
+            ft2 = lam_c[:, 2] - vt2 * prep.inv_d[:, c, 2]
+            sc = _cone(new_n, ft1, ft2, prep.mu[:, c])
+            dlam = (torch.stack([new_n, ft1 * sc, ft2 * sc], dim=-1) - lam_c) \
+                * prep.active[:, c, None]
+            lam[c] = lam_c + dlam
+            dP = torch.einsum("bd,bdi->bi", dlam, basis_c)
+            qd = qd + torch.einsum("bvi,bi->bv", prep.MinvJT[:, c], dP)
+            for sg, kidx, mask, r, Iinv_c, invm_c in sides:
+                if mask[c]:
+                    k = kidx[c]
+                    lvs[k] = lvs[k] + sg * dP * invm_c[:, c, None]
+                    avs[k] = avs[k] + sg * torch.einsum("bij,bj->bi", Iinv_c[:, c],
+                                                        cross(r[:, c], dP))
+    if lvs:
+        lv, av = torch.stack(lvs, dim=1), torch.stack(avs, dim=1)
+    return qd, lv, av, torch.stack(lam, dim=1)
+
+
+def solve_jacobi_soa(prep: Prep, maps: SlotMaps, qd, lv, av, params: SolverParams,
+                     warm_lam=None):
+    """The [B, C]-plane Jacobi solve: the restitution bias from the pre-solve
+    normal velocity, the world-frame warm start `warm_lam` [B, C, 3]
+    reprojected onto this basis, clipped to the cone and applied, then
+    every sweep through the sweep op with `apply_warm=False`. Returns (qd,
+    lv, av, world impulses)."""
+    pack = anchored_pack(prep)
+    P = pack.planes
+    n, t1, t2 = ([P[i] for i in BASE[k]] for k in ("n", "t1", "t2"))
+    B, C = prep.bias.shape
+    bias = prep.bias
+    if params.restitution > 0.0:
+        vn0 = anchored_vn(pack, maps, qd, lv, av)
+        bounce = params.restitution * torch.where(vn0 < -params.restitution_threshold, -vn0,
+                                                  torch.zeros_like(vn0))
+        bias = torch.maximum(bias, bounce)
+    if maps.signs:
+        obj = torch.stack([lv[..., 0], lv[..., 1], lv[..., 2],
+                           av[..., 0], av[..., 1], av[..., 2]]).contiguous()
+    else:
+        obj = qd.new_zeros(6, B, 1)
+    if warm_lam is None or params.warm_start <= 0.0:
+        lam = qd.new_zeros(3, B, C)
+    else:
+        w = [warm_lam[..., i] for i in range(3)]
+        ln = torch.clamp(w[0] * n[0] + w[1] * n[1] + w[2] * n[2], min=0.0)
+        lt1 = w[0] * t1[0] + w[1] * t1[1] + w[2] * t1[2]
+        lt2 = w[0] * t2[0] + w[1] * t2[1] + w[2] * t2[2]
+        sc = _cone(ln, lt1, lt2, prep.mu)
+        ws, act = params.warm_start, prep.active
+        lam = torch.stack([ws * ln * act, ws * lt1 * sc * act, ws * lt2 * sc * act])
+        dP0 = tuple(lam[0] * n[i] + lam[1] * t1[i] + lam[2] * t2[i] for i in range(3))
+        qd, obj = sweep_op.apply_impulse_plain(P, pack.screws, qd, pack.minv2, obj,
+                                               maps.anc_slot, maps.obj_idx, maps.signs, dP0)
+    # the JAX package's `_use_pallas_sweeps` with "on the TPU" read as on
+    # CUDA and CPU tensors alike (the op takes its plain version on the
+    # CPU); a scene past the kernel's size limits raises in the op
+    qd, obj, lam = sweep_op.contact_sweep(
+        P, bias.contiguous(), pack.screws, qd.contiguous(), pack.minv2, obj.contiguous(),
+        lam.contiguous(), maps.anc_slot, maps.groups, maps.obj_idx, maps.signs,
+        params.iterations, params.relaxation, apply_warm=False)
+    if maps.signs:
+        lv, av = obj[0:3].permute(1, 2, 0), obj[3:6].permute(1, 2, 0)
+    return qd, lv, av, anchored_impulse_world(pack, lam)
+
+
+def solve_prepared(prep: Prep, maps: SlotMaps, qd, obj_linvel, obj_angvel,
+                   params: SolverParams, warm_lam=None) -> SolverOut:
+    """The impulse iterations against a prepared contact set; `warm_lam`
+    [B, C, 3]: the previous solve's world-frame impulses."""
+    B, C = prep.active.shape
+    if params.mode == "jacobi" and params.jacobi_impl == "soa":
+        return SolverOut(*solve_jacobi_soa(prep, maps, qd, obj_linvel, obj_angvel, params,
+                                           warm_lam))
+    if params.mode not in ("jacobi", "gs"):
+        raise ValueError(params.mode)
+    if params.restitution > 0.0:
+        # the bounce from the pre-solve (and pre-warm-start) approach speed
+        vn0 = torch.sum(rel_velocity(prep, maps, qd, obj_linvel, obj_angvel)
+                        * prep.basis[:, :, 0], dim=-1)
+        bounce = params.restitution * torch.where(vn0 < -params.restitution_threshold, -vn0,
+                                                  torch.zeros_like(vn0))
+        prep = replace(prep, bias=torch.maximum(prep.bias, bounce))
+    if warm_lam is None or params.warm_start <= 0.0:
+        lam0 = qd.new_zeros(B, C, 3)
+    else:
+        # the world impulse onto this basis, clipped to the cone, re-applied
+        ln, lt1, lt2 = (torch.sum(warm_lam * prep.basis[:, :, d], dim=-1) for d in range(3))
+        ln = torch.clamp(ln, min=0.0)
+        sc = _cone(ln, lt1, lt2, prep.mu)
+        lam0 = params.warm_start * torch.stack([ln, lt1 * sc, lt2 * sc], dim=-1) \
+            * prep.active[..., None]
+        dP0 = torch.einsum("bcd,bcdi->bci", lam0, prep.basis)
+        qd, obj_linvel, obj_angvel = apply_impulses(prep, maps, qd, obj_linvel, obj_angvel, dP0)
+    solve = solve_jacobi if params.mode == "jacobi" else solve_gs
+    qd, lv, av, lam = solve(prep, maps, qd, obj_linvel, obj_angvel, lam0, params)
+    return SolverOut(qd, lv, av, torch.einsum("bcd,bcdi->bci", lam, prep.basis))
+
+
+def solve_contacts(m: ModelArrays, fk: FK, Minv, maps: SlotMaps, slots: ContactSlots,
+                   contacts: Contacts, shapes, obj_pos, obj_quat, qd, obj_linvel,
+                   obj_angvel, h: float, params: SolverParams = SolverParams(),
+                   warm_lam=None, mass_scale=None, friction_scale=None) -> SolverOut:
+    """`prepare`, then `solve_prepared`: one whole contact solve."""
+    prep = prepare(m, fk, Minv, maps, slots, contacts, shapes, obj_pos, obj_quat, h, params,
+                   mass_scale=mass_scale, friction_scale=friction_scale)
+    return solve_prepared(prep, maps, qd, obj_linvel, obj_angvel, params, warm_lam)

@@ -30,11 +30,14 @@ for the MLP). As the root `train.py` resumes, the whole TrainState is
 restored: params, optimizer state, running stats, lr, epoch, and the env
 state, last observations, last teacher observations and LSTM carry the
 run stopped at (the env's random draws restart from `seed`); a file whose
-env or contact-slot count is not the run's, or whose env state was saved
-with other domain randomization or ADR settings (a file without DR resumed
-into a DR run), keeps only its learner, and the env is reset fresh. The JAX
+env count is not the run's, or whose env state was saved with other
+domain randomization or ADR settings (a file without DR resumed into a DR
+run), keeps only its learner, and the env is reset fresh. The JAX
 package's loader cannot do the last: it reads a file only into a tree of
-the same layout. The iteration count starts at the file's step.
+the same layout. A file whose contact-slot count is not the run's (a
+hand-only collision set resumed into an arm-sphere run) raises
+ValueError, as the JAX package's first step on such a state does. The
+iteration count starts at the file's step.
 
 Domain randomization and ADR come through the composition as well, as
 `rl.randomization_params.dr.<key>=` and `rl.randomization_params.adr.<key>=`
@@ -76,6 +79,7 @@ from handarm_tpu_torch.envs.registry import resolve_task
 from handarm_tpu_torch.learn.ppo import PPO, PPOConfig, ppo_config
 from handarm_tpu_torch.utils.checkpoint import (
     checkpoint_step,
+    file_contact_slots,
     file_env_leaves,
     latest_checkpoint,
     load_train_state,
@@ -154,11 +158,15 @@ def main(argv: list[str]) -> None:
     start_it = 0
     path = latest_checkpoint(nn_dir) if resume == "auto" else resume
     if path:
+        slots, run_slots = file_contact_slots(path, cfg), env.scene.slots.num_slots
+        if slots != run_slots:
+            raise ValueError(
+                f"{path}: its env state holds {slots} contact slots, this run's env "
+                f"{run_slots} (hand_only_collision={env_cfg.hand_only_collision}); the JAX "
+                f"package cannot step such a state either")
         if file_env_leaves(path, cfg) == env_leaf_count(env_cfg):
             ck = load_train_state(path, dev, cfg=cfg, env_cfg=env_cfg)
-            same = (ck.last_obs.shape == ts.last_obs.shape and
-                    ck.env_state.physics.contact_impulse.shape
-                    == ts.env_state.physics.contact_impulse.shape)
+            same = ck.last_obs.shape == ts.last_obs.shape  # the env count
         else:  # its env state has another DR / ADR layout
             ck = load_train_state(path, dev, ts.env_state, ts.last_obs, cfg=cfg)
             same = False

@@ -190,6 +190,16 @@ def file_env_leaves(path: str, cfg=None) -> int:
     return n_env
 
 
+def file_contact_slots(path: str, cfg=None) -> int:
+    """The contact-slot count of a PPO checkpoint's env state (the learner
+    `cfg` as in `file_env_leaves`): the C of its [B, C, 3] impulses."""
+    n_env = file_env_leaves(path, cfg)
+    with np.load(path, allow_pickle=False) as data:
+        lo = len(data.files) - n_env - 3 - extra_leaf_count(cfg)  # where the env state starts
+        shape, _ = _leaf_header(data, lo + 7)  # physics: q, qd, targets, object x4, impulses
+    return int(shape[1])
+
+
 def load_train_state(path: str, device="cpu", env_state=None, last_obs=None, cfg=None,
                      env_cfg=None):
     """A whole PPO checkpoint as the port's TrainState; the given env state

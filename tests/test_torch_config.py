@@ -139,17 +139,22 @@ def test_compose_errors_match(case, jax_compose):
 
 
 REFUSED = {
-    "engine option": ("Ur5SihLift", ["carry_fk=false"], "carry_fk"),
-    "collision set": ("Ur5SihLift", ["hand_only_collision=false"], "hand_only_collision"),
     "cameras": (FULL, ["env.cameras.top.width=64"], "cameras"),
     "robot": (FULL, ["robot=stretch"], "robot"),
 }
 
 
 # refused until the point clouds and teacher observations, the recurrent
-# and asymmetric learner, and domain randomization and ADR were ported;
-# each now composes as the JAX package composes it
+# and asymmetric learner, domain randomization and ADR, and the engine's
+# cadences and the arm's collision spheres were ported; each now composes
+# as the JAX package composes it
 RETIRED = {
+    "engine option": ("Ur5SihLift", ["carry_fk=false"], "carry_fk", False),
+    "collision set": ("Ur5SihLift", ["hand_only_collision=false"], "hand_only_collision",
+                      False),
+    "heavy prep cadence": ("Ur5SihLift", ["heavy_prep_per_control=false", "carry_fk=false",
+                                          "hand_only_collision=false"],
+                           "heavy_prep_per_control", False),
     "teacher observations": ("Ur5SihLift", ["teacher_observations=[dof_pos]"],
                              "teacher_observations", ("dof_pos",)),
     "point clouds": ("Ur5SihLift", ["observations=[object_synthetic_pointcloud]"],

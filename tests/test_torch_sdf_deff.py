@@ -206,11 +206,14 @@ def test_prepare_deff_paths_match_jax(tmp_path, impl):
 
 def test_deff_gate():
     """"soa" takes the kernel only on the card at B * C >= 2^21 (the
-    multi-object scene at 8192 envs, not the lift); "pallas" always."""
+    multi-object scene at 8192 envs, not the lift); "pallas" always; the
+    other `jacobi_impl` values ("aos", "pallas_off") and Gauss-Seidel
+    never, as the JAX package's `_prepare` rules."""
     soa, pallas = tsv.SolverParams(), tsv.SolverParams(jacobi_impl="pallas")
     assert tsv.use_deff_kernel(soa, 8192, 372, "cuda")
     assert not tsv.use_deff_kernel(soa, 8192, 127, "cuda")
     assert not tsv.use_deff_kernel(soa, 8192, 372, "cpu")
     assert tsv.use_deff_kernel(pallas, 4, 10, "cpu")
-    with pytest.raises(ValueError):
-        tsv.use_deff_kernel(tsv.SolverParams(jacobi_impl="gs"), 4, 10, "cpu")
+    for other in (tsv.SolverParams(jacobi_impl="aos"), tsv.SolverParams(jacobi_impl="pallas_off"),
+                  tsv.SolverParams(jacobi_impl="pallas", mode="gs"), soa._replace(mode="gs")):
+        assert not tsv.use_deff_kernel(other, 8192, 372, "cuda")

@@ -1,8 +1,10 @@
 """The static slot groups that the sweep and deff kernels reduce over
 (physics/solver.py `build_slot_groups`), and the kernels' grouped algebra.
 
-For the slots of the two UR5+SIH scenes and of a random scene with an
-arbitrary set of dof masks, the tables must list every robot slot under
+For the slots of the two UR5+SIH scenes, with the hand's collision
+spheres and with the arm's as well (`hand_only_collision=False`: 190 and
+456 slots, 17 dof masks), and of a random scene with an arbitrary set of
+dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
 (side, object) bin, in ascending slot order. A torch emulation of the
 kernels' data flow, written here and reading only those tables (link
@@ -25,7 +27,9 @@ from handarm_tpu_torch.ops import prep_deff as tdeff
 from handarm_tpu_torch.physics.solver import build_slot_groups
 
 torch.set_num_threads(1)
-SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random"]
+SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
+          "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm"]
+ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
 B = 6
 
 
@@ -40,7 +44,9 @@ def _scene(name):
         anc = ((bits[:, None] >> np.arange(nv)) & 1).astype(np.float32)
         return (torch.tensor(anc), bits, obj_idx, K, (1.0, -1.0),
                 build_slot_groups(bits, obj_idx, K))
-    env = make_env(name, device="cpu", num_envs=1, use_drop_init=False, randomize=False)
+    task, _, arm = name.partition(" ")
+    env = make_env(task, device="cpu", num_envs=1, use_drop_init=False, randomize=False,
+                   hand_only_collision=not arm)
     m = env.scene.maps
     return (m.anc_slot, m.anc_bits.numpy(), m.obj_idx.numpy(), max(env.num_objects, 1),
             m.signs, m.groups)
@@ -63,8 +69,8 @@ def test_tables_group_every_slot_once(scene):
     assert all(t.dtype == torch.int32 for t in g)
     assert len(set(link_bits.tolist())) == len(link_bits) and np.all(link_bits != 0)
     assert len(link_bits) <= tsw.MAX_LINKS
-    if name != "random":  # one group per hand link
-        assert len(link_bits) == 11 and len(link_bits) <= anc.shape[1]
+    if name != "random":  # one group per hand link, and per arm link with the arm's spheres
+        assert len(link_bits) == (17 if name in ARM_SLOTS else 11) <= anc.shape[1]
     links = _lists(g.link_ptr, g.link_slots)
     seen = np.concatenate(links)
     assert sorted(seen.tolist()) == np.flatnonzero(bits != 0).tolist()  # each once
@@ -244,3 +250,16 @@ def test_grouped_deff_matches_plain(scene):
     assert float((got - want).abs().max()) <= 1e-5 * scale
     assert np.all(want[:, :, bits == 0].numpy() == 0.0)
     assert tdeff.launches == 0
+
+
+def test_arm_spheres_within_kernel_limits(scene):
+    """The tables pass the kernels' own check (`check_groups`: at most
+    MAX_LINKS masks, int32, shapes, list lengths) and the sweep's size
+    limits (C <= 1024, nv <= 31, K <= 8, 2 sides) at the scene's slots,
+    as the card will see them."""
+    name, (anc, bits, obj_idx, K, signs, g) = scene
+    C, nv = anc.shape
+    tsw.check_groups(g, C, torch.device("cpu"), name, bins=(len(signs), K))
+    assert C <= 1024 and nv <= 31 and K <= 8 and len(signs) <= 2
+    if name in ARM_SLOTS:
+        assert C == ARM_SLOTS[name]
