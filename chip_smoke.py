@@ -253,6 +253,39 @@ Phases, each with a deadline and one flushed progress line:
                second process with `max_iterations=2 resume=auto` must
                resume it, env state included, and write ckpt_2.npz. (Run
                after phase 27.)
+ 33. stretch   the Hello-Robot Stretch on its in-repo stand-in (9 dofs,
+               six prismatic; 24 hand spheres), both tasks as `train.py`
+               composes them at 8192 envs: StretchLift (100 slots) serving
+               docs/evidence/stretch_r5d/ckpt_4000.npz's policy, reset + 1
+               warm-up + 30 timed control steps, and
+               StretchMultiObjectManipulation (116 slots) under a seeded
+               random policy, 1 + 20 steps. Counters zeroed before each
+               reset and read after its last step: exactly spd_inverse 1,
+               contact_sweep 6, prep_deff 0, sdf_gather 0 per step (B * C
+               < 2^21; analytic SDFs); env-steps/s; every state leaf
+               finite, every object inside the workspace.
+ 34. stretch-kernels  as phase 7 (tolerances, bit-identical launches,
+               times, bounds, library times): spd_inverse at n = 9 and
+               contact_sweep at nv = 9 (with its dense and robot cases: the
+               3 hand link groups) on inputs captured from both rollouts'
+               last step, prep_deff at nv = 9 on one more StretchLift step
+               with the deff kernel forced (`deff_at_any_size`).
+ 35. stretch-ref  16 envs of each rollout: 2 control steps on the card
+               and on the CPU (float32 solver prep on both sides, as phase
+               8), each side acting on the CPU's actions, at phase 8's
+               bounds.
+ 36. stretch-train  `python -m handarm_tpu_torch.train task=StretchLift
+               resume=docs/evidence/stretch_r5d/ckpt_4000.npz
+               max_iterations=4002` in its own process at the yaml's 1,024
+               envs (ckpt_4000's own): the whole TrainState resumed, 2
+               iterations, ckpt_4002.npz read back (69 leaves, 100 slots);
+               then StretchMultiObjectManipulation at 8192 envs from a
+               fresh init: one warm-up and one timed iteration, launches
+               16 / 96 / 0 / 0.
+ 37. stretch-eval  ckpt_4000's deterministic success rate on StretchLift
+               at 8192 envs (`eval_policy`): a burn-in of one 400-step
+               episode, then 100 counted steps (a quarter episode: at
+               least 1,500 episodes); launches per step 1 / 6 / 0 / 0.
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -262,7 +295,9 @@ and "distill", and the evaluations' under "eval", "multiobj_eval" and
 randomization's and ADR's under "dr" (and each kernel's dr-kernels numbers
 under its "dr" key in "kernels"), the engine phases' under "engine" (and
 each kernel's launches on those paths and engine-kernels numbers under its
-"engine" key in "kernels"); the last line
+"engine" key in "kernels"), the Stretch phases' under "stretch" (and
+each kernel's Stretch launches and stretch-kernels numbers under its
+"stretch" key in "kernels"); the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
 """
@@ -290,7 +325,9 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "distill-entry": 360, "rnn-train": 360, "rnn-serve": 240, "rnn-entry": 330,
                     "dr-train": 300, "dr-kernels": 240, "dr-ref": 300, "adr": 240,
                     "dr-entry": 480, "engine-env": 300, "engine-api": 180,
-                    "engine-kernels": 240, "engine-ref": 300, "engine-entry": 330}
+                    "engine-kernels": 240, "engine-ref": 300, "engine-entry": 330,
+                    "stretch": 240, "stretch-kernels": 180, "stretch-ref": 180,
+                    "stretch-train": 300, "stretch-eval": 240}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -531,7 +568,9 @@ def sweep_groups_pushed(lam, groups) -> tuple[int, int, int, int]:
     return (*count(groups.link_ptr, groups.link_slots), *count(groups.obj_ptr, groups.obj_slots))
 
 
-def check_sweep(sweep_op, captured, maps, tag):
+def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True):
+    """The captured solve, then (with `synthetic`) every slot made active
+    and only the robot's slots active, each against the plain version."""
     import torch
 
     from handarm_tpu_torch.physics.solver import mass_split
@@ -573,37 +612,45 @@ def check_sweep(sweep_op, captured, maps, tag):
     # solver would give it, the median effective mass of the active slots
     # where it had none, and a penetrating contact's bias (+0.1 m/s)
     act = planes[gate] > 0
-    dense = planes.clone()
-    dense[gate] = mass_split(torch.ones_like(planes[gate]), maps)
-    meds = {k: dense[k][act].median() if bool(act.any()) else dense.new_tensor(1.0)
+    meds = {k: planes[k][act].median() if bool(act.any()) else planes.new_tensor(1.0)
             for k in sweep_op.BASE["inv_d"]}
-    for k, med in meds.items():
-        dense[k] = torch.where(act, dense[k], med)
-    dense_bias = torch.where(act, bias, torch.full_like(bias, 0.1))
-    dgot, derrs, _, _, _ = compare(dense, dense_bias, "dense")
-    pushed = int((dgot[2].abs().sum(0) > 0).sum())
-    lg, ln, ob, on = sweep_groups_pushed(dgot[2], groups)
-    log(f"contact_sweep ({tag}, dense): slots with gate > 0: {int((dense[gate] > 0).sum())}, "
-        f"slots pushed {pushed} of {dense[gate].numel()}; link groups with impulses "
-        f"{lg} of {ln}, object bins {ob} of {on}")
-    if lg < ln or ob < on:
-        raise AssertionError(f"contact_sweep dense case left a group without impulses ({tag})")
+    ln = groups.link_bits.shape[0]
+    dense_rec = robot_rec = None
+    if synthetic:
+        dense = planes.clone()
+        dense[gate] = mass_split(torch.ones_like(planes[gate]), maps)
+        for k, med in meds.items():
+            dense[k] = torch.where(act, dense[k], med)
+        dense_bias = torch.where(act, bias, torch.full_like(bias, 0.1))
+        dgot, derrs, _, _, _ = compare(dense, dense_bias, "dense")
+        pushed = int((dgot[2].abs().sum(0) > 0).sum())
+        lg, ln, ob, on = sweep_groups_pushed(dgot[2], groups)
+        log(f"contact_sweep ({tag}, dense): slots with gate > 0: "
+            f"{int((dense[gate] > 0).sum())}, slots pushed {pushed} of {dense[gate].numel()}; "
+            f"link groups with impulses {lg} of {ln}, object bins {ob} of {on}")
+        if lg < ln or ob < on:
+            raise AssertionError(f"contact_sweep dense case left a group without impulses "
+                                 f"({tag})")
+        dense_rec = dict(max_abs_err=max(derrs.values()), slots_pushed=pushed,
+                         link_groups_pushed=lg, object_bins_pushed=ob)
     # robot case: only the robot's slots active, each with its mass split,
     # that median effective mass and that bias, over 2 sweeps (the dense
     # case's coupled slots overshoot over many, to scales where 1e-4 of
     # the largest value hides a slot): every link group at an ordinary scale
-    on_robot = (groups.slot_link >= 0)[None].expand_as(act)
-    robot = planes.clone()
-    robot[gate] = mass_split(on_robot.to(planes.dtype), maps)
-    for k, med in meds.items():
-        robot[k] = torch.full_like(robot[k], float(med))
-    rgot, rerrs, rscales, _, _ = compare(robot, torch.full_like(bias, 0.1), "robot", 2)
-    rlg, _, _, _ = sweep_groups_pushed(rgot[2], groups)
-    log(f"contact_sweep ({tag}, robot): {int(on_robot[0].sum())} robot slots active over 2 "
-        f"sweeps; link groups with impulses {rlg} of {ln}")
-    if rlg < ln:
-        raise AssertionError(f"contact_sweep robot case left a link group without impulses "
-                             f"({tag})")
+    if synthetic:
+        on_robot = (groups.slot_link >= 0)[None].expand_as(act)
+        robot = planes.clone()
+        robot[gate] = mass_split(on_robot.to(planes.dtype), maps)
+        for k, med in meds.items():
+            robot[k] = torch.full_like(robot[k], float(med))
+        rgot, rerrs, rscales, _, _ = compare(robot, torch.full_like(bias, 0.1), "robot", 2)
+        rlg, _, _, _ = sweep_groups_pushed(rgot[2], groups)
+        log(f"contact_sweep ({tag}, robot): {int(on_robot[0].sum())} robot slots active over "
+            f"2 sweeps; link groups with impulses {rlg} of {ln}")
+        if rlg < ln:
+            raise AssertionError(f"contact_sweep robot case left a link group without "
+                                 f"impulses ({tag})")
+        robot_rec = dict(max_abs_err=max(rerrs.values()), scale=rscales, link_groups_pushed=rlg)
     B, C, nv, K = planes.shape[1], planes.shape[2], qd.shape[1], obj.shape[2]
     launch = sweep_op.launch_info(C, nv, K, len(signs), groups)
     log(f"contact_sweep ({tag}): blocks of {launch['threads']} threads, "
@@ -614,9 +661,7 @@ def check_sweep(sweep_op, captured, maps, tag):
                        + nbytes(*got), flops)
     return dict(
         max_abs_err=max(errs.values()), scale=scales, bitwise=True, launch=launch,
-        dense=dict(max_abs_err=max(derrs.values()), slots_pushed=pushed,
-                   link_groups_pushed=lg, object_bins_pushed=ob),
-        robot=dict(max_abs_err=max(rerrs.values()), scale=rscales, link_groups_pushed=rlg),
+        dense=dense_rec, robot=robot_rec,
         **kernel_times(lambda: sweep_op.contact_sweep_cuda(*cuda_args), 50),
         plain_ms=cuda_time_ms(lambda: sweep_op.contact_sweep_plain(*plain_args), 10),
         bound_ms=t_b, bound_by=by, library_ms=None,
@@ -1288,30 +1333,30 @@ MULTI_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gat
 
 
 def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=None,
-               student=None, min_episodes=3000) -> dict:
-    """Phases 10, 14 and 18 (see the module docstring)."""
+               student=None, min_episodes=3000, steps=EVAL_STEPS, burn_in=200) -> dict:
+    """Phases 10, 14, 18 and 37 (see the module docstring): a burn-in of
+    `burn_in` steps (the task's episode length), then `steps` counted."""
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.eval_policy import evaluate
 
     rollout.reset_launch_counts()
     t0 = time.perf_counter()
-    out, state = evaluate(task=task, envs=ENVS, steps=EVAL_STEPS, device=dev, pool=pool,
+    out, state = evaluate(task=task, envs=ENVS, steps=steps, device=dev, pool=pool,
                           student=student,
                           teacher=rollout.TASK_CKPTS["Ur5SihLift"] if student else None)
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
-    steps = 1 + 200 + EVAL_STEPS
-    check_launches(counts, per_step, steps, f"eval {task}")
+    check_launches(counts, per_step, 1 + burn_in + steps, f"eval {task}")
     finite_state(tree_map, state, state.physics.robot.q)
     n, p = out["episodes"], out["success_rate"]
     se = (p * (1 - p) / max(n, 1)) ** 0.5
-    log(f"eval: {out['policy']} on {task}, {ENVS} envs, burn-in 200 + {EVAL_STEPS} steps "
+    log(f"eval: {out['policy']} on {task}, {ENVS} envs, burn-in {burn_in} + {steps} steps "
         f"in {seconds:.1f} s: episodes {n}, successes {out['successes']}, "
         f"success rate {p:.6f} (standard error {se:.6f}), success_ewma "
         f"{out['success_ewma']:.6f}, per-object ewma {out['per_object_ewma']}; launches {counts}")
     if n < min_episodes:
         raise AssertionError(f"eval counted {n} episodes, fewer than {min_episodes}")
-    return dict(out, policy=os.path.relpath(out["policy"]), envs=ENVS, steps=EVAL_STEPS,
+    return dict(out, policy=os.path.relpath(out["policy"]), envs=ENVS, steps=steps,
                 seconds=seconds, launches=counts, standard_error=se)
 
 
@@ -2506,6 +2551,208 @@ def add_engine_records(kernels: list, engine: dict) -> None:
                                **engine["kernels"].get(name, {}))
 
 
+STRETCH_TASK = "StretchLift"
+STRETCH_MULTI = "StretchMultiObjectManipulation"
+STRETCH_STEPS = 30  # timed StretchLift serving steps, after one warm-up step
+STRETCH_MULTI_STEPS = 20  # random-policy multi-object steps, after one warm-up step
+STRETCH_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0, "sdf_gather": 0}
+STRETCH_ENTRY_ITERS = 2  # iterations of the train entry point, resumed from ckpt_4000
+STRETCH_EVAL_STEPS = 100  # counted eval steps, after a burn-in of one episode (400)
+
+
+class RandomPolicy:
+    """Uniform actions in [-1, 1] from a seeded CPU generator, one draw per
+    call (moved to the observations' device): the same sequence on the
+    card and on the CPU."""
+
+    def __init__(self, num_actions: int, seed: int):
+        import torch
+
+        self.n, self.gen = num_actions, torch.Generator().manual_seed(seed)
+
+    def act(self, obs):
+        import torch
+
+        a = torch.rand((obs.shape[0], self.n), generator=self.gen) * 2.0 - 1.0
+        return a.to(obs.device)
+
+    @staticmethod
+    def observe(res):
+        return res.obs
+
+
+def stretch_policy(rollout, task: str, num_actions: int, dev):
+    """ckpt_4000's policy for StretchLift; a seeded random policy for the
+    multi-object task, which has no checkpoint."""
+    if task == STRETCH_TASK:
+        return rollout.load_policy(rollout.TASK_CKPTS[task], dev)
+    return RandomPolicy(num_actions, seed=5)
+
+
+def stretch_phase(rollout, dev, ops) -> tuple:
+    """Phase 33 (see the module docstring). Returns (record, per task: the
+    captured kernel calls, the scene's slot maps, the env, its last state
+    and observations, and 16 of its envs on the CPU for stretch-ref)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    out, kept = {}, {}
+    for task, steps in ((STRETCH_TASK, STRETCH_STEPS), (STRETCH_MULTI, STRETCH_MULTI_STEPS)):
+        rollout.reset_launch_counts()
+        env = rollout.make_task_env(task, ENVS, dev)
+        policy = stretch_policy(rollout, task, env.num_actions, dev)
+        with Capture(ops, last_only=True) as cap:
+            state, obs = env.reset(0)
+            state, obs, _, _ = rollout.forward_step(env, policy, state, obs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                cap.armed = i == steps - 1
+                state, obs, reward, _ = rollout.forward_step(env, policy, state, obs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        counts = rollout.launch_counts()
+        check_launches(counts, STRETCH_PER_STEP, steps + 1, f"stretch {task}")
+        finite_state(tree_map, state, obs)
+        z = state.physics.objects.pos[..., 2]
+        if not bool(((z > -0.1) & (z < 2.0)).all()):
+            raise AssertionError(f"stretch {task}: an object left the workspace")
+        C, sps = env.scene.slots.num_slots, ENVS * steps / seconds
+        B_C = ENVS * C
+        log(f"stretch {task}: {ENVS} envs, nv {env.art.nv}, C = {C} contact slots (B*C = "
+            f"{B_C}, the deff kernel from 2^21), K = {env.num_objects}, obs {env.num_obs}, "
+            f"actions {env.num_actions}, policy "
+            f"{os.path.relpath(rollout.TASK_CKPTS[task]) if task in rollout.TASK_CKPTS else 'random'}; "
+            f"{steps} control steps in {seconds:.3f} s = {sps:.0f} env-steps/s; launches "
+            f"{counts} over {steps + 1} steps; mean reward {float(reward.mean()):.4f}; "
+            f"object z in [{float(z.min()):.3f}, {float(z.max()):.3f}]; every state leaf finite")
+        out[task] = dict(envs=ENVS, control_steps=steps, seconds=seconds, env_steps_per_s=sps,
+                         slots=C, launches=counts, launches_per_step=STRETCH_PER_STEP,
+                         mean_reward=float(reward.mean()))
+        kept[task] = dict(calls=cap.calls, maps=env.scene.maps, env=env, state=state, obs=obs,
+                          ref=pick_contact_envs(env.scene.slots, state, obs, 16,
+                                                f"stretch-ref {task}"))
+    return out, kept
+
+
+def stretch_kernels_phase(rollout, dev, ops, kept) -> dict:
+    """Phase 34 (see the module docstring): {kernel: record}."""
+    import torch
+
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import prep_deff as deff_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    lift, multi = kept[STRETCH_TASK], kept[STRETCH_MULTI]
+    # the deff kernel, off this path (B * C < 2^21), forced for one more
+    # control step of the lift's rollout
+    env, policy = lift["env"], stretch_policy(rollout, STRETCH_TASK, 5, dev)
+    with deff_at_any_size(), Capture(ops, last_only=True) as cap:
+        cap.armed = True
+        rollout.forward_step(env, policy, lift["state"], lift["obs"])
+    torch.cuda.synchronize()
+    out = {
+        "spd_inverse": check_spd(spd_op, lift["calls"]["spd"][0][0][0], dev, "stretch"),
+        "contact_sweep": check_sweep(sweep_op, lift["calls"]["sweep"][0], lift["maps"],
+                                     "stretch"),
+        "prep_deff": check_deff(deff_op, cap.calls["deff"][0][0]),
+    }
+    # the multi-object scene's captured solve alone: its synthetic cases
+    # give every slot the active slots' median effective mass, and slots
+    # whose own is thousands of times larger (long lever arms on the 0.08
+    # kg, 3 cm sphere and the 0.1 kg box) blow the object velocities up to
+    # ~2e8 within 2 sweeps; the plain version's own float32 result then
+    # lies 3.4e-3 (dense, 8 sweeps) and 3.7e-3 (robot, 2) of scale from its
+    # float64 one (256 envs on the CPU): no 1e-4 bound holds. StretchLift's
+    # robot case drives the same 3 hand link groups.
+    out["contact_sweep"]["multiobj"] = dict(path=STRETCH_MULTI, **check_sweep(
+        sweep_op, multi["calls"]["sweep"][0], multi["maps"], "stretch multiobj",
+        synthetic=False))
+    return out
+
+
+def stretch_ref_phase(rollout, dev, kept) -> dict:
+    """Phase 35 (see the module docstring)."""
+    out = {}
+    for task in (STRETCH_TASK, STRETCH_MULTI):
+        state, obs = kept[task]["ref"]
+        env_c = rollout.make_task_env(task, 16, "cpu", solver_prep_dtype="f32")
+        env_g = rollout.make_task_env(task, 16, dev, solver_prep_dtype="f32")
+        out[task] = card_vs_cpu(env_c, env_g, state, obs,
+                                stretch_policy(rollout, task, env_c.num_actions, "cpu"), dev,
+                                f"stretch-ref {task}")
+    return out
+
+
+def stretch_train_phase(rollout, dev) -> dict:
+    """Phase 36 (see the module docstring)."""
+    import shutil
+
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.utils.checkpoint import file_contact_slots, load_train_state
+
+    ckpt = os.path.relpath(rollout.TASK_CKPTS[STRETCH_TASK])
+    step = int(os.path.basename(ckpt)[5:-4]) + STRETCH_ENTRY_ITERS
+    run = os.path.join("runs", "chip_smoke_stretch")
+    shutil.rmtree(run, ignore_errors=True)
+    out_path = os.path.join(run, "nn", f"ckpt_{step}.npz")
+    seconds, stdout = run_module(
+        "handarm_tpu_torch.train", [f"task={STRETCH_TASK}", f"resume={ckpt}",
+                                    f"max_iterations={step}", "experiment=chip_smoke_stretch"],
+        "stretch entry point", PHASE_DEADLINE_S["stretch-train"] // 2)
+    cfg, _ = resolve_task(STRETCH_TASK)
+    ts = load_train_state(out_path, env_cfg=cfg)
+    check_learner(ts, "stretch entry point")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f.read().splitlines()]
+    ok = ("resumed from" in stdout and "reset fresh" not in stdout
+          and file_contact_slots(out_path) == 100 and int(ts.epoch) == step
+          and ts.env_state.control.joint_target.shape == (cfg.num_envs, 9)
+          and len(rows) == STRETCH_ENTRY_ITERS)
+    if not ok:
+        raise AssertionError(f"stretch entry point: bad checkpoint or metrics in {run}")
+    log(f"stretch entry point: resumed {ckpt} whole at its {cfg.num_envs} envs, "
+        f"{STRETCH_ENTRY_ITERS} iterations in {seconds:.1f} s; {out_path} read back (69 "
+        f"leaves, 100 slots, epoch {step}); last kl {rows[-1]['kl']:.5f}, reward_mean "
+        f"{rows[-1]['reward_mean']:.5f}")
+    rec = dict(entry_point=dict(seconds=seconds, envs=cfg.num_envs, iterations=len(rows),
+                                kl=rows[-1]["kl"], reward_mean=rows[-1]["reward_mean"]))
+    env = rollout.make_task_env(STRETCH_MULTI, ENVS, dev)
+    ppo = PPO(env, ppo_config(resolve_task(STRETCH_MULTI)[1]))
+    log(f"stretch-train: {STRETCH_MULTI} at {ENVS} envs, {ppo.num_minibatches} minibatches "
+        f"of {ppo.mb_size}, from a fresh init")
+    rec["multiobj"], _ = timed_iterations(rollout, ppo, ppo.init(0), 1,
+                                          {k: 16 * v for k, v in STRETCH_PER_STEP.items()},
+                                          "stretch-train")
+    return rec
+
+
+def stretch_phases(rollout, dev, ops) -> tuple:
+    """Phases 33-37: (their record, each kernel's Stretch record)."""
+    rec = {}
+    with phase("stretch"):
+        rec["serve"], kept = stretch_phase(rollout, dev, ops)
+    with phase("stretch-kernels"):
+        kernels = stretch_kernels_phase(rollout, dev, ops, kept)
+        for name, k in kernels.items():
+            k.update(path=STRETCH_TASK, launches=rec["serve"][STRETCH_TASK]["launches"][name])
+        kernels["contact_sweep"]["multiobj"]["launches"] = \
+            rec["serve"][STRETCH_MULTI]["launches"]["contact_sweep"]
+        kernels["sdf_gather"] = dict(path=STRETCH_TASK, launches=0)  # analytic SDFs only
+        del kept[STRETCH_TASK]["calls"], kept[STRETCH_MULTI]["calls"]
+    with phase("stretch-ref"):
+        rec["ref"] = stretch_ref_phase(rollout, dev, kept)
+        del kept
+    with phase("stretch-train"):
+        rec["train"] = stretch_train_phase(rollout, dev)
+    with phase("stretch-eval"):
+        rec["eval"] = eval_phase(rollout, dev, STRETCH_TASK, STRETCH_PER_STEP,
+                                 min_episodes=1500, steps=STRETCH_EVAL_STEPS, burn_in=400)
+    return rec, kernels
+
+
 def main() -> int:
     threading.Thread(target=_watchdog, daemon=True).start()
 
@@ -2765,6 +3012,11 @@ def main() -> int:
         del rnn_ts
     with phase("rnn-entry"):
         rnn_rec["entry_point"] = rnn_entry_phase(rnn_ppo)
+        del rnn_ppo
+
+    stretch_rec, stretch_kernels = stretch_phases(rollout, dev, ops)
+    for entry in kernels:
+        entry["stretch"] = stretch_kernels[entry["name"]]
 
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
@@ -2777,7 +3029,7 @@ def main() -> int:
     log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec,
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
                     "family": family_rec, "distill": distill_rec, "rnn": rnn_rec,
-                    "dr": dr_rec, "engine": engine}))
+                    "dr": dr_rec, "engine": engine, "stretch": stretch_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

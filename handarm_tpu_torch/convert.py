@@ -6,21 +6,25 @@ to write checkpoints its loader reads.
   same holds for Adam's moments of each kernel.
 - PhysicsState / EnvState leaves arrive in JAX's flattening order (NamedTuple
   fields in order, None fields absent): physics (q, qd, targets, object pos,
-  quat, linvel, angvel, contact_impulse), control (arm_target, servo_ticks,
-  sih_smoothed), task (progress, goal_pos, goal_quat, target_obj,
+  quat, linvel, angvel, contact_impulse), control (the UR5+SIH's
+  arm_target, servo_ticks, sih_smoothed; the Stretch's joint_target), task
+  (progress, goal_pos, goal_quat, target_obj,
   goal_reached_before, initial_obj_pos, PRNG key, total_steps, then with
   domain randomization the DRState (mass_scale, friction_scale,
   gain_scale, gravity_z, obs_corr, act_corr) and with ADR the AdrState
   (lo, hi, worker_mode, values, q_sum, q_cnt)), metrics (success_ewma,
   per_object_ewma, total_resets, total_successes, end_success_ewma): 24
-  leaves, 30 or 36 with DR and ADR (`env_leaf_count`). The leaf count does
-  not tell DR from ADR, so the readers take the HandArmConfig. The PRNG key
+  leaves for the UR5+SIH, 22 for the Stretch, 6 more with DR and 6 more
+  with ADR (`env_leaf_count`). The leaf count does not tell DR from ADR,
+  so the readers take the HandArmConfig, whose `robot` also gives the
+  control state's layout (without one: the UR5+SIH's). The PRNG key
   is dropped on the way in: the port draws from a torch.Generator. On the
   way out it is written as the JAX file has it, a [2] uint32 key from the
   seed (`jax.random.PRNGKey(seed)`'s value).
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
-  epoch (71 for the 768-512-256 MLP), then with an asymmetric critic the
+  epoch (71 for the 768-512-256 MLP on the UR5+SIH, 69 on the Stretch),
+  then with an asymmetric critic the
   teacher-observation stats and the last teacher observations, then on
   the recurrent path the carry: (c, h), or actor (c, h) and critic (c, h).
   Its params and their order follow from the PPOConfig
@@ -46,10 +50,12 @@ from handarm_tpu_torch.learn.networks import ActorCritic, flax_names
 from handarm_tpu_torch.learn.ppo import PPOConfig, TrainState, param_names
 from handarm_tpu_torch.learn.running_stats import RunningStats
 from handarm_tpu_torch.physics.engine import ObjectState, PhysicsState, RobotState
-from handarm_tpu_torch.robots.ur5sih_adapter import ControlState
+from handarm_tpu_torch.robots import ROBOTS, control_type
 
 N_PHYSICS_LEAVES = 8
-N_ENV_LEAVES = 24  # without DR and ADR
+N_TASK_LEAVES = 8  # without DR and ADR
+N_METRIC_LEAVES = 5
+N_ENV_LEAVES = 24  # of the UR5+SIH, without DR and ADR
 N_RAND_LEAVES = 6  # of a DRState, and of an AdrState
 OPT_SCALARS = (np.int32, np.bool_, np.int32, np.int32)  # optax's, in its order
 
@@ -97,29 +103,44 @@ def physics_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> Phy
     return PhysicsState(RobotState(q, qd, tg), ObjectState(pos, quat, lv, av), imp)
 
 
+def control_leaf_count(robot: str) -> int:
+    return len(control_type(robot)._fields)
+
+
+def env_leaf_counts() -> set[int]:
+    """Every EnvState leaf count of a ported robot, with or without DR and ADR."""
+    base = N_PHYSICS_LEAVES + N_TASK_LEAVES + N_METRIC_LEAVES
+    return {base + control_leaf_count(r) + N_RAND_LEAVES * k for r in ROBOTS for k in range(3)}
+
+
 def env_leaf_count(env_cfg: HandArmConfig | None = None) -> int:
-    """EnvState leaves of an env with `env_cfg` (None: without DR and ADR)."""
-    if env_cfg is None:
-        return N_ENV_LEAVES
-    return N_ENV_LEAVES + N_RAND_LEAVES * (env_cfg.dr.enabled + env_cfg.adr.enabled)
+    """EnvState leaves of an env with `env_cfg` (None: the UR5+SIH without
+    DR and ADR)."""
+    robot = env_cfg.robot if env_cfg is not None else "ur5sih"
+    rand = env_cfg.dr.enabled + env_cfg.adr.enabled if env_cfg is not None else 0
+    return (N_PHYSICS_LEAVES + control_leaf_count(robot) + N_TASK_LEAVES + N_METRIC_LEAVES
+            + N_RAND_LEAVES * rand)
 
 
 def env_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu",
                           env_cfg: HandArmConfig | None = None) -> EnvState:
-    """The EnvState of an env with `env_cfg` (None: without DR and ADR) from
-    its leaves; ValueError if their count is not that layout's."""
+    """The EnvState of an env with `env_cfg` (None: the UR5+SIH without DR
+    and ADR) from its leaves; ValueError if their count is not that
+    layout's."""
     n = env_leaf_count(env_cfg)
+    robot = env_cfg.robot if env_cfg is not None else "ur5sih"
     if len(leaves) != n:
-        raise ValueError(f"expected {n} EnvState leaves for this config (DR "
+        raise ValueError(f"expected {n} EnvState leaves for this config (robot {robot}, DR "
                          f"{bool(env_cfg and env_cfg.dr.enabled)}, ADR "
                          f"{bool(env_cfg and env_cfg.adr.enabled)}), got {len(leaves)}")
     f = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
     i = lambda x: torch.tensor(np.asarray(x).astype(np.int64), device=device)
     physics = physics_state_from_leaves(leaves[:N_PHYSICS_LEAVES], device)
-    control = ControlState(*(f(x) for x in leaves[8:11]))
+    k = N_PHYSICS_LEAVES + control_leaf_count(robot)
+    control = control_type(robot)(*(f(x) for x in leaves[N_PHYSICS_LEAVES:k]))
     (progress, goal_pos, goal_quat, target, reached, init_pos, _key,
-     total) = leaves[11:19]
-    k = 19
+     total) = leaves[k:k + N_TASK_LEAVES]
+    k += N_TASK_LEAVES
     dr = adr = None
     if env_cfg is not None and env_cfg.dr.enabled:
         dr = DRState(*(f(x) for x in leaves[k:k + N_RAND_LEAVES]))
@@ -245,9 +266,9 @@ def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
 
 def env_state_to_leaves(state: EnvState, seed: int = 0,
                         env_cfg: HandArmConfig | None = None) -> list[np.ndarray]:
-    """The EnvState leaves (24, with DR and ADR 30 or 36) in the JAX
-    package's order and dtypes. Given `env_cfg`, the state must hold its DR
-    and ADR states, and only those."""
+    """The EnvState leaves (the UR5+SIH's 24, the Stretch's 22, 6 more for
+    each of DR and ADR) in the JAX package's order and dtypes. Given
+    `env_cfg`, the state must hold its DR and ADR states, and only those."""
     np_ = lambda x: x.detach().cpu().numpy()
     f = lambda x: np_(x).astype(np.float32)
     i32 = lambda x: np_(x).astype(np.int32)
@@ -302,8 +323,9 @@ def extra_to_leaves(ts: TrainState) -> list[np.ndarray]:
 
 def train_state_to_leaves(ts: TrainState, seed: int = 0, cfg: PPOConfig | None = None,
                           env_cfg: HandArmConfig | None = None) -> list[np.ndarray]:
-    """The leaves of a PPO TrainState (71 for the 768-512-256 MLP, 12 more
-    with DR and ADR); both PRNG keys are `prng_key(seed)`."""
+    """The leaves of a PPO TrainState (71 for the 768-512-256 MLP on the
+    UR5+SIH, 69 on the Stretch, 12 more with DR and ADR); both PRNG keys
+    are `prng_key(seed)`."""
     return (learner_to_leaves(ts, cfg) + env_state_to_leaves(ts.env_state, seed, env_cfg)
             + [ts.last_obs.detach().cpu().numpy().astype(np.float32), prng_key(seed),
                ts.epoch.detach().cpu().numpy().astype(np.int32)] + extra_to_leaves(ts))

@@ -9,12 +9,13 @@
 // What bounds it on an H100: per env it reads n*n floats and writes n*n
 // floats (17x17: 2.3 KB) against ~5.2 k flops, so at B = 8192 the least
 // time is the 19 MB of traffic over 3.35 TB/s, about 5.7 us; the flops
-// (~43 MFLOP) take under 1 us at 67 TFLOP/s f32.
+// (~43 MFLOP) take under 1 us at 67 TFLOP/s f32. At n = 9 (0.65 KB, ~0.9
+// k flops) it is 5.3 MB, about 1.6 us: a launch costs more.
 //
 // Design: the TPU kernel's own formulation, with the batch on the lanes.
 // Each thread owns one matrix and runs the fully unrolled left-looking
 // Cholesky-Crout for a compile-time n, W = L^-1 in place, and Minv = W^T W,
-// all in registers (the lower triangle: 153 floats at n = 17), with no
+// all in registers (the lower triangle: 153 floats at n = 17, 45 at 9), with no
 // synchronization between the steps. A block is one warp of 32 matrices,
 // so B = 8192 gives 256 blocks and every SM gets work. The block's 32
 // matrices are one contiguous span of the flat [B, n, n] input: it is
@@ -117,7 +118,10 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
   if (B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const int blocks = (B + kMats - 1) / kMats;
-  switch (n) {  // the n the port runs: the UR5+SIH's 17 dofs
+  switch (n) {  // the n the port runs: the Stretch's 9 dofs, the UR5+SIH's 17
+    case 9:
+      spd_inverse_kernel<9><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
     case 17:
       spd_inverse_kernel<17><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;

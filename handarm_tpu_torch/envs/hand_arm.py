@@ -1,6 +1,6 @@
-"""UR5+SIH manipulation environment: the lift, reposition,
-oriented_reposition, repose and throw goals (counterpart of
-handarm_tpu/envs/hand_arm.py on the UR5+SIH task family).
+"""Hand-arm manipulation environment of the UR5+SIH or the Hello-Robot
+Stretch (`robot`): the lift, reposition, oriented_reposition, repose and
+throw goals (counterpart of handarm_tpu/envs/hand_arm.py).
 
 One `step(state, actions)` does: the action noise of domain randomization
 (`dr`), actionables -> control -> PD targets, the random object
@@ -20,9 +20,11 @@ unclipped. Resets draw object poses from the genesis pool (`use_drop_init`,
 built by the first `reset`) or spawn them on the table, the target object
 uniformly or (`balanced_target_sampling`) by failure rate, for the
 orientation goals a goal quaternion, and with DR a fresh `DRState`. The
-robot's collision spheres cover the hand's links, or with
-`hand_only_collision=False` the arm's as well. Cameras and robots other
-than the UR5+SIH are not ported: `HandArmConfig` refuses them by name.
+robot's collision spheres cover the hand's links (the Stretch's wrist and
+gripper), or with `hand_only_collision=False` the arm's as well. The robot
+is mounted on the table at its adapter's xy offset and yaw (the Stretch
+at (0.2, 0.175), turned by pi). Cameras are not ported: `HandArmConfig`
+refuses them by name.
 """
 
 from __future__ import annotations
@@ -82,11 +84,13 @@ GOALS = ("lift", "reposition", "oriented_reposition", "throw", "repose")
 
 @dataclass(frozen=True)
 class HandArmConfig:
-    """The UR5+SIH with hand-only collision spheres; one of the goals;
-    primitive objects or a dataset of baked mesh records. Fields and
-    defaults as the JAX package's; `settle_num_steps` is the port's own."""
+    """A robot (ur5sih or stretch) with hand-only collision spheres; one of
+    the goals; primitive objects or a dataset of baked mesh records. Fields
+    and defaults as the JAX package's; `settle_num_steps` is the port's
+    own. A Stretch config that keeps the default (UR5+SIH) actions takes
+    the Stretch's."""
 
-    robot: str = "ur5sih"
+    robot: str = "ur5sih"  # one of robots.ROBOTS
     num_envs: int = 1024
     episode_length: int = 200
     control_freq_inv: int = 3  # 20 Hz policy on a 60 Hz sim
@@ -172,7 +176,6 @@ class HandArmConfig:
 # fields whose features are not ported: the only value taken, and the
 # ROADMAP item that ports the rest
 NOT_PORTED = {
-    "robot": ("ur5sih", "§1.4"),
     "cameras": ((), "§1.5"),
 }
 
@@ -460,7 +463,7 @@ def _register_actionables(reg: Registry) -> None:
 
 
 class HandArmEnv:
-    """Vectorized UR5+SIH env on one device. Random draws (resets,
+    """Vectorized hand-arm env on one device. Random draws (resets,
     disturbances, DR and ADR) come from the env's own torch.Generator, seeded
     by `reset(seed)`, unless `draws` are given; genesis draws from its own,
     seeded with 23 + num_envs."""
@@ -468,7 +471,7 @@ class HandArmEnv:
     def __init__(self, cfg: HandArmConfig, device=None, urdf_path: str | None = None):
         self.cfg = cfg
         self.device = dev = resolve_device(device)
-        self.robot = get_robot("ur5sih", urdf_path, dev)
+        self.robot = get_robot(cfg.robot, urdf_path, dev)
         art = self.art = self.robot.art
         objs = []
         self.object_names: list[str] = []
@@ -507,9 +510,11 @@ class HandArmEnv:
             wall_lo=np.asarray([w[0] for w in walls], np.float32).reshape(-1, 3),
             wall_hi=np.asarray([w[1] for w in walls], np.float32).reshape(-1, 3),
         )
+        (bx, by), yaw = self.robot.base_xy, self.robot.base_yaw
         self.scene = build_scene(
             art, shapes, spheres, geom, kp=self.robot.kp, kd=self.robot.kd,
-            base_pos=(0.0, 0.0, cfg.table_height),  # the arm mounts at the table origin
+            base_pos=(bx, by, cfg.table_height),
+            base_quat=(float(np.cos(yaw / 2)), 0.0, 0.0, float(np.sin(yaw / 2))),
             params=SimParams(
                 dt=cfg.dt, substeps=cfg.substeps,
                 solver=SolverParams(iterations=cfg.solver_iterations,
@@ -523,8 +528,10 @@ class HandArmEnv:
         self.fingertip_body_idx = torch.as_tensor(self.fingertip_sites[0], device=dev)
         self.flange_site = self._sites([self.robot.flange_site_name])
         f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
-        self.arm_limits = (f32(art.q_min[:6]), f32(art.q_max[:6]))
-        self.servo_lo, self.servo_hi = f32(SERVO_LOWER), f32(SERVO_UPPER)
+        self.joint_limits = (f32(art.q_min), f32(art.q_max))
+        if cfg.robot == "ur5sih":  # the UR5+SIH actionables' bounds
+            self.arm_limits = (f32(art.q_min[:6]), f32(art.q_max[:6]))
+            self.servo_lo, self.servo_hi = f32(SERVO_LOWER), f32(SERVO_UPPER)
         self.num_objects = shapes.num_objects
         self.goal_cloud_points = f32(sphere_points(0.02, 16))
         self._robot_cloud = None
@@ -533,13 +540,18 @@ class HandArmEnv:
         _register_pointcloud_observables(self.registry, self.num_objects,
                                          cfg.pointcloud_max_points)
         _register_actionables(self.registry)
+        if self.robot.register_terms is not None:
+            self.robot.register_terms(self.registry)
         self.active_obs = self.registry.resolve_observables(list(cfg.observations))
         self.obs_slices, self.num_obs = obs_layout(self.active_obs, list(cfg.observations))
         self.active_teacher_obs = self.registry.resolve_observables(
             list(cfg.teacher_observations))
         self.teacher_obs_slices, self.num_teacher_obs = obs_layout(
             self.active_teacher_obs, list(cfg.teacher_observations))
-        self.active_actions = self.registry.resolve_actionables(list(cfg.actions))
+        actions = cfg.actions
+        if cfg.robot != "ur5sih" and actions == HandArmConfig.actions:
+            actions = self.robot.default_actions
+        self.active_actions = self.registry.resolve_actionables(list(actions))
         self.num_actions = sum(a.size for a in self.active_actions)
         self.reset_q = f32(self.robot.reset_q)
         self.gen = torch.Generator(device=dev)
@@ -886,7 +898,8 @@ class HandArmEnv:
         for term, scale in cfg.reward.items():
             if term == "reaching":
                 d = torch.linalg.vector_norm(tip_pos - tgt_pos[:, None, :], dim=-1)
-                d = torch.cat([d[:, :1] * 4.0, d[:, 1:]], dim=1)  # thumb weighs 4x
+                if cfg.robot == "ur5sih":  # the thumb weighs 4x
+                    d = torch.cat([d[:, :1] * 4.0, d[:, 1:]], dim=1)
                 r = scale * torch.exp(-3.0 * d.sum(-1))
             elif term == "lifting":
                 thr = cfg.lifting_threshold

@@ -1,7 +1,7 @@
 """Tasks by name through the yaml config groups, as the JAX package's entry
 points build them (counterpart of `make_env`, `env_from_yaml`,
 `_warn_unknown_yaml_keys` and `compose_task` of handarm_tpu/envs/registry.py,
-UR5+SIH tasks only).
+the UR5+SIH and Stretch tasks).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:

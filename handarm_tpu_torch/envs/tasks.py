@@ -1,5 +1,6 @@
 """Task presets over HandArmEnv, each with its PPO overrides (counterpart of
-the UR5+SIH entries of the TASKS table of handarm_tpu/envs/registry.py).
+the UR5+SIH and Stretch entries of the TASKS table of
+handarm_tpu/envs/registry.py).
 
 These are the code presets. The entry points compose a task through its
 yaml config group instead (`envs/registry.py` `compose_task`), as the JAX
@@ -13,6 +14,13 @@ from __future__ import annotations
 import dataclasses
 
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
+
+STRETCH_OBS = (
+    "stretch_joint_pos", "stretch_flange_pose", "stretch_fingertip_pos",
+    "stretch_fingertip_linvel", "dof_position_targets",
+    "object_pos", "object_bounding_box", "target_object_bounding_box",
+    "target_object_to_goal_pos",
+)
 
 TASKS: dict[str, tuple[HandArmConfig, dict]] = {
     # one 6 cm box grasped out of a walled bin
@@ -54,6 +62,26 @@ TASKS: dict[str, tuple[HandArmConfig, dict]] = {
                 ("ycb", ("015_peach", "005_tomato_soup_can", "006_mustard_bottle")),
             ),
             num_objects=3, use_drop_init=True, num_initial_poses=1, randomize=True,
+        ),
+        dict(minibatch_size=8192),
+    ),
+    # the Stretch's two tasks (handarm_tpu/envs/registry.py:90-138): its
+    # grouped action, 400-step episodes; a box and a sphere on the open
+    # table, reposition goal
+    "StretchMultiObjectManipulation": (
+        HandArmConfig(
+            robot="stretch", goal="reposition", episode_length=400,
+            observations=STRETCH_OBS, actions=("stretch_relative_joint_pos",),
+            objects=(("box", (0.03, 0.03, 0.03), 0.1), ("sphere", (0.03,), 0.08)),
+        ),
+        dict(minibatch_size=8192),
+    ),
+    # one 6 cm box lifted out of a walled bin by the Stretch's gripper
+    "StretchLift": (
+        HandArmConfig(
+            robot="stretch", goal="lift", episode_length=400,
+            observations=STRETCH_OBS, actions=("stretch_relative_joint_pos",),
+            objects=(("box", (0.03, 0.03, 0.03), 0.15),), use_bin=True,
         ),
         dict(minibatch_size=8192),
     ),

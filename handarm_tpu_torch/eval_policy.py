@@ -9,7 +9,9 @@ scripts/eval_policy.py):
 
 The task is composed from its yaml config group as the training entry
 point composes it (the multi-object task: 16 solver sweeps, as
-scripts/eval_policy.py evaluates it). The policy's mean action drives
+scripts/eval_policy.py evaluates it); `--ckpt` defaults to the task's own
+checkpoint (`rollout.TASK_CKPTS`: Ur5SihLift, Ur5SihMultiObjectManipulation,
+StretchLift). The policy's mean action drives
 the env; a student (`student.npz` of train_distill, or of the JAX
 package's) acts in the env that train_distill builds: the student's
 observations, the teacher's as teacher observations (the teacher's
@@ -103,7 +105,7 @@ def main(argv=None) -> None:
                     help="control steps after the burn-in (600 = 3 episodes of 200)")
     ap.add_argument("--seed", type=int, default=123)
     ap.add_argument("--episode-length", type=int, default=None,
-                    help="default: the task's (200)")
+                    help="default: the task's (200; the Stretch's 400)")
     ap.add_argument("--device", default=None, help="default: cuda")
     a = ap.parse_args(argv)
     out, _ = evaluate(a.ckpt, a.task, a.envs, a.steps, a.seed, a.device, a.episode_length,

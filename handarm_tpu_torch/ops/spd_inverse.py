@@ -17,7 +17,7 @@ import torch
 from handarm_tpu_torch.ops import build
 
 launches = 0  # kernel launches since the last reset (CUDA path only)
-KERNEL_N = (17,)  # matrix sizes the kernel is instantiated for (the UR5+SIH)
+KERNEL_N = (9, 17)  # matrix sizes the kernel is instantiated for: the Stretch, the UR5+SIH
 
 
 def spd_inverse_plain(M: torch.Tensor) -> torch.Tensor:

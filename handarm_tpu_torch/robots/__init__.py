@@ -1,14 +1,17 @@
 """Robot adapters: the interface the environment layer builds against
-(counterpart of handarm_tpu/robots/__init__.py; only the UR5+SIH is
-ported)."""
+(counterpart of handarm_tpu/robots/__init__.py): the UR5+SIH and the
+Hello-Robot Stretch."""
 
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import numpy as np
 import torch
+
+ROBOTS = ("ur5sih", "stretch")
 
 
 @dataclass
@@ -27,12 +30,28 @@ class RobotAdapter:
     compute_targets: Callable[[Any, torch.Tensor], torch.Tensor]
     # surface_cloud(total_points) -> (body index [P], body-frame offsets [P, 3])
     surface_cloud: Callable[[int], tuple] | None = None
+    # the actions of a config that keeps HandArmConfig's default (UR5+SIH) ones
+    default_actions: tuple[str, ...] = ()
+    # register_terms(registry): the robot's own observables and actionables
+    # (the UR5+SIH's are the env's built-in ones)
+    register_terms: Callable[[Any], None] | None = None
+    # fixed-base mount relative to the table origin: xy offset and yaw
+    base_xy: tuple[float, float] = (0.0, 0.0)
+    base_yaw: float = 0.0
+
+
+def _adapter_module(name: str):
+    if name not in ROBOTS:
+        raise KeyError(f"unknown robot {name!r} (known: {', '.join(ROBOTS)})")
+    return importlib.import_module(f"handarm_tpu_torch.robots.{name}_adapter")
 
 
 def get_robot(name: str, urdf_path: str | None = None,
               device="cpu") -> RobotAdapter:
-    if name != "ur5sih":
-        raise KeyError(f"unknown robot {name!r} (ported: ur5sih)")
-    from handarm_tpu_torch.robots.ur5sih_adapter import make_adapter
+    return _adapter_module(name).make_adapter(urdf_path, device)
 
-    return make_adapter(urdf_path, device)
+
+def control_type(name: str) -> type:
+    """The robot's control-state NamedTuple (its fields are its leaves in a
+    checkpoint's env state)."""
+    return _adapter_module(name).CONTROL

@@ -31,6 +31,9 @@ class ControlState(NamedTuple):
     sih_smoothed: torch.Tensor  # [B, 5]
 
 
+CONTROL = ControlState
+
+
 def make_adapter(urdf_path: str | None = None, device="cpu") -> RobotAdapter:
     path = urdf_path or UR5SIH_URDF
     art = load_ur5sih(path)
@@ -63,4 +66,5 @@ def make_adapter(urdf_path: str | None = None, device="cpu") -> RobotAdapter:
         init_control=init_control,
         compute_targets=compute_targets,
         surface_cloud=lambda total_points: ur5sih_surface_cloud(total_points, path),
+        default_actions=("ur5_relative_joint_pos", "sih_smoothed_relative_servo_pos"),
     )

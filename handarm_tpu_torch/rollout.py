@@ -7,10 +7,11 @@ the flat observations and the clouds of `obs_dict` instead.
 
     python -m handarm_tpu_torch.rollout [--task NAME] --envs N --steps S [--device cpu]
 
-Tasks: Ur5SihLift (default) and Ur5SihMultiObjectManipulation, each with
-its trained checkpoint, composed from its yaml config group as the
-training entry point composes it (the multi-object task: 16 solver
-sweeps). A drop-init task first runs genesis
+Tasks: Ur5SihLift (default), Ur5SihMultiObjectManipulation and StretchLift,
+each with its trained checkpoint, composed from its yaml config group as
+the training entry point composes it (the multi-object task: 16 solver
+sweeps; StretchLift: the Stretch on its in-repo stand-in, 100 contact
+slots). A drop-init task first runs genesis
 (`--drop-steps` and `--settle-steps` shorten it). Prints one
 JSON line: the task, contact slots, genesis seconds and sim steps, the
 env-steps per second and the kernel launch counts of the timed steps.
@@ -41,6 +42,7 @@ DEFAULT_TASK = "Ur5SihLift"
 TASK_CKPTS = {
     "Ur5SihLift": os.path.join(EVIDENCE, "lift_r3a", "ckpt_5200.npz"),
     "Ur5SihMultiObjectManipulation": os.path.join(EVIDENCE, "multiobj_r5a", "ckpt_2700.npz"),
+    "StretchLift": os.path.join(EVIDENCE, "stretch_r5d", "ckpt_4000.npz"),
 }
 KERNEL_OPS = {"spd_inverse": spd_inverse, "contact_sweep": contact_sweep,
               "prep_deff": prep_deff, "sdf_gather": sdf_gather}

@@ -33,8 +33,11 @@ epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 An env with domain randomization or ADR has 6 more env-state leaves for
 each, after the step count (the DRState; the AdrState with its int32
 `worker_mode`): 30 or 36 in all, and every later leaf moves up by as many.
-The leaf count does not tell DR from ADR, so the reader takes the env's
-HandArmConfig (`env_cfg`) and refuses a file of another layout.
+The Stretch's control state is one leaf (`joint_target`), not the
+UR5+SIH's three: its env state has 22 leaves (28, 34), its MLP TrainState
+69 (docs/evidence/stretch_r5d/ckpt_4000.npz). The leaf count does not tell
+DR from ADR, so the reader takes the env's HandArmConfig (`env_cfg`, whose
+`robot` gives the control layout) and refuses a file of another layout.
 
 A distilled student is written as the JAX package's `train_distill.py`
 writes it: `student.npz` with one array per parameter, keys "0", "1", ...
@@ -55,9 +58,8 @@ import numpy as np
 import torch
 
 from handarm_tpu_torch.convert import (
-    N_ENV_LEAVES,
-    N_RAND_LEAVES,
     env_leaf_count,
+    env_leaf_counts,
     env_state_from_leaves,
     extra_leaf_count,
     learner_leaf_count,
@@ -179,13 +181,14 @@ def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int =
 
 def file_env_leaves(path: str, cfg=None) -> int:
     """The env-state leaves of a PPO checkpoint of the learner `cfg` (the
-    PPOConfig; None: an MLP ActorCritic): 24, 30 or 36."""
+    PPOConfig; None: an MLP ActorCritic): 24, 30 or 36 (UR5+SIH), 22, 28
+    or 34 (Stretch)."""
     with np.load(path, allow_pickle=False) as data:
         n = len(data.files)
         P = (2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), n) + 5 if cfg is None
              else len(param_names(cfg)))
     n_env = n - learner_leaf_count(P) - 3 - extra_leaf_count(cfg)
-    if n_env not in (N_ENV_LEAVES + N_RAND_LEAVES * k for k in range(3)):
+    if n_env not in env_leaf_counts():
         raise ValueError(f"{path}: {n} leaves are not a PPO TrainState of this learner")
     return n_env
 

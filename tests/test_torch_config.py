@@ -1,6 +1,6 @@
 """The port's yaml config surface against the JAX package's: `load_config`
-on every UR5+SIH task and train yaml, and `compose_task` on every UR5+SIH
-task with and without overrides, down to each HandArmConfig field and the
+on every UR5+SIH and Stretch task and train yaml, and `compose_task` on
+every UR5+SIH and Stretch task with and without overrides, down to each HandArmConfig field and the
 PPO overrides; the error cases fail on both sides; the features the port
 has not ported are refused by name.
 
@@ -27,10 +27,13 @@ from handarm_tpu_torch.utils import config as tconfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(glob.glob(os.path.join(REPO, "configs", "task", "Ur5Sih*.yaml"))
-               + glob.glob(os.path.join(REPO, "configs", "train", "Ur5Sih*PPO.yaml")))
+               + glob.glob(os.path.join(REPO, "configs", "train", "Ur5Sih*PPO.yaml"))
+               + glob.glob(os.path.join(REPO, "configs", "task", "Stretch*.yaml"))
+               + glob.glob(os.path.join(REPO, "configs", "train", "Stretch*PPO.yaml")))
 FULL = "Ur5SihMultiObjectManipulation"
 PRESET_TASKS = ("Ur5SihLift", "Ur5SihReposition", "Ur5SihOrientedReposition",
-                "Ur5SihRepose", "Ur5SihThrow", "Ur5SihReach")
+                "Ur5SihRepose", "Ur5SihThrow", "Ur5SihReach",
+                "StretchLift", "StretchMultiObjectManipulation")
 OVERRIDES = {
     # the documented CLI forms: a full-config yaml takes dotted yaml keys,
     # a preset-backed one HandArmConfig fields (with or without `env.`)
@@ -140,15 +143,15 @@ def test_compose_errors_match(case, jax_compose):
 
 REFUSED = {
     "cameras": (FULL, ["env.cameras.top.width=64"], "cameras"),
-    "robot": (FULL, ["robot=stretch"], "robot"),
 }
 
 
 # refused until the point clouds and teacher observations, the recurrent
-# and asymmetric learner, domain randomization and ADR, and the engine's
-# cadences and the arm's collision spheres were ported; each now composes
-# as the JAX package composes it
+# and asymmetric learner, domain randomization and ADR, the engine's
+# cadences and the arm's collision spheres, and the Stretch were ported;
+# each now composes as the JAX package composes it
 RETIRED = {
+    "robot": (FULL, ["robot=stretch"], "robot", "stretch"),
     "engine option": ("Ur5SihLift", ["carry_fk=false"], "carry_fk", False),
     "collision set": ("Ur5SihLift", ["hand_only_collision=false"], "hand_only_collision",
                       False),
