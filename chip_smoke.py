@@ -108,8 +108,9 @@ Phases, each with a deadline and one flushed progress line:
  14. multiobj-eval  ckpt_2700's deterministic success rate in that composed
                environment on the same pool, as phase 10: at least 3,000
                episodes; launches per step 1, 1, 3, 6. (Run before phase 9.)
- 15. multiobj-entry  the user's entry point in its own process, with its
-               own genesis: `python -m handarm_tpu_torch.train
+ 15. multiobj-entry  the user's entry point in its own process, reading
+               the multiobj phase's genesis pool (HANDARM_POOL_CACHE, set
+               for the whole script): `python -m handarm_tpu_torch.train
                task=Ur5SihMultiObjectManipulation
                resume=docs/evidence/multiobj_r5a/ckpt_2700.npz
                max_iterations=2701` must write ckpt_2701.npz.
@@ -202,8 +203,9 @@ Phases, each with a deadline and one flushed progress line:
                then 0 for 4: the bounds move out by delta a step and back;
                lo, hi, queues and worker modes exact, values within 1e-6;
                adr_entropy before, at the widest and after.
- 27. dr-entry  the user's entry point in its own process, with its own
-               genesis: `python -m handarm_tpu_torch.train
+ 27. dr-entry  the user's entry point in its own process, reading the
+               same genesis pool (genesis runs without DR and ADR):
+               `python -m handarm_tpu_torch.train
                task=Ur5SihMultiObjectManipulation
                resume=docs/evidence/multiobj_r5a/ckpt_2700.npz
                max_iterations=2701 <DR_SHADOWHAND>
@@ -286,6 +288,43 @@ Phases, each with a deadline and one flushed progress line:
                at 8192 envs (`eval_policy`): a burn-in of one 400-step
                episode, then 100 counted steps (a quarter episode: at
                least 1,500 episodes); launches per step 1 / 6 / 0 / 0.
+ 38. camera    Ur5SihMultiObjectManipulation as `train.py` composes it at
+               8192 envs on the multiobj phase's pool, serving ckpt_2700's
+               policy, with the topview camera (`CameraConfig()`: 160 x 90,
+               fovx 87, max_depth 3) and its five observables in
+               `obs_dict`: reset, one warm-up and 30 timed control steps,
+               after the same without the camera (env-steps/s of both, peak
+               device memory of the camera run). Counters zeroed before
+               each reset: exactly spd_inverse 1, prep_deff 1, sdf_gather
+               3, contact_sweep 6 per step; 147 observations either way;
+               every state leaf and float image finite; the robot (id 1)
+               and some object (ids 3-5) in more than half of the envs'
+               segmentations. (Run after phase 26, on its pool.)
+ 39. camera-ref  16 envs of that run, on the card and on the CPU, at
+               tests/test_torch_camera.py's tolerances outside its pixel
+               rule (a point within 1e-4 px of a pixel edge, the pixels it
+               may land in and their points are left out; counts printed):
+               `render_points` on the card's world points (depth 1e-6;
+               segmentation, color and visibility exact), the five
+               observables of the same state with the same scores (the
+               clouds exact in types and within 1e-5 in xyz in the envs the
+               rule leaves whole), and `CameraRecorder` frames of 4 envs
+               (uint8; a depth gray level may round apart only where the
+               float depths differ).
+ 40. camera-distill  a DAgger student of ckpt_5200 on Ur5SihLift at 8192
+               envs whose cloud is the camera's
+               (`topview_target_object_pointcloud` in place of the
+               synthetic target cloud, `train_distill`'s other settings):
+               one warm-up and one timed iteration (rollout and update
+               seconds, peak memory), launches exactly 16 / 96 / 0 / 0 per
+               iteration; params finite; the target seen in most envs'
+               last cloud. (Run after phase 19.)
+ 41. bench     `python -m handarm_tpu_torch.bench --envs 8192 --policy
+               docs/evidence/lift_r3a/ckpt_5200.npz` in its own process:
+               its stdout must be the 1,024-env line, then the 8192-env
+               headline, each with bench.py's keys; then
+               `graft_entry.entry()` and one forward step on the card
+               (launches 1 / 6 / 0 / 0). (Run last.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -297,7 +336,9 @@ under its "dr" key in "kernels"), the engine phases' under "engine" (and
 each kernel's launches on those paths and engine-kernels numbers under its
 "engine" key in "kernels"), the Stretch phases' under "stretch" (and
 each kernel's Stretch launches and stretch-kernels numbers under its
-"stretch" key in "kernels"); the last line
+"stretch" key in "kernels"), the camera phases' under "camera" (and
+each kernel's launches on the camera paths under its "camera" key in
+"kernels"), the benchmark entry's under "bench"; the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
 """
@@ -309,6 +350,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -327,7 +369,8 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "dr-entry": 480, "engine-env": 300, "engine-api": 180,
                     "engine-kernels": 240, "engine-ref": 300, "engine-entry": 330,
                     "stretch": 240, "stretch-kernels": 180, "stretch-ref": 180,
-                    "stretch-train": 300, "stretch-eval": 240}
+                    "stretch-train": 300, "stretch-eval": 240, "camera": 240,
+                    "camera-ref": 180, "camera-distill": 240, "bench": 240}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -2513,8 +2556,6 @@ def engine_ref_phase(rollout, dev, ref_state, ref_obs, pool16) -> dict:
 
 def engine_entry_phase() -> dict:
     """Phase 32 (see the module docstring)."""
-    import shutil
-
     from handarm_tpu_torch.utils.checkpoint import file_contact_slots, load_train_state
 
     run = os.path.join("runs", "chip_smoke_engine")
@@ -2687,8 +2728,6 @@ def stretch_ref_phase(rollout, dev, kept) -> dict:
 
 def stretch_train_phase(rollout, dev) -> dict:
     """Phase 36 (see the module docstring)."""
-    import shutil
-
     from handarm_tpu_torch.envs.registry import resolve_task
     from handarm_tpu_torch.learn.ppo import PPO, ppo_config
     from handarm_tpu_torch.utils.checkpoint import file_contact_slots, load_train_state
@@ -2751,6 +2790,313 @@ def stretch_phases(rollout, dev, ops) -> tuple:
         rec["eval"] = eval_phase(rollout, dev, STRETCH_TASK, STRETCH_PER_STEP,
                                  min_episodes=1500, steps=STRETCH_EVAL_STEPS, burn_in=400)
     return rec, kernels
+
+
+CAMERA_OBS = ("topview_depth", "topview_segmentation", "topview_color", "topview_pointcloud",
+              "topview_target_object_pointcloud")
+CAMERA_STEPS = 30  # timed camera serving steps, after one warm-up step (31 in all)
+CAMERA_EDGE = 1e-4  # tests/test_torch_camera.py's pixel rule: px from a pixel edge
+CAMERA_RECORDED = (0, 1, 2, 3)  # envs of the 16 whose frames camera-ref records
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "envs"]  # bench.py's emit
+
+
+def with_camera() -> dict:
+    """The config fields that give the composed multi-object task the
+    topview camera (`CameraConfig()`) and its five observables after the
+    task's own."""
+    from handarm_tpu_torch.envs.camera import CameraConfig
+    from handarm_tpu_torch.envs.registry import resolve_task
+
+    return dict(cameras=(CameraConfig(),),
+                observations=resolve_task(MULTI_TASK)[0].observations + CAMERA_OBS)
+
+
+def serve_counted(rollout, env, policy, steps: int):
+    """Reset, one warm-up and `steps` timed control steps of `policy`, the
+    launch counters zeroed before the reset: (state, the last StepResult,
+    seconds of the timed steps, launch counts)."""
+    import torch
+
+    rollout.reset_launch_counts()
+    state, obs = env.reset(0)
+    state, res = env.step(state, policy.act(obs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, res = env.step(state, policy.act(res.obs))
+    torch.cuda.synchronize()
+    return state, res, time.perf_counter() - t0, rollout.launch_counts()
+
+
+def camera_phase(rollout, dev, pool, policy) -> tuple:
+    """Phase 38 (see the module docstring). Returns (record, 16 envs of the
+    camera run's last state on the CPU)."""
+    import torch
+
+    from handarm_tpu_torch.envs.camera import INT32_MIN
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    n = CAMERA_STEPS + 1
+    plain = rollout.make_task_env(MULTI_TASK, ENVS, dev, pool=pool)
+    state, res, plain_s, counts = serve_counted(rollout, plain, policy, CAMERA_STEPS)
+    check_launches(counts, MULTI_PER_STEP, n, "camera (without the camera)")
+    plain_obs = plain.num_obs
+    del plain, state, res
+    env = rollout.make_task_env(MULTI_TASK, ENVS, dev, pool=pool, **with_camera())
+    cam = env.cfg.cameras[0]
+    torch.cuda.reset_peak_memory_stats()
+    state, res, cam_s, counts = serve_counted(rollout, env, policy, CAMERA_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(counts, MULTI_PER_STEP, n, "camera")
+    finite_state(tree_map, state, res.obs)
+    od = res.obs_dict
+    if sorted(od) != sorted(CAMERA_OBS) or env.num_obs != plain_obs or \
+            res.obs.shape != (ENVS, plain_obs):
+        raise AssertionError(f"camera: obs_dict {sorted(od)}, {env.num_obs} observations")
+    for k, v in od.items():
+        if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"camera: non-finite {k}")
+    seg = od["topview_segmentation"].flatten(1)
+    seen = {i: float((seg == i).any(1).float().mean()) for i in (1, 3, 4, 5)}
+    any_object = float(((seg >= 3) & (seg <= 5)).any(1).float().mean())
+    hit = float((od["topview_depth"] < cam.max_depth).float().mean())
+    empty = float((seg == INT32_MIN).float().mean())
+    rows = {k: float((od[k][..., 3] > 0).sum(1).float().mean()) for k in CAMERA_OBS[3:]}
+    rate, plain_rate = ENVS * CAMERA_STEPS / cam_s, ENVS * CAMERA_STEPS / plain_s
+    log(f"camera: {MULTI_TASK} at {ENVS} envs with the topview camera ({cam.width} x "
+        f"{cam.height}, fovx {cam.fovx_deg}, max_depth {cam.max_depth}), "
+        f"{os.path.relpath(rollout.TASK_CKPTS[MULTI_TASK])}: {CAMERA_STEPS} timed steps "
+        f"{rate:.0f} env-steps/s with the camera, {plain_rate:.0f} without (same call); "
+        f"launches {counts} over {n} steps; peak device memory {peak:.2f} GiB; envs seeing "
+        f"ids {seen} (any object {any_object:.4f}); pixels hit {hit:.4f}, empty (int32 min) "
+        f"{empty:.4f}; mean valid cloud rows {rows}")
+    if not (seen[1] > 0.5 and any_object > 0.5):
+        raise AssertionError(f"camera: robot or objects unseen in most envs: {seen}")
+    slots = env.scene.slots
+    small = pick_contact_envs(slots, state, res.obs, 16, "camera-ref")[0]
+    return dict(task=MULTI_TASK, envs=ENVS, steps=CAMERA_STEPS, camera=dataclasses.asdict(cam),
+                env_steps_per_s=rate, env_steps_per_s_without=plain_rate,
+                peak_memory_gib=peak, launches=counts, ids_seen=seen,
+                any_object_seen=any_object, pixels_hit=hit, pixels_empty=empty,
+                cloud_rows=rows), small
+
+
+def pixel_rule(cam, uvz):
+    """tests/test_torch_camera.py's pixel rule on the CPU's u, v of every
+    point ([B, P, 3]): (points [B, P], pixels [B, H, W]) left out, the
+    points within CAMERA_EDGE of a pixel edge, every pixel they may land
+    in and every point in those pixels."""
+    import torch
+
+    u, v = uvz[..., 0].double(), uvz[..., 1].double()
+    near = lambda x: (x - torch.round(x)).abs() <= CAMERA_EDGE
+    edge = near(u) | near(v)
+    W, H = cam.width, cam.height
+    at = lambda uu, vv: (torch.clamp(torch.trunc(vv), 0, H - 1) * W
+                         + torch.clamp(torch.trunc(uu), 0, W - 1)).long()
+    hits = torch.zeros((u.shape[0], W * H), dtype=torch.long)
+    for du in (-CAMERA_EDGE, CAMERA_EDGE):
+        for dv in (-CAMERA_EDGE, CAMERA_EDGE):
+            hits.scatter_add_(1, at(u + du, v + dv), edge.long())
+    pix = hits > 0
+    return edge | torch.gather(pix, 1, at(u, v)), pix.reshape(-1, H, W)
+
+
+def compare_images(cam, uvz, got: dict, want: dict, tag: str) -> dict:
+    """Card (`got`) against CPU (`want`) images and, where given, the
+    visibility, at the test's tolerances outside the pixel rule: depth 1e-6,
+    segmentation, color and visibility exact."""
+    import torch
+
+    drop_pts, drop_pix = pixel_rule(cam, uvz)
+    keep = ~drop_pix
+    g = {k: v.cpu() for k, v in got.items()}
+    out = dict(points_left_out=int(drop_pts.sum()), points=drop_pts.numel(),
+               pixels_left_out=int(drop_pix.sum()), pixels=drop_pix.numel())
+    out["depth_err"] = float((g["depth"] - want["depth"])[keep].abs().max())
+    exact = {k: bool(torch.equal(g[k][keep], want[k][keep]))
+             for k in ("segmentation", "color") if k in want}
+    if "visible" in want:
+        exact["visible"] = bool(torch.equal(g["visible"][~drop_pts], want["visible"][~drop_pts]))
+    out["exact"] = exact
+    log(f"{tag}: {out['points_left_out']} of {out['points']} points and "
+        f"{out['pixels_left_out']} of {out['pixels']} pixels left out by the pixel rule; "
+        f"max|depth card-cpu| {out['depth_err']:.3e}; equal {exact}")
+    if out["depth_err"] > 1e-6 or not all(exact.values()):
+        raise AssertionError(f"{tag}: the card's render disagrees with the CPU's")
+    return dict(out, _drop_pts=drop_pts, _drop_pix=drop_pix)
+
+
+def camera_ref_phase(rollout, dev, st_c, pool16) -> dict:
+    """Phase 39 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch.envs.camera import render_points
+    from handarm_tpu_torch.envs.hand_arm import ObsContext, tree_map
+    from handarm_tpu_torch.envs import pointcloud as pc
+    from handarm_tpu_torch.utils.visualization import CameraRecorder
+
+    import numpy as np
+
+    env_c = small_multi_env(rollout, "cpu", pool16, **with_camera())
+    env_g = small_multi_env(rollout, dev, pool16, **with_camera())
+    cam = env_c.cfg.cameras[0]
+    st_g = tree_map(lambda x: x.to(dev), st_c)
+    out = {}
+    # render_points on the card's world points, on both sides
+    pts_g, segs_g, _ = ObsContext(env_g, st_g).camera_scene_points()
+    pts, segs = pts_g.cpu(), segs_g.cpu()
+    r_g = render_points(cam, pts_g, segs_g.to(torch.int32), valid=segs_g,
+                        colors=env_g.scene_point_rgb)
+    r_c = render_points(cam, pts, segs.to(torch.int32), valid=segs, colors=env_c.scene_point_rgb)
+    part = lambda r: dict(depth=r.depth, segmentation=r.segmentation, color=r.color,
+                          visible=r.visible)
+    rec = compare_images(cam, r_c.points_uvz, part(r_g), part(r_c), "camera-ref render_points")
+    uvz_err = float((r_g.points_uvz.cpu() - r_c.points_uvz)[..., 2].abs().max())
+    out["render_points"] = {k: v for k, v in rec.items() if not k.startswith("_")}
+    out["render_points"]["point_depth_err"] = uvz_err
+    # the five observables of the same state with the same scores
+    own_c = ObsContext(env_c, st_c).camera_scene_points()
+    uvz = render_points(cam, own_c[0], own_c[1].to(torch.int32), valid=own_c[1]).points_uvz
+    P = pc.padded_points(own_c[0].shape[1], env_c.cfg.pointcloud_max_points)
+    scores = torch.rand((16, P), generator=torch.Generator().manual_seed(3))
+    od_c = env_c.observe(st_c, {P: scores})[2]
+    od_g = env_g.observe(st_g, {P: scores.to(dev)})[2]
+    img = lambda od: dict(depth=od["topview_depth"], segmentation=od["topview_segmentation"],
+                          color=od["topview_color"])
+    rec = compare_images(cam, uvz, img(od_g), img(od_c), "camera-ref observables")
+    whole = ~rec["_drop_pts"].any(1)
+    cloud_err = {}
+    for k in CAMERA_OBS[3:]:
+        g, w = od_g[k].cpu()[whole], od_c[k][whole]
+        if not torch.equal(g[..., 3], w[..., 3]):
+            raise AssertionError(f"camera-ref: {k} rows differ between the card and the CPU")
+        cloud_err[k] = float((g[..., :3] - w[..., :3]).abs().max())
+    log(f"camera-ref clouds: compared in {int(whole.sum())} of 16 envs (the rest hold a point "
+        f"the pixel rule leaves out); max|xyz card-cpu| {cloud_err}")
+    if max(cloud_err.values()) > 1e-5 or int(whole.sum()) < 8:
+        raise AssertionError("camera-ref: the card's clouds disagree with the CPU's")
+    out["observables"] = {k: v for k, v in rec.items() if not k.startswith("_")}
+    out["observables"].update(cloud_envs=int(whole.sum()), cloud_xyz_err=cloud_err)
+    # CameraRecorder frames of 4 envs: equal outside the pixel rule, but a
+    # depth gray level may round apart where the float depths differ
+    frames = {}
+    for d, env, st in (("cpu", env_c, st_c), ("card", env_g, st_g)):
+        recorder = CameraRecorder(env, os.path.join("runs", "chip_smoke_camera", d),
+                                  env_ids=CAMERA_RECORDED)
+        recorder.add(st)
+        frames[d] = {t: torch.as_tensor(np.stack([recorder.frames["topview"][t][i][0]
+                                                  for i in CAMERA_RECORDED]))
+                     for t in ("depth", "segmentation", "color")}
+    idx = list(CAMERA_RECORDED)
+    keep = ~rec["_drop_pix"][idx]
+    depth_moved = (od_g["topview_depth"].cpu()[idx] != od_c["topview_depth"][idx])
+    diff = {t: (frames["card"][t].int() - frames["cpu"][t].int()).abs().amax(-1)
+            for t in frames["cpu"]}
+    bad = {t: int((diff[t][keep] > 0).sum()) for t in ("segmentation", "color")}
+    bad["depth"] = int(((diff["depth"] > 0) & keep & ~depth_moved).sum()
+                       + ((diff["depth"] > 1) & keep).sum())
+    rounded = int(((diff["depth"] == 1) & keep & depth_moved).sum())
+    log(f"camera-ref CameraRecorder: {len(idx)} envs, frames {tuple(frames['cpu']['depth'].shape)}"
+        f" uint8; pixels differing outside the rule {bad}; depth gray levels rounded apart "
+        f"where the float depths differ: {rounded}")
+    if any(bad.values()):
+        raise AssertionError("camera-ref: the card's recorder frames disagree with the CPU's")
+    out["recorder"] = dict(envs=len(idx), differing=bad, depth_gray_rounded=rounded)
+    return out
+
+
+def camera_distill_phase(rollout, dev) -> dict:
+    """Phase 40 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.envs.camera import CameraConfig
+    from handarm_tpu_torch.learn.distill import DAgger
+    from handarm_tpu_torch.train_distill import (DEFAULT_STUDENT_OBS, distill_config,
+                                                 student_setup)
+
+    ckpt = rollout.TASK_CKPTS["Ur5SihLift"]
+    obs = DEFAULT_STUDENT_OBS.replace("target_object_synthetic_pointcloud",
+                                      "topview_target_object_pointcloud")
+    env, teacher, cloud_keys, aux = student_setup("Ur5SihLift", ENVS, ckpt, obs, dev,
+                                                  cameras=(CameraConfig(),))
+    if cloud_keys != ("topview_target_object_pointcloud",):
+        raise AssertionError(f"camera-distill: cloud keys {cloud_keys}")
+    dagger = DAgger(env, teacher, distill_config(ENVS, 400, cloud_keys), aux_from_obs=aux)
+    cfg = dagger.cfg
+    ds = dagger.init(0)
+    per_iter = {"spd_inverse": 16, "contact_sweep": 96, "prep_deff": 0, "sdf_gather": 0}
+    recs = []
+    for i in range(2):  # a warm-up, then the timed iteration
+        if i:
+            torch.cuda.reset_peak_memory_stats()
+        rollout.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        beta = dagger.beta(ds.iteration)
+        collected = dagger.rollout(ds, beta)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ds, stats = dagger.update(ds, beta, *collected)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del collected
+        counts = rollout.launch_counts()
+        check_launches(counts, per_iter, 1, f"camera-distill iteration {i}")
+        recs.append(dict(rollout_s=t1 - t0, update_s=t2 - t1,
+                         env_steps_per_s=ENVS * cfg.horizon / (t2 - t0), launches=counts,
+                         **train.drain_stats(stats)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, p in ds.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"camera-distill: non-finite param {name}")
+    cloud = ds.last_obs_dict["topview_target_object_pointcloud"]
+    with_target = float((cloud[..., 3] == 2).any(1).float().mean())
+    warm, timed = recs
+    log(f"camera-distill: Ur5SihLift {ENVS} envs, student obs {env.num_obs} + the camera's "
+        f"target cloud, teacher {os.path.relpath(ckpt)}; warm-up {warm['rollout_s']:.3f} + "
+        f"{warm['update_s']:.3f} s; timed rollout {timed['rollout_s']:.3f} s, update "
+        f"{timed['update_s']:.3f} s, {timed['env_steps_per_s']:.0f} env-steps/s; bc_loss "
+        f"{timed['bc_loss']:.5f}; launches {timed['launches']}; peak device memory "
+        f"{peak:.2f} GiB; envs whose last cloud holds target points {with_target:.4f}")
+    if not with_target > 0.5:
+        raise AssertionError("camera-distill: the target is unseen in most envs")
+    return dict(task="Ur5SihLift", envs=ENVS, cloud=cloud_keys[0], horizon=cfg.horizon,
+                warmup=warm, timed=timed, peak_memory_gib=peak, envs_seeing_target=with_target,
+                launches_per_iteration=per_iter)
+
+
+def bench_phase(rollout, dev) -> dict:
+    """Phase 41 (see the module docstring)."""
+    import torch
+
+    from handarm_tpu_torch import graft_entry
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    ckpt = os.path.relpath(rollout.TASK_CKPTS["Ur5SihLift"])
+    seconds, stdout = run_module("handarm_tpu_torch.bench",
+                                 ["--envs", str(ENVS), "--policy", ckpt], "bench",
+                                 PHASE_DEADLINE_S["bench"] - 60)
+    lines = [json.loads(x) for x in stdout.strip().splitlines()]
+    if [r["envs"] for r in lines] != [1024, ENVS] or any(list(r) != BENCH_KEYS for r in lines) \
+            or not all(r["value"] > 0 for r in lines):
+        raise AssertionError(f"bench: unexpected lines {lines}")
+    rollout.reset_launch_counts()
+    t0 = time.perf_counter()
+    forward_step, (state, obs) = graft_entry.entry()
+    state, obs, reward, done = forward_step(state, obs)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    counts = rollout.launch_counts()
+    check_launches(counts, LIFT_PER_STEP, 1, "graft_entry")
+    finite_state(tree_map, state, obs)
+    if obs.shape != (64, 121) or reward.shape != (64,) or done.shape != (64,):
+        raise AssertionError("graft_entry: bad forward step outputs")
+    log(f"bench: {lines}; graft_entry.entry() and one forward step on the card in "
+        f"{entry_s:.1f} s, launches {counts}")
+    return dict(lines=lines, seconds=seconds, policy=ckpt,
+                graft_entry=dict(seconds=entry_s, launches=counts, envs=64))
 
 
 def main() -> int:
@@ -2862,10 +3208,16 @@ def main() -> int:
         clouds_rec = clouds_phase(rollout, dev, lift_ref[0])
         del lift_ref
 
+    # the multiobj phase's genesis writes its pool here; the entry points of
+    # the same composed task (multiobj-entry, dr-entry) read it
+    pool_cache = os.path.join("runs", "chip_smoke_pool")
+    shutil.rmtree(pool_cache, ignore_errors=True)
+    os.environ["HANDARM_POOL_CACHE"] = pool_cache
     with phase("multiobj"):
         rollout.reset_launch_counts()
         menv = rollout.make_task_env(MULTI_TASK, ENVS, dev)
         pool = menv.initial_pool
+        log(f"multiobj: genesis pool written to {menv.pool_cache_path()}")
         MC, K = menv.scene.slots.num_slots, menv.num_objects
         log(f"multiobj scene: {ENVS} envs, objects {menv.object_names}, contact slots "
             f"C = {MC}, obs {menv.num_obs}, {menv.cfg.solver_iterations} solver sweeps "
@@ -2970,7 +3322,13 @@ def main() -> int:
         del dr_env, dr_ts
     with phase("adr"):
         dr_rec["adr"] = adr_phase(rollout, dev, pool)
+    camera_rec = {}
+    with phase("camera"):
+        camera_rec["serve"], camera_small = camera_phase(rollout, dev, pool, mpolicy)
         del pool
+    with phase("camera-ref"):
+        camera_rec["ref"] = camera_ref_phase(rollout, dev, camera_small, ref_pool)
+        del camera_small
     with phase("train"):
         train_rec = train_phase(rollout, dev)
     with phase("eval"):
@@ -3004,6 +3362,8 @@ def main() -> int:
     with phase("distill-entry"):
         distill_rec["entry_points"] = distill_entry_phase(rollout)
     distill_rec["clouds"] = clouds_rec
+    with phase("camera-distill"):
+        camera_rec["distill"] = camera_distill_phase(rollout, dev)
 
     with phase("rnn-train"):
         rnn_rec, rnn_ppo, rnn_ts = rnn_train_phase(rollout, dev)
@@ -3017,6 +3377,16 @@ def main() -> int:
     stretch_rec, stretch_kernels = stretch_phases(rollout, dev, ops)
     for entry in kernels:
         entry["stretch"] = stretch_kernels[entry["name"]]
+    with phase("bench"):
+        bench_rec = bench_phase(rollout, dev)
+    for entry in kernels:
+        name = entry["name"]
+        entry["camera"] = dict(
+            path=f"{MULTI_TASK} with the topview camera", launches=camera_rec["serve"][
+                "launches"][name],
+            distill_path="Ur5SihLift DAgger on the camera's cloud",
+            distill_launches_per_iteration=camera_rec["distill"]["launches_per_iteration"][name],
+            graft_entry_launches=bench_rec["graft_entry"]["launches"][name])
 
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
@@ -3029,7 +3399,8 @@ def main() -> int:
     log(json.dumps({"kernels": kernels, "train": train_rec, "eval": eval_rec,
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
                     "family": family_rec, "distill": distill_rec, "rnn": rnn_rec,
-                    "dr": dr_rec, "engine": engine, "stretch": stretch_rec}))
+                    "dr": dr_rec, "engine": engine, "stretch": stretch_rec,
+                    "camera": camera_rec, "bench": bench_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

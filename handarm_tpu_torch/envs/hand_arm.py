@@ -14,21 +14,25 @@ reward, termination, the NaN finite
 guard, success-rate EWMAs, the auto-reset merged per env, the ADR
 transition on the episodes that ended, and the sanitized observations:
 the flat vector (clipped, with DR's observation noise), the teacher's flat
-vector (`teacher_observations`, for a distilled student's teacher) and the
-synthetic point clouds, which go to `obs_dict` under their own names,
-unclipped. Resets draw object poses from the genesis pool (`use_drop_init`,
-built by the first `reset`) or spawn them on the table, the target object
+vector (`teacher_observations`, for a distilled student's teacher), and the
+synthetic point clouds and each camera's depth, segmentation and color
+images and clouds (`cameras`, `envs/camera.py`), which go to `obs_dict`
+under their own names, unclipped. Resets draw object poses from the
+genesis pool (`use_drop_init`, built by the first `reset`, or read from
+HANDARM_POOL_CACHE) or spawn them on the table, the target object
 uniformly or (`balanced_target_sampling`) by failure rate, for the
 orientation goals a goal quaternion, and with DR a fresh `DRState`. The
 robot's collision spheres cover the hand's links (the Stretch's wrist and
 gripper), or with `hand_only_collision=False` the arm's as well. The robot
 is mounted on the table at its adapter's xy offset and yaw (the Stretch
-at (0.2, 0.175), turned by pi). Cameras are not ported: `HandArmConfig`
-refuses them by name.
+at (0.2, 0.175), turned by pi).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import os
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple
 
@@ -44,6 +48,7 @@ from handarm_tpu_torch.math.quat import (
     quat_rotate,
 )
 from handarm_tpu_torch.envs import genesis, objects as object_records, pointcloud as pc
+from handarm_tpu_torch.envs.camera import render_points, visible_pointcloud
 from handarm_tpu_torch.envs.adr import AdrConfig, AdrDraws, AdrState, adr_step, init_adr_state
 from handarm_tpu_torch.envs.randomization import (
     DRConfig,
@@ -161,23 +166,11 @@ class HandArmConfig:
     num_initial_poses: int = 1
     drop_num_steps: int = 100
     settle_num_steps: int = 600  # most settle steps per drop
-    cameras: tuple = ()  # camera sensors: ROADMAP §1.5
+    cameras: tuple = ()  # camera sensors (envs.camera.CameraConfig)
 
     def __post_init__(self):
         if self.goal not in GOALS:
             raise ValueError(f"unknown goal {self.goal!r} (goals: {', '.join(GOALS)})")
-        for name, (default, item) in NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"HandArmConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"(only {default!r}; ROADMAP {item})")
-
-
-# fields whose features are not ported: the only value taken, and the
-# ROADMAP item that ports the rest
-NOT_PORTED = {
-    "cameras": ((), "§1.5"),
-}
 
 
 class TaskState(NamedTuple):
@@ -278,6 +271,32 @@ class ObsContext:
         sc = self.env.scene
         return self._get("fk", lambda: forward_kinematics(
             sc.model, self.state.physics.robot.q, sc.base_quat[None], sc.base_pos[None]))
+
+    def camera_scene_points(self):
+        """(points [B, P, 3], segmentation ids [B, P], point types [B, P])
+        of what the cameras see: the robot's cloud (id 1, REGULAR), then
+        each object's samples (id 3 + k; TARGET for the target object's,
+        REGULAR for the others; 0 on padding rows)."""
+        def compute():
+            env, B = self.env, self.batch
+            bodies, offsets = env.robot_cloud
+            fk = self.fk
+            rob = fk.body_pos[:, bodies] + quat_rotate(fk.body_quat[:, bodies], offsets[None])
+            shapes, objs = env.scene.shapes, self.state.physics.objects
+            K, Pk = shapes.points.shape[:2]
+            obj = objs.pos[:, :, None] + quat_rotate(objs.quat[:, :, None], shapes.points[None])
+            ids = torch.arange(K, dtype=rob.dtype, device=rob.device)[:, None]
+            target = (self.state.task.target_obj[:, None] == torch.arange(
+                K, device=rob.device)).to(rob.dtype)[..., None]
+            types = (float(pc.REGULAR) + float(pc.TARGET - pc.REGULAR) * target) \
+                * shapes.point_mask
+            return (torch.cat([rob, obj.reshape(B, K * Pk, 3)], dim=1),
+                    torch.cat([rob.new_ones(B, rob.shape[1]),
+                               ((3.0 + ids) * shapes.point_mask).reshape(1, -1).expand(B, -1)],
+                              dim=1),
+                    torch.cat([torch.full_like(rob[..., 0], float(pc.REGULAR)),
+                               types.reshape(B, -1)], dim=1))
+        return self._get("camera_scene_points", compute)
 
     def _sites(self, key, sites):
         sc = self.env.scene
@@ -435,6 +454,48 @@ def _register_pointcloud_observables(reg: Registry, K: int, P_out: int) -> None:
         pc.merge_clouds(object_cloud(c), goal_cloud(c))))
 
 
+def _register_camera_observables(reg: Registry, cam, P_out: int) -> None:
+    """A camera's five observables, each routed to `obs_dict` under its own
+    name: `<cam>_depth` [B, H, W], `<cam>_segmentation` [B, H, W] int32,
+    `<cam>_color` [B, H, W, 3], `<cam>_pointcloud` (the visible scene
+    points with their types) and `<cam>_target_object_pointcloud` (the
+    visible points of the target object, TARGET; the others padding), both
+    [B, P_out, 4]. Color has a render of its own, so the others do not pay
+    for its scatter."""
+    def render(c, color: bool = False):
+        def compute():
+            pts, segs, _ = c.camera_scene_points()
+            return render_points(cam, pts, segs.to(torch.int32), valid=segs,
+                                 colors=c.env.scene_point_rgb if color else None)
+        return c._get(f"render_{'color_' if color else ''}{cam.name}", compute)
+
+    def cloud(c, types):
+        pts = c.camera_scene_points()[0]
+        return visible_pointcloud(render(c), pts, types,
+                                  c.uniform(pc.padded_points(pts.shape[1], P_out)), P_out)
+
+    def target_cloud(c):
+        segs = c.camera_scene_points()[1]
+        target = 3.0 + c.state.task.target_obj.to(segs.dtype)
+        return cloud(c, float(pc.TARGET) * (segs == target[:, None]).to(segs.dtype))
+
+    def obs(name, fn):
+        reg.observables[f"{cam.name}_{name}"] = Observable(
+            f"{cam.name}_{name}", 0, fn, f"{cam.name}_{name}")
+
+    obs("depth", lambda c: render(c).depth)
+    obs("segmentation", lambda c: render(c).segmentation)
+    obs("color", lambda c: render(c, color=True).color)
+    obs("pointcloud", lambda c: cloud(c, c.camera_scene_points()[2]))
+    obs("target_object_pointcloud", target_cloud)
+
+
+# the cameras' albedo: the robot's gray, and per object slot a palette colour
+ROBOT_RGB = 0.35
+PALETTE = np.array([[0.86, 0.37, 0.34], [0.35, 0.61, 0.84], [0.48, 0.77, 0.46],
+                    [0.91, 0.72, 0.32], [0.66, 0.49, 0.77], [0.55, 0.78, 0.78]])
+
+
 def _register_actionables(reg: Registry) -> None:
     def act_arm_rel(env, control, a):
         new_target = control.arm_target + env.cfg.dt * env.cfg.arm_action_scale * a
@@ -491,6 +552,8 @@ class HandArmEnv:
                 raise NotImplementedError(kind)
             self.object_names.append(f"{kind}_{len(self.object_names)}")
         shapes = stack_objects(objs, device=dev)
+        self._object_rgb = [o.get("point_rgb") for o in objs]
+        self._scene_point_rgb = None
         spheres = self.robot.make_spheres(cfg.hand_only_collision, dev)
         walls = []
         if cfg.use_bin:
@@ -539,6 +602,8 @@ class HandArmEnv:
         _register_observables(self.registry, art.nv, self.num_objects)
         _register_pointcloud_observables(self.registry, self.num_objects,
                                          cfg.pointcloud_max_points)
+        for cam in cfg.cameras:
+            _register_camera_observables(self.registry, cam, cfg.pointcloud_max_points)
         _register_actionables(self.registry)
         if self.robot.register_terms is not None:
             self.robot.register_terms(self.registry)
@@ -560,18 +625,43 @@ class HandArmEnv:
         self.genesis_seconds: float | None = None
 
     def initialize_pool(self) -> None:
-        """Run genesis once and keep its pose pool (first-reset drop init)."""
+        """Run genesis once and keep its pose pool (first-reset drop init).
+        With the environment variable HANDARM_POOL_CACHE naming a
+        directory, a pool that genesis built there for the same config on
+        the same kind of device is read instead, and a new one is written
+        there (`pool_cache_path`); `genesis_seconds` is then the read's."""
         import time
 
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(23 + self.cfg.num_envs)
         t0 = time.perf_counter()
-        self.initial_pool = genesis.build_initial_pool(
-            self, gen, num_configurations=self.cfg.num_initial_poses,
-            drop_steps=self.cfg.drop_num_steps, settle_steps=self.cfg.settle_num_steps)
+        path = self.pool_cache_path()
+        if path is not None and os.path.exists(path):
+            self.initial_pool = genesis.InitialPool(
+                **torch.load(path, map_location=self.device))
+        else:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(23 + self.cfg.num_envs)
+            self.initial_pool = genesis.build_initial_pool(
+                self, gen, num_configurations=self.cfg.num_initial_poses,
+                drop_steps=self.cfg.drop_num_steps, settle_steps=self.cfg.settle_num_steps)
+            if path is not None:
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                torch.save(self.initial_pool._asdict(), path + ".tmp")
+                os.replace(path + ".tmp", path)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.genesis_seconds = time.perf_counter() - t0
+
+    def pool_cache_path(self) -> str | None:
+        """Where HANDARM_POOL_CACHE keeps this env's genesis pool (None when
+        unset): a file named by a hash of the config and the device type.
+        Domain randomization and ADR are left out of the hash: genesis
+        steps the scene without them."""
+        root = os.environ.get("HANDARM_POOL_CACHE")
+        if not root:
+            return None
+        cfg = dataclasses.replace(self.cfg, dr=DRConfig(), adr=AdrConfig())
+        key = hashlib.sha1(repr((cfg, self.device.type)).encode()).hexdigest()[:16]
+        return os.path.join(root, f"pool_{key}.pt")
 
     @property
     def robot_cloud(self):
@@ -584,6 +674,24 @@ class HandArmEnv:
                                  torch.as_tensor(offsets, dtype=torch.float32,
                                                  device=self.device))
         return self._robot_cloud
+
+    @property
+    def scene_point_rgb(self) -> torch.Tensor:
+        """[P, 3] albedo of the cameras' scene points, in
+        `ObsContext.camera_scene_points` order: the robot's gray, then per
+        object its record's `point_rgb` (a baked texture), its rows past
+        those and analytic shapes' a palette colour; built on first use."""
+        if self._scene_point_rgb is None:
+            P_obj = self.scene.shapes.points.shape[1]
+            parts = [np.full((len(self.robot_cloud[1]), 3), ROBOT_RGB)]
+            for k, rgb in enumerate(self._object_rgb):
+                block = np.tile(PALETTE[k % len(PALETTE)], (P_obj, 1))
+                if rgb is not None:
+                    block[:len(rgb)] = rgb
+                parts.append(block)
+            self._scene_point_rgb = torch.as_tensor(
+                np.concatenate(parts), dtype=torch.float32, device=self.device)
+        return self._scene_point_rgb
 
     def _sites(self, names):
         body, pos, quat = self.art.site_array(names)

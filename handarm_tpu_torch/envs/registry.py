@@ -30,6 +30,7 @@ import json
 import os
 
 from handarm_tpu_torch.envs.adr import AdrConfig
+from handarm_tpu_torch.envs.camera import CameraConfig
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
 from handarm_tpu_torch.envs.randomization import DRConfig, NoiseSpec
 from handarm_tpu_torch.envs.tasks import TASKS
@@ -98,7 +99,6 @@ def config_from_yaml(path: str, overrides: list[str] | None = None
         if pats
     )
     rand_params = get(cfg, "rl.randomization_params.object_disturbance", {})
-    _cameras_from_yaml(env_block.get("cameras", {}))
     hc = HandArmConfig(
         robot=cfg.get("robot", "ur5sih"),
         # both spellings; the snake-case one (a CLI override) wins
@@ -141,6 +141,7 @@ def config_from_yaml(path: str, overrides: list[str] | None = None
                                cfg.get("workspace", [HandArmConfig.workspace_lo])[0])),
         workspace_hi=tuple(get(cfg, "env.workspace.hi",
                                cfg.get("workspace", [None, HandArmConfig.workspace_hi])[-1])),
+        cameras=_cameras_from_yaml(env_block.get("cameras", {})),
     )
     _warn_unknown_yaml_keys(cfg)
     ppo_overrides = dict(cfg.get("ppo", {}))
@@ -155,13 +156,21 @@ def env_from_yaml(path: str, overrides: list[str] | None = None, device=None):
     return HandArmEnv(cfg, device), ppo
 
 
-def _not_ported(block, what: str, item: str) -> None:
-    if block:
-        raise NotImplementedError(f"a non-empty {what} block is not ported (ROADMAP {item})")
-
-
-def _cameras_from_yaml(block: dict) -> None:
-    _not_ported(block, "env.cameras", "§1.5")
+def _cameras_from_yaml(block: dict) -> tuple:
+    """`env.cameras`: {name: {pos: [...], quat: [...], width: .., height:
+    ..}} -> CameraConfigs. A `fov_x` key is passed on as the JAX package
+    passes it, so it raises TypeError (the field is `fovx_deg`)."""
+    cams = []
+    for name, c in (block or {}).items():
+        kw = {"name": name}
+        for k in ("pos", "quat"):
+            if k in c:
+                kw[k] = tuple(c[k])
+        for k in ("width", "height", "fov_x"):
+            if k in c:
+                kw[k] = c[k]
+        cams.append(CameraConfig(**kw))
+    return tuple(cams)
 
 
 def _dr_from_yaml(block: dict) -> DRConfig:

@@ -19,6 +19,7 @@ import pytest
 
 from handarm_tpu_torch.envs import registry as treg
 from handarm_tpu_torch.envs.adr import AdrConfig
+from handarm_tpu_torch.envs.camera import CameraConfig
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig
 from handarm_tpu_torch.envs.randomization import DRConfig, NoiseSpec
 from handarm_tpu_torch.envs.tasks import DR_SHADOWHAND
@@ -76,6 +77,7 @@ def _fields(cfg) -> dict:
     out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     for k in ("dr", "adr"):
         out[k] = dataclasses.asdict(out[k])
+    out["cameras"] = tuple(dataclasses.asdict(c) for c in out["cameras"])  # either package's
     return out
 
 
@@ -142,15 +144,18 @@ def test_compose_errors_match(case, jax_compose):
 
 
 REFUSED = {
-    "cameras": (FULL, ["env.cameras.top.width=64"], "cameras"),
+    # a PPOConfig field: refused when the composed overrides build the config
+    "data_shards": (FULL, ["ppo.data_shards=2"], "data_shards"),
 }
 
 
 # refused until the point clouds and teacher observations, the recurrent
 # and asymmetric learner, domain randomization and ADR, the engine's
-# cadences and the arm's collision spheres, and the Stretch were ported;
-# each now composes as the JAX package composes it
+# cadences and the arm's collision spheres, the Stretch, and the cameras
+# were ported; each now composes as the JAX package composes it
 RETIRED = {
+    "cameras": (FULL, ["env.cameras.top.width=64"], "cameras",
+                (CameraConfig(name="top", width=64),)),
     "robot": (FULL, ["robot=stretch"], "robot", "stretch"),
     "engine option": ("Ur5SihLift", ["carry_fk=false"], "carry_fk", False),
     "collision set": ("Ur5SihLift", ["hand_only_collision=false"], "hand_only_collision",
@@ -208,7 +213,7 @@ def test_unported_features_refused(case):
     it, never silently ignored."""
     task, over, name = REFUSED[case]
     with pytest.raises(NotImplementedError, match=name):
-        treg.resolve_task(task, over)
+        ppo_config(treg.resolve_task(task, over)[1])
 
 
 def test_ppo_config_refuses_unported_fields():

@@ -326,6 +326,33 @@ def test_build_initial_pool_settles():
     assert float(torch.linalg.vector_norm(st.objects.linvel, dim=-1).max()) < 0.05
 
 
+def test_pool_cache_reads_what_genesis_wrote(tmp_path, monkeypatch):
+    """With HANDARM_POOL_CACHE naming a directory, the first env of a config
+    runs genesis (shortened here) and writes its pool; an env of the same
+    config under domain randomization (left out of the hash: genesis steps
+    the scene without it) reads that file back, equal; another drop count
+    gets a file of its own; unset, nothing is cached."""
+    from handarm_tpu_torch.envs.randomization import DRConfig
+    from handarm_tpu_torch.envs.tasks import make_env
+
+    torch.set_num_threads(1)
+    short = dict(device="cpu", num_envs=4, drop_num_steps=10, settle_num_steps=10)
+    monkeypatch.setenv("HANDARM_POOL_CACHE", str(tmp_path))
+    env = make_env(TASK, **short)
+    env.initialize_pool()
+    assert os.listdir(tmp_path) == [os.path.basename(env.pool_cache_path())]
+    dr = make_env(TASK, dr=DRConfig(enabled=True, gravity_noise=0.4), **short)
+    assert dr.pool_cache_path() == env.pool_cache_path()
+    dr.initialize_pool()
+    for a, b in zip(env.initial_pool, dr.initial_pool):
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+    assert env.initial_pool.sim_steps > 0
+    other = make_env(TASK, **dict(short, drop_num_steps=12))
+    assert other.pool_cache_path() != env.pool_cache_path()
+    monkeypatch.delenv("HANDARM_POOL_CACHE")
+    assert env.pool_cache_path() is None
+
+
 @pytest.mark.parametrize("prob", [1.0, 0.0])
 def test_disturbance(prob):
     """The object disturbance: with probability 1 every object's velocity
