@@ -79,9 +79,12 @@ Phases, each with a deadline and one flushed progress line:
                for 2 iterations, must write its checkpoint (launches 32 and
                192).
  10. eval      handarm_tpu_torch.eval_policy for ckpt_5200 on Ur5SihLift at
-               8192 envs: a zero-action step, a burn-in of 200 steps, 200
-               counted steps (spd_inverse 401 launches, contact_sweep
-               2,406); at least 3,000 episodes, every state leaf finite.
+               8192 envs: every env's clock zeroed at the reset (no burn-in:
+               each env's first episode is whole and policy-driven), a
+               zero-action step, 200 counted steps (spd_inverse 201
+               launches, contact_sweep 1,206): every env ends one whole
+               episode in the window; at least 3,000 episodes, every state
+               leaf finite.
  11. reach     Ur5SihReach from a flax-default init at its preset size (64
                envs), 10 train iterations; reward_mean per iteration;
                every param and stat finite; spd_inverse 16 and
@@ -285,9 +288,9 @@ Phases, each with a deadline and one flushed progress line:
                fresh init: one warm-up and one timed iteration, launches
                16 / 96 / 0 / 0.
  37. stretch-eval  ckpt_4000's deterministic success rate on StretchLift
-               at 8192 envs (`eval_policy`): a burn-in of one 400-step
-               episode, then 100 counted steps (a quarter episode: at
-               least 1,500 episodes); launches per step 1 / 6 / 0 / 0.
+               at 8192 envs (`eval_policy`), as phase 10: clocks zeroed at
+               the reset, 400 counted steps (one 400-step episode: at least
+               1,500 episodes); launches per step 1 / 6 / 0 / 0.
  38. camera    Ur5SihMultiObjectManipulation as `train.py` composes it at
                8192 envs on the multiobj phase's pool, serving ckpt_2700's
                policy, with the topview camera (`CameraConfig()`: 160 x 90,
@@ -324,7 +327,47 @@ Phases, each with a deadline and one flushed progress line:
                its stdout must be the 1,024-env line, then the 8192-env
                headline, each with bench.py's keys; then
                `graft_entry.entry()` and one forward step on the card
-               (launches 1 / 6 / 0 / 0). (Run last.)
+               (launches 1 / 6 / 0 / 0). (Run last, after phase 44.)
+ 42. ddp       the parallel layer (handarm_tpu_torch/parallel/) on the one
+               card, ranks sharing it through gloo: one 8192-env Ur5SihLift
+               rollout of ckpt_5200 captured in process, then 2 spawned
+               ranks each run `_update_from_traj` on its 4,096 envs with
+               the shared [4, 2, 65536] permutations (64 minibatch steps):
+               every replicated leaf bit-identical across the ranks
+               (`assert_sharded`), collectives per rank exactly 64 gradient
+               all-reduces, 2 for the batch moments, 1 for the means and
+               the checksums' gather; rank 0 held against the one-process
+               data_shards=2 update of the whole trajectory (`ddp_check`:
+               stats, advantages, loss terms, the first step's gradients
+               and params within 1e-5 of scale, every optimizer step
+               bit-identical to the one-process step of the averaged
+               gradients). Then `python -m torch.distributed.run
+               --standalone --nproc_per_node=2 -m handarm_tpu_torch.train
+               task=Ur5SihLift env.num_envs=8192 max_iterations=2
+               dist_backend=gloo experiment=chip_smoke_ddp`: rank 0's
+               ckpt_2.npz holds all 8192 envs and one process resumes it
+               whole (the file it writes back equals it leaf for leaf);
+               global env-steps/s from its metrics. Then
+               `graft_entry.dryrun_multichip(2, backend="gloo")` at its
+               default shape (256 envs per rank): launches per rank per
+               iteration exactly 16 / 96 / 0 / 0. (Run after phase 37.)
+ 43. pbt       two Ur5SihLift policies at 2,048 envs each on the card in one
+               workspace (`pbt.objective=reward_mean`, an exchange every
+               iteration's frames, both replace thresholds 0, mutation rate
+               1): policy 1 resumes ckpt_5200 and runs first; policy 0
+               starts fresh, finds itself worst, prints its restart and
+               `os.execv`s itself; its new image resumes ckpt_1.npz (the
+               donor's params, read back from both files) under the
+               mutated hyperparameters of its config.json; both exit 0;
+               `maybe_save_best_policy` archives its final state, and
+               refuses a worse one.
+ 44. actor-learner  2 actor threads x 4,096 Ur5SihLift envs (each its own
+               CUDA stream and generator) and the learner on the card, 3
+               learner iterations from ckpt_5200's learner: staleness at
+               most the queue depth (1), stats finite, launches exactly
+               16 / 96 / 0 / 0 per actor rollout; one contact_sweep call of
+               an actor env launched on a side stream bit-identical to the
+               default stream's.
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -338,7 +381,9 @@ each kernel's launches on those paths and engine-kernels numbers under its
 each kernel's Stretch launches and stretch-kernels numbers under its
 "stretch" key in "kernels"), the camera phases' under "camera" (and
 each kernel's launches on the camera paths under its "camera" key in
-"kernels"), the benchmark entry's under "bench"; the last line
+"kernels"), the benchmark entry's under "bench", the parallel layer's
+under "parallel" (and each kernel's launches there under its "parallel"
+key in "kernels"); the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
 """
@@ -348,6 +393,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -370,7 +416,8 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "engine-kernels": 240, "engine-ref": 300, "engine-entry": 330,
                     "stretch": 240, "stretch-kernels": 180, "stretch-ref": 180,
                     "stretch-train": 300, "stretch-eval": 240, "camera": 240,
-                    "camera-ref": 180, "camera-distill": 240, "bench": 240}
+                    "camera-ref": 180, "camera-distill": 240, "bench": 240, "ddp": 330,
+                    "pbt": 240, "actor-learner": 180}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -378,7 +425,7 @@ MULTI_TASK = "Ur5SihMultiObjectManipulation"
 MULTI_STEPS = 20  # multi-object control steps after genesis and reset
 TRAIN_ITERS = 3  # timed lift train iterations, after one warm-up iteration
 ENTRY_ITERS = 2  # iterations of the train entry point, resumed from ckpt_5200
-EVAL_STEPS = 200  # counted eval steps, after a burn-in of one episode (200)
+EVAL_STEPS = 200  # counted eval steps: one episode (200) from clocks zeroed at the reset
 REACH_ITERS = 10
 FAMILY = ("Ur5SihReposition", "Ur5SihOrientedReposition", "Ur5SihRepose", "Ur5SihThrow")
 FAMILY_ITERS = 2  # timed family train iterations, after one warm-up iteration
@@ -1376,9 +1423,11 @@ MULTI_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gat
 
 
 def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=None,
-               student=None, min_episodes=3000, steps=EVAL_STEPS, burn_in=200) -> dict:
+               student=None, min_episodes=3000, steps=EVAL_STEPS, burn_in=0) -> dict:
     """Phases 10, 14, 18 and 37 (see the module docstring): a burn-in of
-    `burn_in` steps (the task's episode length), then `steps` counted."""
+    `burn_in` steps (the task's episode length), then `steps` counted; with
+    none, every env's clock zeroed at the reset and its first whole
+    episode counted (`evaluate(..., burn_in=False)`)."""
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.eval_policy import evaluate
 
@@ -1386,14 +1435,16 @@ def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=Non
     t0 = time.perf_counter()
     out, state = evaluate(task=task, envs=ENVS, steps=steps, device=dev, pool=pool,
                           student=student,
-                          teacher=rollout.TASK_CKPTS["Ur5SihLift"] if student else None)
+                          teacher=rollout.TASK_CKPTS["Ur5SihLift"] if student else None,
+                          burn_in=burn_in > 0)
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
     check_launches(counts, per_step, 1 + burn_in + steps, f"eval {task}")
     finite_state(tree_map, state, state.physics.robot.q)
     n, p = out["episodes"], out["success_rate"]
     se = (p * (1 - p) / max(n, 1)) ** 0.5
-    log(f"eval: {out['policy']} on {task}, {ENVS} envs, burn-in {burn_in} + {steps} steps "
+    start = f"burn-in {burn_in} +" if burn_in else "clocks zeroed at the reset,"
+    log(f"eval: {out['policy']} on {task}, {ENVS} envs, {start} {steps} steps "
         f"in {seconds:.1f} s: episodes {n}, successes {out['successes']}, "
         f"success rate {p:.6f} (standard error {se:.6f}), success_ewma "
         f"{out['success_ewma']:.6f}, per-object ewma {out['per_object_ewma']}; launches {counts}")
@@ -1509,23 +1560,31 @@ def family_phase(rollout, dev) -> dict:
     return out
 
 
-def run_module(module: str, args: list[str], tag: str, timeout: int):
-    """`python -m MODULE ARGS` as a user runs it, in its own process (the
-    last lines of its output indented here); it must exit 0 within
-    `timeout` s. Returns (seconds, its standard output)."""
+def run_module(module: str, args: list[str], tag: str, timeout: int, tail: int = 12):
+    """`python -m MODULE ARGS` as a user runs it, in its own process group
+    (the last `tail` lines of its output indented here); it must exit 0
+    within `timeout` s, else the whole group (a launcher's ranks too) is
+    killed. Returns (seconds, its standard output)."""
     here = os.path.dirname(os.path.abspath(__file__))
     path = os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p)
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", module, *args], capture_output=True,
-                         text=True, timeout=timeout, env=dict(os.environ, PYTHONPATH=path))
+    proc = subprocess.Popen([sys.executable, "-m", module, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True,
+                            env=dict(os.environ, PYTHONPATH=path))
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
     seconds = time.perf_counter() - t0
-    for line in (res.stdout + res.stderr).splitlines()[-12:]:
+    for line in (out + err).splitlines()[-tail:]:
         log(f"  | {line}")
-    if res.returncode != 0:
-        raise AssertionError(f"{tag}: {module} exited {res.returncode}")
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: {module} exited {proc.returncode}")
     log(f"{tag}: `python -m {module} {' '.join(args)}` in {seconds:.1f} s (process start, "
         "kernel load, env build and reset included)")
-    return seconds, res.stdout
+    return seconds, out
 
 
 def entry_subprocess(args: list[str], out: str, tag: str, timeout: int,
@@ -2598,7 +2657,7 @@ STRETCH_STEPS = 30  # timed StretchLift serving steps, after one warm-up step
 STRETCH_MULTI_STEPS = 20  # random-policy multi-object steps, after one warm-up step
 STRETCH_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0, "sdf_gather": 0}
 STRETCH_ENTRY_ITERS = 2  # iterations of the train entry point, resumed from ckpt_4000
-STRETCH_EVAL_STEPS = 100  # counted eval steps, after a burn-in of one episode (400)
+STRETCH_EVAL_STEPS = 400  # counted eval steps: one episode (400) from zeroed clocks
 
 
 class RandomPolicy:
@@ -2788,7 +2847,7 @@ def stretch_phases(rollout, dev, ops) -> tuple:
         rec["train"] = stretch_train_phase(rollout, dev)
     with phase("stretch-eval"):
         rec["eval"] = eval_phase(rollout, dev, STRETCH_TASK, STRETCH_PER_STEP,
-                                 min_episodes=1500, steps=STRETCH_EVAL_STEPS, burn_in=400)
+                                 min_episodes=1500, steps=STRETCH_EVAL_STEPS)
     return rec, kernels
 
 
@@ -3065,6 +3124,393 @@ def camera_distill_phase(rollout, dev) -> dict:
     return dict(task="Ur5SihLift", envs=ENVS, cloud=cloud_keys[0], horizon=cfg.horizon,
                 warmup=warm, timed=timed, peak_memory_gib=peak, envs_seeing_target=with_target,
                 launches_per_iteration=per_iter)
+
+
+DDP_RANKS = 2  # gloo ranks sharing the card
+DDP_TOLS = {"first-step param": 1e-5, "first-step grad": 1e-5, "loss terms": 1e-4,
+            "stats": 1e-5}
+PBT_ENVS = 2048
+AL_ENVS, AL_ACTORS, AL_ITERS, AL_QUEUE = 4096, 2, 3, 1
+
+
+def ddp_rank(group, path: str) -> dict:
+    """One rank of the ddp phase (a spawned process): `_update_from_traj` of
+    its 4,096 envs of the captured trajectory with the shared permutations,
+    recording every minibatch step; `assert_sharded` on the result. Rank 0
+    then holds its update against the one-process data_shards=2 update of
+    the whole trajectory on the card, step by step from its own inputs
+    (`ddp_check`)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from handarm_tpu_torch.learn.ppo import PPO, Transition
+    from handarm_tpu_torch.parallel.mesh import assert_sharded
+
+    blob = torch.load(path, map_location=group.device, weights_only=False)
+    cfg, ts, traj, last_obs, perms = (blob[k] for k in ("cfg", "ts", "traj", "last_obs",
+                                                         "perms"))
+    B = last_obs.shape[0]
+
+    def stub(n):
+        return SimpleNamespace(num_obs=last_obs.shape[1], num_actions=traj.action.shape[-1],
+                               cfg=SimpleNamespace(num_envs=n), device=group.device)
+
+    ppo = PPO(stub(B // group.world_size), cfg, group=group)
+    rec = dict(prepared=[], averaged=[], steps=[])
+    prepare, average, mb_step = ppo._prepare, ppo._average, ppo._mb_step
+
+    def recorded(fn, key, keep_args=False):
+        def wrapped(*args):
+            out = fn(*args)
+            rec[key].append((args, out) if keep_args else out)
+            return out
+        return wrapped
+
+    ppo._prepare = recorded(prepare, "prepared")
+    ppo._average = recorded(average, "averaged")
+    ppo._mb_step = recorded(mb_step, "steps", keep_args=True)
+    sl = group.env_slice(B)
+    local = Transition(*(None if x is None else x[:, sl].contiguous() for x in traj))
+    sync = torch.cuda.synchronize if group.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    new, stats = ppo._update_from_traj(ts, local, None, last_obs[sl].contiguous(), perms=perms)
+    sync()
+    out = dict(update_s=time.perf_counter() - t0, sharding=assert_sharded(group, new),
+               collectives={f"{op} {tag}": n for (op, tag), n in group.counts.items()},
+               stats={k: float(v) for k, v in stats.items()}, steps=len(rec["steps"]))
+    if group.rank == 0:
+        out["check"] = ddp_check(stub(B), cfg, ts, traj, last_obs, perms, rec, B // 2)
+    return out
+
+
+def ddp_check(stub, cfg, ts, traj, last_obs, perms, rec, half: int) -> dict:
+    """Rank 0's update against the one-process data_shards=2 update of the
+    whole trajectory, on the card:
+    - the prepared stats (observation and value) within 1e-5 of scale, the
+      normalized advantages of rank 0's samples within 1e-5 absolute (unit
+      spread: the ranks' two-pass global moments against one mean and var);
+    - every minibatch step from rank 0's inputs (params, Adam state, lr):
+      the averaged loss terms and KL against the one-process minibatch's
+      within 1e-4 relative plus 1e-6; the averaged gradients of the first
+      step within 1e-5 of each tensor's scale (later steps' reported: a
+      sample within rounding of a clip edge may switch its term on one
+      side); the optimizer step from rank 0's averaged gradients
+      bit-identical to the one-process `_apply` of the same inputs (lr,
+      Adam and counters alike);
+    - the first minibatch step's params, each tensor within 1e-5 of its
+      scale of the one-process step's."""
+    import torch
+
+    from handarm_tpu_torch.learn.ppo import PPO
+
+    one = PPO(stub, cfg)
+    data, obs_stats, value_stats, _ = one._prepare(ts, traj, last_obs)
+    r_data, r_obs, r_value, _ = rec["prepared"][0]
+    worst = {k: 0.0 for k in DDP_TOLS}
+    worst["later grad"] = 0.0
+
+    def hold(kind, got, want, name, atol=0.0):
+        err, scale = max_err(got, want)
+        frac = err / max(scale, 1e-30)
+        if kind == "later grad":
+            worst[kind] = max(worst[kind], frac)
+            return
+        allowed = DDP_TOLS[kind] * scale + atol
+        worst[kind] = max(worst[kind], err / allowed)
+        if not err <= allowed:
+            raise AssertionError(f"ddp: rank 0 and one process differ on {kind} {name}: "
+                                 f"{err:.3e} at scale {scale:.3e}")
+
+    for tag, a, b in (("obs", r_obs, obs_stats), ("value", r_value, value_stats)):
+        for f, x, y in zip(a._fields, a, b):
+            hold("stats", x, y, f"{tag} {f}")
+    n_loc = half * cfg.horizon
+    adv_err = float((r_data["adv"] - data["adv"][:n_loc]).abs().max())
+    if not adv_err <= 1e-5:
+        raise AssertionError(f"ddp: rank 0's normalized advantages {adv_err:.3e} apart")
+    rows = one.minibatch_rows(perms)
+    stats_in = (ts.obs_stats, ts.teacher_obs_stats)
+    grad_dev = []
+    for k, ((st, params, opt, lr, _), (p_out, o_out, l_out, _)) in enumerate(rec["steps"]):
+        g_avg, aux_avg = rec["averaged"][k]
+        mb = {key: v.index_select(0, rows[k]) for key, v in data.items()}
+        g_one, aux_one = one._grads(stats_in, params, mb)
+        for name in aux_one:
+            hold("loss terms", aux_avg[name], aux_one[name], name, atol=1e-6)
+        grad_dev.append(max(max_err(g_avg[n], g_one[n])[0]
+                            / max(max_err(g_avg[n], g_one[n])[1], 1e-30) for n in g_one))
+        for name in g_one:
+            hold("first-step grad" if k == 0 else "later grad", g_avg[name], g_one[name], name)
+        p_same, o_same, l_same = one._apply(params, opt, lr, g_avg, aux_avg["kl"])
+        same = (all(torch.equal(p_same[n], p_out[n]) for n in p_out)
+                and all(torch.equal(a, b) for a, b in zip(o_same[:4], o_out[:4]))
+                and all(torch.equal(o_same.mu[n], o_out.mu[n])
+                        and torch.equal(o_same.nu[n], o_out.nu[n]) for n in p_out)
+                and torch.equal(l_same, l_out))
+        if not same:
+            raise AssertionError(f"ddp: step {k}: the rank's optimizer step is not the "
+                                 "one-process step of its averaged gradients")
+        if k == 0:
+            p_one, _, _ = one._apply(params, opt, lr, g_one, aux_one["kl"])
+            for name in p_one:
+                hold("first-step param", p_out[name], p_one[name], name)
+    return dict(worst=worst, grad_dev=grad_dev, adv_err=adv_err)
+
+
+def ddp_phase(rollout, dev) -> dict:
+    """Phase 42 (see the module docstring)."""
+    import contextlib as cl
+    import io
+
+    import numpy as np
+    import torch
+
+    from handarm_tpu_torch import graft_entry, train
+    from handarm_tpu_torch.envs.tasks import make_env, ppo_overrides
+    from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
+    from handarm_tpu_torch.parallel.launch import spawn
+    from handarm_tpu_torch.utils.checkpoint import (load_train_state, read_leaves,
+                                                    wait_for_pending_saves)
+
+    out_dir = os.path.join("runs", "chip_smoke_ddp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    ckpt = rollout.TASK_CKPTS["Ur5SihLift"]
+    env = make_env("Ur5SihLift", device=dev, num_envs=ENVS)
+    cfg = PPOConfig(**ppo_overrides("Ur5SihLift"), data_shards=DDP_RANKS)
+    ppo = PPO(env, cfg)
+    fresh = ppo.init(0)
+    start = load_train_state(ckpt, dev, fresh.env_state, fresh.last_obs)
+    r = ppo.rollout(start)
+    perms = ppo.draw_perms(dev)
+    n_steps = ppo.num_minibatches * cfg.mini_epochs
+    path = os.path.join(out_dir, "capture.pt")
+    torch.save(dict(cfg=cfg, ts=start._replace(env_state=None, last_obs=None), traj=r.traj,
+                    last_obs=r.last_obs, perms=perms), path)
+    del env, ppo, fresh, r
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ranks = spawn(ddp_rank, DDP_RANKS, (path,), backend="gloo",
+                  timeout_s=PHASE_DEADLINE_S["ddp"] // 3)
+    spawn_s = time.perf_counter() - t0
+    os.remove(path)
+    check = ranks[0].pop("check")
+    if ranks[0]["sharding"] != ranks[1]["sharding"] or ranks[0]["stats"] != ranks[1]["stats"]:
+        raise AssertionError(f"ddp: the ranks' results differ: {ranks}")
+    steps = ranks[0]["steps"]
+    want = {"all_reduce grads": n_steps, "all_reduce moments": 2, "all_reduce means": 1,
+            "all_gather_object checksums": 1}
+    if steps != n_steps or any(rk["collectives"] != want for rk in ranks):
+        raise AssertionError(f"ddp: collectives {[rk['collectives'] for rk in ranks]}, "
+                             f"expected {want}")
+    log(f"ddp: {DDP_RANKS} gloo ranks on the card, each {ENVS // DDP_RANKS} envs of one "
+        f"captured {ENVS}-env rollout of ckpt_5200 (Ur5SihLift, {steps} minibatch steps): "
+        f"updates {[round(rk['update_s'], 3) for rk in ranks]} s, spawn to results "
+        f"{spawn_s:.1f} s; replicated leaves bit-identical across ranks: "
+        f"{ranks[0]['sharding']}; collectives per rank {ranks[0]['collectives']}; rank 0 "
+        f"against one process (data_shards=2): largest fraction of each tolerance used "
+        f"{({k: round(v, 5) for k, v in check['worst'].items() if k != 'later grad'})}, "
+        f"later steps' gradients up to {check['worst']['later grad']:.3e} of scale (not "
+        f"held); every optimizer step bit-identical to the one-process step of its "
+        f"averaged gradients; kl {ranks[0]['stats']['kl']:.5f} lr "
+        f"{ranks[0]['stats']['lr']:.4e}")
+
+    # the user's entry point under torchrun: 2 ranks of 4096 envs on the card
+    exp = "chip_smoke_ddp"
+    shutil.rmtree(os.path.join("runs", exp), ignore_errors=True)
+    entry_s, _ = run_module("torch.distributed.run", [
+        "--standalone", f"--nproc_per_node={DDP_RANKS}", "-m", "handarm_tpu_torch.train",
+        "task=Ur5SihLift", f"env.num_envs={ENVS}", "max_iterations=2", "dist_backend=gloo",
+        f"experiment={exp}"], "ddp entry point", PHASE_DEADLINE_S["ddp"] // 3)
+    wait_for_pending_saves()
+    ck2 = os.path.join("runs", exp, "nn", "ckpt_2.npz")
+    leaves = read_leaves(ck2)
+    if len(leaves) != 71 or leaves[68].shape != (ENVS, 121) or int(leaves[70]) != 2:
+        raise AssertionError(f"ddp entry point: bad checkpoint {ck2}")
+    with open(os.path.join("runs", exp, "metrics.jsonl")) as f:
+        rows = [json.loads(x) for x in f.read().splitlines()]
+    sps = [row["env_steps_per_s"] for row in rows]
+    # one process resumes it (no further iteration) and writes it back: the
+    # whole TrainState, leaf for leaf
+    buf = io.StringIO()
+    with cl.redirect_stdout(buf):
+        train.main(["task=Ur5SihLift", f"num_envs={ENVS}", f"resume={ck2}", "max_iterations=2",
+                    f"experiment={exp}_resume", f"device={dev}"])
+    wait_for_pending_saves()
+    resumed = buf.getvalue()
+    back = read_leaves(os.path.join("runs", f"{exp}_resume", "nn", "ckpt_2.npz"))
+    if (f"resumed from {ck2} at iter 2\n" not in resumed or "reset fresh" in resumed
+            or not all(np.array_equal(a, b) for a, b in zip(leaves, back))):
+        raise AssertionError(f"ddp: one process did not resume the ranks' file whole:\n"
+                             f"{resumed}")
+    log(f"ddp entry point: torchrun {DDP_RANKS} ranks x {ENVS // DDP_RANKS} envs, 2 "
+        f"iterations in {entry_s:.1f} s (process starts included); global train env-steps/s "
+        f"by iteration {[round(x) for x in sps]}; rank 0 wrote {ck2} ({ENVS} envs, 71 "
+        f"leaves); one process resumed it whole (the file it wrote back is equal leaf for "
+        f"leaf)")
+
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(DDP_RANKS, backend="gloo",
+                                       timeout_s=PHASE_DEADLINE_S["ddp"] // 3)
+    dry_s = time.perf_counter() - t0
+    for rk in dry["ranks"]:
+        check_launches(rk["launches"], LIFT_PER_ITER, 1, "dryrun_multichip rank")
+        if rk["sharding"] != dry["sharding"] or not math.isfinite(rk["stats"]["kl"]):
+            raise AssertionError(f"dryrun_multichip: bad rank record {rk}")
+    log(f"dryrun_multichip({DDP_RANKS}): {dry['envs_per_rank']} envs per rank, one whole "
+        f"iteration in {dry_s:.1f} s (process starts included); per rank {dry['sharding']}, "
+        f"launches per rank per iteration {dry['launches']}; collectives "
+        f"{dry['collectives']}")
+    return dict(ranks=DDP_RANKS, envs=ENVS, steps=steps, update_s=[rk["update_s"] for rk in
+                                                                   ranks],
+                spawn_s=spawn_s, sharding=ranks[0]["sharding"],
+                collectives=ranks[0]["collectives"], check=check,
+                entry_point=dict(seconds=entry_s, env_steps_per_s=sps, checkpoint=ck2),
+                dryrun=dict(seconds=dry_s, envs_per_rank=dry["envs_per_rank"],
+                            sharding=dry["sharding"], launches_per_rank=dry["launches"],
+                            collectives=dry["collectives"], stats=dry["stats"]))
+
+
+def pbt_phase(rollout) -> dict:
+    """Phase 43 (see the module docstring)."""
+    import numpy as np
+
+    from handarm_tpu_torch.parallel.pbt import PbtConfig, maybe_save_best_policy
+    from handarm_tpu_torch.utils.checkpoint import load_train_state, read_leaves
+
+    root = os.path.join("runs", "chip_smoke_pbt")
+    ws = os.path.join(root, "workspace")
+    for d in (root, os.path.join("runs", "chip_smoke_pbt_p0"),
+              os.path.join("runs", "chip_smoke_pbt_p1")):
+        shutil.rmtree(d, ignore_errors=True)
+    ckpt = os.path.relpath(rollout.TASK_CKPTS["Ur5SihLift"])
+    frames = PBT_ENVS * 16  # one iteration's
+    common = ["task=Ur5SihLift", f"num_envs={PBT_ENVS}", f"pbt.workspace={ws}",
+              "pbt.num_policies=2", f"pbt.interval_steps={frames}", "pbt.objective=reward_mean",
+              "pbt.replace_threshold_abs=0", "pbt.replace_threshold_rel=0",
+              "pbt.mutation_rate=1"]
+    budget = PHASE_DEADLINE_S["pbt"] // 3
+    s1, out1 = run_module("handarm_tpu_torch.train", common + [
+        "experiment=chip_smoke_pbt_p1", "pbt.policy_idx=1", f"resume={ckpt}",
+        "max_iterations=5202", "seed=1"], "pbt policy 1", budget, tail=4)
+    if "[pbt]" in out1:
+        raise AssertionError("pbt: policy 1 restarted")
+    s0, out0 = run_module("handarm_tpu_torch.train", common + [
+        "experiment=chip_smoke_pbt_p0", "pbt.policy_idx=0", "max_iterations=2", "seed=2"],
+        "pbt policy 0", 2 * budget, tail=6)
+    line = [x for x in out0.splitlines() if x.startswith("[pbt] policy 0 restarts")]
+    p0 = os.path.join("runs", "chip_smoke_pbt_p0")
+    if (len(line) != 1 or not line[0].startswith("[pbt] policy 0 restarts from donor at iter 1")
+            or f"resumed from {p0}/nn/ckpt_1.npz at iter 1\n" not in out0):
+        raise AssertionError(f"pbt: policy 0 did not restart through os.execv:\n{out0}")
+    with open(os.path.join(ws, "policy_01", "meta.json")) as f:
+        donor_meta = json.load(f)
+    with open(os.path.join(ws, "policy_00", "meta.json")) as f:
+        own_meta = json.load(f)
+    donor = read_leaves(os.path.join(ws, "policy_01", donor_meta["checkpoint"]))
+    adopted = read_leaves(os.path.join(p0, "nn", "ckpt_1.npz"))
+    if not all(np.array_equal(adopted[i], donor[i]) for i in range(11)):
+        raise AssertionError("pbt: the restarted policy's params are not the donor's")
+    with open(os.path.join(p0, "config.json")) as f:
+        conf = json.load(f)
+    mutated = {k: conf["ppo"][k] for k in PbtConfig().mutable}
+    for k in mutated:
+        if conf["ppo"][k] != float(conf["cli_overrides"][f"ppo.{k}"]) or (
+                donor_meta["hparams"][k] and conf["ppo"][k] == donor_meta["hparams"][k]):
+            raise AssertionError(f"pbt: {k} not mutated in the restart's config.json")
+    final = os.path.join(p0, "nn", "ckpt_2.npz")
+    with open(os.path.join(p0, "metrics.jsonl")) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    cfg = PbtConfig(workspace=ws, policy_idx=0)
+    ts = load_train_state(final, "cpu")
+    archived = maybe_save_best_policy(cfg, ts, last["reward_mean"], int(last["total_env_steps"]))
+    again = maybe_save_best_policy(cfg, ts, last["reward_mean"] - 1.0,
+                                   int(last["total_env_steps"]) + 1)
+    best = sorted(os.listdir(os.path.join(ws, "best")))
+    if not archived or again or len(best) != 2:
+        raise AssertionError(f"pbt: best-policy archive {best}")
+    log(f"pbt: 2 policies x {PBT_ENVS} envs on the card in one workspace; policy 1 (from "
+        f"ckpt_5200) {s1:.1f} s, objective {donor_meta['objective']:.5f}; policy 0 (fresh) "
+        f"objective {own_meta['objective']:.5f}, found itself worst and restarted through "
+        f"os.execv: {s0:.1f} s for both images, exit 0; its ckpt_1 holds the donor's "
+        f"params; mutated hyperparameters {mutated} (donor's {donor_meta['hparams']}); "
+        f"archived {best}")
+    return dict(envs=PBT_ENVS, policy1_s=s1, policy0_s=s0, donor_objective=donor_meta[
+        "objective"], restarted_objective=own_meta["objective"], mutated=mutated,
+                donor_hparams=donor_meta["hparams"], archive=best)
+
+
+def actor_learner_phase(rollout, dev, ops) -> dict:
+    """Phase 44 (see the module docstring)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from handarm_tpu_torch.convert import train_state_from_leaves
+    from handarm_tpu_torch.envs.tasks import make_env, ppo_overrides
+    from handarm_tpu_torch.learn.ppo import PPO, PPOConfig
+    from handarm_tpu_torch.parallel.actor_learner import ActorLearner
+    from handarm_tpu_torch.utils.checkpoint import read_leaves
+
+    sweep_op = ops["sweep"][0]
+    actor_env = lambda n: make_env("Ur5SihLift", device=dev, num_envs=n)
+    env0 = actor_env(AL_ENVS)
+    stub = SimpleNamespace(num_obs=env0.num_obs, num_actions=env0.num_actions,
+                           cfg=SimpleNamespace(num_envs=AL_ENVS * AL_ACTORS),
+                           device=torch.device(dev))
+    cfg = PPOConfig(**ppo_overrides("Ur5SihLift"))
+    ppo = PPO(stub, cfg)
+    envs = iter([env0] + [actor_env(AL_ENVS) for _ in range(AL_ACTORS - 1)])
+    al = ActorLearner(ppo, lambda n: next(envs), AL_ENVS, AL_ACTORS, AL_QUEUE)
+    ts = train_state_from_leaves(read_leaves(rollout.TASK_CKPTS["Ur5SihLift"]), None, None,
+                                 dev)
+    rollout.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, stats = al.run(ts, AL_ITERS, seed=7, timeout_s=PHASE_DEADLINE_S["actor-learner"] // 2)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = rollout.launch_counts()
+    n_roll = sum(al.rollouts)
+    check_launches(counts, LIFT_PER_ITER, n_roll, "actor-learner")
+    drained = [{k: float(v) for k, v in s.items()} for s in stats]
+    stale = [d["staleness"] for d in drained]
+    if not all(0 <= x <= AL_QUEUE for x in stale) or not all(
+            math.isfinite(v) for d in drained for v in d.values()):
+        raise AssertionError(f"actor-learner: staleness {stale} or stats {drained}")
+    check_learner(new, "actor-learner")
+    moved = max(float((new.params[k] - ts.params[k]).abs().max()) for k in ts.params)
+    if not moved > 0 or int(new.epoch) != int(ts.epoch) + AL_ITERS:
+        raise AssertionError("actor-learner: the learner did not update")
+    # one contact_sweep call of an actor env, launched on a side stream and on
+    # the default stream: bit-identical
+    with Capture({"sweep": ops["sweep"]}, last_only=True) as cap:
+        state, obs = env0.reset(3)
+        cap.armed = True
+        state, _ = env0.step(state, torch.zeros(AL_ENVS, env0.num_actions, device=dev))
+    (args, kw), = cap.calls["sweep"]
+    want = sweep_op.contact_sweep(*args, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = sweep_op.contact_sweep(*args, **kw)
+    side.synchronize()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("actor-learner: the sweep on a side stream differs")
+    sps = AL_ITERS * AL_ENVS * AL_ACTORS * cfg.horizon / seconds
+    log(f"actor-learner: {AL_ACTORS} actors x {AL_ENVS} envs (each its own thread, CUDA stream "
+        f"and generator) and the learner on the card, {AL_ITERS} learner iterations from "
+        f"ckpt_5200's learner in {seconds:.2f} s = {sps:.0f} learner env-steps/s; actor "
+        f"rollouts {al.rollouts}; launches {counts} = {LIFT_PER_ITER} per actor rollout; "
+        f"staleness {stale} (queue depth {AL_QUEUE}); kl {[round(d['kl'], 5) for d in drained]}"
+        f"; a sweep call on a side stream bit-identical to the default stream's")
+    return dict(actors=AL_ACTORS, envs_per_actor=AL_ENVS, iterations=AL_ITERS, seconds=seconds,
+                learner_env_steps_per_s=sps, rollouts=list(al.rollouts), launches=counts,
+                launches_per_actor_iteration=LIFT_PER_ITER, staleness=stale,
+                kl=[d["kl"] for d in drained])
 
 
 def bench_phase(rollout, dev) -> dict:
@@ -3377,6 +3823,13 @@ def main() -> int:
     stretch_rec, stretch_kernels = stretch_phases(rollout, dev, ops)
     for entry in kernels:
         entry["stretch"] = stretch_kernels[entry["name"]]
+    parallel_rec = {}
+    with phase("ddp"):
+        parallel_rec["ddp"] = ddp_phase(rollout, dev)
+    with phase("pbt"):
+        parallel_rec["pbt"] = pbt_phase(rollout)
+    with phase("actor-learner"):
+        parallel_rec["actor_learner"] = actor_learner_phase(rollout, dev, ops)
     with phase("bench"):
         bench_rec = bench_phase(rollout, dev)
     for entry in kernels:
@@ -3387,6 +3840,12 @@ def main() -> int:
             distill_path="Ur5SihLift DAgger on the camera's cloud",
             distill_launches_per_iteration=camera_rec["distill"]["launches_per_iteration"][name],
             graft_entry_launches=bench_rec["graft_entry"]["launches"][name])
+        entry["parallel"] = dict(
+            path="Ur5SihLift under 2 gloo ranks on the card, and the actor/learner split",
+            dryrun_launches_per_rank_per_iteration=parallel_rec["ddp"]["dryrun"][
+                "launches_per_rank"][name],
+            actor_learner_launches=parallel_rec["actor_learner"]["launches"][name],
+            actor_rollouts=sum(parallel_rec["actor_learner"]["rollouts"]))
 
     log(json.dumps({"rollout": {"envs": ENVS, "control_steps": STEPS,
                                 "env_steps_per_s": env_steps_per_s, "slots": C,
@@ -3400,7 +3859,7 @@ def main() -> int:
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
                     "family": family_rec, "distill": distill_rec, "rnn": rnn_rec,
                     "dr": dr_rec, "engine": engine, "stretch": stretch_rec,
-                    "camera": camera_rec, "bench": bench_rec}))
+                    "camera": camera_rec, "bench": bench_rec, "parallel": parallel_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -104,17 +104,26 @@ def init_adr_state(cfg: AdrConfig, B: int, gen=None, draws: AdrDraws | None = No
 
 
 def adr_step(cfg: AdrConfig, s: AdrState, done, objective, gen=None,
-             draws: AdrDraws | None = None) -> AdrState:
+             draws: AdrDraws | None = None, group=None) -> AdrState:
     """One env step of ADR: queue the finished boundary episodes' objective,
     move the ranges whose queues are full, recycle the finished envs. Every
-    leaf of the result replaces the old state's (none is merged by done)."""
+    leaf of the result replaces the old state's (none is merged by done).
+    `group`: the rank's DataParallel when `done` holds one rank's envs; the
+    queues then take every rank's contributions (one all-reduce of [4P]),
+    so the ranges move alike on every rank."""
     P, dev = cfg.P, done.device
     if draws is None:
         draws = adr_draws(cfg, done.shape[0], gen, dev)
     contrib = (done & (s.worker_mode >= 0)).to(torch.float32)
     slot = torch.clamp(s.worker_mode, 0, 2 * P - 1)
-    q_sum = s.q_sum.scatter_add(0, slot, contrib * objective)
-    q_cnt = s.q_cnt.scatter_add(0, slot, contrib)
+    if group is None:
+        q_sum = s.q_sum.scatter_add(0, slot, contrib * objective)
+        q_cnt = s.q_cnt.scatter_add(0, slot, contrib)
+    else:
+        zero = torch.zeros_like(s.q_sum)
+        adds = group.all_reduce(torch.cat([zero.scatter_add(0, slot, contrib * objective),
+                                           zero.scatter_add(0, slot, contrib)]), "adr")
+        q_sum, q_cnt = s.q_sum + adds[:2 * P], s.q_cnt + adds[2 * P:]
 
     ready = q_cnt >= cfg.queue_len
     mean = q_sum / torch.clamp(q_cnt, min=1.0)

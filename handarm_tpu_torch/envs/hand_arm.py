@@ -527,10 +527,19 @@ class HandArmEnv:
     """Vectorized hand-arm env on one device. Random draws (resets,
     disturbances, DR and ADR) come from the env's own torch.Generator, seeded
     by `reset(seed)`, unless `draws` are given; genesis draws from its own,
-    seeded with 23 + num_envs."""
+    seeded with 23 + num_envs.
 
-    def __init__(self, cfg: HandArmConfig, device=None, urdf_path: str | None = None):
+    `group`: the rank's `parallel.mesh.DataParallel` when this env holds one
+    rank's slice of the batch (cfg.num_envs is then the slice's count). The
+    env's global leaves see every rank's envs: the success metrics (and the
+    per-object EWMAs that steer balanced target sampling) and ADR's queues
+    add every rank's counts in one all-reduce each per step, so they stay
+    identical on every rank. Every random draw of the env is per env."""
+
+    def __init__(self, cfg: HandArmConfig, device=None, urdf_path: str | None = None,
+                 group=None):
         self.cfg = cfg
+        self.group = group if group is not None and group.world_size > 1 else None
         self.device = dev = resolve_device(device)
         self.robot = get_robot(cfg.robot, urdf_path, dev)
         art = self.art = self.robot.art
@@ -884,7 +893,7 @@ class HandArmEnv:
         merged = merged._replace(task=merged.task._replace(
             dr=merge_on_reset(done, fresh.task.dr, task.dr) if cfg.dr.enabled else None,
             adr=adr_step(cfg.adr, state.task.adr, done, goal_reached_before.to(torch.float32),
-                         self.gen, draws.adr) if cfg.adr.enabled else None))
+                         self.gen, draws.adr, self.group) if cfg.adr.enabled else None))
 
         ctx = ObsContext(self, merged, info_last, scores)
         obs, obs_dict = self._compute_obs(ctx, self.active_obs, cfg.observations,
@@ -1035,22 +1044,29 @@ class HandArmEnv:
 
     def _update_metrics(self, metrics: Metrics, done, goal_reached_before,
                         target_obj, goal_reached_now) -> Metrics:
+        """The metrics after a step, over the global batch: B is every
+        rank's envs, the counts every rank's (one all-reduce of [3 + 2K])."""
         K, B = self.num_objects, done.shape[0]
         f = lambda x: x.to(torch.float32)
-        num_resets = f(done).sum()
-        num_succ = f(done & goal_reached_before).sum()
+        onehot = torch.nn.functional.one_hot(target_obj, K).to(torch.float32)
+        counts = torch.cat([torch.stack([f(done).sum(), f(done & goal_reached_before).sum(),
+                                         f(done & goal_reached_now).sum()]),
+                            (onehot * f(done)[:, None]).sum(0),
+                            (onehot * f(done & goal_reached_before)[:, None]).sum(0)])
+        if self.group is not None:
+            counts = self.group.all_reduce(counts, "metrics")
+            B *= self.group.world_size
+        num_resets, num_succ, end_succ = counts[0], counts[1], counts[2]
+        resets_k, succ_k = counts[3:3 + K], counts[3 + K:]
         any_reset = num_resets > 0
         alpha = 0.2 * num_resets / B
         cur = num_succ / torch.clamp(num_resets, min=1)
         ewma = torch.where(any_reset, alpha * cur + (1 - alpha) * metrics.success_ewma,
                            metrics.success_ewma)
-        end_cur = f(done & goal_reached_now).sum() / torch.clamp(num_resets, min=1)
+        end_cur = end_succ / torch.clamp(num_resets, min=1)
         end_ewma = torch.where(any_reset,
                                alpha * end_cur + (1 - alpha) * metrics.end_success_ewma,
                                metrics.end_success_ewma)
-        onehot = torch.nn.functional.one_hot(target_obj, K).to(torch.float32)
-        resets_k = (onehot * f(done)[:, None]).sum(0)
-        succ_k = (onehot * f(done & goal_reached_before)[:, None]).sum(0)
         cur_k = succ_k / torch.clamp(resets_k, min=1)
         alpha_k = 0.2 * resets_k / B * K
         ewma_k = torch.where(resets_k > 0, alpha_k * cur_k + (1 - alpha_k) * metrics.per_object_ewma,

@@ -19,7 +19,10 @@ checkpoint only defines those; its width is checked). One zero-action
 step, then a burn-in of one episode length,
 after which the env's `total_resets` and `total_successes` counters are
 zeroed, then `--steps` more control steps; the rate is total_successes /
-total_resets over that window. Prints one JSON line: task, policy,
+total_resets over that window. (`evaluate(..., burn_in=False)` zeroes every
+env's clock at the reset instead, so that the first episodes are whole and
+policy-driven from the start and no burn-in is needed: the same count of
+whole episodes in a window of one episode length.) Prints one JSON line: task, policy,
 episodes, successes, success_rate, success_ewma, per_object_ewma. Runs on
 `cuda` unless given `--device cpu`.
 
@@ -53,10 +56,14 @@ from handarm_tpu_torch.utils.checkpoint import read_student
 def evaluate(ckpt: str | None = None, task: str = "Ur5SihLift", envs: int = 1024,
              steps: int = 600, seed: int = 123, device=None,
              episode_length: int | None = None, pool=None, student: str | None = None,
-             teacher: str | None = None, student_obs: str = DEFAULT_STUDENT_OBS):
+             teacher: str | None = None, student_obs: str = DEFAULT_STUDENT_OBS,
+             burn_in: bool = True):
     """(the JSON record, the env's final state). `pool`: a genesis pose
     pool to use instead of running genesis (drop-init tasks). With
-    `student`, that student.npz is evaluated (`teacher` required)."""
+    `student`, that student.npz is evaluated (`teacher` required). Without
+    `burn_in`, every env's episode clock starts at 0 at the reset and the
+    `steps` are counted from there (each env ends one whole episode in a
+    window of one episode length)."""
     dev = resolve_device(device)
     over = {} if episode_length is None else {"episode_length": episode_length}
     if student:
@@ -72,9 +79,12 @@ def evaluate(ckpt: str | None = None, task: str = "Ur5SihLift", envs: int = 1024
         policy = load_policy(ckpt, dev)
         env = make_task_env(task, envs, dev, pool=pool, **over)
     state, _ = env.reset(seed)
+    if not burn_in:
+        state = state._replace(task=state.task._replace(
+            progress=torch.zeros_like(state.task.progress)))
     state, res = env.step(state, torch.zeros(envs, env.num_actions, device=dev))
     obs = policy.observe(res)
-    ep = env.cfg.episode_length
+    ep = env.cfg.episode_length if burn_in else 0
     for t in range(steps + ep):
         state, obs, _, _ = forward_step(env, policy, state, obs)
         if t == ep - 1:  # burn-in done: count only policy-driven episodes

@@ -1,4 +1,4 @@
-"""PPO with GAE (counterpart of handarm_tpu/learn/ppo.py; one data shard).
+"""PPO with GAE (counterpart of handarm_tpu/learn/ppo.py).
 
 One `train_iter` is a rollout of `horizon` stochastic policy steps through
 the env, then `_update_from_traj`: the bootstrap value of the last
@@ -7,8 +7,23 @@ the observation, teacher-observation and value statistics, and
 `mini_epochs` passes of minibatched SGD with the clipped surrogate, the
 (clipped) value loss, the bounds loss and a KL-adaptive (or fixed) learning
 rate, then the KL guard that discards a catastrophic iteration. Every
-switch of the JAX PPOConfig is ported with its branch but `data_shards`
-(refused, `ppo_config`).
+switch of the JAX PPOConfig is ported with its branch.
+
+`data_shards` = D lays the env-major samples out as D shards of B / D envs
+each, and each mini-epoch draws one permutation per shard ([mini_epochs,
+D, rows / D] `perms`): a minibatch takes minibatch_size / D rows of every
+shard, shard-local indices, as the JAX package's `take_mb`. With one
+process that is a layout alone. Under `torch.distributed` (a
+`parallel.mesh.DataParallel` group of W ranks, D a multiple of W) each rank
+holds B / W envs, D / W of the shards, and where the JAX program reduces
+over the global batch the rank makes one all-reduce: the batch moments of
+the running stats and of the advantage normalization (two, for all of
+them: a global mean, then a global sum of squared deviations), the
+returned reward and done means (one), and per minibatch step one flat
+bucket of every gradient and loss term, averaged; the gradient clip, the
+Adam step and the KL-driven lr then run alike on every rank. The learner's
+generator (init, permutations) is seeded alike on every rank; the policy
+noise and the env draw from generators seeded by rank.
 
 Four layouts of the learner:
 - the MLP `ActorCritic` (`rnn_units=0`);
@@ -56,10 +71,11 @@ from handarm_tpu_torch.learn.networks import (
 )
 from handarm_tpu_torch.learn.running_stats import (
     RunningStats,
+    clean_batch,
     denormalize,
     init_stats,
+    merge_stats,
     normalize,
-    update_stats,
 )
 
 
@@ -95,10 +111,12 @@ class PPOConfig(NamedTuple):
     seq_len: int = 4  # BPTT sequence length
     zero_rnn_on_done: bool = True
     critic_rnn_units: int = 0  # the recurrent critic's LSTM width; 0: rnn_units
+    # shards of the env axis in the update's layout (the data mesh's size in
+    # the JAX package); a multiple of the ranks' count
+    data_shards: int = 1
 
 
-# the JAX PPOConfig's fields of paths not ported, with their defaults
-NOT_PORTED = {"data_shards": (1, "§1.6")}
+RANK_SEED_STRIDE = 1_000_003  # rank r's env and noise draws: seed + r * stride
 
 
 def param_names(cfg: PPOConfig) -> list[tuple[str, str]]:
@@ -116,19 +134,12 @@ def param_names(cfg: PPOConfig) -> list[tuple[str, str]]:
 
 def ppo_config(overrides: dict) -> PPOConfig:
     """A PPOConfig from the overrides a task composes to (`hidden` as a
-    list or tuple). A field of a path not ported raises NotImplementedError
-    unless it has its default; any other unknown field raises KeyError."""
+    list or tuple). An unknown field raises KeyError."""
     kw = {}
     for k, v in overrides.items():
-        if k in NOT_PORTED:
-            default, item = NOT_PORTED[k]
-            if v != default:
-                raise NotImplementedError(
-                    f"PPOConfig.{k}={v!r} is not ported (only {default!r}; ROADMAP {item})")
-        elif k not in PPOConfig._fields:
+        if k not in PPOConfig._fields:
             raise KeyError(f"unknown PPOConfig field {k!r}")
-        else:
-            kw[k] = tuple(v) if k == "hidden" else v
+        kw[k] = tuple(v) if k == "hidden" else v
     if kw.get("lr_schedule", "adaptive") not in ("adaptive", "fixed"):
         raise ValueError(f"lr_schedule {kw['lr_schedule']!r} is not adaptive or fixed")
     return PPOConfig(**kw)
@@ -234,10 +245,15 @@ class PPO:
     """Ties an env (`step`, `reset`, `num_obs`, `num_actions`,
     `cfg.num_envs`; with an asymmetric critic also `observe` and
     `num_teacher_obs`) to the train iteration. `device` defaults to the
-    env's."""
+    env's. `group`: the rank's `parallel.mesh.DataParallel` when the env
+    holds this rank's B / W envs (None: one process holds all)."""
 
-    def __init__(self, env, cfg: PPOConfig = PPOConfig(), device=None):
-        self.env, self.cfg = env, cfg
+    def __init__(self, env, cfg: PPOConfig = PPOConfig(), device=None, group=None):
+        if group is not None and group.world_size == 1:
+            group = None  # one rank holds every env: nothing to reduce
+        self.env, self.cfg, self.group = env, cfg, group
+        W = group.world_size if group is not None else 1
+        self.rank = group.rank if group is not None else 0
         self.device = resolve_device(device) if device is not None else env.device
         self.asymmetric, self.recurrent = cfg.asymmetric_critic, cfg.rnn_units > 0
         num_teacher = getattr(env, "num_teacher_obs", 0)
@@ -255,7 +271,8 @@ class PPO:
         net = AsymmetricActorCritic(actor, critic) if self.asymmetric else actor
         self.net = net.to(self.device)
         self.actor = self.net.actor if self.asymmetric else self.net
-        batch = env.cfg.num_envs * cfg.horizon
+        B = env.cfg.num_envs * W  # the global batch's envs
+        batch = B * cfg.horizon
         self.num_minibatches = cfg.num_minibatches or max(1, batch // cfg.minibatch_size)
         if batch % self.num_minibatches:
             raise ValueError(f"{batch} samples do not split into {self.num_minibatches} "
@@ -266,7 +283,14 @@ class PPO:
                              f"{self.mb_size}")
         # rows of the prepared samples per minibatch: samples, or sequences
         self.mb_rows = self.mb_size // cfg.seq_len if self.recurrent else self.mb_size
+        D = cfg.data_shards
+        if D < 1 or D % W or B % D or self.mb_rows % D:
+            raise ValueError(f"data_shards {D} must divide the {B} envs and the minibatch's "
+                             f"{self.mb_rows} rows, and be a multiple of the {W} ranks")
+        self.shard_rows = batch // (cfg.seq_len if self.recurrent else 1) // D
         self.gen = torch.Generator(device=self.device)
+        # the policy noise: per env, so drawn by rank where there are ranks
+        self.noise_gen = self.gen if W == 1 else torch.Generator(device=self.device)
 
     # --- init ---------------------------------------------------------------
 
@@ -278,9 +302,14 @@ class PPO:
         """Env reset, flax-default params, a fresh optimizer and fresh
         stats, the configured learning rate, a zero carry; draws from
         `seed`. With an asymmetric critic, the teacher observations of the
-        reset state (`env.observe`)."""
+        reset state (`env.observe`). Under ranks the params draw alike on
+        every rank; rank r's env and policy noise draw from seed + r *
+        RANK_SEED_STRIDE."""
         self.gen.manual_seed(seed)
-        env_state, obs = self.env.reset(seed)
+        rank_seed = seed + self.rank * RANK_SEED_STRIDE
+        if self.noise_gen is not self.gen:
+            self.noise_gen.manual_seed(rank_seed)
+        env_state, obs = self.env.reset(rank_seed)
         params = self.net.init_flax_default(self.gen).param_dict()
         dev = self.device
         teacher_stats = last_teacher = None
@@ -327,16 +356,21 @@ class PPO:
 
     def train_iter(self, ts: TrainState, noise=None, perms=None):
         """(new TrainState, stats). `noise` [horizon, B, A] replaces the
-        policy's normal draws, `perms` [mini_epochs, rows] the minibatch
-        permutations: of the B * horizon samples, or on the recurrent path
-        of the B * horizon / seq_len sequences."""
+        policy's normal draws, `perms` the minibatch permutations
+        ([mini_epochs, data_shards, rows / data_shards], `minibatch_rows`):
+        of the B * horizon samples, or on the recurrent path of the B *
+        horizon / seq_len sequences."""
         r = self.rollout(ts, noise)
         return self._update_from_traj(ts, r.traj, r.env_state, r.last_obs, perms, r.info,
                                       r.last_teacher_obs, r.last_hidden)
 
     @torch.no_grad()
-    def rollout(self, ts: TrainState, noise=None) -> Rollout:
-        """`horizon` stochastic policy steps (see `Rollout`)."""
+    def rollout(self, ts: TrainState, noise=None, gen=None, env=None) -> Rollout:
+        """`horizon` stochastic policy steps (see `Rollout`) of `env`
+        (default: the learner's); the noise from `noise`, else from `gen`
+        (default: the learner's noise generator)."""
+        gen = self.noise_gen if gen is None else gen
+        env = self.env if env is None else env
         cfg = self.cfg
         stats = (ts.obs_stats, ts.teacher_obs_stats)
         env_state, obs, teacher, h = ts.env_state, ts.last_obs, ts.last_teacher_obs, ts.hidden
@@ -344,11 +378,11 @@ class PPO:
         for t in range(cfg.horizon):
             mu, log_std, value, h_next = self.forward(ts.params, stats, obs, teacher, h)
             eps = noise[t] if noise is not None else torch.randn(
-                mu.shape, generator=self.gen, device=mu.device)
+                mu.shape, generator=gen, device=mu.device)
             sigma = torch.exp(log_std)
             a = mu + sigma * eps
             logp = gaussian_logp(mu, log_std, a)
-            env_state, res = self.env.step(env_state, a)
+            env_state, res = env.step(env_state, a)
             value = self.value_of(ts.value_stats, value)
             zero = torch.zeros_like(res.reward)
             reward = torch.where(torch.isfinite(res.reward), res.reward, zero) * cfg.reward_scale
@@ -379,11 +413,8 @@ class PPO:
         data, obs_stats, value_stats, teacher_stats = self._prepare(
             ts, traj, last_obs, last_teacher_obs, last_hidden)
         if perms is None:
-            n = data["adv"].shape[0]
-            perms = torch.stack([torch.randperm(n, generator=self.gen, device=data["adv"].device)
-                                 for _ in range(cfg.mini_epochs)])
-        # one permutation per mini-epoch, contiguous minibatches of it
-        params, opt_state, lr, aux = self._sgd(ts, data, perms.reshape(-1, self.mb_rows))
+            perms = self.draw_perms(data["adv"].device)
+        params, opt_state, lr, aux = self._sgd(ts, data, self.minibatch_rows(perms))
 
         kl_mean = aux["kl"].mean()
         guard = (ts.epoch >= 8) & (~torch.isfinite(kl_mean) | (kl_mean > cfg.kl_guard))
@@ -394,9 +425,15 @@ class PPO:
         teacher_stats = where_stats(guard, ts.teacher_obs_stats, teacher_stats)
         lr = torch.where(guard, torch.clamp(ts.lr / 2.0, min=cfg.min_lr), lr)
 
+        done = traj.done.to(torch.float32)
+        if self.group is None:
+            reward_mean, done_frac = traj.reward.mean(), done.mean()
+        else:
+            sums = self.group.all_reduce(torch.stack([traj.reward.sum(), done.sum()]), "means")
+            reward_mean, done_frac = sums / (done.numel() * self.group.world_size)
         stats = dict(
-            reward_mean=traj.reward.mean() / cfg.reward_scale,
-            episode_done_frac=traj.done.to(torch.float32).mean(),
+            reward_mean=reward_mean / cfg.reward_scale,
+            episode_done_frac=done_frac,
             kl=kl_mean,
             kl_guard_triggered=guard.to(torch.float32),
             policy_loss=aux["policy_loss"].mean(),
@@ -417,6 +454,48 @@ class PPO:
             hidden=last_hidden)
         return new_ts, stats
 
+    def draw_perms(self, device) -> torch.Tensor:
+        """[mini_epochs, data_shards, rows / data_shards]: per mini-epoch, one
+        permutation per shard from the learner's generator."""
+        cfg = self.cfg
+        return torch.stack([torch.stack([
+            torch.randperm(self.shard_rows, generator=self.gen, device=device)
+            for _ in range(cfg.data_shards)]) for _ in range(cfg.mini_epochs)])
+
+    def minibatch_rows(self, perms: torch.Tensor) -> torch.Tensor:
+        """[mini_epochs * minibatches, rows per minibatch on this rank]: the
+        rows of this rank's samples each minibatch step takes. `perms`
+        [mini_epochs, data_shards, rows / data_shards] (or [mini_epochs,
+        rows] with one shard) holds shard-local indices; step i of an epoch
+        takes entries [i m, (i + 1) m) of each shard's permutation, m =
+        minibatch rows / data_shards, shard after shard, as the JAX
+        package's `take_mb`. This rank holds shards [r D / W, (r + 1) D / W)."""
+        cfg = self.cfg
+        E, D, n = cfg.mini_epochs, cfg.data_shards, self.shard_rows
+        if perms.numel() != E * D * n:
+            raise ValueError(f"perms {tuple(perms.shape)} are not [{E}, {D}, {n}]")
+        W = self.group.world_size if self.group is not None else 1
+        D_loc, m = D // W, self.mb_rows // D
+        p = perms.reshape(E, D, n)[:, self.rank * D_loc:(self.rank + 1) * D_loc]
+        p = p + (torch.arange(D_loc, device=p.device) * n)[None, :, None]
+        p = p.reshape(E, D_loc, self.num_minibatches, m).transpose(1, 2)
+        return p.reshape(E * self.num_minibatches, D_loc * m)
+
+    def _moments(self, xs: list, n: int) -> list:
+        """(mean, population variance) over the first axis of each batch in
+        `xs`, of n samples in all: this batch's alone, or under ranks of the
+        global batch (two all-reduces for all of them)."""
+        if self.group is None:
+            return [(x.mean(dim=0), x.var(dim=0, correction=0)) for x in xs]
+        sizes = [x[0].numel() for x in xs]
+        sums = self.group.all_reduce(torch.cat([x.sum(dim=0).reshape(-1) for x in xs]),
+                                     "moments")
+        means = [m.reshape(x.shape[1:]) / n for m, x in zip(torch.split(sums, sizes), xs)]
+        ssd = self.group.all_reduce(torch.cat([((x - m) ** 2).sum(dim=0).reshape(-1)
+                                               for x, m in zip(xs, means)]), "moments")
+        return [(m, v.reshape(x.shape[1:]) / n)
+                for m, v, x in zip(means, torch.split(ssd, sizes), xs)]
+
     def _prepare(self, ts: TrainState, traj: Transition, last_obs, last_teacher_obs=None,
                  last_hidden=None):
         """(the samples of the update, flattened env-major: the rollout's
@@ -436,15 +515,27 @@ class PPO:
         adv = flatten_env_major(advantages)
         ret = flatten_env_major(returns)
 
-        obs_stats = update_stats(ts.obs_stats, batch.obs) if cfg.normalize_input else ts.obs_stats
-        value_stats = update_stats(ts.value_stats, ret) if cfg.normalize_value else ts.value_stats
-        teacher_stats = ts.teacher_obs_stats
-        if self.asymmetric:
-            teacher = flatten_env_major(traj.teacher_obs)
-            if cfg.normalize_input:
-                teacher_stats = update_stats(teacher_stats, teacher)
+        # the batch moments of the stats' updates and of the advantage
+        # normalization: of the global batch (n samples) under ranks
+        n = adv.shape[0] * (self.group.world_size if self.group is not None else 1)
+        stats_in = {}  # name -> (stats, cleaned batch)
+        if cfg.normalize_input:
+            stats_in["obs"] = ts.obs_stats, clean_batch(ts.obs_stats, batch.obs, n)
+        if cfg.normalize_value:
+            stats_in["value"] = ts.value_stats, clean_batch(ts.value_stats, ret, n)
+        teacher = flatten_env_major(traj.teacher_obs) if self.asymmetric else None
+        if self.asymmetric and cfg.normalize_input:
+            stats_in["teacher"] = (ts.teacher_obs_stats,
+                                   clean_batch(ts.teacher_obs_stats, teacher, n))
+        xs = [x for _, x in stats_in.values()] + ([adv] if cfg.normalize_advantage else [])
+        moments = self._moments(xs, n)
+        new = {k: merge_stats(s, *moments[i], n) for i, (k, (s, _)) in enumerate(stats_in.items())}
+        obs_stats = new.get("obs", ts.obs_stats)
+        value_stats = new.get("value", ts.value_stats)
+        teacher_stats = new.get("teacher", ts.teacher_obs_stats)
         if cfg.normalize_advantage:
-            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)  # jnp.std: ddof 0
+            a_mean, a_var = moments[-1]
+            adv = (adv - a_mean) / (torch.sqrt(a_var) + 1e-8)  # jnp.std: ddof 0
         returns_n, values_n = ret, batch.value
         if cfg.normalize_value:
             returns_n = normalize(value_stats, ret, clip=math.inf)
@@ -482,8 +573,21 @@ class PPO:
 
     def _mb_step(self, stats, params, opt_state, lr, mb):
         grads, aux = self._grads(stats, params, mb)
+        if self.group is not None:
+            grads, aux = self._average(grads, aux)
         params, opt_state, lr = self._apply(params, opt_state, lr, grads, aux["kl"])
         return params, opt_state, lr, aux
+
+    def _average(self, grads: dict, aux: dict) -> tuple[dict, dict]:
+        """The gradients and loss terms of the global minibatch: every rank's,
+        averaged, in one all-reduce of one flat bucket (each rank's loss is
+        the mean over its equal share of the minibatch)."""
+        flat = torch.cat([g.reshape(-1) for g in grads.values()]
+                         + [torch.stack(list(aux.values()))])
+        flat = self.group.all_reduce(flat, "grads") / self.group.world_size
+        parts = torch.split(flat, [g.numel() for g in grads.values()] + [len(aux)])
+        grads = {k: p.reshape(g.shape) for (k, g), p in zip(grads.items(), parts)}
+        return grads, dict(zip(aux, parts[-1].unbind()))
 
     def _grads(self, stats, params, mb):
         """(gradients of the loss by parameter, detached aux). A parameter
@@ -586,6 +690,6 @@ class PPO:
         a = mu
         if not deterministic:
             eps = noise if noise is not None else torch.randn(
-                mu.shape, generator=self.gen, device=mu.device)
+                mu.shape, generator=self.noise_gen, device=mu.device)
             a = mu + torch.exp(log_std) * eps
         return (a, hidden) if self.recurrent else a

@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,6 +33,7 @@ LIB_NAME = "libhandarm_kernels.so"
 REPORT_NAME = "ptxas.txt"
 
 _lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()  # actor threads may ask for it at once
 build_seconds: float | None = None  # wall time of the last build (None: cached)
 
 
@@ -116,6 +118,13 @@ def ptxas_report() -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
+    if _lib is None:
+        with _lib_lock:
+            _load()
+    return _lib
+
+
+def _load() -> None:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -138,7 +147,6 @@ def library() -> ctypes.CDLL:
         lib.prep_deff_launch_info.argtypes = [ci, ci, vp]
         lib.prep_deff_launch_info.restype = ci
         _lib = lib
-    return _lib
 
 
 def check(err: int, name: str) -> None:

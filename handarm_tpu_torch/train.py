@@ -1,9 +1,8 @@
-"""Training entry point of the port (counterpart of the root `train.py`,
-single device):
+"""Training entry point of the port (counterpart of the root `train.py`):
 
     python -m handarm_tpu_torch.train [task=Ur5SihLift] [max_iterations=1000]
         [seed=42] [experiment=NAME] [resume=auto|PATH] [save_every=100]
-        [device=cpu] [OVERRIDE ...]
+        [device=cpu] [dist_backend=nccl|gloo] [pbt.KEY=VALUE ...] [OVERRIDE ...]
 
 The task is composed as the root `train.py` composes it (`envs/registry.py`
 `compose_task`): its yaml config group under `configs/`, or a yaml path
@@ -60,6 +59,35 @@ ShadowHandOpenAI_LSTM's on Ur5SihLift (the observables are listed in
 Stats are read back one iteration behind, in one host transfer, after the
 next iteration has been queued, so no iteration waits on a host read. It
 runs on `cuda` unless given `device=cpu`.
+
+Data parallel under torchrun, one process per rank:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m handarm_tpu_torch.train task=Ur5SihLift env.num_envs=8192 [dist_backend=gloo]
+
+Each rank builds num_envs / N envs (`parallel.mesh`: its slice of the
+batch) and `data_shards` defaults to N, as the root train.py sets it to
+the mesh's size. Rank r runs on `cuda:LOCAL_RANK` with `nccl` (the
+default); ranks that share a card need `dist_backend=gloo` (NCCL refuses
+two ranks on one card and the run raises: it is not turned into gloo), or
+`device=cpu` with gloo. The learner is replicated (broadcast from rank 0
+at the start) and every global reduction is an all-reduce, so every rank
+holds the same learner and stats. Rank 0 alone prints, logs and writes
+`config.json`; checkpoints gather every rank's envs and rank 0 writes them
+(the file one process of num_envs envs writes). A resumed file of the run's
+env count gives each rank its envs; of another count, its learner alone.
+The printed env-steps/s count the global batch.
+
+Population-based training (`parallel.pbt`, the root train.py's `pbt.*`
+keys): `pbt.policy_idx=`, `pbt.num_policies=`, `pbt.workspace=` (default
+runs/<experiment>/pbt_workspace), `pbt.interval_steps=`, `pbt.objective=`
+(a stats key, default success_rate_ewma) and PbtConfig's float fields.
+Every `interval_steps` env frames the run exchanges with its population;
+a policy that is replaced writes the donor's state as its newest periodic
+checkpoint and `os.execv`s `python -m handarm_tpu_torch.train` with its
+argv, the mutated `ppo.<hyperparameter>=` values and `resume=auto`
+(`pbt_restart_argv`). PBT runs one process per policy: with WORLD_SIZE > 1
+the `pbt.*` keys raise.
 """
 
 from __future__ import annotations
@@ -70,13 +98,22 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from handarm_tpu_torch import resolve_device
 from handarm_tpu_torch.convert import env_leaf_count
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
 from handarm_tpu_torch.envs.registry import resolve_task
 from handarm_tpu_torch.learn.ppo import PPO, PPOConfig, ppo_config
+from handarm_tpu_torch.parallel.launch import init_distributed, per_host_envs
+from handarm_tpu_torch.parallel.mesh import (
+    DataParallel,
+    scatter_train_state,
+    shard_train_state,
+)
+from handarm_tpu_torch.parallel.pbt import PbtConfig, pbt_step
 from handarm_tpu_torch.utils.checkpoint import (
     checkpoint_step,
     file_contact_slots,
@@ -87,17 +124,29 @@ from handarm_tpu_torch.utils.checkpoint import (
 )
 from handarm_tpu_torch.utils.logging import MetricsLogger
 
-TOP_KEYS = ("task", "max_iterations", "seed", "experiment", "resume", "save_every", "device")
+TOP_KEYS = ("task", "max_iterations", "seed", "experiment", "resume", "save_every", "device",
+            "dist_backend")
+
+
+def pbt_restart_argv(argv: list[str], new_hparams: dict) -> list[str]:
+    """The argv of a PBT restart (reference pbt.py:123-177): the stale
+    `ppo.<mutable>=` and `resume=` arguments dropped, the mutated values
+    appended, and `resume=auto`: the newest periodic checkpoint, which the
+    caller has just written with the donor's state."""
+    stale = {f"ppo.{k}" for k in new_hparams} | {"resume"}
+    kept = [a for a in argv if a.split("=", 1)[0] not in stale]
+    return kept + [f"ppo.{k}={v}" for k, v in new_hparams.items()] + ["resume=auto"]
 
 
 def parse_args(argv: list[str]) -> tuple[dict, list[str]]:
-    """(top-level keys, composition overrides) of `key=value` arguments."""
+    """(top-level keys, composition overrides) of `key=value` arguments; the
+    `pbt.*` keys are top-level."""
     top, overrides = {}, []
     for arg in argv:
         key, sep, val = arg.partition("=")
         if not sep:
             raise ValueError(f"arguments are key=value, got {arg!r}")
-        if key in TOP_KEYS:
+        if key in TOP_KEYS or key.startswith("pbt."):
             top[key] = val
         else:
             overrides.append(arg)
@@ -134,6 +183,21 @@ def drain_stats(stats: dict) -> dict:
     return dict(zip(stats, vals))
 
 
+def _pbt_config(top: dict, run_dir: str):
+    """(PbtConfig, objective key) of the `pbt.*` keys, or (None, None)."""
+    kv = {k[len("pbt."):]: v for k, v in top.items() if k.startswith("pbt.")}
+    if not kv:
+        return None, None
+    objective = kv.pop("objective", "success_rate_ewma")
+    return PbtConfig(
+        workspace=kv.pop("workspace", os.path.join(run_dir, "pbt_workspace")),
+        policy_idx=int(kv.pop("policy_idx", 0)),
+        num_policies=int(kv.pop("num_policies", 8)),
+        interval_steps=int(float(kv.pop("interval_steps", 10_000_000))),
+        **{k: float(v) for k, v in kv.items()},
+    ), objective
+
+
 def main(argv: list[str]) -> None:
     top, overrides, env_cfg, ppo_over, cfg = compose(argv)
     task = top.get("task", "Ur5SihLift")
@@ -142,17 +206,35 @@ def main(argv: list[str]) -> None:
     exp_name = top.get("experiment", task)
     resume = top.get("resume", "")
     save_every = int(top.get("save_every", 100))
-    dev = resolve_device(top.get("device"))
-
-    env = HandArmEnv(env_cfg, dev)  # a drop-init task runs genesis at its first reset
-    ppo = PPO(env, cfg)
+    group = None
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun
+        info = init_distributed(top.get("dist_backend", "nccl"), top.get("device"))
+        group = DataParallel.current(info["device"], info["backend"])
+        dev = info["device"]
+    else:
+        dev = resolve_device(top.get("device"))
+    W = group.world_size if group is not None else 1
+    main_rank = group is None or group.rank == 0
+    say = (lambda msg: print(msg, flush=True)) if main_rank else (lambda msg: None)
+    num_envs = env_cfg.num_envs  # the global batch
+    if "data_shards" not in ppo_over:
+        cfg = cfg._replace(data_shards=W)
 
     run_dir = os.path.join("runs", exp_name)
     nn_dir = os.path.join(run_dir, "nn")
+    pbt_cfg, pbt_objective = _pbt_config(top, run_dir)
+    if pbt_cfg is not None and W > 1:
+        raise ValueError("PBT runs one process per policy: pbt.* keys take no torchrun ranks")
+    env = HandArmEnv(dataclasses.replace(env_cfg, num_envs=per_host_envs(num_envs)), dev,
+                     group=group)  # a drop-init task runs genesis at its first reset
+    ppo = PPO(env, cfg, group=group)
+
     os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump(resolved_config(top, overrides, env_cfg, ppo_over, cfg, dev), f, indent=1)
-    logger = MetricsLogger(run_dir)
+    logger = None
+    if main_rank:
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump(resolved_config(top, overrides, env_cfg, ppo_over, cfg, dev), f, indent=1)
+        logger = MetricsLogger(run_dir)
 
     ts = ppo.init(seed)
     start_it = 0
@@ -166,7 +248,10 @@ def main(argv: list[str]) -> None:
                 f"package cannot step such a state either")
         if file_env_leaves(path, cfg) == env_leaf_count(env_cfg):
             ck = load_train_state(path, dev, cfg=cfg, env_cfg=env_cfg)
-            same = ck.last_obs.shape == ts.last_obs.shape  # the env count
+            same = (ck.last_obs.shape[0] == num_envs  # the env count
+                    and ck.last_obs.shape[1:] == ts.last_obs.shape[1:])
+            if same:
+                ck = scatter_train_state(group, ck)  # this rank's envs
         else:  # its env state has another DR / ADR layout
             ck = load_train_state(path, dev, ts.env_state, ts.last_obs, cfg=cfg)
             same = False
@@ -174,19 +259,28 @@ def main(argv: list[str]) -> None:
                                          last_teacher_obs=ts.last_teacher_obs,
                                          hidden=ts.hidden)
         start_it = checkpoint_step(path)
-        print(f"resumed from {path} at iter {start_it}"
-              + ("" if same else " (its env state is another size or layout: the env is reset "
-                                   "fresh)"),
-              flush=True)
+        say(f"resumed from {path} at iter {start_it}"
+            + ("" if same else " (its env state is another size or layout: the env is reset "
+                                 "fresh)"))
+    ts = shard_train_state(group, ts)  # the replicated leaves: rank 0's
 
-    steps_per_iter = env.cfg.num_envs * cfg.horizon
-    print(f"task={task} envs={env.cfg.num_envs} obs={env.num_obs} act={env.num_actions} "
-          f"device={dev} steps/iter={steps_per_iter}", flush=True)
+    steps_per_iter = num_envs * cfg.horizon
+    say(f"task={task} envs={num_envs} obs={env.num_obs} act={env.num_actions} device={dev} "
+        f"ranks={W} data_shards={cfg.data_shards} steps/iter={steps_per_iter}")
 
     def report(it, stats):
-        print(f"it {it:5d} | {stats['env_steps_per_s']:>10,.0f} sps | "
-              f"rew {stats['reward_mean']:.4f} | kl {stats['kl']:.4f} | "
-              f"lr {stats['lr']:.2e} | succ {stats['success_rate_ewma']:.3f}", flush=True)
+        say(f"it {it:5d} | {stats['env_steps_per_s']:>10,.0f} sps | "
+            f"rew {stats['reward_mean']:.4f} | kl {stats['kl']:.4f} | "
+            f"lr {stats['lr']:.2e} | succ {stats['success_rate_ewma']:.3f}")
+
+    def save(state, step, **kw):
+        return save_checkpoint(nn_dir, state, step=step, seed=seed, cfg=cfg, env_cfg=env_cfg,
+                               group=group, **kw)
+
+    if pbt_cfg is not None:
+        pbt_rng = np.random.default_rng(seed * 997 + pbt_cfg.policy_idx)
+        pbt_hparams = {k: float(getattr(cfg, k)) for k in pbt_cfg.mutable}
+        pbt_last_interval = (start_it * steps_per_iter) // pbt_cfg.interval_steps
 
     best_reward, last_best_it = float("-inf"), -(10**9)
     t_start = time.time()
@@ -211,24 +305,47 @@ def main(argv: list[str]) -> None:
             continue
         it, stats = drain(t0)
         pending = (loop_it, stats_d, t0)
-        logger.log(it, stats)
+        if logger is not None:
+            logger.log(it, stats)
+        if pbt_cfg is not None:
+            frames = int(stats["total_env_steps"])
+            if frames // pbt_cfg.interval_steps > pbt_last_interval:
+                pbt_last_interval = frames // pbt_cfg.interval_steps
+                objective = float(stats.get(pbt_objective, stats["reward_mean"]))
+                new_ts, new_hp, restarted = pbt_step(
+                    pbt_cfg, ts, pbt_hparams, frames, objective, rng=pbt_rng, device=dev,
+                    seed=seed, ppo_cfg=cfg, env_cfg=env_cfg)
+                if restarted:
+                    # the reference's restart (pbt.py:123-177): the donor's state
+                    # becomes this run's newest periodic checkpoint, and the process
+                    # image is replaced by a run resuming it under the mutated
+                    # hyperparameters
+                    save(new_ts, it + 1, sync=True)
+                    new_argv = pbt_restart_argv(argv, new_hp)
+                    say(f"[pbt] policy {pbt_cfg.policy_idx} restarts from donor at iter "
+                        f"{it + 1}: {new_hp}")
+                    logger.close()
+                    sys.stdout.flush()
+                    os.execv(sys.executable,
+                             [sys.executable, "-m", "handarm_tpu_torch.train"] + new_argv)
         if it % 10 == 0 or it == max_iterations - 1:
             report(it, stats)
         if (it + 1) % save_every == 0:
-            save_checkpoint(nn_dir, ts_at_loop_it, step=it + 1, seed=seed, cfg=cfg,
-                            env_cfg=env_cfg)
+            save(ts_at_loop_it, it + 1)
         if it > 50 and stats["reward_mean"] > best_reward and it - last_best_it >= 25:
             best_reward, last_best_it = stats["reward_mean"], it
-            save_checkpoint(nn_dir, ts_at_loop_it, step=0, name="best", seed=seed, cfg=cfg,
-                            env_cfg=env_cfg)
+            save(ts_at_loop_it, 0, name="best")
     if pending is not None:
         it, stats = drain(time.time())
-        logger.log(it, stats)
+        if logger is not None:
+            logger.log(it, stats)
         report(it, stats)
-    print(f"done in {time.time() - t_start:.0f}s", flush=True)
-    logger.close()
-    save_checkpoint(nn_dir, ts, step=max_iterations, seed=seed, sync=True, cfg=cfg,
-                    env_cfg=env_cfg)
+    say(f"done in {time.time() - t_start:.0f}s")
+    if logger is not None:
+        logger.close()
+    save(ts, max_iterations, sync=True)
+    if group is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

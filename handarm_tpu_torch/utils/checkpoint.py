@@ -46,6 +46,11 @@ in flax order (`read_student`, `save_student`).
 `save_checkpoint` copies the state to the host at once and writes the file
 on one background thread (atomically: `.tmp`, then `os.replace`), so the
 training loop never waits on the disk; `wait_for_pending_saves` joins it.
+
+Under ranks (`group`, a `parallel.mesh.DataParallel`), every rank calls
+`save_checkpoint`: the per-env leaves are gathered in rank order and rank 0
+writes the whole state, the file one process holding all B envs writes
+(and the JAX package reads).
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ from handarm_tpu_torch.convert import (
 )
 from handarm_tpu_torch.learn.networks import flax_names
 from handarm_tpu_torch.learn.ppo import param_names
+from handarm_tpu_torch.parallel.mesh import gather_train_state
 
 PARAM_NAMES = tuple(f for f, _ in flax_names(3))  # dense_0.bias ... value.kernel
 ENV_STATE_LEAVES = (44, 68)  # [start, stop) for the 768-512-256 MLP
@@ -151,16 +157,22 @@ def wait_for_pending_saves() -> None:
 
 
 def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int = 0,
-                    sync: bool = False, cfg=None, env_cfg=None) -> str:
+                    sync: bool = False, cfg=None, env_cfg=None, group=None) -> str:
     """Write a PPO TrainState as `<dirpath>/<name>_<step>.npz` (uncompressed;
     71 leaves for the 768-512-256 MLP). The PRNG-key leaves hold `seed`'s
     key. `cfg`: the PPOConfig of an asymmetric or recurrent learner;
     `env_cfg`: the env's HandArmConfig, whose DR and ADR states the env
-    state must hold (without it, those it holds are written)."""
+    state must hold (without it, those it holds are written). `group`:
+    under ranks, every rank calls this and rank 0 writes every rank's envs
+    (the path is returned on every rank)."""
     global _writer
+    path = os.path.join(dirpath, f"{name}_{step}.npz")
+    if group is not None:
+        ts = gather_train_state(group, ts)
+        if group.rank != 0:
+            return path
     os.makedirs(dirpath, exist_ok=True)
     leaves = train_state_to_leaves(ts, seed, cfg, env_cfg)  # the host copy happens here
-    path = os.path.join(dirpath, f"{name}_{step}.npz")
 
     def write():
         tmp = path + ".tmp"
@@ -211,7 +223,8 @@ def load_train_state(path: str, device="cpu", env_state=None, last_obs=None, cfg
     learner (without it, an MLP ActorCritic: another layout raises
     NotImplementedError). `env_cfg`: the HandArmConfig of the env the state
     is read for (None: without DR and ADR); a file whose env state has
-    another layout raises ValueError."""
+    another layout raises ValueError. Under ranks, `parallel.mesh.
+    scatter_train_state` cuts the whole file's env state to a rank's envs."""
     wait_for_pending_saves()
     n_env = file_env_leaves(path, cfg)
     leaves = read_leaves(path)

@@ -128,9 +128,9 @@ def _leaves(ref, tag):
 def test_composed_config_matches(monkeypatch):
     """The overrides compose to the same HandArmConfig as the JAX
     package's `compose_task` (every field, value and type) and the same
-    PPO overrides; the PPOConfig built from them equals the JAX one field
-    by field (the port has no `data_shards`: one data shard). The critic
-    sees 121 observations, the actor 33."""
+    PPO overrides; the PPOConfig built from them has the JAX one's fields
+    and equals it field by field (`data_shards` too). The critic sees 121
+    observations, the actor 33."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -151,7 +151,7 @@ def test_composed_config_matches(monkeypatch):
             assert type(got[k]) is type(want[k]) and got[k] == want[k], k
         assert tover == jover
         jppo, tppo = JaxPPOConfig(**jover), ppo_config(tover)
-        assert set(jppo._fields) - set(tppo._fields) == {"data_shards"} and jppo.data_shards == 1
+        assert set(jppo._fields) == set(tppo._fields)
         for k in tppo._fields:  # the JAX config keeps `hidden` as the list given
             want_k = getattr(jppo, k)
             assert getattr(tppo, k) == (tuple(want_k) if k == "hidden" else want_k), k

@@ -14,6 +14,7 @@ import dataclasses
 import glob
 import importlib.util
 import os
+from types import SimpleNamespace
 
 import pytest
 
@@ -144,16 +145,19 @@ def test_compose_errors_match(case, jax_compose):
 
 
 REFUSED = {
-    # a PPOConfig field: refused when the composed overrides build the config
-    "data_shards": (FULL, ["ppo.data_shards=2"], "data_shards"),
+    # a PPOConfig field whose value the batch cannot take: refused when the
+    # learner is built (8192 envs do not split into 3 shards)
+    "data_shards": (FULL, ["ppo.data_shards=3"], "data_shards"),
 }
 
 
 # refused until the point clouds and teacher observations, the recurrent
 # and asymmetric learner, domain randomization and ADR, the engine's
-# cadences and the arm's collision spheres, the Stretch, and the cameras
-# were ported; each now composes as the JAX package composes it
+# cadences and the arm's collision spheres, the Stretch, the cameras and
+# the data-parallel layout were ported; each now composes as the JAX
+# package composes it
 RETIRED = {
+    "data_shards": (FULL, ["ppo.data_shards=2"], "data_shards", 2),
     "cameras": (FULL, ["env.cameras.top.width=64"], "cameras",
                 (CameraConfig(name="top", width=64),)),
     "robot": (FULL, ["robot=stretch"], "robot", "stretch"),
@@ -209,21 +213,23 @@ def test_retired_refusals_compose_equal(case, jax_compose):
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_features_refused(case):
-    """A feature the port has not ported raises NotImplementedError naming
-    it, never silently ignored."""
+    """A value the port cannot take raises naming its field when the learner
+    is built, never silently ignored: a data_shards that does not divide the
+    composed task's envs (the JAX package asserts the same in its update)."""
+    from handarm_tpu_torch.learn.ppo import PPO
+
     task, over, name = REFUSED[case]
-    with pytest.raises(NotImplementedError, match=name):
-        ppo_config(treg.resolve_task(task, over)[1])
+    env_cfg, ppo_over = treg.resolve_task(task, over)
+    env = SimpleNamespace(num_obs=8, num_actions=3, cfg=env_cfg)
+    with pytest.raises(ValueError, match=name):
+        PPO(env, ppo_config(ppo_over), device="cpu")
 
 
 def test_ppo_config_refuses_unported_fields():
-    """The sharded PPO field raises unless at its default (the recurrent and
-    asymmetric ones are ported); an unknown field raises KeyError; hidden
-    becomes a tuple."""
-    with pytest.raises(NotImplementedError, match="data_shards"):
-        ppo_config({"data_shards": 2})
-    with pytest.raises(NotImplementedError, match="data_shards"):
-        ppo_config({"data_shards": 4})
+    """data_shards 2 and 4 build (the layout is ported); an unknown field
+    raises KeyError; hidden becomes a tuple."""
+    assert ppo_config({"data_shards": 2}) == PPOConfig(data_shards=2)
+    assert ppo_config({"data_shards": 4}).data_shards == 4
     with pytest.raises(KeyError):
         ppo_config({"rnn_unit": 256})
     cfg = ppo_config({"data_shards": 1, "asymmetric_critic": False, "hidden": [64, 32]})

@@ -245,11 +245,12 @@ def test_optimizer_matches_optax(case, jax_ts, leaves):
 
 # --- one update from ckpt_5200 ----------------------------------------------
 
-def _perms(key, epochs, n):
-    """The permutations _update_from_traj draws from `key` (one data shard)."""
+def _perms(key, epochs, n, shards=1):
+    """The permutations _update_from_traj draws from `key`: [epochs, shards,
+    n / shards], one per data shard of each mini-epoch."""
     return np.stack([
-        np.asarray(jax.vmap(lambda kk: jax.random.permutation(kk, n))(
-            jax.random.split(k, 1))[0])
+        np.asarray(jax.vmap(lambda kk: jax.random.permutation(kk, n // shards))(
+            jax.random.split(k, shards)))
         for k in jax.random.split(jax.random.fold_in(key, 1), epochs)])
 
 

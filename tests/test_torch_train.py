@@ -286,16 +286,18 @@ def test_train_rejects_unknown_keys():
     """The arguments compose the task as the root train.py composes it: the
     top keys apart, every other key an override of the composition. An
     unknown HandArmConfig field raises KeyError, as the JAX package's
-    make_env; a PPOConfig field of a path not ported raises
-    NotImplementedError, an unknown one KeyError; values parse as yaml."""
+    make_env; every PPOConfig field composes (data_shards too), an unknown
+    one raises KeyError; `pbt.*` keys are top-level; values parse as
+    yaml."""
     from handarm_tpu_torch import train
 
     with pytest.raises(ValueError, match="key=value"):
         train.parse_args(["num_envs"])
     with pytest.raises(KeyError, match="unknown config key"):
         train.compose(["task=Ur5SihReach", "num_env=8"])
-    with pytest.raises(NotImplementedError, match="data_shards"):
-        train.compose(["task=Ur5SihReach", "ppo.data_shards=2"])
+    assert train.compose(["task=Ur5SihReach", "ppo.data_shards=2"])[4].data_shards == 2
+    assert train.parse_args(["pbt.policy_idx=1", "seed=2"]) == (
+        {"pbt.policy_idx": "1", "seed": "2"}, [])
     with pytest.raises(KeyError, match="PPOConfig field"):
         train.compose(["task=Ur5SihReach", "ppo.rnn_unit=8"])
     args = ["task=Ur5SihReach", "num_envs=8", "ppo.hidden=[256,128,64]", "ppo.e_clip=0.2",
@@ -473,6 +475,17 @@ def test_eval_policy_on_cpu():
     tree_map(lambda x: None if not x.is_floating_point() else
              np.testing.assert_(bool(torch.isfinite(x).all())), state)
 
+
+def test_eval_policy_without_burn_in_on_cpu():
+    """The same with every env's clock zeroed at the reset and no burn-in:
+    a window of one episode (5 steps) counts exactly one whole episode per
+    env, and two windows two."""
+    torch.set_num_threads(1)
+    from handarm_tpu_torch.eval_policy import evaluate
+
+    for steps, episodes in ((5, 8), (10, 16)):
+        out, _ = evaluate(envs=8, steps=steps, device="cpu", episode_length=5, burn_in=False)
+        assert out["episodes"] == episodes and 0 <= out["successes"] <= episodes
 
 
 def test_update_precision_on_cpu():
