@@ -58,7 +58,7 @@ Phases, each with a deadline and one flushed progress line:
                minibatches x 4 mini-epochs, the 768-512-256 MLP), from
                ckpt_5200's params, Adam state, stats, lr and epoch read by
                the port's own loader, on a fresh reset: one warm-up
-               train_iter, 3 iterations timed as rollout and update (each
+               train_iter, 2 iterations timed as rollout and update (each
                part between torch.cuda.synchronize calls), then one
                untimed iteration whose steps are kept. Counters are zeroed
                before each iteration and read after it: spd_inverse 16,
@@ -76,8 +76,8 @@ Phases, each with a deadline and one flushed progress line:
                moments, counters and lr (`compare_prefix`). Then the user's
                entry point,
                `python -m handarm_tpu_torch.train` resumed from ckpt_5200
-               for 2 iterations, must write its checkpoint (launches 32 and
-               192).
+               for 1 iteration (`train.main` in this process), must write
+               its checkpoint (launches 16 and 96).
  10. eval      handarm_tpu_torch.eval_policy for ckpt_5200 on Ur5SihLift at
                8192 envs: every env's clock zeroed at the reset (no burn-in:
                each env's first episode is whole and policy-driven), a
@@ -96,27 +96,30 @@ Phases, each with a deadline and one flushed progress line:
                and sdf_gather 0, checked from the built scene: B * C < 2^21,
                no mesh object), params and stats finite; then 2 control
                steps of 16 of its envs on the card and on the CPU with
-               actions from a numpy seed. Then the user's entry point in
-               its own process at full width for one iteration:
-               `python -m handarm_tpu_torch.train task=Ur5SihThrow
-               env.num_envs=8192 max_iterations=1`.
+               actions from a numpy seed. Then the user's entry point at
+               full width for one iteration, `train.main` in this process
+               (`python -m handarm_tpu_torch.train task=Ur5SihThrow
+               env.num_envs=8192 max_iterations=1` once started; other
+               phases start the module in a process of its own): its
+               checkpoint and launches 16 / 96.
  13. multiobj-train  Ur5SihMultiObjectManipulation as `train.py` composes
                it (16 sweeps; minibatch 32768 and every switch of its train
                yaml: 4 minibatches x 4 mini-epochs) at 8192 envs, on the
                multiobj phase's genesis pool, from ckpt_2700's learner:
-               as phase 9 (1 warm-up, 3 timed, 1 kept iteration held
+               as phase 9 (1 warm-up, 2 timed, 1 kept iteration held
                against the CPU step by step), launches per iteration
                exactly spd_inverse 16, prep_deff 16, sdf_gather 48,
                contact_sweep 96. (Run before phase 9.)
  14. multiobj-eval  ckpt_2700's deterministic success rate in that composed
                environment on the same pool, as phase 10: at least 3,000
                episodes; launches per step 1, 1, 3, 6. (Run before phase 9.)
- 15. multiobj-entry  the user's entry point in its own process, reading
-               the multiobj phase's genesis pool (HANDARM_POOL_CACHE, set
-               for the whole script): `python -m handarm_tpu_torch.train
-               task=Ur5SihMultiObjectManipulation
+ 15. multiobj-entry  the user's entry point, `train.main` in this
+               process, reading the multiobj phase's genesis pool
+               (HANDARM_POOL_CACHE, set for the whole script): `python -m
+               handarm_tpu_torch.train task=Ur5SihMultiObjectManipulation
                resume=docs/evidence/multiobj_r5a/ckpt_2700.npz
-               max_iterations=2701` must write ckpt_2701.npz.
+               max_iterations=2701` must write ckpt_2701.npz, launches 16
+               / 96 / 16 / 48 (no genesis: the pool is read).
  16. clouds    every synthetic point-cloud observable (object, target,
                target interval and its position, robot, goal, scene) and
                the teacher observations of Ur5SihLift, 2 control steps of
@@ -128,7 +131,7 @@ Phases, each with a deadline and one flushed progress line:
  17. distill-train  DAgger (`learn/distill.py`) distilling ckpt_5200 into a
                PointNet student on Ur5SihLift at 8192 envs, as
                `train_distill` builds it (horizon 16, 4 minibatches of
-               32768 x 2 mini-epochs): one warm-up iteration, 3 timed as
+               32768 x 2 mini-epochs): one warm-up iteration, 2 timed as
                rollout and update, then one whose first minibatch step is
                rerun on the CPU from the card's inputs (loss terms,
                gradients, and the optimizer step: `distill_step_check`).
@@ -140,7 +143,7 @@ Phases, each with a deadline and one flushed progress line:
                spd_inverse and 6 contact_sweep.
  19. distill-entry  the user's entry points, each in its own process:
                `python -m handarm_tpu_torch.train_distill --teacher
-               ckpt_5200 --envs 8192 --iters 2` must write student.npz (18
+               ckpt_5200 --envs 8192 --iters 1` must write student.npz (18
                finite leaves) and metrics; `python -m
                handarm_tpu_torch.eval_policy --student` of that file at
                8192 envs, 5-step episodes, must count 16,384 episodes.
@@ -150,7 +153,7 @@ Phases, each with a deadline and one flushed progress line:
                central-value critic on the 121 teacher observations, MLP
                [512], seq_len 4, gamma 0.998; 4 minibatches of 8,192
                sequences x 4 mini-epochs) at 8192 envs from a flax-default
-               init: one warm-up, 3 timed iterations (rollout and update
+               init: one warm-up, 2 timed iterations (rollout and update
                seconds, train env-steps/s, peak device memory), launches
                exactly 16 / 96 / 0 / 0 per iteration; then a kept
                iteration's first minibatch step from the card's inputs
@@ -165,11 +168,12 @@ Phases, each with a deadline and one flushed progress line:
                and on the CPU, each side acting on its own observations
                and carry: actions, carries, q and observations held.
  22. rnn-entry  `python -m handarm_tpu_torch.train task=Ur5SihLift
-               num_envs=8192` with the LSTM_LIFT overrides in its own
-               process for 2 iterations, then `resume=auto` for a third:
+               num_envs=8192` with the LSTM_LIFT overrides (`train.main`
+               in this process) for 1 iteration, launches 16 / 96, then
+               `resume=auto` for a second:
                both checkpoints read back with the PPOConfig (teacher
-               stats, last teacher observations, carry), epoch 3, Adam
-               count 48 less skips, metrics rows 0-2.
+               stats, last teacher observations, carry), epoch 2, Adam
+               count 32 less skips, metrics rows 0-1.
  23. dr-train  Ur5SihMultiObjectManipulation as `train.py` composes it with
                IsaacGymEnvs' ShadowHand domain randomization
                (`envs.tasks.DR_SHADOWHAND`: observation and action noise,
@@ -206,8 +210,9 @@ Phases, each with a deadline and one flushed progress line:
                then 0 for 4: the bounds move out by delta a step and back;
                lo, hi, queues and worker modes exact, values within 1e-6;
                adr_entropy before, at the widest and after.
- 27. dr-entry  the user's entry point in its own process, reading the
-               same genesis pool (genesis runs without DR and ADR):
+ 27. dr-entry  the user's entry point (`train.main` in this process,
+               launches 16 / 96 / 16 / 48), reading the same genesis pool
+               (genesis runs without DR and ADR):
                `python -m handarm_tpu_torch.train
                task=Ur5SihMultiObjectManipulation
                resume=docs/evidence/multiobj_r5a/ckpt_2700.npz
@@ -253,9 +258,10 @@ Phases, each with a deadline and one flushed progress line:
                16 envs only), q and positions within 2e-4, velocities 2e-3.
  32. engine-entry  `python -m handarm_tpu_torch.train task=Ur5SihLift
                num_envs=8192 heavy_prep_per_control=false carry_fk=false
-               hand_only_collision=false max_iterations=1` in its own
-               process must write ckpt_1.npz (190 contact slots), and a
-               second process with `max_iterations=2 resume=auto` must
+               hand_only_collision=false max_iterations=1` (`train.main` in
+               this process, launches 48 / 96 / 0 / 0: the mass structure
+               every sim step) must write ckpt_1.npz (190 contact slots),
+               and a second run with `max_iterations=2 resume=auto` must
                resume it, env state included, and write ckpt_2.npz. (Run
                after phase 27.)
  33. stretch   the Hello-Robot Stretch on its in-repo stand-in (9 dofs,
@@ -368,6 +374,42 @@ Phases, each with a deadline and one flushed progress line:
                16 / 96 / 0 / 0 per actor rollout; one contact_sweep call of
                an actor env launched on a side stream bit-identical to the
                default stream's.
+ 45. quad      Quadcopter as `train.py` composes it (the classic task's
+               registry defaults < configs/task/Quadcopter.yaml's env <
+               configs/train/QuadcopterPPO.yaml: the 256-256-128 learner,
+               horizon 16, minibatch 16384) at IsaacGymEnvs' 8192 envs
+               (`env.num_envs=8192`): the floating-base craft, nv 14, 4
+               contact slots (its rotor arms' spheres vs the ground), no
+               objects. One warm-up and 2 timed train iterations from a
+               fresh init (launches exactly 16 / 32 / 0 / 0: one env step
+               is one sim step of 2 substeps), 31 deterministic serving
+               steps through `PPO.act` (1 / 2 / 0 / 0 per step); then the
+               grounded kernel checks: B craft 4 mm over touching the
+               ground, tilted 10-30 degrees, falling (`quadcopter.
+               grounded_physics`; every env has an active slot, printed),
+               one engine step: its spd_inverse call (n = 14) against the
+               plain version, to n cond eps of each matrix
+               (`check_spd_craft`: the craft's mass matrices reach cond
+               ~2e4), and its last contact_sweep call (K = 0, no object
+               side) captured, dense and robot cases against the plain
+               version and against the plain version in float64
+               (`check_sweep(f64=True)`); two launches bit-identical; both
+               timed with their bounds and torch.linalg.inv.
+ 46. quad-ref  card vs CPU at 16 envs: 2 env steps from a fresh reset with
+               the trained learner's actions and the same draws, and 2
+               engine steps from a grounded state (impulses in every
+               env); q and base position within 2e-4, observations within
+               2e-3, each times max(1, the largest value).
+ 47. ingenuity  Ingenuity as phase 45 at its 4096 envs (nv 8, 8 slots on
+               the chassis, Mars gravity): one warm-up and 1 timed
+               iteration, 31 serving steps, spd_inverse at n = 8 and the
+               sweep at C = 8, and its card-vs-CPU check as phase 46.
+ 48. classic-entry  `python -m handarm_tpu_torch.train task=Quadcopter
+               env.num_envs=8192 max_iterations=2` in its own process;
+               its ckpt_2.npz (61 leaves: the QuadState's 14 with the
+               floating base's pose) read whole here with the task's
+               config and written back leaf for leaf. (Phases 45-48 run
+               after phase 37, before phase 42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -383,7 +425,9 @@ each kernel's Stretch launches and stretch-kernels numbers under its
 each kernel's launches on the camera paths under its "camera" key in
 "kernels"), the benchmark entry's under "bench", the parallel layer's
 under "parallel" (and each kernel's launches there under its "parallel"
-key in "kernels"); the last line
+key in "kernels"), the classic tasks' under "classic" (and each kernel's
+launches and checks on the craft under its "classic" key in "kernels");
+the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
 """
@@ -417,21 +461,22 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "stretch": 240, "stretch-kernels": 180, "stretch-ref": 180,
                     "stretch-train": 300, "stretch-eval": 240, "camera": 240,
                     "camera-ref": 180, "camera-distill": 240, "bench": 240, "ddp": 330,
-                    "pbt": 240, "actor-learner": 180}
+                    "pbt": 240, "actor-learner": 180, "quad": 240, "quad-ref": 120,
+                    "ingenuity": 240, "classic-entry": 240}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
 MULTI_TASK = "Ur5SihMultiObjectManipulation"
 MULTI_STEPS = 20  # multi-object control steps after genesis and reset
-TRAIN_ITERS = 3  # timed lift train iterations, after one warm-up iteration
-ENTRY_ITERS = 2  # iterations of the train entry point, resumed from ckpt_5200
+TRAIN_ITERS = 2  # timed lift train iterations, after one warm-up iteration
+ENTRY_ITERS = 1  # iterations of the train entry point, resumed from ckpt_5200
 EVAL_STEPS = 200  # counted eval steps: one episode (200) from clocks zeroed at the reset
 REACH_ITERS = 10
 FAMILY = ("Ur5SihReposition", "Ur5SihOrientedReposition", "Ur5SihRepose", "Ur5SihThrow")
 FAMILY_ITERS = 2  # timed family train iterations, after one warm-up iteration
 PREFIX_STEPS = 4  # chained minibatch steps of the kept update rerun on the CPU
-DISTILL_ITERS = 3  # timed DAgger iterations, after one warm-up iteration
-DISTILL_ENTRY_ITERS = 2  # iterations of the train_distill entry point
+DISTILL_ITERS = 2  # timed DAgger iterations, after one warm-up iteration
+DISTILL_ENTRY_ITERS = 1  # iterations of the train_distill entry point
 STUDENT = os.path.join("docs", "evidence", "distill_r5a", "student.npz")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12  # f32 outside the tensor cores, same source
@@ -610,7 +655,10 @@ def device_ms(fn, reps: int) -> float:
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / reps
 
 
-def check_spd(spd_op, M, dev, tag):
+def check_spd(spd_op, M, dev, tag, compare: bool = True):
+    """The kernel against its plain version (with `compare`; the craft's
+    bound is `check_spd_craft`'s), then timed beside its bound and
+    torch.linalg.inv."""
     import torch
 
     got = spd_op.spd_inverse_cuda(M)
@@ -622,7 +670,7 @@ def check_spd(spd_op, M, dev, tag):
         f"(scale {scale:.3e}), max|Minv M - I| {ident:.3e}")
     # float32 Cholesky of 17x17 matrices in two summation orders: 1e-4 of
     # the largest entry; the identity check is the JAX package's 5e-3
-    if not err <= 1e-4 * scale or not ident <= 5e-3:
+    if compare and (not err <= 1e-4 * scale or not ident <= 5e-3):
         raise AssertionError("spd_inverse kernel disagrees with its plain version")
     B, n = M.shape[0], M.shape[1]
     t_b, by = bound_ms(2 * B * n * n * 4, B * spd_inverse_flops(n))
@@ -658,9 +706,14 @@ def sweep_groups_pushed(lam, groups) -> tuple[int, int, int, int]:
     return (*count(groups.link_ptr, groups.link_slots), *count(groups.obj_ptr, groups.obj_slots))
 
 
-def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True):
+def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool = False):
     """The captured solve, then (with `synthetic`) every slot made active
-    and only the robot's slots active, each against the plain version."""
+    and only the robot's slots active, each against the plain version.
+    With `f64` (the craft's ill-conditioned Minv: entries ~1e5, whose
+    products with small impulses cancel) the bound is relative to the
+    plain version in float64 on the same inputs: the kernel's error from
+    it at most the larger of 1e-4 of scale and twice the float32 plain
+    version's own."""
     import torch
 
     from handarm_tpu_torch.physics.solver import mass_split
@@ -669,6 +722,8 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True):
     (planes, bias, screws, qd, minv2, obj, lam0, anc, groups, obj_idx,
      signs, iters, omega) = args
     warm = kw.get("apply_warm", True)
+
+    f64_errs = {}  # case -> output -> the kernel's and the plain version's error from f64
 
     def compare(P, bs, case, n=iters):
         cuda_args = (P, bs, screws, qd, minv2, obj, lam0, groups, obj_idx, signs, n, omega,
@@ -680,14 +735,34 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True):
         torch.cuda.synchronize()
         errs, scales = {}, {}
         for name, g, w in zip(("qd", "obj", "lam"), got, want):
+            if w.numel() == 0:  # no objects (K = 0): obj is [6, B, 0] on both sides
+                if g.shape != w.shape:
+                    raise AssertionError(f"contact_sweep kernel returned {name} of "
+                                         f"{tuple(g.shape)} ({tag}, {case})")
+                continue
             e, sc = max_err(g, w)
             errs[name], scales[name] = e, sc
             log(f"contact_sweep ({tag}, {case}): {name} max|kernel-plain| {e:.3e} (scale {sc:.3e})")
             # 8 (lift) or 16 (multi-object) Jacobi sweeps in float32 with
             # the slot sums taken in another order: 1e-4 of this output's
             # own largest value
-            if not e <= 1e-4 * sc:
+            if not f64 and not e <= 1e-4 * sc:
                 raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, {case})")
+        if f64:
+            d = lambda t: t.double() if t.is_floating_point() else t
+            want64 = sweep_op.contact_sweep_plain(*(d(a) if isinstance(a, torch.Tensor) else a
+                                                    for a in plain_args))
+            for name, g, w, w64 in zip(("qd", "obj", "lam"), got, want, want64):
+                if w.numel() == 0:
+                    continue
+                ek, _ = max_err(g.double(), w64)
+                ep, sc = max_err(w.double(), w64)
+                f64_errs.setdefault(case, {})[name] = dict(kernel=ek, plain=ep, scale=sc)
+                log(f"contact_sweep ({tag}, {case}): {name} max|kernel-f64| {ek:.3e}, "
+                    f"max|plain-f64| {ep:.3e} (scale {sc:.3e})")
+                if not ek <= max(1e-4 * sc, 2.0 * ep):
+                    raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, "
+                                         f"{case})")
         bitwise(lambda: sweep_op.contact_sweep_cuda(*cuda_args), f"contact_sweep ({tag}, {case})")
         return got, errs, scales, cuda_args, plain_args
 
@@ -751,6 +826,7 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True):
                        + nbytes(*got), flops)
     return dict(
         max_abs_err=max(errs.values()), scale=scales, bitwise=True, launch=launch,
+        f64=f64_errs or None,
         dense=dense_rec, robot=robot_rec,
         **kernel_times(lambda: sweep_op.contact_sweep_cuda(*cuda_args), 50),
         plain_ms=cuda_time_ms(lambda: sweep_op.contact_sweep_plain(*plain_args), 10),
@@ -1420,6 +1496,7 @@ def train_phase(rollout, dev) -> dict:
 LIFT_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 0, "sdf_gather": 0}
 LIFT_PER_ITER = {k: 16 * v for k, v in LIFT_PER_STEP.items()}
 MULTI_PER_STEP = {"spd_inverse": 1, "contact_sweep": 6, "prep_deff": 1, "sdf_gather": 3}
+MULTI_PER_ITER = {k: 16 * v for k, v in MULTI_PER_STEP.items()}
 
 
 def eval_phase(rollout, dev, task="Ur5SihLift", per_step=LIFT_PER_STEP, pool=None,
@@ -1610,6 +1687,49 @@ def entry_subprocess(args: list[str], out: str, tag: str, timeout: int,
         f"{last['kl_guard_triggered']:.0f}, reward_mean {last['reward_mean']:.5f}")
     return dict(seconds=seconds, kl=last["kl"], kl_guard=last["kl_guard_triggered"],
                 reward_mean=last["reward_mean"])
+
+
+def entry_in_process(rollout, args: list[str], out: str, tag: str, dev, per_iter: dict,
+                     iters: int, n_leaves: int | None = 71) -> dict:
+    """`handarm_tpu_torch.train.main(ARGS)` in this process, as a user's
+    `python -m handarm_tpu_torch.train ARGS` runs it once started (the
+    script starts the module in a process of its own in stretch-train,
+    classic-entry, ddp and pbt), its standard output captured and its last
+    lines indented here. It must write the checkpoint `out` (with
+    `n_leaves` finite leaves; None: any count) and launch exactly
+    `per_iter` per iteration for its `iters` iterations. Returns its
+    seconds, its last iteration's kl, KL-guard flag and reward_mean, and
+    its standard output."""
+    import io
+
+    import numpy as np
+
+    from handarm_tpu_torch import train
+    from handarm_tpu_torch.utils.checkpoint import read_leaves, wait_for_pending_saves
+
+    rollout.reset_launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train.main(args + [f"device={dev}"])
+    wait_for_pending_saves()
+    seconds = time.perf_counter() - t0
+    stdout = buf.getvalue()
+    for line in stdout.splitlines()[-4:]:
+        log(f"  | {line}")
+    check_launches(rollout.launch_counts(), per_iter, iters, tag)
+    leaves = read_leaves(out)
+    if (n_leaves is not None and len(leaves) != n_leaves) or not all(
+            np.isfinite(x).all() for x in leaves if np.issubdtype(x.dtype, np.floating)):
+        raise AssertionError(f"{tag}: bad checkpoint {out}")
+    with open(os.path.join(os.path.dirname(os.path.dirname(out)), "metrics.jsonl")) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    log(f"{tag}: train.main({' '.join(args)}) in {seconds:.1f} s (env build and reset "
+        f"included); wrote {out}; launches {per_iter} per iteration; its last iteration: kl "
+        f"{last['kl']:.5f}, kl_guard {last['kl_guard_triggered']:.0f}, reward_mean "
+        f"{last['reward_mean']:.5f}")
+    return dict(seconds=seconds, kl=last["kl"], kl_guard=last["kl_guard_triggered"],
+                reward_mean=last["reward_mean"], in_process=True, stdout=stdout)
 
 
 def reach_phase(rollout, dev) -> dict:
@@ -2036,7 +2156,7 @@ def carry_leaves(carry) -> list:
     return list(carry_items(carry).values())
 
 
-def rnn_entry_phase(ppo) -> dict:
+def rnn_entry_phase(rollout, ppo, dev) -> dict:
     """Phase 22 (see the module docstring)."""
     import numpy as np
 
@@ -2046,26 +2166,27 @@ def rnn_entry_phase(ppo) -> dict:
     exp = "chip_smoke_rnn"
     args = ["task=Ur5SihLift", f"num_envs={ENVS}", *LSTM_LIFT, f"experiment={exp}", "seed=1"]
     nn_dir = os.path.join("runs", exp, "nn")
-    first_s, _ = run_module("handarm_tpu_torch.train", args + ["max_iterations=2"],
-                            "rnn entry point", 150)
-    resume_s, _ = run_module("handarm_tpu_torch.train", args + ["max_iterations=3",
-                                                                 "resume=auto"],
-                             "rnn entry point resumed", 150)
-    ts2, ts3 = (load_train_state(os.path.join(nn_dir, f"ckpt_{i}.npz"), cfg=ppo.cfg)
-                for i in (2, 3))
+    shutil.rmtree(os.path.join("runs", exp), ignore_errors=True)
+    first_s, resume_s = (entry_in_process(
+        rollout, args + more, os.path.join(nn_dir, f"ckpt_{i}.npz"), tag, dev, LIFT_PER_ITER, 1,
+        n_leaves=None)["seconds"] for i, more, tag in (
+            (1, ["max_iterations=1"], "rnn entry point"),
+            (2, ["max_iterations=2", "resume=auto"], "rnn entry point resumed")))
+    ts1, ts2 = (load_train_state(os.path.join(nn_dir, f"ckpt_{i}.npz"), cfg=ppo.cfg)
+                for i in (1, 2))
     steps = ppo.num_minibatches * ppo.cfg.mini_epochs
-    check_learner(ts3, "rnn entry point")
+    check_learner(ts2, "rnn entry point")
     with open(os.path.join("runs", exp, "metrics.jsonl")) as f:
         rows = [json.loads(x) for x in f.read().splitlines()]
-    ok = (int(ts2.epoch) == 2 and int(ts3.epoch) == 3
-          and int(ts3.opt_state.count) == 3 * steps - int(ts3.opt_state.total_notfinite)
-          and float(ts3.teacher_obs_stats.count) > float(ts2.teacher_obs_stats.count)
-          and [r["step"] for r in rows] == [0, 1, 2]
+    ok = (int(ts1.epoch) == 1 and int(ts2.epoch) == 2
+          and int(ts2.opt_state.count) == 2 * steps - int(ts2.opt_state.total_notfinite)
+          and float(ts2.teacher_obs_stats.count) > float(ts1.teacher_obs_stats.count)
+          and [r["step"] for r in rows] == [0, 1]
           and all(np.isfinite(r["kl"]) for r in rows)
-          and any(float(x.abs().max()) > 0 for x in carry_leaves(ts3.hidden)))
+          and any(float(x.abs().max()) > 0 for x in carry_leaves(ts2.hidden)))
     if not ok:
         raise AssertionError(f"rnn entry point: bad checkpoints or metrics in runs/{exp}")
-    log(f"rnn entry point: 2 iterations in {first_s:.1f} s, resumed for a third in "
+    log(f"rnn entry point: 1 iteration in {first_s:.1f} s, resumed for a second in "
         f"{resume_s:.1f} s; its rows {[(r['step'], round(r['kl'], 5)) for r in rows]}")
     return dict(first_s=first_s, resume_s=resume_s, rows=rows)
 
@@ -2378,7 +2499,7 @@ def adr_phase(rollout, dev, pool) -> dict:
     return rec
 
 
-def dr_entry_phase(rollout) -> dict:
+def dr_entry_phase(rollout, dev) -> dict:
     """Phase 27 (see the module docstring)."""
     from handarm_tpu_torch.envs.registry import resolve_task
     from handarm_tpu_torch.envs.tasks import DR_SHADOWHAND
@@ -2387,10 +2508,11 @@ def dr_entry_phase(rollout) -> dict:
     ckpt = os.path.relpath(rollout.TASK_CKPTS[MULTI_TASK])
     step = int(os.path.basename(ckpt)[5:-4]) + 1
     out = os.path.join("runs", "chip_smoke_dr", "nn", f"ckpt_{step}.npz")
-    rec = entry_subprocess(
-        [f"task={MULTI_TASK}", f"resume={ckpt}", f"max_iterations={step}", *DR_SHADOWHAND,
-         ADR_ON, "experiment=chip_smoke_dr", "seed=1"],
-        out, "dr entry point", PHASE_DEADLINE_S["dr-entry"] - 30, n_leaves=83)
+    rec = entry_in_process(
+        rollout, [f"task={MULTI_TASK}", f"resume={ckpt}", f"max_iterations={step}",
+                  *DR_SHADOWHAND, ADR_ON, "experiment=chip_smoke_dr", "seed=1"],
+        out, "dr entry point", dev, MULTI_PER_ITER, 1, n_leaves=83)
+    del rec["stdout"]
     env_cfg, _ = resolve_task(MULTI_TASK, DR_SHADOWHAND + [ADR_ON])
     ts = load_train_state(out, env_cfg=env_cfg)
     task = ts.env_state.task
@@ -2613,17 +2735,23 @@ def engine_ref_phase(rollout, dev, ref_state, ref_obs, pool16) -> dict:
     return out
 
 
-def engine_entry_phase() -> dict:
+def engine_entry_phase(rollout, dev) -> dict:
     """Phase 32 (see the module docstring)."""
     from handarm_tpu_torch.utils.checkpoint import file_contact_slots, load_train_state
 
     run = os.path.join("runs", "chip_smoke_engine")
     shutil.rmtree(run, ignore_errors=True)
-    first = entry_subprocess(ENGINE_ENTRY + ["max_iterations=1"],
-                             os.path.join(run, "nn", "ckpt_1.npz"), "engine entry point", 150)
-    second_s, stdout = run_module("handarm_tpu_torch.train",
-                                  ENGINE_ENTRY + ["max_iterations=2", "resume=auto"],
-                                  "engine entry point resumed", 150)
+    # the lift's mass structure every sim step (3 spd_inverse a control
+    # step), 6 sweeps; no deff (B * C = 8192 * 190 < 2^21), no mesh object
+    per_iter = {"spd_inverse": 48, "contact_sweep": 96, "prep_deff": 0, "sdf_gather": 0}
+    first = entry_in_process(rollout, ENGINE_ENTRY + ["max_iterations=1"],
+                             os.path.join(run, "nn", "ckpt_1.npz"), "engine entry point", dev,
+                             per_iter, 1)
+    second = entry_in_process(rollout, ENGINE_ENTRY + ["max_iterations=2", "resume=auto"],
+                              os.path.join(run, "nn", "ckpt_2.npz"),
+                              "engine entry point resumed", dev, per_iter, 1)
+    second_s, stdout = second["seconds"], second["stdout"]
+    del first["stdout"]
     with open(os.path.join(run, "config.json")) as f:
         env_cfg = json.load(f)["env"]
     slots = [file_contact_slots(os.path.join(run, "nn", f"ckpt_{i}.npz")) for i in (1, 2)]
@@ -2848,6 +2976,262 @@ def stretch_phases(rollout, dev, ops) -> tuple:
     with phase("stretch-eval"):
         rec["eval"] = eval_phase(rollout, dev, STRETCH_TASK, STRETCH_PER_STEP,
                                  min_episodes=1500, steps=STRETCH_EVAL_STEPS)
+    return rec, kernels
+
+
+# the classic tasks (phases 45-48): task -> (envs, timed train iterations
+# after the warm-up); 8192 and 4096 are IsaacGymEnvs' cfg/task numEnvs
+CLASSIC = {"Quadcopter": (8192, 2), "Ingenuity": (4096, 1)}
+CLASSIC_PER_STEP = {"spd_inverse": 1, "contact_sweep": 2, "prep_deff": 0, "sdf_gather": 0}
+CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
+CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
+CLASSIC_ENTRY_ITERS = 2
+UNIT_ROUNDOFF = 2.0 ** -24
+
+
+def check_spd_craft(spd_op, M, dev, tag):
+    """check_spd's comparison and timings at a craft's n, the bound per
+    matrix: |kernel - plain| <= max(1e-4, n cond eps) of the plain
+    inverse's largest entry and |Minv M - I| <= max(5e-3, n cond eps), cond
+    the matrix's 2-norm condition number (float64), eps the unit roundoff:
+    a float32 Cholesky inverse is good to about n cond eps, and the craft's
+    PD-augmented mass matrices reach cond ~1e4-1e5 (grams of mass on
+    origin-Plücker base coordinates metres from the origin), where no fixed
+    1e-4 holds."""
+    import torch
+
+    got, want = spd_op.spd_inverse_cuda(M), spd_op.spd_inverse_plain(M)
+    torch.cuda.synchronize()
+    n = M.shape[1]
+    cond = torch.linalg.cond(M.double())
+    bound = n * cond * UNIT_ROUNDOFF
+    rel = ((got - want).abs().amax((1, 2)) / want.abs().amax((1, 2))).double()
+    ident = (torch.bmm(got, M) - torch.eye(n, device=dev)).abs().amax((1, 2)).double()
+    c = dict(cond_max=float(cond.max()), cond_median=float(cond.median()),
+             rel_err_max=float(rel.max()), ident_max=float(ident.max()),
+             err_over_bound_max=float((rel / bound).max()),
+             ident_over_bound_max=float((ident / bound).max()))
+    log(f"spd_inverse ({tag}): B={M.shape[0]} n={n}; cond max {c['cond_max']:.3e} median "
+        f"{c['cond_median']:.3e}; max relative |kernel-plain| {c['rel_err_max']:.3e}, max "
+        f"|Minv M - I| {c['ident_max']:.3e}; worst over n cond eps "
+        f"{c['err_over_bound_max']:.3e} and {c['ident_over_bound_max']:.3e}")
+    if not (bool((rel <= torch.clamp(bound, min=1e-4)).all())
+            and bool((ident <= torch.clamp(bound, min=5e-3)).all())):
+        raise AssertionError(f"spd_inverse kernel disagrees with its plain version ({tag})")
+    return dict(check_spd(spd_op, M, dev, tag, compare=False), conditioning=c)
+
+
+def classic_kernels(env, ops, dev, task: str) -> dict:
+    """The grounded kernel checks: the craft 4 mm over touching, tilted
+    10-30 degrees, falling at 0.5 m/s (`quadcopter.grounded_physics`); one
+    engine step with no thrust, its spd_inverse call and its last
+    contact_sweep call (the second substep's) held against their plain
+    versions. Prints how many envs have an active slot and impulses."""
+    import torch
+
+    from handarm_tpu_torch.envs.quadcopter import grounded_physics
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+    from handarm_tpu_torch.physics import engine
+    from handarm_tpu_torch.physics.contacts import generate_contacts
+    from handarm_tpu_torch.physics.kinematics import forward_kinematics
+
+    B = env.cfg.num_envs
+    phys = grounded_physics(env, B, seed=0, height=CLASSIC_GROUND_HEIGHT)
+    sc, r = env.scene, phys.robot
+    fk = forward_kinematics(sc.model, r.q, r.base_quat, r.base_pos)
+    con = generate_contacts(sc.slots, sc.shapes, sc.spheres, sc.geom, phys.objects.pos,
+                            phys.objects.quat, fk.body_quat, fk.body_pos)
+    active = con.depth > -sc.params.solver.speculative_margin
+    with Capture(ops, last_only=True) as cap:
+        cap.armed = True
+        after, _ = engine.step(sc, phys)
+    torch.cuda.synchronize()
+    envs_active = int(active.any(-1).sum())
+    pushed = int((after.contact_impulse.norm(dim=-1) > 0).any(-1).sum())
+    log(f"{task} grounded: {B} envs, {envs_active} with an active slot ({int(active.sum())} "
+        f"of {active.numel()} slots); {pushed} envs with impulses after the step")
+    if envs_active < B or pushed == 0:
+        raise AssertionError(f"{task} grounded: inactive slots, the kernels would compare "
+                             "nothing")
+    return {"spd_inverse": check_spd_craft(spd_op, cap.calls["spd"][0][0][0], dev,
+                                           f"{task} grounded"),
+            "contact_sweep": check_sweep(sweep_op, cap.calls["sweep"][0], sc.maps,
+                                         f"{task} grounded", f64=True),
+            "envs_active": envs_active, "envs_pushed": pushed}
+
+
+def classic_ref(task: str, ppo, ts, dev) -> dict:
+    """Card vs CPU at 16 envs, the same inputs on both sides: 2 env steps
+    from a fresh reset with the trained learner's deterministic actions
+    and the same draws (airborne), and 2 engine steps from a grounded
+    state (`grounded_physics`, no thrust: the env would end those
+    episodes at once, below its height floor). q and the base position
+    within 2e-4, observations within 2e-3, each times max(1, the CPU
+    value's largest) (PERF.md section 2)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.quadcopter import grounded_physics
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO
+    from handarm_tpu_torch.physics import engine
+
+    cfg, _ = resolve_task(task, ["env.num_envs=16"])
+    env_c, env_g = build_env(cfg, "cpu"), build_env(cfg, dev)
+    to = lambda x, d: tree_map(lambda t: t.to(d), x)
+    learner = PPO(env_c, ppo.cfg, device="cpu")
+    ts_c = ts._replace(params={k: v.cpu() for k, v in ts.params.items()},
+                       obs_stats=to(ts.obs_stats, "cpu"))
+    out = {}
+    for case in ("airborne", "grounded"):
+        state_c, obs_c = env_c.reset(3)
+        if case == "grounded":
+            state_c = state_c._replace(physics=grounded_physics(
+                env_c, 16, seed=1, height=CLASSIC_GROUND_HEIGHT))
+        state_g = to(state_c, dev)
+        for _ in range(2):
+            if case == "grounded":
+                state_c = state_c._replace(physics=engine.step(env_c.scene, state_c.physics)[0])
+                state_g = state_g._replace(physics=engine.step(env_g.scene, state_g.physics)[0])
+                obs_c, obs_g = env_c._obs(state_c), env_g._obs(state_g)
+            else:
+                a, d = learner.act(ts_c, obs_c), env_c.draw(16)
+                state_c, res_c = env_c.step(state_c, a, d)
+                state_g, res_g = env_g.step(state_g, a.to(dev), to(d, dev))
+                obs_c, obs_g = res_c.obs, res_g.obs
+        rec = {}
+        for name, g, c, tol in (("obs", obs_g, obs_c, 2e-3),
+                                ("q", state_g.physics.robot.q, state_c.physics.robot.q, 2e-4),
+                                ("base_pos", state_g.physics.robot.base_pos,
+                                 state_c.physics.robot.base_pos, 2e-4)):
+            scale = max(1.0, float(c.abs().max()))
+            rec[name] = dict(err=float((g.cpu() - c).abs().max()), scale=scale,
+                             tol=tol * scale)
+        pushed = int((state_c.physics.contact_impulse.norm(dim=-1) > 0).any(-1).sum())
+        log(f"{task}-ref {case}: 16 envs, 2 steps, {pushed} envs with impulses; " + ", ".join(
+            f"max|{k} gpu-cpu| {v['err']:.3e} (scale {v['scale']:.3e})"
+            for k, v in rec.items()))
+        if not all(v["err"] <= v["tol"] for v in rec.values()):
+            raise AssertionError(f"the card's run disagrees with the CPU reference "
+                                 f"({task}-ref {case})")
+        if not bool(torch.isfinite(obs_g).all()) or (case == "grounded" and pushed == 0):
+            raise AssertionError(f"bad card run or no contact ({task}-ref {case})")
+        out[case] = dict(envs_pushed=pushed, **rec)
+    return out
+
+
+def classic_phase(rollout, dev, ops, task: str) -> tuple:
+    """Phases 45 and 47: the task composed as train.py composes it at
+    IsaacGymEnvs' env count, its learner at full width from a fresh init
+    (`timed_iterations`: launches per iteration exactly 16 / 32 / 0 / 0),
+    31 deterministic serving steps through `PPO.act` (1 / 2 / 0 / 0 per
+    step), and the grounded kernel checks. Returns (record, the PPO, its
+    TrainState)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+
+    envs, iters = CLASSIC[task]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {env.scene.slots.num_slots} contact "
+        f"slots, K = 0, obs {env.num_obs}, actions {env.num_actions}, "
+        f"{env.scene.params.solver.iterations} sweeps; learner hidden {ppo.cfg.hidden}, "
+        f"horizon {ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}")
+    per_iter = {k: v * ppo.cfg.horizon for k, v in CLASSIC_PER_STEP.items()}
+    rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
+                               tag=f"{task} train")
+    rollout.reset_launch_counts()
+    state, obs = env.reset(1)
+    state, res = env.step(state, ppo.act(ts, obs))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CLASSIC_SERVE_STEPS):
+        state, res = env.step(state, ppo.act(ts, res.obs))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = rollout.launch_counts()
+    check_launches(counts, CLASSIC_PER_STEP, CLASSIC_SERVE_STEPS + 1, f"{task} serve")
+    finite_state(tree_map, state, res.obs)
+    sps = envs * CLASSIC_SERVE_STEPS / seconds
+    log(f"{task} serve: {CLASSIC_SERVE_STEPS} deterministic steps in {seconds:.3f} s = "
+        f"{sps:.0f} env-steps/s; launches {counts} over {CLASSIC_SERVE_STEPS + 1} steps; "
+        f"episodes done {int(res.done.sum())}, mean reward {float(res.reward.mean()):.4f}")
+    rec["serve"] = dict(envs=envs, steps=CLASSIC_SERVE_STEPS, seconds=seconds,
+                        env_steps_per_s=sps, launches=counts,
+                        launches_per_step=CLASSIC_PER_STEP)
+    rec["kernels"] = classic_kernels(env, ops, dev, task)
+    return rec, ppo, ts
+
+
+def classic_entry_phase() -> dict:
+    """Phase 48: `python -m handarm_tpu_torch.train task=Quadcopter
+    env.num_envs=8192 max_iterations=2` in its own process, then in this
+    one its ckpt_2.npz read whole (`load_train_state` with the task's
+    config: every learner and env-state leaf, the floating base's pose
+    among them) and written back leaf for leaf."""
+    import numpy as np
+
+    from handarm_tpu_torch.convert import train_state_to_leaves
+    from handarm_tpu_torch.envs.quadcopter import QuadState
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import ppo_config
+    from handarm_tpu_torch.utils.checkpoint import load_train_state, read_leaves
+
+    envs = CLASSIC["Quadcopter"][0]
+    run = os.path.join("runs", "chip_smoke_quadcopter")
+    shutil.rmtree(run, ignore_errors=True)
+    out = os.path.join(run, "nn", f"ckpt_{CLASSIC_ENTRY_ITERS}.npz")
+    seconds, _ = run_module("handarm_tpu_torch.train", [
+        "task=Quadcopter", f"env.num_envs={envs}", f"max_iterations={CLASSIC_ENTRY_ITERS}",
+        "experiment=chip_smoke_quadcopter"], "classic entry point",
+        PHASE_DEADLINE_S["classic-entry"] - 30)
+    cfg, over = resolve_task("Quadcopter", [f"env.num_envs={envs}"])
+    leaves = read_leaves(out)
+    ts = load_train_state(out, "cuda", cfg=ppo_config(over), env_cfg=cfg)
+    back = train_state_to_leaves(ts, seed=42, cfg=ppo_config(over), env_cfg=cfg)
+    same = len(back) == len(leaves) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        for a, b in zip(back, leaves))
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        last = json.loads(f.read().splitlines()[-1])
+    log(f"classic entry point: wrote {out} ({len(leaves)} leaves); read whole as a "
+        f"{type(ts.env_state).__name__} of {ts.last_obs.shape[0]} envs, epoch {int(ts.epoch)}, "
+        f"written back {'leaf for leaf' if same else 'DIFFERENT'}; last iteration kl "
+        f"{last['kl']:.5f}, reward_mean {last['reward_mean']:.5f}")
+    if not (same and isinstance(ts.env_state, QuadState) and int(ts.epoch) == CLASSIC_ENTRY_ITERS
+            and ts.last_obs.shape[0] == envs):
+        raise AssertionError("classic entry point: its checkpoint does not read back whole")
+    return dict(seconds=seconds, leaves=len(leaves), kl=last["kl"],
+                reward_mean=last["reward_mean"])
+
+
+def classic_phases(rollout, dev, ops) -> tuple:
+    """Phases 45-48: (their record, each kernel's classic record)."""
+    rec, kernels = {}, {}
+    for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
+        name = "quad" if task == "Quadcopter" else "ingenuity"
+        with phase(name):
+            rec[task], ppo, ts = classic_phase(rollout, dev, ops, task)
+            if ref is None:  # Ingenuity's card-vs-CPU ref inside its phase
+                rec[task]["ref"] = classic_ref(task, ppo, ts, dev)
+        if ref is not None:
+            with phase(ref):
+                rec[task]["ref"] = classic_ref(task, ppo, ts, dev)
+        del ppo, ts
+        per_iter = rec[task]["launches_per_iteration"]
+        for k in CLASSIC_PER_STEP:
+            entry = dict(path=f"{task} at {CLASSIC[task][0]} envs",
+                         launches_per_iteration=per_iter[k],
+                         launches_serve=rec[task]["serve"]["launches"][k])
+            entry.update(rec[task]["kernels"].get(k, {}))
+            kernels.setdefault(k, {})[task] = entry
+    with phase("classic-entry"):
+        rec["entry_point"] = classic_entry_phase()
     return rec, kernels
 
 
@@ -3575,6 +3959,10 @@ def main() -> int:
             f"-> {build.BUILD_ROOT / build.source_digest()}")
         for line in ptxas_summary(build.ptxas_report()):
             log(line)
+        # the classic tasks' solves: C = 4 (Quadcopter) and 8 (Ingenuity)
+        # slots take blocks of 64 threads, the <128, 6> instance
+        log("classic: contact_sweep at C = 4 and 8 (K = 0, no object sides) launches "
+            "contact_sweep_kernel<128, 6>; spd_inverse at n = 14 and 8 its <14> and <8>")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis
@@ -3783,23 +4171,25 @@ def main() -> int:
         train_rec["reach"] = reach_phase(rollout, dev)
     with phase("family"):
         family_rec = family_phase(rollout, dev)
-        family_rec["entry_point"] = entry_subprocess(
-            ["task=Ur5SihThrow", f"env.num_envs={ENVS}", "max_iterations=1",
-             "experiment=chip_smoke_throw"],
+        family_rec["entry_point"] = entry_in_process(
+            rollout, ["task=Ur5SihThrow", f"env.num_envs={ENVS}", "max_iterations=1",
+                      "experiment=chip_smoke_throw"],
             os.path.join("runs", "chip_smoke_throw", "nn", "ckpt_1.npz"), "family entry point",
-            PHASE_DEADLINE_S["family"] // 2)
+            dev, LIFT_PER_ITER, 1)
+        del family_rec["entry_point"]["stdout"]
     with phase("multiobj-entry"):
         ckpt = os.path.relpath(rollout.TASK_CKPTS[MULTI_TASK])
         step = int(os.path.basename(ckpt)[5:-4]) + 1
-        multi_train_rec["entry_point"] = entry_subprocess(
-            [f"task={MULTI_TASK}", f"resume={ckpt}", f"max_iterations={step}",
-             "experiment=chip_smoke_multiobj", "seed=1"],
+        multi_train_rec["entry_point"] = entry_in_process(
+            rollout, [f"task={MULTI_TASK}", f"resume={ckpt}", f"max_iterations={step}",
+                      "experiment=chip_smoke_multiobj", "seed=1"],
             os.path.join("runs", "chip_smoke_multiobj", "nn", f"ckpt_{step}.npz"),
-            "multiobj entry point", PHASE_DEADLINE_S["multiobj-entry"] - 30)
+            "multiobj entry point", dev, MULTI_PER_ITER, 1)
+        del multi_train_rec["entry_point"]["stdout"]
     with phase("dr-entry"):
-        dr_rec["entry_point"] = dr_entry_phase(rollout)
+        dr_rec["entry_point"] = dr_entry_phase(rollout, dev)
     with phase("engine-entry"):
-        engine["entry_point"] = engine_entry_phase()
+        engine["entry_point"] = engine_entry_phase(rollout, dev)
 
     with phase("distill-train"):
         distill_rec = distill_train_phase(rollout, dev)
@@ -3817,12 +4207,15 @@ def main() -> int:
         rnn_rec["serve"] = rnn_serve_phase(rollout, rnn_ppo, rnn_ts, dev)
         del rnn_ts
     with phase("rnn-entry"):
-        rnn_rec["entry_point"] = rnn_entry_phase(rnn_ppo)
+        rnn_rec["entry_point"] = rnn_entry_phase(rollout, rnn_ppo, dev)
         del rnn_ppo
 
     stretch_rec, stretch_kernels = stretch_phases(rollout, dev, ops)
     for entry in kernels:
         entry["stretch"] = stretch_kernels[entry["name"]]
+    classic_rec, classic_kernels_rec = classic_phases(rollout, dev, ops)
+    for entry in kernels:
+        entry["classic"] = classic_kernels_rec[entry["name"]]
     parallel_rec = {}
     with phase("ddp"):
         parallel_rec["ddp"] = ddp_phase(rollout, dev)
@@ -3859,7 +4252,8 @@ def main() -> int:
                     "multiobj_train": multi_train_rec, "multiobj_eval": multi_eval_rec,
                     "family": family_rec, "distill": distill_rec, "rnn": rnn_rec,
                     "dr": dr_rec, "engine": engine, "stretch": stretch_rec,
-                    "camera": camera_rec, "bench": bench_rec, "parallel": parallel_rec}))
+                    "camera": camera_rec, "bench": bench_rec, "parallel": parallel_rec,
+                    "classic": classic_rec}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

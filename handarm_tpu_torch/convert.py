@@ -21,6 +21,13 @@ to write checkpoints its loader reads.
   is dropped on the way in: the port draws from a torch.Generator. On the
   way out it is written as the JAX file has it, a [2] uint32 key from the
   seed (`jax.random.PRNGKey(seed)`'s value).
+- A classic task's state (QuadState, IngenuityState) flattens as the JAX
+  package's: the physics with the floating base's pose (q, qd, targets,
+  base_pos, base_quat, then the K = 0 objects' [B, 0, ...] leaves and the
+  impulses; `tau_ext` is None between steps and drops out), the task's
+  own fields (the progress as int32), then its PRNG key last: 14 leaves
+  for the Quadcopter, 13 for Ingenuity. Its readers take the env's config
+  (QuadcopterConfig, IngenuityConfig) in place of a HandArmConfig.
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch (71 for the 768-512-256 MLP on the UR5+SIH, 69 on the Stretch),
@@ -44,6 +51,7 @@ import torch
 
 from handarm_tpu_torch.envs.adr import AdrState
 from handarm_tpu_torch.envs.hand_arm import EnvState, HandArmConfig, Metrics, TaskState
+from handarm_tpu_torch.envs.registry import CLASSIC_ENVS
 from handarm_tpu_torch.envs.randomization import DRState
 from handarm_tpu_torch.learn import optim
 from handarm_tpu_torch.learn.networks import ActorCritic, flax_names
@@ -52,12 +60,14 @@ from handarm_tpu_torch.learn.running_stats import RunningStats
 from handarm_tpu_torch.physics.engine import ObjectState, PhysicsState, RobotState
 from handarm_tpu_torch.robots import ROBOTS, control_type
 
-N_PHYSICS_LEAVES = 8
+N_PHYSICS_LEAVES = 8  # of a fixed base; a floating base adds its pose: 10
 N_TASK_LEAVES = 8  # without DR and ADR
 N_METRIC_LEAVES = 5
 N_ENV_LEAVES = 24  # of the UR5+SIH, without DR and ADR
 N_RAND_LEAVES = 6  # of a DRState, and of an AdrState
 OPT_SCALARS = (np.int32, np.bool_, np.int32, np.int32)  # optax's, in its order
+# the classic tasks' env states by their configs
+CLASSIC_STATES = {cfg: env.state_type for cfg, env in CLASSIC_ENVS.items()}
 
 
 def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
@@ -98,9 +108,47 @@ def running_stats_from_leaves(mean, var, count, device="cpu") -> RunningStats:
 
 
 def physics_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> PhysicsState:
+    """A PhysicsState of its 8 leaves, or 10 with a floating base's pose."""
     t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
-    q, qd, tg, pos, quat, lv, av, imp = (t(x) for x in leaves[:N_PHYSICS_LEAVES])
+    x = [t(v) for v in leaves]
+    if len(x) == N_PHYSICS_LEAVES + 2:
+        q, qd, tg, bp, bq, pos, quat, lv, av, imp = x
+        return PhysicsState(RobotState(q, qd, tg, bp, bq), ObjectState(pos, quat, lv, av), imp)
+    q, qd, tg, pos, quat, lv, av, imp = x
     return PhysicsState(RobotState(q, qd, tg), ObjectState(pos, quat, lv, av), imp)
+
+
+def physics_state_to_leaves(p: PhysicsState) -> list[np.ndarray]:
+    """The leaves of a PhysicsState in the JAX package's order (None fields,
+    such as a fixed base's pose and a cleared tau_ext, drop out)."""
+    f = lambda x: x.detach().cpu().numpy().astype(np.float32)
+    return [f(x) for x in (*p.robot, *p.objects, p.contact_impulse) if x is not None]
+
+
+def classic_leaf_count(state_type) -> int:
+    """Leaves of a classic task's state: the floating-base physics, its
+    own fields, the PRNG key."""
+    return N_PHYSICS_LEAVES + 2 + len(state_type._fields) - 1 + 1
+
+
+def classic_state_from_leaves(leaves: Sequence[np.ndarray], state_type, device="cpu"):
+    """A classic task's state (`state_type`) of its leaves; the key is
+    dropped."""
+    n = classic_leaf_count(state_type)
+    if len(leaves) != n:
+        raise ValueError(f"expected {n} {state_type.__name__} leaves, got {len(leaves)}")
+    k = N_PHYSICS_LEAVES + 2
+    own = [torch.tensor(np.asarray(x).astype(
+        np.int64 if np.issubdtype(np.asarray(x).dtype, np.integer) else np.float32),
+        device=device) for x in leaves[k:-1]]
+    return state_type(physics_state_from_leaves(leaves[:k], device), *own)
+
+
+def classic_state_to_leaves(state, seed: int = 0) -> list[np.ndarray]:
+    np_ = lambda x: x.detach().cpu().numpy()
+    own = [np_(x).astype(np.int32 if not x.is_floating_point() else np.float32)
+           for x in state[1:]]
+    return physics_state_to_leaves(state.physics) + own + [prng_key(seed)]
 
 
 def control_leaf_count(robot: str) -> int:
@@ -108,25 +156,37 @@ def control_leaf_count(robot: str) -> int:
 
 
 def env_leaf_counts() -> set[int]:
-    """Every EnvState leaf count of a ported robot, with or without DR and ADR."""
+    """Every env-state leaf count of a ported robot, with or without DR and
+    ADR, and of the classic tasks."""
     base = N_PHYSICS_LEAVES + N_TASK_LEAVES + N_METRIC_LEAVES
-    return {base + control_leaf_count(r) + N_RAND_LEAVES * k for r in ROBOTS for k in range(3)}
+    return ({base + control_leaf_count(r) + N_RAND_LEAVES * k for r in ROBOTS
+             for k in range(3)} | {classic_leaf_count(s) for s in CLASSIC_STATES.values()})
 
 
-def env_leaf_count(env_cfg: HandArmConfig | None = None) -> int:
-    """EnvState leaves of an env with `env_cfg` (None: the UR5+SIH without
-    DR and ADR)."""
+def physics_leaf_count(n_env: int) -> int:
+    """The physics leaves of an env state of `n_env` leaves (a classic
+    task's craft has a floating base)."""
+    classic = {classic_leaf_count(s) for s in CLASSIC_STATES.values()}
+    return N_PHYSICS_LEAVES + 2 * (n_env in classic)
+
+
+def env_leaf_count(env_cfg=None) -> int:
+    """Env-state leaves of an env with `env_cfg` (None: the UR5+SIH without
+    DR and ADR; a classic task's config: its state's)."""
+    if type(env_cfg) in CLASSIC_STATES:
+        return classic_leaf_count(CLASSIC_STATES[type(env_cfg)])
     robot = env_cfg.robot if env_cfg is not None else "ur5sih"
     rand = env_cfg.dr.enabled + env_cfg.adr.enabled if env_cfg is not None else 0
     return (N_PHYSICS_LEAVES + control_leaf_count(robot) + N_TASK_LEAVES + N_METRIC_LEAVES
             + N_RAND_LEAVES * rand)
 
 
-def env_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu",
-                          env_cfg: HandArmConfig | None = None) -> EnvState:
-    """The EnvState of an env with `env_cfg` (None: the UR5+SIH without DR
-    and ADR) from its leaves; ValueError if their count is not that
-    layout's."""
+def env_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu", env_cfg=None):
+    """The env state of an env with `env_cfg` (None: the UR5+SIH without DR
+    and ADR; a classic task's config: its state) from its leaves;
+    ValueError if their count is not that layout's."""
+    if type(env_cfg) in CLASSIC_STATES:
+        return classic_state_from_leaves(leaves, CLASSIC_STATES[type(env_cfg)], device)
     n = env_leaf_count(env_cfg)
     robot = env_cfg.robot if env_cfg is not None else "ur5sih"
     if len(leaves) != n:
@@ -264,11 +324,13 @@ def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
     )
 
 
-def env_state_to_leaves(state: EnvState, seed: int = 0,
-                        env_cfg: HandArmConfig | None = None) -> list[np.ndarray]:
-    """The EnvState leaves (the UR5+SIH's 24, the Stretch's 22, 6 more for
-    each of DR and ADR) in the JAX package's order and dtypes. Given
-    `env_cfg`, the state must hold its DR and ADR states, and only those."""
+def env_state_to_leaves(state, seed: int = 0, env_cfg=None) -> list[np.ndarray]:
+    """The env-state leaves (the UR5+SIH's 24, the Stretch's 22, 6 more for
+    each of DR and ADR; a classic task's 13 or 14) in the JAX package's
+    order and dtypes. Given a HandArmConfig `env_cfg`, the state must hold
+    its DR and ADR states, and only those."""
+    if type(state) in CLASSIC_STATES.values():
+        return classic_state_to_leaves(state, seed)
     np_ = lambda x: x.detach().cpu().numpy()
     f = lambda x: np_(x).astype(np.float32)
     i32 = lambda x: np_(x).astype(np.int32)
@@ -281,8 +343,7 @@ def env_state_to_leaves(state: EnvState, seed: int = 0,
         a = t.adr
         rand += [f(a.lo), f(a.hi), i32(a.worker_mode), f(a.values), f(a.q_sum), f(a.q_cnt)]
     return [
-        f(p.robot.q), f(p.robot.qd), f(p.robot.targets), f(p.objects.pos),
-        f(p.objects.quat), f(p.objects.linvel), f(p.objects.angvel), f(p.contact_impulse),
+        *physics_state_to_leaves(p),
         *(f(x) for x in c),
         i32(t.progress), f(t.goal_pos), f(t.goal_quat), i32(t.target_obj),
         np_(t.goal_reached_before).astype(np.bool_), f(t.initial_obj_pos), prng_key(seed),

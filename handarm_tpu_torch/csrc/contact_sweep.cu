@@ -411,8 +411,11 @@ int pick_kernel(int threads, size_t smem, Kernel* kernel) {
   return 0;
 }
 
+// K = 0 (a robot alone over static geometry: the classic tasks' craft) takes
+// S = 0: no object velocities are read or written, and no bins reduced.
 bool valid(const Dims& d) {
-  return d.B >= 1 && d.nv >= 1 && d.nv <= 31 && d.K >= 1 && d.K <= 8 && d.S >= 0 &&
+  return d.B >= 1 && d.nv >= 1 && d.nv <= 31 && d.K >= (d.S > 0 ? 1 : 0) && d.K <= 8 &&
+         d.S >= 0 &&
          d.S <= kMaxSides && d.C >= 1 && d.C <= 1024 && d.L >= 0 && d.L <= 32 &&
          d.NL >= 0 && d.NL <= d.C && d.NO >= 0 && d.NO <= d.S * d.C &&
          shared_bytes(d) <= 227 * 1024;
@@ -423,7 +426,8 @@ int threads_for(int C) { return C < 64 ? 64 : (C + 31) / 32 * 32; }
 }  // namespace
 
 // Limits (checked again by ops/contact_sweep.py): nv <= 31 (a dof mask is
-// an int), L <= 32, K <= 8, S <= 2, C <= 1024 (one thread per slot).
+// an int), L <= 32, K <= 8 (K >= 1 where S > 0), S <= 2, C <= 1024 (one
+// thread per slot).
 extern "C" int contact_sweep_f32(
     const float* planes, const float* bias, const float* screws,
     const float* qd, const float* minv2, const float* obj, const float* lam0,

@@ -10,7 +10,10 @@
 // floats (17x17: 2.3 KB) against ~5.2 k flops, so at B = 8192 the least
 // time is the 19 MB of traffic over 3.35 TB/s, about 5.7 us; the flops
 // (~43 MFLOP) take under 1 us at 67 TFLOP/s f32. At n = 9 (0.65 KB, ~0.9
-// k flops) it is 5.3 MB, about 1.6 us: a launch costs more.
+// k flops) it is 5.3 MB, about 1.6 us: a launch costs more. The classic
+// tasks' floating-base craft take n = 14 (Quadcopter: 1.6 KB a matrix,
+// 12.8 MB at B = 8192, 3.8 us) and n = 8 (Ingenuity: 0.5 KB, 2.1 MB at B =
+// 4096, 0.6 us).
 //
 // Design: the TPU kernel's own formulation, with the batch on the lanes.
 // Each thread owns one matrix and runs the fully unrolled left-looking
@@ -23,7 +26,11 @@
 // holds a load in flight, so all of them are), each thread then reads its
 // own matrix at a stride of n*n floats, odd for odd n, which puts the 32
 // threads on 32 banks; Minv goes back through the same buffer so the
-// stores are coalesced 16-byte writes.
+// stores are coalesced 16-byte writes. For even n (14, 8) n*n is even and
+// 32 threads at that stride would share banks (196 = 4 mod 32: 8-way; 64:
+// 32-way), so each matrix takes n*n + 1 words of the buffer: the staging
+// is then a coalesced copy of single floats, each placed at its padded
+// offset, in and out.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -37,9 +44,10 @@ __host__ __device__ constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j
 template <int N>
 __global__ void __launch_bounds__(kMats)
     spd_inverse_kernel(const float* __restrict__ M, float* __restrict__ Minv, int B) {
-  static_assert(N % 2 == 1, "the per-matrix stride N*N must be odd (bank spread)");
   constexpr int NN = N * N;
-  __shared__ __align__(16) float S[kMats * NN];
+  constexpr bool kOdd = NN % 2 == 1;
+  constexpr int NS = kOdd ? NN : NN + 1;  // a matrix's words in S: odd (bank spread)
+  __shared__ __align__(16) float S[kMats * NS];
   const int t = threadIdx.x;
   const int b0 = blockIdx.x * kMats;
   const int count = min(kMats, B - b0);
@@ -48,14 +56,18 @@ __global__ void __launch_bounds__(kMats)
   const float* src = M + (size_t)b0 * NN;
   float* dst = Minv + (size_t)b0 * NN;
 
-  for (int v = t; v < nvec; v += kMats) __pipeline_memcpy_async(S + 4 * v, src + 4 * v, 16);
-  __pipeline_commit();
-  for (int e = 4 * nvec + t; e < nfloat; e += kMats) S[e] = src[e];
-  __pipeline_wait_prior(0);
+  if constexpr (kOdd) {
+    for (int v = t; v < nvec; v += kMats) __pipeline_memcpy_async(S + 4 * v, src + 4 * v, 16);
+    __pipeline_commit();
+    for (int e = 4 * nvec + t; e < nfloat; e += kMats) S[e] = src[e];
+    __pipeline_wait_prior(0);
+  } else {
+    for (int e = t; e < nfloat; e += kMats) S[e + e / NN] = src[e];
+  }
   __syncthreads();
 
   if (t < count) {
-    float* A = S + t * NN;
+    float* A = S + t * NS;
     float L[tri(N, 0)];  // lower triangle, row-packed
 #pragma unroll
     for (int i = 0; i < N; ++i)
@@ -105,10 +117,14 @@ __global__ void __launch_bounds__(kMats)
   }
   __syncthreads();
 
-  const float4* S4 = reinterpret_cast<const float4*>(S);
-  float4* dst4 = reinterpret_cast<float4*>(dst);
-  for (int v = t; v < nvec; v += kMats) dst4[v] = S4[v];
-  for (int e = 4 * nvec + t; e < nfloat; e += kMats) dst[e] = S[e];
+  if constexpr (kOdd) {
+    const float4* S4 = reinterpret_cast<const float4*>(S);
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    for (int v = t; v < nvec; v += kMats) dst4[v] = S4[v];
+    for (int e = 4 * nvec + t; e < nfloat; e += kMats) dst[e] = S[e];
+  } else {
+    for (int e = t; e < nfloat; e += kMats) dst[e] = S[e + e / NN];
+  }
 }
 
 }  // namespace
@@ -118,9 +134,16 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
   if (B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const int blocks = (B + kMats - 1) / kMats;
-  switch (n) {  // the n the port runs: the Stretch's 9 dofs, the UR5+SIH's 17
+  switch (n) {  // the n the port runs: the Ingenuity's 8 dofs, the Stretch's 9,
+                // the Quadcopter's 14, the UR5+SIH's 17
+    case 8:
+      spd_inverse_kernel<8><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
     case 9:
       spd_inverse_kernel<9><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
+    case 14:
+      spd_inverse_kernel<14><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;
     case 17:
       spd_inverse_kernel<17><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);

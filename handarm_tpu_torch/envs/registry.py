@@ -1,7 +1,8 @@
 """Tasks by name through the yaml config groups, as the JAX package's entry
 points build them (counterpart of `make_env`, `env_from_yaml`,
-`_warn_unknown_yaml_keys` and `compose_task` of handarm_tpu/envs/registry.py,
-the UR5+SIH and Stretch tasks).
+`_warn_unknown_yaml_keys`, `compose_task`, `register_classic` and
+`all_task_names` of handarm_tpu/envs/registry.py: the UR5+SIH and Stretch
+tasks, and of the classic tasks Quadcopter and Ingenuity).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -19,19 +20,33 @@ the UR5+SIH and Stretch tasks).
   HandArmConfig field, or `ppo.<field>=value`; an unknown field raises
   KeyError.
 
-Each function has a `*_config` form that stops at the HandArmConfig and the
-PPO overrides, without building the env.
+A classic task (`CLASSIC_TASKS`) composes as in the JAX package: its task
+yaml's `env` block < the train yaml's `ppo` block < the overrides, over
+the registry's PPO defaults. `env.`-prefixed or bare keys: `num_envs`
+(512 by default), `episode_length` (500), `subtask` (passed on where the
+factory takes one) and any other field of the env's config dataclass
+(an unknown one raises TypeError); `ppo.<field>=` keys. The JAX
+package's other classic tasks are not ported: naming one raises
+NotImplementedError (ROADMAP §1.7).
+
+Each function has a `*_config` form that stops at the env's config (a
+HandArmConfig, or a classic task's config dataclass) and the PPO
+overrides, without building the env; `build_env` builds the env of
+either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import json
 import os
 
 from handarm_tpu_torch.envs.adr import AdrConfig
 from handarm_tpu_torch.envs.camera import CameraConfig
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
+from handarm_tpu_torch.envs.ingenuity import IngenuityConfig, IngenuityEnv
+from handarm_tpu_torch.envs.quadcopter import QuadcopterConfig, QuadcopterEnv
 from handarm_tpu_torch.envs.randomization import DRConfig, NoiseSpec
 from handarm_tpu_torch.envs.tasks import TASKS
 from handarm_tpu_torch.utils.config import _parse_value, get, load_config
@@ -49,10 +64,95 @@ _KNOWN_YAML_KEYS = {
 }
 
 
+# classic tasks: name -> (factory(num_envs, episode_length, **fields) -> the
+# env's config dataclass, default PPO overrides)
+CLASSIC_TASKS: dict = {}
+# the env class of each classic config
+CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv}
+# the JAX package's classic tasks the port does not have yet
+UNPORTED_CLASSIC = (
+    "AllegroHand", "AllegroHandADR", "AllegroHandDextremeADR", "AllegroHandManualDR",
+    "AllegroKuka", "AllegroKukaRegrasping", "AllegroKukaReorientation", "AllegroKukaThrow",
+    "AllegroKukaTwoArms", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArmsReorientation",
+    "Ant", "Anymal", "AnymalTerrain", "BallBalance", "Cartpole", "FactoryTaskGears",
+    "FactoryTaskInsertion", "FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
+    "FactoryTaskNutBoltScrew", "FrankaCabinet", "FrankaCubeStack", "Humanoid", "HumanoidAMP",
+    "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert", "ShadowHand",
+    "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM", "Trifinger",
+)
+
+
+def register_classic(name: str, factory, ppo_overrides: dict | None = None):
+    CLASSIC_TASKS[name] = (factory, ppo_overrides or {})
+
+
+def _ingenuity_config(num_envs, episode_length, **kw) -> IngenuityConfig:
+    # the registry's default 500 steps becomes Ingenuity's own 2000
+    return IngenuityConfig(num_envs=num_envs,
+                           episode_length=episode_length if episode_length != 500 else 2000,
+                           **kw)
+
+
+# reference cfg/train/QuadcopterPPO.yaml / IngenuityPPO.yaml: [256,256,128]
+_CRAFT_PPO = dict(hidden=(256, 256, 128), horizon=16, minibatch_size=16384, gamma=0.99,
+                  kl_threshold=0.016, reward_scale=0.1)
+register_classic("Quadcopter", lambda num_envs, episode_length, **kw: QuadcopterConfig(
+    num_envs=num_envs, episode_length=episode_length, **kw), dict(_CRAFT_PPO))
+register_classic("Ingenuity", _ingenuity_config, dict(_CRAFT_PPO))
+
+
+def _refuse_unported(name: str) -> None:
+    if name in UNPORTED_CLASSIC:
+        raise NotImplementedError(f"the classic task {name!r} is not ported yet (ROADMAP "
+                                  f"§1.7); ported: {sorted(CLASSIC_TASKS)}")
+
+
+def classic_config(name: str, overrides: list[str] | None = None) -> tuple[object, dict]:
+    """(the env's config dataclass, PPO overrides) of a classic task with
+    `key=value` overrides (the JAX package's `make_env` classic branch)."""
+    factory, ppo_overrides = CLASSIC_TASKS[name]
+    ppo_updates = dict(ppo_overrides)
+    kv = {}
+    for ov in overrides or []:
+        key, val = ov.split("=", 1)
+        key = key.removeprefix("env.")
+        if key.startswith("ppo."):
+            ppo_updates[key[4:]] = _parse_value(val)
+        else:
+            kv[key] = val
+    num_envs = int(_parse_value(kv.pop("num_envs", 512)))
+    episode_length = int(_parse_value(kv.pop("episode_length", 500)))
+    kwargs = {}
+    subtask = kv.pop("subtask", None)
+    if subtask is not None and "subtask" in inspect.signature(factory).parameters:
+        kwargs["subtask"] = subtask
+    for k, v in kv.items():  # the env config's other fields; unknown ones raise TypeError
+        pv = _parse_value(v)
+        if isinstance(pv, list):
+            pv = tuple(tuple(x) if isinstance(x, list) else x for x in pv)
+        kwargs[k] = pv
+    return factory(num_envs, episode_length, **kwargs), ppo_updates
+
+
+def build_env(cfg, device=None, group=None):
+    """The env of a config: a HandArmEnv, or a classic task's env."""
+    if isinstance(cfg, HandArmConfig):
+        return HandArmEnv(cfg, device, group=group)
+    return CLASSIC_ENVS[type(cfg)](cfg, device, group=group)
+
+
+def all_task_names() -> list[str]:
+    return sorted(TASKS) + sorted(CLASSIC_TASKS)
+
+
 def make_config(name: str, overrides: list[str] | None = None) -> tuple[HandArmConfig, dict]:
-    """(config, PPO overrides) of a preset with `key=value` overrides."""
+    """(config, PPO overrides) of a preset, or of a classic task, with
+    `key=value` overrides."""
+    if name in CLASSIC_TASKS:
+        return classic_config(name, overrides)
+    _refuse_unported(name)
     if name not in TASKS:
-        raise KeyError(f"unknown task {name!r}; known: {sorted(TASKS)}")
+        raise KeyError(f"unknown task {name!r}; known: {all_task_names()}")
     cfg, ppo_overrides = TASKS[name]
     fields = {f.name for f in dataclasses.fields(cfg)}
     updates = {}
@@ -75,9 +175,10 @@ def make_config(name: str, overrides: list[str] | None = None) -> tuple[HandArmC
 
 
 def make_env(name: str, overrides: list[str] | None = None, device=None):
-    """(env, PPO overrides) of a preset with `key=value` overrides."""
+    """(env, PPO overrides) of a preset or a classic task with `key=value`
+    overrides."""
     cfg, ppo = make_config(name, overrides)
-    return HandArmEnv(cfg, device), ppo
+    return build_env(cfg, device), ppo
 
 
 def config_from_yaml(path: str, overrides: list[str] | None = None
@@ -222,6 +323,7 @@ def resolve_task(name: str, overrides: list[str] | None = None
     overrides = list(overrides or [])
     if name.endswith(".yaml"):
         return config_from_yaml(name, overrides)
+    _refuse_unported(name)
     tpath = os.path.join(CONFIG_ROOT, "task", f"{name}.yaml")
     trpath = os.path.join(CONFIG_ROOT, "train", f"{name}PPO.yaml")
     train_over: list[str] = []
@@ -241,4 +343,4 @@ def resolve_task(name: str, overrides: list[str] | None = None
 def compose_task(name: str, overrides: list[str] | None = None, device=None):
     """(env, PPO overrides) of `resolve_task`."""
     cfg, ppo = resolve_task(name, overrides)
-    return HandArmEnv(cfg, device), ppo
+    return build_env(cfg, device), ppo

@@ -15,7 +15,8 @@ angular velocity), lam0 [3, B, C]. The slot couplings come as `anc`
 [C, nv] (0/1, plain version), `obj_idx` [S, C] int32 (object of each side,
 -1 where the slot has none; `signs` gives +1 / -1 per side) and, for the
 kernel, the `SlotGroups` tables built by physics/solver.py
-`build_slot_groups`.
+`build_slot_groups`. A scene without objects (K = 0) has no sides (S = 0):
+obj is [6, B, 0], and the solve touches the robot alone.
 """
 
 from __future__ import annotations
@@ -243,7 +244,8 @@ def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, groups,
                              f"{t.dtype}, expected {shape} {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"contact_sweep_cuda: {name} is not contiguous")
-    if not (1 <= nv <= 31 and 1 <= K <= 8 and S <= 2 and C <= 1024):
+    # K = 0 (no objects, the classic tasks' craft) only without object sides
+    if not (1 <= nv <= 31 and (1 if S else 0) <= K <= 8 and S <= 2 and C <= 1024):
         raise ValueError(f"contact_sweep_cuda: unsupported sizes nv={nv} K={K} "
                          f"sides={S} C={C}")
     check_groups(groups, C, planes.device, "contact_sweep_cuda", bins=(S, K))

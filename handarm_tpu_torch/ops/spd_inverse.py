@@ -17,7 +17,9 @@ import torch
 from handarm_tpu_torch.ops import build
 
 launches = 0  # kernel launches since the last reset (CUDA path only)
-KERNEL_N = (9, 17)  # matrix sizes the kernel is instantiated for: the Stretch, the UR5+SIH
+# matrix sizes the kernel is instantiated for: the Ingenuity, the Stretch,
+# the Quadcopter, the UR5+SIH
+KERNEL_N = (8, 9, 14, 17)
 
 
 def spd_inverse_plain(M: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,8 @@
 (counterpart of handarm_tpu/physics/contacts.py without the heightfield).
 
 Every potential contact pair owns a static slot; a step only fills
-(normal, pos, depth). Slot layout for K objects with P sample points and S
+(normal, pos, depth). Slot layout for K objects (K = 0: a robot alone,
+whose slots are its spheres vs the table or ground) with P sample points and S
 robot spheres: object points vs table [K*P], spheres vs table [S], spheres
 vs object SDFs [S*K], object-pair points [K*(K-1)*Q], then with walls:
 object points vs nearest wall [K*P] and spheres vs nearest wall [S].
@@ -204,18 +205,20 @@ def generate_contacts(slots: ContactSlots, shapes: ObjectShapes,
     depths.append(spheres.radius[None] - dist_s)
 
     # spheres vs objects [S*K] and object-pair points [K*(K-1)*Q], in slot
-    # order: every query in its object's frame, one objects_sdf pass
-    Q, obj = qr.pair_points, qr.sdf.obj
-    src = torch.cat([centers, pts_w[:, :, :Q].reshape(B, K * Q, 3)], 1)[:, qr.src]
-    q_obj = obj_quat[:, obj]
-    d, g = objects_sdf(shapes, qr.sdf, quat_rotate_inv(q_obj, src - obj_pos[:, obj]))
-    n_w = quat_rotate(q_obj, g)
-    d = torch.where(qr.valid, d, big)
-    SK = S * K
-    normals.append(n_w)
-    poss.append(src[:, :SK] - n_w[:, :SK] * d[:, :SK, None])
-    poss.append(src[:, SK:])
-    depths.append(qr.radius - d)
+    # order: every query in its object's frame, one objects_sdf pass (none
+    # without objects)
+    if K:
+        Q, obj = qr.pair_points, qr.sdf.obj
+        src = torch.cat([centers, pts_w[:, :, :Q].reshape(B, K * Q, 3)], 1)[:, qr.src]
+        q_obj = obj_quat[:, obj]
+        d, g = objects_sdf(shapes, qr.sdf, quat_rotate_inv(q_obj, src - obj_pos[:, obj]))
+        n_w = quat_rotate(q_obj, g)
+        d = torch.where(qr.valid, d, big)
+        SK = S * K
+        normals.append(n_w)
+        poss.append(src[:, :SK] - n_w[:, :SK] * d[:, :SK, None])
+        poss.append(src[:, SK:])
+        depths.append(qr.radius - d)
 
     if geom.num_walls > 0:
         dist_w, n_w = _wall_surface(geom, pts_w)

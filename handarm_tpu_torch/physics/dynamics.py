@@ -1,5 +1,5 @@
 """Batched articulated rigid-body dynamics, world frame, reduced coordinates
-(counterpart of handarm_tpu/physics/dynamics.py, fixed-base models).
+(counterpart of handarm_tpu/physics/dynamics.py), fixed- and floating-base.
 
 Mass matrix as a COM-referenced Gram product, bias torques through one
 ancestor-matrix prefix sum, stable PD folded into the inertia, and the
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from handarm_tpu_torch.math.quat import (
@@ -70,10 +71,16 @@ def _apply_inertia_com(m: ModelArrays, fk: FK, com_w, mot):
 
 def bias_forces_com(m: ModelArrays, fk: FK, qd, gravity, com_w, body_vel):
     """Bias torques; the root->leaf velocity-product recursion is one prefix
-    sum over the body-ancestor matrix."""
+    sum over the body-ancestor matrix. Body b's term is (v_b x s_i) qd_i of
+    its driving dof i; a floating base body has none (its v x v = 0)."""
     B = qd.shape[0]
     a0 = torch.cat([qd.new_zeros(B, 3), (-gravity).expand(B, 3)], dim=-1)
-    g = motion_cross(body_vel, fk.screw) * qd[..., None]  # body b <- dof b
+    if m.floating:
+        d = torch.as_tensor(m.body_dof[1:].astype(np.int64), device=qd.device)
+        g = torch.cat([qd.new_zeros(B, 1, 6),
+                       motion_cross(body_vel[:, 1:], fk.screw[:, d]) * qd[:, d, None]], dim=1)
+    else:
+        g = motion_cross(body_vel, fk.screw) * qd[..., None]  # body b <- dof b
     avp = a0[:, None, :] + torch.einsum("nm,bma->bna", m.body_anc, g)
     Iv = _apply_inertia_com(m, fk, com_w, body_vel)
     f = _apply_inertia_com(m, fk, com_w, avp) + force_cross(body_vel, Iv)

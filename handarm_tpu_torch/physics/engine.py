@@ -1,6 +1,6 @@
-"""The lockstep physics engine (counterpart of handarm_tpu/physics/engine.py
-for fixed-base models): `build_scene`, `initial_state`, `compute_heavy`,
-`step` with every cadence of the JAX package's, and `substep`.
+"""The lockstep physics engine (counterpart of handarm_tpu/physics/engine.py):
+`build_scene`, `initial_state`, `compute_heavy`, `step` with every cadence
+of the JAX package's, and `substep`.
 
 One sim step (dt) is `substeps` contact-resolved substeps. Its cadences:
 
@@ -27,6 +27,16 @@ kernel) runs where the JAX package's conditions for its TPU fast path hold
 (Jacobi, `jacobi_impl="soa"`, no restitution), on CUDA and CPU tensors
 alike (the kernels' plain versions run on the CPU); otherwise the generic
 anchored loop, which carries world-frame impulses into `solve_prepared`.
+
+A floating base (an MJCF <freejoint>: the classic tasks' craft) keeps its
+pose in `RobotState.base_pos` / `base_quat`; its 6 dofs (q[:, :6], held
+at 0) carry the world-origin Plücker velocity: qd[:, 0:3] is the velocity
+of the world origin carried by the base (v_point - w x p), qd[:, 3:6] the
+world angular velocity. Every substep clamps the base's physical point
+velocity and angular velocity (`SimParams.max_base_*`) and integrates the
+pose from them. `RobotState.tau_ext` is a generalized torque added to the
+stable-PD torque (the craft's thrust), set by the env before a step and
+cleared after it. The FK carried between sim steps stays fixed-base only.
 
 `EnvOverrides` carries the per-env physical parameters of domain
 randomization: PD gain scales (kp and kd, in the SPD inverse's matrices
@@ -92,6 +102,10 @@ class SimParams(NamedTuple):
     joint_limit_margin: float = 0.0
     max_obj_linvel: float = 20.0
     max_obj_angvel: float = 100.0
+    # floating-base caps on the base's physical point velocity and angular
+    # velocity (not on the origin-Plücker coordinates)
+    max_base_linvel: float = 20.0
+    max_base_angvel: float = 64.0
     obj_linear_damping: float = 0.03
     obj_angular_damping: float = 0.1
     robot_gravity: bool = True
@@ -102,8 +116,13 @@ class SimParams(NamedTuple):
 
 class RobotState(NamedTuple):
     q: torch.Tensor  # [B, nv]
-    qd: torch.Tensor  # [B, nv]
+    qd: torch.Tensor  # [B, nv]; floating base: origin-Plücker base velocity in 0-5
     targets: torch.Tensor  # [B, nv]
+    # floating-base pose (None for a fixed base)
+    base_pos: torch.Tensor | None = None  # [B, 3]
+    base_quat: torch.Tensor | None = None  # [B, 4] wxyz
+    # generalized torque on top of the stable-PD torque (None: none)
+    tau_ext: torch.Tensor | None = None  # [B, nv]
 
 
 class ObjectState(NamedTuple):
@@ -191,7 +210,10 @@ def build_scene(art: Articulation, shapes: ObjectShapes, spheres: RobotSpheres,
     )
 
 
-def _base_pose(scene: Scene):
+def _base_pose(scene: Scene, rob: RobotState):
+    """(quat, pos) of the fixed base frame, or of a floating base body."""
+    if scene.model.floating:
+        return rob.base_quat, rob.base_pos
     return scene.base_quat[None], scene.base_pos[None]
 
 
@@ -215,10 +237,9 @@ def initial_state(scene: Scene, B: int, q0=None, obj_pos0=None, obj_quat0=None,
                   base_pos0=None, base_quat0=None,
                   dtype=torch.float32) -> PhysicsState:
     """A state at rest: q = q0 (zeros) with its targets, objects at obj_pos0
-    (the origin) and obj_quat0 (identity), no impulses. A base pose belongs
-    to a floating base, which the port does not take (ROADMAP §1.7)."""
-    if base_pos0 is not None or base_quat0 is not None:
-        raise NotImplementedError("floating-base initial state: not ported (ROADMAP §1.7)")
+    (the origin) and obj_quat0 (identity), no impulses. A floating base
+    starts at base_pos0 / base_quat0 (the scene's base pose); a fixed base
+    ignores them, as the JAX package does."""
     nv, K = scene.model.nv, scene.shapes.num_objects
     dev = scene.kp.device
 
@@ -227,8 +248,12 @@ def initial_state(scene: Scene, B: int, q0=None, obj_pos0=None, obj_quat0=None,
         return torch.as_tensor(x, dtype=dtype, device=dev).expand(shape).clone()
 
     q = full(q0, (B, nv))
+    bp = bq = None
+    if scene.model.floating:
+        bp = full(scene.base_pos if base_pos0 is None else base_pos0, (B, 3))
+        bq = full(scene.base_quat if base_quat0 is None else base_quat0, (B, 4))
     return PhysicsState(
-        robot=RobotState(q=q, qd=full(None, (B, nv)), targets=q),
+        robot=RobotState(q=q, qd=full(None, (B, nv)), targets=q, base_pos=bp, base_quat=bq),
         objects=ObjectState(pos=full(obj_pos0, (B, K, 3)),
                             quat=full(obj_quat0, (B, K, 4), [1.0, 0.0, 0.0, 0.0]),
                             linvel=full(None, (B, K, 3)), angvel=full(None, (B, K, 3))),
@@ -244,7 +269,7 @@ def compute_heavy(scene: Scene, state: PhysicsState,
     h = p.dt / p.substeps
     rob = state.robot
     kp, kd = _gains(scene, ovr)
-    fk0 = forward_kinematics(m, rob.q, *_base_pose(scene))
+    fk0 = forward_kinematics(m, rob.q, *_base_pose(scene, rob))
     dyn = compute_dyn(m, fk0, rob.qd, _robot_gravity(scene, ovr), kp, kd, h)
     opos, oquat = state.objects.pos, state.objects.quat
     contacts0 = generate_contacts(scene.slots, scene.shapes, scene.spheres,
@@ -272,8 +297,13 @@ def _propagate_fk(m: ModelArrays, body_quat, body_pos, screw, qd, h: float):
     w, v0 = bv[..., :3], bv[..., 3:]
     new_pos = body_pos + h * (v0 + cross(w, body_pos))
     new_quat = quat_integrate(body_quat, w, h)
-    axis_w = quat_rotate(new_quat, m.axis[None].expand_as(new_pos))
-    rev = torch.cat([axis_w, cross(new_pos, axis_w)], dim=-1)
+    if m.floating:  # each dof's screw from its body's pose; the base's stay constant
+        d = torch.as_tensor(m.dof_body.astype(np.int64), device=qd.device)
+        dq, dp = new_quat[:, d], new_pos[:, d]
+    else:
+        dq, dp = new_quat, new_pos
+    axis_w = quat_rotate(dq, m.axis[None].expand_as(dp))
+    rev = torch.cat([axis_w, cross(dp, axis_w)], dim=-1)
     pri = torch.cat([torch.zeros_like(axis_w), axis_w], dim=-1)
     jt = m.joint_type
     is_rev = torch.as_tensor((jt == REVOLUTE).astype(np.float32), device=qd.device)[None, :, None]
@@ -307,12 +337,37 @@ def _clip(x, lim):
     return torch.minimum(torch.maximum(x, -lim), lim)
 
 
+def _clamp_base_velocity(qd, base_pos, p: SimParams):
+    """Clamp a floating base's physical velocities: the point velocity of
+    the base v_b = v_o + w x p and w, then back to origin Plücker (v_o can
+    be large far from the origin, legitimately)."""
+    w = qd[:, 3:6]
+    v_b = qd[:, 0:3] + cross(w, base_pos)
+    w_c = torch.clamp(w, -p.max_base_angvel, p.max_base_angvel)
+    v_c = torch.clamp(v_b, -p.max_base_linvel, p.max_base_linvel)
+    return torch.cat([v_c - cross(w_c, base_pos), w_c, qd[:, 6:]], dim=-1)
+
+
+def _integrate_base(qd, base_pos, base_quat, h: float):
+    """The base pose after one substep at the origin-Plücker velocity: the
+    base point at p moves at v_o + w x p."""
+    v_o, w = qd[:, 0:3], qd[:, 3:6]
+    return base_pos + h * (v_o + cross(w, base_pos)), quat_integrate(base_quat, w, h)
+
+
+def _zero_base_dofs(q):
+    """q with the floating base's 6 freedoms at 0 (they live in the pose)."""
+    return torch.cat([q.new_zeros(q.shape[0], 6), q[:, 6:]], dim=-1)
+
+
 def _free_velocities(scene: Scene, q, qd, targets, kp, kd, dyn: Dyn, bias_acc,
-                     olin, oang, oquat, g_obj, h: float):
-    """Velocities after one substep of PD, bias, gravity and damping, before
-    contacts: (qd_free, olin_free, oang_free)."""
+                     olin, oang, oquat, g_obj, h: float, tau_ext=None):
+    """Velocities after one substep of PD (plus `tau_ext`), bias, gravity and
+    damping, before contacts: (qd_free, olin_free, oang_free)."""
     m, p = scene.model, scene.params
     tau = stable_pd_torque(q, qd, targets, kp, kd, h, m.effort_limit)
+    if tau_ext is not None:
+        tau = tau + tau_ext
     qd_free = qd - h * bias_acc + h * dyn.solve(tau)
     olin_free = olin * (1.0 - h * p.obj_linear_damping) + h * g_obj
     oang_free = oang * (1.0 - h * p.obj_angular_damping) + gyroscopic_delta(
@@ -321,16 +376,19 @@ def _free_velocities(scene: Scene, q, qd, targets, kp, kd, dyn: Dyn, bias_acc,
 
 
 def _integrate(scene: Scene, q, qd_s, olv, oav, olin_free, oang_free, opos, oquat,
-               h: float, rolling=None):
-    """Clamp the solved velocities (joint velocity and position limits, the
-    contact-gain cap, object speed limits, rolling resistance from
-    `rolling` = (world impulses, normals) thunk) and integrate one substep.
-    Returns (q, qd, opos, oquat, olv, oav)."""
+               h: float, rolling=None, base_pos=None):
+    """Clamp the solved velocities (joint velocity and position limits, a
+    floating base's caps at its position `base_pos`, the contact-gain cap,
+    object speed limits, rolling resistance from `rolling` = (world
+    impulses, normals) thunk) and integrate one substep. Returns (q, qd,
+    opos, oquat, olv, oav)."""
     m, p = scene.model, scene.params
     sp = p.solver
     low = m.q_min + p.joint_limit_margin
     high = m.q_max - p.joint_limit_margin
     qd_new = _clip(qd_s, m.velocity_limit)
+    if m.floating:
+        qd_new = _clamp_base_velocity(qd_new, base_pos, p)
     q_new = q + h * qd_new
     below, above = q_new < low, q_new > high
     q_new = torch.minimum(torch.maximum(q_new, low), high)
@@ -356,9 +414,13 @@ def _info(scene: Scene, impulse, depth, h: float) -> StepInfo:
     )
 
 
-def _state(targets, q, qd, opos, oquat, olin, oang, impulse) -> PhysicsState:
+def _state(rob: RobotState, q, qd, opos, oquat, olin, oang, impulse,
+           base=None) -> PhysicsState:
+    """The state after a step from robot state `rob`: its targets and
+    tau_ext kept, a floating base at `base` = (pos, quat)."""
+    bp, bq = base if base is not None else (rob.base_pos, rob.base_quat)
     return PhysicsState(
-        robot=RobotState(q=q, qd=qd, targets=targets),
+        robot=rob._replace(q=q, qd=qd, base_pos=bp, base_quat=bq),
         objects=ObjectState(pos=opos, quat=oquat, linvel=olin, angvel=oang),
         contact_impulse=impulse,
     )
@@ -377,9 +439,11 @@ def substep(scene: Scene, state: PhysicsState, ovr: EnvOverrides = EnvOverrides(
     opos, oquat, olin, oang = state.objects
     kp, kd = _gains(scene, ovr)
     gravity = _gravity(scene, ovr)
-    fk = forward_kinematics(m, q, *_base_pose(scene))
+    fk = forward_kinematics(m, q, *_base_pose(scene, rob))
     dyn = compute_dyn(m, fk, qd, _robot_gravity(scene, ovr), kp, kd, h)
     tau = stable_pd_torque(q, qd, targets, kp, kd, h, m.effort_limit)
+    if rob.tau_ext is not None:
+        tau = tau + rob.tau_ext
     qd_free = qd + h * dyn.solve(tau - dyn.bias)
     g_obj = gravity if gravity.dim() == 1 else gravity[:, None, :]
     olin_free = olin * (1.0 - h * p.obj_linear_damping) + h * g_obj
@@ -393,8 +457,12 @@ def substep(scene: Scene, state: PhysicsState, ovr: EnvOverrides = EnvOverrides(
                          friction_scale=ovr.friction_scale)
     q, qd, opos, oquat, olv, oav = _integrate(
         scene, q, out.qd, out.obj_linvel, out.obj_angvel, olin_free, oang_free, opos,
-        oquat, h, rolling=lambda: (out.impulse, contacts.normal))
-    return (_state(targets, q, qd, opos, oquat, olv, oav, out.impulse),
+        oquat, h, rolling=lambda: (out.impulse, contacts.normal), base_pos=rob.base_pos)
+    base = None
+    if m.floating:
+        base = _integrate_base(qd, rob.base_pos, rob.base_quat, h)
+        q = _zero_base_dofs(q)
+    return (_state(rob, q, qd, opos, oquat, olv, oav, out.impulse, base),
             _info(scene, out.impulse, contacts.depth, h))
 
 
@@ -439,7 +507,7 @@ def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep | None = None,
     rob = state.robot
     opos, oquat = state.objects.pos, state.objects.quat
     if fk0 is None:
-        fk0 = forward_kinematics(m, rob.q, *_base_pose(scene))
+        fk0 = forward_kinematics(m, rob.q, *_base_pose(scene, rob))
     if contacts0 is None:
         contacts0 = generate_contacts(scene.slots, scene.shapes, scene.spheres,
                                       scene.geom, opos, oquat, fk0.body_quat,
@@ -462,6 +530,8 @@ def step(scene: Scene, state: PhysicsState, heavy: HeavyPrep | None = None,
                                    contacts0, prep0)
     if not carry_fk:
         return new_state, info
+    if m.floating:
+        raise ValueError("the carried FK takes fixed-base models only")
     if fk_next is None:  # propagate by the realized joint displacement
         fk_next = FK(*_propagate_fk(m, fk0.body_quat, fk0.body_pos, fk0.screw,
                                     (new_state.robot.q - rob.q) / p.dt, p.dt))
@@ -473,11 +543,12 @@ def _step_anchored_fused(scene: Scene, state: PhysicsState, fk0: FK, dyn: Dyn, b
     """Anchored substeps in the fused form: one `anchored_pack` per sim step,
     impulses carried in the frozen basis, every solve one sweep-kernel
     launch with the warm start applied in the kernel."""
-    p = scene.params
+    m, p = scene.model, scene.params
     h = p.dt / p.substeps
     sp = p.solver
     rob = state.robot
     q, qd, targets = rob.q, rob.qd, rob.targets
+    bpos, bquat = rob.base_pos, rob.base_quat
     opos, oquat, olin, oang = state.objects
     pack = anchored_pack(prep0)
     # previous step's world impulses -> this step's (frozen) basis
@@ -492,18 +563,22 @@ def _step_anchored_fused(scene: Scene, state: PhysicsState, fk0: FK, dyn: Dyn, b
             depth / h,
         )
         qd_free, olin_free, oang_free = _free_velocities(
-            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h)
+            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h,
+            rob.tau_ext)
         qd_s, olv, oav, lam = solve_anchored(pack, scene.maps, bias, qd_free,
                                              olin_free, oang_free, lam, sp)
         n0 = lambda: torch.stack([pack.planes[i] for i in (0, 1, 2)], dim=-1)
         q, qd, opos, oquat, olin, oang = _integrate(
             scene, q, qd_s, olv, oav, olin_free, oang_free, opos, oquat, h,
-            rolling=lambda: (anchored_impulse_world(pack, lam), n0()))
+            rolling=lambda: (anchored_impulse_world(pack, lam), n0()), base_pos=bpos)
         # TGS anchor advance from the post-clamp velocities
         depth = depth - h * anchored_vn(pack, scene.maps, qd, olin, oang)
+        if m.floating:
+            bpos, bquat = _integrate_base(qd, bpos, bquat, h)
+            q = _zero_base_dofs(q)
 
     impulse = anchored_impulse_world(pack, lam)
-    return (_state(targets, q, qd, opos, oquat, olin, oang, impulse),
+    return (_state(rob, q, qd, opos, oquat, olin, oang, impulse, (bpos, bquat)),
             _info(scene, impulse, depth, h), None)
 
 
@@ -513,27 +588,32 @@ def _step_anchored(scene: Scene, state: PhysicsState, fk0: FK, dyn: Dyn, bias_ac
     from solve to solve, each solve `solve_prepared` against the frozen
     prep with this substep's depth bias (restitution, Gauss-Seidel and the
     jacobi_impl values other than "soa" take it)."""
-    p = scene.params
+    m, p = scene.model, scene.params
     h = p.dt / p.substeps
     sp = p.solver
     rob = state.robot
     q, qd, targets = rob.q, rob.qd, rob.targets
+    bpos, bquat = rob.base_pos, rob.base_quat
     opos, oquat, olin, oang = state.objects
     lam = state.contact_impulse
     depth, n0 = contacts0.depth, contacts0.normal
     for _ in range(p.substeps):
         prep = replace(prep0, bias=contact_bias(depth, h, sp))
         qd_free, olin_free, oang_free = _free_velocities(
-            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h)
+            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h,
+            rob.tau_ext)
         out = solve_prepared(prep, scene.maps, qd_free, olin_free, oang_free, sp, lam)
         q, qd, opos, oquat, olin, oang = _integrate(
             scene, q, out.qd, out.obj_linvel, out.obj_angvel, olin_free, oang_free, opos,
-            oquat, h, rolling=lambda: (out.impulse, n0))
+            oquat, h, rolling=lambda: (out.impulse, n0), base_pos=bpos)
         # TGS anchor advance (A side minus B side along the frozen normal)
         vrel = rel_velocity(prep, scene.maps, qd, olin, oang)
         depth = depth - h * torch.sum(vrel * n0, dim=-1)
         lam = out.impulse
-    return (_state(targets, q, qd, opos, oquat, olin, oang, lam),
+        if m.floating:
+            bpos, bquat = _integrate_base(qd, bpos, bquat, h)
+            q = _zero_base_dofs(q)
+    return (_state(rob, q, qd, opos, oquat, olin, oang, lam, (bpos, bquat)),
             _info(scene, lam, depth, h), None)
 
 
@@ -557,12 +637,17 @@ def _step_substep_contacts(scene: Scene, state: PhysicsState, fk0: FK, dyn: Dyn,
                                      opos, oquat, fk.body_quat, fk.body_pos)
         prep = refresh_prep(prep0, fk, scene.maps, contacts, opos, h, sp)
         qd_free, olin_free, oang_free = _free_velocities(
-            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h)
+            scene, q, qd, targets, kp, kd, dyn, bias_acc, olin, oang, oquat, g_obj, h,
+            rob.tau_ext)
         out = solve_prepared(prep, scene.maps, qd_free, olin_free, oang_free, sp, lam)
         q, qd, opos, oquat, olin, oang = _integrate(
             scene, q, out.qd, out.obj_linvel, out.obj_angvel, olin_free, oang_free, opos,
-            oquat, h, rolling=lambda: (out.impulse, contacts.normal))
+            oquat, h, rolling=lambda: (out.impulse, contacts.normal), base_pos=bp[:, 0])
         bq, bp, screw = _propagate_fk(m, bq, bp, screw, qd, h)
         lam = out.impulse
-    return (_state(targets, q, qd, opos, oquat, olin, oang, lam),
+    base = None
+    if m.floating:  # the propagated pose of body 0 is the integrated base pose
+        base = (bp[:, 0], bq[:, 0])
+        q = _zero_base_dofs(q)
+    return (_state(rob, q, qd, opos, oquat, olin, oang, lam, base),
             _info(scene, lam, contacts.depth, h), FK(bq, bp, screw))

@@ -1,7 +1,7 @@
 """Kinematic-tree compiler: URDF -> flat array articulation model.
 
-A numpy-only copy of handarm_tpu/physics/model.py (the MJCF front end
-is left out), kept here so the port stands alone.
+A numpy-only copy of handarm_tpu/physics/model.py, kept here so the port
+stands alone.
 
 Replaces the reference's gymapi asset pipeline (gym.load_asset + urdfpy
 introspection, reference: isaacgymenvs/tasks/hand_arm/base/ur5sih.py:58-121).
@@ -150,6 +150,30 @@ def compile_urdf(
         default_density=default_density,
         floating_base=floating_base,
     )
+
+
+def compile_mjcf(
+    path: str, default_armature: float = 0.0, default_density: float = 0.0
+):
+    """MJCF asset -> (Articulation, MjcfExtras). Floating base follows the
+    model's <freejoint>; joint armature comes from the mjcf defaults."""
+    from handarm_tpu_torch.physics.mjcf import parse_mjcf
+
+    urdf, extras = parse_mjcf(path)
+    art = compile_model(
+        urdf,
+        default_armature=default_armature,
+        default_density=default_density,
+        floating_base=extras.floating,
+    )
+    # per-joint armature from mjcf joint defaults
+    if extras.joint_armature:
+        arm = art.armature.copy()
+        for i, jn in enumerate(art.joint_names):
+            if jn in extras.joint_armature:
+                arm[i] = extras.joint_armature[jn]
+        art.armature = arm
+    return art, extras
 
 
 def _estimate_missing_inertials(urdf: UrdfModel, density: float) -> None:

@@ -110,9 +110,17 @@ def make_sphere_object(radius: float, mass: float, friction: float = 1.0) -> dic
 
 
 def stack_objects(objs: list[dict], dtype=torch.float32, device="cpu") -> ObjectShapes:
-    """Stack per-object dicts into ObjectShapes with zero-padded point sets."""
+    """Stack per-object dicts into ObjectShapes with zero-padded point sets.
+    An empty list gives a K = 0 scene (a robot alone: the classic tasks'
+    craft over the ground plane)."""
     if not objs:
-        raise ValueError("the port's scenes hold at least one object")
+        z = lambda *s: torch.zeros(s, dtype=dtype, device=device)
+        return ObjectShapes(
+            kind=np.zeros((0,), np.int32), size=z(0, 3), points=z(0, 1, 3),
+            point_mask=z(0, 1), point_radius=z(0, 1), bound_radius=z(0), mass=z(0),
+            inv_mass=z(0), inertia_diag=z(0, 3), friction=z(0), obb_pos=z(0, 3),
+            obb_quat=z(0, 4),
+        )
     for o in objs:
         if o["kind"] not in (BOX, SPHERE, MESH_SDF):
             raise NotImplementedError(f"shape kind {o['kind']} is not ported yet")

@@ -38,6 +38,16 @@ hand-only collision set resumed into an arm-sphere run) raises
 ValueError, as the JAX package's first step on such a state does. The
 iteration count starts at the file's step.
 
+The classic tasks Quadcopter and Ingenuity compose the same way (their
+task yamls' `env` block and train yamls' `ppo` block; `env.num_envs=N`
+or `num_envs=N`, and any field of QuadcopterConfig / IngenuityConfig):
+
+    python -m handarm_tpu_torch.train task=Quadcopter env.num_envs=8192
+    python -m handarm_tpu_torch.train task=Ingenuity env.num_envs=4096
+
+Their stats carry no success rate (`succ` prints 0). The JAX package's
+other classic tasks raise NotImplementedError (ROADMAP §1.7).
+
 Domain randomization and ADR come through the composition as well, as
 `rl.randomization_params.dr.<key>=` and `rl.randomization_params.adr.<key>=`
 overrides of a full-config yaml; `envs.tasks.DR_SHADOWHAND` lists
@@ -104,8 +114,7 @@ import torch.distributed as dist
 
 from handarm_tpu_torch import resolve_device
 from handarm_tpu_torch.convert import env_leaf_count
-from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
-from handarm_tpu_torch.envs.registry import resolve_task
+from handarm_tpu_torch.envs.registry import build_env, resolve_task
 from handarm_tpu_torch.learn.ppo import PPO, PPOConfig, ppo_config
 from handarm_tpu_torch.parallel.launch import init_distributed, per_host_envs
 from handarm_tpu_torch.parallel.mesh import (
@@ -153,16 +162,17 @@ def parse_args(argv: list[str]) -> tuple[dict, list[str]]:
     return top, overrides
 
 
-def compose(argv: list[str]) -> tuple[dict, list[str], HandArmConfig, dict, PPOConfig]:
-    """(top-level keys, overrides, env config, PPO overrides, PPOConfig) of
-    the arguments; nothing is built."""
+def compose(argv: list[str]) -> tuple[dict, list[str], object, dict, PPOConfig]:
+    """(top-level keys, overrides, env config (a HandArmConfig or a classic
+    task's), PPO overrides, PPOConfig) of the arguments; nothing is
+    built."""
     top, overrides = parse_args(argv)
     env_cfg, ppo_over = resolve_task(top.get("task", "Ur5SihLift"), overrides)
     return top, overrides, env_cfg, ppo_over, ppo_config(ppo_over)
 
 
-def resolved_config(top: dict, overrides: list[str], env_cfg: HandArmConfig,
-                    ppo_over: dict, cfg: PPOConfig, device) -> dict:
+def resolved_config(top: dict, overrides: list[str], env_cfg, ppo_over: dict,
+                    cfg: PPOConfig, device) -> dict:
     """What `config.json` holds, as the root train.py's `config.yaml`: the
     task, the overrides, the env config's plain fields and the PPO
     overrides (and the whole PPOConfig and the device)."""
@@ -225,8 +235,8 @@ def main(argv: list[str]) -> None:
     pbt_cfg, pbt_objective = _pbt_config(top, run_dir)
     if pbt_cfg is not None and W > 1:
         raise ValueError("PBT runs one process per policy: pbt.* keys take no torchrun ranks")
-    env = HandArmEnv(dataclasses.replace(env_cfg, num_envs=per_host_envs(num_envs)), dev,
-                     group=group)  # a drop-init task runs genesis at its first reset
+    env = build_env(dataclasses.replace(env_cfg, num_envs=per_host_envs(num_envs)), dev,
+                    group=group)  # a drop-init task runs genesis at its first reset
     ppo = PPO(env, cfg, group=group)
 
     os.makedirs(run_dir, exist_ok=True)
@@ -244,7 +254,8 @@ def main(argv: list[str]) -> None:
         if slots != run_slots:
             raise ValueError(
                 f"{path}: its env state holds {slots} contact slots, this run's env "
-                f"{run_slots} (hand_only_collision={env_cfg.hand_only_collision}); the JAX "
+                f"{run_slots} (hand_only_collision="
+                f"{getattr(env_cfg, 'hand_only_collision', None)}); the JAX "
                 f"package cannot step such a state either")
         if file_env_leaves(path, cfg) == env_leaf_count(env_cfg):
             ck = load_train_state(path, dev, cfg=cfg, env_cfg=env_cfg)

@@ -30,6 +30,11 @@ Leaf dtypes: float32 but for the int32 optax counters, the bool
 epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 69).
 
+A classic task's env state (Quadcopter, Ingenuity) has 14 or 13 leaves
+(`convert.classic_state_to_leaves`): its physics with the floating base's
+pose, its own fields, its PRNG key; its reader takes the task's config as
+`env_cfg`.
+
 An env with domain randomization or ADR has 6 more env-state leaves for
 each, after the step count (the DRState; the AdrState with its int32
 `worker_mode`): 30 or 36 in all, and every later leaf moves up by as many.
@@ -70,6 +75,7 @@ from handarm_tpu_torch.convert import (
     learner_leaf_count,
     params_from_leaves,
     params_to_leaves,
+    physics_leaf_count,
     train_state_from_leaves,
     train_state_to_leaves,
 )
@@ -194,7 +200,7 @@ def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int =
 def file_env_leaves(path: str, cfg=None) -> int:
     """The env-state leaves of a PPO checkpoint of the learner `cfg` (the
     PPOConfig; None: an MLP ActorCritic): 24, 30 or 36 (UR5+SIH), 22, 28
-    or 34 (Stretch)."""
+    or 34 (Stretch), 14 (Quadcopter), 13 (Ingenuity)."""
     with np.load(path, allow_pickle=False) as data:
         n = len(data.files)
         P = (2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), n) + 5 if cfg is None
@@ -211,7 +217,8 @@ def file_contact_slots(path: str, cfg=None) -> int:
     n_env = file_env_leaves(path, cfg)
     with np.load(path, allow_pickle=False) as data:
         lo = len(data.files) - n_env - 3 - extra_leaf_count(cfg)  # where the env state starts
-        shape, _ = _leaf_header(data, lo + 7)  # physics: q, qd, targets, object x4, impulses
+        # physics: q, qd, targets[, base pose], object x4, impulses
+        shape, _ = _leaf_header(data, lo + physics_leaf_count(n_env) - 1)
     return int(shape[1])
 
 

@@ -1,0 +1,348 @@
+"""The classic-task surface: Quadcopter and Ingenuity against the JAX
+package on the CPU.
+
+- Each env's reset observations from the same draws (the JAX package's,
+  re-derived from its keys and handed to the port's `reset` / `step`),
+  then 2 steps at B = 8 (random actions; the Quadcopter's thrusts up to
+  0.17 N a rotor, 50 m/s^2 on its 3.4 g) with one env's episode timing
+  out at the first
+  (its fresh episode from the injected draws; for Ingenuity also one
+  env's waypoint re-sampling at its 500th step): observations and rewards
+  within 2e-3 times max(1, the largest value) (the craft's ill-conditioned
+  mass matrices, see tests/test_torch_floating.py), done flags and the
+  info exactly / within 2e-3, every state leaf within 2e-4 (positions)
+  or 2e-3 (velocities) of the same scale.
+- `compose_task` of both tasks against the JAX package's: the env config
+  field by field and the PPO overrides, with the Ingenuity 500 -> 2000
+  episode rule; an unported classic task raises NotImplementedError
+  naming ROADMAP §1.7.
+- One Quadcopter `train_iter` at B = 16 (hidden 32-32, horizon 2,
+  minibatch 8: 4 minibatches x 4 mini-epochs), two envs timing out in it: the rollout on each side with
+  the JAX package's noise and reset draws (observations, mu and values
+  within 5e-3 of max(1, scale), rewards 2e-3, logp 1e-4: at the fresh
+  policy's thrusts float32 itself is that far from float64, see the
+  test), then the update from the JAX package's
+  trajectory with its permutations, held as tests/test_torch_ppo.py holds
+  the MLP update (params and Adam moments 1e-6 or 1e-4 of the largest
+  moment, counters exact, stats 1e-5 relative (1e-7 absolute about 0), the lr
+  equal).
+- The train entry point on the CPU: 1 iteration, its checkpoint read by
+  the JAX package's `load_checkpoint` with its own example tree; and a
+  JAX-written checkpoint resumed whole by the port's entry point.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import handarm_tpu.learn.ppo as jppo
+from handarm_tpu.envs import registry as jreg
+from handarm_tpu.utils.checkpoint import load_checkpoint
+from handarm_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
+from handarm_tpu_torch.convert import (
+    classic_state_from_leaves,
+    learner_to_leaves,
+    train_state_from_leaves,
+)
+from handarm_tpu_torch.envs import registry as treg
+from handarm_tpu_torch.envs.ingenuity import IngenuityDraws, IngenuityState
+from handarm_tpu_torch.envs.quadcopter import QuadcopterConfig, QuadDraws, QuadState
+from handarm_tpu_torch.learn import ppo as tppo
+from handarm_tpu_torch.utils import checkpoint as tck
+from test_torch_floating import jax_env, port_env
+from test_torch_ppo import TRAJ_FIELDS, _perms, _port_traj
+from test_torch_train import assert_same_lr, record_kls
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+POS_TOL, VEL_TOL = 2e-4, 2e-3
+_t = lambda x: torch.as_tensor(np.array(x))
+
+
+def _close(got, want, tol, name):
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max())) if want.size else 1.0
+    g = got.detach().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    np.testing.assert_allclose(g, want, atol=tol * scale, err_msg=name)
+
+
+def fresh_draws(kind: str, key, B: int, nv: int):
+    """The port's draws of the fresh episodes the JAX env's `_fresh(key, B)`
+    makes."""
+    u = jax.random.uniform
+    if kind == "quadcopter":
+        k_root, k_dof, _ = jax.random.split(key, 3)
+        return QuadDraws(_t(u(k_root, (B, 3), minval=-1.0, maxval=1.0)),
+                         _t(u(k_dof, (B, nv), minval=-0.2, maxval=0.2)))
+    k_root, k_tgt, _ = jax.random.split(key, 3)
+    return IngenuityDraws(_t(u(k_root, (B, 2), minval=-1.0, maxval=1.0)),
+                          _t(u(k_tgt, (B, 3))))
+
+
+def step_draws(kind: str, state_key, B: int, nv: int):
+    """The port's draws of the JAX env's `step` from a state with key
+    `state_key`, and that step's next key."""
+    if kind == "quadcopter":
+        key, k_reset = jax.random.split(state_key)
+        return fresh_draws(kind, k_reset, B, nv), key
+    key, k_tgt, k_reset = jax.random.split(state_key, 3)
+    return fresh_draws(kind, k_reset, B, nv)._replace(
+        retarget=_t(jax.random.uniform(k_tgt, (B, 3)))), key
+
+
+def port_state(jstate, state_type):
+    """A JAX classic env state handed to the port (its leaves, key last)."""
+    return classic_state_from_leaves([np.asarray(x) for x in jax.tree.leaves(jstate)],
+                                     state_type)
+
+
+def assert_state_close(got, want):
+    g = jax.tree.leaves(want)
+    leaves = tck_leaves(got)
+    assert len(leaves) == len(g) - 1  # the JAX key
+    names = ("q", "qd", "targets", "base_pos", "base_quat", "opos", "oquat", "olin", "oang",
+             "impulse")
+    for i, (a, b) in enumerate(zip(leaves, g)):
+        name = names[i] if i < len(names) else f"own {i}"
+        tol = VEL_TOL if name in ("qd", "impulse", "olin", "oang") else POS_TOL
+        if a.dtype in (torch.int64,):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+        else:
+            _close(a, b, tol, name)
+
+
+def tck_leaves(state):
+    p = state.physics
+    return [x for x in (*p.robot, *p.objects, p.contact_impulse) if x is not None] + list(
+        state[1:])
+
+
+@pytest.mark.parametrize("kind", ["quadcopter", "ingenuity"])
+def test_env_reset_and_steps_match(kind, tmp_path):
+    B = 8
+    jenv, tenv = jax_env(kind, str(tmp_path), num_envs=B), port_env(kind, num_envs=B)
+    nv = tenv.art.nv
+    state_type = QuadState if kind == "quadcopter" else IngenuityState
+    key = jax.random.PRNGKey(11)
+    js, jobs = jenv.reset(key)
+    ts, tobs = tenv.reset(0, fresh_draws(kind, key, B, nv))
+    np.testing.assert_array_equal(tobs.numpy(), np.asarray(jobs))
+    assert_state_close(ts, js)
+    # env 0 times out at the next step; for Ingenuity env 1 re-samples its
+    # waypoint there
+    length = tenv.cfg.episode_length
+    prog = np.zeros(B, np.int32)
+    prog[0] = length - 1
+    if kind == "ingenuity":
+        prog[1] = 499
+    js = js._replace(progress=jnp.asarray(prog))
+    ts = ts._replace(progress=torch.as_tensor(prog, dtype=torch.int64))
+    rng = np.random.default_rng(4)
+    step = jax.jit(jenv.step)
+    dones = []
+    for i in range(2):
+        a = rng.uniform(-1.0, 1.0, (B, tenv.num_actions)).astype(np.float32)
+        if kind == "quadcopter":  # thrusts up to 0.17 N a rotor on the 3.4 g craft
+            a[:, 8:] = rng.uniform(-1.0, 0.05, (B, 4))
+        draws, _ = step_draws(kind, js.key, B, nv)
+        js, jr = step(js, jnp.asarray(a))
+        ts, tr = tenv.step(ts, _t(a), draws)
+        _close(tr.obs, jr.obs, VEL_TOL, f"obs {i}")
+        _close(tr.reward, jr.reward, VEL_TOL, f"reward {i}")
+        np.testing.assert_array_equal(tr.done.numpy(), np.asarray(jr.done))
+        assert set(tr.info) == set(jr.info)
+        _close(tr.info["target_dist"], jr.info["target_dist"], POS_TOL, "target_dist")
+        assert tr.teacher_obs.shape == (B, 0)
+        assert_state_close(ts, js)
+        dones.append(tr.done.numpy())
+    assert dones[0][0] and int(ts.progress[0]) == 1  # restarted, then one step
+    if kind == "ingenuity":
+        assert not dones[0][1]
+
+
+# --- the registry ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("task,overrides", [
+    ("Quadcopter", []),
+    ("Quadcopter", ["env.num_envs=64", "max_thrust=3.0", "ppo.minibatch_size=512"]),
+    ("Ingenuity", []),
+    ("Ingenuity", ["num_envs=32", "env.episode_length=300", "ppo.hidden=[64,64]"]),
+])
+def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "gettempdir", lambda: str(tmp_path))
+    jenv, jppo_over = jreg.compose_task(task, list(overrides))
+    cfg, ppo_over = treg.resolve_task(task, list(overrides))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jenv.cfg)
+    norm = lambda d: {k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}
+    assert norm(ppo_over) == norm(jppo_over)
+    if task == "Ingenuity" and not overrides:
+        assert cfg.episode_length == 2000
+    assert type(treg.make_env(task, list(overrides), device="cpu")[0]).__name__ == \
+        type(jenv).__name__
+    assert treg.all_task_names() == [n for n in jreg.all_task_names()
+                                     if n in treg.TASKS or n in treg.CLASSIC_TASKS]
+
+
+@pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM"])
+def test_unported_classic_task_raises(task):
+    assert task in jreg.CLASSIC_TASKS
+    with pytest.raises(NotImplementedError, match="ROADMAP §1.7"):
+        treg.resolve_task(task, ["num_envs=8"])
+    with pytest.raises(NotImplementedError, match=task):
+        treg.make_config(task)
+    with pytest.raises(TypeError):
+        treg.resolve_task("Quadcopter", ["no_such_field=1"])
+
+
+# --- the learner --------------------------------------------------------------
+
+
+class _DrawnEnv:
+    """A port env whose steps take the next of the given draws."""
+
+    def __init__(self, env, draws):
+        self.env, self.draws = env, iter(draws)
+        self.num_obs, self.num_actions, self.cfg = env.num_obs, env.num_actions, env.cfg
+        self.device = env.device
+
+    def step(self, state, a):
+        return self.env.step(state, a, next(self.draws))
+
+
+def test_quadcopter_train_iter_matches(tmp_path):
+    B, T = 16, 2
+    cfg = dict(hidden=(32, 32), horizon=T, minibatch_size=8)
+    jenv, tenv = jax_env("quadcopter", str(tmp_path), num_envs=B), port_env(
+        "quadcopter", num_envs=B)
+    jp = jppo.PPO(jenv, jppo.PPOConfig(**cfg))
+    jts = jp.init(jax.random.PRNGKey(5))
+    # envs 0 and 1 time out at the rollout's first and second steps
+    prog = np.zeros(B, np.int32)
+    prog[:2] = jenv.cfg.episode_length - np.array([1, 2])
+    jts = jts._replace(env_state=jts.env_state._replace(progress=jnp.asarray(prog)))
+    captured = {}
+    update = jp._update_from_traj
+
+    def capture(ts_, traj, env_state, last_obs, *args, **kw):
+        captured["traj"], captured["last_obs"] = traj, last_obs
+        return update(ts_, traj, env_state, last_obs, *args, **kw)
+
+    jp._update_from_traj = capture
+    j_new, j_stats = jp.train_iter(jts)
+    k_next, k_roll, _ = jax.random.split(jts.key, 3)
+    noise = np.stack([np.asarray(jax.random.normal(k, (B, 12)))
+                      for k in jax.random.split(k_roll, T)])
+    draws, key = [], jts.env_state.key
+    for _ in range(T):
+        d, key = step_draws("quadcopter", key, B, 14)
+        draws.append(d)
+
+    leaves = [np.asarray(x) for x in jax.tree.leaves(jts)]
+    n_env = len(jax.tree.leaves(jts.env_state))
+    assert n_env == 14
+    env_state = port_state(jts.env_state, QuadState)
+    tcfg = tppo.PPOConfig(**cfg)
+    tp = tppo.PPO(_DrawnEnv(tenv, draws), tcfg, device="cpu")
+    tts = train_state_from_leaves(leaves, env_state, _t(jts.last_obs), cfg=tcfg, n_env=n_env)
+    traj, env_state, last_obs = tp.rollout(tts, _t(noise))[:3]
+    want = captured["traj"]
+    assert np.asarray(want.done)[[0, 1], [0, 1]].all()  # restarts from the draws
+    # the fresh policy's unit noise drives the 3.4 g craft's thrusts to 2 N a
+    # rotor within 2 steps (22 m/s by the 4th): there the float64 step of
+    # the same actions lies 6.4e-3 from the JAX package's float32
+    # observations and 1.2e-2 from the port's (largest value 12, after 3
+    # steps; measured): 5e-3 times max(1, scale) on what follows from the
+    # observations
+    for k, tol in (("obs", 5e-3), ("mu", 5e-3), ("logp", 1e-4), ("value", 5e-3),
+                   ("reward", 2e-3)):
+        _close(getattr(traj, k), getattr(want, k), tol, k)
+    np.testing.assert_array_equal(traj.done.numpy(), np.asarray(want.done))
+
+    kls = record_kls(tp)
+    _close(last_obs, captured["last_obs"], 5e-3, "last obs")
+    t_new, t_stats = tp._update_from_traj(
+        tts, _port_traj({k: np.asarray(getattr(want, k)) for k in TRAJ_FIELDS}),
+        env_state, _t(captured["last_obs"]), perms=_t(_perms(k_next, 4, T * B)).long())
+    got = learner_to_leaves(t_new, tcfg)
+    want_leaves = [np.asarray(x) for x in jax.tree.leaves(
+        (j_new.params, j_new.opt_state, j_new.obs_stats, j_new.value_stats, j_new.lr))]
+    P = len(tppo.param_names(tcfg))
+    assert len(got) == len(want_leaves) == 3 * P + 4 + 7
+    for i, w in enumerate(want_leaves):
+        assert got[i].dtype == w.dtype and got[i].shape == w.shape, i
+        if i < P:
+            np.testing.assert_allclose(got[i], w, atol=1e-6, err_msg=f"leaf {i}")
+        elif P + 4 <= i < 3 * P + 4:
+            tol = max(1e-6, 1e-4 * float(np.abs(w).max()))
+            np.testing.assert_allclose(got[i], w, atol=tol, err_msg=f"leaf {i}")
+        elif i < P + 4:
+            np.testing.assert_array_equal(got[i], w, err_msg=f"leaf {i}")
+        elif i < 3 * P + 4 + 6:  # stats: 1e-5 relative, 1e-7 where a mean is near 0
+            np.testing.assert_allclose(got[i], w, rtol=1e-5, atol=1e-7, err_msg=f"leaf {i}")
+    assert_same_lr(float(got[-1]), float(want_leaves[-1]), kls)
+    assert bool(t_stats["kl_guard_triggered"]) == bool(j_stats["kl_guard_triggered"])
+    for k in ("reward_mean", "episode_done_frac", "policy_loss", "value_loss", "entropy"):
+        np.testing.assert_allclose(float(t_stats[k]), float(j_stats[k]), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)
+    assert float(t_stats["success_rate_ewma"]) == 0.0
+
+
+# --- the train entry point and checkpoints ----------------------------------------
+
+
+def _train(args, cwd):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-m", "handarm_tpu_torch.train", "device=cpu",
+                          *args], cwd=cwd, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout
+
+
+ENTRY = ["task=Quadcopter", "env.num_envs=16", "ppo.hidden=[32,32]", "ppo.minibatch_size=64"]
+
+
+def test_train_entry_checkpoints_cross(tmp_path):
+    os.symlink(os.path.join(REPO, "configs"), tmp_path / "configs")
+    out = _train([*ENTRY, "max_iterations=1"], tmp_path)
+    run = tmp_path / "runs" / "Quadcopter"
+    cfgj = json.loads((run / "config.json").read_text())
+    assert cfgj["env"]["num_envs"] == 16 and cfgj["ppo"]["hidden"] == [32, 32]
+    assert "succ 0.000" in out
+    path = str(run / "nn" / "ckpt_1.npz")
+
+    jenv = jax_env("quadcopter", str(tmp_path), num_envs=16)
+    jp = jppo.PPO(jenv, jppo.PPOConfig(hidden=(32, 32), minibatch_size=64))
+    example = jp.init(jax.random.PRNGKey(0))
+    back = load_checkpoint(path, example_tree=example)
+    mine = tck.read_leaves(path)
+    theirs = jax.tree.leaves(back)
+    assert len(mine) == len(theirs) == len(jax.tree.leaves(example))
+    for a, b, e in zip(mine, theirs, jax.tree.leaves(example)):
+        assert a.dtype == np.asarray(e).dtype and a.shape == np.asarray(e).shape
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert int(back.epoch) == 1 and back.env_state.physics.robot.tau_ext is None
+
+    # the reverse: a JAX-written TrainState, resumed whole by the port
+    jdir = tmp_path / "jax_ckpt"
+    jpath = jax_save_checkpoint(str(jdir), example, step=3, sync=True)
+    tts = tck.load_train_state(jpath, cfg=None, env_cfg=QuadcopterConfig(num_envs=16))
+    assert isinstance(tts.env_state, QuadState)
+    np.testing.assert_array_equal(tts.env_state.physics.robot.base_pos.numpy(),
+                                  np.asarray(example.env_state.physics.robot.base_pos))
+    out = _train([*ENTRY, "max_iterations=4", f"resume={jpath}", "experiment=resumed"],
+                 tmp_path)
+    assert f"resumed from {jpath} at iter 3\n" in out, out
+    assert (tmp_path / "runs" / "resumed" / "nn" / "ckpt_4.npz").exists()

@@ -272,17 +272,31 @@ def test_gs_prep_matches(tmp_path):
 
 
 def test_initial_state_matches(tmp_path):
-    """`initial_state` of a fixed-base scene, with and without poses; a base
-    pose (a floating base's) is refused."""
+    """`initial_state` of a fixed-base scene, with and without poses (a base
+    pose is ignored there, as in the JAX package), and of the Quadcopter's
+    floating base, with and without base_pos0 / base_quat0: bit for bit."""
     js, ts = tiny_scenes(tmp_path, PUSH_OBJS, table_height=0.7)
     for kw in (dict(), dict(q0=[0.3], obj_pos0=PUSH_POS,
-                            obj_quat0=[[0.0, 1.0, 0.0, 0.0], [1.0, 0.0, 0.0, 0.0]])):
+                            obj_quat0=[[0.0, 1.0, 0.0, 0.0], [1.0, 0.0, 0.0, 0.0]]),
+               dict(base_pos0=[0.1, 0.2, 0.3])):
         want = je.initial_state(js, 3, **{k: jnp.asarray(v) for k, v in kw.items()})
         got = te.initial_state(ts, 3, **{k: torch.tensor(v) for k, v in kw.items()})
-        for g, w in zip(physics_state_leaves(got), [x for x in _jax_leaves(want)]):
-            np.testing.assert_array_equal(g.numpy(), w)
-    with pytest.raises(NotImplementedError, match="1.7"):
-        te.initial_state(ts, 3, base_pos0=torch.zeros(3))
+        assert got.robot.base_pos is None and want.robot.base_pos is None
+        _assert_same_leaves(got, want)
+    from handarm_tpu_torch.envs.quadcopter import QuadcopterEnv as TQuad
+    from test_torch_floating import jax_env
+
+    jq, tq = jax_env("quadcopter", str(tmp_path), num_envs=3), TQuad(device="cpu")
+    rng = np.random.default_rng(2)
+    quat = rng.standard_normal(4)
+    for kw in (dict(), dict(q0=np.r_[np.zeros(6), rng.uniform(-0.2, 0.2, 8)]),
+               dict(base_pos0=rng.standard_normal(3), base_quat0=quat / np.linalg.norm(quat)),
+               dict(base_pos0=rng.standard_normal((3, 3)))):
+        kw = {k: np.asarray(v, np.float32) for k, v in kw.items()}
+        want = je.initial_state(jq.scene, 3, **{k: jnp.asarray(v) for k, v in kw.items()})
+        got = te.initial_state(tq.scene, 3, **{k: torch.tensor(v) for k, v in kw.items()})
+        assert got.robot.base_pos.shape == (3, 3) and got.robot.base_quat.shape == (3, 4)
+        _assert_same_leaves(got, want)
 
 
 def physics_state_leaves(s):
@@ -292,6 +306,18 @@ def physics_state_leaves(s):
 def _jax_leaves(s):
     return [np.asarray(x) for x in (s.robot.q, s.robot.qd, s.robot.targets, *s.objects,
                                     s.contact_impulse)]
+
+
+def _assert_same_leaves(got, want):
+    """Every leaf of a port PhysicsState equal, dtype and all, to the JAX
+    state's (None fields absent on both sides)."""
+    g = [x for x in (*got.robot, *got.objects, got.contact_impulse) if x is not None]
+    w = [np.asarray(x) for x in (*want.robot, *want.objects, want.contact_impulse)
+         if x is not None]
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert a.numpy().dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 # path -> (SimParams / SolverParams keywords, how the two sim steps are run)

@@ -3,8 +3,11 @@
 
 For the slots of the two UR5+SIH scenes, with the hand's collision
 spheres and with the arm's as well (`hand_only_collision=False`: 190 and
-456 slots, 17 dof masks), and of a random scene with an arbitrary set of
-dof masks, the tables must list every robot slot under
+456 slots, 17 dof masks), of the classic tasks' floating-base craft with
+no objects (K = 0, no object sides: the Quadcopter's 4 rotor-arm slots in
+4 masks of 7 dofs, the 6 base dofs and the arm's pitch hinge; Ingenuity's
+8 chassis slots in one mask of the 6 base dofs), and of a random scene
+with an arbitrary set of dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
 (side, object) bin, in ascending slot order. A torch emulation of the
 kernels' data flow, written here and reading only those tables (link
@@ -28,8 +31,11 @@ from handarm_tpu_torch.physics.solver import build_slot_groups
 
 torch.set_num_threads(1)
 SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
-          "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm"]
+          "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity"]
 ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
+# the craft: (slots, dof masks, dofs)
+CRAFT = {"Quadcopter": (4, [0x3F | 1 << u for u in (6, 8, 10, 12)], 14),
+         "Ingenuity": (8, [0x3F], 8)}
 B = 6
 
 
@@ -44,6 +50,13 @@ def _scene(name):
         anc = ((bits[:, None] >> np.arange(nv)) & 1).astype(np.float32)
         return (torch.tensor(anc), bits, obj_idx, K, (1.0, -1.0),
                 build_slot_groups(bits, obj_idx, K))
+    if name in CRAFT:
+        from handarm_tpu_torch.envs.registry import make_env as make_task
+
+        env, _ = make_task(name, ["num_envs=1"], device="cpu")
+        m = env.scene.maps
+        return (m.anc_slot, m.anc_bits.numpy(), m.obj_idx.numpy(),
+                env.scene.shapes.num_objects, m.signs, m.groups)
     task, _, arm = name.partition(" ")
     env = make_env(task, device="cpu", num_envs=1, use_drop_init=False, randomize=False,
                    hand_only_collision=not arm)
@@ -69,7 +82,9 @@ def test_tables_group_every_slot_once(scene):
     assert all(t.dtype == torch.int32 for t in g)
     assert len(set(link_bits.tolist())) == len(link_bits) and np.all(link_bits != 0)
     assert len(link_bits) <= tsw.MAX_LINKS
-    if name != "random":  # one group per hand link, and per arm link with the arm's spheres
+    if name in CRAFT:  # the base's 6 dofs in every mask
+        assert sorted(link_bits.tolist()) == CRAFT[name][1]
+    elif name != "random":  # one group per hand link, and per arm link with the arm's spheres
         assert len(link_bits) == (17 if name in ARM_SLOTS else 11) <= anc.shape[1]
     links = _lists(g.link_ptr, g.link_slots)
     seen = np.concatenate(links)
@@ -225,6 +240,9 @@ def test_grouped_sweep_matches_plain(scene):
                                    signs, 2, 1.0, apply_warm=True)
     got = emulate_sweep(*args, g, signs, 2, 1.0)
     for out, gt, wt in zip(("qd", "obj", "lam"), got, want):
+        if out == "obj" and K == 0:  # no objects: [6, B, 0] both
+            assert gt.shape == wt.shape == (6, B, 0)
+            continue
         scale = float(wt.abs().max())
         assert scale > 0, out
         err = float((gt - wt).abs().max())
@@ -255,11 +273,17 @@ def test_grouped_deff_matches_plain(scene):
 def test_arm_spheres_within_kernel_limits(scene):
     """The tables pass the kernels' own check (`check_groups`: at most
     MAX_LINKS masks, int32, shapes, list lengths) and the sweep's size
-    limits (C <= 1024, nv <= 31, K <= 8, 2 sides) at the scene's slots,
-    as the card will see them."""
+    limits (C <= 1024, nv <= 31, K <= 8 and K >= 1 with object sides, 2
+    sides) at the scene's slots, as the card will see them: the craft's
+    K = 0 scenes have no sides."""
     name, (anc, bits, obj_idx, K, signs, g) = scene
     C, nv = anc.shape
     tsw.check_groups(g, C, torch.device("cpu"), name, bins=(len(signs), K))
     assert C <= 1024 and nv <= 31 and K <= 8 and len(signs) <= 2
+    if name in CRAFT:
+        assert (C, K, len(signs), nv) == (CRAFT[name][0], 0, 0, CRAFT[name][2])
+        assert tuple(g.obj_ptr.shape) == (1,) and g.obj_slots.numel() == 0
+    else:
+        assert K >= 1
     if name in ARM_SLOTS:
         assert C == ARM_SLOTS[name]
