@@ -7,7 +7,8 @@ Phases, each with a deadline and one flushed progress line:
   1. device    CUDA must be present; prints the card's name and power limit.
   2. build     compiles the kernels in handarm_tpu_torch/csrc (one nvcc per
                source, all started together, then one link) and prints each
-               kernel's registers, spills and shared memory (-Xptxas -v).
+               kernel's registers, spills and shared memory (-Xptxas -v);
+               spd_inverse_warp_kernel<27> must spill nothing.
   3. rollout   Ur5SihLift at 8192 envs on the in-repo stand-in robot, policy
                docs/evidence/lift_r3a/ckpt_5200.npz, reset + 31 deterministic
                policy-in-the-loop control steps; every state leaf must stay
@@ -99,9 +100,9 @@ Phases, each with a deadline and one flushed progress line:
                actions from a numpy seed. Then the user's entry point at
                full width for one iteration, `train.main` in this process
                (`python -m handarm_tpu_torch.train task=Ur5SihThrow
-               env.num_envs=8192 max_iterations=1` once started; other
-               phases start the module in a process of its own): its
-               checkpoint and launches 16 / 96.
+               env.num_envs=8192 max_iterations=1` once started; only
+               classic-entry, ddp, pbt and bench start a module in a
+               process of its own): its checkpoint and launches 16 / 96.
  13. multiobj-train  Ur5SihMultiObjectManipulation as `train.py` composes
                it (16 sweeps; minibatch 32768 and every switch of its train
                yaml: 4 minibatches x 4 mini-epochs) at 8192 envs, on the
@@ -141,8 +142,9 @@ Phases, each with a deadline and one flushed progress line:
                (`eval_policy --student`, teacher ckpt_5200) at 8192 envs,
                as phase 10: at least 8,192 episodes; launches per step 1
                spd_inverse and 6 contact_sweep.
- 19. distill-entry  the user's entry points, each in its own process:
-               `python -m handarm_tpu_torch.train_distill --teacher
+ 19. distill-entry  the user's entry points, each as its main() in this
+               process (the command once started): `python -m
+               handarm_tpu_torch.train_distill --teacher
                ckpt_5200 --envs 8192 --iters 1` must write student.npz (18
                finite leaves) and metrics; `python -m
                handarm_tpu_torch.eval_policy --student` of that file at
@@ -287,7 +289,8 @@ Phases, each with a deadline and one flushed progress line:
                bounds.
  36. stretch-train  `python -m handarm_tpu_torch.train task=StretchLift
                resume=docs/evidence/stretch_r5d/ckpt_4000.npz
-               max_iterations=4002` in its own process at the yaml's 1,024
+               max_iterations=4002` as its main() in this process at the
+               yaml's 1,024
                envs (ckpt_4000's own): the whole TrainState resumed, 2
                iterations, ckpt_4002.npz read back (69 leaves, 100 slots);
                then StretchMultiObjectManipulation at 8192 envs from a
@@ -408,8 +411,39 @@ Phases, each with a deadline and one flushed progress line:
                env.num_envs=8192 max_iterations=2` in its own process;
                its ckpt_2.npz (61 leaves: the QuadState's 14 with the
                floating base's pose) read whole here with the task's
-               config and written back leaf for leaf. (Phases 45-48 run
-               after phase 37, before phase 42.)
+               config and written back leaf for leaf; then the Cartpole's
+               entry point at 512 envs for 2 iterations, `train.main` in
+               this process (launches 32 / 0 / 0 / 0 per iteration), its
+               checkpoint (the ClassicState's 4 leaves) read whole and
+               written back.
+ 49. ant       the Ant as `train.py` composes it (configs/task/Ant.yaml,
+               configs/train/AntPPO.yaml: 256-128-64, horizon 16,
+               minibatch 32768) at IsaacGymEnvs' 4096 envs, on the in-repo
+               stand-in (nv 14, 37 contact slots against the ground, K =
+               0): one warm-up and 1 timed train iteration from a fresh
+               init, launches per iteration exactly as the code predicts
+               (`per_step_launches` x horizon: 16 / 32 / 0 / 0), 31
+               deterministic serving steps through `PPO.act` (1 / 2 / 0 / 0
+               per step) with every kernel call kept; on the step with the
+               most envs standing on their feet (the feet's vertical force
+               over half the weight; at least 1/32 of the envs),
+               spd_inverse (n = 14) to n cond eps of
+               each matrix (`check_spd_craft`) and the step's last sweep
+               call (captured, dense and robot cases, and against float64)
+               against their plain versions, timed beside their bounds and
+               torch.linalg.inv; then card vs CPU at 16 of those standing
+               envs (impulses in every one): 2 env steps with the learner's
+               actions and the same draws, q and base position within
+               2e-4, observations within 2e-3, each times max(1, scale).
+ 50. humanoid  the Humanoid as phase 49 (400-200-100, horizon 32: 32 / 64
+               / 0 / 0 per iteration; nv 27, 51 slots): spd_inverse at n =
+               27 through the warp-per-matrix kernel.
+ 51. cartpole  the Cartpole as phase 49 at its 512 envs (64-64,
+               minibatch 2048; no contacts: 2 / 0 / 0 / 0 per step, the
+               dynamics twice a step), spd_inverse at n = 2 on its last
+               serving step, and card vs CPU from a fresh reset. (Phases
+               45-47 and 49-51 run after phase 37, then 48, before phase
+               42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -426,7 +460,8 @@ each kernel's launches on the camera paths under its "camera" key in
 "kernels"), the benchmark entry's under "bench", the parallel layer's
 under "parallel" (and each kernel's launches there under its "parallel"
 key in "kernels"), the classic tasks' under "classic" (and each kernel's
-launches and checks on the craft under its "classic" key in "kernels");
+launches and checks on the craft, the Ant, the Humanoid and the Cartpole
+under its "classic" key in "kernels");
 the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
@@ -462,7 +497,8 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "stretch-train": 300, "stretch-eval": 240, "camera": 240,
                     "camera-ref": 180, "camera-distill": 240, "bench": 240, "ddp": 330,
                     "pbt": 240, "actor-learner": 180, "quad": 240, "quad-ref": 120,
-                    "ingenuity": 240, "classic-entry": 240}
+                    "ingenuity": 240, "ant": 240, "humanoid": 300, "cartpole": 180,
+                    "classic-entry": 240}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -1664,37 +1700,35 @@ def run_module(module: str, args: list[str], tag: str, timeout: int, tail: int =
     return seconds, out
 
 
-def entry_subprocess(args: list[str], out: str, tag: str, timeout: int,
-                     n_leaves: int = 71) -> dict:
-    """`python -m handarm_tpu_torch.train ARGS` in its own process
-    (`run_module`); it must write the checkpoint `out`, `n_leaves` finite
-    leaves (71 for the MLP learner without DR or ADR).
-    Returns its seconds and its last iteration's kl, KL-guard flag and
-    reward_mean."""
-    import numpy as np
+def run_main(module: str, args: list[str], tag: str, tail: int = 12):
+    """`python -m MODULE ARGS` as its `main(ARGS)` in this process: the
+    user's command once started (no process start, no second CUDA context,
+    the kernel library already loaded), its standard output captured and
+    its last `tail` lines indented here. Returns (seconds, its standard
+    output), as `run_module`."""
+    import importlib
+    import io
 
-    from handarm_tpu_torch.utils.checkpoint import read_leaves
-
-    seconds, _ = run_module("handarm_tpu_torch.train", args, tag, timeout)
-    leaves = read_leaves(out)
-    if len(leaves) != n_leaves or not all(np.isfinite(x).all() for x in leaves
-                                    if np.issubdtype(x.dtype, np.floating)):
-        raise AssertionError(f"{tag}: bad checkpoint {out}")
-    metrics = os.path.join(os.path.dirname(os.path.dirname(out)), "metrics.jsonl")
-    with open(metrics) as f:
-        last = json.loads(f.read().splitlines()[-1])
-    log(f"{tag}: wrote {out}; its last iteration: kl {last['kl']:.5f}, kl_guard "
-        f"{last['kl_guard_triggered']:.0f}, reward_mean {last['reward_mean']:.5f}")
-    return dict(seconds=seconds, kl=last["kl"], kl_guard=last["kl_guard_triggered"],
-                reward_mean=last["reward_mean"])
+    mod = importlib.import_module(module)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        mod.main(list(args))
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines()[-tail:]:
+        log(f"  | {line}")
+    log(f"{tag}: `python -m {module} {' '.join(args)}` as its main() in this process in "
+        f"{seconds:.1f} s (env build and reset included)")
+    return seconds, out
 
 
 def entry_in_process(rollout, args: list[str], out: str, tag: str, dev, per_iter: dict,
                      iters: int, n_leaves: int | None = 71) -> dict:
     """`handarm_tpu_torch.train.main(ARGS)` in this process, as a user's
     `python -m handarm_tpu_torch.train ARGS` runs it once started (the
-    script starts the module in a process of its own in stretch-train,
-    classic-entry, ddp and pbt), its standard output captured and its last
+    script starts a module in a process of its own in classic-entry, ddp,
+    pbt and bench), its standard output captured and its last
     lines indented here. It must write the checkpoint `out` (with
     `n_leaves` finite leaves; None: any count) and launch exactly
     `per_iter` per iteration for its `iters` iterations. Returns its
@@ -1990,9 +2024,9 @@ def distill_entry_phase(rollout) -> dict:
 
     ckpt = os.path.relpath(rollout.TASK_CKPTS["Ur5SihLift"])
     out = os.path.join("runs", "chip_smoke_distill")
-    train_s, _ = run_module("handarm_tpu_torch.train_distill", [
+    train_s, _ = run_main("handarm_tpu_torch.train_distill", [
         "--teacher", ckpt, "--envs", str(ENVS), "--iters", str(DISTILL_ENTRY_ITERS),
-        "--out", out, "--seed", "1"], "distill entry point", 150)
+        "--out", out, "--seed", "1"], "distill entry point")
     with np.load(os.path.join(out, "student.npz")) as data:
         leaves = [data[k] for k in data.files]
     with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -2000,9 +2034,9 @@ def distill_entry_phase(rollout) -> dict:
     if len(leaves) != 18 or not all(np.isfinite(x).all() for x in leaves) \
             or row["step"] != DISTILL_ENTRY_ITERS:
         raise AssertionError(f"distill entry point: bad output in {out}")
-    eval_s, stdout = run_module("handarm_tpu_torch.eval_policy", [
+    eval_s, stdout = run_main("handarm_tpu_torch.eval_policy", [
         "--student", os.path.join(out, "student.npz"), "--teacher", ckpt, "--envs", str(ENVS),
-        "--steps", "10", "--episode-length", "5"], "student eval entry point", 150)
+        "--steps", "10", "--episode-length", "5"], "student eval entry point")
     res = json.loads(stdout.strip().splitlines()[-1])
     if res["episodes"] != 2 * ENVS:
         raise AssertionError(f"student eval entry point: {res['episodes']} episodes, "
@@ -2917,17 +2951,22 @@ def stretch_train_phase(rollout, dev) -> dict:
     """Phase 36 (see the module docstring)."""
     from handarm_tpu_torch.envs.registry import resolve_task
     from handarm_tpu_torch.learn.ppo import PPO, ppo_config
-    from handarm_tpu_torch.utils.checkpoint import file_contact_slots, load_train_state
+    from handarm_tpu_torch.utils.checkpoint import (
+        file_contact_slots,
+        load_train_state,
+        wait_for_pending_saves,
+    )
 
     ckpt = os.path.relpath(rollout.TASK_CKPTS[STRETCH_TASK])
     step = int(os.path.basename(ckpt)[5:-4]) + STRETCH_ENTRY_ITERS
     run = os.path.join("runs", "chip_smoke_stretch")
     shutil.rmtree(run, ignore_errors=True)
     out_path = os.path.join(run, "nn", f"ckpt_{step}.npz")
-    seconds, stdout = run_module(
+    seconds, stdout = run_main(
         "handarm_tpu_torch.train", [f"task={STRETCH_TASK}", f"resume={ckpt}",
                                     f"max_iterations={step}", "experiment=chip_smoke_stretch"],
-        "stretch entry point", PHASE_DEADLINE_S["stretch-train"] // 2)
+        "stretch entry point")
+    wait_for_pending_saves()
     cfg, _ = resolve_task(STRETCH_TASK)
     ts = load_train_state(out_path, env_cfg=cfg)
     check_learner(ts, "stretch entry point")
@@ -2979,10 +3018,11 @@ def stretch_phases(rollout, dev, ops) -> tuple:
     return rec, kernels
 
 
-# the classic tasks (phases 45-48): task -> (envs, timed train iterations
-# after the warm-up); 8192 and 4096 are IsaacGymEnvs' cfg/task numEnvs
-CLASSIC = {"Quadcopter": (8192, 2), "Ingenuity": (4096, 1)}
-CLASSIC_PER_STEP = {"spd_inverse": 1, "contact_sweep": 2, "prep_deff": 0, "sdf_gather": 0}
+# the classic tasks (phases 45-51): task -> (envs, timed train iterations
+# after the warm-up); 8192, 4096 and 512 are IsaacGymEnvs' cfg/task numEnvs
+CLASSIC = {"Quadcopter": (8192, 2), "Ingenuity": (4096, 1), "Ant": (4096, 1),
+           "Humanoid": (4096, 1), "Cartpole": (512, 1)}
+LOCOMOTION = ("Ant", "Humanoid")
 CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
 CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
 CLASSIC_ENTRY_ITERS = 2
@@ -3142,7 +3182,8 @@ def classic_phase(rollout, dev, ops, task: str) -> tuple:
         f"slots, K = 0, obs {env.num_obs}, actions {env.num_actions}, "
         f"{env.scene.params.solver.iterations} sweeps; learner hidden {ppo.cfg.hidden}, "
         f"horizon {ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}")
-    per_iter = {k: v * ppo.cfg.horizon for k, v in CLASSIC_PER_STEP.items()}
+    per_step = per_step_launches(env)
+    per_iter = {k: v * ppo.cfg.horizon for k, v in per_step.items()}
     rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
                                tag=f"{task} train")
     rollout.reset_launch_counts()
@@ -3155,7 +3196,7 @@ def classic_phase(rollout, dev, ops, task: str) -> tuple:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
-    check_launches(counts, CLASSIC_PER_STEP, CLASSIC_SERVE_STEPS + 1, f"{task} serve")
+    check_launches(counts, per_step, CLASSIC_SERVE_STEPS + 1, f"{task} serve")
     finite_state(tree_map, state, res.obs)
     sps = envs * CLASSIC_SERVE_STEPS / seconds
     log(f"{task} serve: {CLASSIC_SERVE_STEPS} deterministic steps in {seconds:.3f} s = "
@@ -3163,7 +3204,7 @@ def classic_phase(rollout, dev, ops, task: str) -> tuple:
         f"episodes done {int(res.done.sum())}, mean reward {float(res.reward.mean()):.4f}")
     rec["serve"] = dict(envs=envs, steps=CLASSIC_SERVE_STEPS, seconds=seconds,
                         env_steps_per_s=sps, launches=counts,
-                        launches_per_step=CLASSIC_PER_STEP)
+                        launches_per_step=per_step)
     rec["kernels"] = classic_kernels(env, ops, dev, task)
     return rec, ppo, ts
 
@@ -3210,8 +3251,222 @@ def classic_entry_phase() -> dict:
                 reward_mean=last["reward_mean"])
 
 
+def per_step_launches(env) -> dict:
+    """Each kernel's launches per env step as the env's code predicts them:
+    an engine-backed env (the craft, the locomotion robots) runs one sim
+    step of `substeps` anchored substeps (spd_inverse once, the sweep once
+    a substep; K = 0 and B * C < 2^21: no SDF query, no deff kernel); the
+    Cartpole's contact-free step runs the dynamics `substeps *
+    control_freq_inv` times and nothing else."""
+    if hasattr(env, "scene"):
+        if not (env.scene.shapes.num_objects == 0 and env.cfg.num_envs
+                * env.scene.slots.num_slots < 2 ** 21):
+            raise AssertionError("a classic scene outside the predicted launches")
+        return {"spd_inverse": 1, "contact_sweep": env.scene.params.substeps, "prep_deff": 0,
+                "sdf_gather": 0}
+    return {"spd_inverse": env.cfg.substeps * env.cfg.control_freq_inv, "contact_sweep": 0,
+            "prep_deff": 0, "sdf_gather": 0}
+
+
+def weight_carried(env, state):
+    """[B] bool: the feet carry half the robot's weight (the summed vertical
+    contact force of the env's foot bodies over 0.5 m g)."""
+    m = float(env.scene.model.mass.sum())
+    return state.feet_force[..., 2].sum(-1) > 0.5 * m * 9.81
+
+
+def locomotion_phase(rollout, dev, ops, task: str) -> tuple:
+    """Phases 49-51 (Ant, Humanoid, Cartpole): the task composed as train.py
+    composes it at IsaacGymEnvs' env count, on the in-repo stand-in, its
+    learner at full width from a fresh init (`timed_iterations`: launches
+    per iteration exactly `per_step_launches` x horizon), 31 deterministic
+    serving steps through `PPO.act` with every kernel call kept, and the
+    kernel checks on the serving step whose state has the most envs
+    standing on their feet (`weight_carried`; at least 1/32 of the envs:
+    the Humanoid stand-in's joints have no stiffness, and under a fresh
+    policy its feet carry the weight only for the few steps after it
+    lands): spd_inverse at
+    n = 6 + joints and the sweep's last call of that step against their
+    plain versions (`check_spd_craft`, `check_sweep(f64=True)`); the
+    Cartpole's spd_inverse (n = 2) on its last step. Then card vs CPU at 16
+    envs (`locomotion_ref`). Returns the record."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    envs, iters = CLASSIC[task]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    per_step = per_step_launches(env)
+    legged = task in LOCOMOTION
+    C = env.scene.slots.num_slots if legged else 0
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {C} contact slots, K = 0, obs "
+        f"{env.num_obs}, actions {env.num_actions}; learner hidden {ppo.cfg.hidden}, horizon "
+        f"{ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}; launches "
+        f"per step {per_step}")
+    per_iter = {k: v * ppo.cfg.horizon for k, v in per_step.items()}
+    rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
+                               tag=f"{task} train")
+    rollout.reset_launch_counts()
+    state, obs = env.reset(1)
+    state, res = env.step(state, ppo.act(ts, obs))
+    standing, states = [], []
+    with Capture(ops) as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(CLASSIC_SERVE_STEPS):
+            cap.armed = legged or i == CLASSIC_SERVE_STEPS - 1
+            state, res = env.step(state, ppo.act(ts, res.obs))
+            if cap.armed and legged:
+                standing.append(weight_carried(env, state).sum())
+                states.append(state)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = rollout.launch_counts()
+    check_launches(counts, per_step, CLASSIC_SERVE_STEPS + 1, f"{task} serve")
+    finite_state(tree_map, state, res.obs)
+    sps = envs * CLASSIC_SERVE_STEPS / seconds
+    log(f"{task} serve: {CLASSIC_SERVE_STEPS} deterministic steps in {seconds:.3f} s = "
+        f"{sps:.0f} env-steps/s (every kernel call kept); launches {counts} "
+        f"over {CLASSIC_SERVE_STEPS + 1} steps; episodes done {int(res.done.sum())}, mean "
+        f"reward {float(res.reward.mean()):.4f}")
+    rec["serve"] = dict(envs=envs, steps=CLASSIC_SERVE_STEPS, seconds=seconds,
+                        env_steps_per_s=sps, launches=counts, launches_per_step=per_step)
+    spd_calls = cap.calls["spd"]
+    kern = {}
+    if legged:
+        stood = [int(x) for x in standing]
+        best = stood.index(max(stood))
+        log(f"{task}: envs whose feet carry half the weight at serving steps "
+            f"1-{CLASSIC_SERVE_STEPS}: {stood}; the kernels' inputs from step {best + 1}")
+        if max(stood) < envs // 32:
+            raise AssertionError(f"{task}: the feet carry the weight in too few envs")
+        kept = states[best]
+        del states
+        M = spd_calls[best][0][0]
+        sweep_call = cap.calls["sweep"][per_step["contact_sweep"] * (best + 1) - 1]
+        lam = sweep_call[0][6]
+        pushed = int((lam.abs().sum(0).sum(-1) > 0).sum())
+        log(f"{task}: {pushed} of {envs} envs with warm-start impulses in the checked solve")
+        kern["spd_inverse"] = check_spd_craft(spd_op, M, dev, f"{task} standing")
+        kern["contact_sweep"] = check_sweep(sweep_op, sweep_call, env.scene.maps,
+                                            f"{task} standing", f64=True)
+        kern["contact_sweep"].update(envs_standing=max(stood), envs_pushed=pushed)
+        rec["ref"] = locomotion_ref(task, ppo, ts, dev, env, kept)
+    else:
+        kern["spd_inverse"] = check_spd_craft(spd_op, spd_calls[-1][0][0], dev, task)
+        rec["ref"] = locomotion_ref(task, ppo, ts, dev, env, None)
+    rec["kernels"] = kern
+    del cap
+    return rec
+
+
+def locomotion_ref(task: str, ppo, ts, dev, env_g_full, kept) -> dict:
+    """Card vs CPU at 16 envs, the same inputs on both sides: 2 env steps with
+    the trained learner's deterministic actions (on the CPU) and the same
+    reset draws; the locomotion robots from 16 of the serving envs whose
+    feet carry the weight (`kept`, clocks zeroed: impulses in every env),
+    the Cartpole from a fresh reset. q (and the base position) within
+    2e-4, observations within 2e-3, each times max(1, the CPU value's
+    largest) (PERF.md section 2)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO
+
+    cfg, _ = resolve_task(task, ["env.num_envs=16"])
+    env_c, env_g = build_env(cfg, "cpu"), build_env(cfg, dev)
+    to = lambda x, d: tree_map(lambda t: t.to(d), x)
+    learner = PPO(env_c, ppo.cfg, device="cpu")
+    ts_c = ts._replace(params={k: v.cpu() for k, v in ts.params.items()},
+                       obs_stats=to(ts.obs_stats, "cpu"))
+    if kept is not None:
+        idx = torch.nonzero(weight_carried(env_g_full, kept)).flatten()[:16]
+        state_c = tree_map(lambda t: t[idx].cpu(), kept)
+        state_c = state_c._replace(progress=torch.zeros_like(state_c.progress))
+        obs_c = env_c._obs(state_c)
+    else:
+        state_c, obs_c = env_c.reset(3)
+    state_g = to(state_c, dev)
+    pushed = [int((state_c.physics.contact_impulse.abs().sum((1, 2)) > 0).sum())] \
+        if kept is not None else []
+    for _ in range(2):
+        a, d = learner.act(ts_c, obs_c), env_c.draw(16)
+        state_c, res_c = env_c.step(state_c, a, d)
+        state_g, res_g = env_g.step(state_g, a.to(dev), to(d, dev))
+        obs_c, obs_g = res_c.obs, res_g.obs
+        if kept is not None:
+            pushed.append(int((state_c.physics.contact_impulse.abs().sum((1, 2)) > 0).sum()))
+    pairs = [("obs", obs_g, obs_c, 2e-3)]
+    if kept is not None:
+        r_g, r_c = state_g.physics.robot, state_c.physics.robot
+        pairs += [("q", r_g.q, r_c.q, 2e-4), ("base_pos", r_g.base_pos, r_c.base_pos, 2e-4)]
+    else:
+        pairs += [("q", state_g.q, state_c.q, 2e-4)]
+    rec = {}
+    for name, g, c, tol in pairs:
+        scale = max(1.0, float(c.abs().max()))
+        rec[name] = dict(err=float((g.cpu() - c).abs().max()), scale=scale, tol=tol * scale)
+    log(f"{task}-ref: 16 envs, 2 steps" + (f", envs with impulses {pushed}" if pushed else "")
+        + "; " + ", ".join(f"max|{k} gpu-cpu| {v['err']:.3e} (scale {v['scale']:.3e})"
+                           for k, v in rec.items()))
+    if not all(v["err"] <= v["tol"] for v in rec.values()):
+        raise AssertionError(f"the card's run disagrees with the CPU reference ({task}-ref)")
+    if not bool(torch.isfinite(obs_g).all()) or (kept is not None and pushed[0] < 16):
+        raise AssertionError(f"bad card run or an env off the ground ({task}-ref)")
+    return dict(envs_with_impulses=pushed, **rec)
+
+
+def cartpole_entry(rollout, dev) -> dict:
+    """Phase 48's second entry point, `train.main` in this process (`python
+    -m handarm_tpu_torch.train task=Cartpole env.num_envs=512
+    max_iterations=2` once started): launches 32 / 0 / 0 / 0 per iteration,
+    its ckpt_2.npz (the ClassicState's 4 leaves) read whole with the task's
+    config and written back leaf for leaf."""
+    import numpy as np
+
+    from handarm_tpu_torch.convert import train_state_to_leaves
+    from handarm_tpu_torch.envs.classic import ClassicState
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import ppo_config
+    from handarm_tpu_torch.utils.checkpoint import load_train_state, read_leaves
+
+    envs = CLASSIC["Cartpole"][0]
+    run = os.path.join("runs", "chip_smoke_cartpole")
+    shutil.rmtree(run, ignore_errors=True)
+    out = os.path.join(run, "nn", f"ckpt_{CLASSIC_ENTRY_ITERS}.npz")
+    cfg, over = resolve_task("Cartpole", [f"env.num_envs={envs}"])
+    pcfg = ppo_config(over)
+    per_iter = {"spd_inverse": 2 * pcfg.horizon, "contact_sweep": 0, "prep_deff": 0,
+                "sdf_gather": 0}
+    rec = entry_in_process(rollout, ["task=Cartpole", f"env.num_envs={envs}",
+                                     f"max_iterations={CLASSIC_ENTRY_ITERS}",
+                                     "experiment=chip_smoke_cartpole"], out,
+                           "cartpole entry point", dev, per_iter, CLASSIC_ENTRY_ITERS, None)
+    del rec["stdout"]
+    leaves = read_leaves(out)
+    ts = load_train_state(out, "cuda", cfg=pcfg, env_cfg=cfg)
+    back = train_state_to_leaves(ts, seed=42, cfg=pcfg, env_cfg=cfg)
+    same = len(back) == len(leaves) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        for a, b in zip(back, leaves))
+    log(f"cartpole entry point: {len(leaves)} leaves read whole as a "
+        f"{type(ts.env_state).__name__} of {ts.last_obs.shape[0]} envs, epoch {int(ts.epoch)}, "
+        f"written back {'leaf for leaf' if same else 'DIFFERENT'}")
+    if not (same and isinstance(ts.env_state, ClassicState) and int(ts.epoch) == CLASSIC_ENTRY_ITERS
+            and ts.last_obs.shape[0] == envs):
+        raise AssertionError("cartpole entry point: its checkpoint does not read back whole")
+    return dict(rec, leaves=len(leaves))
+
+
 def classic_phases(rollout, dev, ops) -> tuple:
-    """Phases 45-48: (their record, each kernel's classic record)."""
+    """Phases 45-51: (their record, each kernel's classic record)."""
     rec, kernels = {}, {}
     for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
         name = "quad" if task == "Quadcopter" else "ingenuity"
@@ -3223,8 +3478,12 @@ def classic_phases(rollout, dev, ops) -> tuple:
             with phase(ref):
                 rec[task]["ref"] = classic_ref(task, ppo, ts, dev)
         del ppo, ts
+    for task in ("Ant", "Humanoid", "Cartpole"):
+        with phase(task.lower()):
+            rec[task] = locomotion_phase(rollout, dev, ops, task)
+    for task in CLASSIC:
         per_iter = rec[task]["launches_per_iteration"]
-        for k in CLASSIC_PER_STEP:
+        for k in per_iter:
             entry = dict(path=f"{task} at {CLASSIC[task][0]} envs",
                          launches_per_iteration=per_iter[k],
                          launches_serve=rec[task]["serve"]["launches"][k])
@@ -3232,6 +3491,7 @@ def classic_phases(rollout, dev, ops) -> tuple:
             kernels.setdefault(k, {})[task] = entry
     with phase("classic-entry"):
         rec["entry_point"] = classic_entry_phase()
+        rec["entry_point"]["Cartpole"] = cartpole_entry(rollout, dev)
     return rec, kernels
 
 
@@ -3905,6 +4165,8 @@ def bench_phase(rollout, dev) -> dict:
     from handarm_tpu_torch.envs.hand_arm import tree_map
 
     ckpt = os.path.relpath(rollout.TASK_CKPTS["Ur5SihLift"])
+    # in a process of its own: its env-steps/s run 40 % lower as main() in
+    # this process after the phases before it (PERF.md section 6)
     seconds, stdout = run_module("handarm_tpu_torch.bench",
                                  ["--envs", str(ENVS), "--policy", ckpt], "bench",
                                  PHASE_DEADLINE_S["bench"] - 60)
@@ -3957,12 +4219,19 @@ def main() -> int:
         build.library()
         log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds}) "
             f"-> {build.BUILD_ROOT / build.source_digest()}")
-        for line in ptxas_summary(build.ptxas_report()):
+        ptxas = ptxas_summary(build.ptxas_report())
+        for line in ptxas:
             log(line)
-        # the classic tasks' solves: C = 4 (Quadcopter) and 8 (Ingenuity)
-        # slots take blocks of 64 threads, the <128, 6> instance
-        log("classic: contact_sweep at C = 4 and 8 (K = 0, no object sides) launches "
-            "contact_sweep_kernel<128, 6>; spd_inverse at n = 14 and 8 its <14> and <8>")
+        # the n = 27 layout holds three rows a lane in registers: no spill
+        warp27 = [x for x in ptxas if "spd_inverse_warp_kernel<27>" in x]
+        if len(warp27) != 1 or "0 bytes spill stores" not in warp27[0]:
+            raise AssertionError(f"spd_inverse_warp_kernel<27> spills or is missing: {warp27}")
+        # the classic tasks' solves: C = 4 (Quadcopter), 8 (Ingenuity), 37
+        # (Ant) and 51 (Humanoid) slots take blocks of 64 threads, the
+        # <128, 6> instance
+        log("classic: contact_sweep at C = 4, 8, 37 and 51 (K = 0, no object sides) launches "
+            "contact_sweep_kernel<128, 6>; spd_inverse at n = 14, 8 and 2 its <14>, <8> and "
+            "<2>, at n = 27 spd_inverse_warp_kernel<27> (a warp per matrix)")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis

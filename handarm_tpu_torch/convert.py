@@ -21,13 +21,16 @@ to write checkpoints its loader reads.
   is dropped on the way in: the port draws from a torch.Generator. On the
   way out it is written as the JAX file has it, a [2] uint32 key from the
   seed (`jax.random.PRNGKey(seed)`'s value).
-- A classic task's state (QuadState, IngenuityState) flattens as the JAX
-  package's: the physics with the floating base's pose (q, qd, targets,
-  base_pos, base_quat, then the K = 0 objects' [B, 0, ...] leaves and the
-  impulses; `tau_ext` is None between steps and drops out), the task's
-  own fields (the progress as int32), then its PRNG key last: 14 leaves
-  for the Quadcopter, 13 for Ingenuity. Its readers take the env's config
-  (QuadcopterConfig, IngenuityConfig) in place of a HandArmConfig.
+- A classic task's state flattens as the JAX package's: the physics with
+  the floating base's pose (q, qd, targets, base_pos, base_quat, then the
+  K = 0 objects' [B, 0, ...] leaves and the impulses; the craft's
+  `tau_ext` is None between steps and drops out, the locomotion robots'
+  stays, after base_quat), the task's own fields (the progress as int32),
+  then its PRNG key last: 14 leaves for the Quadcopter (QuadState), 13 for
+  Ingenuity, 16 for the Ant and the Humanoid (LocoState); the Cartpole's
+  ClassicState has no physics: q, qd, progress, key. Its readers take the
+  env's config (QuadcopterConfig, IngenuityConfig, ClassicConfig,
+  LocomotionConfig) in place of a HandArmConfig.
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch (71 for the 768-512-256 MLP on the UR5+SIH, 69 on the Stretch),
@@ -50,7 +53,9 @@ import numpy as np
 import torch
 
 from handarm_tpu_torch.envs.adr import AdrState
+from handarm_tpu_torch.envs.classic import ClassicState
 from handarm_tpu_torch.envs.hand_arm import EnvState, HandArmConfig, Metrics, TaskState
+from handarm_tpu_torch.envs.locomotion import LocoState
 from handarm_tpu_torch.envs.registry import CLASSIC_ENVS
 from handarm_tpu_torch.envs.randomization import DRState
 from handarm_tpu_torch.learn import optim
@@ -68,6 +73,9 @@ N_RAND_LEAVES = 6  # of a DRState, and of an AdrState
 OPT_SCALARS = (np.int32, np.bool_, np.int32, np.int32)  # optax's, in its order
 # the classic tasks' env states by their configs
 CLASSIC_STATES = {cfg: env.state_type for cfg, env in CLASSIC_ENVS.items()}
+# the physics leaves of a classic state: a floating base's pose, and the
+# locomotion robots' tau_ext; the Cartpole's state holds no physics
+N_CLASSIC_PHYSICS = {ClassicState: 0, LocoState: N_PHYSICS_LEAVES + 3}
 
 
 def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
@@ -108,12 +116,14 @@ def running_stats_from_leaves(mean, var, count, device="cpu") -> RunningStats:
 
 
 def physics_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> PhysicsState:
-    """A PhysicsState of its 8 leaves, or 10 with a floating base's pose."""
+    """A PhysicsState of its 8 leaves, 10 with a floating base's pose, 11
+    with its tau_ext as well."""
     t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
     x = [t(v) for v in leaves]
-    if len(x) == N_PHYSICS_LEAVES + 2:
-        q, qd, tg, bp, bq, pos, quat, lv, av, imp = x
-        return PhysicsState(RobotState(q, qd, tg, bp, bq), ObjectState(pos, quat, lv, av), imp)
+    if len(x) >= N_PHYSICS_LEAVES + 2:
+        q, qd, tg, bp, bq, *tau, pos, quat, lv, av, imp = x
+        return PhysicsState(RobotState(q, qd, tg, bp, bq, *tau), ObjectState(pos, quat, lv, av),
+                            imp)
     q, qd, tg, pos, quat, lv, av, imp = x
     return PhysicsState(RobotState(q, qd, tg), ObjectState(pos, quat, lv, av), imp)
 
@@ -125,10 +135,17 @@ def physics_state_to_leaves(p: PhysicsState) -> list[np.ndarray]:
     return [f(x) for x in (*p.robot, *p.objects, p.contact_impulse) if x is not None]
 
 
+def classic_physics_leaves(state_type) -> int:
+    """Leaves of a classic task's physics: the craft's floating base (10),
+    the locomotion robots' with tau_ext (11), none (the Cartpole)."""
+    return N_CLASSIC_PHYSICS.get(state_type, N_PHYSICS_LEAVES + 2)
+
+
 def classic_leaf_count(state_type) -> int:
-    """Leaves of a classic task's state: the floating-base physics, its
-    own fields, the PRNG key."""
-    return N_PHYSICS_LEAVES + 2 + len(state_type._fields) - 1 + 1
+    """Leaves of a classic task's state: its physics, its own fields, the
+    PRNG key."""
+    k = classic_physics_leaves(state_type)
+    return k + len(state_type._fields) - (k > 0) + 1
 
 
 def classic_state_from_leaves(leaves: Sequence[np.ndarray], state_type, device="cpu"):
@@ -137,18 +154,22 @@ def classic_state_from_leaves(leaves: Sequence[np.ndarray], state_type, device="
     n = classic_leaf_count(state_type)
     if len(leaves) != n:
         raise ValueError(f"expected {n} {state_type.__name__} leaves, got {len(leaves)}")
-    k = N_PHYSICS_LEAVES + 2
+    k = classic_physics_leaves(state_type)
     own = [torch.tensor(np.asarray(x).astype(
         np.int64 if np.issubdtype(np.asarray(x).dtype, np.integer) else np.float32),
         device=device) for x in leaves[k:-1]]
+    if not k:
+        return state_type(*own)
     return state_type(physics_state_from_leaves(leaves[:k], device), *own)
 
 
 def classic_state_to_leaves(state, seed: int = 0) -> list[np.ndarray]:
     np_ = lambda x: x.detach().cpu().numpy()
+    physics = getattr(state, "physics", None)
     own = [np_(x).astype(np.int32 if not x.is_floating_point() else np.float32)
-           for x in state[1:]]
-    return physics_state_to_leaves(state.physics) + own + [prng_key(seed)]
+           for x in (state[1:] if physics is not None else state)]
+    return ((physics_state_to_leaves(physics) if physics is not None else []) + own
+            + [prng_key(seed)])
 
 
 def control_leaf_count(robot: str) -> int:
@@ -165,9 +186,11 @@ def env_leaf_counts() -> set[int]:
 
 def physics_leaf_count(n_env: int) -> int:
     """The physics leaves of an env state of `n_env` leaves (a classic
-    task's craft has a floating base)."""
-    classic = {classic_leaf_count(s) for s in CLASSIC_STATES.values()}
-    return N_PHYSICS_LEAVES + 2 * (n_env in classic)
+    task's: `classic_physics_leaves`)."""
+    for s in CLASSIC_STATES.values():
+        if classic_leaf_count(s) == n_env:
+            return classic_physics_leaves(s)
+    return N_PHYSICS_LEAVES
 
 
 def env_leaf_count(env_cfg=None) -> int:
@@ -326,7 +349,7 @@ def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
 
 def env_state_to_leaves(state, seed: int = 0, env_cfg=None) -> list[np.ndarray]:
     """The env-state leaves (the UR5+SIH's 24, the Stretch's 22, 6 more for
-    each of DR and ADR; a classic task's 13 or 14) in the JAX package's
+    each of DR and ADR; a classic task's 4, 13, 14 or 16) in the JAX package's
     order and dtypes. Given a HandArmConfig `env_cfg`, the state must hold
     its DR and ADR states, and only those."""
     if type(state) in CLASSIC_STATES.values():

@@ -30,7 +30,24 @@
 // 32 threads at that stride would share banks (196 = 4 mod 32: 8-way; 64:
 // 32-way), so each matrix takes n*n + 1 words of the buffer: the staging
 // is then a coalesced copy of single floats, each placed at its padded
-// offset, in and out.
+// offset, in and out (n = 2 as well).
+//
+// At n = 27 the lower triangle alone is 378 floats, past what one thread
+// can hold in registers (the n = 17 instance takes 191), so that n has a
+// layout of its own (`spd_inverse_warp_kernel`): one warp per matrix, lane
+// i holding row i. The warp's matrix is staged into shared memory with
+// coalesced loads and each lane reads its row at a stride of 27 floats (odd:
+// the 27 lanes fall on 27 banks). Cholesky step j needs row j of L in every
+// lane: its j entries are broadcast from lane j with __shfl_sync, then the
+// pivot's inverse. W = L^-1 goes row by row: at step k lane k's running
+// sums for row k of W are broadcast and scaled by its 1 / L_kk, every lane
+// below subtracts its L_ik times the row (so each W_ir sums over k
+// ascending, as the TPU kernel's forward substitution does), and every
+// lane a adds W_ka times the row to its row of Minv = W^T W (W_ka picked
+// from the broadcast row by a select chain: no second round of shuffles).
+// Each lane holds three rows of 27 floats (L, W's sums, Minv) and shared
+// memory serves only the staging, in and out. Its 756 shuffles a matrix,
+// each carrying one value, bound it (PERF.md section 6).
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -127,6 +144,73 @@ __global__ void __launch_bounds__(kMats)
   }
 }
 
+// One warp per matrix; see the header. N <= 32 and odd (bank spread).
+constexpr int kWarps = 4;  // matrices (= warps) per block of the warp layout
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int N>
+__global__ void __launch_bounds__(32 * kWarps)
+    spd_inverse_warp_kernel(const float* __restrict__ M, float* __restrict__ Minv, int B) {
+  static_assert(N <= 32 && N % 2 == 1, "a lane per row, an odd row stride");
+  constexpr int NN = N * N;
+  __shared__ float S[kWarps][NN];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarps + w;
+  if (b >= B) return;  // the whole warp: no block-wide barrier follows
+  float* Sw = S[w];
+  const float* src = M + (size_t)b * NN;
+  for (int e = lane; e < NN; e += 32) Sw[e] = src[e];
+  __syncwarp();
+
+  const int i = lane;  // the row this lane holds; lanes N..31 carry zeros
+  float R[N];          // row i of M, then of L (the diagonal holds 1 / L_ii)
+#pragma unroll
+  for (int j = 0; j < N; ++j) R[j] = i < N ? Sw[i * N + j] : 0.0f;
+
+  // Cholesky-Crout, column by column, row j of L broadcast from lane j
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float a = R[j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) a = a - R[k] * __shfl_sync(kFull, R[k], j);
+    const float inv = rsqrtf(fmaxf(__shfl_sync(kFull, a, j), 1e-12f));
+    R[j] = i == j ? inv : (i > j ? a * inv : 0.0f);
+  }
+
+  // W = L^-1 row by row and Minv = W^T W with it. Lane k's running sums
+  // are broadcast at step k and scaled by 1 / L_kk in every lane; after
+  // that they are dead, so the lanes update theirs unconditionally.
+  float T[N];  // row i of W: running sums of -L_ik W_kr
+  float G[N];  // row i of Minv
+#pragma unroll
+  for (int r = 0; r < N; ++r) T[r] = G[r] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float dk = __shfl_sync(kFull, R[k], k);  // 1 / L_kk
+    float v[N];  // row k of W (entries 0..k), in every lane
+#pragma unroll
+    for (int r = 0; r < k; ++r) v[r] = __shfl_sync(kFull, T[r], k) * dk;
+    v[k] = dk;
+    float wka = 0.0f;  // W_ki of this lane's column i
+#pragma unroll
+    for (int r = 0; r <= k; ++r) {
+      T[r] = T[r] - R[k] * v[r];
+      wka = i == r ? v[r] : wka;
+    }
+#pragma unroll
+    for (int c = 0; c <= k; ++c) G[c] += wka * v[c];
+  }
+  __syncwarp();
+  if (i < N) {
+#pragma unroll
+    for (int c = 0; c < N; ++c) Sw[i * N + c] = G[c];
+  }
+  __syncwarp();
+  float* dst = Minv + (size_t)b * NN;
+  for (int e = lane; e < NN; e += 32) dst[e] = Sw[e];
+}
+
 }  // namespace
 
 extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
@@ -134,8 +218,17 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
   if (B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const int blocks = (B + kMats - 1) / kMats;
-  switch (n) {  // the n the port runs: the Ingenuity's 8 dofs, the Stretch's 9,
-                // the Quadcopter's 14, the UR5+SIH's 17
+  if (n == 27) {  // the Humanoid's 6 + 21 dofs: a warp per matrix
+    spd_inverse_warp_kernel<27><<<(B + kWarps - 1) / kWarps, 32 * kWarps, 0,
+                                   (cudaStream_t)stream>>>(M, Minv, B);
+    return (int)cudaGetLastError();
+  }
+  switch (n) {  // a thread per matrix: the Cartpole's 2 dofs, the Ingenuity's
+                // 8, the Stretch's 9, the Quadcopter's and the Ant's 14, the
+                // UR5+SIH's 17
+    case 2:
+      spd_inverse_kernel<2><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
     case 8:
       spd_inverse_kernel<8><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;

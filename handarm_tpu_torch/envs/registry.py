@@ -2,7 +2,8 @@
 points build them (counterpart of `make_env`, `env_from_yaml`,
 `_warn_unknown_yaml_keys`, `compose_task`, `register_classic` and
 `all_task_names` of handarm_tpu/envs/registry.py: the UR5+SIH and Stretch
-tasks, and of the classic tasks Quadcopter and Ingenuity).
+tasks, and of the classic tasks Quadcopter, Ingenuity, Cartpole, Ant and
+Humanoid).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -25,9 +26,12 @@ yaml's `env` block < the train yaml's `ppo` block < the overrides, over
 the registry's PPO defaults. `env.`-prefixed or bare keys: `num_envs`
 (512 by default), `episode_length` (500), `subtask` (passed on where the
 factory takes one) and any other field of the env's config dataclass
-(an unknown one raises TypeError); `ppo.<field>=` keys. The JAX
-package's other classic tasks are not ported: naming one raises
-NotImplementedError (ROADMAP §1.7).
+(an unknown one raises TypeError); `ppo.<field>=` keys. Cartpole's
+`urdf=` and the Ant's `mjcf=` take another asset; the Humanoid's factory
+sets its own MJCF and refuses `mjcf=` (TypeError), as the JAX package's
+does, so another Humanoid asset comes through `dataclasses.replace` of its
+config. The JAX package's other classic tasks are not ported: naming one
+raises NotImplementedError (ROADMAP §1.7).
 
 Each function has a `*_config` form that stops at the env's config (a
 HandArmConfig, or a classic task's config dataclass) and the PPO
@@ -44,8 +48,15 @@ import os
 
 from handarm_tpu_torch.envs.adr import AdrConfig
 from handarm_tpu_torch.envs.camera import CameraConfig
+from handarm_tpu_torch.envs.classic import CartpoleEnv, ClassicConfig, cartpole_config
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
 from handarm_tpu_torch.envs.ingenuity import IngenuityConfig, IngenuityEnv
+from handarm_tpu_torch.envs.locomotion import (
+    LocomotionConfig,
+    LocomotionEnv,
+    ant_config,
+    humanoid_config,
+)
 from handarm_tpu_torch.envs.quadcopter import QuadcopterConfig, QuadcopterEnv
 from handarm_tpu_torch.envs.randomization import DRConfig, NoiseSpec
 from handarm_tpu_torch.envs.tasks import TASKS
@@ -68,15 +79,16 @@ _KNOWN_YAML_KEYS = {
 # env's config dataclass, default PPO overrides)
 CLASSIC_TASKS: dict = {}
 # the env class of each classic config
-CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv}
+CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv,
+                ClassicConfig: CartpoleEnv, LocomotionConfig: LocomotionEnv}
 # the JAX package's classic tasks the port does not have yet
 UNPORTED_CLASSIC = (
     "AllegroHand", "AllegroHandADR", "AllegroHandDextremeADR", "AllegroHandManualDR",
     "AllegroKuka", "AllegroKukaRegrasping", "AllegroKukaReorientation", "AllegroKukaThrow",
     "AllegroKukaTwoArms", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArmsReorientation",
-    "Ant", "Anymal", "AnymalTerrain", "BallBalance", "Cartpole", "FactoryTaskGears",
+    "Anymal", "AnymalTerrain", "BallBalance", "FactoryTaskGears",
     "FactoryTaskInsertion", "FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
-    "FactoryTaskNutBoltScrew", "FrankaCabinet", "FrankaCubeStack", "Humanoid", "HumanoidAMP",
+    "FactoryTaskNutBoltScrew", "FrankaCabinet", "FrankaCubeStack", "HumanoidAMP",
     "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert", "ShadowHand",
     "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM", "Trifinger",
 )
@@ -99,6 +111,17 @@ _CRAFT_PPO = dict(hidden=(256, 256, 128), horizon=16, minibatch_size=16384, gamm
 register_classic("Quadcopter", lambda num_envs, episode_length, **kw: QuadcopterConfig(
     num_envs=num_envs, episode_length=episode_length, **kw), dict(_CRAFT_PPO))
 register_classic("Ingenuity", _ingenuity_config, dict(_CRAFT_PPO))
+register_classic("Cartpole", cartpole_config,
+                 dict(hidden=(64, 64), reward_scale=1.0, minibatch_size=2048))
+# reference cfg/train/AntPPO.yaml: units [256,128,64], gamma 0.99, tau 0.95,
+# lr 3e-4 adaptive kl 0.008, horizon 16, minibatch 32768; HumanoidPPO.yaml:
+# units [400,200,100], horizon 32, minibatch 32768
+register_classic("Ant", ant_config,
+                 dict(hidden=(256, 128, 64), horizon=16, minibatch_size=32768, gamma=0.99,
+                      kl_threshold=0.008, reward_scale=0.01))
+register_classic("Humanoid", humanoid_config,
+                 dict(hidden=(400, 200, 100), horizon=32, minibatch_size=32768, gamma=0.99,
+                      kl_threshold=0.008, reward_scale=0.01))
 
 
 def _refuse_unported(name: str) -> None:

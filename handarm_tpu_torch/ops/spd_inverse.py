@@ -2,10 +2,10 @@
 
 Counterpart of handarm_tpu/ops/spd_inverse.py (`spd_inverse`, the Pallas
 `_chol_inv_kernel` plus the caller-side W^T W). On CUDA tensors the
-hand-written kernel in csrc/spd_inverse.cu runs: one thread per matrix,
-the unrolled Cholesky with the same rsqrt(max(s, 1e-12)) pivot floor,
-W = L^-1, and Minv = W^T W, all in one launch, compiled for the n in
-`KERNEL_N` only. On CPU tensors the plain version runs: a Cholesky
+hand-written kernel in csrc/spd_inverse.cu runs: the unrolled Cholesky
+with the same rsqrt(max(s, 1e-12)) pivot floor, W = L^-1, and Minv = W^T W,
+all in one launch, compiled for the n in `KERNEL_N` only: one thread per
+matrix up to n = 17, one warp per matrix (a lane per row) at n = 27. On CPU tensors the plain version runs: a Cholesky
 factorization and two triangular solves, as the JAX package does off the
 TPU.
 """
@@ -17,9 +17,9 @@ import torch
 from handarm_tpu_torch.ops import build
 
 launches = 0  # kernel launches since the last reset (CUDA path only)
-# matrix sizes the kernel is instantiated for: the Ingenuity, the Stretch,
-# the Quadcopter, the UR5+SIH
-KERNEL_N = (8, 9, 14, 17)
+# matrix sizes the kernel is instantiated for: the Cartpole, the Ingenuity,
+# the Stretch, the Quadcopter and the Ant, the UR5+SIH, the Humanoid
+KERNEL_N = (2, 8, 9, 14, 17, 27)
 
 
 def spd_inverse_plain(M: torch.Tensor) -> torch.Tensor:

@@ -38,15 +38,23 @@ hand-only collision set resumed into an arm-sphere run) raises
 ValueError, as the JAX package's first step on such a state does. The
 iteration count starts at the file's step.
 
-The classic tasks Quadcopter and Ingenuity compose the same way (their
-task yamls' `env` block and train yamls' `ppo` block; `env.num_envs=N`
-or `num_envs=N`, and any field of QuadcopterConfig / IngenuityConfig):
+The classic tasks Quadcopter, Ingenuity, Cartpole, Ant and Humanoid
+compose the same way (their task yamls' `env` block and train yamls'
+`ppo` block; `env.num_envs=N` or `num_envs=N`, and any field of the
+task's config dataclass: QuadcopterConfig, IngenuityConfig, ClassicConfig,
+LocomotionConfig):
 
     python -m handarm_tpu_torch.train task=Quadcopter env.num_envs=8192
     python -m handarm_tpu_torch.train task=Ingenuity env.num_envs=4096
+    python -m handarm_tpu_torch.train task=Ant env.num_envs=4096
+    python -m handarm_tpu_torch.train task=Humanoid env.num_envs=4096
+    python -m handarm_tpu_torch.train task=Cartpole env.num_envs=512
 
-Their stats carry no success rate (`succ` prints 0). The JAX package's
-other classic tasks raise NotImplementedError (ROADMAP §1.7).
+Cartpole, the Ant and the Humanoid run on the in-repo stand-in assets
+(`assets/classic_standin/`); `urdf=PATH` (Cartpole) and `mjcf=PATH`
+(Ant) take others. Their stats carry no success rate (`succ` prints 0).
+The JAX package's other classic tasks raise NotImplementedError (ROADMAP
+§1.7).
 
 Domain randomization and ADR come through the composition as well, as
 `rl.randomization_params.dr.<key>=` and `rl.randomization_params.adr.<key>=`
@@ -250,7 +258,8 @@ def main(argv: list[str]) -> None:
     start_it = 0
     path = latest_checkpoint(nn_dir) if resume == "auto" else resume
     if path:
-        slots, run_slots = file_contact_slots(path, cfg), env.scene.slots.num_slots
+        slots = file_contact_slots(path, cfg)
+        run_slots = env.scene.slots.num_slots if hasattr(env, "scene") else 0
         if slots != run_slots:
             raise ValueError(
                 f"{path}: its env state holds {slots} contact slots, this run's env "

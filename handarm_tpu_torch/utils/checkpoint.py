@@ -30,10 +30,11 @@ Leaf dtypes: float32 but for the int32 optax counters, the bool
 epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 69).
 
-A classic task's env state (Quadcopter, Ingenuity) has 14 or 13 leaves
-(`convert.classic_state_to_leaves`): its physics with the floating base's
-pose, its own fields, its PRNG key; its reader takes the task's config as
-`env_cfg`.
+A classic task's env state has 14 (Quadcopter), 13 (Ingenuity), 16 (Ant,
+Humanoid) or 4 (Cartpole) leaves (`convert.classic_state_to_leaves`): its
+physics with the floating base's pose (and the locomotion robots'
+tau_ext; the Cartpole has none), its own fields, its PRNG key; its reader
+takes the task's config as `env_cfg`.
 
 An env with domain randomization or ADR has 6 more env-state leaves for
 each, after the step count (the DRState; the AdrState with its int32
@@ -200,7 +201,8 @@ def save_checkpoint(dirpath: str, ts, step: int, name: str = "ckpt", seed: int =
 def file_env_leaves(path: str, cfg=None) -> int:
     """The env-state leaves of a PPO checkpoint of the learner `cfg` (the
     PPOConfig; None: an MLP ActorCritic): 24, 30 or 36 (UR5+SIH), 22, 28
-    or 34 (Stretch), 14 (Quadcopter), 13 (Ingenuity)."""
+    or 34 (Stretch), 14 (Quadcopter), 13 (Ingenuity), 16 (Ant, Humanoid), 4
+    (Cartpole)."""
     with np.load(path, allow_pickle=False) as data:
         n = len(data.files)
         P = (2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), n) + 5 if cfg is None
@@ -213,8 +215,11 @@ def file_env_leaves(path: str, cfg=None) -> int:
 
 def file_contact_slots(path: str, cfg=None) -> int:
     """The contact-slot count of a PPO checkpoint's env state (the learner
-    `cfg` as in `file_env_leaves`): the C of its [B, C, 3] impulses."""
+    `cfg` as in `file_env_leaves`): the C of its [B, C, 3] impulses, 0 for
+    a state without physics (the Cartpole's)."""
     n_env = file_env_leaves(path, cfg)
+    if not physics_leaf_count(n_env):
+        return 0
     with np.load(path, allow_pickle=False) as data:
         lo = len(data.files) - n_env - 3 - extra_leaf_count(cfg)  # where the env state starts
         # physics: q, qd, targets[, base pose], object x4, impulses

@@ -29,6 +29,17 @@ package on the CPU.
 - The train entry point on the CPU: 1 iteration, its checkpoint read by
   the JAX package's `load_checkpoint` with its own example tree; and a
   JAX-written checkpoint resumed whole by the port's entry point.
+- Cartpole, Ant and Humanoid on the in-repo stand-ins
+  (handarm_tpu_torch/assets/classic_standin/; the Humanoid's JAX env
+  through its LocomotionEnv wrapped to read it, see
+  tests/test_torch_locomotion.py): the Cartpole's reset and 2 steps at B =
+  8 from the JAX package's draws, env 0 timing out at the first (2 sim
+  substeps of a 2-dof model: q within 2e-4 and qd, observations and
+  rewards within 2e-3, each times max(1, the largest value)); their
+  `compose_task` against the JAX package's (the asset path is the
+  stand-in's on both sides: the port's default, the JAX package's
+  override); the refusal list without them; and checkpoints both ways
+  for each (4, 16 and 16 env-state leaves).
 """
 
 import dataclasses
@@ -53,6 +64,8 @@ from handarm_tpu_torch.convert import (
     learner_to_leaves,
     train_state_from_leaves,
 )
+from handarm_tpu_torch.envs import classic as tcl
+from handarm_tpu_torch.envs import locomotion as tl
 from handarm_tpu_torch.envs import registry as treg
 from handarm_tpu_torch.envs.ingenuity import IngenuityDraws, IngenuityState
 from handarm_tpu_torch.envs.quadcopter import QuadcopterConfig, QuadDraws, QuadState
@@ -195,15 +208,25 @@ def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
                                      if n in treg.TASKS or n in treg.CLASSIC_TASKS]
 
 
-@pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM"])
+@pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM", "Humanoid",
+                                  "Anymal", "BallBalance"])
 def test_unported_classic_task_raises(task):
+    """The refusal list: the JAX package's classic tasks the port lacks raise
+    NotImplementedError naming ROADMAP §1.7; Ant, Cartpole and Humanoid
+    are ported and off it."""
     assert task in jreg.CLASSIC_TASKS
+    with pytest.raises(TypeError):
+        treg.resolve_task("Quadcopter", ["no_such_field=1"])
+    if task in ("Ant", "Cartpole", "Humanoid"):
+        assert task not in treg.UNPORTED_CLASSIC and task in treg.CLASSIC_TASKS
+        cfg, _ = treg.resolve_task(task, ["num_envs=8"])
+        assert cfg.num_envs == 8
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP §1.7"):
         treg.resolve_task(task, ["num_envs=8"])
     with pytest.raises(NotImplementedError, match=task):
         treg.make_config(task)
-    with pytest.raises(TypeError):
-        treg.resolve_task("Quadcopter", ["no_such_field=1"])
+    assert set(treg.UNPORTED_CLASSIC) == set(jreg.CLASSIC_TASKS) - set(treg.CLASSIC_TASKS)
 
 
 # --- the learner --------------------------------------------------------------
@@ -343,6 +366,135 @@ def test_train_entry_checkpoints_cross(tmp_path):
     np.testing.assert_array_equal(tts.env_state.physics.robot.base_pos.numpy(),
                                   np.asarray(example.env_state.physics.robot.base_pos))
     out = _train([*ENTRY, "max_iterations=4", f"resume={jpath}", "experiment=resumed"],
+                 tmp_path)
+    assert f"resumed from {jpath} at iter 3\n" in out, out
+    assert (tmp_path / "runs" / "resumed" / "nn" / "ckpt_4.npz").exists()
+
+
+# --- Cartpole, Ant and Humanoid on the stand-ins -------------------------------------
+
+
+def jax_standin_env(task: str, **kw):
+    """The JAX package's env of a task on the in-repo stand-in."""
+    from handarm_tpu.envs import classic as jcl
+
+    from test_torch_locomotion import jax_env
+
+    if task == "Cartpole":
+        return jcl.make_cartpole(urdf=tcl.CARTPOLE_URDF, **kw)
+    return jax_env(task.lower(), **kw)
+
+
+def test_cartpole_reset_and_steps_match():
+    B = 8
+    jenv = jax_standin_env("Cartpole", num_envs=B)
+    tenv = tcl.make_cartpole(num_envs=B, device="cpu")
+    n = jenv.cfg.reset_noise
+
+    def draws(key):
+        k1, k2, _ = jax.random.split(key, 3)
+        u = lambda k: _t(jax.random.uniform(k, (B, 2), minval=-n, maxval=n))
+        return tcl.ClassicDraws(u(k1), u(k2))
+
+    key = jax.random.PRNGKey(7)
+    js, jobs = jenv.reset(key)
+    ts, tobs = tenv.reset(0, draws(key))
+    np.testing.assert_array_equal(tobs.numpy(), np.asarray(jobs))
+    prog = np.zeros(B, np.int32)
+    prog[0] = jenv.cfg.episode_length - 1  # env 0 times out at the first step
+    js = js._replace(progress=jnp.asarray(prog))
+    ts = classic_state_from_leaves([np.asarray(x) for x in jax.tree.leaves(js)],
+                                   tcl.ClassicState)
+    rng = np.random.default_rng(5)
+    step = jax.jit(jenv.step)
+    for i in range(2):
+        a = rng.uniform(-1.0, 1.0, (B, 1)).astype(np.float32)
+        d = draws(jax.random.split(js.key)[1])
+        js, jr = step(js, jnp.asarray(a))
+        ts, tr = tenv.step(ts, _t(a), d)
+        for name, got, want, tol in (("obs", tr.obs, jr.obs, VEL_TOL),
+                                     ("reward", tr.reward, jr.reward, VEL_TOL),
+                                     ("q", ts.q, js.q, POS_TOL), ("qd", ts.qd, js.qd, VEL_TOL)):
+            _close(got, want, tol, f"{name} {i}")
+        np.testing.assert_array_equal(ts.progress.numpy(), np.asarray(js.progress))
+        np.testing.assert_array_equal(tr.done.numpy(), np.asarray(jr.done))
+        assert tr.info == jr.info == {} and tr.teacher_obs.shape == (B, 0)
+        if i == 0:
+            assert bool(tr.done[0]) and not bool(tr.done[1:].any())
+    assert float(np.abs(np.asarray(js.qd)).max()) > 1.0  # the effort moved the carts
+
+
+@pytest.mark.parametrize("task,overrides", [
+    ("Cartpole", []),
+    ("Cartpole", ["env.num_envs=64", "reset_noise=0.2", "ppo.minibatch_size=512"]),
+    ("Ant", []),
+    ("Ant", ["num_envs=32", "env.episode_length=300", "power_scale=0.5"]),
+    ("Humanoid", []),
+    ("Humanoid", ["env.num_envs=16", "ppo.hidden=[64,64]"]),
+])
+def test_compose_task_matches_standins(task, overrides, monkeypatch):
+    from handarm_tpu.envs import locomotion as jl
+
+    jover = list(overrides)
+    if task == "Cartpole":
+        jover.append(f"urdf={tcl.CARTPOLE_URDF}")
+    elif task == "Ant":
+        jover.append(f"mjcf={tl.ANT_MJCF}")
+    else:  # its factory takes no mjcf=: its env is wrapped to read the stand-in
+        env_cls = jl.LocomotionEnv
+        monkeypatch.setattr(jl, "LocomotionEnv",
+                            lambda c: env_cls(dataclasses.replace(c, mjcf=tl.HUMANOID_MJCF)))
+    jenv, jppo_over = jreg.compose_task(task, jover)
+    cfg, ppo_over = treg.resolve_task(task, list(overrides))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jenv.cfg)
+    norm = lambda d: {k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}
+    assert norm(ppo_over) == norm(jppo_over)
+    tenv = treg.build_env(cfg, "cpu")
+    assert (tenv.num_obs, tenv.num_actions) == (jenv.num_obs, jenv.num_actions)
+    assert isinstance(tenv, tcl.ClassicEnv if task == "Cartpole" else tl.LocomotionEnv)
+    if task == "Humanoid":
+        with pytest.raises(TypeError, match="mjcf"):  # as the JAX factory refuses it
+            treg.resolve_task(task, [f"mjcf={tl.ANT_MJCF}"])
+
+
+STANDIN_ENTRY = {"Cartpole": ["ppo.hidden=[32,32]", "ppo.minibatch_size=64"],
+                 "Ant": ["ppo.hidden=[32,32]", "ppo.minibatch_size=64"],
+                 "Humanoid": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"]}
+
+
+@pytest.mark.parametrize("task,n_env", [("Cartpole", 4), ("Ant", 16), ("Humanoid", 16)])
+def test_standin_checkpoints_cross(task, n_env, tmp_path):
+    """The train entry point's checkpoint (1 iteration at 8 envs) read by the
+    JAX loader with its own example tree, leaf for leaf; a JAX-written
+    TrainState resumed whole by the port's loader and entry point."""
+    os.symlink(os.path.join(REPO, "configs"), tmp_path / "configs")
+    args = [f"task={task}", "env.num_envs=8", *STANDIN_ENTRY[task]]
+    out = _train([*args, "max_iterations=1"], tmp_path)
+    assert "succ 0.000" in out
+    path = str(tmp_path / "runs" / task / "nn" / "ckpt_1.npz")
+
+    cfg, over = treg.resolve_task(task, ["env.num_envs=8", *STANDIN_ENTRY[task]])
+    pcfg = {k: tuple(v) if isinstance(v, list) else v for k, v in over.items()}
+    jenv = jax_standin_env(task, num_envs=8, episode_length=cfg.episode_length)
+    jp = jppo.PPO(jenv, jppo.PPOConfig(**pcfg))
+    example = jp.init(jax.random.PRNGKey(0))
+    assert len(jax.tree.leaves(example.env_state)) == n_env
+    back = load_checkpoint(path, example_tree=example)
+    mine = tck.read_leaves(path)
+    for a, b, e in zip(mine, jax.tree.leaves(back), jax.tree.leaves(example), strict=True):
+        assert a.dtype == np.asarray(e).dtype and a.shape == np.asarray(e).shape
+        np.testing.assert_array_equal(a, np.asarray(b))
+    assert int(back.epoch) == 1
+
+    jpath = jax_save_checkpoint(str(tmp_path / "jax_ckpt"), example, step=3, sync=True)
+    tts = tck.load_train_state(jpath, cfg=None, env_cfg=cfg)
+    assert isinstance(tts.env_state, type(treg.build_env(cfg, "cpu")).state_type)
+    np.testing.assert_array_equal(tts.env_state.progress.numpy(),
+                                  np.asarray(example.env_state.progress))
+    if task != "Cartpole":
+        np.testing.assert_array_equal(tts.env_state.physics.robot.tau_ext.numpy(),
+                                      np.asarray(example.env_state.physics.robot.tau_ext))
+    out = _train([*args, "max_iterations=4", f"resume={jpath}", "experiment=resumed"],
                  tmp_path)
     assert f"resumed from {jpath} at iter 3\n" in out, out
     assert (tmp_path / "runs" / "resumed" / "nn" / "ckpt_4.npz").exists()

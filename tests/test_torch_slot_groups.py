@@ -3,10 +3,13 @@
 
 For the slots of the two UR5+SIH scenes, with the hand's collision
 spheres and with the arm's as well (`hand_only_collision=False`: 190 and
-456 slots, 17 dof masks), of the classic tasks' floating-base craft with
-no objects (K = 0, no object sides: the Quadcopter's 4 rotor-arm slots in
-4 masks of 7 dofs, the 6 base dofs and the arm's pitch hinge; Ingenuity's
-8 chassis slots in one mask of the 6 base dofs), and of a random scene
+456 slots, 17 dof masks), of the classic tasks' floating-base robots
+with no objects (K = 0, no object sides: the Quadcopter's 4 rotor-arm
+slots in 4 masks of 7 dofs, the 6 base dofs and the arm's pitch hinge;
+Ingenuity's 8 chassis slots in one mask of the 6 base dofs; the Ant
+stand-in's 37 slots in 9 masks, the torso's and each leg's hip and
+ankle; the Humanoid stand-in's 51 in 13 masks over 27 dofs), and of a
+random scene
 with an arbitrary set of dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
 (side, object) bin, in ascending slot order. A torch emulation of the
@@ -31,11 +34,28 @@ from handarm_tpu_torch.physics.solver import build_slot_groups
 
 torch.set_num_threads(1)
 SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
-          "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity"]
+          "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity",
+          "Ant", "Humanoid"]
 ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
-# the craft: (slots, dof masks, dofs)
-CRAFT = {"Quadcopter": (4, [0x3F | 1 << u for u in (6, 8, 10, 12)], 14),
-         "Ingenuity": (8, [0x3F], 8)}
+
+
+def _mask(*dofs):
+    """A dof mask: the floating base's 6 dofs and the given joint dofs."""
+    return 0x3F | sum(1 << d for d in dofs)
+
+
+# the floating-base scenes: (slots, dof masks, dofs). The Humanoid's dofs:
+# abdomen 6-8, right leg 9-14 (hip x z y, knee, ankle y x), left leg 15-20,
+# right arm 21-23, left arm 24-26
+CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14),
+         "Ingenuity": (8, [_mask()], 8),
+         "Ant": (37, sorted([_mask()] + [_mask(h) for h in (6, 8, 10, 12)]
+                            + [_mask(h, h + 1) for h in (6, 8, 10, 12)]), 14),
+         "Humanoid": (51, sorted([_mask(), _mask(6, 7), _mask(6, 7, 8)]
+                                 + [_mask(6, 7, 8, *range(a, a + k))
+                                    for a in (9, 15) for k in (3, 4, 6)]
+                                 + [_mask(*range(a, a + k)) for a in (21, 24) for k in (2, 3)]),
+                      27)}
 B = 6
 
 
