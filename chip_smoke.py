@@ -8,7 +8,8 @@ Phases, each with a deadline and one flushed progress line:
   2. build     compiles the kernels in handarm_tpu_torch/csrc (one nvcc per
                source, all started together, then one link) and prints each
                kernel's registers, spills and shared memory (-Xptxas -v);
-               spd_inverse_warp_kernel<27> must spill nothing.
+               spd_inverse_warp_kernel<27> and spd_inverse_kernel<12> and
+               <18> must spill nothing.
   3. rollout   Ur5SihLift at 8192 envs on the in-repo stand-in robot, policy
                docs/evidence/lift_r3a/ckpt_5200.npz, reset + 31 deterministic
                policy-in-the-loop control steps; every state leaf must stay
@@ -352,9 +353,9 @@ Phases, each with a deadline and one flushed progress line:
                bit-identical to the one-process step of the averaged
                gradients). Then `python -m torch.distributed.run
                --standalone --nproc_per_node=2 -m handarm_tpu_torch.train
-               task=Ur5SihLift env.num_envs=8192 max_iterations=2
+               task=Ur5SihLift env.num_envs=8192 max_iterations=1
                dist_backend=gloo experiment=chip_smoke_ddp`: rank 0's
-               ckpt_2.npz holds all 8192 envs and one process resumes it
+               ckpt_1.npz holds all 8192 envs and one process resumes it
                whole (the file it writes back equals it leaf for leaf);
                global env-steps/s from its metrics. Then
                `graft_entry.dryrun_multichip(2, backend="gloo")` at its
@@ -415,7 +416,8 @@ Phases, each with a deadline and one flushed progress line:
                entry point at 512 envs for 2 iterations, `train.main` in
                this process (launches 32 / 0 / 0 / 0 per iteration), its
                checkpoint (the ClassicState's 4 leaves) read whole and
-               written back.
+               written back; then AnymalTerrain's at 4096 envs the same
+               way (24 / 48 / 0 / 0; the ATState's 18 leaves).
  49. ant       the Ant as `train.py` composes it (configs/task/Ant.yaml,
                configs/train/AntPPO.yaml: 256-128-64, horizon 16,
                minibatch 32768) at IsaacGymEnvs' 4096 envs, on the in-repo
@@ -441,9 +443,41 @@ Phases, each with a deadline and one flushed progress line:
  51. cartpole  the Cartpole as phase 49 at its 512 envs (64-64,
                minibatch 2048; no contacts: 2 / 0 / 0 / 0 per step, the
                dynamics twice a step), spd_inverse at n = 2 on its last
-               serving step, and card vs CPU from a fresh reset. (Phases
-               45-47 and 49-51 run after phase 37, then 48, before phase
-               42.)
+               serving step, and card vs CPU from a fresh reset.
+ 52. ball-balance  BallBalance as `train.py` composes it (128-64-32,
+               horizon 16, minibatch 8192, reward scale 0.1) at IsaacGymEnvs'
+               4096 envs, on the in-repo stand-in balance bot (nv 12, 161
+               slots: the ball's ground slot, 80 spheres against the
+               ground and 80 against the ball, K = 1 with both object
+               sides, rolling friction 0.002): one warm-up and 1 timed
+               train iteration (16 / 32 / 0 / 0), 31 serving steps (1 / 2
+               / 0 / 0 a step) keeping each step's last sweep call and its
+               spd_inverse call for the step where the most balls push on
+               their trays (robot-ball impulses in the solve; at least
+               1/32 of the envs): spd_inverse (n = 12) to n cond eps and
+               the sweep (captured, dense and robot cases, against float64)
+               against their plain versions, timed beside their bounds and
+               torch.linalg.inv; card vs CPU at 16 of those envs (q, the
+               base's and the ball's positions within 2e-4, observations
+               within 2e-3, each times max(1, scale)).
+ 53. anymal    Anymal as phase 52 (256-128-64, horizon 24, minibatch
+               32768; the ANYmal stand-in, nv 18, 30 slots, K = 0): 24 / 48
+               / 0 / 0 per iteration; the kernels on the step where the
+               most envs have all four feet pushing on the ground.
+ 54. anymal-terrain  AnymalTerrain as phase 52 (512-256-128, horizon 24,
+               minibatch 16384; the 6 x 10 curriculum field, a 640 x 960
+               heightfield on the card): the serving window starts from
+               levels spread over the six rows, and every step's levels
+               are held to the curriculum rule for the envs that time out
+               (the reset's random progress ends some episodes there);
+               the kernels on the step where the most envs have a foot
+               pushing along a normal that is not vertical. Its patches
+               lie 12-52 m from the origin, where the mass matrices reach
+               cond 1e7-1e10: spd_inverse is held to n cond eps, the sweep
+               and card vs CPU per env to twice the larger of the two
+               versions' own spreads under one-ulp input perturbations
+               where that passes the fixed bound. (Phases 45-47 and 49-54
+               run after phase 37, then 48, before phase 42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -460,8 +494,9 @@ each kernel's launches on the camera paths under its "camera" key in
 "kernels"), the benchmark entry's under "bench", the parallel layer's
 under "parallel" (and each kernel's launches there under its "parallel"
 key in "kernels"), the classic tasks' under "classic" (and each kernel's
-launches and checks on the craft, the Ant, the Humanoid and the Cartpole
-under its "classic" key in "kernels");
+launches and checks on the craft, the Ant, the Humanoid, the Cartpole,
+BallBalance, Anymal and AnymalTerrain under its "classic" key in
+"kernels");
 the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
@@ -498,6 +533,7 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "camera-ref": 180, "camera-distill": 240, "bench": 240, "ddp": 330,
                     "pbt": 240, "actor-learner": 180, "quad": 240, "quad-ref": 120,
                     "ingenuity": 240, "ant": 240, "humanoid": 300, "cartpole": 180,
+                    "ball-balance": 240, "anymal": 240, "anymal-terrain": 300,
                     "classic-entry": 240}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
@@ -742,14 +778,22 @@ def sweep_groups_pushed(lam, groups) -> tuple[int, int, int, int]:
     return (*count(groups.link_ptr, groups.link_slots), *count(groups.obj_ptr, groups.obj_slots))
 
 
-def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool = False):
+def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool = False,
+                spread: bool = False):
     """The captured solve, then (with `synthetic`) every slot made active
     and only the robot's slots active, each against the plain version.
     With `f64` (the craft's ill-conditioned Minv: entries ~1e5, whose
     products with small impulses cancel) the bound is relative to the
     plain version in float64 on the same inputs: the kernel's error from
     it at most the larger of 1e-4 of scale and twice the float32 plain
-    version's own."""
+    version's own. With `spread` (AnymalTerrain: mass matrices of cond
+    1e7-1e10 far from the origin, where float32 resolves neither version
+    to 1e-4 of scale) the bound is per env instead: the kernel's distance
+    from the plain version at most the larger of 1e-4 of the output's
+    scale and twice the larger of the two versions' own spreads, the most
+    each one's output moves when every float input is scaled by 1 +
+    U(-1e-7, 1e-7) (6 draws: `own_spread`); the distances from float64 are
+    printed."""
     import torch
 
     from handarm_tpu_torch.physics.solver import mass_split
@@ -782,8 +826,25 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool
             # 8 (lift) or 16 (multi-object) Jacobi sweeps in float32 with
             # the slot sums taken in another order: 1e-4 of this output's
             # own largest value
-            if not f64 and not e <= 1e-4 * sc:
+            if not (f64 or spread) and not e <= 1e-4 * sc:
                 raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, {case})")
+        if spread:  # each version's own spread, from its own output
+            sp = [torch.maximum(a, b) for a, b in zip(
+                own_spread(sweep_op.contact_sweep_plain, plain_args, want),
+                own_spread(sweep_op.contact_sweep_cuda, cuda_args, got))]
+            for name, g, w, s_env in zip(("qd", "obj", "lam"), got, want, sp):
+                if w.numel() == 0:
+                    continue
+                axis = 0 if name == "qd" else 1  # the env axis
+                err = (g - w).abs().movedim(axis, 0).reshape(w.shape[axis], -1).amax(1)
+                bound = torch.clamp(2.0 * s_env, min=1e-4 * scales[name])
+                log(f"contact_sweep ({tag}, {case}): {name} per env: largest |kernel-plain| over "
+                    f"the bound {float((err / bound).max()):.3e}; envs whose spread passes 1e-4 "
+                    f"of scale {int((2.0 * s_env > 1e-4 * scales[name]).sum())} of "
+                    f"{len(err)}, largest spread {float(s_env.max()):.3e}")
+                if not bool((err <= bound).all()):
+                    raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, "
+                                         f"{case})")
         if f64:
             d = lambda t: t.double() if t.is_floating_point() else t
             want64 = sweep_op.contact_sweep_plain(*(d(a) if isinstance(a, torch.Tensor) else a
@@ -796,7 +857,7 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool
                 f64_errs.setdefault(case, {})[name] = dict(kernel=ek, plain=ep, scale=sc)
                 log(f"contact_sweep ({tag}, {case}): {name} max|kernel-f64| {ek:.3e}, "
                     f"max|plain-f64| {ep:.3e} (scale {sc:.3e})")
-                if not ek <= max(1e-4 * sc, 2.0 * ep):
+                if not spread and not ek <= max(1e-4 * sc, 2.0 * ep):
                     raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, "
                                          f"{case})")
         bitwise(lambda: sweep_op.contact_sweep_cuda(*cuda_args), f"contact_sweep ({tag}, {case})")
@@ -868,6 +929,29 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool
         plain_ms=cuda_time_ms(lambda: sweep_op.contact_sweep_plain(*plain_args), 10),
         bound_ms=t_b, bound_by=by, library_ms=None,
     )
+
+
+def own_spread(sweep, args, want, n: int = 6, rel: float = 1e-7) -> list:
+    """Per output of a sweep version (`sweep`: the kernel's or the plain
+    entry point, on its `args`; qd, obj, lam) and per env, the most it
+    moves from `want` over `n` runs whose float inputs (planes, bias,
+    screws, qd, Minv, objects, warm impulses) are each scaled by 1 +
+    U(-rel, rel)."""
+    import torch
+
+    g = torch.Generator(device=want[0].device).manual_seed(0)
+
+    def jitter(x):
+        return x * (1 + (torch.rand(x.shape, generator=g, device=x.device) * 2 - 1) * rel)
+
+    out = [torch.zeros(w.shape[0 if i == 0 else 1], device=w.device) for i, w in enumerate(want)]
+    for _ in range(n):
+        jargs = [jitter(a) if i < 7 else a for i, a in enumerate(args)]
+        for i, (o, w) in enumerate(zip(sweep(*jargs), want)):
+            if w.numel():
+                d = (o - w).abs().movedim(0 if i == 0 else 1, 0)
+                out[i] = torch.maximum(out[i], d.reshape(d.shape[0], -1).amax(1))
+    return out
 
 
 def check_sdf(sdf_op, call):
@@ -3021,8 +3105,10 @@ def stretch_phases(rollout, dev, ops) -> tuple:
 # the classic tasks (phases 45-51): task -> (envs, timed train iterations
 # after the warm-up); 8192, 4096 and 512 are IsaacGymEnvs' cfg/task numEnvs
 CLASSIC = {"Quadcopter": (8192, 2), "Ingenuity": (4096, 1), "Ant": (4096, 1),
-           "Humanoid": (4096, 1), "Cartpole": (512, 1)}
+           "Humanoid": (4096, 1), "Cartpole": (512, 1), "BallBalance": (4096, 1),
+           "Anymal": (4096, 1), "AnymalTerrain": (4096, 1)}
 LOCOMOTION = ("Ant", "Humanoid")
+CONTACT_TASKS = ("BallBalance", "Anymal", "AnymalTerrain")  # phases 52-54
 CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
 CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
 CLASSIC_ENTRY_ITERS = 2
@@ -3253,14 +3339,20 @@ def classic_entry_phase() -> dict:
 
 def per_step_launches(env) -> dict:
     """Each kernel's launches per env step as the env's code predicts them:
-    an engine-backed env (the craft, the locomotion robots) runs one sim
+    an engine-backed env (the craft, the locomotion robots, the balance bot
+    and its ball, the ANYmal on the ground or the terrain) runs one sim
     step of `substeps` anchored substeps (spd_inverse once, the sweep once
-    a substep; K = 0 and B * C < 2^21: no SDF query, no deff kernel); the
-    Cartpole's contact-free step runs the dynamics `substeps *
-    control_freq_inv` times and nothing else."""
+    a substep; no mesh object, so no SDF kernel, and B * C < 2^21, so no
+    deff kernel); the Cartpole's contact-free step runs the dynamics
+    `substeps * control_freq_inv` times and nothing else."""
+    import numpy as np
+
+    from handarm_tpu_torch.physics.shapes import MESH_SDF
+    from handarm_tpu_torch.physics.solver import DEFF_KERNEL_MIN_BC
+
     if hasattr(env, "scene"):
-        if not (env.scene.shapes.num_objects == 0 and env.cfg.num_envs
-                * env.scene.slots.num_slots < 2 ** 21):
+        if (MESH_SDF in np.asarray(env.scene.shapes.kind).tolist()
+                or env.cfg.num_envs * env.scene.slots.num_slots >= DEFF_KERNEL_MIN_BC):
             raise AssertionError("a classic scene outside the predicted launches")
         return {"spd_inverse": 1, "contact_sweep": env.scene.params.substeps, "prep_deff": 0,
                 "sdf_gather": 0}
@@ -3423,32 +3515,35 @@ def locomotion_ref(task: str, ppo, ts, dev, env_g_full, kept) -> dict:
     return dict(envs_with_impulses=pushed, **rec)
 
 
-def cartpole_entry(rollout, dev) -> dict:
-    """Phase 48's second entry point, `train.main` in this process (`python
-    -m handarm_tpu_torch.train task=Cartpole env.num_envs=512
-    max_iterations=2` once started): launches 32 / 0 / 0 / 0 per iteration,
-    its ckpt_2.npz (the ClassicState's 4 leaves) read whole with the task's
-    config and written back leaf for leaf."""
+def classic_entry(rollout, dev, task: str, state_type) -> dict:
+    """Phase 48's in-process entry points, `train.main` in this process
+    (`python -m handarm_tpu_torch.train task=TASK env.num_envs=N
+    max_iterations=2` once started; the Cartpole at 512 envs, AnymalTerrain
+    at 4096): launches per iteration as `per_step_launches` predicts from
+    the composed env (the Cartpole 32 / 0 / 0 / 0, AnymalTerrain 24 / 48 /
+    0 / 0), its ckpt_2.npz (the task state's leaves: the ClassicState's 4,
+    the ATState's 18) read whole with the task's config and written back
+    leaf for leaf."""
     import numpy as np
 
     from handarm_tpu_torch.convert import train_state_to_leaves
-    from handarm_tpu_torch.envs.classic import ClassicState
-    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
     from handarm_tpu_torch.learn.ppo import ppo_config
     from handarm_tpu_torch.utils.checkpoint import load_train_state, read_leaves
 
-    envs = CLASSIC["Cartpole"][0]
-    run = os.path.join("runs", "chip_smoke_cartpole")
+    envs = CLASSIC[task][0]
+    exp = f"chip_smoke_{task.lower()}"
+    run = os.path.join("runs", exp)
     shutil.rmtree(run, ignore_errors=True)
     out = os.path.join(run, "nn", f"ckpt_{CLASSIC_ENTRY_ITERS}.npz")
-    cfg, over = resolve_task("Cartpole", [f"env.num_envs={envs}"])
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
     pcfg = ppo_config(over)
-    per_iter = {"spd_inverse": 2 * pcfg.horizon, "contact_sweep": 0, "prep_deff": 0,
-                "sdf_gather": 0}
-    rec = entry_in_process(rollout, ["task=Cartpole", f"env.num_envs={envs}",
+    per_step = per_step_launches(build_env(cfg, "cpu"))
+    per_iter = {k: v * pcfg.horizon for k, v in per_step.items()}
+    rec = entry_in_process(rollout, [f"task={task}", f"env.num_envs={envs}",
                                      f"max_iterations={CLASSIC_ENTRY_ITERS}",
-                                     "experiment=chip_smoke_cartpole"], out,
-                           "cartpole entry point", dev, per_iter, CLASSIC_ENTRY_ITERS, None)
+                                     f"experiment={exp}"], out,
+                           f"{task} entry point", dev, per_iter, CLASSIC_ENTRY_ITERS, None)
     del rec["stdout"]
     leaves = read_leaves(out)
     ts = load_train_state(out, "cuda", cfg=pcfg, env_cfg=cfg)
@@ -3456,17 +3551,269 @@ def cartpole_entry(rollout, dev) -> dict:
     same = len(back) == len(leaves) and all(
         a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
         for a, b in zip(back, leaves))
-    log(f"cartpole entry point: {len(leaves)} leaves read whole as a "
+    log(f"{task} entry point: {len(leaves)} leaves read whole as a "
         f"{type(ts.env_state).__name__} of {ts.last_obs.shape[0]} envs, epoch {int(ts.epoch)}, "
         f"written back {'leaf for leaf' if same else 'DIFFERENT'}")
-    if not (same and isinstance(ts.env_state, ClassicState) and int(ts.epoch) == CLASSIC_ENTRY_ITERS
+    if not (same and isinstance(ts.env_state, state_type) and int(ts.epoch) == CLASSIC_ENTRY_ITERS
             and ts.last_obs.shape[0] == envs):
-        raise AssertionError("cartpole entry point: its checkpoint does not read back whole")
-    return dict(rec, leaves=len(leaves))
+        raise AssertionError(f"{task} entry point: its checkpoint does not read back whole")
+    return dict(rec, leaves=len(leaves), launches_per_iteration=per_iter)
+
+
+def task_contact_scores(env, task: str, call):
+    """[B] bool, from a captured sweep call (its warm-start impulses, the
+    previous substep's, in the frozen basis, and its planes' normals): the
+    envs whose solve has the contacts the task's kernel checks want.
+    BallBalance: the ball pushes on the robot (a robot-ball slot with a
+    normal impulse); Anymal: each of the four foot bodies pushes on the
+    ground; AnymalTerrain: a foot pushes on the terrain along a normal that
+    is not vertical (a slope or a step)."""
+    import numpy as np
+    import torch
+
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+
+    planes, lam0 = call[0][0], call[0][6]
+    pushed = lam0[0] > 0  # [B, C]
+    slots = env.scene.slots
+    dev = pushed.device
+    body = torch.as_tensor(slots.robot_body, device=dev)
+    if task == "BallBalance":
+        rb = torch.as_tensor((slots.robot_body >= 0) & (slots.obj_b >= 0), device=dev)
+        return (pushed & rb).any(-1)
+    feet = [torch.as_tensor(np.asarray(slots.robot_body) == f, device=dev)
+            for f in np.unique([env.art.sites[n].body for n in env.art.sites if "FOOT" in n])]
+    if task == "Anymal":
+        return torch.stack([(pushed & f).any(-1) for f in feet]).all(0)
+    on_feet = torch.stack(feet).any(0) & (body >= 0)
+    return (pushed & on_feet & (planes[sweep_op.BASE["n"][2]] < 0.9999)).any(-1)
+
+
+def curriculum_check(env, before, after, mid_base_pos, counts: dict) -> None:
+    """AnymalTerrain's curriculum over one step: every env's level after it
+    as the rule gives it from the state before it and the step's base
+    position (before any restart): on a timeout one row up after walking
+    over half a patch, one down short of a quarter of the commanded
+    distance, clipped to the rows; else unchanged. `counts` gathers the
+    timeouts and the moves."""
+    import torch
+
+    cfg = env.cfg
+    timeout = before.progress + 1 >= cfg.episode_length
+    walked = torch.linalg.vector_norm(mid_base_pos[:, :2] - before.spawn_xy, dim=-1)
+    cmd_dist = (torch.linalg.vector_norm(before.commands[:, :2], dim=-1)
+                * cfg.episode_length * cfg.dt * 0.25)
+    lvl = before.terrain_level
+    want = torch.where(timeout & (walked > env.terrain.patch_length / 2), lvl + 1, lvl)
+    want = torch.clamp(torch.where(timeout & (walked < cmd_dist), want - 1, want), 0,
+                       cfg.num_levels - 1)
+    if not torch.equal(after.terrain_level, want):
+        raise AssertionError("AnymalTerrain: terrain levels off the curriculum rule")
+    counts["timeouts"] += int(timeout.sum())
+    counts["up"] += int((timeout & (after.terrain_level > lvl)).sum())
+    counts["down"] += int((timeout & (after.terrain_level < lvl)).sum())
+    counts["kept"] += int((timeout & (after.terrain_level == lvl)).sum())
+
+
+def contact_task_phase(rollout, dev, ops, task: str) -> dict:
+    """Phases 52-54 (BallBalance, Anymal, AnymalTerrain): the task composed
+    as train.py composes it at IsaacGymEnvs' 4096 envs, on the in-repo
+    stand-ins, its learner at full width from a fresh init
+    (`timed_iterations`: launches per iteration exactly `per_step_launches`
+    x horizon), 31 deterministic serving steps through `PPO.act` (launches
+    per step as predicted), each step's last sweep call and its spd_inverse
+    call kept for the step where the most envs have the contacts the task
+    wants (`task_contact_scores`; at least 1/32 of the envs); there spd_inverse
+    (n = 12 or 18, held to n cond eps: the floating base's mass matrices
+    far from the origin) and the sweep (captured, dense and robot cases,
+    against float64) against their plain versions, timed beside their
+    bounds and torch.linalg.inv. AnymalTerrain's serving window starts
+    from levels spread over the rows and holds every step's levels to the
+    curriculum rule (`curriculum_check`; the reset's random progress ends
+    some episodes in the window). Then card vs CPU at 16 of the kept
+    step's envs (`contact_task_ref`). Returns the record."""
+    import torch
+
+    from handarm_tpu_torch.envs import anymal_terrain as at_mod
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    envs, iters = CLASSIC[task]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    per_step = per_step_launches(env)
+    C, K = env.scene.slots.num_slots, env.scene.shapes.num_objects
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {C} contact slots, K = {K}, obs "
+        f"{env.num_obs}, actions {env.num_actions}; learner hidden {ppo.cfg.hidden}, horizon "
+        f"{ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}; launches "
+        f"per step {per_step}")
+    per_iter = {k: v * ppo.cfg.horizon for k, v in per_step.items()}
+    rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
+                               tag=f"{task} train")
+    rollout.reset_launch_counts()
+    state, obs = env.reset(1)
+    terrain = task == "AnymalTerrain"
+    if terrain:  # levels over the six rows, so that the curriculum's moves show
+        g = torch.Generator(device=dev).manual_seed(5)
+        state = state._replace(terrain_level=torch.randint(
+            0, cfg.num_levels, (envs,), generator=g, device=dev))
+        mid = {}
+        engine_step = at_mod.engine_step
+
+        def recording_step(scene, phys):  # the step's base position before restarts
+            out = engine_step(scene, phys)
+            mid["base_pos"] = out[0].robot.base_pos
+            return out
+
+        at_mod.engine_step = recording_step
+    moves = dict(timeouts=0, up=0, down=0, kept=0)
+    try:
+        state, res = env.step(state, ppo.act(ts, obs))
+        scores, best = [], None
+        with Capture(ops, last_only=True) as cap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(CLASSIC_SERVE_STEPS):
+                cap.armed = True
+                before = state
+                state, res = env.step(state, ppo.act(ts, res.obs))
+                if terrain:
+                    curriculum_check(env, before, state, mid["base_pos"], moves)
+                sc = task_contact_scores(env, task, cap.calls["sweep"][0])
+                scores.append(int(sc.sum()))
+                if best is None or scores[-1] > scores[best[0]]:
+                    best = (i, state, sc, cap.calls["sweep"][0], cap.calls["spd"][0])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+    finally:
+        if terrain:
+            at_mod.engine_step = engine_step
+    counts = rollout.launch_counts()
+    check_launches(counts, per_step, CLASSIC_SERVE_STEPS + 1, f"{task} serve")
+    finite_state(tree_map, state, res.obs)
+    sps = envs * CLASSIC_SERVE_STEPS / seconds
+    log(f"{task} serve: {CLASSIC_SERVE_STEPS} deterministic steps in {seconds:.3f} s = "
+        f"{sps:.0f} env-steps/s (each step's last kernel calls kept); launches {counts} "
+        f"over {CLASSIC_SERVE_STEPS + 1} steps; episodes done {int(res.done.sum())}, mean "
+        f"reward {float(res.reward.mean()):.4f}")
+    rec["serve"] = dict(envs=envs, steps=CLASSIC_SERVE_STEPS, seconds=seconds,
+                        env_steps_per_s=sps, launches=counts, launches_per_step=per_step)
+    if terrain:
+        log(f"{task}: terrain levels held to the curriculum rule at every serving step; "
+            f"{moves['timeouts']} timeouts: {moves['up']} a row up, {moves['down']} a row "
+            f"down, {moves['kept']} kept")
+        if moves["timeouts"] == 0 or moves["down"] == 0:
+            raise AssertionError(f"{task}: no timeout moved a level in the window")
+        rec["curriculum"] = moves
+    want = {"BallBalance": "a robot-ball impulse", "Anymal": "all four feet pushing",
+            "AnymalTerrain": "a foot pushing along a sloped normal"}[task]
+    i, kept, sc, sweep_call, spd_call = best
+    log(f"{task}: envs with {want} in the solves of serving steps 1-{CLASSIC_SERVE_STEPS}: "
+        f"{scores}; the kernels' inputs from step {i + 1}")
+    if scores[i] < envs // 32:
+        raise AssertionError(f"{task}: too few envs with {want}")
+    kern = {"spd_inverse": check_spd_craft(spd_op, spd_call[0][0], dev, f"{task} step {i + 1}"),
+            "contact_sweep": check_sweep(sweep_op, sweep_call, env.scene.maps,
+                                         f"{task} step {i + 1}", f64=True, spread=terrain)}
+    kern["contact_sweep"].update(envs_with_contacts=scores[i], contacts=want)
+    rec["kernels"] = kern
+    del cap, best, sweep_call, spd_call
+    rec["ref"] = contact_task_ref(task, ppo, ts, dev, kept, sc)
+    return rec
+
+
+def contact_task_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
+    """Card vs CPU at 16 envs, the same inputs on both sides: 16 envs of the
+    kept serving step with the contacts `task_contact_scores` asks for
+    (others in contact where fewer have them; clocks zeroed), 2 env steps
+    with the trained learner's deterministic actions (on the CPU) and the
+    same draws (AnymalTerrain's pushes too). q, the base position (and the
+    ball's) within 2e-4, observations within 2e-3, each times max(1, the
+    CPU value's largest); on the terrain, per env, within the larger of
+    that and twice the larger of the two runs' own spreads, the most each
+    one's outputs move when every float of the starting state is scaled by
+    1 + U(-1e-7, 1e-7) (4 draws a side, the same actions and draws): the
+    patches lie 12-52 m from the
+    origin, about which the base's rotation dofs turn, and float32 resolves
+    a step there only to that spread (tests/test_torch_anymal.py)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO
+
+    cfg, _ = resolve_task(task, ["env.num_envs=16"])
+    env_c, env_g = build_env(cfg, "cpu"), build_env(cfg, dev)
+    to = lambda x, d: tree_map(lambda t: t.to(d), x)
+    learner = PPO(env_c, ppo.cfg, device="cpu")
+    ts_c = ts._replace(params={k: v.cpu() for k, v in ts.params.items()},
+                       obs_stats=to(ts.obs_stats, "cpu"))
+    # the scored envs first, then envs with any impulse
+    touching = kept.physics.contact_impulse.abs().sum((1, 2)) > 0
+    idx = torch.argsort(-(2 * scores.int() + touching.int()), stable=True)[:16]
+    start = tree_map(lambda t: t[idx].cpu(), kept)
+    start = start._replace(progress=torch.zeros_like(start.progress))
+    obs_c = env_c._obs(start) if task != "BallBalance" else env_c._obs(start, None)
+    state_c, state_g = start, to(start, dev)
+    pushed = [int((state_c.physics.contact_impulse.abs().sum((1, 2)) > 0).sum())]
+    inputs = []
+    for _ in range(2):
+        a, d = learner.act(ts_c, obs_c), env_c.draw(16)
+        extra = (env_c.draw_push(16),) if task == "AnymalTerrain" else ()
+        inputs.append((a, d, extra))
+        state_c, res_c = env_c.step(state_c, a, d, *extra)
+        state_g, res_g = env_g.step(state_g, a.to(dev), to(d, dev), *(x.to(dev) for x in extra))
+        obs_c, obs_g = res_c.obs, res_g.obs
+        pushed.append(int((state_c.physics.contact_impulse.abs().sum((1, 2)) > 0).sum()))
+
+    def outputs(state, obs):
+        rob = state.physics.robot
+        out = {"obs": obs, "q": rob.q, "base_pos": rob.base_pos}
+        if task == "BallBalance":
+            out["ball_pos"] = state.physics.objects.pos[:, 0]
+        return out
+
+    got, want = outputs(state_g, obs_g), outputs(state_c, obs_c)
+    spread = {k: torch.zeros(16) for k in want}
+    if task == "AnymalTerrain":  # each side's own spread, from its own run
+        g = torch.Generator().manual_seed(0)
+        jitter = lambda t: (t * (1 + (torch.rand(t.shape, generator=g) * 2 - 1) * 1e-7)
+                            if t.is_floating_point() else t)
+        for env, ref, d_ in ((env_c, want, "cpu"), (env_g, got, dev)):
+            for _ in range(4):
+                st = to(tree_map(jitter, start), d_)
+                for a, d, extra in inputs:
+                    st, res = env.step(st, a.to(d_), to(d, d_), *(x.to(d_) for x in extra))
+                for k, v in outputs(st, res.obs).items():
+                    spread[k] = torch.maximum(spread[k], (v - ref[k]).abs().amax(1).cpu())
+    rec = {}
+    for name in want:
+        tol = 2e-3 if name == "obs" else 2e-4
+        scale = max(1.0, float(want[name].abs().max()))
+        err = (got[name].cpu() - want[name]).abs().amax(1)
+        bound = torch.clamp(2.0 * spread[name], min=tol * scale)
+        rec[name] = dict(err=float(err.max()), scale=scale, tol=tol * scale,
+                         over_bound=float((err / bound).max()),
+                         spread_max=float(spread[name].max()))
+        if not bool((err <= bound).all()):
+            rec[name]["failed"] = True
+    log(f"{task}-ref: 16 envs, 2 steps, envs with impulses {pushed}; " + ", ".join(
+        f"max|{k} gpu-cpu| {v['err']:.3e} (scale {v['scale']:.3e}"
+        + (f", spread up to {v['spread_max']:.3e}" if task == "AnymalTerrain" else "")
+        + f"; {v['over_bound']:.3f} of the bound)" for k, v in rec.items()))
+    if any(v.get("failed") for v in rec.values()):
+        raise AssertionError(f"the card's run disagrees with the CPU reference ({task}-ref)")
+    if not bool(torch.isfinite(obs_g).all()) or pushed[0] < 16:
+        raise AssertionError(f"bad card run or an env without contact ({task}-ref)")
+    return dict(envs_with_impulses=pushed, **rec)
 
 
 def classic_phases(rollout, dev, ops) -> tuple:
-    """Phases 45-51: (their record, each kernel's classic record)."""
+    """Phases 45-54: (their record, each kernel's classic record)."""
     rec, kernels = {}, {}
     for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
         name = "quad" if task == "Quadcopter" else "ingenuity"
@@ -3481,6 +3828,9 @@ def classic_phases(rollout, dev, ops) -> tuple:
     for task in ("Ant", "Humanoid", "Cartpole"):
         with phase(task.lower()):
             rec[task] = locomotion_phase(rollout, dev, ops, task)
+    for task, name in zip(CONTACT_TASKS, ("ball-balance", "anymal", "anymal-terrain")):
+        with phase(name):
+            rec[task] = contact_task_phase(rollout, dev, ops, task)
     for task in CLASSIC:
         per_iter = rec[task]["launches_per_iteration"]
         for k in per_iter:
@@ -3490,8 +3840,13 @@ def classic_phases(rollout, dev, ops) -> tuple:
             entry.update(rec[task]["kernels"].get(k, {}))
             kernels.setdefault(k, {})[task] = entry
     with phase("classic-entry"):
+        from handarm_tpu_torch.envs.anymal_terrain import ATState
+        from handarm_tpu_torch.envs.classic import ClassicState
+
         rec["entry_point"] = classic_entry_phase()
-        rec["entry_point"]["Cartpole"] = cartpole_entry(rollout, dev)
+        rec["entry_point"]["Cartpole"] = classic_entry(rollout, dev, "Cartpole", ClassicState)
+        rec["entry_point"]["AnymalTerrain"] = classic_entry(rollout, dev, "AnymalTerrain",
+                                                            ATState)
     return rec, kernels
 
 
@@ -3771,6 +4126,7 @@ def camera_distill_phase(rollout, dev) -> dict:
 
 
 DDP_RANKS = 2  # gloo ranks sharing the card
+DDP_ENTRY_ITERS = 1  # iterations of the train entry point under torchrun
 DDP_TOLS = {"first-step param": 1e-5, "first-step grad": 1e-5, "loss terms": 1e-4,
             "stats": 1e-5}
 PBT_ENVS = 2048
@@ -3966,12 +4322,14 @@ def ddp_phase(rollout, dev) -> dict:
     shutil.rmtree(os.path.join("runs", exp), ignore_errors=True)
     entry_s, _ = run_module("torch.distributed.run", [
         "--standalone", f"--nproc_per_node={DDP_RANKS}", "-m", "handarm_tpu_torch.train",
-        "task=Ur5SihLift", f"env.num_envs={ENVS}", "max_iterations=2", "dist_backend=gloo",
-        f"experiment={exp}"], "ddp entry point", PHASE_DEADLINE_S["ddp"] // 3)
+        "task=Ur5SihLift", f"env.num_envs={ENVS}", f"max_iterations={DDP_ENTRY_ITERS}",
+        "dist_backend=gloo", f"experiment={exp}"], "ddp entry point",
+        PHASE_DEADLINE_S["ddp"] // 3)
     wait_for_pending_saves()
-    ck2 = os.path.join("runs", exp, "nn", "ckpt_2.npz")
+    ck2 = os.path.join("runs", exp, "nn", f"ckpt_{DDP_ENTRY_ITERS}.npz")
     leaves = read_leaves(ck2)
-    if len(leaves) != 71 or leaves[68].shape != (ENVS, 121) or int(leaves[70]) != 2:
+    if (len(leaves) != 71 or leaves[68].shape != (ENVS, 121)
+            or int(leaves[70]) != DDP_ENTRY_ITERS):
         raise AssertionError(f"ddp entry point: bad checkpoint {ck2}")
     with open(os.path.join("runs", exp, "metrics.jsonl")) as f:
         rows = [json.loads(x) for x in f.read().splitlines()]
@@ -3980,17 +4338,20 @@ def ddp_phase(rollout, dev) -> dict:
     # whole TrainState, leaf for leaf
     buf = io.StringIO()
     with cl.redirect_stdout(buf):
-        train.main(["task=Ur5SihLift", f"num_envs={ENVS}", f"resume={ck2}", "max_iterations=2",
-                    f"experiment={exp}_resume", f"device={dev}"])
+        train.main(["task=Ur5SihLift", f"num_envs={ENVS}", f"resume={ck2}",
+                    f"max_iterations={DDP_ENTRY_ITERS}", f"experiment={exp}_resume",
+                    f"device={dev}"])
     wait_for_pending_saves()
     resumed = buf.getvalue()
-    back = read_leaves(os.path.join("runs", f"{exp}_resume", "nn", "ckpt_2.npz"))
-    if (f"resumed from {ck2} at iter 2\n" not in resumed or "reset fresh" in resumed
+    back = read_leaves(os.path.join("runs", f"{exp}_resume", "nn",
+                                    f"ckpt_{DDP_ENTRY_ITERS}.npz"))
+    if (f"resumed from {ck2} at iter {DDP_ENTRY_ITERS}\n" not in resumed
+            or "reset fresh" in resumed
             or not all(np.array_equal(a, b) for a, b in zip(leaves, back))):
         raise AssertionError(f"ddp: one process did not resume the ranks' file whole:\n"
                              f"{resumed}")
-    log(f"ddp entry point: torchrun {DDP_RANKS} ranks x {ENVS // DDP_RANKS} envs, 2 "
-        f"iterations in {entry_s:.1f} s (process starts included); global train env-steps/s "
+    log(f"ddp entry point: torchrun {DDP_RANKS} ranks x {ENVS // DDP_RANKS} envs, "
+        f"{DDP_ENTRY_ITERS} iteration(s) in {entry_s:.1f} s (process starts included); global train env-steps/s "
         f"by iteration {[round(x) for x in sps]}; rank 0 wrote {ck2} ({ENVS} envs, 71 "
         f"leaves); one process resumed it whole (the file it wrote back is equal leaf for "
         f"leaf)")
@@ -4222,16 +4583,22 @@ def main() -> int:
         ptxas = ptxas_summary(build.ptxas_report())
         for line in ptxas:
             log(line)
-        # the n = 27 layout holds three rows a lane in registers: no spill
-        warp27 = [x for x in ptxas if "spd_inverse_warp_kernel<27>" in x]
-        if len(warp27) != 1 or "0 bytes spill stores" not in warp27[0]:
-            raise AssertionError(f"spd_inverse_warp_kernel<27> spills or is missing: {warp27}")
-        # the classic tasks' solves: C = 4 (Quadcopter), 8 (Ingenuity), 37
-        # (Ant) and 51 (Humanoid) slots take blocks of 64 threads, the
-        # <128, 6> instance
-        log("classic: contact_sweep at C = 4, 8, 37 and 51 (K = 0, no object sides) launches "
-            "contact_sweep_kernel<128, 6>; spd_inverse at n = 14, 8 and 2 its <14>, <8> and "
-            "<2>, at n = 27 spd_inverse_warp_kernel<27> (a warp per matrix)")
+        # the n = 27 layout holds three rows a lane in registers, and the
+        # thread-per-matrix n = 12 and 18 their lower triangles (78 and 171
+        # floats): no spill
+        for kname in ("spd_inverse_warp_kernel<27>", "spd_inverse_kernel<12>",
+                      "spd_inverse_kernel<18>"):
+            lines = [x for x in ptxas if kname in x]
+            if len(lines) != 1 or "0 bytes spill stores" not in lines[0]:
+                raise AssertionError(f"{kname} spills or is missing: {lines}")
+        # the classic tasks' solves: C = 4 (Quadcopter), 8 (Ingenuity), 30
+        # (the ANYmal), 37 (Ant) and 51 (Humanoid) slots at K = 0, and C =
+        # 161 at K = 1 (BallBalance)
+        log("classic: contact_sweep at C = 4, 8, 30, 37 and 51 (K = 0, no object sides) "
+            "launches contact_sweep_kernel<128, 6>, at C = 161, K = 1 (BallBalance) the "
+            "instance its launch line names; spd_inverse at n = 14, 8, 2, 12 and 18 its <14>, "
+            "<8>, <2>, <12> and <18>, at n = 27 spd_inverse_warp_kernel<27> (a warp per "
+            "matrix)")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis

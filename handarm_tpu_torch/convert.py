@@ -23,14 +23,17 @@ to write checkpoints its loader reads.
   seed (`jax.random.PRNGKey(seed)`'s value).
 - A classic task's state flattens as the JAX package's: the physics with
   the floating base's pose (q, qd, targets, base_pos, base_quat, then the
-  K = 0 objects' [B, 0, ...] leaves and the impulses; the craft's
+  objects' leaves ([B, 0, ...] at K = 0) and the impulses; the craft's
   `tau_ext` is None between steps and drops out, the locomotion robots'
   stays, after base_quat), the task's own fields (the progress as int32),
-  then its PRNG key last: 14 leaves for the Quadcopter (QuadState), 13 for
-  Ingenuity, 16 for the Ant and the Humanoid (LocoState); the Cartpole's
+  then its PRNG key last: 14 leaves for the Quadcopter (QuadState),
+  BallBalance (BBotState, its ball among the object leaves) and Anymal
+  (AnymalState), 13 for Ingenuity, 16 for the Ant and the Humanoid
+  (LocoState), 18 for AnymalTerrain (ATState); the Cartpole's
   ClassicState has no physics: q, qd, progress, key. Its readers take the
   env's config (QuadcopterConfig, IngenuityConfig, ClassicConfig,
-  LocomotionConfig) in place of a HandArmConfig.
+  LocomotionConfig, BallBalanceConfig, AnymalConfig, AnymalTerrainConfig)
+  in place of a HandArmConfig.
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch (71 for the 768-512-256 MLP on the UR5+SIH, 69 on the Stretch),

@@ -13,7 +13,8 @@
 // k flops) it is 5.3 MB, about 1.6 us: a launch costs more. The classic
 // tasks' floating-base craft take n = 14 (Quadcopter: 1.6 KB a matrix,
 // 12.8 MB at B = 8192, 3.8 us) and n = 8 (Ingenuity: 0.5 KB, 2.1 MB at B =
-// 4096, 0.6 us).
+// 4096, 0.6 us); BallBalance's tripod n = 12 (1.2 KB, 4.7 MB at B = 4096,
+// 1.4 us) and the ANYmal's n = 18 (2.6 KB, 10.6 MB at B = 4096, 3.2 us).
 //
 // Design: the TPU kernel's own formulation, with the batch on the lanes.
 // Each thread owns one matrix and runs the fully unrolled left-looking
@@ -26,11 +27,13 @@
 // holds a load in flight, so all of them are), each thread then reads its
 // own matrix at a stride of n*n floats, odd for odd n, which puts the 32
 // threads on 32 banks; Minv goes back through the same buffer so the
-// stores are coalesced 16-byte writes. For even n (14, 8) n*n is even and
-// 32 threads at that stride would share banks (196 = 4 mod 32: 8-way; 64:
-// 32-way), so each matrix takes n*n + 1 words of the buffer: the staging
-// is then a coalesced copy of single floats, each placed at its padded
-// offset, in and out (n = 2 as well).
+// stores are coalesced 16-byte writes. For even n (18, 14, 12, 8, 2) n*n
+// is even and 32 threads at that stride would share banks (196 = 4 mod 32:
+// 8-way; 64: 32-way), so each matrix takes n*n + 1 words of the buffer: the
+// staging is then a coalesced copy of single floats, each placed at its
+// padded offset, in and out. At n = 18 the lower triangle is 171 floats
+// and the buffer 41.6 KB of shared memory, under the 48 KB of a static
+// allocation.
 //
 // At n = 27 the lower triangle alone is 378 floats, past what one thread
 // can hold in registers (the n = 17 instance takes 191), so that n has a
@@ -224,8 +227,8 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
     return (int)cudaGetLastError();
   }
   switch (n) {  // a thread per matrix: the Cartpole's 2 dofs, the Ingenuity's
-                // 8, the Stretch's 9, the Quadcopter's and the Ant's 14, the
-                // UR5+SIH's 17
+                // 8, the Stretch's 9, BallBalance's 12, the Quadcopter's and
+                // the Ant's 14, the UR5+SIH's 17, the ANYmal's 18
     case 2:
       spd_inverse_kernel<2><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;
@@ -235,11 +238,17 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
     case 9:
       spd_inverse_kernel<9><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;
+    case 12:
+      spd_inverse_kernel<12><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
     case 14:
       spd_inverse_kernel<14><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;
     case 17:
       spd_inverse_kernel<17><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
+    case 18:
+      spd_inverse_kernel<18><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;
     default:
       return (int)cudaErrorInvalidValue;

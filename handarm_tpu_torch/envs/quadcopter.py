@@ -114,10 +114,17 @@ class ClassicStepResult(NamedTuple):
     teacher_obs: torch.Tensor  # [B, 0]
 
 
-def craft_scene(xml: str, kp, kd, params: SimParams, device):
-    """(Articulation, Scene) of a floating-base craft over the ground plane:
-    the MJCF's collision spheres in their bodies' frames, no objects."""
-    urdf, extras = parse_mjcf_string(xml)
+def ground_geom(device) -> StaticGeom:
+    """The ground plane: a table top at z = 0 over the whole field."""
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    return StaticGeom(table_lo=f32([-1e4, -1e4]), table_hi=f32([1e4, 1e4]), table_height=0.0,
+                      wall_lo=np.zeros((0, 3), np.float32), wall_hi=np.zeros((0, 3), np.float32))
+
+
+def mjcf_scene(urdf, extras, kp, kd, params: SimParams, device, objects=()):
+    """(Articulation, Scene) of a parsed floating-base MJCF model over the
+    ground plane: its collision spheres in their bodies' frames (friction
+    1) and `objects` (make_*_object dicts)."""
     art = compile_model(urdf, floating_base=True, default_density=1000.0)
     bodies, offs, rads = [], [], []
     for bname, sph in extras.link_spheres.items():
@@ -132,12 +139,15 @@ def craft_scene(xml: str, kp, kd, params: SimParams, device):
     f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=device)
     spheres = RobotSpheres(body=np.asarray(bodies, np.int32), offset=f32(offs),
                            radius=f32(rads), friction=np.full(len(rads), 1.0, np.float32))
-    geom = StaticGeom(table_lo=f32([-1e4, -1e4]), table_hi=f32([1e4, 1e4]),
-                      table_height=0.0, wall_lo=np.zeros((0, 3), np.float32),
-                      wall_hi=np.zeros((0, 3), np.float32))
-    scene = build_scene(art, stack_objects([], device=device), spheres, geom, kp=kp, kd=kd,
-                        params=params, device=device)
+    scene = build_scene(art, stack_objects(list(objects), device=device), spheres,
+                        ground_geom(device), kp=kp, kd=kd, params=params, device=device)
     return art, scene
+
+
+def craft_scene(xml: str, kp, kd, params: SimParams, device):
+    """(Articulation, Scene) of a floating-base craft over the ground plane:
+    the MJCF's collision spheres in their bodies' frames, no objects."""
+    return mjcf_scene(*parse_mjcf_string(xml), kp, kd, params, device)
 
 
 def thrust_torque(scene, phys: PhysicsState, rotor_bodies: np.ndarray, f_local):

@@ -2,8 +2,8 @@
 points build them (counterpart of `make_env`, `env_from_yaml`,
 `_warn_unknown_yaml_keys`, `compose_task`, `register_classic` and
 `all_task_names` of handarm_tpu/envs/registry.py: the UR5+SIH and Stretch
-tasks, and of the classic tasks Quadcopter, Ingenuity, Cartpole, Ant and
-Humanoid).
+tasks, and of the classic tasks Quadcopter, Ingenuity, Cartpole, Ant,
+Humanoid, BallBalance, Anymal and AnymalTerrain).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -30,8 +30,11 @@ factory takes one) and any other field of the env's config dataclass
 `urdf=` and the Ant's `mjcf=` take another asset; the Humanoid's factory
 sets its own MJCF and refuses `mjcf=` (TypeError), as the JAX package's
 does, so another Humanoid asset comes through `dataclasses.replace` of its
-config. The JAX package's other classic tasks are not ported: naming one
-raises NotImplementedError (ROADMAP §1.7).
+config. BallBalance, Anymal and AnymalTerrain read their module constants'
+stand-in assets and take no path, as the JAX package's factories take none;
+the ANYmal tasks' registry default of 500 steps becomes their own 1000. The
+JAX package's other classic tasks are not ported: naming one raises
+NotImplementedError (ROADMAP §1.7).
 
 Each function has a `*_config` form that stops at the env's config (a
 HandArmConfig, or a classic task's config dataclass) and the PPO
@@ -47,6 +50,17 @@ import json
 import os
 
 from handarm_tpu_torch.envs.adr import AdrConfig
+from handarm_tpu_torch.envs.anymal import AnymalConfig, AnymalEnv, anymal_config
+from handarm_tpu_torch.envs.anymal_terrain import (
+    AnymalTerrainConfig,
+    AnymalTerrainEnv,
+    anymal_terrain_config,
+)
+from handarm_tpu_torch.envs.ball_balance import (
+    BallBalanceConfig,
+    BallBalanceEnv,
+    ball_balance_config,
+)
 from handarm_tpu_torch.envs.camera import CameraConfig
 from handarm_tpu_torch.envs.classic import CartpoleEnv, ClassicConfig, cartpole_config
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
@@ -80,15 +94,16 @@ _KNOWN_YAML_KEYS = {
 CLASSIC_TASKS: dict = {}
 # the env class of each classic config
 CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv,
-                ClassicConfig: CartpoleEnv, LocomotionConfig: LocomotionEnv}
+                ClassicConfig: CartpoleEnv, LocomotionConfig: LocomotionEnv,
+                BallBalanceConfig: BallBalanceEnv, AnymalConfig: AnymalEnv,
+                AnymalTerrainConfig: AnymalTerrainEnv}
 # the JAX package's classic tasks the port does not have yet
 UNPORTED_CLASSIC = (
     "AllegroHand", "AllegroHandADR", "AllegroHandDextremeADR", "AllegroHandManualDR",
     "AllegroKuka", "AllegroKukaRegrasping", "AllegroKukaReorientation", "AllegroKukaThrow",
     "AllegroKukaTwoArms", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArmsReorientation",
-    "Anymal", "AnymalTerrain", "BallBalance", "FactoryTaskGears",
-    "FactoryTaskInsertion", "FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
-    "FactoryTaskNutBoltScrew", "FrankaCabinet", "FrankaCubeStack", "HumanoidAMP",
+    "FactoryTaskGears", "FactoryTaskInsertion", "FactoryTaskNutBoltPick",
+    "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew", "FrankaCabinet", "FrankaCubeStack", "HumanoidAMP",
     "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert", "ShadowHand",
     "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM", "Trifinger",
 )
@@ -122,6 +137,28 @@ register_classic("Ant", ant_config,
 register_classic("Humanoid", humanoid_config,
                  dict(hidden=(400, 200, 100), horizon=32, minibatch_size=32768, gamma=0.99,
                       kl_threshold=0.008, reward_scale=0.01))
+
+
+# reference cfg/train/BallBalancePPO.yaml: units [128,64,32], horizon 16,
+# minibatch 8192; AnymalPPO.yaml: [256,128,64], horizon 24, minibatch 32768;
+# AnymalTerrainPPO.yaml: [512,256,128], horizon 24, minibatch 16384
+register_classic("BallBalance", ball_balance_config,
+                 dict(hidden=(128, 64, 32), horizon=16, minibatch_size=8192, gamma=0.99,
+                      kl_threshold=0.008, reward_scale=0.1))
+
+
+def _thousand_steps(make):
+    """A factory whose registry default of 500 steps becomes 1000."""
+    return lambda num_envs, episode_length, **kw: make(
+        num_envs, episode_length if episode_length != 500 else 1000, **kw)
+
+
+register_classic("Anymal", _thousand_steps(anymal_config),
+                 dict(hidden=(256, 128, 64), horizon=24, minibatch_size=32768, gamma=0.99,
+                      kl_threshold=0.008, reward_scale=1.0))
+register_classic("AnymalTerrain", _thousand_steps(anymal_terrain_config),
+                 dict(hidden=(512, 256, 128), horizon=24, minibatch_size=16384, gamma=0.99,
+                      kl_threshold=0.008, reward_scale=1.0))
 
 
 def _refuse_unported(name: str) -> None:

@@ -1,5 +1,5 @@
 """Vectorized contact generation into fixed-size masked slot buffers
-(counterpart of handarm_tpu/physics/contacts.py without the heightfield).
+(counterpart of handarm_tpu/physics/contacts.py).
 
 Every potential contact pair owns a static slot; a step only fills
 (normal, pos, depth). Slot layout for K objects (K = 0: a robot alone,
@@ -29,13 +29,18 @@ from handarm_tpu_torch.physics.shapes import ObjectShapes, SdfQueries, objects_s
 
 @dataclass
 class StaticGeom:
-    """A table box top over a ground plane at z = 0, plus wall AABBs."""
+    """A table box top over a ground plane at z = 0, plus wall AABBs; or,
+    when `hf_height` is set, a heightfield terrain in place of the table
+    and the plane (`physics/terrain.py`), sampled bilinearly."""
 
     table_lo: torch.Tensor  # [2]
     table_hi: torch.Tensor  # [2]
     table_height: float
     wall_lo: np.ndarray  # [W, 3]
     wall_hi: np.ndarray  # [W, 3]
+    hf_height: torch.Tensor | None = None  # [R, C] metres, on the scene's device
+    hf_cell: float = 0.1  # metres per pixel
+    hf_origin: torch.Tensor | None = None  # [2] world xy of pixel (0, 0)
 
     @property
     def num_walls(self) -> int:
@@ -129,8 +134,42 @@ def make_contact_slots(shapes: ObjectShapes, spheres: RobotSpheres,
     )
 
 
+def heightfield_taps(H: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """The bilinear patch of the field H [R, C] at pixel coordinates (u, v),
+    clamped to [0, R - 1.001] x [0, C - 1.001]: (h00, h10, h01, h11, fu,
+    fv, h), the 4-tap gather, the fractions and the interpolated height."""
+    R, Cc = H.shape
+    u = torch.clamp(u, 0.0, R - 1.001)
+    v = torch.clamp(v, 0.0, Cc - 1.001)
+    u0, v0 = torch.floor(u), torch.floor(v)
+    fu, fv = u - u0, v - v0
+    flat = H.reshape(-1)
+    idx = u0.long() * Cc + v0.long()
+    h00, h10 = flat[idx], flat[idx + Cc]
+    h01, h11 = flat[idx + 1], flat[idx + Cc + 1]
+    h = h00 * (1 - fu) * (1 - fv) + h10 * fu * (1 - fv) + h01 * (1 - fu) * fv + h11 * fu * fv
+    return h00, h10, h01, h11, fu, fv, h
+
+
+def _heightfield_surface(geom: StaticGeom, p: torch.Tensor):
+    """Signed distance and normal against the bilinear heightfield surface:
+    a 4-tap gather per point (clamped to the field), the normal of the
+    bilinear patch, and the vertical gap projected on it."""
+    h00, h10, h01, h11, fu, fv, h = heightfield_taps(
+        geom.hf_height, (p[..., 0] - geom.hf_origin[0]) / geom.hf_cell,
+        (p[..., 1] - geom.hf_origin[1]) / geom.hf_cell)
+    dhdx = ((h10 - h00) * (1 - fv) + (h11 - h01) * fv) / geom.hf_cell
+    dhdy = ((h01 - h00) * (1 - fu) + (h11 - h10) * fu) / geom.hf_cell
+    n = torch.stack([-dhdx, -dhdy, torch.ones_like(h)], dim=-1)
+    n = n * torch.rsqrt(torch.sum(n * n, dim=-1, keepdim=True) + 1e-12)
+    return (p[..., 2] - h) * n[..., 2], n
+
+
 def _static_surface(geom: StaticGeom, p: torch.Tensor):
-    """Signed distance to the table top (or the ground), upward normal."""
+    """Signed distance to the table top (or the ground), upward normal; to
+    the heightfield whenever one is set."""
+    if geom.hf_height is not None:
+        return _heightfield_surface(geom, p)
     xy = p[..., :2]
     in_col = torch.all((xy >= geom.table_lo) & (xy <= geom.table_hi), dim=-1)
     surf_z = torch.where(in_col, torch.full_like(p[..., 2], geom.table_height),

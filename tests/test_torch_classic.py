@@ -40,6 +40,15 @@ package on the CPU.
   stand-in's on both sides: the port's default, the JAX package's
   override); the refusal list without them; and checkpoints both ways
   for each (4, 16 and 16 env-state leaves).
+- BallBalance, Anymal and AnymalTerrain on theirs (the JAX package's
+  module constants `BBOT_MJCF` and `ANYMAL_URDF` monkeypatched to the
+  port's stand-ins; tests/test_torch_ball_balance.py and
+  tests/test_torch_anymal.py hold their envs): `compose_task` against the
+  JAX package's, with the ANYmal tasks' 500 -> 1000 episode rule, and
+  checkpoints both ways (14, 14 and 18 env-state leaves: the ball's and
+  the base's, the commands, the terrain level and the spawn point among
+  them); the refusal list keeps its length with FrankaCabinet and
+  Trifinger.
 """
 
 import dataclasses
@@ -209,15 +218,15 @@ def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM", "Humanoid",
-                                  "Anymal", "BallBalance"])
+                                  "Anymal", "BallBalance", "FrankaCabinet", "Trifinger"])
 def test_unported_classic_task_raises(task):
     """The refusal list: the JAX package's classic tasks the port lacks raise
-    NotImplementedError naming ROADMAP §1.7; Ant, Cartpole and Humanoid
-    are ported and off it."""
+    NotImplementedError naming ROADMAP §1.7; Ant, Cartpole, Humanoid,
+    Anymal and BallBalance are ported and off it."""
     assert task in jreg.CLASSIC_TASKS
     with pytest.raises(TypeError):
         treg.resolve_task("Quadcopter", ["no_such_field=1"])
-    if task in ("Ant", "Cartpole", "Humanoid"):
+    if task in ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance"):
         assert task not in treg.UNPORTED_CLASSIC and task in treg.CLASSIC_TASKS
         cfg, _ = treg.resolve_task(task, ["num_envs=8"])
         assert cfg.num_envs == 8
@@ -382,7 +391,38 @@ def jax_standin_env(task: str, **kw):
 
     if task == "Cartpole":
         return jcl.make_cartpole(urdf=tcl.CARTPOLE_URDF, **kw)
+    if task in STANDIN_CONSTANTS:
+        with pytest.MonkeyPatch.context() as mp:
+            _patch_standins(mp)
+            make = STANDIN_CONSTANTS[task][0]
+            return getattr(make[0], make[1])(**kw)
     return jax_env(task.lower(), **kw)
+
+
+def _standin_constants():
+    """task -> ((JAX module, factory name), the JAX module constants that
+    name its asset, the port's path) of the tasks whose asset is a module
+    constant."""
+    from handarm_tpu.envs import anymal as jan
+    from handarm_tpu.envs import anymal_terrain as jat
+    from handarm_tpu.envs import ball_balance as jbb
+    from handarm_tpu_torch.envs import anymal as tan
+    from handarm_tpu_torch.envs import ball_balance as tbb
+
+    return {"BallBalance": ((jbb, "make_ball_balance"), [(jbb, "BBOT_MJCF", tbb.BBOT_MJCF)]),
+            "Anymal": ((jan, "make_anymal"), [(jan, "ANYMAL_URDF", tan.ANYMAL_URDF)]),
+            "AnymalTerrain": ((jat, "make_anymal_terrain"),
+                              [(jat, "ANYMAL_URDF", tan.ANYMAL_URDF)])}
+
+
+STANDIN_CONSTANTS = _standin_constants()
+
+
+def _patch_standins(mp):
+    """Point the JAX package's asset constants at the in-repo stand-ins."""
+    for _, consts in STANDIN_CONSTANTS.values():
+        for mod, name, path in consts:
+            mp.setattr(mod, name, path)
 
 
 def test_cartpole_reset_and_steps_match():
@@ -431,6 +471,12 @@ def test_cartpole_reset_and_steps_match():
     ("Ant", ["num_envs=32", "env.episode_length=300", "power_scale=0.5"]),
     ("Humanoid", []),
     ("Humanoid", ["env.num_envs=16", "ppo.hidden=[64,64]"]),
+    ("BallBalance", []),
+    ("BallBalance", ["num_envs=32", "action_speed_scale=10.0", "ppo.minibatch_size=512"]),
+    ("Anymal", []),
+    ("Anymal", ["env.num_envs=16", "env.episode_length=300", "kp=60.0"]),
+    ("AnymalTerrain", []),
+    ("AnymalTerrain", ["num_envs=16", "num_levels=3", "num_types=4", "ppo.hidden=[64,64]"]),
 ])
 def test_compose_task_matches_standins(task, overrides, monkeypatch):
     from handarm_tpu.envs import locomotion as jl
@@ -440,6 +486,8 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
         jover.append(f"urdf={tcl.CARTPOLE_URDF}")
     elif task == "Ant":
         jover.append(f"mjcf={tl.ANT_MJCF}")
+    elif task in STANDIN_CONSTANTS:  # their factories take no path: the constants point
+        _patch_standins(monkeypatch)
     else:  # its factory takes no mjcf=: its env is wrapped to read the stand-in
         env_cls = jl.LocomotionEnv
         monkeypatch.setattr(jl, "LocomotionEnv",
@@ -451,7 +499,9 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
     assert norm(ppo_over) == norm(jppo_over)
     tenv = treg.build_env(cfg, "cpu")
     assert (tenv.num_obs, tenv.num_actions) == (jenv.num_obs, jenv.num_actions)
-    assert isinstance(tenv, tcl.ClassicEnv if task == "Cartpole" else tl.LocomotionEnv)
+    assert type(tenv).__name__ == type(jenv).__name__.replace("ClassicEnv", "CartpoleEnv")
+    if task in ("Anymal", "AnymalTerrain") and "env.episode_length=300" not in overrides:
+        assert cfg.episode_length == 1000  # the registry's 500 -> 1000
     if task == "Humanoid":
         with pytest.raises(TypeError, match="mjcf"):  # as the JAX factory refuses it
             treg.resolve_task(task, [f"mjcf={tl.ANT_MJCF}"])
@@ -459,10 +509,16 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
 
 STANDIN_ENTRY = {"Cartpole": ["ppo.hidden=[32,32]", "ppo.minibatch_size=64"],
                  "Ant": ["ppo.hidden=[32,32]", "ppo.minibatch_size=64"],
-                 "Humanoid": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"]}
+                 "Humanoid": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"],
+                 "BallBalance": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"],
+                 "Anymal": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"],
+                 "AnymalTerrain": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
+                                   "ppo.horizon=4"]}
 
 
-@pytest.mark.parametrize("task,n_env", [("Cartpole", 4), ("Ant", 16), ("Humanoid", 16)])
+@pytest.mark.parametrize("task,n_env", [("Cartpole", 4), ("Ant", 16), ("Humanoid", 16),
+                                        ("BallBalance", 14), ("Anymal", 14),
+                                        ("AnymalTerrain", 18)])
 def test_standin_checkpoints_cross(task, n_env, tmp_path):
     """The train entry point's checkpoint (1 iteration at 8 envs) read by the
     JAX loader with its own example tree, leaf for leaf; a JAX-written
@@ -491,9 +547,14 @@ def test_standin_checkpoints_cross(task, n_env, tmp_path):
     assert isinstance(tts.env_state, type(treg.build_env(cfg, "cpu")).state_type)
     np.testing.assert_array_equal(tts.env_state.progress.numpy(),
                                   np.asarray(example.env_state.progress))
-    if task != "Cartpole":
+    if task in ("Ant", "Humanoid"):
         np.testing.assert_array_equal(tts.env_state.physics.robot.tau_ext.numpy(),
                                       np.asarray(example.env_state.physics.robot.tau_ext))
+    elif task != "Cartpole":  # the ball, the base pose, the terrain level
+        for got, want in zip((*tts.env_state.physics.objects, tts.env_state.physics.robot.base_pos),
+                             (*example.env_state.physics.objects,
+                              example.env_state.physics.robot.base_pos)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     out = _train([*args, "max_iterations=4", f"resume={jpath}", "experiment=resumed"],
                  tmp_path)
     assert f"resumed from {jpath} at iter 3\n" in out, out

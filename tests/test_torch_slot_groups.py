@@ -8,7 +8,11 @@ with no objects (K = 0, no object sides: the Quadcopter's 4 rotor-arm
 slots in 4 masks of 7 dofs, the 6 base dofs and the arm's pitch hinge;
 Ingenuity's 8 chassis slots in one mask of the 6 base dofs; the Ant
 stand-in's 37 slots in 9 masks, the torso's and each leg's hip and
-ankle; the Humanoid stand-in's 51 in 13 masks over 27 dofs), and of a
+ankle; the Humanoid stand-in's 51 in 13 masks over 27 dofs; the ANYmal
+stand-in's 30 in 13 masks over 18 dofs, the base's and each leg's hip,
+thigh and shank, alike on the flat ground and the terrain), of the balance
+bot with its ball (K = 1, two object sides: 161 slots, 80 robot-ball and
+the ball's ground slot; 7 masks, the tray's and each leg's two), and of a
 random scene
 with an arbitrary set of dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
@@ -35,7 +39,7 @@ from handarm_tpu_torch.physics.solver import build_slot_groups
 torch.set_num_threads(1)
 SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
           "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity",
-          "Ant", "Humanoid"]
+          "Ant", "Humanoid", "BallBalance", "Anymal", "AnymalTerrain"]
 ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
 
 
@@ -44,18 +48,24 @@ def _mask(*dofs):
     return 0x3F | sum(1 << d for d in dofs)
 
 
-# the floating-base scenes: (slots, dof masks, dofs). The Humanoid's dofs:
-# abdomen 6-8, right leg 9-14 (hip x z y, knee, ankle y x), left leg 15-20,
-# right arm 21-23, left arm 24-26
-CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14),
-         "Ingenuity": (8, [_mask()], 8),
+# the floating-base scenes: (slots, dof masks, dofs, objects). The
+# Humanoid's dofs: abdomen 6-8, right leg 9-14 (hip x z y, knee, ankle y x),
+# left leg 15-20, right arm 21-23, left arm 24-26; the ANYmal's: HAA, HFE,
+# KFE of LF 6-8, LH 9-11, RF 12-14, RH 15-17
+_ANYMAL = (30, sorted([_mask()] + [_mask(*range(a, a + k)) for a in (6, 9, 12, 15)
+                                   for k in (1, 2, 3)]), 18, 0)
+CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
+         "Ingenuity": (8, [_mask()], 8, 0),
          "Ant": (37, sorted([_mask()] + [_mask(h) for h in (6, 8, 10, 12)]
-                            + [_mask(h, h + 1) for h in (6, 8, 10, 12)]), 14),
+                            + [_mask(h, h + 1) for h in (6, 8, 10, 12)]), 14, 0),
          "Humanoid": (51, sorted([_mask(), _mask(6, 7), _mask(6, 7, 8)]
                                  + [_mask(6, 7, 8, *range(a, a + k))
                                     for a in (9, 15) for k in (3, 4, 6)]
                                  + [_mask(*range(a, a + k)) for a in (21, 24) for k in (2, 3)]),
-                      27)}
+                      27, 0),
+         "BallBalance": (161, sorted([_mask()] + [_mask(u) for u in (6, 8, 10)]
+                                     + [_mask(u, u + 1) for u in (6, 8, 10)]), 12, 1),
+         "Anymal": _ANYMAL, "AnymalTerrain": _ANYMAL}
 B = 6
 
 
@@ -300,9 +310,12 @@ def test_arm_spheres_within_kernel_limits(scene):
     C, nv = anc.shape
     tsw.check_groups(g, C, torch.device("cpu"), name, bins=(len(signs), K))
     assert C <= 1024 and nv <= 31 and K <= 8 and len(signs) <= 2
-    if name in CRAFT:
+    if name in CRAFT and CRAFT[name][3] == 0:
         assert (C, K, len(signs), nv) == (CRAFT[name][0], 0, 0, CRAFT[name][2])
         assert tuple(g.obj_ptr.shape) == (1,) and g.obj_slots.numel() == 0
+    elif name in CRAFT:  # the balance bot's ball: its ground slot, 80 robot-ball slots
+        assert (C, K, len(signs), nv) == (CRAFT[name][0], 1, 2, CRAFT[name][2])
+        assert [len(b) for b in _lists(g.obj_ptr, g.obj_slots)] == [1, 80]
     else:
         assert K >= 1
     if name in ARM_SLOTS:
