@@ -88,12 +88,12 @@ Phases, each with a deadline and one flushed progress line:
                episode in the window; at least 3,000 episodes, every state
                leaf finite.
  11. reach     Ur5SihReach from a flax-default init at its preset size (64
-               envs), 10 train iterations; reward_mean per iteration;
+               envs), 6 train iterations; reward_mean per iteration;
                every param and stat finite; spd_inverse 16 and
                contact_sweep 96 launches per iteration.
  12. family    Ur5SihReposition, OrientedReposition, Repose and Throw, each
-               composed from configs/ at 8192 envs: one warm-up and 2 timed
-               train iterations from a flax-default init (launches exactly
+               composed from configs/ at 8192 envs: one warm-up and 1 timed
+               train iteration from a flax-default init (launches exactly
                spd_inverse 16 and contact_sweep 96 per iteration; prep_deff
                and sdf_gather 0, checked from the built scene: B * C < 2^21,
                no mesh object), params and stats finite; then 2 control
@@ -133,7 +133,7 @@ Phases, each with a deadline and one flushed progress line:
  17. distill-train  DAgger (`learn/distill.py`) distilling ckpt_5200 into a
                PointNet student on Ur5SihLift at 8192 envs, as
                `train_distill` builds it (horizon 16, 4 minibatches of
-               32768 x 2 mini-epochs): one warm-up iteration, 2 timed as
+               32768 x 2 mini-epochs): one warm-up iteration, 1 timed as
                rollout and update, then one whose first minibatch step is
                rerun on the CPU from the card's inputs (loss terms,
                gradients, and the optimizer step: `distill_step_check`).
@@ -384,7 +384,7 @@ Phases, each with a deadline and one flushed progress line:
                horizon 16, minibatch 16384) at IsaacGymEnvs' 8192 envs
                (`env.num_envs=8192`): the floating-base craft, nv 14, 4
                contact slots (its rotor arms' spheres vs the ground), no
-               objects. One warm-up and 2 timed train iterations from a
+               objects. One warm-up and 1 timed train iteration from a
                fresh init (launches exactly 16 / 32 / 0 / 0: one env step
                is one sim step of 2 substeps), 31 deterministic serving
                steps through `PPO.act` (1 / 2 / 0 / 0 per step); then the
@@ -409,15 +409,18 @@ Phases, each with a deadline and one flushed progress line:
                iteration, 31 serving steps, spd_inverse at n = 8 and the
                sweep at C = 8, and its card-vs-CPU check as phase 46.
  48. classic-entry  `python -m handarm_tpu_torch.train task=Quadcopter
-               env.num_envs=8192 max_iterations=2` in its own process;
-               its ckpt_2.npz (61 leaves: the QuadState's 14 with the
-               floating base's pose) read whole here with the task's
-               config and written back leaf for leaf; then the Cartpole's
-               entry point at 512 envs for 2 iterations, `train.main` in
-               this process (launches 32 / 0 / 0 / 0 per iteration), its
-               checkpoint (the ClassicState's 4 leaves) read whole and
-               written back; then AnymalTerrain's at 4096 envs the same
-               way (24 / 48 / 0 / 0; the ATState's 18 leaves).
+               env.num_envs=8192 max_iterations=2` as `train.main` in this
+               process (launches 16 / 32 / 0 / 0 per iteration; the CLI
+               path in its own process is pbt's); its ckpt_2.npz (61
+               leaves: the QuadState's 14 with the floating base's pose)
+               read whole with the task's config and written back leaf for
+               leaf; then the Cartpole's entry point at 512 envs for 2
+               iterations the same way (32 / 0 / 0 / 0 per iteration; the
+               ClassicState's 4 leaves), AnymalTerrain's at 4096 envs (24
+               / 48 / 0 / 0; the ATState's 18 leaves) and FrankaCabinet's
+               at 4096 envs (16 / 32 / 0 / 16; the CabinetState's 12
+               leaves: the drawer on its rail, the walls' scene and the
+               persistent joint targets).
  49. ant       the Ant as `train.py` composes it (configs/task/Ant.yaml,
                configs/train/AntPPO.yaml: 256-128-64, horizon 16,
                minibatch 32768) at IsaacGymEnvs' 4096 envs, on the in-repo
@@ -476,7 +479,42 @@ Phases, each with a deadline and one flushed progress line:
                cond 1e7-1e10: spd_inverse is held to n cond eps, the sweep
                and card vs CPU per env to twice the larger of the two
                versions' own spreads under one-ulp input perturbations
-               where that passes the fixed bound. (Phases 45-47 and 49-54
+               where that passes the fixed bound.
+ 55. franka-cube-stack  FrankaCubeStack as `train.py` composes it
+               (256-128-64, horizon 32, minibatch 16384) at IsaacGymEnvs'
+               8192 envs, on the in-repo stand-in Franka (nv 9, fixed base,
+               30 fitted spheres; two box cubes, K = 2, 134 slots, rolling
+               friction 0.002; the arm torque-driven by operational-space
+               control): one warm-up and 1 timed train iteration from a
+               fresh init (64 / 64 / 0 / 0: spd_inverse twice a step, once
+               for OSC and once in the engine's sim step), 31 serving steps
+               (2 / 2 / 0 / 0 a step); then a built contact state: a
+               scripted OSC approach of the grip site to cubeA's top with
+               the gripper open, then closing on it (launches per step as
+               predicted), its last step's calls kept, the envs whose hand
+               pushes on cubeA counted (at least 1/32); there spd_inverse
+               (n = 9, to n cond eps) and the sweep (captured, dense and
+               robot cases, against float64) against their plain versions,
+               two launches bit-identical, timed beside their bounds and
+               torch.linalg.inv; card vs CPU at 16 of those envs, 2 env
+               steps with the learner's actions and the same draws: q and
+               the cubes' positions within 2e-4, observations within 2e-3,
+               each times max(1, scale).
+ 56. franka-cabinet  FrankaCabinet as phase 55 (256-128-64, horizon 16,
+               minibatch 8192) at 4096 envs: the drawer a 32^3 compound-box
+               field (K = 1) on a +x rail, four cabinet walls, 190 slots;
+               16 / 32 / 0 / 16 per iteration, 1 / 2 / 0 / 1 a step
+               (sdf_gather once a sim step: its first classic path); the
+               built contact state: the drawer slid out against the
+               gripper, a few zero-action steps, the envs whose hand or
+               fingers push on the drawer counted; sdf_gather (every
+               channel, the queries inside the drawer's grid printed) with
+               spd_inverse and the sweep against their plain versions (the
+               sweep's dense case over 2 sweeps: over 8 the drawer's 130
+               slots make an unstable Jacobi iteration that grows float32
+               rounding 300-fold, past any fixed bound), timed beside
+               their bounds and grid_sample; card vs CPU as
+               phase 55 (the drawer's position). (Phases 45-47 and 49-56
                run after phase 37, then 48, before phase 42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
@@ -495,8 +533,8 @@ each kernel's launches on the camera paths under its "camera" key in
 under "parallel" (and each kernel's launches there under its "parallel"
 key in "kernels"), the classic tasks' under "classic" (and each kernel's
 launches and checks on the craft, the Ant, the Humanoid, the Cartpole,
-BallBalance, Anymal and AnymalTerrain under its "classic" key in
-"kernels");
+BallBalance, Anymal, AnymalTerrain, FrankaCubeStack and FrankaCabinet
+under its "classic" key in "kernels");
 the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
@@ -534,7 +572,7 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "pbt": 240, "actor-learner": 180, "quad": 240, "quad-ref": 120,
                     "ingenuity": 240, "ant": 240, "humanoid": 300, "cartpole": 180,
                     "ball-balance": 240, "anymal": 240, "anymal-terrain": 300,
-                    "classic-entry": 240}
+                    "franka-cube-stack": 240, "franka-cabinet": 240, "classic-entry": 240}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -543,11 +581,11 @@ MULTI_STEPS = 20  # multi-object control steps after genesis and reset
 TRAIN_ITERS = 2  # timed lift train iterations, after one warm-up iteration
 ENTRY_ITERS = 1  # iterations of the train entry point, resumed from ckpt_5200
 EVAL_STEPS = 200  # counted eval steps: one episode (200) from clocks zeroed at the reset
-REACH_ITERS = 10
+REACH_ITERS = 6
 FAMILY = ("Ur5SihReposition", "Ur5SihOrientedReposition", "Ur5SihRepose", "Ur5SihThrow")
-FAMILY_ITERS = 2  # timed family train iterations, after one warm-up iteration
+FAMILY_ITERS = 1  # timed family train iterations, after one warm-up iteration
 PREFIX_STEPS = 4  # chained minibatch steps of the kept update rerun on the CPU
-DISTILL_ITERS = 2  # timed DAgger iterations, after one warm-up iteration
+DISTILL_ITERS = 1  # timed DAgger iterations, after one warm-up iteration
 DISTILL_ENTRY_ITERS = 1  # iterations of the train_distill entry point
 STUDENT = os.path.join("docs", "evidence", "distill_r5a", "student.npz")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -779,9 +817,10 @@ def sweep_groups_pushed(lam, groups) -> tuple[int, int, int, int]:
 
 
 def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool = False,
-                spread: bool = False):
+                spread: bool = False, dense_sweeps: int | None = None):
     """The captured solve, then (with `synthetic`) every slot made active
-    and only the robot's slots active, each against the plain version.
+    (over `dense_sweeps` sweeps, by default the captured solve's) and only
+    the robot's slots active, each against the plain version.
     With `f64` (the craft's ill-conditioned Minv: entries ~1e5, whose
     products with small impulses cancel) the bound is relative to the
     plain version in float64 on the same inputs: the kernel's error from
@@ -884,7 +923,8 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool
         for k, med in meds.items():
             dense[k] = torch.where(act, dense[k], med)
         dense_bias = torch.where(act, bias, torch.full_like(bias, 0.1))
-        dgot, derrs, _, _, _ = compare(dense, dense_bias, "dense")
+        dgot, derrs, _, _, _ = compare(dense, dense_bias, "dense",
+                                       iters if dense_sweeps is None else dense_sweeps)
         pushed = int((dgot[2].abs().sum(0) > 0).sum())
         lg, ln, ob, on = sweep_groups_pushed(dgot[2], groups)
         log(f"contact_sweep ({tag}, dense): slots with gate > 0: "
@@ -979,7 +1019,8 @@ def check_sdf(sdf_op, call):
     u = [(p[:, j] - lo[k]) / sp[k] for k, j in enumerate(pos)]
     off = sum(int(((x < 0) | (x > R - 1)).any(-1).sum()) for x in u)
     log(f"sdf_gather: one call of a contact generation, B={B} rows of L={L} queries, "
-        f"{Lq} mesh queries per row (N = {N}), K={K} R={R}; {off} queries off the grid; "
+        f"{Lq} mesh queries per row (N = {N}), K={K} R={R}; {N - off} queries inside the "
+        f"grid, {off} off it; "
         f"max|kernel-plain| per channel {[f'{e:.3e}' for e in errs]}")
     # yardstick: one grid_sample over the K fields computes the clamped
     # trilinear part of every query, each object's queries as one batch
@@ -1000,7 +1041,7 @@ def check_sdf(sdf_op, call):
                            graph=True)
     t_b, by = bound_ms(nbytes(field, lo, sp, table) + N * (12 + 16), N * SDF_FLOPS_PER_POINT)
     return dict(
-        max_abs_err=max(errs), queries=N, off_grid=off,
+        max_abs_err=max(errs), queries=N, off_grid=off, inside_grid=N - off,
         bitwise=bitwise(lambda: sdf_op.sdf_sample_cuda(*call), "sdf_gather"),
         **kernel_times(lambda: sdf_op.sdf_sample_cuda(*call), 50),
         slot_order_ms=slot_ms,
@@ -1873,12 +1914,13 @@ def reach_phase(rollout, dev) -> dict:
                                              "prep_deff": 0, "sdf_gather": 0},
                    REACH_ITERS, "reach")
     check_learner(ts, "reach")
-    first, last = sum(rewards[:5]) / 5, sum(rewards[-5:]) / 5
+    half = REACH_ITERS // 2
+    first, last = sum(rewards[:half]) / half, sum(rewards[-half:]) / half
     log(f"reach: Ur5SihReach {env.cfg.num_envs} envs, {REACH_ITERS} iterations in "
         f"{seconds:.1f} s; reward_mean per iteration {[round(r, 5) for r in rewards]}; mean "
-        f"of the first 5 {first:.5f}, of the last 5 {last:.5f}")
+        f"of the first {half} {first:.5f}, of the last {half} {last:.5f}")
     return dict(task="Ur5SihReach", envs=env.cfg.num_envs, iterations=REACH_ITERS,
-                seconds=seconds, reward_mean=rewards, first5=first, last5=last)
+                seconds=seconds, reward_mean=rewards, first_half=first, last_half=last)
 
 
 CLOUD_OBS = ("ur5_joint_pos", "ur5_flange_pose", "dof_position_targets",
@@ -3102,13 +3144,20 @@ def stretch_phases(rollout, dev, ops) -> tuple:
     return rec, kernels
 
 
-# the classic tasks (phases 45-51): task -> (envs, timed train iterations
+# the classic tasks (phases 45-56): task -> (envs, timed train iterations
 # after the warm-up); 8192, 4096 and 512 are IsaacGymEnvs' cfg/task numEnvs
-CLASSIC = {"Quadcopter": (8192, 2), "Ingenuity": (4096, 1), "Ant": (4096, 1),
+CLASSIC = {"Quadcopter": (8192, 1), "Ingenuity": (4096, 1), "Ant": (4096, 1),
            "Humanoid": (4096, 1), "Cartpole": (512, 1), "BallBalance": (4096, 1),
-           "Anymal": (4096, 1), "AnymalTerrain": (4096, 1)}
+           "Anymal": (4096, 1), "AnymalTerrain": (4096, 1), "FrankaCubeStack": (8192, 1),
+           "FrankaCabinet": (4096, 1)}
 LOCOMOTION = ("Ant", "Humanoid")
 CONTACT_TASKS = ("BallBalance", "Anymal", "AnymalTerrain")  # phases 52-54
+FRANKA_TASKS = ("FrankaCubeStack", "FrankaCabinet")  # phases 55-56
+FRANKA_APPROACH_STEPS = 30  # scripted OSC steps to cubeA's top, the gripper open
+FRANKA_GRASP_STEPS = 5  # then closing on it
+CABINET_PAST_GRIP = 0.01  # m: the drawer's front this far past the grip site
+CABINET_MAX_OPENING = 0.38  # m: short of the 0.39 m success line
+CABINET_PRESS_STEPS = 3  # zero-action steps of the drawer sliding on against the gripper
 CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
 CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
 CLASSIC_ENTRY_ITERS = 2
@@ -3247,27 +3296,18 @@ def classic_ref(task: str, ppo, ts, dev) -> dict:
     return out
 
 
-def classic_phase(rollout, dev, ops, task: str) -> tuple:
-    """Phases 45 and 47: the task composed as train.py composes it at
-    IsaacGymEnvs' env count, its learner at full width from a fresh init
-    (`timed_iterations`: launches per iteration exactly 16 / 32 / 0 / 0),
-    31 deterministic serving steps through `PPO.act` (1 / 2 / 0 / 0 per
-    step), and the grounded kernel checks. Returns (record, the PPO, its
-    TrainState)."""
+def train_and_serve(rollout, env, ppo, task: str) -> tuple:
+    """A classic task's learner trained from a fresh init (`timed_iterations`
+    for CLASSIC[task]'s iterations: launches per iteration exactly
+    `per_step_launches` x horizon), then CLASSIC_SERVE_STEPS + 1
+    deterministic serving steps through `PPO.act` from a fresh reset, the
+    last CLASSIC_SERVE_STEPS timed (launches per step as predicted, every
+    state leaf finite). Returns (record, TrainState, launches per step)."""
     import torch
 
     from handarm_tpu_torch.envs.hand_arm import tree_map
-    from handarm_tpu_torch.envs.registry import build_env, resolve_task
-    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
 
     envs, iters = CLASSIC[task]
-    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
-    env = build_env(cfg, dev)
-    ppo = PPO(env, ppo_config(over))
-    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {env.scene.slots.num_slots} contact "
-        f"slots, K = 0, obs {env.num_obs}, actions {env.num_actions}, "
-        f"{env.scene.params.solver.iterations} sweeps; learner hidden {ppo.cfg.hidden}, "
-        f"horizon {ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}")
     per_step = per_step_launches(env)
     per_iter = {k: v * ppo.cfg.horizon for k, v in per_step.items()}
     rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
@@ -3289,73 +3329,57 @@ def classic_phase(rollout, dev, ops, task: str) -> tuple:
         f"{sps:.0f} env-steps/s; launches {counts} over {CLASSIC_SERVE_STEPS + 1} steps; "
         f"episodes done {int(res.done.sum())}, mean reward {float(res.reward.mean()):.4f}")
     rec["serve"] = dict(envs=envs, steps=CLASSIC_SERVE_STEPS, seconds=seconds,
-                        env_steps_per_s=sps, launches=counts,
-                        launches_per_step=per_step)
+                        env_steps_per_s=sps, launches=counts, launches_per_step=per_step)
+    return rec, ts, per_step
+
+
+def classic_phase(rollout, dev, ops, task: str) -> tuple:
+    """Phases 45 and 47: the task composed as train.py composes it at
+    IsaacGymEnvs' env count, its learner at full width from a fresh init
+    (`timed_iterations`: launches per iteration exactly 16 / 32 / 0 / 0),
+    31 deterministic serving steps through `PPO.act` (1 / 2 / 0 / 0 per
+    step: `train_and_serve`), and the grounded kernel checks. Returns
+    (record, the PPO, its TrainState)."""
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+
+    envs = CLASSIC[task][0]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {env.scene.slots.num_slots} contact "
+        f"slots, K = 0, obs {env.num_obs}, actions {env.num_actions}, "
+        f"{env.scene.params.solver.iterations} sweeps; learner hidden {ppo.cfg.hidden}, "
+        f"horizon {ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}")
+    rec, ts, _ = train_and_serve(rollout, env, ppo, task)
     rec["kernels"] = classic_kernels(env, ops, dev, task)
     return rec, ppo, ts
-
-
-def classic_entry_phase() -> dict:
-    """Phase 48: `python -m handarm_tpu_torch.train task=Quadcopter
-    env.num_envs=8192 max_iterations=2` in its own process, then in this
-    one its ckpt_2.npz read whole (`load_train_state` with the task's
-    config: every learner and env-state leaf, the floating base's pose
-    among them) and written back leaf for leaf."""
-    import numpy as np
-
-    from handarm_tpu_torch.convert import train_state_to_leaves
-    from handarm_tpu_torch.envs.quadcopter import QuadState
-    from handarm_tpu_torch.envs.registry import resolve_task
-    from handarm_tpu_torch.learn.ppo import ppo_config
-    from handarm_tpu_torch.utils.checkpoint import load_train_state, read_leaves
-
-    envs = CLASSIC["Quadcopter"][0]
-    run = os.path.join("runs", "chip_smoke_quadcopter")
-    shutil.rmtree(run, ignore_errors=True)
-    out = os.path.join(run, "nn", f"ckpt_{CLASSIC_ENTRY_ITERS}.npz")
-    seconds, _ = run_module("handarm_tpu_torch.train", [
-        "task=Quadcopter", f"env.num_envs={envs}", f"max_iterations={CLASSIC_ENTRY_ITERS}",
-        "experiment=chip_smoke_quadcopter"], "classic entry point",
-        PHASE_DEADLINE_S["classic-entry"] - 30)
-    cfg, over = resolve_task("Quadcopter", [f"env.num_envs={envs}"])
-    leaves = read_leaves(out)
-    ts = load_train_state(out, "cuda", cfg=ppo_config(over), env_cfg=cfg)
-    back = train_state_to_leaves(ts, seed=42, cfg=ppo_config(over), env_cfg=cfg)
-    same = len(back) == len(leaves) and all(
-        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
-        for a, b in zip(back, leaves))
-    with open(os.path.join(run, "metrics.jsonl")) as f:
-        last = json.loads(f.read().splitlines()[-1])
-    log(f"classic entry point: wrote {out} ({len(leaves)} leaves); read whole as a "
-        f"{type(ts.env_state).__name__} of {ts.last_obs.shape[0]} envs, epoch {int(ts.epoch)}, "
-        f"written back {'leaf for leaf' if same else 'DIFFERENT'}; last iteration kl "
-        f"{last['kl']:.5f}, reward_mean {last['reward_mean']:.5f}")
-    if not (same and isinstance(ts.env_state, QuadState) and int(ts.epoch) == CLASSIC_ENTRY_ITERS
-            and ts.last_obs.shape[0] == envs):
-        raise AssertionError("classic entry point: its checkpoint does not read back whole")
-    return dict(seconds=seconds, leaves=len(leaves), kl=last["kl"],
-                reward_mean=last["reward_mean"])
 
 
 def per_step_launches(env) -> dict:
     """Each kernel's launches per env step as the env's code predicts them:
     an engine-backed env (the craft, the locomotion robots, the balance bot
-    and its ball, the ANYmal on the ground or the terrain) runs one sim
-    step of `substeps` anchored substeps (spd_inverse once, the sweep once
-    a substep; no mesh object, so no SDF kernel, and B * C < 2^21, so no
-    deff kernel); the Cartpole's contact-free step runs the dynamics
-    `substeps * control_freq_inv` times and nothing else."""
+    and its ball, the ANYmal on the ground or the terrain, the Franka with
+    its cubes or its drawer) runs one sim step of `substeps` anchored
+    substeps: spd_inverse once (and once more where the env computes the
+    dynamics itself for operational-space control, FrankaCubeStack's
+    `osc_tau`), the sweep once a substep, sdf_gather once (the sim step's
+    one contact generation) where the scene holds a mesh-SDF object, and
+    no deff kernel while B * C < 2^21; the Cartpole's contact-free step
+    runs the dynamics `substeps * control_freq_inv` times and nothing
+    else."""
     import numpy as np
 
     from handarm_tpu_torch.physics.shapes import MESH_SDF
     from handarm_tpu_torch.physics.solver import DEFF_KERNEL_MIN_BC
 
     if hasattr(env, "scene"):
-        if (MESH_SDF in np.asarray(env.scene.shapes.kind).tolist()
-                or env.cfg.num_envs * env.scene.slots.num_slots >= DEFF_KERNEL_MIN_BC):
+        if env.cfg.num_envs * env.scene.slots.num_slots >= DEFF_KERNEL_MIN_BC:
             raise AssertionError("a classic scene outside the predicted launches")
-        return {"spd_inverse": 1, "contact_sweep": env.scene.params.substeps, "prep_deff": 0,
-                "sdf_gather": 0}
+        mesh = MESH_SDF in np.asarray(env.scene.shapes.kind).tolist()
+        return {"spd_inverse": 1 + hasattr(env, "osc_tau"),
+                "contact_sweep": env.scene.params.substeps, "prep_deff": 0,
+                "sdf_gather": int(mesh)}
     return {"spd_inverse": env.cfg.substeps * env.cfg.control_freq_inv, "contact_sweep": 0,
             "prep_deff": 0, "sdf_gather": 0}
 
@@ -3516,17 +3540,19 @@ def locomotion_ref(task: str, ppo, ts, dev, env_g_full, kept) -> dict:
 
 
 def classic_entry(rollout, dev, task: str, state_type) -> dict:
-    """Phase 48's in-process entry points, `train.main` in this process
-    (`python -m handarm_tpu_torch.train task=TASK env.num_envs=N
-    max_iterations=2` once started; the Cartpole at 512 envs, AnymalTerrain
-    at 4096): launches per iteration as `per_step_launches` predicts from
-    the composed env (the Cartpole 32 / 0 / 0 / 0, AnymalTerrain 24 / 48 /
-    0 / 0), its ckpt_2.npz (the task state's leaves: the ClassicState's 4,
-    the ATState's 18) read whole with the task's config and written back
+    """Phase 48's entry points, `train.main` in this process (`python -m
+    handarm_tpu_torch.train task=TASK env.num_envs=N max_iterations=2` once
+    started; the Quadcopter at 8192 envs, the Cartpole at 512,
+    AnymalTerrain and FrankaCabinet at 4096): launches per iteration as
+    `per_step_launches` predicts from the composed env (the Quadcopter 16
+    / 32 / 0 / 0, the Cartpole 32 / 0 / 0 / 0, AnymalTerrain 24 / 48 / 0 /
+    0, FrankaCabinet 16 / 32 / 0 / 16), its ckpt_2.npz (the task state's
+    leaves: the QuadState's 14, the ClassicState's 4, the ATState's 18, the
+    CabinetState's 12) read whole with the task's config and written back
     leaf for leaf."""
     import numpy as np
 
-    from handarm_tpu_torch.convert import train_state_to_leaves
+    from handarm_tpu_torch.convert import env_state_to_leaves, train_state_to_leaves
     from handarm_tpu_torch.envs.registry import build_env, resolve_task
     from handarm_tpu_torch.learn.ppo import ppo_config
     from handarm_tpu_torch.utils.checkpoint import load_train_state, read_leaves
@@ -3551,7 +3577,8 @@ def classic_entry(rollout, dev, task: str, state_type) -> dict:
     same = len(back) == len(leaves) and all(
         a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
         for a, b in zip(back, leaves))
-    log(f"{task} entry point: {len(leaves)} leaves read whole as a "
+    log(f"{task} entry point: {len(leaves)} leaves ({len(env_state_to_leaves(ts.env_state))} "
+        f"of the env state) read whole as a "
         f"{type(ts.env_state).__name__} of {ts.last_obs.shape[0]} envs, epoch {int(ts.epoch)}, "
         f"written back {'leaf for leaf' if same else 'DIFFERENT'}")
     if not (same and isinstance(ts.env_state, state_type) and int(ts.epoch) == CLASSIC_ENTRY_ITERS
@@ -3812,8 +3839,173 @@ def contact_task_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
     return dict(envs_with_impulses=pushed, **rec)
 
 
+def franka_contact_state(env, task: str, ops, dev):
+    """A state of every env with the contacts phase 55 or 56 checks, built
+    by the env's own steps (launches per step as `per_step_launches`
+    predicts), the last step's kernel calls kept. FrankaCubeStack: the
+    grip site driven by OSC to cubeA's top with the gripper open
+    (FRANKA_APPROACH_STEPS), then closing on it (FRANKA_GRASP_STEPS);
+    FrankaCabinet: the drawer slid out until its handle's front lies
+    CABINET_PAST_GRIP past the env's grip site (short of the success line)
+    and moving at 0.3 m/s against the gripper, then CABINET_PRESS_STEPS
+    zero-action steps. Returns (state, [B] bool: the envs whose hand or
+    fingers push on cubeA or the drawer at the last step's end (an impulse
+    on a robot-object slot), the kept calls, steps)."""
+    import torch
+
+    state, obs = env.reset(2)
+    B = env.cfg.num_envs
+    if task == "FrankaCubeStack":
+        lift = torch.tensor([0.0, 0.0, 0.01], device=dev)
+
+        def action(obs, i):
+            a = torch.zeros(B, 7, device=dev)
+            a[:, :3] = torch.clamp(10.0 * (obs[:, 4:7] + lift - obs[:, 10:13]), -1.0, 1.0)
+            a[:, 6] = 1.0 if i < FRANKA_APPROACH_STEPS else -1.0
+            return a
+
+        steps = FRANKA_APPROACH_STEPS + FRANKA_GRASP_STEPS
+    else:  # the handle's front 1 cm past the grip site, within the rail short of success
+        _, grip, _, _ = env._hand(state.physics)
+        front = env.drawer_closed_pos[0] + float(env.scene.shapes.points[0, :, 0].max())
+        s_open = torch.clamp(grip[:, 0] - front + CABINET_PAST_GRIP, 0.0, CABINET_MAX_OPENING)
+        objects = state.physics.objects
+        pos, linvel = objects.pos.clone(), objects.linvel.clone()
+        pos[:, 0, 0] += s_open
+        linvel[:, 0, 0] = 0.3
+        state = state._replace(physics=state.physics._replace(
+            objects=objects._replace(pos=pos, linvel=linvel)))
+        action = lambda obs, i: torch.zeros(B, 9, device=dev)
+        steps = CABINET_PRESS_STEPS
+    with Capture(ops, last_only=True) as cap:
+        for i in range(steps):
+            cap.armed = i == steps - 1
+            state, res = env.step(state, action(obs, i))
+            obs = res.obs
+    slots = env.scene.slots
+    robot_obj = torch.as_tensor((slots.robot_body >= 0) & (slots.obj_b == 0), device=dev)
+    pushed = state.physics.contact_impulse.norm(dim=-1) > 0
+    return state, (pushed & robot_obj).any(-1), cap.calls, steps
+
+
+def franka_phase(rollout, dev, ops, task: str) -> dict:
+    """Phases 55-56 (FrankaCubeStack, FrankaCabinet): the task composed as
+    train.py composes it at IsaacGymEnvs' env count, on the in-repo
+    stand-in Franka, its learner at full width from a fresh init
+    and 31 deterministic serving steps through `PPO.act`
+    (`train_and_serve`); then the built contact state
+    (`franka_contact_state`: at least 1/32 of the envs' hands pushing on
+    cubeA or the drawer), where spd_inverse (n = 9, to n cond eps), the
+    sweep (captured, dense and robot cases, against float64; the
+    Cabinet's dense case over 2 sweeps) and, on the Cabinet, sdf_gather
+    (every channel; the queries inside the drawer's grid printed) are held
+    against their plain versions, timed beside their bounds and their
+    library calls; then card vs CPU at 16 of those envs (`franka_ref`).
+    Returns the record."""
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import sdf_gather as sdf_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    envs = CLASSIC[task][0]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    per_step = per_step_launches(env)
+    sc = env.scene
+    C, K = sc.slots.num_slots, sc.shapes.num_objects
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {C} contact slots, K = {K}, "
+        f"{sc.spheres.body.shape[0]} robot spheres, {sc.geom.num_walls} walls, obs "
+        f"{env.num_obs}, actions {env.num_actions}; object masses "
+        f"{[round(float(m), 4) for m in sc.shapes.mass]} kg, the robot's "
+        f"{float(sc.model.mass.sum()):.3f} kg; learner hidden {ppo.cfg.hidden}, horizon "
+        f"{ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}; launches "
+        f"per step {per_step}")
+    rec, ts, _ = train_and_serve(rollout, env, ppo, task)
+
+    rollout.reset_launch_counts()
+    kept, scores, calls, steps = franka_contact_state(env, task, ops, dev)
+    check_launches(rollout.launch_counts(), per_step, steps, f"{task} contact state")
+    finite_state(tree_map, kept, env._obs(kept))
+    n_contact = int(scores.sum())
+    want = "a hand or finger pushing on " + ("cubeA" if task == "FrankaCubeStack"
+                                             else "the drawer")
+    log(f"{task}: {n_contact} of {envs} envs with {want} at the contact state's last "
+        f"step (built in {steps} steps)")
+    if n_contact < envs // 32:
+        raise AssertionError(f"{task}: too few envs with {want}")
+    tag = f"{task} contact state"
+    # the drawer's dense case (its 100 wall and ground slots and 30 sphere
+    # slots made active on one body, the robot's 60 on the walls and the
+    # ground) is an unstable Jacobi iteration: the plain version's float32
+    # error from float64 grows 2.4e-7, 5.5e-7, 4.7e-6, 8.3e-5 over 1, 2, 4
+    # and 8 sweeps at a scale of 0.7, so there two float32 orders differ
+    # by their own rounding; it runs 2 sweeps, as the robot case does
+    kern = {"spd_inverse": check_spd_craft(spd_op, calls["spd"][0][0][0], dev, tag),
+            "contact_sweep": check_sweep(sweep_op, calls["sweep"][0], sc.maps, tag, f64=True,
+                                         dense_sweeps=2 if task == "FrankaCabinet" else None)}
+    kern["contact_sweep"].update(envs_with_contacts=n_contact, contacts=want)
+    if "sdf" in calls:
+        kern["sdf_gather"] = check_sdf(sdf_op, calls["sdf"][0][0])
+    if per_step["sdf_gather"] != ("sdf" in calls):
+        raise AssertionError(f"{task}: sdf_gather calls do not match the scene")
+    rec["kernels"] = kern
+    rec["contact_state"] = dict(steps=steps, envs_with_contacts=n_contact)
+    del calls
+    rec["ref"] = franka_ref(task, ppo, ts, dev, kept, scores)
+    return rec
+
+
+def franka_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
+    """Card vs CPU at 16 envs of the contact state (those whose hand pushes
+    on the object first; clocks zeroed), 2 env steps with the trained
+    learner's deterministic actions (on the CPU) and the same draws: q and
+    the objects' positions within 2e-4, observations within 2e-3, each
+    times max(1, the CPU value's largest)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO
+
+    cfg, _ = resolve_task(task, ["env.num_envs=16"])
+    env_c, env_g = build_env(cfg, "cpu"), build_env(cfg, dev)
+    to = lambda x, d: tree_map(lambda t: t.to(d), x)
+    learner = PPO(env_c, ppo.cfg, device="cpu")
+    ts_c = ts._replace(params={k: v.cpu() for k, v in ts.params.items()},
+                       obs_stats=to(ts.obs_stats, "cpu"))
+    idx = torch.argsort(-scores.int(), stable=True)[:16]
+    start = tree_map(lambda t: t[idx].cpu(), kept)
+    start = start._replace(progress=torch.zeros_like(start.progress))
+    state_c, state_g, obs_c = start, to(start, dev), env_c._obs(start)
+    touching = lambda st: int((st.physics.contact_impulse.abs().sum((1, 2)) > 0).sum())
+    pushed = [touching(state_c)]
+    for _ in range(2):
+        a, d = learner.act(ts_c, obs_c), env_c.draw(16)
+        state_c, res_c = env_c.step(state_c, a, d)
+        state_g, res_g = env_g.step(state_g, a.to(dev), to(d, dev))
+        obs_c, obs_g = res_c.obs, res_g.obs
+        pushed.append(touching(state_c))
+    rec = {}
+    for name, g, c, tol in (("obs", obs_g, obs_c, 2e-3),
+                            ("q", state_g.physics.robot.q, state_c.physics.robot.q, 2e-4),
+                            ("object_pos", state_g.physics.objects.pos,
+                             state_c.physics.objects.pos, 2e-4)):
+        scale = max(1.0, float(c.abs().max()))
+        rec[name] = dict(err=float((g.cpu() - c).abs().max()), scale=scale, tol=tol * scale)
+    log(f"{task}-ref: 16 envs, 2 steps, envs with impulses {pushed}; " + ", ".join(
+        f"max|{k} gpu-cpu| {v['err']:.3e} (scale {v['scale']:.3e})" for k, v in rec.items()))
+    if not all(v["err"] <= v["tol"] for v in rec.values()):
+        raise AssertionError(f"the card's run disagrees with the CPU reference ({task}-ref)")
+    if not bool(torch.isfinite(obs_g).all()) or pushed[0] < 16:
+        raise AssertionError(f"bad card run or an env without contact ({task}-ref)")
+    return dict(envs_with_impulses=pushed, **rec)
+
+
 def classic_phases(rollout, dev, ops) -> tuple:
-    """Phases 45-54: (their record, each kernel's classic record)."""
+    """Phases 45-56: (their record, each kernel's classic record)."""
     rec, kernels = {}, {}
     for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
         name = "quad" if task == "Quadcopter" else "ingenuity"
@@ -3831,6 +4023,9 @@ def classic_phases(rollout, dev, ops) -> tuple:
     for task, name in zip(CONTACT_TASKS, ("ball-balance", "anymal", "anymal-terrain")):
         with phase(name):
             rec[task] = contact_task_phase(rollout, dev, ops, task)
+    for task, name in zip(FRANKA_TASKS, ("franka-cube-stack", "franka-cabinet")):
+        with phase(name):
+            rec[task] = franka_phase(rollout, dev, ops, task)
     for task in CLASSIC:
         per_iter = rec[task]["launches_per_iteration"]
         for k in per_iter:
@@ -3842,11 +4037,13 @@ def classic_phases(rollout, dev, ops) -> tuple:
     with phase("classic-entry"):
         from handarm_tpu_torch.envs.anymal_terrain import ATState
         from handarm_tpu_torch.envs.classic import ClassicState
+        from handarm_tpu_torch.envs.franka_cabinet import CabinetState
+        from handarm_tpu_torch.envs.quadcopter import QuadState
 
-        rec["entry_point"] = classic_entry_phase()
-        rec["entry_point"]["Cartpole"] = classic_entry(rollout, dev, "Cartpole", ClassicState)
-        rec["entry_point"]["AnymalTerrain"] = classic_entry(rollout, dev, "AnymalTerrain",
-                                                            ATState)
+        rec["entry_point"] = {task: classic_entry(rollout, dev, task, state_type)
+                              for task, state_type in (
+                                  ("Quadcopter", QuadState), ("Cartpole", ClassicState),
+                                  ("AnymalTerrain", ATState), ("FrankaCabinet", CabinetState))}
     return rec, kernels
 
 
@@ -4595,10 +4792,11 @@ def main() -> int:
         # (the ANYmal), 37 (Ant) and 51 (Humanoid) slots at K = 0, and C =
         # 161 at K = 1 (BallBalance)
         log("classic: contact_sweep at C = 4, 8, 30, 37 and 51 (K = 0, no object sides) "
-            "launches contact_sweep_kernel<128, 6>, at C = 161, K = 1 (BallBalance) the "
-            "instance its launch line names; spd_inverse at n = 14, 8, 2, 12 and 18 its <14>, "
-            "<8>, <2>, <12> and <18>, at n = 27 spd_inverse_warp_kernel<27> (a warp per "
-            "matrix)")
+            "launches contact_sweep_kernel<128, 6>, at C = 161, K = 1 (BallBalance), C = 134, "
+            "K = 2 (FrankaCubeStack) and C = 190, K = 1 (FrankaCabinet) the instance its "
+            "launch line names; spd_inverse at n = 14, 8, 2, 12, 18 and 9 its <14>, <8>, <2>, "
+            "<12>, <18> and <9>, at n = 27 spd_inverse_warp_kernel<27> (a warp per matrix); "
+            "sdf_gather at FrankaCabinet's R = 32 drawer the one sdf_gather_kernel")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis

@@ -29,11 +29,14 @@ to write checkpoints its loader reads.
   then its PRNG key last: 14 leaves for the Quadcopter (QuadState),
   BallBalance (BBotState, its ball among the object leaves) and Anymal
   (AnymalState), 13 for Ingenuity, 16 for the Ant and the Humanoid
-  (LocoState), 18 for AnymalTerrain (ATState); the Cartpole's
-  ClassicState has no physics: q, qd, progress, key. Its readers take the
-  env's config (QuadcopterConfig, IngenuityConfig, ClassicConfig,
-  LocomotionConfig, BallBalanceConfig, AnymalConfig, AnymalTerrainConfig)
-  in place of a HandArmConfig.
+  (LocoState), 18 for AnymalTerrain (ATState); the Franka's fixed base has
+  no base pose and a None tau_ext between steps: 11 for FrankaCubeStack
+  (FrankaState), 12 for FrankaCabinet (CabinetState, its persistent
+  targets among them); the Cartpole's ClassicState has no physics: q,
+  qd, progress, key. Its readers take the env's config (QuadcopterConfig,
+  IngenuityConfig, ClassicConfig, LocomotionConfig, BallBalanceConfig,
+  AnymalConfig, AnymalTerrainConfig, FrankaCubeStackConfig,
+  FrankaCabinetConfig) in place of a HandArmConfig.
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch (71 for the 768-512-256 MLP on the UR5+SIH, 69 on the Stretch),
@@ -57,6 +60,8 @@ import torch
 
 from handarm_tpu_torch.envs.adr import AdrState
 from handarm_tpu_torch.envs.classic import ClassicState
+from handarm_tpu_torch.envs.franka import FrankaState
+from handarm_tpu_torch.envs.franka_cabinet import CabinetState
 from handarm_tpu_torch.envs.hand_arm import EnvState, HandArmConfig, Metrics, TaskState
 from handarm_tpu_torch.envs.locomotion import LocoState
 from handarm_tpu_torch.envs.registry import CLASSIC_ENVS
@@ -77,8 +82,10 @@ OPT_SCALARS = (np.int32, np.bool_, np.int32, np.int32)  # optax's, in its order
 # the classic tasks' env states by their configs
 CLASSIC_STATES = {cfg: env.state_type for cfg, env in CLASSIC_ENVS.items()}
 # the physics leaves of a classic state: a floating base's pose, and the
-# locomotion robots' tau_ext; the Cartpole's state holds no physics
-N_CLASSIC_PHYSICS = {ClassicState: 0, LocoState: N_PHYSICS_LEAVES + 3}
+# locomotion robots' tau_ext; the Cartpole's state holds no physics, the
+# Franka's a fixed base's
+N_CLASSIC_PHYSICS = {ClassicState: 0, LocoState: N_PHYSICS_LEAVES + 3,
+                     FrankaState: N_PHYSICS_LEAVES, CabinetState: N_PHYSICS_LEAVES}
 
 
 def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
@@ -140,7 +147,8 @@ def physics_state_to_leaves(p: PhysicsState) -> list[np.ndarray]:
 
 def classic_physics_leaves(state_type) -> int:
     """Leaves of a classic task's physics: the craft's floating base (10),
-    the locomotion robots' with tau_ext (11), none (the Cartpole)."""
+    the locomotion robots' with tau_ext (11), the Franka's fixed base (8),
+    none (the Cartpole)."""
     return N_CLASSIC_PHYSICS.get(state_type, N_PHYSICS_LEAVES + 2)
 
 
@@ -352,7 +360,7 @@ def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
 
 def env_state_to_leaves(state, seed: int = 0, env_cfg=None) -> list[np.ndarray]:
     """The env-state leaves (the UR5+SIH's 24, the Stretch's 22, 6 more for
-    each of DR and ADR; a classic task's 4, 13, 14 or 16) in the JAX package's
+    each of DR and ADR; a classic task's 4, 11, 12, 13, 14, 16 or 18) in the JAX package's
     order and dtypes. Given a HandArmConfig `env_cfg`, the state must hold
     its DR and ADR states, and only those."""
     if type(state) in CLASSIC_STATES.values():

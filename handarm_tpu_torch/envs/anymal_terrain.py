@@ -134,8 +134,7 @@ class AnymalTerrainEnv:
         f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
         # the heightfield replaces the table and the plane
         geom = StaticGeom(table_lo=f32([-1e4, -1e4]), table_hi=f32([-9e3, -9e3]),
-                          table_height=0.0, wall_lo=np.zeros((0, 3), np.float32),
-                          wall_hi=np.zeros((0, 3), np.float32), hf_height=f32(t.height),
+                          table_height=0.0, hf_height=f32(t.height),
                           hf_cell=float(t.cell), hf_origin=f32(t.origin))
         self.art, self.scene, self.default_q, self._effort = anymal_scene(cfg, geom, dev)
         art = self.art

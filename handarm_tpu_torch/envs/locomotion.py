@@ -159,8 +159,7 @@ class LocomotionEnv:
                                radius=f32(rads), friction=np.asarray(mus, np.float32))
         # the ground plane only: the table column parked far away
         geom = StaticGeom(table_lo=f32([1e6, 1e6]), table_hi=f32([1e6 + 1.0, 1e6 + 1.0]),
-                          table_height=0.0, wall_lo=np.zeros((0, 3), np.float32),
-                          wall_hi=np.zeros((0, 3), np.float32))
+                          table_height=0.0)
         self.scene = build_scene(art, stack_objects([], device=dev), spheres, geom,
                                  kp=np.zeros(art.nv), kd=np.zeros(art.nv),
                                  base_pos=(0.0, 0.0, cfg.start_height),

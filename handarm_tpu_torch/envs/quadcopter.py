@@ -117,8 +117,7 @@ class ClassicStepResult(NamedTuple):
 def ground_geom(device) -> StaticGeom:
     """The ground plane: a table top at z = 0 over the whole field."""
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
-    return StaticGeom(table_lo=f32([-1e4, -1e4]), table_hi=f32([1e4, 1e4]), table_height=0.0,
-                      wall_lo=np.zeros((0, 3), np.float32), wall_hi=np.zeros((0, 3), np.float32))
+    return StaticGeom(table_lo=f32([-1e4, -1e4]), table_hi=f32([1e4, 1e4]), table_height=0.0)
 
 
 def mjcf_scene(urdf, extras, kp, kd, params: SimParams, device, objects=()):

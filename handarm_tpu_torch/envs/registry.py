@@ -3,7 +3,8 @@ points build them (counterpart of `make_env`, `env_from_yaml`,
 `_warn_unknown_yaml_keys`, `compose_task`, `register_classic` and
 `all_task_names` of handarm_tpu/envs/registry.py: the UR5+SIH and Stretch
 tasks, and of the classic tasks Quadcopter, Ingenuity, Cartpole, Ant,
-Humanoid, BallBalance, Anymal and AnymalTerrain).
+Humanoid, BallBalance, Anymal, AnymalTerrain, FrankaCubeStack and
+FrankaCabinet).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -30,9 +31,10 @@ factory takes one) and any other field of the env's config dataclass
 `urdf=` and the Ant's `mjcf=` take another asset; the Humanoid's factory
 sets its own MJCF and refuses `mjcf=` (TypeError), as the JAX package's
 does, so another Humanoid asset comes through `dataclasses.replace` of its
-config. BallBalance, Anymal and AnymalTerrain read their module constants'
-stand-in assets and take no path, as the JAX package's factories take none;
-the ANYmal tasks' registry default of 500 steps becomes their own 1000. The
+config. BallBalance, Anymal, AnymalTerrain and the two Franka tasks read
+their module constants' stand-in assets and take no path, as the JAX
+package's factories take none; the ANYmal tasks' registry default of 500
+steps becomes their own 1000, FrankaCubeStack's its own 300. The
 JAX package's other classic tasks are not ported: naming one raises
 NotImplementedError (ROADMAP §1.7).
 
@@ -63,6 +65,16 @@ from handarm_tpu_torch.envs.ball_balance import (
 )
 from handarm_tpu_torch.envs.camera import CameraConfig
 from handarm_tpu_torch.envs.classic import CartpoleEnv, ClassicConfig, cartpole_config
+from handarm_tpu_torch.envs.franka import (
+    FrankaCubeStackConfig,
+    FrankaCubeStackEnv,
+    franka_cube_stack_config,
+)
+from handarm_tpu_torch.envs.franka_cabinet import (
+    FrankaCabinetConfig,
+    FrankaCabinetEnv,
+    franka_cabinet_config,
+)
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
 from handarm_tpu_torch.envs.ingenuity import IngenuityConfig, IngenuityEnv
 from handarm_tpu_torch.envs.locomotion import (
@@ -96,14 +108,15 @@ CLASSIC_TASKS: dict = {}
 CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv,
                 ClassicConfig: CartpoleEnv, LocomotionConfig: LocomotionEnv,
                 BallBalanceConfig: BallBalanceEnv, AnymalConfig: AnymalEnv,
-                AnymalTerrainConfig: AnymalTerrainEnv}
+                AnymalTerrainConfig: AnymalTerrainEnv,
+                FrankaCubeStackConfig: FrankaCubeStackEnv, FrankaCabinetConfig: FrankaCabinetEnv}
 # the JAX package's classic tasks the port does not have yet
 UNPORTED_CLASSIC = (
     "AllegroHand", "AllegroHandADR", "AllegroHandDextremeADR", "AllegroHandManualDR",
     "AllegroKuka", "AllegroKukaRegrasping", "AllegroKukaReorientation", "AllegroKukaThrow",
     "AllegroKukaTwoArms", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArmsReorientation",
     "FactoryTaskGears", "FactoryTaskInsertion", "FactoryTaskNutBoltPick",
-    "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew", "FrankaCabinet", "FrankaCubeStack", "HumanoidAMP",
+    "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew", "HumanoidAMP",
     "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert", "ShadowHand",
     "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM", "Trifinger",
 )
@@ -159,6 +172,23 @@ register_classic("Anymal", _thousand_steps(anymal_config),
 register_classic("AnymalTerrain", _thousand_steps(anymal_terrain_config),
                  dict(hidden=(512, 256, 128), horizon=24, minibatch_size=16384, gamma=0.99,
                       kl_threshold=0.008, reward_scale=1.0))
+
+
+def _franka_cube_stack_config(num_envs, episode_length, **kw) -> FrankaCubeStackConfig:
+    # the registry's default 500 steps becomes FrankaCubeStack's own 300
+    return franka_cube_stack_config(num_envs, episode_length if episode_length != 500 else 300,
+                                    **kw)
+
+
+# reference cfg/train/FrankaCubeStackPPO.yaml: units [256,128,64], horizon 32,
+# minibatch 16384; FrankaCabinetPPO.yaml: [256,128,64], horizon 16,
+# minibatch 8192, reward shaper 0.01
+register_classic("FrankaCubeStack", _franka_cube_stack_config,
+                 dict(hidden=(256, 128, 64), horizon=32, minibatch_size=16384, gamma=0.99,
+                      kl_threshold=0.008, reward_scale=0.1))
+register_classic("FrankaCabinet", franka_cabinet_config,
+                 dict(hidden=(256, 128, 64), horizon=16, minibatch_size=8192, gamma=0.99,
+                      kl_threshold=0.008, reward_scale=0.01))
 
 
 def _refuse_unported(name: str) -> None:

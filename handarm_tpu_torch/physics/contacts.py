@@ -17,7 +17,7 @@ for the mesh objects) samples them all.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import numpy as np
@@ -36,8 +36,8 @@ class StaticGeom:
     table_lo: torch.Tensor  # [2]
     table_hi: torch.Tensor  # [2]
     table_height: float
-    wall_lo: np.ndarray  # [W, 3]
-    wall_hi: np.ndarray  # [W, 3]
+    wall_lo: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.float32))  # [W, 3]
+    wall_hi: np.ndarray = field(default_factory=lambda: np.zeros((0, 3), np.float32))  # [W, 3]
     hf_height: torch.Tensor | None = None  # [R, C] metres, on the scene's device
     hf_cell: float = 0.1  # metres per pixel
     hf_origin: torch.Tensor | None = None  # [2] world xy of pixel (0, 0)

@@ -38,6 +38,12 @@ pose from them. `RobotState.tau_ext` is a generalized torque added to the
 stable-PD torque (the craft's thrust), set by the env before a step and
 cleared after it. The FK carried between sim steps stays fixed-base only.
 
+`Scene.rails` (a `RailSpec`, from `build_scene(..., rails=)`) holds
+selected objects on prismatic or cylindrical rails: every cadence
+integrates its substeps through `_integrate`, which projects those
+objects onto their rails right after the free-body integration
+(FrankaCabinet's drawer).
+
 `EnvOverrides` carries the per-env physical parameters of domain
 randomization: PD gain scales (kp and kd, in the SPD inverse's matrices
 and every substep's PD torque), per-env gravity, and object mass and
@@ -147,6 +153,25 @@ class EnvOverrides(NamedTuple):
     friction_scale: torch.Tensor | None = None  # [B] contact friction multiplier
 
 
+class RailSpec(NamedTuple):
+    """Prismatic (or, with `spin`, cylindrical) rails of selected objects:
+    the object takes part in the contact solve as a free body, then every
+    substep its pose and velocity are projected onto its rail line (a
+    post-stabilized 1-dof joint; FrankaCabinet's drawer)."""
+
+    axis: torch.Tensor  # [K, 3] unit slide axis, world frame
+    origin: torch.Tensor  # [K, 3] world position at s = 0
+    quat: torch.Tensor  # [K, 4] fixed orientation (wxyz)
+    lo: torch.Tensor  # [K] lower limit (m)
+    hi: torch.Tensor  # [K] upper limit (m)
+    damping: torch.Tensor  # [K] viscous decay rate (1/s)
+    mask: torch.Tensor  # [K] 1 = on a rail, 0 = free
+    # cylindrical rails (world-z axis only): the object keeps its rotation
+    # about the axis and its axial travel (a nut on a bolt); None: all
+    # rails prismatic
+    spin: torch.Tensor | None = None  # [K] 1 = cylindrical, 0 = fixed orientation
+
+
 class StepInfo(NamedTuple):
     body_contact_force: torch.Tensor  # [B, nb, 3]
     obj_contact_force: torch.Tensor  # [B, K, 3]
@@ -169,6 +194,7 @@ class Scene:
     params: SimParams
     slot_to_body: torch.Tensor  # [C, nb]
     slot_to_obj: torch.Tensor  # [C, K] signed incidence
+    rails: RailSpec | None = None  # objects held on rails
 
 
 class HeavyPrep(NamedTuple):
@@ -186,7 +212,7 @@ class HeavyPrep(NamedTuple):
 def build_scene(art: Articulation, shapes: ObjectShapes, spheres: RobotSpheres,
                 geom: StaticGeom, kp, kd, base_pos=(0.0, 0.0, 0.0),
                 base_quat=(1.0, 0.0, 0.0, 0.0), params: SimParams = SimParams(),
-                dtype=torch.float32, device="cpu") -> Scene:
+                rails: RailSpec | None = None, dtype=torch.float32, device="cpu") -> Scene:
     m = model_arrays(art, dtype, device)
     slots = make_contact_slots(shapes, spheres, static_friction=1.0,
                                num_walls=geom.num_walls)
@@ -207,6 +233,7 @@ def build_scene(art: Articulation, shapes: ObjectShapes, spheres: RobotSpheres,
         kp=t(kp), kd=t(kd), gravity=t([0.0, 0.0, -9.81]), base_pos=t(base_pos),
         base_quat=t(base_quat), params=params, slot_to_body=t(s2b),
         slot_to_obj=t(s2o),
+        rails=None if rails is None else RailSpec(*(None if x is None else t(x) for x in rails)),
     )
 
 
@@ -380,8 +407,9 @@ def _integrate(scene: Scene, q, qd_s, olv, oav, olin_free, oang_free, opos, oqua
     """Clamp the solved velocities (joint velocity and position limits, a
     floating base's caps at its position `base_pos`, the contact-gain cap,
     object speed limits, rolling resistance from `rolling` = (world
-    impulses, normals) thunk) and integrate one substep. Returns (q, qd,
-    opos, oquat, olv, oav)."""
+    impulses, normals) thunk) and integrate one substep, then hold the
+    railed objects on their rails (every cadence integrates here). Returns
+    (q, qd, opos, oquat, olv, oav)."""
     m, p = scene.model, scene.params
     sp = p.solver
     low = m.q_min + p.joint_limit_margin
@@ -402,7 +430,42 @@ def _integrate(scene: Scene, q, qd_s, olv, oav, olin_free, oang_free, opos, oqua
         oav = _rolling_resistance(oav, impulse, normal, scene.slot_to_obj,
                                   scene.shapes.inertia_diag, sp.rolling_friction)
     opos, oquat = free_body_integrate(opos, oquat, olv, oav, h)
+    if scene.rails is not None:
+        opos, oquat, olv, oav = _apply_rails(scene.rails, opos, oquat, olv, oav, h)
     return q_new, qd_new, opos, oquat, olv, oav
+
+
+def _apply_rails(rails: RailSpec, opos, oquat, olv, oav, h: float):
+    """Project the railed objects' poses and velocities onto their rails:
+    the position onto the line, clamped to [lo, hi] (the outward axial
+    velocity killed at a limit), the axial velocity damped, the
+    orientation fixed (or, on a cylindrical rail, reduced to its rotation
+    about world z with the axial spin damped)."""
+    m_rail = rails.mask[None, :, None] > 0  # [1, K, 1]
+    s = torch.einsum("bki,ki->bk", opos - rails.origin[None], rails.axis)
+    at_lo, at_hi = s <= rails.lo[None], s >= rails.hi[None]
+    s = torch.minimum(torch.maximum(s, rails.lo[None]), rails.hi[None])
+    pos_rail = rails.origin[None] + s[..., None] * rails.axis[None]
+    decay = torch.clamp(1.0 - h * rails.damping[None], min=0.0)
+    v_ax = torch.einsum("bki,ki->bk", olv, rails.axis)
+    v_ax = torch.where(at_lo, torch.clamp(v_ax, min=0.0), v_ax)
+    v_ax = torch.where(at_hi, torch.clamp(v_ax, max=0.0), v_ax)
+    olv = torch.where(m_rail, (v_ax * decay)[..., None] * rails.axis[None], olv)
+    opos = torch.where(m_rail, pos_rail, opos)
+    fixed_quat = rails.quat[None].expand_as(oquat)
+    if rails.spin is None:
+        return opos, torch.where(m_rail, fixed_quat, oquat), olv, torch.where(
+            m_rail, torch.zeros_like(oav), oav)
+    m_spin = (rails.spin[None, :, None] > 0) & m_rail
+    w_ax = torch.einsum("bki,ki->bk", oav, rails.axis) * decay
+    oav = torch.where(m_spin, w_ax[..., None] * rails.axis[None],
+                      torch.where(m_rail, torch.zeros_like(oav), oav))
+    qw, qz = oquat[..., 0], oquat[..., 3]
+    inv = torch.rsqrt(qw * qw + qz * qz + 1e-12)
+    zero = torch.zeros_like(qw)
+    q_yaw = torch.stack([qw * inv, zero, zero, qz * inv], dim=-1)
+    oquat = torch.where(m_spin, q_yaw, torch.where(m_rail, fixed_quat, oquat))
+    return opos, oquat, olv, oav
 
 
 def _info(scene: Scene, impulse, depth, h: float) -> StepInfo:

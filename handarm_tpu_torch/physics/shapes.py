@@ -1,6 +1,6 @@
 """Free-object collision geometry: sample points + analytic or voxel SDFs
 (counterpart of handarm_tpu/physics/shapes.py for box, sphere and mesh-SDF
-objects).
+objects, and the union-of-boxes compounds baked into mesh-SDF records).
 
 A mesh-SDF object's field [R, R, R, 4] holds the baked distance and its
 unit gradient, so one trilinear gather (ops/sdf_gather.py: a CUDA kernel
@@ -93,6 +93,54 @@ def make_box_object(half_extents, mass: float, friction: float = 1.0) -> dict:
         mass=mass,
         inertia_diag=box_inertia_diag(mass, half_extents),
         friction=friction,
+    )
+
+
+def _box_sdf(p: np.ndarray, center: np.ndarray, half: np.ndarray) -> np.ndarray:
+    q = np.abs(p - center) - half
+    return np.linalg.norm(np.maximum(q, 0.0), axis=-1) + np.minimum(q.max(axis=-1), 0.0)
+
+
+def make_compound_box_object(parts: list[tuple], mass: float, friction: float = 1.0,
+                             sdf_resolution: int = 32, margin: float = 0.03) -> dict:
+    """One rigid body made of several boxes (their union) as a MESH_SDF
+    record: the union's exact box SDF sampled onto an R^3 grid over the
+    parts' bounds plus `margin`, the parts' corners and face centres that
+    no other part swallows as contact points, and uniform-density mass
+    and inertia (parallel-axis, about the com). `parts` is a list of
+    (centre [3], half extents [3]) in the body frame, whose origin the
+    engine takes as the com: the caller centres the parts on it."""
+    parts = [(np.asarray(c, np.float64), np.asarray(h, np.float64)) for c, h in parts]
+    vols = np.array([8.0 * h.prod() for _, h in parts])
+    dens = mass / max(vols.sum(), 1e-12)
+    lo = np.min([c - h for c, h in parts], axis=0) - margin
+    hi = np.max([c + h for c, h in parts], axis=0) + margin
+    spacing = float((hi - lo).max() / (sdf_resolution - 1))
+    axes = [lo[i] + spacing * np.arange(sdf_resolution) for i in range(3)]
+    p = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1)  # [R, R, R, 3]
+    grid = np.min([_box_sdf(p, c, h) for c, h in parts], axis=0).astype(np.float32)
+    pts = np.concatenate([box_points(h, n_per_edge=1) + c for c, h in parts], axis=0)
+    # drop the samples inside the union (corners another part swallows)
+    pts = pts[np.min([_box_sdf(pts, c, h) for c, h in parts], axis=0) > -1e-6]
+    inertia = np.zeros(3)
+    com = sum(dens * v * c for (c, _), v in zip(parts, vols)) / mass
+    for (c, h), v in zip(parts, vols):
+        r = c - com
+        inertia += box_inertia_diag(dens * v, h) + dens * v * ((r ** 2).sum() - r ** 2)
+    return dict(
+        kind=MESH_SDF,
+        size=(hi - lo) / 2.0,
+        obb_pos=(hi + lo) / 2.0,
+        obb_quat=np.array([1.0, 0.0, 0.0, 0.0]),
+        points=pts,
+        point_radius=np.zeros(len(pts)),
+        bound_radius=float(np.linalg.norm(np.maximum(np.abs(lo), np.abs(hi)))),
+        mass=float(mass),
+        inertia_diag=np.clip(inertia, 1e-7, None),
+        friction=friction,
+        sdf_grid=grid,
+        sdf_lo=lo.astype(np.float32),
+        sdf_spacing=spacing,
     )
 
 

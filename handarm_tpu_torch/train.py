@@ -39,11 +39,12 @@ ValueError, as the JAX package's first step on such a state does. The
 iteration count starts at the file's step.
 
 The classic tasks Quadcopter, Ingenuity, Cartpole, Ant, Humanoid,
-BallBalance, Anymal and AnymalTerrain compose the same way (their task
-yamls' `env` block and train yamls' `ppo` block; `env.num_envs=N` or
-`num_envs=N`, and any field of the task's config dataclass:
-QuadcopterConfig, IngenuityConfig, ClassicConfig, LocomotionConfig,
-BallBalanceConfig, AnymalConfig, AnymalTerrainConfig):
+BallBalance, Anymal, AnymalTerrain, FrankaCubeStack and FrankaCabinet
+compose the same way (their task yamls' `env` block and train yamls'
+`ppo` block; `env.num_envs=N` or `num_envs=N`, and any field of the
+task's config dataclass: QuadcopterConfig, IngenuityConfig,
+ClassicConfig, LocomotionConfig, BallBalanceConfig, AnymalConfig,
+AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig):
 
     python -m handarm_tpu_torch.train task=Quadcopter env.num_envs=8192
     python -m handarm_tpu_torch.train task=Ingenuity env.num_envs=4096
@@ -53,9 +54,12 @@ BallBalanceConfig, AnymalConfig, AnymalTerrainConfig):
     python -m handarm_tpu_torch.train task=BallBalance env.num_envs=4096
     python -m handarm_tpu_torch.train task=Anymal env.num_envs=4096
     python -m handarm_tpu_torch.train task=AnymalTerrain env.num_envs=4096
+    python -m handarm_tpu_torch.train task=FrankaCubeStack env.num_envs=8192
+    python -m handarm_tpu_torch.train task=FrankaCabinet env.num_envs=4096
 
-Cartpole, the Ant, the Humanoid, BallBalance and the ANYmal tasks run on
-the in-repo stand-in assets (`assets/classic_standin/`); `urdf=PATH`
+Cartpole, the Ant, the Humanoid, BallBalance, the ANYmal tasks and the
+Franka tasks run on the in-repo stand-in assets
+(`assets/classic_standin/`); `urdf=PATH`
 (Cartpole) and `mjcf=PATH` (Ant) take others. Their stats carry no success rate (`succ` prints 0).
 The JAX package's other classic tasks raise NotImplementedError (ROADMAP
 §1.7).

@@ -31,10 +31,12 @@ epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 69).
 
 A classic task's env state has 14 (Quadcopter, BallBalance, Anymal), 13
-(Ingenuity), 16 (Ant, Humanoid), 18 (AnymalTerrain) or 4 (Cartpole) leaves (`convert.classic_state_to_leaves`): its
-physics with the floating base's pose (and the locomotion robots'
-tau_ext; the Cartpole has none), its own fields, its PRNG key; its reader
-takes the task's config as `env_cfg`.
+(Ingenuity), 16 (Ant, Humanoid), 18 (AnymalTerrain), 11
+(FrankaCubeStack), 12 (FrankaCabinet) or 4 (Cartpole) leaves
+(`convert.classic_state_to_leaves`): its physics with the floating base's
+pose (and the locomotion robots' tau_ext; the Franka's fixed base has
+neither, the Cartpole no physics), its own fields, its PRNG key; its
+reader takes the task's config as `env_cfg`.
 
 An env with domain randomization or ADR has 6 more env-state leaves for
 each, after the step count (the DRState; the AdrState with its int32
@@ -202,7 +204,8 @@ def file_env_leaves(path: str, cfg=None) -> int:
     """The env-state leaves of a PPO checkpoint of the learner `cfg` (the
     PPOConfig; None: an MLP ActorCritic): 24, 30 or 36 (UR5+SIH), 22, 28
     or 34 (Stretch), 14 (Quadcopter, BallBalance, Anymal), 13 (Ingenuity), 16
-    (Ant, Humanoid), 18 (AnymalTerrain), 4 (Cartpole)."""
+    (Ant, Humanoid), 18 (AnymalTerrain), 11 (FrankaCubeStack), 12
+    (FrankaCabinet), 4 (Cartpole)."""
     with np.load(path, allow_pickle=False) as data:
         n = len(data.files)
         P = (2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), n) + 5 if cfg is None

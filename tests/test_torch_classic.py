@@ -47,8 +47,16 @@ package on the CPU.
   JAX package's, with the ANYmal tasks' 500 -> 1000 episode rule, and
   checkpoints both ways (14, 14 and 18 env-state leaves: the ball's and
   the base's, the commands, the terrain level and the spawn point among
-  them); the refusal list keeps its length with FrankaCabinet and
-  Trifinger.
+  them).
+- FrankaCubeStack and FrankaCabinet on the stand-in Franka (the JAX
+  package's `FRANKA_URDF` constants monkeypatched;
+  tests/test_torch_franka.py and tests/test_torch_franka_cabinet.py hold
+  their envs): `compose_task` against the JAX package's, with
+  FrankaCubeStack's 500 -> 300 episode rule and the Cabinet's props, and
+  checkpoints both ways (11 and 12 env-state leaves: the fixed base's
+  physics, the cubes or the drawer, the Cabinet's persistent targets). The
+  refusal list keeps its refused cases with ShadowHand and
+  FactoryTaskGears.
 """
 
 import dataclasses
@@ -217,16 +225,22 @@ def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
                                      if n in treg.TASKS or n in treg.CLASSIC_TASKS]
 
 
+PORTED_STANDINS = ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance", "FrankaCabinet",
+                   "FrankaCubeStack")
+
+
 @pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM", "Humanoid",
-                                  "Anymal", "BallBalance", "FrankaCabinet", "Trifinger"])
+                                  "Anymal", "BallBalance", "FrankaCabinet", "Trifinger",
+                                  "FrankaCubeStack", "ShadowHand", "FactoryTaskGears"])
 def test_unported_classic_task_raises(task):
     """The refusal list: the JAX package's classic tasks the port lacks raise
     NotImplementedError naming ROADMAP §1.7; Ant, Cartpole, Humanoid,
-    Anymal and BallBalance are ported and off it."""
+    Anymal, BallBalance, FrankaCabinet and FrankaCubeStack are ported and
+    off it."""
     assert task in jreg.CLASSIC_TASKS
     with pytest.raises(TypeError):
         treg.resolve_task("Quadcopter", ["no_such_field=1"])
-    if task in ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance"):
+    if task in PORTED_STANDINS:
         assert task not in treg.UNPORTED_CLASSIC and task in treg.CLASSIC_TASKS
         cfg, _ = treg.resolve_task(task, ["num_envs=8"])
         assert cfg.num_envs == 8
@@ -406,13 +420,20 @@ def _standin_constants():
     from handarm_tpu.envs import anymal as jan
     from handarm_tpu.envs import anymal_terrain as jat
     from handarm_tpu.envs import ball_balance as jbb
+    from handarm_tpu.envs import franka as jfr
+    from handarm_tpu.envs import franka_cabinet as jcab
     from handarm_tpu_torch.envs import anymal as tan
     from handarm_tpu_torch.envs import ball_balance as tbb
+    from handarm_tpu_torch.envs import franka as tfr
 
     return {"BallBalance": ((jbb, "make_ball_balance"), [(jbb, "BBOT_MJCF", tbb.BBOT_MJCF)]),
             "Anymal": ((jan, "make_anymal"), [(jan, "ANYMAL_URDF", tan.ANYMAL_URDF)]),
             "AnymalTerrain": ((jat, "make_anymal_terrain"),
-                              [(jat, "ANYMAL_URDF", tan.ANYMAL_URDF)])}
+                              [(jat, "ANYMAL_URDF", tan.ANYMAL_URDF)]),
+            "FrankaCubeStack": ((jfr, "make_franka_cube_stack"),
+                                [(jfr, "FRANKA_URDF", tfr.FRANKA_URDF)]),
+            "FrankaCabinet": ((jcab, "make_franka_cabinet"),
+                              [(jcab, "FRANKA_URDF", tfr.FRANKA_URDF)])}
 
 
 STANDIN_CONSTANTS = _standin_constants()
@@ -477,6 +498,10 @@ def test_cartpole_reset_and_steps_match():
     ("Anymal", ["env.num_envs=16", "env.episode_length=300", "kp=60.0"]),
     ("AnymalTerrain", []),
     ("AnymalTerrain", ["num_envs=16", "num_levels=3", "num_types=4", "ppo.hidden=[64,64]"]),
+    ("FrankaCubeStack", []),
+    ("FrankaCubeStack", ["num_envs=32", "osc_kp=100.0", "ppo.minibatch_size=512"]),
+    ("FrankaCabinet", []),
+    ("FrankaCabinet", ["env.num_envs=16", "num_props=2", "ppo.hidden=[64,64]"]),
 ])
 def test_compose_task_matches_standins(task, overrides, monkeypatch):
     from handarm_tpu.envs import locomotion as jl
@@ -502,6 +527,11 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
     assert type(tenv).__name__ == type(jenv).__name__.replace("ClassicEnv", "CartpoleEnv")
     if task in ("Anymal", "AnymalTerrain") and "env.episode_length=300" not in overrides:
         assert cfg.episode_length == 1000  # the registry's 500 -> 1000
+    if task == "FrankaCubeStack":
+        assert cfg.episode_length == 300  # the registry's 500 -> 300
+    if task == "FrankaCabinet" and overrides:  # the props ride in the drawer
+        assert tenv.scene.shapes.num_objects == jenv.scene.shapes.num_objects == 3
+        assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots
     if task == "Humanoid":
         with pytest.raises(TypeError, match="mjcf"):  # as the JAX factory refuses it
             treg.resolve_task(task, [f"mjcf={tl.ANT_MJCF}"])
@@ -513,12 +543,17 @@ STANDIN_ENTRY = {"Cartpole": ["ppo.hidden=[32,32]", "ppo.minibatch_size=64"],
                  "BallBalance": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"],
                  "Anymal": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"],
                  "AnymalTerrain": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
+                                   "ppo.horizon=4"],
+                 "FrankaCubeStack": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
+                                     "ppo.horizon=4"],
+                 "FrankaCabinet": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
                                    "ppo.horizon=4"]}
 
 
 @pytest.mark.parametrize("task,n_env", [("Cartpole", 4), ("Ant", 16), ("Humanoid", 16),
                                         ("BallBalance", 14), ("Anymal", 14),
-                                        ("AnymalTerrain", 18)])
+                                        ("AnymalTerrain", 18), ("FrankaCubeStack", 11),
+                                        ("FrankaCabinet", 12)])
 def test_standin_checkpoints_cross(task, n_env, tmp_path):
     """The train entry point's checkpoint (1 iteration at 8 envs) read by the
     JAX loader with its own example tree, leaf for leaf; a JAX-written
@@ -550,10 +585,16 @@ def test_standin_checkpoints_cross(task, n_env, tmp_path):
     if task in ("Ant", "Humanoid"):
         np.testing.assert_array_equal(tts.env_state.physics.robot.tau_ext.numpy(),
                                       np.asarray(example.env_state.physics.robot.tau_ext))
-    elif task != "Cartpole":  # the ball, the base pose, the terrain level
-        for got, want in zip((*tts.env_state.physics.objects, tts.env_state.physics.robot.base_pos),
-                             (*example.env_state.physics.objects,
-                              example.env_state.physics.robot.base_pos)):
+    elif task != "Cartpole":  # the objects, a floating base's pose, the Cabinet's targets
+        got_s, want_s = tts.env_state, example.env_state
+        pairs = list(zip(got_s.physics.objects, want_s.physics.objects))
+        if want_s.physics.robot.base_pos is not None:
+            pairs.append((got_s.physics.robot.base_pos, want_s.physics.robot.base_pos))
+        else:
+            assert got_s.physics.robot.base_pos is None
+        if task == "FrankaCabinet":
+            pairs.append((got_s.targets, want_s.targets))
+        for got, want in pairs:
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     out = _train([*args, "max_iterations=4", f"resume={jpath}", "experiment=resumed"],
                  tmp_path)

@@ -12,9 +12,11 @@ ankle; the Humanoid stand-in's 51 in 13 masks over 27 dofs; the ANYmal
 stand-in's 30 in 13 masks over 18 dofs, the base's and each leg's hip,
 thigh and shank, alike on the flat ground and the terrain), of the balance
 bot with its ball (K = 1, two object sides: 161 slots, 80 robot-ball and
-the ball's ground slot; 7 masks, the tray's and each leg's two), and of a
-random scene
-with an arbitrary set of dof masks, the tables must list every robot slot under
+the ball's ground slot; 7 masks, the tray's and each leg's two), of the
+Franka stand-in's fixed base (9 masks over 9 dofs: links 1-7 and each
+finger) with the two cubes (134 slots, K = 2) and with the drawer against
+the cabinet's walls (190 slots, K = 1), and of a random scene with an
+arbitrary set of dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
 (side, object) bin, in ascending slot order. A torch emulation of the
 kernels' data flow, written here and reading only those tables (link
@@ -39,7 +41,8 @@ from handarm_tpu_torch.physics.solver import build_slot_groups
 torch.set_num_threads(1)
 SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
           "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity",
-          "Ant", "Humanoid", "BallBalance", "Anymal", "AnymalTerrain"]
+          "Ant", "Humanoid", "BallBalance", "Anymal", "AnymalTerrain", "FrankaCubeStack",
+          "FrankaCabinet"]
 ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
 
 
@@ -48,10 +51,12 @@ def _mask(*dofs):
     return 0x3F | sum(1 << d for d in dofs)
 
 
-# the floating-base scenes: (slots, dof masks, dofs, objects). The
+# the classic tasks' scenes: (slots, dof masks, dofs, objects). The
 # Humanoid's dofs: abdomen 6-8, right leg 9-14 (hip x z y, knee, ankle y x),
 # left leg 15-20, right arm 21-23, left arm 24-26; the ANYmal's: HAA, HFE,
 # KFE of LF 6-8, LH 9-11, RF 12-14, RH 15-17
+# the Franka's fixed base: links 1-7 (the hand rides on link 7), each finger
+_FRANKA = [(1 << k) - 1 for k in range(1, 8)] + [0x7F | 1 << 7, 0x7F | 1 << 8]
 _ANYMAL = (30, sorted([_mask()] + [_mask(*range(a, a + k)) for a in (6, 9, 12, 15)
                                    for k in (1, 2, 3)]), 18, 0)
 CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
@@ -65,7 +70,10 @@ CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
                       27, 0),
          "BallBalance": (161, sorted([_mask()] + [_mask(u) for u in (6, 8, 10)]
                                      + [_mask(u, u + 1) for u in (6, 8, 10)]), 12, 1),
-         "Anymal": _ANYMAL, "AnymalTerrain": _ANYMAL}
+         "Anymal": _ANYMAL, "AnymalTerrain": _ANYMAL,
+         "FrankaCubeStack": (134, _FRANKA, 9, 2), "FrankaCabinet": (190, _FRANKA, 9, 1)}
+# the object bins' slot counts of the scenes with objects, (side, object) in order
+BINS = {"BallBalance": [1, 80], "FrankaCubeStack": [22, 22, 38, 38], "FrankaCabinet": [100, 30]}
 B = 6
 
 
@@ -112,7 +120,7 @@ def test_tables_group_every_slot_once(scene):
     assert all(t.dtype == torch.int32 for t in g)
     assert len(set(link_bits.tolist())) == len(link_bits) and np.all(link_bits != 0)
     assert len(link_bits) <= tsw.MAX_LINKS
-    if name in CRAFT:  # the base's 6 dofs in every mask
+    if name in CRAFT:  # a floating base's 6 dofs in every mask; the Franka's chain
         assert sorted(link_bits.tolist()) == CRAFT[name][1]
     elif name != "random":  # one group per hand link, and per arm link with the arm's spheres
         assert len(link_bits) == (17 if name in ARM_SLOTS else 11) <= anc.shape[1]
@@ -313,9 +321,11 @@ def test_arm_spheres_within_kernel_limits(scene):
     if name in CRAFT and CRAFT[name][3] == 0:
         assert (C, K, len(signs), nv) == (CRAFT[name][0], 0, 0, CRAFT[name][2])
         assert tuple(g.obj_ptr.shape) == (1,) and g.obj_slots.numel() == 0
-    elif name in CRAFT:  # the balance bot's ball: its ground slot, 80 robot-ball slots
-        assert (C, K, len(signs), nv) == (CRAFT[name][0], 1, 2, CRAFT[name][2])
-        assert [len(b) for b in _lists(g.obj_ptr, g.obj_slots)] == [1, 80]
+    elif name in CRAFT:  # the balance bot's ball: its ground slot, 80 robot-ball slots;
+        # the cubes' table and pair points, 30 spheres on each; the drawer's
+        # points on the walls and 30 spheres on it
+        assert (C, K, len(signs), nv) == (CRAFT[name][0], CRAFT[name][3], 2, CRAFT[name][2])
+        assert [len(b) for b in _lists(g.obj_ptr, g.obj_slots)] == BINS[name]
     else:
         assert K >= 1
     if name in ARM_SLOTS:
