@@ -6,7 +6,8 @@ build, then the named phases in this process, in the order given.
         entry:FrankaCabinet entry:Quadcopter subprocess-entry:Quadcopter
 
 Phases: a classic task's chip_smoke phase by its name (quad, ingenuity,
-franka-cube-stack, franka-cabinet), `entry:TASK` (the task's train entry
+franka-cube-stack, franka-cabinet, trifinger, allegro-hand, shadow-hand),
+`entry:TASK` (the task's train entry
 point as `train.main` in this process, its checkpoint read back whole:
 chip_smoke's `classic_entry`) and `subprocess-entry:TASK` (the same
 command in a process of its own, `python -m handarm_tpu_torch.train`).
@@ -27,7 +28,9 @@ import time
 import chip_smoke as cs
 
 CLASSIC_PHASES = {"quad": "Quadcopter", "ingenuity": "Ingenuity",
-                  "franka-cube-stack": "FrankaCubeStack", "franka-cabinet": "FrankaCabinet"}
+                  "franka-cube-stack": "FrankaCubeStack", "franka-cabinet": "FrankaCabinet",
+                  "trifinger": "Trifinger", "allegro-hand": "AllegroHand",
+                  "shadow-hand": "ShadowHand"}
 
 
 def main(names: list[str]) -> int:
@@ -63,6 +66,9 @@ def main(names: list[str]) -> int:
         if kind in ("franka-cube-stack", "franka-cabinet"):
             with cs.phase(kind):
                 rec[name] = cs.franka_phase(rollout, dev, ops, CLASSIC_PHASES[kind])
+        elif kind in ("trifinger", "allegro-hand", "shadow-hand"):
+            with cs.phase(kind):
+                rec[name] = cs.hand_phase(rollout, dev, ops, CLASSIC_PHASES[kind])
         elif kind in CLASSIC_PHASES:
             with cs.phase(kind):
                 rec[name] = cs.classic_phase(rollout, dev, ops, CLASSIC_PHASES[kind])[0]

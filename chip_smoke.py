@@ -8,8 +8,9 @@ Phases, each with a deadline and one flushed progress line:
   2. build     compiles the kernels in handarm_tpu_torch/csrc (one nvcc per
                source, all started together, then one link) and prints each
                kernel's registers, spills and shared memory (-Xptxas -v);
-               spd_inverse_warp_kernel<27> and spd_inverse_kernel<12> and
-               <18> must spill nothing.
+               spd_inverse_warp_kernel<27, 27> and <24, 25> (n and the
+               shared row stride) and spd_inverse_kernel<12>, <16> and <18>
+               must spill nothing.
   3. rollout   Ur5SihLift at 8192 envs on the in-repo stand-in robot, policy
                docs/evidence/lift_r3a/ckpt_5200.npz, reset + 31 deterministic
                policy-in-the-loop control steps; every state leaf must stay
@@ -60,7 +61,7 @@ Phases, each with a deadline and one flushed progress line:
                minibatches x 4 mini-epochs, the 768-512-256 MLP), from
                ckpt_5200's params, Adam state, stats, lr and epoch read by
                the port's own loader, on a fresh reset: one warm-up
-               train_iter, 2 iterations timed as rollout and update (each
+               train_iter, 1 iteration timed as rollout and update (each
                part between torch.cuda.synchronize calls), then one
                untimed iteration whose steps are kept. Counters are zeroed
                before each iteration and read after it: spd_inverse 16,
@@ -88,7 +89,7 @@ Phases, each with a deadline and one flushed progress line:
                episode in the window; at least 3,000 episodes, every state
                leaf finite.
  11. reach     Ur5SihReach from a flax-default init at its preset size (64
-               envs), 6 train iterations; reward_mean per iteration;
+               envs), 4 train iterations; reward_mean per iteration;
                every param and stat finite; spd_inverse 16 and
                contact_sweep 96 launches per iteration.
  12. family    Ur5SihReposition, OrientedReposition, Repose and Throw, each
@@ -108,7 +109,7 @@ Phases, each with a deadline and one flushed progress line:
                it (16 sweeps; minibatch 32768 and every switch of its train
                yaml: 4 minibatches x 4 mini-epochs) at 8192 envs, on the
                multiobj phase's genesis pool, from ckpt_2700's learner:
-               as phase 9 (1 warm-up, 2 timed, 1 kept iteration held
+               as phase 9 (1 warm-up, 1 timed, 1 kept iteration held
                against the CPU step by step), launches per iteration
                exactly spd_inverse 16, prep_deff 16, sdf_gather 48,
                contact_sweep 96. (Run before phase 9.)
@@ -135,8 +136,10 @@ Phases, each with a deadline and one flushed progress line:
                `train_distill` builds it (horizon 16, 4 minibatches of
                32768 x 2 mini-epochs): one warm-up iteration, 1 timed as
                rollout and update, then one whose first minibatch step is
-               rerun on the CPU from the card's inputs (loss terms,
-               gradients, and the optimizer step: `distill_step_check`).
+               rerun on the CPU from the card's inputs (loss terms and
+               gradients of its first 2,048 samples, recomputed on the
+               card for them, and the whole optimizer step:
+               `distill_step_check`).
                Launches per iteration exactly spd_inverse 16,
                contact_sweep 96, prep_deff 0, sdf_gather 0.
  18. distill-eval  the student docs/evidence/distill_r5a/student.npz
@@ -156,7 +159,7 @@ Phases, each with a deadline and one flushed progress line:
                central-value critic on the 121 teacher observations, MLP
                [512], seq_len 4, gamma 0.998; 4 minibatches of 8,192
                sequences x 4 mini-epochs) at 8192 envs from a flax-default
-               init: one warm-up, 2 timed iterations (rollout and update
+               init: one warm-up, 1 timed iteration (rollout and update
                seconds, train env-steps/s, peak device memory), launches
                exactly 16 / 96 / 0 / 0 per iteration; then a kept
                iteration's first minibatch step from the card's inputs
@@ -372,7 +375,7 @@ Phases, each with a deadline and one flushed progress line:
                `maybe_save_best_policy` archives its final state, and
                refuses a worse one.
  44. actor-learner  2 actor threads x 4,096 Ur5SihLift envs (each its own
-               CUDA stream and generator) and the learner on the card, 3
+               CUDA stream and generator) and the learner on the card, 2
                learner iterations from ckpt_5200's learner: staleness at
                most the queue depth (1), stats finite, launches exactly
                16 / 96 / 0 / 0 per actor rollout; one contact_sweep call of
@@ -409,18 +412,20 @@ Phases, each with a deadline and one flushed progress line:
                iteration, 31 serving steps, spd_inverse at n = 8 and the
                sweep at C = 8, and its card-vs-CPU check as phase 46.
  48. classic-entry  `python -m handarm_tpu_torch.train task=Quadcopter
-               env.num_envs=8192 max_iterations=2` as `train.main` in this
+               env.num_envs=8192 max_iterations=1` as `train.main` in this
                process (launches 16 / 32 / 0 / 0 per iteration; the CLI
-               path in its own process is pbt's); its ckpt_2.npz (61
+               path in its own process is pbt's); its ckpt_1.npz (61
                leaves: the QuadState's 14 with the floating base's pose)
                read whole with the task's config and written back leaf for
-               leaf; then the Cartpole's entry point at 512 envs for 2
-               iterations the same way (32 / 0 / 0 / 0 per iteration; the
+               leaf; then the Cartpole's entry point at 512 envs for 1
+               iteration the same way (32 / 0 / 0 / 0 per iteration; the
                ClassicState's 4 leaves), AnymalTerrain's at 4096 envs (24
                / 48 / 0 / 0; the ATState's 18 leaves) and FrankaCabinet's
                at 4096 envs (16 / 32 / 0 / 16; the CabinetState's 12
                leaves: the drawer on its rail, the walls' scene and the
-               persistent joint targets).
+               persistent joint targets) and AllegroHand's at 16384 envs
+               (16 / 32 / 16 / 0; the DexState's 15 leaves, the scalar
+               consecutive-success average among them).
  49. ant       the Ant as `train.py` composes it (configs/task/Ant.yaml,
                configs/train/AntPPO.yaml: 256-128-64, horizon 16,
                minibatch 32768) at IsaacGymEnvs' 4096 envs, on the in-repo
@@ -514,8 +519,50 @@ Phases, each with a deadline and one flushed progress line:
                slots make an unstable Jacobi iteration that grows float32
                rounding 300-fold, past any fixed bound), timed beside
                their bounds and grid_sample; card vs CPU as
-               phase 55 (the drawer's position). (Phases 45-47 and 49-56
-               run after phase 37, then 48, before phase 42.)
+               phase 55 (the drawer's position).
+ 57. trifinger  Trifinger as `train.py` composes it (256-256-128-128,
+               horizon 8, minibatch 16384) at IsaacGymEnvs' 16384 envs, on
+               the in-repo stand-in TriFingerPro (nv 9, 21 fitted spheres;
+               the box cube, K = 1, four arena walls, 91 slots; torque
+               control through tau_ext): one warm-up and 1 timed train
+               iteration from a fresh init (8 / 16 / 0 / 0), 7 serving
+               steps, the last 6 timed (1 / 2 / 0 / 0 a step); then a
+               built contact state: the scripted grasp
+               (`TrifingerEnv.grasp_actions`, 10 steps toward the cube's
+               faces, 10 closing on them; launches per step as predicted),
+               its last step's calls kept, the envs whose fingers push on
+               the cube counted (at least 1/32); there spd_inverse (n = 9,
+               to n cond eps) and the sweep (captured, dense and robot
+               cases, against float64) against their plain versions, two
+               launches bit-identical, timed beside their bounds and
+               torch.linalg.inv; card vs CPU at 16 of those envs, 2 env
+               steps with the learner's actions and the same draws: q and
+               the cube's position within 2e-4, observations within 2e-3,
+               each times max(1, scale).
+ 58. allegro-hand  AllegroHand as phase 57 (512-256-128, horizon 8,
+               minibatch 32768) at 16384 envs on the stand-in Allegro
+               hand (nv 16, 68 spheres, 150 slots, 2 sim steps a control
+               step: 16 / 32 / 16 / 0 an iteration, 2 / 4 / 2 / 0 a step;
+               B x C = 2.46M >= 2^21, so prep_deff runs): the contact
+               state is the cube resting on the fingers (a reset without
+               joint, position or rotation noise, 15 steps holding the
+               default joints; the envs whose cube stayed within 2 cm and
+               whose episode went on counted, at least half), where
+               spd_inverse (n = 16, `spd_inverse_kernel<16>`), the sweep
+               and prep_deff are held against their plain versions.
+ 59. shadow-hand  ShadowHand as phase 58 (512-512-256-128) on the stand-in
+               Shadow hand from MJCF (nv 24, 73 spheres from its geoms,
+               160 slots; 8 / 16 / 8 / 0 an iteration): spd_inverse at n =
+               24 (`spd_inverse_warp_kernel<24, 25>`, a warp per matrix,
+               rows 25 words apart in shared memory), the sweep and
+               prep_deff on the cube resting on the palm; then one train
+               iteration from a fresh init each of ShadowHandOpenAI_FF
+               (16384 envs, 400-400-200-100 with the asymmetric critic on
+               the 211-dim state; 16 / 32 / 16 / 0) and
+               ShadowHandOpenAI_LSTM (8192 envs, LSTM 1024 actor and
+               critic, seq_len 4; 16 / 32 / 0 / 0: B x C = 1.31M).
+               (Phases 45-47 and 49-59 run after phase 37, then 48, before
+               phase 42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
 multi-object path's, at 16 sweeps; the lift path's under "lift"), with
@@ -533,8 +580,10 @@ each kernel's launches on the camera paths under its "camera" key in
 under "parallel" (and each kernel's launches there under its "parallel"
 key in "kernels"), the classic tasks' under "classic" (and each kernel's
 launches and checks on the craft, the Ant, the Humanoid, the Cartpole,
-BallBalance, Anymal, AnymalTerrain, FrankaCubeStack and FrankaCabinet
-under its "classic" key in "kernels");
+BallBalance, Anymal, AnymalTerrain, FrankaCubeStack, FrankaCabinet,
+Trifinger, AllegroHand and ShadowHand under its "classic" key in
+"kernels"; spd_inverse's compiled sizes, their layouts and the checks
+that held each under its "instances" key);
 the last line
 is {"ok": true, "device": {...}}. Any fault prints a traceback and exits
 non-zero; without CUDA it exits 2 before any result.
@@ -572,20 +621,22 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "pbt": 240, "actor-learner": 180, "quad": 240, "quad-ref": 120,
                     "ingenuity": 240, "ant": 240, "humanoid": 300, "cartpole": 180,
                     "ball-balance": 240, "anymal": 240, "anymal-terrain": 300,
-                    "franka-cube-stack": 240, "franka-cabinet": 240, "classic-entry": 240}
+                    "franka-cube-stack": 240, "franka-cabinet": 240, "trifinger": 240,
+                    "allegro-hand": 240, "shadow-hand": 300, "classic-entry": 300}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
 MULTI_TASK = "Ur5SihMultiObjectManipulation"
 MULTI_STEPS = 20  # multi-object control steps after genesis and reset
-TRAIN_ITERS = 2  # timed lift train iterations, after one warm-up iteration
+TRAIN_ITERS = 1  # timed lift and multi-object train iterations, after one warm-up
 ENTRY_ITERS = 1  # iterations of the train entry point, resumed from ckpt_5200
 EVAL_STEPS = 200  # counted eval steps: one episode (200) from clocks zeroed at the reset
-REACH_ITERS = 6
+REACH_ITERS = 4
 FAMILY = ("Ur5SihReposition", "Ur5SihOrientedReposition", "Ur5SihRepose", "Ur5SihThrow")
 FAMILY_ITERS = 1  # timed family train iterations, after one warm-up iteration
 PREFIX_STEPS = 4  # chained minibatch steps of the kept update rerun on the CPU
 DISTILL_ITERS = 1  # timed DAgger iterations, after one warm-up iteration
+DISTILL_CHECK_SAMPLES = 2048  # of the first minibatch, its gradients rerun on the CPU
 DISTILL_ENTRY_ITERS = 1  # iterations of the train_distill entry point
 STUDENT = os.path.join("docs", "evidence", "distill_r5a", "student.npz")
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -795,6 +846,7 @@ def check_spd(spd_op, M, dev, tag, compare: bool = True):
         f"{'refused: ' + refused if refused else f'{lib_graph:.4f} ms'}; device time per "
         f"eager call {lib_device:.4f} ms; eager {lib_eager:.4f} ms")
     return dict(
+        n=n, batch=B,
         max_abs_err=err, bitwise=bitwise(lambda: spd_op.spd_inverse_cuda(M), "spd_inverse"),
         **kernel_times(lambda: spd_op.spd_inverse_cuda(M), 50),
         plain_ms=cuda_time_ms(lambda: spd_op.spd_inverse_plain(M), 20),
@@ -2004,11 +2056,21 @@ class DistillRecorder:
         del self.dagger.grads, self.dagger.apply
 
 
+def _head(x, n: int, rows: int):
+    """The first `n` rows of every tensor of `rows` rows in nested dicts."""
+    if isinstance(x, dict):
+        return {k: _head(v, n, rows) for k, v in x.items()}
+    return x[:n] if hasattr(x, "shape") and x.ndim and x.shape[0] == rows else x
+
+
 def distill_step_check(dagger, rec) -> dict:
     """The card's first minibatch step of a DAgger update, rerun on the CPU
     from the card's inputs, and in float64 there to size float32's own error
-    (as update_precision sizes the PPO update's):
-    - bc_loss and aux_loss within 1e-4 relative (float32 means of 32768 x 11
+    (as update_precision sizes the PPO update's). The loss terms and the
+    gradients on the minibatch's first DISTILL_CHECK_SAMPLES samples
+    (the card's recomputed for them; a float64 CPU pass over all 32768
+    took most of the phase):
+    - bc_loss and aux_loss within 1e-4 relative (float32 means of 2048 x 11
       and x 18 squared errors in another order);
     - the gradients of each tensor within 1e-4 of its largest value, as the
       PPO step's first gradients (compare_steps); the float64 errors of both
@@ -2018,7 +2080,9 @@ def distill_step_check(dagger, rec) -> dict:
       moments within 1e-5 of theirs, the counters equal (compare_steps)."""
     import torch
 
-    (params, mb), (grads, terms) = rec.grads[0]
+    (params, mb), _ = rec.grads[0]
+    mb = _head(mb, DISTILL_CHECK_SAMPLES, mb["obs"].shape[0])
+    grads, terms = dagger.grads(params, mb)
     c_params, c_mb = to_cpu(params), to_cpu(mb)
     t0 = time.perf_counter()
     c_grads, c_terms = dagger.grads(c_params, c_mb)
@@ -2057,8 +2121,8 @@ def distill_step_check(dagger, rec) -> dict:
             raise AssertionError("distill: card and CPU optax counters differ")
     moved = max(float((n_params[k] - a_params[k]).abs().max()) for k in n_params)
     rel = lambda m: float(f"{max(m.values()):.3g}")
-    log(f"distill card-vs-cpu, the first minibatch step ({c_mb['obs'].shape[0]} samples) from "
-        f"the card's inputs: loss terms {({k: float(f'{v:.3g}') for k, v in out['loss'].items()})}"
+    log(f"distill card-vs-cpu, the first minibatch step from the card's inputs (the loss "
+        f"and gradients on its first {c_mb['obs'].shape[0]} samples): loss terms {({k: float(f'{v:.3g}') for k, v in out['loss'].items()})}"
         f" relative; gradients up to {rel(out['grad'])} of scale (card vs float64 "
         f"{rel(out['grad_card_f64'])}, CPU vs float64 {rel(out['grad_cpu_f64'])}); optimizer "
         f"step: largest fraction of each tolerance used "
@@ -3149,7 +3213,8 @@ def stretch_phases(rollout, dev, ops) -> tuple:
 CLASSIC = {"Quadcopter": (8192, 1), "Ingenuity": (4096, 1), "Ant": (4096, 1),
            "Humanoid": (4096, 1), "Cartpole": (512, 1), "BallBalance": (4096, 1),
            "Anymal": (4096, 1), "AnymalTerrain": (4096, 1), "FrankaCubeStack": (8192, 1),
-           "FrankaCabinet": (4096, 1)}
+           "FrankaCabinet": (4096, 1), "Trifinger": (16384, 1), "AllegroHand": (16384, 1),
+           "ShadowHand": (16384, 1)}
 LOCOMOTION = ("Ant", "Humanoid")
 CONTACT_TASKS = ("BallBalance", "Anymal", "AnymalTerrain")  # phases 52-54
 FRANKA_TASKS = ("FrankaCubeStack", "FrankaCabinet")  # phases 55-56
@@ -3158,9 +3223,16 @@ FRANKA_GRASP_STEPS = 5  # then closing on it
 CABINET_PAST_GRIP = 0.01  # m: the drawer's front this far past the grip site
 CABINET_MAX_OPENING = 0.38  # m: short of the 0.39 m success line
 CABINET_PRESS_STEPS = 3  # zero-action steps of the drawer sliding on against the gripper
+HAND_TASKS = ("Trifinger", "AllegroHand", "ShadowHand")  # phases 57-59
+HAND_SERVE_STEPS = 6  # the hands' timed serving steps at 16384 envs, after one warm-up
+HAND_SETTLE_STEPS = 15  # steps of a hand holding its default joints, the cube resting
+GRASP_STEPS = 10  # the Trifinger's scripted steps toward the cube's faces, then closing
+# the asymmetric ShadowHand tasks (phase 59), one train iteration each at
+# IsaacGymEnvs' numEnvs (cfg/task/ShadowHandOpenAI_FF.yaml, _LSTM.yaml)
+OPENAI = {"ShadowHandOpenAI_FF": 16384, "ShadowHandOpenAI_LSTM": 8192}
 CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
 CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
-CLASSIC_ENTRY_ITERS = 2
+CLASSIC_ENTRY_ITERS = 1
 UNIT_ROUNDOFF = 2.0 ** -24
 
 
@@ -3296,13 +3368,13 @@ def classic_ref(task: str, ppo, ts, dev) -> dict:
     return out
 
 
-def train_and_serve(rollout, env, ppo, task: str) -> tuple:
+def train_and_serve(rollout, env, ppo, task: str, steps: int = CLASSIC_SERVE_STEPS) -> tuple:
     """A classic task's learner trained from a fresh init (`timed_iterations`
     for CLASSIC[task]'s iterations: launches per iteration exactly
-    `per_step_launches` x horizon), then CLASSIC_SERVE_STEPS + 1
-    deterministic serving steps through `PPO.act` from a fresh reset, the
-    last CLASSIC_SERVE_STEPS timed (launches per step as predicted, every
-    state leaf finite). Returns (record, TrainState, launches per step)."""
+    `per_step_launches` x horizon), then `steps` + 1 deterministic serving
+    steps through `PPO.act` from a fresh reset, the last `steps` timed
+    (launches per step as predicted, every state leaf finite). Returns
+    (record, TrainState, launches per step)."""
     import torch
 
     from handarm_tpu_torch.envs.hand_arm import tree_map
@@ -3317,18 +3389,18 @@ def train_and_serve(rollout, env, ppo, task: str) -> tuple:
     state, res = env.step(state, ppo.act(ts, obs))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(CLASSIC_SERVE_STEPS):
+    for _ in range(steps):
         state, res = env.step(state, ppo.act(ts, res.obs))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
-    check_launches(counts, per_step, CLASSIC_SERVE_STEPS + 1, f"{task} serve")
+    check_launches(counts, per_step, steps + 1, f"{task} serve")
     finite_state(tree_map, state, res.obs)
-    sps = envs * CLASSIC_SERVE_STEPS / seconds
-    log(f"{task} serve: {CLASSIC_SERVE_STEPS} deterministic steps in {seconds:.3f} s = "
-        f"{sps:.0f} env-steps/s; launches {counts} over {CLASSIC_SERVE_STEPS + 1} steps; "
+    sps = envs * steps / seconds
+    log(f"{task} serve: {steps} deterministic steps in {seconds:.3f} s = "
+        f"{sps:.0f} env-steps/s; launches {counts} over {steps + 1} steps; "
         f"episodes done {int(res.done.sum())}, mean reward {float(res.reward.mean()):.4f}")
-    rec["serve"] = dict(envs=envs, steps=CLASSIC_SERVE_STEPS, seconds=seconds,
+    rec["serve"] = dict(envs=envs, steps=steps, seconds=seconds,
                         env_steps_per_s=sps, launches=counts, launches_per_step=per_step)
     return rec, ts, per_step
 
@@ -3360,26 +3432,28 @@ def per_step_launches(env) -> dict:
     """Each kernel's launches per env step as the env's code predicts them:
     an engine-backed env (the craft, the locomotion robots, the balance bot
     and its ball, the ANYmal on the ground or the terrain, the Franka with
-    its cubes or its drawer) runs one sim step of `substeps` anchored
-    substeps: spd_inverse once (and once more where the env computes the
-    dynamics itself for operational-space control, FrankaCubeStack's
-    `osc_tau`), the sweep once a substep, sdf_gather once (the sim step's
-    one contact generation) where the scene holds a mesh-SDF object, and
-    no deff kernel while B * C < 2^21; the Cartpole's contact-free step
-    runs the dynamics `substeps * control_freq_inv` times and nothing
-    else."""
+    its cubes or its drawer, the Trifinger, the hands) runs
+    `control_freq_inv` sim steps (the Allegro hand's 2; every other's 1) of
+    `substeps` anchored substeps each: spd_inverse once a sim step (and
+    once more where the env computes the dynamics itself for
+    operational-space control, FrankaCubeStack's `osc_tau`), the sweep once
+    a substep, sdf_gather once a sim step (its one contact generation)
+    where the scene holds a mesh-SDF object, and the deff kernel once a sim
+    step (its solver prep) where B * C >= 2^21 (the hands' 150 and 160
+    slots at 16384 envs); the Cartpole's contact-free step runs the
+    dynamics `substeps * control_freq_inv` times and nothing else."""
     import numpy as np
 
     from handarm_tpu_torch.physics.shapes import MESH_SDF
     from handarm_tpu_torch.physics.solver import DEFF_KERNEL_MIN_BC
 
     if hasattr(env, "scene"):
-        if env.cfg.num_envs * env.scene.slots.num_slots >= DEFF_KERNEL_MIN_BC:
-            raise AssertionError("a classic scene outside the predicted launches")
+        sims = getattr(env.cfg, "control_freq_inv", 1)
+        deff = env.cfg.num_envs * env.scene.slots.num_slots >= DEFF_KERNEL_MIN_BC
         mesh = MESH_SDF in np.asarray(env.scene.shapes.kind).tolist()
-        return {"spd_inverse": 1 + hasattr(env, "osc_tau"),
-                "contact_sweep": env.scene.params.substeps, "prep_deff": 0,
-                "sdf_gather": int(mesh)}
+        return {"spd_inverse": sims * (1 + hasattr(env, "osc_tau")),
+                "contact_sweep": sims * env.scene.params.substeps, "prep_deff": sims * deff,
+                "sdf_gather": sims * mesh}
     return {"spd_inverse": env.cfg.substeps * env.cfg.control_freq_inv, "contact_sweep": 0,
             "prep_deff": 0, "sdf_gather": 0}
 
@@ -3541,15 +3615,16 @@ def locomotion_ref(task: str, ppo, ts, dev, env_g_full, kept) -> dict:
 
 def classic_entry(rollout, dev, task: str, state_type) -> dict:
     """Phase 48's entry points, `train.main` in this process (`python -m
-    handarm_tpu_torch.train task=TASK env.num_envs=N max_iterations=2` once
+    handarm_tpu_torch.train task=TASK env.num_envs=N max_iterations=1` once
     started; the Quadcopter at 8192 envs, the Cartpole at 512,
-    AnymalTerrain and FrankaCabinet at 4096): launches per iteration as
-    `per_step_launches` predicts from the composed env (the Quadcopter 16
-    / 32 / 0 / 0, the Cartpole 32 / 0 / 0 / 0, AnymalTerrain 24 / 48 / 0 /
-    0, FrankaCabinet 16 / 32 / 0 / 16), its ckpt_2.npz (the task state's
-    leaves: the QuadState's 14, the ClassicState's 4, the ATState's 18, the
-    CabinetState's 12) read whole with the task's config and written back
-    leaf for leaf."""
+    AnymalTerrain and FrankaCabinet at 4096, AllegroHand at 16384):
+    launches per iteration as `per_step_launches` predicts from the
+    composed env (the Quadcopter 16 / 32 / 0 / 0, the Cartpole 32 / 0 / 0
+    / 0, AnymalTerrain 24 / 48 / 0 / 0, FrankaCabinet 16 / 32 / 0 / 16,
+    AllegroHand 16 / 32 / 16 / 0), its ckpt_1.npz (the task state's leaves:
+    the QuadState's 14, the ClassicState's 4, the ATState's 18, the
+    CabinetState's 12, the DexState's 15) read whole with the task's config
+    and written back leaf for leaf."""
     import numpy as np
 
     from handarm_tpu_torch.convert import env_state_to_leaves, train_state_to_leaves
@@ -3900,7 +3975,7 @@ def franka_phase(rollout, dev, ops, task: str) -> dict:
     Cabinet's dense case over 2 sweeps) and, on the Cabinet, sdf_gather
     (every channel; the queries inside the drawer's grid printed) are held
     against their plain versions, timed beside their bounds and their
-    library calls; then card vs CPU at 16 of those envs (`franka_ref`).
+    library calls; then card vs CPU at 16 of those envs (`contact_state_ref`).
     Returns the record."""
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.envs.registry import build_env, resolve_task
@@ -3954,15 +4029,16 @@ def franka_phase(rollout, dev, ops, task: str) -> dict:
     rec["kernels"] = kern
     rec["contact_state"] = dict(steps=steps, envs_with_contacts=n_contact)
     del calls
-    rec["ref"] = franka_ref(task, ppo, ts, dev, kept, scores)
+    rec["ref"] = contact_state_ref(task, ppo, ts, dev, kept, scores)
     return rec
 
 
-def franka_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
-    """Card vs CPU at 16 envs of the contact state (those whose hand pushes
-    on the object first; clocks zeroed), 2 env steps with the trained
-    learner's deterministic actions (on the CPU) and the same draws: q and
-    the objects' positions within 2e-4, observations within 2e-3, each
+def contact_state_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
+    """Card vs CPU at 16 envs of a built contact state (those whose robot
+    pushes on the object first; clocks zeroed), 2 env steps with the
+    trained learner's deterministic actions (on the CPU; an asymmetric
+    learner's actor needs no teacher observations) and the same draws: q
+    and the objects' positions within 2e-4, observations within 2e-3, each
     times max(1, the CPU value's largest)."""
     import torch
 
@@ -3977,7 +4053,7 @@ def franka_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
     ts_c = ts._replace(params={k: v.cpu() for k, v in ts.params.items()},
                        obs_stats=to(ts.obs_stats, "cpu"))
     idx = torch.argsort(-scores.int(), stable=True)[:16]
-    start = tree_map(lambda t: t[idx].cpu(), kept)
+    start = tree_map(lambda t: (t[idx] if t.ndim else t).cpu(), kept)  # a 0-d average kept
     start = start._replace(progress=torch.zeros_like(start.progress))
     state_c, state_g, obs_c = start, to(start, dev), env_c._obs(start)
     touching = lambda st: int((st.physics.contact_impulse.abs().sum((1, 2)) > 0).sum())
@@ -4004,8 +4080,182 @@ def franka_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
     return dict(envs_with_impulses=pushed, **rec)
 
 
+def hand_contact_state(env, task: str, ops):
+    """A state of every env with the cube in contact, built by the env's own
+    steps (launches per step as `per_step_launches` predicts), the last
+    step's kernel calls kept. Trifinger: the scripted grasp
+    (`TrifingerEnv.grasp_actions`), GRASP_STEPS toward the cube's faces and
+    as many closing on them. AllegroHand, ShadowHand: a reset without
+    joint, position or rotation noise, then HAND_SETTLE_STEPS steps holding
+    the default joints, the cube coming to rest in the hand. Returns
+    (state, [B] bool: the envs whose robot pushes on the cube at the last
+    step's end, the kept calls, steps, [B] bool: the envs whose cube lies
+    within 2 cm of its start and whose episode went on)."""
+    import torch
+
+    B = env.cfg.num_envs
+    if task == "Trifinger":
+        state, _ = env.reset(2)
+        action = lambda st, i: env.grasp_actions(st, close=i >= GRASP_STEPS)
+        steps = 2 * GRASP_STEPS
+    else:
+        d = env.draw(B)
+        state, _ = env.reset(2, d._replace(dof=torch.zeros_like(d.dof),
+                                           pos=torch.zeros_like(d.pos),
+                                           rot=torch.zeros_like(d.rot)))
+        hold = env._unscale(env.q_default)
+        if hasattr(env, "actuated_idx"):
+            hold = hold[env.actuated_idx]
+        action = lambda st, i: hold[None].expand(B, -1)
+        steps = HAND_SETTLE_STEPS
+    start = state.physics.objects.pos[:, 0].clone()
+    ended = torch.zeros(B, dtype=torch.bool, device=start.device)
+    with Capture(ops, last_only=True) as cap:
+        for i in range(steps):
+            cap.armed = i == steps - 1
+            state, res = env.step(state, action(state, i))
+            ended |= res.done
+    slots = env.scene.slots
+    robot_obj = torch.as_tensor((slots.robot_body >= 0) & (slots.obj_b == 0),
+                                device=start.device)
+    pushed = state.physics.contact_impulse.norm(dim=-1) > 0
+    rest = ~ended & ((state.physics.objects.pos[:, 0] - start).norm(dim=-1) < 0.02)
+    return state, (pushed & robot_obj).any(-1), cap.calls, steps, rest
+
+
+def hand_phase(rollout, dev, ops, task: str) -> dict:
+    """Phases 57-59 (Trifinger, AllegroHand, ShadowHand): the task composed
+    as train.py composes it at IsaacGymEnvs' 16384 envs, on the in-repo
+    stand-ins, its learner at full width from a fresh init and
+    HAND_SERVE_STEPS + 1 deterministic serving steps through `PPO.act`
+    (`train_and_serve`); then the built contact state
+    (`hand_contact_state`: at least 1/32 of the envs' robots pushing on the
+    cube; the hands' cubes at rest counted), where spd_inverse (n = 9, 16,
+    24, to n cond eps), the sweep (captured, dense and robot cases, against
+    float64) and, where B * C >= 2^21 (the hands), prep_deff are held
+    against their plain versions, timed beside their bounds and their
+    library calls; then card vs CPU at 16 of those envs
+    (`contact_state_ref`). ShadowHand adds one train iteration of
+    each OPENAI task (`openai_iteration`). Returns the record."""
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import prep_deff as deff_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    envs = CLASSIC[task][0]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    per_step = per_step_launches(env)
+    sc = env.scene
+    C = sc.slots.num_slots
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {C} contact slots (B x C = {envs * C}), "
+        f"K = {sc.shapes.num_objects}, {sc.spheres.body.shape[0]} robot spheres, "
+        f"{sc.geom.num_walls} walls, obs {env.num_obs}, actions {env.num_actions}; the "
+        f"cube {float(sc.shapes.mass[0]):.4f} kg, the robot's moving bodies "
+        f"{float(sc.model.mass.sum()):.3f} kg; learner hidden {ppo.cfg.hidden}, horizon "
+        f"{ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}; launches "
+        f"per step {per_step}")
+    rec, ts, _ = train_and_serve(rollout, env, ppo, task, HAND_SERVE_STEPS)
+
+    rollout.reset_launch_counts()
+    kept, scores, calls, steps, rest = hand_contact_state(env, task, ops)
+    check_launches(rollout.launch_counts(), per_step, steps, f"{task} contact state")
+    finite_state(tree_map, kept, env._obs(kept))
+    n_contact, n_rest = int(scores.sum()), int(rest.sum())
+    log(f"{task}: {n_contact} of {envs} envs with the robot pushing on the cube at the "
+        f"contact state's last step (built in {steps} steps); {n_rest} with the cube within "
+        f"2 cm of its start and no episode ended")
+    if n_contact < envs // 32 or (task != "Trifinger" and n_rest < envs // 2):
+        raise AssertionError(f"{task}: too few envs with the cube in contact or at rest")
+    tag = f"{task} contact state"
+    kern = {"spd_inverse": check_spd_craft(spd_op, calls["spd"][0][0][0], dev, tag),
+            "contact_sweep": check_sweep(sweep_op, calls["sweep"][0], sc.maps, tag, f64=True)}
+    kern["contact_sweep"].update(envs_with_contacts=n_contact, contacts="the robot on the cube")
+    if bool(per_step["prep_deff"]) != ("deff" in calls):
+        raise AssertionError(f"{task}: prep_deff calls do not match the gate")
+    if "deff" in calls:
+        kern["prep_deff"] = check_deff(deff_op, calls["deff"][0][0])
+    rec["kernels"] = kern
+    rec["contact_state"] = dict(steps=steps, envs_with_contacts=n_contact, envs_at_rest=n_rest)
+    del calls
+    rec["ref"] = contact_state_ref(task, ppo, ts, dev, kept, scores)
+    if task == "ShadowHand":
+        del env, ppo, ts, kept
+        rec["openai"] = {t: openai_iteration(rollout, dev, t) for t in OPENAI}
+    return rec
+
+
+def openai_iteration(rollout, dev, task: str) -> dict:
+    """One train iteration of an asymmetric ShadowHand task as train.py
+    composes it (the 42-dim actor observation, the 211-dim state as the
+    critic's; ShadowHandOpenAI_FF's 400-400-200-100 MLP, _LSTM's LSTM 1024
+    actor and critic with seq_len 4) at OPENAI[task] envs from a fresh
+    init, timed: launches exactly `per_step_launches` x horizon; params,
+    stats and every state leaf finite."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+
+    envs = OPENAI[task]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    c = ppo.cfg
+    per_iter = {k: v * c.horizon for k, v in per_step_launches(env).items()}
+    ts = ppo.init(0)
+    rollout.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts, stats = ppo.train_iter(ts)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = rollout.launch_counts()
+    check_launches(counts, per_iter, 1, f"{task} iteration")
+    check_learner(ts, task)
+    finite_state(tree_map, ts.env_state, ts.last_obs)
+    sps = envs * c.horizon / seconds
+    log(f"{task}: {envs} envs, obs {env.num_obs}, critic obs {env.num_teacher_obs}; hidden "
+        f"{c.hidden}, LSTM {c.rnn_units} / {c.critic_rnn_units}, seq_len {c.seq_len}, "
+        f"horizon {c.horizon}, {ppo.num_minibatches} minibatches; one train iteration from a "
+        f"fresh init in {seconds:.3f} s ({sps:.0f} env-steps/s, first-call costs "
+        f"included); reward_mean {float(stats['reward_mean']):.5f}; launches {counts}")
+    return dict(envs=envs, horizon=c.horizon, hidden=list(c.hidden), rnn_units=c.rnn_units,
+                critic_rnn_units=c.critic_rnn_units, seconds=seconds, env_steps_per_s=sps,
+                launches=counts, launches_per_iteration=per_iter)
+
+
+def spd_instances(entry: dict) -> list:
+    """Each compiled n of the spd_inverse kernel (`KERNEL_N`), its layout
+    (a thread or a warp per matrix; the warp layout's shared row stride)
+    and the records of this run that held it against the plain version."""
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    held = {}
+
+    def walk(rec, path):
+        if isinstance(rec, dict):
+            if "n" in rec and "max_abs_err" in rec:
+                held.setdefault(rec["n"], []).append(path)
+            for k, v in rec.items():
+                walk(v, f"{path}/{k}")
+
+    walk(entry, "spd_inverse")
+    out = [dict(n=n, layout="warp" if n > 18 else "thread",
+                row_stride=n | 1 if n > 18 else None, held_on=held.get(n, []))
+           for n in spd_op.KERNEL_N]
+    missing = [x["n"] for x in out if not x["held_on"]]
+    if missing:
+        raise AssertionError(f"spd_inverse instances held by no check: {missing}")
+    return out
+
+
 def classic_phases(rollout, dev, ops) -> tuple:
-    """Phases 45-56: (their record, each kernel's classic record)."""
+    """Phases 45-59: (their record, each kernel's classic record)."""
     rec, kernels = {}, {}
     for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
         name = "quad" if task == "Quadcopter" else "ingenuity"
@@ -4026,6 +4276,9 @@ def classic_phases(rollout, dev, ops) -> tuple:
     for task, name in zip(FRANKA_TASKS, ("franka-cube-stack", "franka-cabinet")):
         with phase(name):
             rec[task] = franka_phase(rollout, dev, ops, task)
+    for task, name in zip(HAND_TASKS, ("trifinger", "allegro-hand", "shadow-hand")):
+        with phase(name):
+            rec[task] = hand_phase(rollout, dev, ops, task)
     for task in CLASSIC:
         per_iter = rec[task]["launches_per_iteration"]
         for k in per_iter:
@@ -4037,13 +4290,15 @@ def classic_phases(rollout, dev, ops) -> tuple:
     with phase("classic-entry"):
         from handarm_tpu_torch.envs.anymal_terrain import ATState
         from handarm_tpu_torch.envs.classic import ClassicState
+        from handarm_tpu_torch.envs.dexhand import DexState
         from handarm_tpu_torch.envs.franka_cabinet import CabinetState
         from handarm_tpu_torch.envs.quadcopter import QuadState
 
         rec["entry_point"] = {task: classic_entry(rollout, dev, task, state_type)
                               for task, state_type in (
                                   ("Quadcopter", QuadState), ("Cartpole", ClassicState),
-                                  ("AnymalTerrain", ATState), ("FrankaCabinet", CabinetState))}
+                                  ("AnymalTerrain", ATState), ("FrankaCabinet", CabinetState),
+                                  ("AllegroHand", DexState))}
     return rec, kernels
 
 
@@ -4327,7 +4582,7 @@ DDP_ENTRY_ITERS = 1  # iterations of the train entry point under torchrun
 DDP_TOLS = {"first-step param": 1e-5, "first-step grad": 1e-5, "loss terms": 1e-4,
             "stats": 1e-5}
 PBT_ENVS = 2048
-AL_ENVS, AL_ACTORS, AL_ITERS, AL_QUEUE = 4096, 2, 3, 1
+AL_ENVS, AL_ACTORS, AL_ITERS, AL_QUEUE = 4096, 2, 2, 1
 
 
 def ddp_rank(group, path: str) -> dict:
@@ -4780,10 +5035,11 @@ def main() -> int:
         ptxas = ptxas_summary(build.ptxas_report())
         for line in ptxas:
             log(line)
-        # the n = 27 layout holds three rows a lane in registers, and the
-        # thread-per-matrix n = 12 and 18 their lower triangles (78 and 171
-        # floats): no spill
-        for kname in ("spd_inverse_warp_kernel<27>", "spd_inverse_kernel<12>",
+        # the warp layout holds three rows a lane in registers (n = 27, and n =
+        # 24 at a padded row stride of 25), and the thread-per-matrix n = 12,
+        # 16 and 18 their lower triangles (78, 136 and 171 floats): no spill
+        for kname in ("spd_inverse_warp_kernel<27, 27>", "spd_inverse_warp_kernel<24, 25>",
+                      "spd_inverse_kernel<12>", "spd_inverse_kernel<16>",
                       "spd_inverse_kernel<18>"):
             lines = [x for x in ptxas if kname in x]
             if len(lines) != 1 or "0 bytes spill stores" not in lines[0]:
@@ -4793,10 +5049,12 @@ def main() -> int:
         # 161 at K = 1 (BallBalance)
         log("classic: contact_sweep at C = 4, 8, 30, 37 and 51 (K = 0, no object sides) "
             "launches contact_sweep_kernel<128, 6>, at C = 161, K = 1 (BallBalance), C = 134, "
-            "K = 2 (FrankaCubeStack) and C = 190, K = 1 (FrankaCabinet) the instance its "
-            "launch line names; spd_inverse at n = 14, 8, 2, 12, 18 and 9 its <14>, <8>, <2>, "
-            "<12>, <18> and <9>, at n = 27 spd_inverse_warp_kernel<27> (a warp per matrix); "
-            "sdf_gather at FrankaCabinet's R = 32 drawer the one sdf_gather_kernel")
+            "K = 2 (FrankaCubeStack), C = 190, K = 1 (FrankaCabinet), C = 91 (Trifinger), 150 "
+            "(AllegroHand) and 160 (ShadowHand), K = 1, the instance its launch line names; "
+            "spd_inverse at n = 14, 8, 2, 12, 18, 9 and 16 its <14>, <8>, <2>, <12>, <18>, <9> "
+            "and <16>, at n = 27 and 24 spd_inverse_warp_kernel<27, 27> and <24, 25> (a warp "
+            "per matrix); sdf_gather at FrankaCabinet's R = 32 drawer the one "
+            "sdf_gather_kernel; prep_deff on the hands' B x C >= 2^21 the one prep_deff_kernel")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis
@@ -5050,6 +5308,8 @@ def main() -> int:
     classic_rec, classic_kernels_rec = classic_phases(rollout, dev, ops)
     for entry in kernels:
         entry["classic"] = classic_kernels_rec[entry["name"]]
+        if entry["name"] == "spd_inverse":
+            entry["instances"] = spd_instances(entry)
     parallel_rec = {}
     with phase("ddp"):
         parallel_rec["ddp"] = ddp_phase(rollout, dev)

@@ -32,11 +32,14 @@ to write checkpoints its loader reads.
   (LocoState), 18 for AnymalTerrain (ATState); the Franka's fixed base has
   no base pose and a None tau_ext between steps: 11 for FrankaCubeStack
   (FrankaState), 12 for FrankaCabinet (CabinetState, its persistent
-  targets among them); the Cartpole's ClassicState has no physics: q,
-  qd, progress, key. Its readers take the env's config (QuadcopterConfig,
-  IngenuityConfig, ClassicConfig, LocomotionConfig, BallBalanceConfig,
-  AnymalConfig, AnymalTerrainConfig, FrankaCubeStackConfig,
-  FrankaCabinetConfig) in place of a HandArmConfig.
+  targets among them), 15 for Trifinger (TrifingerState) and the hands
+  (DexState, its scalar consecutive-success average among them); the
+  Cartpole's ClassicState has no physics: q, qd, progress, key. Its
+  readers take the env's config (QuadcopterConfig, IngenuityConfig,
+  ClassicConfig, LocomotionConfig, BallBalanceConfig, AnymalConfig,
+  AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig,
+  TrifingerConfig, DexHandConfig, ShadowHandConfig) in place of a
+  HandArmConfig.
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch (71 for the 768-512-256 MLP on the UR5+SIH, 69 on the Stretch),
@@ -60,11 +63,13 @@ import torch
 
 from handarm_tpu_torch.envs.adr import AdrState
 from handarm_tpu_torch.envs.classic import ClassicState
+from handarm_tpu_torch.envs.dexhand import DexState
 from handarm_tpu_torch.envs.franka import FrankaState
 from handarm_tpu_torch.envs.franka_cabinet import CabinetState
 from handarm_tpu_torch.envs.hand_arm import EnvState, HandArmConfig, Metrics, TaskState
 from handarm_tpu_torch.envs.locomotion import LocoState
 from handarm_tpu_torch.envs.registry import CLASSIC_ENVS
+from handarm_tpu_torch.envs.trifinger import TrifingerState
 from handarm_tpu_torch.envs.randomization import DRState
 from handarm_tpu_torch.learn import optim
 from handarm_tpu_torch.learn.networks import ActorCritic, flax_names
@@ -85,7 +90,8 @@ CLASSIC_STATES = {cfg: env.state_type for cfg, env in CLASSIC_ENVS.items()}
 # locomotion robots' tau_ext; the Cartpole's state holds no physics, the
 # Franka's a fixed base's
 N_CLASSIC_PHYSICS = {ClassicState: 0, LocoState: N_PHYSICS_LEAVES + 3,
-                     FrankaState: N_PHYSICS_LEAVES, CabinetState: N_PHYSICS_LEAVES}
+                     FrankaState: N_PHYSICS_LEAVES, CabinetState: N_PHYSICS_LEAVES,
+                     TrifingerState: N_PHYSICS_LEAVES, DexState: N_PHYSICS_LEAVES}
 
 
 def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
@@ -147,8 +153,8 @@ def physics_state_to_leaves(p: PhysicsState) -> list[np.ndarray]:
 
 def classic_physics_leaves(state_type) -> int:
     """Leaves of a classic task's physics: the craft's floating base (10),
-    the locomotion robots' with tau_ext (11), the Franka's fixed base (8),
-    none (the Cartpole)."""
+    the locomotion robots' with tau_ext (11), the fixed bases of the Franka, the
+    Trifinger and the hands (8), none (the Cartpole)."""
     return N_CLASSIC_PHYSICS.get(state_type, N_PHYSICS_LEAVES + 2)
 
 
@@ -360,7 +366,7 @@ def train_state_from_leaves(leaves: Sequence[np.ndarray], env_state, last_obs,
 
 def env_state_to_leaves(state, seed: int = 0, env_cfg=None) -> list[np.ndarray]:
     """The env-state leaves (the UR5+SIH's 24, the Stretch's 22, 6 more for
-    each of DR and ADR; a classic task's 4, 11, 12, 13, 14, 16 or 18) in the JAX package's
+    each of DR and ADR; a classic task's 4, 11-16 or 18) in the JAX package's
     order and dtypes. Given a HandArmConfig `env_cfg`, the state must hold
     its DR and ADR states, and only those."""
     if type(state) in CLASSIC_STATES.values():

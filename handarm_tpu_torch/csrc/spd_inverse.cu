@@ -15,6 +15,9 @@
 // 12.8 MB at B = 8192, 3.8 us) and n = 8 (Ingenuity: 0.5 KB, 2.1 MB at B =
 // 4096, 0.6 us); BallBalance's tripod n = 12 (1.2 KB, 4.7 MB at B = 4096,
 // 1.4 us) and the ANYmal's n = 18 (2.6 KB, 10.6 MB at B = 4096, 3.2 us).
+// The hands run at B = 16384: the Trifinger's n = 9 (10.6 MB, 3.2 us), the
+// Allegro's n = 16 (2 KB a matrix, 33.6 MB, 10.0 us) and the Shadow's n = 24
+// (4.6 KB, 75.5 MB, 22.5 us).
 //
 // Design: the TPU kernel's own formulation, with the batch on the lanes.
 // Each thread owns one matrix and runs the fully unrolled left-looking
@@ -33,7 +36,7 @@
 // staging is then a coalesced copy of single floats, each placed at its
 // padded offset, in and out. At n = 18 the lower triangle is 171 floats
 // and the buffer 41.6 KB of shared memory, under the 48 KB of a static
-// allocation.
+// allocation; at n = 16 (the Allegro hand) 136 floats and 32.9 KB.
 //
 // At n = 27 the lower triangle alone is 378 floats, past what one thread
 // can hold in registers (the n = 17 instance takes 191), so that n has a
@@ -51,6 +54,14 @@
 // Each lane holds three rows of 27 floats (L, W's sums, Minv) and shared
 // memory serves only the staging, in and out. Its 756 shuffles a matrix,
 // each carrying one value, bound it (PERF.md section 6).
+//
+// The warp layout also takes an even n (the Shadow hand's 24): there the
+// lanes' rows would sit at an even stride of n floats in shared memory and
+// share banks (24 = 8 mod 32: lanes 0, 4, 8, ... on one bank), so a row
+// takes LD = n | 1 words of the staging buffer (25 at n = 24), the stride
+// odd and the lanes on distinct banks. The copies in and out place each
+// float at its padded offset. At an odd n, LD = n and the code is the
+// unpadded one.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -147,29 +158,42 @@ __global__ void __launch_bounds__(kMats)
   }
 }
 
-// One warp per matrix; see the header. N <= 32 and odd (bank spread).
+// One warp per matrix; see the header. N <= 32; LD, the row stride in
+// shared memory, odd (bank spread).
 constexpr int kWarps = 4;  // matrices (= warps) per block of the warp layout
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int N>
+// The shared-memory word of element e of a row-major N x N matrix whose rows
+// are LD words apart.
+template <int N, int LD>
+__device__ __forceinline__ int padded(int e) {
+  if constexpr (LD == N) {
+    return e;
+  } else {
+    return e + (e / N) * (LD - N);
+  }
+}
+
+template <int N, int LD = (N | 1)>
 __global__ void __launch_bounds__(32 * kWarps)
     spd_inverse_warp_kernel(const float* __restrict__ M, float* __restrict__ Minv, int B) {
-  static_assert(N <= 32 && N % 2 == 1, "a lane per row, an odd row stride");
+  static_assert(N <= 32, "a lane per row");
+  static_assert(LD >= N && LD % 2 == 1, "an odd row stride");
   constexpr int NN = N * N;
-  __shared__ float S[kWarps][NN];
+  __shared__ float S[kWarps][N * LD];
   const int lane = threadIdx.x & 31;
   const int w = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + w;
   if (b >= B) return;  // the whole warp: no block-wide barrier follows
   float* Sw = S[w];
   const float* src = M + (size_t)b * NN;
-  for (int e = lane; e < NN; e += 32) Sw[e] = src[e];
+  for (int e = lane; e < NN; e += 32) Sw[padded<N, LD>(e)] = src[e];
   __syncwarp();
 
   const int i = lane;  // the row this lane holds; lanes N..31 carry zeros
   float R[N];          // row i of M, then of L (the diagonal holds 1 / L_ii)
 #pragma unroll
-  for (int j = 0; j < N; ++j) R[j] = i < N ? Sw[i * N + j] : 0.0f;
+  for (int j = 0; j < N; ++j) R[j] = i < N ? Sw[i * LD + j] : 0.0f;
 
   // Cholesky-Crout, column by column, row j of L broadcast from lane j
 #pragma unroll
@@ -207,11 +231,11 @@ __global__ void __launch_bounds__(32 * kWarps)
   __syncwarp();
   if (i < N) {
 #pragma unroll
-    for (int c = 0; c < N; ++c) Sw[i * N + c] = G[c];
+    for (int c = 0; c < N; ++c) Sw[i * LD + c] = G[c];
   }
   __syncwarp();
   float* dst = Minv + (size_t)b * NN;
-  for (int e = lane; e < NN; e += 32) dst[e] = Sw[e];
+  for (int e = lane; e < NN; e += 32) dst[e] = Sw[padded<N, LD>(e)];
 }
 
 }  // namespace
@@ -221,14 +245,21 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
   if (B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaSuccess;
   const int blocks = (B + kMats - 1) / kMats;
+  const int warp_blocks = (B + kWarps - 1) / kWarps;
   if (n == 27) {  // the Humanoid's 6 + 21 dofs: a warp per matrix
-    spd_inverse_warp_kernel<27><<<(B + kWarps - 1) / kWarps, 32 * kWarps, 0,
-                                   (cudaStream_t)stream>>>(M, Minv, B);
+    spd_inverse_warp_kernel<27><<<warp_blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+        M, Minv, B);
+    return (int)cudaGetLastError();
+  }
+  if (n == 24) {  // the Shadow hand's 24 dofs: a warp per matrix, rows 25 words apart
+    spd_inverse_warp_kernel<24><<<warp_blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+        M, Minv, B);
     return (int)cudaGetLastError();
   }
   switch (n) {  // a thread per matrix: the Cartpole's 2 dofs, the Ingenuity's
-                // 8, the Stretch's 9, BallBalance's 12, the Quadcopter's and
-                // the Ant's 14, the UR5+SIH's 17, the ANYmal's 18
+                // 8, the Stretch's, the Franka's and the Trifinger's 9,
+                // BallBalance's 12, the Quadcopter's and the Ant's 14, the
+                // Allegro hand's 16, the UR5+SIH's 17, the ANYmal's 18
     case 2:
       spd_inverse_kernel<2><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;
@@ -243,6 +274,9 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
       break;
     case 14:
       spd_inverse_kernel<14><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
+      break;
+    case 16:
+      spd_inverse_kernel<16><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);
       break;
     case 17:
       spd_inverse_kernel<17><<<blocks, kMats, 0, (cudaStream_t)stream>>>(M, Minv, B);

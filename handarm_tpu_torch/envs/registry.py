@@ -3,8 +3,9 @@ points build them (counterpart of `make_env`, `env_from_yaml`,
 `_warn_unknown_yaml_keys`, `compose_task`, `register_classic` and
 `all_task_names` of handarm_tpu/envs/registry.py: the UR5+SIH and Stretch
 tasks, and of the classic tasks Quadcopter, Ingenuity, Cartpole, Ant,
-Humanoid, BallBalance, Anymal, AnymalTerrain, FrankaCubeStack and
-FrankaCabinet).
+Humanoid, BallBalance, Anymal, AnymalTerrain, FrankaCubeStack,
+FrankaCabinet, Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF and
+ShadowHandOpenAI_LSTM).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -33,9 +34,12 @@ sets its own MJCF and refuses `mjcf=` (TypeError), as the JAX package's
 does, so another Humanoid asset comes through `dataclasses.replace` of its
 config. BallBalance, Anymal, AnymalTerrain and the two Franka tasks read
 their module constants' stand-in assets and take no path, as the JAX
-package's factories take none; the ANYmal tasks' registry default of 500
-steps becomes their own 1000, FrankaCubeStack's its own 300. The
-JAX package's other classic tasks are not ported: naming one raises
+package's factories take none, and so do Trifinger and the hands; the
+ANYmal tasks' registry default of 500 steps becomes their own 1000,
+FrankaCubeStack's its own 300, Trifinger's 750 and the hands' 600. The
+ShadowHandOpenAI tasks are ShadowHand with `obs_type="openai"` and the
+asymmetric critic (an MLP, or LSTMs for actor and critic). The JAX
+package's other classic tasks are not ported: naming one raises
 NotImplementedError (ROADMAP §1.7).
 
 Each function has a `*_config` form that stops at the env's config (a
@@ -65,6 +69,14 @@ from handarm_tpu_torch.envs.ball_balance import (
 )
 from handarm_tpu_torch.envs.camera import CameraConfig
 from handarm_tpu_torch.envs.classic import CartpoleEnv, ClassicConfig, cartpole_config
+from handarm_tpu_torch.envs.dexhand import (
+    AllegroHandEnv,
+    DexHandConfig,
+    ShadowHandConfig,
+    ShadowHandEnv,
+    allegro_config,
+    shadow_config,
+)
 from handarm_tpu_torch.envs.franka import (
     FrankaCubeStackConfig,
     FrankaCubeStackEnv,
@@ -86,6 +98,7 @@ from handarm_tpu_torch.envs.locomotion import (
 from handarm_tpu_torch.envs.quadcopter import QuadcopterConfig, QuadcopterEnv
 from handarm_tpu_torch.envs.randomization import DRConfig, NoiseSpec
 from handarm_tpu_torch.envs.tasks import TASKS
+from handarm_tpu_torch.envs.trifinger import TrifingerConfig, TrifingerEnv, trifinger_config
 from handarm_tpu_torch.utils.config import _parse_value, get, load_config
 
 CONFIG_ROOT = os.path.join(
@@ -109,16 +122,17 @@ CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv,
                 ClassicConfig: CartpoleEnv, LocomotionConfig: LocomotionEnv,
                 BallBalanceConfig: BallBalanceEnv, AnymalConfig: AnymalEnv,
                 AnymalTerrainConfig: AnymalTerrainEnv,
-                FrankaCubeStackConfig: FrankaCubeStackEnv, FrankaCabinetConfig: FrankaCabinetEnv}
+                FrankaCubeStackConfig: FrankaCubeStackEnv, FrankaCabinetConfig: FrankaCabinetEnv,
+                TrifingerConfig: TrifingerEnv, DexHandConfig: AllegroHandEnv,
+                ShadowHandConfig: ShadowHandEnv}
 # the JAX package's classic tasks the port does not have yet
 UNPORTED_CLASSIC = (
-    "AllegroHand", "AllegroHandADR", "AllegroHandDextremeADR", "AllegroHandManualDR",
+    "AllegroHandADR", "AllegroHandDextremeADR", "AllegroHandManualDR",
     "AllegroKuka", "AllegroKukaRegrasping", "AllegroKukaReorientation", "AllegroKukaThrow",
     "AllegroKukaTwoArms", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArmsReorientation",
     "FactoryTaskGears", "FactoryTaskInsertion", "FactoryTaskNutBoltPick",
     "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew", "HumanoidAMP",
-    "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert", "ShadowHand",
-    "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM", "Trifinger",
+    "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert",
 )
 
 
@@ -160,35 +174,58 @@ register_classic("BallBalance", ball_balance_config,
                       kl_threshold=0.008, reward_scale=0.1))
 
 
-def _thousand_steps(make):
-    """A factory whose registry default of 500 steps becomes 1000."""
+def _episode_rule(make, length: int):
+    """A factory whose registry default of 500 steps becomes `length`."""
     return lambda num_envs, episode_length, **kw: make(
-        num_envs, episode_length if episode_length != 500 else 1000, **kw)
+        num_envs, episode_length=episode_length if episode_length != 500 else length, **kw)
 
 
-register_classic("Anymal", _thousand_steps(anymal_config),
+register_classic("Anymal", _episode_rule(anymal_config, 1000),
                  dict(hidden=(256, 128, 64), horizon=24, minibatch_size=32768, gamma=0.99,
                       kl_threshold=0.008, reward_scale=1.0))
-register_classic("AnymalTerrain", _thousand_steps(anymal_terrain_config),
+register_classic("AnymalTerrain", _episode_rule(anymal_terrain_config, 1000),
                  dict(hidden=(512, 256, 128), horizon=24, minibatch_size=16384, gamma=0.99,
                       kl_threshold=0.008, reward_scale=1.0))
-
-
-def _franka_cube_stack_config(num_envs, episode_length, **kw) -> FrankaCubeStackConfig:
-    # the registry's default 500 steps becomes FrankaCubeStack's own 300
-    return franka_cube_stack_config(num_envs, episode_length if episode_length != 500 else 300,
-                                    **kw)
 
 
 # reference cfg/train/FrankaCubeStackPPO.yaml: units [256,128,64], horizon 32,
 # minibatch 16384; FrankaCabinetPPO.yaml: [256,128,64], horizon 16,
 # minibatch 8192, reward shaper 0.01
-register_classic("FrankaCubeStack", _franka_cube_stack_config,
+register_classic("FrankaCubeStack", _episode_rule(franka_cube_stack_config, 300),
                  dict(hidden=(256, 128, 64), horizon=32, minibatch_size=16384, gamma=0.99,
                       kl_threshold=0.008, reward_scale=0.1))
 register_classic("FrankaCabinet", franka_cabinet_config,
                  dict(hidden=(256, 128, 64), horizon=16, minibatch_size=8192, gamma=0.99,
                       kl_threshold=0.008, reward_scale=0.01))
+
+
+# reference cfg/train/TrifingerPPO.yaml: units [256,256,128,128], horizon 8;
+# AllegroHandPPO.yaml: [512,256,128], horizon 8, minibatch 32768, adaptive kl
+# 0.016, reward shaper 0.01; ShadowHandPPO.yaml: [512,512,256,128];
+# ShadowHandOpenAI_FFPPO.yaml [400,400,200,100] and ShadowHandOpenAI_LSTMPPO
+# lstm 1024 + mlp [512], both on the 42-dim actor observation with the
+# 211-dim state as the critic's
+register_classic("Trifinger", _episode_rule(trifinger_config, 750),
+                 dict(hidden=(256, 256, 128, 128), horizon=8, minibatch_size=16384, gamma=0.99,
+                      kl_threshold=0.016, reward_scale=0.01))
+register_classic("AllegroHand", _episode_rule(allegro_config, 600),
+                 dict(hidden=(512, 256, 128), horizon=8, minibatch_size=32768, gamma=0.99,
+                      kl_threshold=0.016, reward_scale=0.01))
+register_classic("ShadowHand", _episode_rule(shadow_config, 600),
+                 dict(hidden=(512, 512, 256, 128), horizon=8, minibatch_size=32768, gamma=0.99,
+                      kl_threshold=0.016, reward_scale=0.01))
+
+
+_shadow_openai_config = _episode_rule(
+    lambda num_envs, **kw: shadow_config(num_envs, obs_type="openai", **kw), 600)
+register_classic("ShadowHandOpenAI_FF", _shadow_openai_config,
+                 dict(hidden=(400, 400, 200, 100), horizon=16, minibatch_size=32768,
+                      gamma=0.998, kl_threshold=0.016, reward_scale=0.01,
+                      asymmetric_critic=True))
+register_classic("ShadowHandOpenAI_LSTM", _shadow_openai_config,
+                 dict(hidden=(512,), horizon=16, minibatch_size=32768, gamma=0.998,
+                      kl_threshold=0.016, reward_scale=0.01, asymmetric_critic=True,
+                      rnn_units=1024, critic_rnn_units=1024, seq_len=4))
 
 
 def _refuse_unported(name: str) -> None:

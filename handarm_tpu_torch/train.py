@@ -39,12 +39,14 @@ ValueError, as the JAX package's first step on such a state does. The
 iteration count starts at the file's step.
 
 The classic tasks Quadcopter, Ingenuity, Cartpole, Ant, Humanoid,
-BallBalance, Anymal, AnymalTerrain, FrankaCubeStack and FrankaCabinet
-compose the same way (their task yamls' `env` block and train yamls'
-`ppo` block; `env.num_envs=N` or `num_envs=N`, and any field of the
-task's config dataclass: QuadcopterConfig, IngenuityConfig,
+BallBalance, Anymal, AnymalTerrain, FrankaCubeStack, FrankaCabinet,
+Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF and
+ShadowHandOpenAI_LSTM compose the same way (their task yamls' `env` block
+and train yamls' `ppo` block; `env.num_envs=N` or `num_envs=N`, and any
+field of the task's config dataclass: QuadcopterConfig, IngenuityConfig,
 ClassicConfig, LocomotionConfig, BallBalanceConfig, AnymalConfig,
-AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig):
+AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig,
+TrifingerConfig, DexHandConfig, ShadowHandConfig):
 
     python -m handarm_tpu_torch.train task=Quadcopter env.num_envs=8192
     python -m handarm_tpu_torch.train task=Ingenuity env.num_envs=4096
@@ -56,9 +58,14 @@ AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig):
     python -m handarm_tpu_torch.train task=AnymalTerrain env.num_envs=4096
     python -m handarm_tpu_torch.train task=FrankaCubeStack env.num_envs=8192
     python -m handarm_tpu_torch.train task=FrankaCabinet env.num_envs=4096
+    python -m handarm_tpu_torch.train task=Trifinger env.num_envs=16384
+    python -m handarm_tpu_torch.train task=AllegroHand env.num_envs=16384
+    python -m handarm_tpu_torch.train task=ShadowHand env.num_envs=16384
+    python -m handarm_tpu_torch.train task=ShadowHandOpenAI_FF env.num_envs=16384
+    python -m handarm_tpu_torch.train task=ShadowHandOpenAI_LSTM env.num_envs=8192
 
-Cartpole, the Ant, the Humanoid, BallBalance, the ANYmal tasks and the
-Franka tasks run on the in-repo stand-in assets
+Cartpole, the Ant, the Humanoid, BallBalance, the ANYmal tasks, the
+Franka tasks, Trifinger and the hands run on the in-repo stand-in assets
 (`assets/classic_standin/`); `urdf=PATH`
 (Cartpole) and `mjcf=PATH` (Ant) take others. Their stats carry no success rate (`succ` prints 0).
 The JAX package's other classic tasks raise NotImplementedError (ROADMAP

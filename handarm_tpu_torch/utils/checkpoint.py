@@ -32,10 +32,12 @@ epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 
 A classic task's env state has 14 (Quadcopter, BallBalance, Anymal), 13
 (Ingenuity), 16 (Ant, Humanoid), 18 (AnymalTerrain), 11
-(FrankaCubeStack), 12 (FrankaCabinet) or 4 (Cartpole) leaves
+(FrankaCubeStack), 12 (FrankaCabinet), 15 (Trifinger, AllegroHand, the
+ShadowHand tasks) or 4 (Cartpole) leaves
 (`convert.classic_state_to_leaves`): its physics with the floating base's
-pose (and the locomotion robots' tau_ext; the Franka's fixed base has
-neither, the Cartpole no physics), its own fields, its PRNG key; its
+pose (and the locomotion robots' tau_ext; the fixed bases of the
+Franka, the Trifinger and the hands have neither, the Cartpole no
+physics), its own fields, its PRNG key; its
 reader takes the task's config as `env_cfg`.
 
 An env with domain randomization or ADR has 6 more env-state leaves for
@@ -205,7 +207,8 @@ def file_env_leaves(path: str, cfg=None) -> int:
     PPOConfig; None: an MLP ActorCritic): 24, 30 or 36 (UR5+SIH), 22, 28
     or 34 (Stretch), 14 (Quadcopter, BallBalance, Anymal), 13 (Ingenuity), 16
     (Ant, Humanoid), 18 (AnymalTerrain), 11 (FrankaCubeStack), 12
-    (FrankaCabinet), 4 (Cartpole)."""
+    (FrankaCabinet), 15 (Trifinger, AllegroHand, the ShadowHand tasks), 4
+    (Cartpole)."""
     with np.load(path, allow_pickle=False) as data:
         n = len(data.files)
         P = (2 * mlp_hidden_layers(lambda i: _leaf_header(data, i), n) + 5 if cfg is None

@@ -54,9 +54,18 @@ package on the CPU.
   their envs): `compose_task` against the JAX package's, with
   FrankaCubeStack's 500 -> 300 episode rule and the Cabinet's props, and
   checkpoints both ways (11 and 12 env-state leaves: the fixed base's
-  physics, the cubes or the drawer, the Cabinet's persistent targets). The
-  refusal list keeps its refused cases with ShadowHand and
-  FactoryTaskGears.
+  physics, the cubes or the drawer, the Cabinet's persistent targets).
+- Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF and
+  ShadowHandOpenAI_LSTM on theirs (the JAX package's `TRIFINGER_URDF`,
+  `ALLEGRO_URDF` and `SHADOW_MJCF` monkeypatched;
+  tests/test_torch_trifinger.py and tests/test_torch_dexhand.py hold their
+  envs): `compose_task` against the JAX package's, with the 500 -> 750 and
+  500 -> 600 episode rules and the OpenAI tasks' 42 + 211 observations and
+  asymmetric learners, and checkpoints both ways of Trifinger and
+  AllegroHand (15 env-state leaves each: the fixed base's physics, the
+  goal, the last tips; the hand's targets, successes and the scalar
+  consecutive-success average). The refusal list keeps four refused
+  cases: FactoryTaskGears, AllegroKuka, AllegroHandADR and HumanoidAMP.
 """
 
 import dataclasses
@@ -226,17 +235,21 @@ def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
 
 
 PORTED_STANDINS = ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance", "FrankaCabinet",
-                   "FrankaCubeStack")
+                   "FrankaCubeStack", "Trifinger", "AllegroHand", "ShadowHand",
+                   "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM")
 
 
 @pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM", "Humanoid",
                                   "Anymal", "BallBalance", "FrankaCabinet", "Trifinger",
-                                  "FrankaCubeStack", "ShadowHand", "FactoryTaskGears"])
+                                  "FrankaCubeStack", "ShadowHand", "FactoryTaskGears",
+                                  "AllegroHand", "ShadowHandOpenAI_FF", "AllegroKuka",
+                                  "AllegroHandADR", "HumanoidAMP"])
 def test_unported_classic_task_raises(task):
     """The refusal list: the JAX package's classic tasks the port lacks raise
-    NotImplementedError naming ROADMAP §1.7; Ant, Cartpole, Humanoid,
-    Anymal, BallBalance, FrankaCabinet and FrankaCubeStack are ported and
-    off it."""
+    NotImplementedError naming ROADMAP §1.7 (FactoryTaskGears, AllegroKuka,
+    AllegroHandADR, HumanoidAMP); Ant, Cartpole, Humanoid, Anymal,
+    BallBalance, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroHand,
+    ShadowHand and the ShadowHandOpenAI tasks are ported and off it."""
     assert task in jreg.CLASSIC_TASKS
     with pytest.raises(TypeError):
         treg.resolve_task("Quadcopter", ["no_such_field=1"])
@@ -420,11 +433,17 @@ def _standin_constants():
     from handarm_tpu.envs import anymal as jan
     from handarm_tpu.envs import anymal_terrain as jat
     from handarm_tpu.envs import ball_balance as jbb
+    from handarm_tpu.envs import dexhand as jdex
     from handarm_tpu.envs import franka as jfr
     from handarm_tpu.envs import franka_cabinet as jcab
+    from handarm_tpu.envs import trifinger as jtri
     from handarm_tpu_torch.envs import anymal as tan
     from handarm_tpu_torch.envs import ball_balance as tbb
+    from handarm_tpu_torch.envs import dexhand as tdex
     from handarm_tpu_torch.envs import franka as tfr
+    from handarm_tpu_torch.envs import trifinger as ttri
+
+    shadow = [(jdex, "SHADOW_MJCF", tdex.SHADOW_MJCF)]
 
     return {"BallBalance": ((jbb, "make_ball_balance"), [(jbb, "BBOT_MJCF", tbb.BBOT_MJCF)]),
             "Anymal": ((jan, "make_anymal"), [(jan, "ANYMAL_URDF", tan.ANYMAL_URDF)]),
@@ -433,7 +452,13 @@ def _standin_constants():
             "FrankaCubeStack": ((jfr, "make_franka_cube_stack"),
                                 [(jfr, "FRANKA_URDF", tfr.FRANKA_URDF)]),
             "FrankaCabinet": ((jcab, "make_franka_cabinet"),
-                              [(jcab, "FRANKA_URDF", tfr.FRANKA_URDF)])}
+                              [(jcab, "FRANKA_URDF", tfr.FRANKA_URDF)]),
+            "Trifinger": ((jtri, "make_trifinger"),
+                          [(jtri, "TRIFINGER_URDF", ttri.TRIFINGER_URDF)]),
+            "AllegroHand": ((jdex, "make_allegro"), [(jdex, "ALLEGRO_URDF", tdex.ALLEGRO_URDF)]),
+            "ShadowHand": ((jdex, "make_shadow"), shadow),
+            "ShadowHandOpenAI_FF": ((jdex, "make_shadow"), shadow),
+            "ShadowHandOpenAI_LSTM": ((jdex, "make_shadow"), shadow)}
 
 
 STANDIN_CONSTANTS = _standin_constants()
@@ -502,6 +527,15 @@ def test_cartpole_reset_and_steps_match():
     ("FrankaCubeStack", ["num_envs=32", "osc_kp=100.0", "ppo.minibatch_size=512"]),
     ("FrankaCabinet", []),
     ("FrankaCabinet", ["env.num_envs=16", "num_props=2", "ppo.hidden=[64,64]"]),
+    ("Trifinger", []),
+    ("Trifinger", ["num_envs=32", "safety_damping=0.2", "ppo.minibatch_size=512"]),
+    ("AllegroHand", []),
+    ("AllegroHand", ["env.num_envs=16", "obs_type=full", "env.episode_length=300"]),
+    ("ShadowHand", []),
+    ("ShadowHand", ["num_envs=16", "obs_type=full_no_vel", "ppo.hidden=[64,64]"]),
+    ("ShadowHandOpenAI_FF", []),
+    ("ShadowHandOpenAI_LSTM", []),
+    ("ShadowHandOpenAI_LSTM", ["num_envs=16", "ppo.rnn_units=64", "ppo.seq_len=8"]),
 ])
 def test_compose_task_matches_standins(task, overrides, monkeypatch):
     from handarm_tpu.envs import locomotion as jl
@@ -529,6 +563,16 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
         assert cfg.episode_length == 1000  # the registry's 500 -> 1000
     if task == "FrankaCubeStack":
         assert cfg.episode_length == 300  # the registry's 500 -> 300
+    if task == "Trifinger":
+        assert cfg.episode_length == 750  # the registry's 500 -> 750
+    if task in ("AllegroHand", "ShadowHand", "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM"):
+        # the registry's 500 -> 600; the OpenAI tasks: 42 observations, the
+        # 211-dim state as the critic's
+        assert cfg.episode_length == (300 if "env.episode_length=300" in overrides else 600)
+        if "OpenAI" in task:
+            assert (tenv.num_obs, tenv.num_teacher_obs) == (jenv.num_obs, jenv.num_teacher_obs)
+            assert (tenv.num_obs, tenv.num_teacher_obs, ppo_over["asymmetric_critic"]) == (
+                42, 211, True)
     if task == "FrankaCabinet" and overrides:  # the props ride in the drawer
         assert tenv.scene.shapes.num_objects == jenv.scene.shapes.num_objects == 3
         assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots
@@ -547,13 +591,17 @@ STANDIN_ENTRY = {"Cartpole": ["ppo.hidden=[32,32]", "ppo.minibatch_size=64"],
                  "FrankaCubeStack": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
                                      "ppo.horizon=4"],
                  "FrankaCabinet": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
-                                   "ppo.horizon=4"]}
+                                   "ppo.horizon=4"],
+                 "Trifinger": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"],
+                 "AllegroHand": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
+                                 "ppo.horizon=4"]}
 
 
 @pytest.mark.parametrize("task,n_env", [("Cartpole", 4), ("Ant", 16), ("Humanoid", 16),
                                         ("BallBalance", 14), ("Anymal", 14),
                                         ("AnymalTerrain", 18), ("FrankaCubeStack", 11),
-                                        ("FrankaCabinet", 12)])
+                                        ("FrankaCabinet", 12), ("Trifinger", 15),
+                                        ("AllegroHand", 15)])
 def test_standin_checkpoints_cross(task, n_env, tmp_path):
     """The train entry point's checkpoint (1 iteration at 8 envs) read by the
     JAX loader with its own example tree, leaf for leaf; a JAX-written
@@ -592,8 +640,12 @@ def test_standin_checkpoints_cross(task, n_env, tmp_path):
             pairs.append((got_s.physics.robot.base_pos, want_s.physics.robot.base_pos))
         else:
             assert got_s.physics.robot.base_pos is None
-        if task == "FrankaCabinet":
+        if task in ("FrankaCabinet", "AllegroHand"):
             pairs.append((got_s.targets, want_s.targets))
+        if task == "AllegroHand":  # the scalar consecutive-success average
+            pairs.append((got_s.cons_successes, want_s.cons_successes))
+        if task == "Trifinger":
+            pairs += [(got_s.goal_pos, want_s.goal_pos), (got_s.prev_tips, want_s.prev_tips)]
         for got, want in pairs:
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     out = _train([*args, "max_iterations=4", f"resume={jpath}", "experiment=resumed"],

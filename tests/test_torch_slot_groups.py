@@ -15,7 +15,11 @@ bot with its ball (K = 1, two object sides: 161 slots, 80 robot-ball and
 the ball's ground slot; 7 masks, the tray's and each leg's two), of the
 Franka stand-in's fixed base (9 masks over 9 dofs: links 1-7 and each
 finger) with the two cubes (134 slots, K = 2) and with the drawer against
-the cabinet's walls (190 slots, K = 1), and of a random scene with an
+the cabinet's walls (190 slots, K = 1), of the Trifinger's three 3-dof
+fingers with the cube and four walls (91 slots in 9 masks), the Allegro
+hand's four 4-dof fingers (150 slots in 16 masks) and the Shadow hand's
+wrist, palm and five fingers (160 slots in 18 masks, none on a knuckle or
+the thumb's base and hub), each with one cube, and of a random scene with an
 arbitrary set of dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
 (side, object) bin, in ascending slot order. A torch emulation of the
@@ -42,7 +46,7 @@ torch.set_num_threads(1)
 SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
           "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity",
           "Ant", "Humanoid", "BallBalance", "Anymal", "AnymalTerrain", "FrankaCubeStack",
-          "FrankaCabinet"]
+          "FrankaCabinet", "Trifinger", "AllegroHand", "ShadowHand"]
 ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
 
 
@@ -57,6 +61,19 @@ def _mask(*dofs):
 # KFE of LF 6-8, LH 9-11, RF 12-14, RH 15-17
 # the Franka's fixed base: links 1-7 (the hand rides on link 7), each finger
 _FRANKA = [(1 << k) - 1 for k in range(1, 8)] + [0x7F | 1 << 7, 0x7F | 1 << 8]
+# chains of a fixed base: each link's mask holds the dofs from the chain's
+# first to its own. The Trifinger's three 3-dof fingers and the Allegro's four
+# 4-dof fingers (every link fitted); the Shadow hand's wrist (dofs 0, 1) under
+# the palm's spheres, then the first, middle and ring fingers' J3-J0 (2-5,
+# 6-9, 10-13; the knuckle J3 bodies carry no geom), the little finger's
+# metacarpal J4 and J3-J0 (14-18) and the thumb's J4-J0 (19-23; its base and
+# hub carry none)
+_chain = lambda first, links, skip=(): [((1 << (k + 1)) - 1) << first for k in range(links)
+                                        if k not in skip]
+_WRIST = 0b11
+_SHADOW = sorted([0b1, _WRIST] + [_WRIST | m for f in (2, 6, 10) for m in _chain(f, 4, (0,))]
+                 + [_WRIST | m for m in _chain(14, 5, (1,))]
+                 + [_WRIST | m for m in _chain(19, 5, (0, 2))])
 _ANYMAL = (30, sorted([_mask()] + [_mask(*range(a, a + k)) for a in (6, 9, 12, 15)
                                    for k in (1, 2, 3)]), 18, 0)
 CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
@@ -71,9 +88,13 @@ CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
          "BallBalance": (161, sorted([_mask()] + [_mask(u) for u in (6, 8, 10)]
                                      + [_mask(u, u + 1) for u in (6, 8, 10)]), 12, 1),
          "Anymal": _ANYMAL, "AnymalTerrain": _ANYMAL,
-         "FrankaCubeStack": (134, _FRANKA, 9, 2), "FrankaCabinet": (190, _FRANKA, 9, 1)}
+         "FrankaCubeStack": (134, _FRANKA, 9, 2), "FrankaCabinet": (190, _FRANKA, 9, 1),
+         "Trifinger": (91, sorted(sum((_chain(f, 3) for f in (0, 3, 6)), [])), 9, 1),
+         "AllegroHand": (150, sorted(sum((_chain(f, 4) for f in (0, 4, 8, 12)), [])), 16, 1),
+         "ShadowHand": (160, _SHADOW, 24, 1)}
 # the object bins' slot counts of the scenes with objects, (side, object) in order
-BINS = {"BallBalance": [1, 80], "FrankaCubeStack": [22, 22, 38, 38], "FrankaCabinet": [100, 30]}
+BINS = {"BallBalance": [1, 80], "FrankaCubeStack": [22, 22, 38, 38], "FrankaCabinet": [100, 30],
+        "Trifinger": [28, 21], "AllegroHand": [14, 68], "ShadowHand": [14, 73]}
 B = 6
 
 
