@@ -6,7 +6,8 @@ build, then the named phases in this process, in the order given.
         entry:FrankaCabinet entry:Quadcopter subprocess-entry:Quadcopter
 
 Phases: a classic task's chip_smoke phase by its name (quad, ingenuity,
-franka-cube-stack, franka-cabinet, trifinger, allegro-hand, shadow-hand),
+franka-cube-stack, franka-cabinet, trifinger, allegro-hand, shadow-hand,
+dextreme, allegro-kuka),
 `entry:TASK` (the task's train entry
 point as `train.main` in this process, its checkpoint read back whole:
 chip_smoke's `classic_entry`) and `subprocess-entry:TASK` (the same
@@ -69,18 +70,24 @@ def main(names: list[str]) -> int:
         elif kind in ("trifinger", "allegro-hand", "shadow-hand"):
             with cs.phase(kind):
                 rec[name] = cs.hand_phase(rollout, dev, ops, CLASSIC_PHASES[kind])
+        elif kind == "dextreme":
+            with cs.phase(kind):
+                rec[name] = cs.dextreme_phase(rollout, dev, ops)
+        elif kind == "allegro-kuka":
+            with cs.phase(kind):
+                rec[name] = cs.allegro_kuka_phase(rollout, dev, ops)
         elif kind in CLASSIC_PHASES:
             with cs.phase(kind):
                 rec[name] = cs.classic_phase(rollout, dev, ops, CLASSIC_PHASES[kind])[0]
         elif kind == "entry":
-            cfg, _ = resolve_task(task, [f"env.num_envs={cs.CLASSIC[task][0]}"])
+            cfg, _ = resolve_task(task, [f"env.num_envs={cs.task_envs(task)}"])
             with cs.phase("classic-entry"):
                 rec[name] = cs.classic_entry(rollout, dev, task,
                                              type(build_env(cfg, "cpu")).state_type)
         elif kind == "subprocess-entry":
             with cs.phase("classic-entry"):
                 rec[name] = cs.run_module("handarm_tpu_torch.train", [
-                    f"task={task}", f"env.num_envs={cs.CLASSIC[task][0]}",
+                    f"task={task}", f"env.num_envs={cs.task_envs(task)}",
                     f"max_iterations={cs.CLASSIC_ENTRY_ITERS}",
                     f"experiment=chip_phases_{task.lower()}"], name,
                     cs.PHASE_DEADLINE_S["classic-entry"] - 30)[0]

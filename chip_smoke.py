@@ -93,8 +93,8 @@ Phases, each with a deadline and one flushed progress line:
                every param and stat finite; spd_inverse 16 and
                contact_sweep 96 launches per iteration.
  12. family    Ur5SihReposition, OrientedReposition, Repose and Throw, each
-               composed from configs/ at 8192 envs: one warm-up and 1 timed
-               train iteration from a flax-default init (launches exactly
+               composed from configs/ at 8192 envs: 1 timed train
+               iteration from a flax-default init, no warm-up (launches exactly
                spd_inverse 16 and contact_sweep 96 per iteration; prep_deff
                and sdf_gather 0, checked from the built scene: B * C < 2^21,
                no mesh object), params and stats finite; then 2 control
@@ -167,7 +167,7 @@ Phases, each with a deadline and one flushed progress line:
                and gradients on the card, on the CPU and in float64,
                within tolerances set from update_precision's float32
                error, and its optimizer step as `compare_steps` holds it.
- 21. rnn-serve  30 deterministic `PPO.act` control steps of that learner
+ 21. rnn-serve  1 + 10 deterministic `PPO.act` control steps of that learner
                at 8192 envs, the carry threaded (zeroed where an episode
                ends): serving env-steps/s, launches 1 / 6 per step; then
                16 of its envs (clocks zeroed) 2 control steps on the card
@@ -387,10 +387,12 @@ Phases, each with a deadline and one flushed progress line:
                horizon 16, minibatch 16384) at IsaacGymEnvs' 8192 envs
                (`env.num_envs=8192`): the floating-base craft, nv 14, 4
                contact slots (its rotor arms' spheres vs the ground), no
-               objects. One warm-up and 1 timed train iteration from a
-               fresh init (launches exactly 16 / 32 / 0 / 0: one env step
-               is one sim step of 2 substeps), 31 deterministic serving
-               steps through `PPO.act` (1 / 2 / 0 / 0 per step); then the
+               objects. One timed train iteration from a fresh init, no
+               warm-up (the classic phases all time their first
+               iteration; launches exactly 16 / 32 / 0 / 0: one env step
+               is one sim step of 2 substeps), 7 deterministic serving
+               steps through `PPO.act`, the last 6 timed (1 / 2 / 0 / 0 per
+               step); then the
                grounded kernel checks: B craft 4 mm over touching the
                ground, tilted 10-30 degrees, falling (`quadcopter.
                grounded_physics`; every env has an active slot, printed),
@@ -408,8 +410,8 @@ Phases, each with a deadline and one flushed progress line:
                env); q and base position within 2e-4, observations within
                2e-3, each times max(1, the largest value).
  47. ingenuity  Ingenuity as phase 45 at its 4096 envs (nv 8, 8 slots on
-               the chassis, Mars gravity): one warm-up and 1 timed
-               iteration, 31 serving steps, spd_inverse at n = 8 and the
+               the chassis, Mars gravity): 1 timed iteration, 7 serving
+               steps, spd_inverse at n = 8 and the
                sweep at C = 8, and its card-vs-CPU check as phase 46.
  48. classic-entry  `python -m handarm_tpu_torch.train task=Quadcopter
                env.num_envs=8192 max_iterations=1` as `train.main` in this
@@ -425,13 +427,17 @@ Phases, each with a deadline and one flushed progress line:
                leaves: the drawer on its rail, the walls' scene and the
                persistent joint targets) and AllegroHand's at 16384 envs
                (16 / 32 / 16 / 0; the DexState's 15 leaves, the scalar
-               consecutive-success average among them).
+               consecutive-success average among them), AllegroHandManualDR's
+               at 8192 envs (32 / 64 / 0 / 0; its recurrent learner's file
+               read with its PPOConfig: the DextremeState's 25 leaves, the
+               inner DexState's with the AdrState and the RNA masks) and
+               `task=AllegroKuka env.subtask=throw`'s at 8192 envs (16 / 32
+               / 16 / 0; the AKState's 25 leaves).
  49. ant       the Ant as `train.py` composes it (configs/task/Ant.yaml,
                configs/train/AntPPO.yaml: 256-128-64, horizon 16,
                minibatch 32768) at IsaacGymEnvs' 4096 envs, on the in-repo
                stand-in (nv 14, 37 contact slots against the ground, K =
-               0): one warm-up and 1 timed train iteration from a fresh
-               init, launches per iteration exactly as the code predicts
+               0): 1 timed train iteration from a fresh init, launches per iteration exactly as the code predicts
                (`per_step_launches` x horizon: 16 / 32 / 0 / 0), 31
                deterministic serving steps through `PPO.act` (1 / 2 / 0 / 0
                per step) with every kernel call kept; on the step with the
@@ -457,8 +463,8 @@ Phases, each with a deadline and one flushed progress line:
                4096 envs, on the in-repo stand-in balance bot (nv 12, 161
                slots: the ball's ground slot, 80 spheres against the
                ground and 80 against the ball, K = 1 with both object
-               sides, rolling friction 0.002): one warm-up and 1 timed
-               train iteration (16 / 32 / 0 / 0), 31 serving steps (1 / 2
+               sides, rolling friction 0.002): 1 timed train iteration
+               (16 / 32 / 0 / 0), 31 serving steps (1 / 2
                / 0 / 0 a step) keeping each step's last sweep call and its
                spd_inverse call for the step where the most balls push on
                their trays (robot-ball impulses in the solve; at least
@@ -490,9 +496,9 @@ Phases, each with a deadline and one flushed progress line:
                8192 envs, on the in-repo stand-in Franka (nv 9, fixed base,
                30 fitted spheres; two box cubes, K = 2, 134 slots, rolling
                friction 0.002; the arm torque-driven by operational-space
-               control): one warm-up and 1 timed train iteration from a
-               fresh init (64 / 64 / 0 / 0: spd_inverse twice a step, once
-               for OSC and once in the engine's sim step), 31 serving steps
+               control): 1 timed train iteration from a fresh init (64 /
+               64 / 0 / 0: spd_inverse twice a step, once for OSC and once
+               in the engine's sim step), 7 serving steps
                (2 / 2 / 0 / 0 a step); then a built contact state: a
                scripted OSC approach of the grip site to cubeA's top with
                the gripper open, then closing on it (launches per step as
@@ -524,8 +530,8 @@ Phases, each with a deadline and one flushed progress line:
                horizon 8, minibatch 16384) at IsaacGymEnvs' 16384 envs, on
                the in-repo stand-in TriFingerPro (nv 9, 21 fitted spheres;
                the box cube, K = 1, four arena walls, 91 slots; torque
-               control through tau_ext): one warm-up and 1 timed train
-               iteration from a fresh init (8 / 16 / 0 / 0), 7 serving
+               control through tau_ext): 1 timed train iteration from a
+               fresh init (8 / 16 / 0 / 0), 7 serving
                steps, the last 6 timed (1 / 2 / 0 / 0 a step); then a
                built contact state: the scripted grasp
                (`TrifingerEnv.grasp_actions`, 10 steps toward the cube's
@@ -561,7 +567,45 @@ Phases, each with a deadline and one flushed progress line:
                the 211-dim state; 16 / 32 / 16 / 0) and
                ShadowHandOpenAI_LSTM (8192 envs, LSTM 1024 actor and
                critic, seq_len 4; 16 / 32 / 0 / 0: B x C = 1.31M).
-               (Phases 45-47 and 49-59 run after phase 37, then 48, before
+ 60. dextreme  AllegroHandDextremeADR as `train.py` composes it (LSTM 512
+               before a 512-512 MLP, seq_len 16, its carry kept across
+               episode ends; horizon 16, minibatch 16384) at IsaacGymEnvs'
+               8192 envs: the AllegroHand stand-in under ADR (observation
+               noise, action noise and the random network adversary's
+               weight) and the adversary; 1 timed train iteration from a
+               fresh init (32 / 64 / 0 / 0: B x C = 1.23M keeps prep_deff's
+               gate shut), 7 serving steps with the carry threaded (2 / 4
+               / 0 / 0 a step); ADR's ranges within their limits, every
+               env's values within them, the weight in [0, 0.4], every
+               state leaf finite; then card vs CPU at 16 envs from a fresh
+               reset with the ranges opened to hi = (0.05, 0.05, 0.2), 2
+               control steps with the learner's actions and the same draws
+               (the hand's, ADR's, the masks' uniforms, both noises): the
+               adversary's logits within 1e-4 of their scale and its bins
+               equal away from near-ties (counted), q and the cube within
+               2e-4, observations within 2e-3, each times max(1, scale),
+               done flags, ADR's modes and the masks exactly. The n = 16
+               kernels stay held by phase 58.
+ 61. allegro-kuka  AllegroKukaReorientation as `train.py` composes it
+               (768-512-256, horizon 16, minibatch 32768) at IsaacGymEnvs'
+               8192 envs on the in-repo KUKA iiwa 7 + Allegro stand-in (nv
+               23, 52 spheres, three box slots, K = 3, 298 slots): 1 timed
+               train iteration (16 / 32 / 16 / 0: B x C = 2.44M opens
+               prep_deff's gate), 7 serving steps (1 / 2 / 1 / 0 a step);
+               then a built contact state: each env's active object set
+               resting on the back of the fingers at the reset's noisy
+               pose, KUKA_SETTLE_STEPS steps holding the joints, the last
+               step's calls kept, the envs whose robot pushes on its
+               object counted (at least 1/32); there spd_inverse (n = 23,
+               `spd_inverse_warp_kernel<23, 23>`: to n cond eps, or where
+               that fails to twice the plain version's float64 distance,
+               the record saying which), the sweep (captured, dense and
+               robot cases, against float64) and prep_deff against their
+               plain versions, timed beside their bounds and library
+               calls; card vs CPU at 16 of those envs as phase 57; then
+               one train iteration each of AllegroKukaRegrasping and
+               AllegroKukaThrow at 8192 envs (16 / 32 / 16 / 0).
+               (Phases 45-47 and 49-61 run after phase 37, then 48, before
                phase 42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
@@ -581,7 +625,7 @@ under "parallel" (and each kernel's launches there under its "parallel"
 key in "kernels"), the classic tasks' under "classic" (and each kernel's
 launches and checks on the craft, the Ant, the Humanoid, the Cartpole,
 BallBalance, Anymal, AnymalTerrain, FrankaCubeStack, FrankaCabinet,
-Trifinger, AllegroHand and ShadowHand under its "classic" key in
+Trifinger, AllegroHand, ShadowHand, DeXtreme and AllegroKuka under its "classic" key in
 "kernels"; spd_inverse's compiled sizes, their layouts and the checks
 that held each under its "instances" key);
 the last line
@@ -622,7 +666,8 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "ingenuity": 240, "ant": 240, "humanoid": 300, "cartpole": 180,
                     "ball-balance": 240, "anymal": 240, "anymal-terrain": 300,
                     "franka-cube-stack": 240, "franka-cabinet": 240, "trifinger": 240,
-                    "allegro-hand": 240, "shadow-hand": 300, "classic-entry": 300}
+                    "allegro-hand": 240, "shadow-hand": 300, "dextreme": 240,
+                    "allegro-kuka": 300, "classic-entry": 300}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -633,7 +678,7 @@ ENTRY_ITERS = 1  # iterations of the train entry point, resumed from ckpt_5200
 EVAL_STEPS = 200  # counted eval steps: one episode (200) from clocks zeroed at the reset
 REACH_ITERS = 4
 FAMILY = ("Ur5SihReposition", "Ur5SihOrientedReposition", "Ur5SihRepose", "Ur5SihThrow")
-FAMILY_ITERS = 1  # timed family train iterations, after one warm-up iteration
+FAMILY_ITERS = 1  # timed family train iterations from a fresh init (no warm-up)
 PREFIX_STEPS = 4  # chained minibatch steps of the kept update rerun on the CPU
 DISTILL_ITERS = 1  # timed DAgger iterations, after one warm-up iteration
 DISTILL_CHECK_SAMPLES = 2048  # of the first minibatch, its gradients rerun on the CPU
@@ -1812,14 +1857,7 @@ def family_phase(rollout, dev) -> dict:
         cfg = ppo_config(over)
         ppo = PPO(env, cfg)
         ts = ppo.init(1)
-        rollout.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts, _ = ppo.train_iter(ts)
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
-        check_launches(rollout.launch_counts(), per_iter, 1, f"{task} warm-up")
-        iters = []
+        iters = []  # timed from the fresh init: no warm-up iteration
         for i in range(FAMILY_ITERS):
             rollout.reset_launch_counts()
             torch.cuda.synchronize()
@@ -1835,7 +1873,7 @@ def family_phase(rollout, dev) -> dict:
                                   "reward_mean", "kl", "lr", "success_rate_ewma")}))
         log(f"family {task}: {ENVS} envs, C = {C}, obs {env.num_obs}, actions "
             f"{env.num_actions}, {env_cfg.solver_iterations} sweeps, minibatch "
-            f"{ppo.mb_size}; warm-up {warm:.3f} s; iterations "
+            f"{ppo.mb_size}; iterations from a fresh init "
             f"{[(round(r['seconds'], 3), round(r['reward_mean'], 4)) for r in iters]}; "
             f"launches per iteration {per_iter}")
         ref_state, ref_obs = pick_contact_envs(env.scene.slots, ts.env_state, ts.last_obs, 16,
@@ -1845,8 +1883,8 @@ def family_phase(rollout, dev) -> dict:
         small = dataclasses.replace(env_cfg, num_envs=16)
         card_vs_cpu(HandArmEnv(small, "cpu"), HandArmEnv(small, dev), ref_state, ref_obs,
                     actions, dev, f"family {task} card-vs-cpu")
-        out[task] = dict(envs=ENVS, slots=C, obs=int(ref_obs.shape[1]), warmup_s=warm,
-                         iterations=iters, launches_per_iteration=per_iter)
+        out[task] = dict(envs=ENVS, slots=C, obs=int(ref_obs.shape[1]), iterations=iters,
+                         launches_per_iteration=per_iter)
     return out
 
 
@@ -2241,6 +2279,7 @@ def distill_entry_phase(rollout) -> dict:
 # side is held to 8x that on the gradients, 35x on the loss terms (plus
 # 1e-8 for terms near 0: the policy loss and KL of a first step)
 RNN_CHECK_SEQS = 1024
+RNN_SERVE_STEPS = 10  # timed rnn-serve steps, after one warm-up step
 RNN_GRAD_TOL = 2e-5
 RNN_LOSS_TOL = (1e-5, 1e-8)  # relative to the float64 term, absolute
 
@@ -2324,17 +2363,18 @@ def rnn_serve_phase(rollout, ppo, ts, dev) -> dict:
     torch.cuda.synchronize()
     rollout.reset_launch_counts()
     t0 = time.perf_counter()
-    for _ in range(STEPS):
+    for _ in range(RNN_SERVE_STEPS):
         state, obs, hidden, _ = serve(env, ts, state, obs, hidden)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
-    check_launches(counts, LIFT_PER_STEP, STEPS, "rnn-serve")
+    check_launches(counts, LIFT_PER_STEP, RNN_SERVE_STEPS, "rnn-serve")
     finite_state(tree_map, state, obs)
     if not all(bool(torch.isfinite(x).all()) for x in carry_leaves(hidden)):
         raise AssertionError("rnn-serve: non-finite carry")
-    rate = ENVS * STEPS / seconds
-    log(f"rnn-serve: {STEPS} deterministic PPO.act control steps at {ENVS} envs, the carry "
+    rate = ENVS * RNN_SERVE_STEPS / seconds
+    log(f"rnn-serve: {RNN_SERVE_STEPS} deterministic PPO.act control steps at {ENVS} envs, "
+        f"the carry "
         f"threaded (zeroed where an episode ended) in {seconds:.3f} s = {rate:.0f} "
         f"env-steps/s; launches {counts}")
 
@@ -2369,7 +2409,7 @@ def rnn_serve_phase(rollout, ppo, ts, dev) -> dict:
             and second["carry"] <= 2e-3 and max(e["q"] for e in errs) <= 2e-4
             and max(e["obs"] for e in errs) <= 2e-3):
         raise AssertionError("rnn-serve: the card's recurrent policy disagrees with the CPU's")
-    return dict(envs=ENVS, control_steps=STEPS, seconds=seconds, env_steps_per_s=rate,
+    return dict(envs=ENVS, control_steps=RNN_SERVE_STEPS, seconds=seconds, env_steps_per_s=rate,
                 launches=counts, card_vs_cpu=errs)
 
 
@@ -2421,25 +2461,30 @@ ADR_ITERS = 1  # timed adr iterations, after one warm-up iteration
 ADR_CHECK_STEPS = 3  # adr_step check: steps at objective 1, then as many at 0
 
 
-def timed_iterations(rollout, ppo, ts, n: int, per_iter: dict, tag: str, capture=None):
-    """One warm-up train_iter, then n iterations timed as rollout and update
-    (each part between torch.cuda.synchronize calls); counters zeroed before
-    each iteration and read after it: exactly `per_iter`; params, stats and
-    every state leaf finite. `capture` (a Capture with last_only) is armed
-    for the last timed rollout. Returns (record, TrainState)."""
+def timed_iterations(rollout, ppo, ts, n: int, per_iter: dict, tag: str, capture=None,
+                     warmup: bool = True):
+    """One warm-up train_iter (none without `warmup`: the first timed
+    iteration then carries the first calls' costs), then n iterations timed
+    as rollout and update (each part between torch.cuda.synchronize calls);
+    counters zeroed before each iteration and read after it: exactly
+    `per_iter`; params, stats and every state leaf finite. `capture` (a
+    Capture with last_only) is armed for the last timed rollout. Returns
+    (record, TrainState)."""
     import torch
 
     from handarm_tpu_torch import train
     from handarm_tpu_torch.envs.hand_arm import tree_map
 
     samples = ppo.env.cfg.num_envs * ppo.cfg.horizon
-    rollout.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ts, _ = ppo.train_iter(ts)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    check_launches(rollout.launch_counts(), per_iter, 1, f"{tag} warm-up")
+    warm = None
+    if warmup:
+        rollout.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = ppo.train_iter(ts)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        check_launches(rollout.launch_counts(), per_iter, 1, f"{tag} warm-up")
     torch.cuda.reset_peak_memory_stats()
     iters = []
     for i in range(n):
@@ -2471,8 +2516,9 @@ def timed_iterations(rollout, ppo, ts, n: int, per_iter: dict, tag: str, capture
         iters.append(rec)
         del r
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"{tag}: warm-up iteration {warm:.3f} s; peak device memory {peak:.2f} GiB; every "
-        "param, stat and state leaf finite")
+    log(f"{tag}: warm-up iteration " + (f"{warm:.3f} s" if warmup else "none (the first "
+                                         "iteration timed from a fresh init)")
+        + f"; peak device memory {peak:.2f} GiB; every param, stat and state leaf finite")
     mean = lambda k: sum(r[k] for r in iters) / len(iters)
     return dict(envs=ppo.env.cfg.num_envs, horizon=ppo.cfg.horizon,
                 minibatches=ppo.num_minibatches, minibatch_size=ppo.mb_size,
@@ -3214,7 +3260,8 @@ CLASSIC = {"Quadcopter": (8192, 1), "Ingenuity": (4096, 1), "Ant": (4096, 1),
            "Humanoid": (4096, 1), "Cartpole": (512, 1), "BallBalance": (4096, 1),
            "Anymal": (4096, 1), "AnymalTerrain": (4096, 1), "FrankaCubeStack": (8192, 1),
            "FrankaCabinet": (4096, 1), "Trifinger": (16384, 1), "AllegroHand": (16384, 1),
-           "ShadowHand": (16384, 1)}
+           "ShadowHand": (16384, 1), "AllegroHandDextremeADR": (8192, 1),
+           "AllegroKukaReorientation": (8192, 1)}
 LOCOMOTION = ("Ant", "Humanoid")
 CONTACT_TASKS = ("BallBalance", "Anymal", "AnymalTerrain")  # phases 52-54
 FRANKA_TASKS = ("FrankaCubeStack", "FrankaCabinet")  # phases 55-56
@@ -3230,6 +3277,15 @@ GRASP_STEPS = 10  # the Trifinger's scripted steps toward the cube's faces, then
 # the asymmetric ShadowHand tasks (phase 59), one train iteration each at
 # IsaacGymEnvs' numEnvs (cfg/task/ShadowHandOpenAI_FF.yaml, _LSTM.yaml)
 OPENAI = {"ShadowHandOpenAI_FF": 16384, "ShadowHandOpenAI_LSTM": 8192}
+# the entry points' tasks in neither table, at IsaacGymEnvs' numEnvs
+ENTRY_ENVS = {"AllegroHandManualDR": 8192, "AllegroKuka": 8192}
+# phases 60-61 at IsaacGymEnvs' numEnvs (cfg/task/AllegroHandDextremeADR.yaml,
+# AllegroKuka.yaml); the KUKA's other variants one train iteration each
+DEXTREME_TASK = "AllegroHandDextremeADR"
+DEXTREME_REF_HI = (0.05, 0.05, 0.2)  # ADR's ranges opened for dextreme-ref
+KUKA_TASK = "AllegroKukaReorientation"
+KUKA_ITERATION = ("AllegroKukaRegrasping", "AllegroKukaThrow")
+KUKA_SETTLE_STEPS = 6  # steps of the objects resting on the back of the fingers
 CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
 CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
 CLASSIC_ENTRY_ITERS = 1
@@ -3368,29 +3424,49 @@ def classic_ref(task: str, ppo, ts, dev) -> dict:
     return out
 
 
-def train_and_serve(rollout, env, ppo, task: str, steps: int = CLASSIC_SERVE_STEPS) -> tuple:
+def train_and_serve(rollout, env, ppo, task: str, steps: int = HAND_SERVE_STEPS) -> tuple:
     """A classic task's learner trained from a fresh init (`timed_iterations`
-    for CLASSIC[task]'s iterations: launches per iteration exactly
-    `per_step_launches` x horizon), then `steps` + 1 deterministic serving
-    steps through `PPO.act` from a fresh reset, the last `steps` timed
-    (launches per step as predicted, every state leaf finite). Returns
+    for CLASSIC[task]'s iterations, no warm-up: launches per iteration
+    exactly `per_step_launches` x horizon), then `serve_window`. Returns
     (record, TrainState, launches per step)."""
-    import torch
-
-    from handarm_tpu_torch.envs.hand_arm import tree_map
-
     envs, iters = CLASSIC[task]
     per_step = per_step_launches(env)
     per_iter = {k: v * ppo.cfg.horizon for k, v in per_step.items()}
     rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
-                               tag=f"{task} train")
+                               tag=f"{task} train", warmup=False)
+    rec["serve"], _ = serve_window(rollout, env, ppo, ts, steps, per_step, task)
+    return rec, ts, per_step
+
+
+def serve_window(rollout, env, ppo, ts, steps: int, per_step: dict, task: str) -> tuple:
+    """`steps` + 1 deterministic serving steps through `PPO.act` from a fresh
+    reset (a recurrent policy's carry threaded, zeroed where an episode
+    ended if its config says so), the last `steps` timed: launches per step
+    as predicted, every state leaf finite. Returns (record, last state)."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.learn.ppo import zero_where
+
+    hidden = None
+
+    def act(obs, done):
+        nonlocal hidden
+        if not ppo.recurrent:
+            return ppo.act(ts, obs)
+        if done is not None and ppo.cfg.zero_rnn_on_done:
+            hidden = zero_where(done, hidden)
+        a, hidden = ppo.act(ts, obs, True, hidden)
+        return a
+
+    envs = env.cfg.num_envs
     rollout.reset_launch_counts()
     state, obs = env.reset(1)
-    state, res = env.step(state, ppo.act(ts, obs))
+    state, res = env.step(state, act(obs, None))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        state, res = env.step(state, ppo.act(ts, res.obs))
+        state, res = env.step(state, act(res.obs, res.done))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = rollout.launch_counts()
@@ -3400,17 +3476,16 @@ def train_and_serve(rollout, env, ppo, task: str, steps: int = CLASSIC_SERVE_STE
     log(f"{task} serve: {steps} deterministic steps in {seconds:.3f} s = "
         f"{sps:.0f} env-steps/s; launches {counts} over {steps + 1} steps; "
         f"episodes done {int(res.done.sum())}, mean reward {float(res.reward.mean()):.4f}")
-    rec["serve"] = dict(envs=envs, steps=steps, seconds=seconds,
-                        env_steps_per_s=sps, launches=counts, launches_per_step=per_step)
-    return rec, ts, per_step
+    return dict(envs=envs, steps=steps, seconds=seconds, env_steps_per_s=sps,
+                launches=counts, launches_per_step=per_step), state
 
 
 def classic_phase(rollout, dev, ops, task: str) -> tuple:
     """Phases 45 and 47: the task composed as train.py composes it at
     IsaacGymEnvs' env count, its learner at full width from a fresh init
-    (`timed_iterations`: launches per iteration exactly 16 / 32 / 0 / 0),
-    31 deterministic serving steps through `PPO.act` (1 / 2 / 0 / 0 per
-    step: `train_and_serve`), and the grounded kernel checks. Returns
+    (`timed_iterations`, no warm-up: launches per iteration exactly 16 /
+    32 / 0 / 0), 7 deterministic serving steps through `PPO.act` (1 / 2 /
+    0 / 0 per step: `train_and_serve`), and the grounded kernel checks. Returns
     (record, the PPO, its TrainState)."""
     from handarm_tpu_torch.envs.registry import build_env, resolve_task
     from handarm_tpu_torch.learn.ppo import PPO, ppo_config
@@ -3440,7 +3515,7 @@ def per_step_launches(env) -> dict:
     a substep, sdf_gather once a sim step (its one contact generation)
     where the scene holds a mesh-SDF object, and the deff kernel once a sim
     step (its solver prep) where B * C >= 2^21 (the hands' 150 and 160
-    slots at 16384 envs); the Cartpole's contact-free step runs the
+    slots at 16384 envs, AllegroKuka's 298 at 8192); the Cartpole's contact-free step runs the
     dynamics `substeps * control_freq_inv` times and nothing else."""
     import numpy as np
 
@@ -3448,7 +3523,8 @@ def per_step_launches(env) -> dict:
     from handarm_tpu_torch.physics.solver import DEFF_KERNEL_MIN_BC
 
     if hasattr(env, "scene"):
-        sims = getattr(env.cfg, "control_freq_inv", 1)
+        # the DeXtreme wrapper steps its inner AllegroHand env
+        sims = getattr(getattr(env, "env", env).cfg, "control_freq_inv", 1)
         deff = env.cfg.num_envs * env.scene.slots.num_slots >= DEFF_KERNEL_MIN_BC
         mesh = MESH_SDF in np.asarray(env.scene.shapes.kind).tolist()
         return {"spd_inverse": sims * (1 + hasattr(env, "osc_tau")),
@@ -3501,7 +3577,7 @@ def locomotion_phase(rollout, dev, ops, task: str) -> tuple:
         f"per step {per_step}")
     per_iter = {k: v * ppo.cfg.horizon for k, v in per_step.items()}
     rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
-                               tag=f"{task} train")
+                               tag=f"{task} train", warmup=False)
     rollout.reset_launch_counts()
     state, obs = env.reset(1)
     state, res = env.step(state, ppo.act(ts, obs))
@@ -3613,7 +3689,18 @@ def locomotion_ref(task: str, ppo, ts, dev, env_g_full, kept) -> dict:
     return dict(envs_with_impulses=pushed, **rec)
 
 
-def classic_entry(rollout, dev, task: str, state_type) -> dict:
+def task_envs(task: str) -> int:
+    """A task's env count: CLASSIC's, OPENAI's or ENTRY_ENVS'."""
+    if task in CLASSIC:
+        return CLASSIC[task][0]
+    if task in OPENAI:
+        return OPENAI[task]
+    if task in ENTRY_ENVS:
+        return ENTRY_ENVS[task]
+    raise KeyError(f"no env count for {task}: add it to ENTRY_ENVS")
+
+
+def classic_entry(rollout, dev, task: str, state_type, extra=()) -> dict:
     """Phase 48's entry points, `train.main` in this process (`python -m
     handarm_tpu_torch.train task=TASK env.num_envs=N max_iterations=1` once
     started; the Quadcopter at 8192 envs, the Cartpole at 512,
@@ -3624,7 +3711,11 @@ def classic_entry(rollout, dev, task: str, state_type) -> dict:
     AllegroHand 16 / 32 / 16 / 0), its ckpt_1.npz (the task state's leaves:
     the QuadState's 14, the ClassicState's 4, the ATState's 18, the
     CabinetState's 12, the DexState's 15) read whole with the task's config
-    and written back leaf for leaf."""
+    and written back leaf for leaf; at `task_envs`, with `extra` overrides:
+    the DeXtreme ManualDR task at 8192 envs (2 / 4 / 0 / 0 a step, its
+    recurrent learner's file read with its PPOConfig, the DextremeState's 25
+    leaves) and `AllegroKuka env.subtask=throw` at 8192 (1 / 2 / 1 / 0, the
+    AKState's 25)."""
     import numpy as np
 
     from handarm_tpu_torch.convert import env_state_to_leaves, train_state_to_leaves
@@ -3632,16 +3723,16 @@ def classic_entry(rollout, dev, task: str, state_type) -> dict:
     from handarm_tpu_torch.learn.ppo import ppo_config
     from handarm_tpu_torch.utils.checkpoint import load_train_state, read_leaves
 
-    envs = CLASSIC[task][0]
+    envs = task_envs(task)
     exp = f"chip_smoke_{task.lower()}"
     run = os.path.join("runs", exp)
     shutil.rmtree(run, ignore_errors=True)
     out = os.path.join(run, "nn", f"ckpt_{CLASSIC_ENTRY_ITERS}.npz")
-    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}", *extra])
     pcfg = ppo_config(over)
     per_step = per_step_launches(build_env(cfg, "cpu"))
     per_iter = {k: v * pcfg.horizon for k, v in per_step.items()}
-    rec = entry_in_process(rollout, [f"task={task}", f"env.num_envs={envs}",
+    rec = entry_in_process(rollout, [f"task={task}", f"env.num_envs={envs}", *extra,
                                      f"max_iterations={CLASSIC_ENTRY_ITERS}",
                                      f"experiment={exp}"], out,
                            f"{task} entry point", dev, per_iter, CLASSIC_ENTRY_ITERS, None)
@@ -3755,7 +3846,7 @@ def contact_task_phase(rollout, dev, ops, task: str) -> dict:
         f"per step {per_step}")
     per_iter = {k: v * ppo.cfg.horizon for k, v in per_step.items()}
     rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
-                               tag=f"{task} train")
+                               tag=f"{task} train", warmup=False)
     rollout.reset_launch_counts()
     state, obs = env.reset(1)
     terrain = task == "AnymalTerrain"
@@ -4136,7 +4227,7 @@ def hand_phase(rollout, dev, ops, task: str) -> dict:
     against their plain versions, timed beside their bounds and their
     library calls; then card vs CPU at 16 of those envs
     (`contact_state_ref`). ShadowHand adds one train iteration of
-    each OPENAI task (`openai_iteration`). Returns the record."""
+    each OPENAI task (`one_iteration`). Returns the record."""
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.envs.registry import build_env, resolve_task
     from handarm_tpu_torch.learn.ppo import PPO, ppo_config
@@ -4184,24 +4275,24 @@ def hand_phase(rollout, dev, ops, task: str) -> dict:
     rec["ref"] = contact_state_ref(task, ppo, ts, dev, kept, scores)
     if task == "ShadowHand":
         del env, ppo, ts, kept
-        rec["openai"] = {t: openai_iteration(rollout, dev, t) for t in OPENAI}
+        rec["openai"] = {t: one_iteration(rollout, dev, t, OPENAI[t]) for t in OPENAI}
     return rec
 
 
-def openai_iteration(rollout, dev, task: str) -> dict:
-    """One train iteration of an asymmetric ShadowHand task as train.py
-    composes it (the 42-dim actor observation, the 211-dim state as the
-    critic's; ShadowHandOpenAI_FF's 400-400-200-100 MLP, _LSTM's LSTM 1024
-    actor and critic with seq_len 4) at OPENAI[task] envs from a fresh
-    init, timed: launches exactly `per_step_launches` x horizon; params,
-    stats and every state leaf finite."""
+def one_iteration(rollout, dev, task: str, envs: int) -> dict:
+    """One train iteration of a task as train.py composes it at `envs` envs
+    from a fresh init, timed: launches exactly `per_step_launches` x
+    horizon; params, stats and every state leaf finite (the asymmetric
+    ShadowHand tasks: the 42-dim actor observation, the 211-dim state as
+    the critic's; ShadowHandOpenAI_FF's 400-400-200-100 MLP, _LSTM's LSTM
+    1024 actor and critic with seq_len 4; AllegroKukaRegrasping and
+    AllegroKukaThrow: 99 observations, the 768-512-256 MLP)."""
     import torch
 
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.envs.registry import build_env, resolve_task
     from handarm_tpu_torch.learn.ppo import PPO, ppo_config
 
-    envs = OPENAI[task]
     cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
     env = build_env(cfg, dev)
     ppo = PPO(env, ppo_config(over))
@@ -4227,6 +4318,291 @@ def openai_iteration(rollout, dev, task: str) -> dict:
     return dict(envs=envs, horizon=c.horizon, hidden=list(c.hidden), rnn_units=c.rnn_units,
                 critic_rnn_units=c.critic_rnn_units, seconds=seconds, env_steps_per_s=sps,
                 launches=counts, launches_per_iteration=per_iter)
+
+
+def dextreme_phase(rollout, dev, ops) -> dict:
+    """Phase 60 (AllegroHandDextremeADR): the task composed as train.py
+    composes it at IsaacGymEnvs' 8192 envs on the Allegro stand-in (ADR over
+    the observation noise, action noise and RNA weight; the LSTM 512 before
+    a 512-512 MLP, seq_len 16), one train iteration timed from a fresh
+    init, then HAND_SERVE_STEPS + 1 deterministic serving steps through
+    `PPO.act` with the carry threaded (`serve_window`); launches exactly 2 /
+    4 / 0 / 0 a step (the inner hand's two sim steps; B x C = 8192 x 150
+    keeps prep_deff's gate shut); ADR's ranges within their limits, every
+    env's values within its ranges, the RNA weight in [0, 0.4]; one more
+    serving step, its second spd_inverse call (n = 16, B = 8192) held
+    against the plain version to n cond eps and timed (`check_spd_craft`;
+    the sweep is held by allegro-hand); then card vs CPU (`dextreme_ref`).
+    Returns the record."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    envs, iters = CLASSIC[DEXTREME_TASK]
+    cfg, over = resolve_task(DEXTREME_TASK, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    per_step = per_step_launches(env)
+    c = ppo.cfg
+    log(f"{DEXTREME_TASK}: {envs} envs, nv {env.art.nv}, C = {env.scene.slots.num_slots} "
+        f"contact slots (B x C = {envs * env.scene.slots.num_slots}), obs {env.num_obs}, "
+        f"actions {env.num_actions}; ADR {cfg.adr.names}, limits {cfg.adr.limit_hi}; learner "
+        f"hidden {c.hidden}, LSTM {c.rnn_units}, seq_len {c.seq_len}, zero_rnn_on_done "
+        f"{c.zero_rnn_on_done}, horizon {c.horizon}, {ppo.num_minibatches} minibatches of "
+        f"{ppo.mb_size}; launches per step {per_step}")
+    if per_step != {"spd_inverse": 2, "contact_sweep": 4, "prep_deff": 0, "sdf_gather": 0}:
+        raise AssertionError(f"{DEXTREME_TASK}: launches per step {per_step}")
+    per_iter = {k: v * c.horizon for k, v in per_step.items()}
+    rec, ts = timed_iterations(rollout, ppo, ts=ppo.init(0), n=iters, per_iter=per_iter,
+                               tag=f"{DEXTREME_TASK} train", warmup=False)
+    rec["serve"], state = serve_window(rollout, env, ppo, ts, HAND_SERVE_STEPS, per_step,
+                                       DEXTREME_TASK)
+    finite_state(tree_map, state, state.obs)
+    adr, a = state.adr, cfg.adr
+    lim = lambda x: torch.tensor(x, device=dev)
+    ranges_ok = bool(((adr.lo >= lim(a.limit_lo)) & (adr.lo <= lim(a.init_lo))
+                      & (adr.hi >= lim(a.init_hi)) & (adr.hi <= lim(a.limit_hi))).all())
+    values_ok = bool(((adr.values >= adr.lo) & (adr.values <= adr.hi)).all())
+    alpha = adr.values[:, 2]
+    log(f"{DEXTREME_TASK}: ADR lo {adr.lo.tolist()}, hi {adr.hi.tolist()}, queues "
+        f"{adr.q_cnt.tolist()}; boundary workers {int((adr.worker_mode >= 0).sum())} of "
+        f"{envs}; RNA weight in [{float(alpha.min()):.4f}, {float(alpha.max()):.4f}]; every "
+        "state leaf finite")
+    if not (ranges_ok and values_ok and float(alpha.min()) >= 0.0
+            and float(alpha.max()) <= a.limit_hi[2]):
+        raise AssertionError(f"{DEXTREME_TASK}: ADR ranges or values out of their limits")
+    rec["adr"] = dict(lo=adr.lo.tolist(), hi=adr.hi.tolist(),
+                      boundary_workers=int((adr.worker_mode >= 0).sum()))
+    rollout.reset_launch_counts()
+    with Capture(ops, last_only=True) as cap:
+        cap.armed = True
+        env.step(state, torch.zeros(envs, env.num_actions, device=dev))
+    check_launches(rollout.launch_counts(), per_step, 1, f"{DEXTREME_TASK} kernel step")
+    rec["kernels"] = {"spd_inverse": check_spd_craft(
+        spd_op, cap.calls["spd"][0][0][0], dev, f"{DEXTREME_TASK} serving state")}
+    del cap
+    rec["ref"] = dextreme_ref(ppo, ts, dev)
+    return rec
+
+
+def rna_agreement(env_g, env_c, state_g, state_c) -> dict:
+    """The adversary's binned logits on the card against the CPU's on the same
+    observations and masks (within 1e-4 of their largest magnitude), its
+    decoded actions equal wherever a channel's two largest logits lie more
+    than 1e-4 of that magnitude apart; near-ties and the channels decoded
+    apart counted."""
+    import torch
+
+    from handarm_tpu_torch.learn import rna
+
+    lg = rna.rna_logits(env_g.rna_params, state_g.rna, state_g.obs).cpu()
+    lc = rna.rna_logits(env_c.rna_params, state_c.rna, state_c.obs)
+    scale = float(lc.abs().max())
+    top = torch.topk(lc, 2, dim=-1).values
+    ties = (top[..., 0] - top[..., 1]) <= 1e-4 * scale
+    apart = rna.rna_decode(lg) != rna.rna_decode(lc)
+    err = float((lg - lc).abs().max())
+    if err > 1e-4 * scale or bool((apart & ~ties).any()):
+        raise AssertionError("dextreme-ref: the adversary's logits or actions disagree")
+    return dict(logit_err=err, scale=scale, near_ties=int(ties.sum()),
+                decoded_apart=int(apart.sum()), channels=ties.numel())
+
+
+def dextreme_ref(ppo, ts, dev) -> dict:
+    """Card vs CPU at 16 envs: 2 control steps from a fresh reset with ADR's
+    ranges opened to hi = DEXTREME_REF_HI and values drawn in them (so the
+    noise and the adversary act), the trained learner's deterministic
+    actions (its carry threaded, on the CPU) and the same draws on both
+    sides (the inner hand's, ADR's, the masks' uniforms, both noises): q
+    and the cube within 2e-4, observations within 2e-3, each times max(1,
+    the CPU value's largest); done flags, ADR's modes and the masks
+    exactly, its values within 1e-6; the adversary held by
+    `rna_agreement` before each step."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO
+
+    cfg, _ = resolve_task(DEXTREME_TASK, ["env.num_envs=16"])
+    env_c, env_g = build_env(cfg, "cpu"), build_env(cfg, dev)
+    if not all(torch.equal(getattr(env_c.rna_params, k), getattr(env_g.rna_params, k).cpu())
+               for k in ("w1", "w2", "w3")):
+        raise AssertionError("dextreme-ref: the adversaries' weights differ")
+    to = lambda x, d: tree_map(lambda t: t.to(d), x)
+    learner = PPO(env_c, ppo.cfg, device="cpu")
+    ts_c = ts._replace(params={k: v.cpu() for k, v in ts.params.items()},
+                       obs_stats=to(ts.obs_stats, "cpu"))
+    state_c, obs_c = env_c.reset(3)
+    gen = torch.Generator().manual_seed(4)
+    hi = torch.tensor(DEXTREME_REF_HI)
+    state_c = state_c._replace(adr=state_c.adr._replace(
+        hi=hi, values=torch.rand(16, 3, generator=gen) * hi))
+    state_g = to(state_c, dev)
+    hidden, rna_rec = None, []
+    for _ in range(2):
+        rna_rec.append(rna_agreement(env_g, env_c, state_g, state_c))
+        a, hidden = learner.act(ts_c, obs_c, True, hidden)
+        d = env_c.draw(16)
+        state_c, res_c = env_c.step(state_c, a, d)
+        state_g, res_g = env_g.step(state_g, a.to(dev), to(d, dev))
+        obs_c, obs_g = res_c.obs, res_g.obs
+        if not torch.equal(res_g.done.cpu(), res_c.done):
+            raise AssertionError("dextreme-ref: done flags differ")
+    rec = {}
+    for name, g, c, tol in (("obs", obs_g, obs_c, 2e-3),
+                            ("q", state_g.inner.physics.robot.q,
+                             state_c.inner.physics.robot.q, 2e-4),
+                            ("object_pos", state_g.inner.physics.objects.pos,
+                             state_c.inner.physics.objects.pos, 2e-4)):
+        scale = max(1.0, float(c.abs().max()))
+        rec[name] = dict(err=float((g.cpu() - c).abs().max()), scale=scale, tol=tol * scale)
+    same = (torch.equal(state_g.adr.worker_mode.cpu(), state_c.adr.worker_mode)
+            and torch.equal(state_g.rna.mask1.cpu(), state_c.rna.mask1)
+            and torch.equal(state_g.rna.mask2.cpu(), state_c.rna.mask2)
+            and float((state_g.adr.values.cpu() - state_c.adr.values).abs().max()) <= 1e-6)
+    log(f"dextreme-ref: 16 envs, 2 steps; " + ", ".join(
+        f"max|{k} gpu-cpu| {v['err']:.3e} (scale {v['scale']:.3e})" for k, v in rec.items())
+        + f"; ADR modes, values and masks {'alike' if same else 'DIFFERENT'}; adversary "
+        f"near-ties {[r['near_ties'] for r in rna_rec]} of {rna_rec[0]['channels']} channels, "
+        f"decoded apart {[r['decoded_apart'] for r in rna_rec]}")
+    if not (same and all(v["err"] <= v["tol"] for v in rec.values())):
+        raise AssertionError("the card's run disagrees with the CPU reference (dextreme-ref)")
+    return dict(rec, rna=rna_rec)
+
+
+def kuka_contact_state(env, ops):
+    """A state of every env with its active object resting on the back of the
+    Allegro's fingers: a reset with the task's joint noise (no velocity or
+    object noise: the mass matrices differ env by env), each env's active
+    object set level 1 mm over the robot's spheres under its footprint,
+    centred over the index, middle and ring fingers' middle and distal
+    links; then KUKA_SETTLE_STEPS steps holding those joints (the arm's
+    actions zero, the hand's its reset joints' targets), the last step's
+    kernel calls kept. Returns (state, [B] bool: the envs whose robot pushes on their
+    active object at the last step's end, the kept calls, steps, [B] bool:
+    the envs whose object lies within 2 cm of where it was set and whose
+    episode went on)."""
+    import torch
+
+    from handarm_tpu_torch.math.quat import quat_rotate
+    from handarm_tpu_torch.physics.kinematics import forward_kinematics
+
+    B, dev, sc = env.cfg.num_envs, env.device, env.scene
+    d = env.draw(B)
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev).expand(B, 4)
+    state, _ = env.reset(2, d._replace(dof_vel=torch.zeros_like(d.dof_vel),
+                                       obj=d.obj._replace(pos=torch.zeros_like(d.obj.pos),
+                                                          rot=ident)))
+    q0 = state.physics.robot.q
+    fk = forward_kinematics(sc.model, state.physics.robot.q, sc.base_quat[None],
+                            sc.base_pos[None])
+    body = torch.as_tensor(sc.spheres.body, device=dev)
+    ctr = fk.body_pos[:, body] + quat_rotate(fk.body_quat[:, body], sc.spheres.offset[None])
+    names = env.art.body_names
+    under = torch.as_tensor([names[b].split("_link_")[0] in ("index", "middle", "ring")
+                             and names[b][-1] in "23" for b in sc.spheres.body], device=dev)
+    xy = ctr[:, under, :2].mean(1)  # [B, 2]
+    slot = env.active(B)
+    half = env.obj_halves[slot]
+    # the lowest level box over every sphere: a sphere at horizontal distance
+    # d < r from the footprint reaches up to its centre's z + sqrt(r^2 - d^2)
+    r = sc.spheres.radius[None]
+    gap = torch.clamp((ctr[..., :2] - xy[:, None]).abs() - half[:, None, :2], min=0.0)
+    d2 = (gap ** 2).sum(-1)
+    top = torch.where(d2 < r ** 2, ctr[..., 2] + torch.sqrt(torch.clamp(r ** 2 - d2, min=0.0)),
+                      -1.0).amax(-1)
+    i = torch.arange(B, device=dev)
+    o = state.physics.objects
+    pos, quat = o.pos.clone(), o.quat.clone()
+    pos[i, slot] = torch.cat([xy, (top + half[:, 2] + 0.001)[:, None]], -1)
+    quat[i, slot] = ident
+    start = pos[i, slot].clone()
+    state = state._replace(physics=state.physics._replace(objects=o._replace(
+        pos=pos, quat=quat, linvel=torch.zeros_like(o.linvel),
+        angvel=torch.zeros_like(o.angvel))))
+    hold = torch.cat([torch.zeros(B, 7, device=dev),
+                      2.0 * (q0[:, 7:] - env.q_lo[7:]) / (env.q_hi - env.q_lo)[7:] - 1.0], -1)
+    ended = torch.zeros(B, dtype=torch.bool, device=dev)
+    with Capture(ops, last_only=True) as cap:
+        for k in range(KUKA_SETTLE_STEPS):
+            cap.armed = k == KUKA_SETTLE_STEPS - 1
+            state, res = env.step(state, hold)
+            ended |= res.done
+    slots = sc.slots
+    rb = torch.as_tensor(slots.robot_body >= 0, device=dev)
+    ob = torch.as_tensor(slots.obj_b, device=dev)
+    on_active = rb[None] & (ob[None] == slot[:, None])  # [B, C]
+    pushed = (state.physics.contact_impulse.norm(dim=-1) > 0) & on_active
+    rest = ~ended & ((state.physics.objects.pos[i, slot] - start).norm(dim=-1) < 0.02)
+    return state, pushed.any(-1), cap.calls, KUKA_SETTLE_STEPS, rest
+
+
+def allegro_kuka_phase(rollout, dev, ops) -> dict:
+    """Phase 61 (AllegroKukaReorientation): the task composed as train.py
+    composes it at IsaacGymEnvs' 8192 envs on the KUKA iiwa 7 + Allegro
+    stand-in (nv 23, 298 contact slots, three box slots), its 768-512-256
+    learner, one train iteration timed from a fresh init and HAND_SERVE_STEPS
+    + 1 deterministic serving steps (`train_and_serve`: launches exactly 1
+    / 2 / 1 / 0 a step, B x C = 8192 x 298 opening prep_deff's gate); then
+    the built contact state (`kuka_contact_state`: at least 1/32 of the
+    envs' robots pushing on their object, the objects at rest counted),
+    where spd_inverse at n = 23 (`check_spd_craft`), the sweep (captured,
+    dense and robot cases, against float64) and prep_deff are held against
+    their plain versions, timed beside their bounds and their library
+    calls; card vs CPU at 16 of those envs (`contact_state_ref`); then one
+    train iteration each of AllegroKukaRegrasping and AllegroKukaThrow
+    (`one_iteration`). Returns the record."""
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import prep_deff as deff_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    envs = CLASSIC[KUKA_TASK][0]
+    cfg, over = resolve_task(KUKA_TASK, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    ppo = PPO(env, ppo_config(over))
+    per_step = per_step_launches(env)
+    sc = env.scene
+    C = sc.slots.num_slots
+    log(f"{KUKA_TASK}: {envs} envs, nv {env.art.nv}, C = {C} contact slots (B x C = "
+        f"{envs * C}), K = {sc.shapes.num_objects}, {sc.spheres.body.shape[0]} robot spheres, "
+        f"obs {env.num_obs}, actions {env.num_actions}; the robot's moving bodies "
+        f"{float(sc.model.mass.sum()):.3f} kg; learner hidden {ppo.cfg.hidden}, horizon "
+        f"{ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}; launches "
+        f"per step {per_step}")
+    if per_step != {"spd_inverse": 1, "contact_sweep": 2, "prep_deff": 1, "sdf_gather": 0}:
+        raise AssertionError(f"{KUKA_TASK}: launches per step {per_step}")
+    rec, ts, _ = train_and_serve(rollout, env, ppo, KUKA_TASK)
+
+    rollout.reset_launch_counts()
+    kept, scores, calls, steps, rest = kuka_contact_state(env, ops)
+    check_launches(rollout.launch_counts(), per_step, steps, f"{KUKA_TASK} contact state")
+    finite_state(tree_map, kept, env._obs(kept))
+    n_contact, n_rest = int(scores.sum()), int(rest.sum())
+    log(f"{KUKA_TASK}: {n_contact} of {envs} envs with the robot pushing on its object at the "
+        f"contact state's last step (built in {steps} steps); {n_rest} with the object within "
+        f"2 cm of where it was set and no episode ended")
+    if n_contact < envs // 32:
+        raise AssertionError(f"{KUKA_TASK}: too few envs with the object in contact")
+    tag = f"{KUKA_TASK} contact state"
+    kern = {"spd_inverse": check_spd_craft(spd_op, calls["spd"][0][0][0], dev, tag),
+            "contact_sweep": check_sweep(sweep_op, calls["sweep"][0], sc.maps, tag, f64=True),
+            "prep_deff": check_deff(deff_op, calls["deff"][0][0])}
+    kern["contact_sweep"].update(envs_with_contacts=n_contact,
+                                 contacts="the robot on the object resting on its fingers")
+    rec["kernels"] = kern
+    rec["contact_state"] = dict(steps=steps, envs_with_contacts=n_contact, envs_at_rest=n_rest)
+    del calls
+    rec["ref"] = contact_state_ref(KUKA_TASK, ppo, ts, dev, kept, scores)
+    del env, ppo, ts, kept
+    rec["variants"] = {t: one_iteration(rollout, dev, t, envs) for t in KUKA_ITERATION}
+    return rec
 
 
 def spd_instances(entry: dict) -> list:
@@ -4255,7 +4631,7 @@ def spd_instances(entry: dict) -> list:
 
 
 def classic_phases(rollout, dev, ops) -> tuple:
-    """Phases 45-59: (their record, each kernel's classic record)."""
+    """Phases 45-61: (their record, each kernel's classic record)."""
     rec, kernels = {}, {}
     for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
         name = "quad" if task == "Quadcopter" else "ingenuity"
@@ -4279,6 +4655,10 @@ def classic_phases(rollout, dev, ops) -> tuple:
     for task, name in zip(HAND_TASKS, ("trifinger", "allegro-hand", "shadow-hand")):
         with phase(name):
             rec[task] = hand_phase(rollout, dev, ops, task)
+    with phase("dextreme"):
+        rec[DEXTREME_TASK] = dextreme_phase(rollout, dev, ops)
+    with phase("allegro-kuka"):
+        rec[KUKA_TASK] = allegro_kuka_phase(rollout, dev, ops)
     for task in CLASSIC:
         per_iter = rec[task]["launches_per_iteration"]
         for k in per_iter:
@@ -4288,9 +4668,11 @@ def classic_phases(rollout, dev, ops) -> tuple:
             entry.update(rec[task]["kernels"].get(k, {}))
             kernels.setdefault(k, {})[task] = entry
     with phase("classic-entry"):
+        from handarm_tpu_torch.envs.allegro_kuka import AKState
         from handarm_tpu_torch.envs.anymal_terrain import ATState
         from handarm_tpu_torch.envs.classic import ClassicState
         from handarm_tpu_torch.envs.dexhand import DexState
+        from handarm_tpu_torch.envs.dextreme import DextremeState
         from handarm_tpu_torch.envs.franka_cabinet import CabinetState
         from handarm_tpu_torch.envs.quadcopter import QuadState
 
@@ -4299,6 +4681,10 @@ def classic_phases(rollout, dev, ops) -> tuple:
                                   ("Quadcopter", QuadState), ("Cartpole", ClassicState),
                                   ("AnymalTerrain", ATState), ("FrankaCabinet", CabinetState),
                                   ("AllegroHand", DexState))}
+        rec["entry_point"]["AllegroHandManualDR"] = classic_entry(
+            rollout, dev, "AllegroHandManualDR", DextremeState)
+        rec["entry_point"]["AllegroKuka env.subtask=throw"] = classic_entry(
+            rollout, dev, "AllegroKuka", AKState, extra=["env.subtask=throw"])
     return rec, kernels
 
 
@@ -5035,12 +5421,12 @@ def main() -> int:
         ptxas = ptxas_summary(build.ptxas_report())
         for line in ptxas:
             log(line)
-        # the warp layout holds three rows a lane in registers (n = 27, and n =
-        # 24 at a padded row stride of 25), and the thread-per-matrix n = 12,
+        # the warp layout holds three rows a lane in registers (n = 27 and 23,
+        # and n = 24 at a padded row stride of 25), and the thread-per-matrix n = 12,
         # 16 and 18 their lower triangles (78, 136 and 171 floats): no spill
         for kname in ("spd_inverse_warp_kernel<27, 27>", "spd_inverse_warp_kernel<24, 25>",
-                      "spd_inverse_kernel<12>", "spd_inverse_kernel<16>",
-                      "spd_inverse_kernel<18>"):
+                      "spd_inverse_warp_kernel<23, 23>", "spd_inverse_kernel<12>",
+                      "spd_inverse_kernel<16>", "spd_inverse_kernel<18>"):
             lines = [x for x in ptxas if kname in x]
             if len(lines) != 1 or "0 bytes spill stores" not in lines[0]:
                 raise AssertionError(f"{kname} spills or is missing: {lines}")
@@ -5050,11 +5436,12 @@ def main() -> int:
         log("classic: contact_sweep at C = 4, 8, 30, 37 and 51 (K = 0, no object sides) "
             "launches contact_sweep_kernel<128, 6>, at C = 161, K = 1 (BallBalance), C = 134, "
             "K = 2 (FrankaCubeStack), C = 190, K = 1 (FrankaCabinet), C = 91 (Trifinger), 150 "
-            "(AllegroHand) and 160 (ShadowHand), K = 1, the instance its launch line names; "
-            "spd_inverse at n = 14, 8, 2, 12, 18, 9 and 16 its <14>, <8>, <2>, <12>, <18>, <9> "
-            "and <16>, at n = 27 and 24 spd_inverse_warp_kernel<27, 27> and <24, 25> (a warp "
-            "per matrix); sdf_gather at FrankaCabinet's R = 32 drawer the one "
-            "sdf_gather_kernel; prep_deff on the hands' B x C >= 2^21 the one prep_deff_kernel")
+            "(AllegroHand) and 160 (ShadowHand), K = 1, and C = 298, K = 3 (AllegroKuka), the "
+            "instance its launch line names; spd_inverse at n = 14, 8, 2, 12, 18, 9 and 16 its "
+            "<14>, <8>, <2>, <12>, <18>, <9> and <16>, at n = 27, 24 and 23 "
+            "spd_inverse_warp_kernel<27, 27>, <24, 25> and <23, 23> (a warp per matrix); "
+            "sdf_gather at FrankaCabinet's R = 32 drawer the one sdf_gather_kernel; prep_deff "
+            "on the hands' and AllegroKuka's B x C >= 2^21 the one prep_deff_kernel")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis

@@ -33,13 +33,20 @@ to write checkpoints its loader reads.
   no base pose and a None tau_ext between steps: 11 for FrankaCubeStack
   (FrankaState), 12 for FrankaCabinet (CabinetState, its persistent
   targets among them), 15 for Trifinger (TrifingerState) and the hands
-  (DexState, its scalar consecutive-success average among them); the
+  (DexState, its scalar consecutive-success average among them), 25 for
+  AllegroKuka (AKState: its bool `lifted`, three scalars of the tolerance
+  curriculum among them); the DeXtreme wrapper's DextremeState nests the
+  DexState (with its key), the last observation, the AdrState and the
+  RNA masks before its own key: 25; the
   Cartpole's ClassicState has no physics: q, qd, progress, key. Its
   readers take the env's config (QuadcopterConfig, IngenuityConfig,
   ClassicConfig, LocomotionConfig, BallBalanceConfig, AnymalConfig,
   AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig,
-  TrifingerConfig, DexHandConfig, ShadowHandConfig) in place of a
-  HandArmConfig.
+  TrifingerConfig, DexHandConfig, ShadowHandConfig, DextremeConfig,
+  AllegroKukaConfig) in place of a HandArmConfig. Integer leaves are int32
+  there and int64 here, bool leaves bool on both sides.
+- `rna_params_from_arrays` carries the JAX package's RNAParams (the
+  DeXtreme adversary's fixed weights) into the port.
 - A PPO TrainState's leaves (`utils/checkpoint.py` documents them):
   params, optax state, both running stats, lr, env state, last obs, key,
   epoch (71 for the 768-512-256 MLP on the UR5+SIH, 69 on the Stretch),
@@ -62,8 +69,10 @@ import numpy as np
 import torch
 
 from handarm_tpu_torch.envs.adr import AdrState
+from handarm_tpu_torch.envs.allegro_kuka import AKState
 from handarm_tpu_torch.envs.classic import ClassicState
 from handarm_tpu_torch.envs.dexhand import DexState
+from handarm_tpu_torch.envs.dextreme import DextremeState
 from handarm_tpu_torch.envs.franka import FrankaState
 from handarm_tpu_torch.envs.franka_cabinet import CabinetState
 from handarm_tpu_torch.envs.hand_arm import EnvState, HandArmConfig, Metrics, TaskState
@@ -74,6 +83,7 @@ from handarm_tpu_torch.envs.randomization import DRState
 from handarm_tpu_torch.learn import optim
 from handarm_tpu_torch.learn.networks import ActorCritic, flax_names
 from handarm_tpu_torch.learn.ppo import PPOConfig, TrainState, param_names
+from handarm_tpu_torch.learn.rna import RNAParams, RNAState
 from handarm_tpu_torch.learn.running_stats import RunningStats
 from handarm_tpu_torch.physics.engine import ObjectState, PhysicsState, RobotState
 from handarm_tpu_torch.robots import ROBOTS, control_type
@@ -88,10 +98,13 @@ OPT_SCALARS = (np.int32, np.bool_, np.int32, np.int32)  # optax's, in its order
 CLASSIC_STATES = {cfg: env.state_type for cfg, env in CLASSIC_ENVS.items()}
 # the physics leaves of a classic state: a floating base's pose, and the
 # locomotion robots' tau_ext; the Cartpole's state holds no physics, the
-# Franka's a fixed base's
+# Franka's a fixed base's (the DeXtreme wrapper's inner DexState leads its
+# leaves)
 N_CLASSIC_PHYSICS = {ClassicState: 0, LocoState: N_PHYSICS_LEAVES + 3,
                      FrankaState: N_PHYSICS_LEAVES, CabinetState: N_PHYSICS_LEAVES,
-                     TrifingerState: N_PHYSICS_LEAVES, DexState: N_PHYSICS_LEAVES}
+                     TrifingerState: N_PHYSICS_LEAVES, DexState: N_PHYSICS_LEAVES,
+                     AKState: N_PHYSICS_LEAVES, DextremeState: N_PHYSICS_LEAVES}
+N_RNA_LEAVES = 2  # an RNAState's masks
 
 
 def actor_critic_from_params(params: dict, device="cpu") -> ActorCritic:
@@ -160,9 +173,29 @@ def classic_physics_leaves(state_type) -> int:
 
 def classic_leaf_count(state_type) -> int:
     """Leaves of a classic task's state: its physics, its own fields, the
-    PRNG key."""
+    PRNG key; a DextremeState's: the inner DexState's, the last
+    observation, the AdrState's, the RNA masks, the PRNG key."""
+    if state_type is DextremeState:
+        return classic_leaf_count(DexState) + 1 + N_RAND_LEAVES + N_RNA_LEAVES + 1
     k = classic_physics_leaves(state_type)
     return k + len(state_type._fields) - (k > 0) + 1
+
+
+def _own_leaf(x, device) -> torch.Tensor:
+    """A state leaf in the port's dtype: bool kept, integers int64, float32."""
+    x = np.asarray(x)
+    if x.dtype != np.bool_:
+        x = x.astype(np.int64 if np.issubdtype(x.dtype, np.integer) else np.float32)
+    return torch.tensor(x, device=device)
+
+
+def _own_to_leaf(x: torch.Tensor) -> np.ndarray:
+    """A state leaf in the JAX package's dtype: bool kept, integers int32,
+    float32."""
+    x = x.detach().cpu().numpy()
+    if x.dtype == np.bool_:
+        return x
+    return x.astype(np.float32 if np.issubdtype(x.dtype, np.floating) else np.int32)
 
 
 def classic_state_from_leaves(leaves: Sequence[np.ndarray], state_type, device="cpu"):
@@ -171,22 +204,49 @@ def classic_state_from_leaves(leaves: Sequence[np.ndarray], state_type, device="
     n = classic_leaf_count(state_type)
     if len(leaves) != n:
         raise ValueError(f"expected {n} {state_type.__name__} leaves, got {len(leaves)}")
+    if state_type is DextremeState:
+        return dextreme_state_from_leaves(leaves, device)
     k = classic_physics_leaves(state_type)
-    own = [torch.tensor(np.asarray(x).astype(
-        np.int64 if np.issubdtype(np.asarray(x).dtype, np.integer) else np.float32),
-        device=device) for x in leaves[k:-1]]
+    own = [_own_leaf(x, device) for x in leaves[k:-1]]
     if not k:
         return state_type(*own)
     return state_type(physics_state_from_leaves(leaves[:k], device), *own)
 
 
 def classic_state_to_leaves(state, seed: int = 0) -> list[np.ndarray]:
-    np_ = lambda x: x.detach().cpu().numpy()
+    if isinstance(state, DextremeState):
+        return dextreme_state_to_leaves(state, seed)
     physics = getattr(state, "physics", None)
-    own = [np_(x).astype(np.int32 if not x.is_floating_point() else np.float32)
-           for x in (state[1:] if physics is not None else state)]
+    own = [_own_to_leaf(x) for x in (state[1:] if physics is not None else state)]
     return ((physics_state_to_leaves(physics) if physics is not None else []) + own
             + [prng_key(seed)])
+
+
+def dextreme_state_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> DextremeState:
+    """A DextremeState of its 25 leaves (the inner DexState's 15 with its
+    key, the observation, the AdrState's 6 with the int32 `worker_mode`, the
+    two RNA masks, the key); both keys are dropped."""
+    k = classic_leaf_count(DexState)
+    inner = classic_state_from_leaves(leaves[:k], DexState, device)
+    obs, *rest = [_own_leaf(x, device) for x in leaves[k:-1]]
+    adr = AdrState(*rest[:N_RAND_LEAVES])
+    return DextremeState(inner=inner, obs=obs, adr=adr, rna=RNAState(*rest[N_RAND_LEAVES:]))
+
+
+def dextreme_state_to_leaves(state: DextremeState, seed: int = 0) -> list[np.ndarray]:
+    """The 25 leaves of a DextremeState in the JAX package's order and dtypes,
+    both keys `prng_key(seed)`."""
+    own = [state.obs, *state.adr, *state.rna]
+    return (classic_state_to_leaves(state.inner, seed) + [_own_to_leaf(x) for x in own]
+            + [prng_key(seed)])
+
+
+def rna_params_from_arrays(p, device="cpu") -> RNAParams:
+    """The port's RNAParams of any object with the JAX package's RNAParams
+    fields (w1, b1, w2, b2, w3 as arrays, num_actions, bins)."""
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+    return RNAParams(w1=t(p.w1), b1=t(p.b1), w2=t(p.w2), b2=t(p.b2), w3=t(p.w3),
+                     num_actions=int(p.num_actions), bins=int(p.bins))
 
 
 def control_leaf_count(robot: str) -> int:

@@ -61,7 +61,9 @@
 // takes LD = n | 1 words of the staging buffer (25 at n = 24), the stride
 // odd and the lanes on distinct banks. The copies in and out place each
 // float at its padded offset. At an odd n, LD = n and the code is the
-// unpadded one.
+// unpadded one: so at n = 23 (AllegroKuka's KUKA arm and Allegro hand, LD
+// = 23; 4.2 KB a matrix, 34.7 MB at B = 8192, 10.4 us), whose lanes 23-31
+// carry zeros.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -253,6 +255,11 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
   }
   if (n == 24) {  // the Shadow hand's 24 dofs: a warp per matrix, rows 25 words apart
     spd_inverse_warp_kernel<24><<<warp_blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+        M, Minv, B);
+    return (int)cudaGetLastError();
+  }
+  if (n == 23) {  // the KUKA arm's 7 + the Allegro hand's 16 dofs: a warp per matrix
+    spd_inverse_warp_kernel<23><<<warp_blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
         M, Minv, B);
     return (int)cudaGetLastError();
   }

@@ -4,8 +4,10 @@ points build them (counterpart of `make_env`, `env_from_yaml`,
 `all_task_names` of handarm_tpu/envs/registry.py: the UR5+SIH and Stretch
 tasks, and of the classic tasks Quadcopter, Ingenuity, Cartpole, Ant,
 Humanoid, BallBalance, Anymal, AnymalTerrain, FrankaCubeStack,
-FrankaCabinet, Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF and
-ShadowHandOpenAI_LSTM).
+FrankaCabinet, Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF,
+ShadowHandOpenAI_LSTM, AllegroHandDextremeADR, AllegroHandADR,
+AllegroHandManualDR, AllegroKukaReorientation, AllegroKukaRegrasping,
+AllegroKukaThrow and AllegroKuka).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -36,10 +38,17 @@ config. BallBalance, Anymal, AnymalTerrain and the two Franka tasks read
 their module constants' stand-in assets and take no path, as the JAX
 package's factories take none, and so do Trifinger and the hands; the
 ANYmal tasks' registry default of 500 steps becomes their own 1000,
-FrankaCubeStack's its own 300, Trifinger's 750 and the hands' 600. The
-ShadowHandOpenAI tasks are ShadowHand with `obs_type="openai"` and the
-asymmetric critic (an MLP, or LSTMs for actor and critic). The JAX
-package's other classic tasks are not ported: naming one raises
+FrankaCubeStack's its own 300, Trifinger's 750 and the hands' 600 (the
+DeXtreme and AllegroKuka tasks' too). The ShadowHandOpenAI tasks are
+ShadowHand with `obs_type="openai"` and the asymmetric critic (an MLP,
+or LSTMs for actor and critic). The DeXtreme tasks (AllegroHandDextremeADR
+and its alias AllegroHandADR; AllegroHandManualDR with fixed ranges) wrap
+AllegroHand with ADR and the random network adversary, under an LSTM 512
+before a 512-512 MLP; the one-arm AllegroKuka tasks take their variant
+from the name, or, as `AllegroKuka`, from `env.subtask` (reorientation by
+default; that resolver takes no other env field, as the JAX package's).
+The JAX package's other classic tasks (the two-arm AllegroKuka tasks,
+Factory*, IndustReal*, HumanoidAMP) are not ported: naming one raises
 NotImplementedError (ROADMAP §1.7).
 
 Each function has a `*_config` form that stops at the env's config (a
@@ -56,6 +65,11 @@ import json
 import os
 
 from handarm_tpu_torch.envs.adr import AdrConfig
+from handarm_tpu_torch.envs.allegro_kuka import (
+    AllegroKukaConfig,
+    AllegroKukaEnv,
+    allegro_kuka_config,
+)
 from handarm_tpu_torch.envs.anymal import AnymalConfig, AnymalEnv, anymal_config
 from handarm_tpu_torch.envs.anymal_terrain import (
     AnymalTerrainConfig,
@@ -76,6 +90,12 @@ from handarm_tpu_torch.envs.dexhand import (
     ShadowHandEnv,
     allegro_config,
     shadow_config,
+)
+from handarm_tpu_torch.envs.dextreme import (
+    AllegroHandDextremeEnv,
+    DextremeConfig,
+    dextreme_config,
+    dextreme_manual_config,
 )
 from handarm_tpu_torch.envs.franka import (
     FrankaCubeStackConfig,
@@ -124,11 +144,10 @@ CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv,
                 AnymalTerrainConfig: AnymalTerrainEnv,
                 FrankaCubeStackConfig: FrankaCubeStackEnv, FrankaCabinetConfig: FrankaCabinetEnv,
                 TrifingerConfig: TrifingerEnv, DexHandConfig: AllegroHandEnv,
-                ShadowHandConfig: ShadowHandEnv}
+                ShadowHandConfig: ShadowHandEnv, DextremeConfig: AllegroHandDextremeEnv,
+                AllegroKukaConfig: AllegroKukaEnv}
 # the JAX package's classic tasks the port does not have yet
 UNPORTED_CLASSIC = (
-    "AllegroHandADR", "AllegroHandDextremeADR", "AllegroHandManualDR",
-    "AllegroKuka", "AllegroKukaRegrasping", "AllegroKukaReorientation", "AllegroKukaThrow",
     "AllegroKukaTwoArms", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArmsReorientation",
     "FactoryTaskGears", "FactoryTaskInsertion", "FactoryTaskNutBoltPick",
     "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew", "HumanoidAMP",
@@ -226,6 +245,45 @@ register_classic("ShadowHandOpenAI_LSTM", _shadow_openai_config,
                  dict(hidden=(512,), horizon=16, minibatch_size=32768, gamma=0.998,
                       kl_threshold=0.016, reward_scale=0.01, asymmetric_critic=True,
                       rnn_units=1024, critic_rnn_units=1024, seq_len=4))
+
+
+# reference cfg/train/AllegroHandDextremeADRPPO.yaml: an LSTM before the MLP
+# ([512, 512], seq_len 16), its carry kept across episode ends; the JAX
+# registry's 512 units (the reference's 1024: `ppo.rnn_units=1024`).
+# AllegroHandADR and AllegroHandManualDR are the reference's task-map names
+_DEXTREME_PPO = dict(hidden=(512, 512), horizon=16, minibatch_size=16384, gamma=0.998,
+                     kl_threshold=0.016, reward_scale=0.01, rnn_units=512, seq_len=16,
+                     zero_rnn_on_done=False)
+register_classic("AllegroHandDextremeADR", _episode_rule(dextreme_config, 600),
+                 dict(_DEXTREME_PPO))
+register_classic("AllegroHandADR", _episode_rule(dextreme_config, 600), dict(_DEXTREME_PPO))
+register_classic("AllegroHandManualDR", _episode_rule(dextreme_manual_config, 600),
+                 dict(_DEXTREME_PPO))
+
+
+# reference cfg/train/AllegroKukaPPO.yaml (DexPBT's MLP): [768, 512, 256],
+# horizon 16, minibatch 32768
+_KUKA_PPO = dict(hidden=(768, 512, 256), horizon=16, minibatch_size=32768, gamma=0.99,
+                 kl_threshold=0.016, reward_scale=0.01)
+
+
+def _allegro_kuka_factory(variant: str):
+    return _episode_rule(lambda num_envs, **kw: allegro_kuka_config(num_envs, variant, **kw),
+                         600)
+
+
+for _variant, _name in (("reorientation", "AllegroKukaReorientation"),
+                        ("regrasping", "AllegroKukaRegrasping"), ("throw", "AllegroKukaThrow")):
+    register_classic(_name, _allegro_kuka_factory(_variant), dict(_KUKA_PPO))
+
+
+def _allegro_kuka_resolver(num_envs, episode_length, subtask="reorientation"):
+    """The reference's task-map name `AllegroKuka`: `env.subtask` picks the
+    variant."""
+    return _allegro_kuka_factory(subtask)(num_envs, episode_length)
+
+
+register_classic("AllegroKuka", _allegro_kuka_resolver, dict(_KUKA_PPO))
 
 
 def _refuse_unported(name: str) -> None:

@@ -5,8 +5,8 @@ Counterpart of handarm_tpu/ops/spd_inverse.py (`spd_inverse`, the Pallas
 hand-written kernel in csrc/spd_inverse.cu runs: the unrolled Cholesky
 with the same rsqrt(max(s, 1e-12)) pivot floor, W = L^-1, and Minv = W^T W,
 all in one launch, compiled for the n in `KERNEL_N` only: one thread per
-matrix up to n = 18, one warp per matrix (a lane per row) at n = 24 and 27
-(at the even 24 the rows sit 25 words apart in shared memory). On CPU
+matrix up to n = 18, one warp per matrix (a lane per row) at n = 23, 24 and
+27 (at the even 24 the rows sit 25 words apart in shared memory). On CPU
 tensors the plain version runs: a Cholesky
 factorization and two triangular solves, as the JAX package does off the
 TPU.
@@ -21,9 +21,9 @@ from handarm_tpu_torch.ops import build
 launches = 0  # kernel launches since the last reset (CUDA path only)
 # matrix sizes the kernel is instantiated for: the Cartpole, the Ingenuity,
 # the Stretch (the Franka, the Trifinger), BallBalance, the Quadcopter and
-# the Ant, the Allegro hand, the UR5+SIH, the ANYmal, the Shadow hand, the
-# Humanoid
-KERNEL_N = (2, 8, 9, 12, 14, 16, 17, 18, 24, 27)
+# the Ant, the Allegro hand, the UR5+SIH, the ANYmal, the KUKA arm with the
+# Allegro hand, the Shadow hand, the Humanoid
+KERNEL_N = (2, 8, 9, 12, 14, 16, 17, 18, 23, 24, 27)
 
 
 def spd_inverse_plain(M: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,9 @@ epoch, the bool goal flags and the two uint32 [2] PRNG keys (leaves 61 and
 A classic task's env state has 14 (Quadcopter, BallBalance, Anymal), 13
 (Ingenuity), 16 (Ant, Humanoid), 18 (AnymalTerrain), 11
 (FrankaCubeStack), 12 (FrankaCabinet), 15 (Trifinger, AllegroHand, the
-ShadowHand tasks) or 4 (Cartpole) leaves
+ShadowHand tasks), 25 (the DeXtreme tasks: the inner DexState's 15, the
+last observation, the AdrState's 6, the RNA masks, the key; the
+AllegroKuka tasks) or 4 (Cartpole) leaves
 (`convert.classic_state_to_leaves`): its physics with the floating base's
 pose (and the locomotion robots' tau_ext; the fixed bases of the
 Franka, the Trifinger and the hands have neither, the Cartpole no

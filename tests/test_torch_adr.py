@@ -32,6 +32,7 @@ import torch  # noqa: E402
 
 from handarm_tpu.envs import adr as ja  # noqa: E402
 from handarm_tpu_torch.envs import adr as ta  # noqa: E402
+from shared_jax_cache import shared_jax_env  # noqa: E402
 
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 CKPT = os.path.join(REPO, "docs", "evidence", "lift_r3a", "ckpt_5200.npz")
@@ -258,7 +259,7 @@ def _jax_reference(out_dir: str) -> None:
 def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("adr")
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
-               HANDARM_DISABLE_GENESIS="1", JAX_COMPILATION_CACHE_DIR=str(out / "jax_cache"),
+               HANDARM_DISABLE_GENESIS="1", **shared_jax_env(out),
                PYTHONPATH=os.pathsep.join([REPO, os.environ.get("PYTHONPATH", "")]))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
                          capture_output=True, text=True, timeout=900)

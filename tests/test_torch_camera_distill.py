@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from shared_jax_cache import shared_jax_env
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 CKPT = os.path.join(REPO, "docs", "evidence", "lift_r3a", "ckpt_5200.npz")
@@ -110,7 +112,7 @@ def ref(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("camera_distill")
     out = tmp / "ref.npz"
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
-               HANDARM_DISABLE_GENESIS="1", JAX_COMPILATION_CACHE_DIR=str(tmp / "jax_cache"))
+               HANDARM_DISABLE_GENESIS="1", **shared_jax_env(tmp))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env, capture_output=True,
                          text=True, timeout=900)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from test_torch_camera import eight_bit, excluded
+from shared_jax_cache import shared_jax_env
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
@@ -124,7 +125,7 @@ def jax_reference(out_path: str, task: str, env_overrides: list, pool_seed=None,
 def run_reference(tmp, script: str, env_extra: dict | None = None, timeout: int = 900) -> dict:
     out = tmp / "ref.npz"
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
-               HANDARM_DISABLE_GENESIS="1", JAX_COMPILATION_CACHE_DIR=str(tmp / "jax_cache"),
+               HANDARM_DISABLE_GENESIS="1", **shared_jax_env(tmp),
                PYTHONPATH=REPO, **(env_extra or {}))
     res = subprocess.run([sys.executable, script, str(out), str(tmp)], env=env,
                          capture_output=True, text=True, timeout=timeout)

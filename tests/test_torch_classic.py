@@ -64,8 +64,25 @@ package on the CPU.
   asymmetric learners, and checkpoints both ways of Trifinger and
   AllegroHand (15 env-state leaves each: the fixed base's physics, the
   goal, the last tips; the hand's targets, successes and the scalar
-  consecutive-success average). The refusal list keeps four refused
-  cases: FactoryTaskGears, AllegroKuka, AllegroHandADR and HumanoidAMP.
+  consecutive-success average).
+- The DeXtreme tasks (AllegroHandDextremeADR, AllegroHandADR,
+  AllegroHandManualDR) and the one-arm AllegroKuka tasks
+  (AllegroKukaReorientation, AllegroKukaRegrasping, AllegroKukaThrow, and
+  AllegroKuka with its `env.subtask` resolver) on theirs (the JAX
+  package's `ALLEGRO_URDF` and `KUKA_ALLEGRO_URDF` monkeypatched;
+  tests/test_torch_dextreme.py and tests/test_torch_allegro_kuka.py hold
+  their envs): `compose_task` against the JAX package's, with the 500 ->
+  600 episode rule, the DeXtreme learner (LSTM 512 before a 512-512 MLP,
+  seq_len 16, its carry kept across episode ends; the JAX wrapper's cfg
+  is its inner AllegroHand's, held against the port's inner env's, the
+  ADR config beside it) and the variant from the name or the subtask;
+  checkpoints both ways of AllegroHandDextremeADR (25 env-state leaves:
+  the inner DexState's 15, the last observation, the AdrState's 6, the
+  two RNA masks, the key; its recurrent learner read with its PPOConfig)
+  and AllegroKukaReorientation (25: the fixed base's physics, the bool
+  lifted flags and the tolerance curriculum's scalars among them). The
+  refusal list keeps four refused cases: FactoryTaskGears, HumanoidAMP,
+  AllegroKukaTwoArms and IndustRealTaskPegsInsert.
 """
 
 import dataclasses
@@ -234,22 +251,28 @@ def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
                                      if n in treg.TASKS or n in treg.CLASSIC_TASKS]
 
 
+DEXTREME = ("AllegroHandDextremeADR", "AllegroHandADR", "AllegroHandManualDR")
+KUKA = ("AllegroKukaReorientation", "AllegroKukaRegrasping", "AllegroKukaThrow", "AllegroKuka")
 PORTED_STANDINS = ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance", "FrankaCabinet",
                    "FrankaCubeStack", "Trifinger", "AllegroHand", "ShadowHand",
-                   "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM")
+                   "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM") + DEXTREME + KUKA
 
 
 @pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM", "Humanoid",
                                   "Anymal", "BallBalance", "FrankaCabinet", "Trifinger",
                                   "FrankaCubeStack", "ShadowHand", "FactoryTaskGears",
                                   "AllegroHand", "ShadowHandOpenAI_FF", "AllegroKuka",
-                                  "AllegroHandADR", "HumanoidAMP"])
+                                  "AllegroHandADR", "HumanoidAMP", "AllegroKukaTwoArms",
+                                  "IndustRealTaskPegsInsert", "AllegroHandDextremeADR",
+                                  "AllegroHandManualDR", "AllegroKukaReorientation",
+                                  "AllegroKukaRegrasping", "AllegroKukaThrow"])
 def test_unported_classic_task_raises(task):
     """The refusal list: the JAX package's classic tasks the port lacks raise
-    NotImplementedError naming ROADMAP §1.7 (FactoryTaskGears, AllegroKuka,
-    AllegroHandADR, HumanoidAMP); Ant, Cartpole, Humanoid, Anymal,
-    BallBalance, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroHand,
-    ShadowHand and the ShadowHandOpenAI tasks are ported and off it."""
+    NotImplementedError naming ROADMAP §1.7 (FactoryTaskGears, HumanoidAMP,
+    AllegroKukaTwoArms, IndustRealTaskPegsInsert); Ant, Cartpole, Humanoid,
+    Anymal, BallBalance, FrankaCabinet, FrankaCubeStack, Trifinger,
+    AllegroHand, ShadowHand, the ShadowHandOpenAI tasks, the DeXtreme tasks
+    and the one-arm AllegroKuka tasks are ported and off it."""
     assert task in jreg.CLASSIC_TASKS
     with pytest.raises(TypeError):
         treg.resolve_task("Quadcopter", ["no_such_field=1"])
@@ -432,11 +455,14 @@ def _standin_constants():
     constant."""
     from handarm_tpu.envs import anymal as jan
     from handarm_tpu.envs import anymal_terrain as jat
+    from handarm_tpu.envs import allegro_kuka as jak
     from handarm_tpu.envs import ball_balance as jbb
     from handarm_tpu.envs import dexhand as jdex
+    from handarm_tpu.envs import dextreme as jdx
     from handarm_tpu.envs import franka as jfr
     from handarm_tpu.envs import franka_cabinet as jcab
     from handarm_tpu.envs import trifinger as jtri
+    from handarm_tpu_torch.envs import allegro_kuka as tak
     from handarm_tpu_torch.envs import anymal as tan
     from handarm_tpu_torch.envs import ball_balance as tbb
     from handarm_tpu_torch.envs import dexhand as tdex
@@ -444,6 +470,8 @@ def _standin_constants():
     from handarm_tpu_torch.envs import trifinger as ttri
 
     shadow = [(jdex, "SHADOW_MJCF", tdex.SHADOW_MJCF)]
+    allegro = [(jdex, "ALLEGRO_URDF", tdex.ALLEGRO_URDF)]
+    kuka = ((jak, "make_allegro_kuka"), [(jak, "KUKA_ALLEGRO_URDF", tak.KUKA_ALLEGRO_URDF)])
 
     return {"BallBalance": ((jbb, "make_ball_balance"), [(jbb, "BBOT_MJCF", tbb.BBOT_MJCF)]),
             "Anymal": ((jan, "make_anymal"), [(jan, "ANYMAL_URDF", tan.ANYMAL_URDF)]),
@@ -458,7 +486,11 @@ def _standin_constants():
             "AllegroHand": ((jdex, "make_allegro"), [(jdex, "ALLEGRO_URDF", tdex.ALLEGRO_URDF)]),
             "ShadowHand": ((jdex, "make_shadow"), shadow),
             "ShadowHandOpenAI_FF": ((jdex, "make_shadow"), shadow),
-            "ShadowHandOpenAI_LSTM": ((jdex, "make_shadow"), shadow)}
+            "ShadowHandOpenAI_LSTM": ((jdex, "make_shadow"), shadow),
+            "AllegroHandDextremeADR": ((jdx, "make_allegro_dextreme"), allegro),
+            "AllegroHandADR": ((jdx, "make_allegro_dextreme"), allegro),
+            "AllegroHandManualDR": ((jdx, "make_allegro_dextreme_manual"), allegro),
+            **{task: kuka for task in KUKA}}
 
 
 STANDIN_CONSTANTS = _standin_constants()
@@ -536,6 +568,15 @@ def test_cartpole_reset_and_steps_match():
     ("ShadowHandOpenAI_FF", []),
     ("ShadowHandOpenAI_LSTM", []),
     ("ShadowHandOpenAI_LSTM", ["num_envs=16", "ppo.rnn_units=64", "ppo.seq_len=8"]),
+    ("AllegroHandDextremeADR", []),
+    ("AllegroHandADR", ["num_envs=16", "ppo.rnn_units=64", "env.episode_length=300"]),
+    ("AllegroHandManualDR", []),
+    ("AllegroKukaReorientation", []),
+    ("AllegroKukaRegrasping", ["num_envs=32", "env.episode_length=300",
+                               "ppo.minibatch_size=512"]),
+    ("AllegroKukaThrow", ["env.num_envs=16", "keypoint_scale=2.0"]),
+    ("AllegroKuka", []),
+    ("AllegroKuka", ["env.num_envs=16", "env.subtask=throw"]),
 ])
 def test_compose_task_matches_standins(task, overrides, monkeypatch):
     from handarm_tpu.envs import locomotion as jl
@@ -553,10 +594,15 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
                             lambda c: env_cls(dataclasses.replace(c, mjcf=tl.HUMANOID_MJCF)))
     jenv, jppo_over = jreg.compose_task(task, jover)
     cfg, ppo_over = treg.resolve_task(task, list(overrides))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jenv.cfg)
+    tenv = treg.build_env(cfg, "cpu")
+    if task in DEXTREME:  # the JAX wrapper's cfg is its inner AllegroHand's
+        assert dataclasses.asdict(tenv.env.cfg) == dataclasses.asdict(jenv.cfg)
+        assert dataclasses.asdict(cfg.adr) == dataclasses.asdict(jenv.adr_cfg)
+        assert cfg.rna_seed == 0 and (cfg.adr.delta == (0.0,) * 3) == ("Manual" in task)
+    else:
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jenv.cfg)
     norm = lambda d: {k: list(v) if isinstance(v, tuple) else v for k, v in d.items()}
     assert norm(ppo_over) == norm(jppo_over)
-    tenv = treg.build_env(cfg, "cpu")
     assert (tenv.num_obs, tenv.num_actions) == (jenv.num_obs, jenv.num_actions)
     assert type(tenv).__name__ == type(jenv).__name__.replace("ClassicEnv", "CartpoleEnv")
     if task in ("Anymal", "AnymalTerrain") and "env.episode_length=300" not in overrides:
@@ -565,7 +611,8 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
         assert cfg.episode_length == 300  # the registry's 500 -> 300
     if task == "Trifinger":
         assert cfg.episode_length == 750  # the registry's 500 -> 750
-    if task in ("AllegroHand", "ShadowHand", "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM"):
+    if task in ("AllegroHand", "ShadowHand", "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM",
+                *DEXTREME, *KUKA):
         # the registry's 500 -> 600; the OpenAI tasks: 42 observations, the
         # 211-dim state as the critic's
         assert cfg.episode_length == (300 if "env.episode_length=300" in overrides else 600)
@@ -573,6 +620,15 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
             assert (tenv.num_obs, tenv.num_teacher_obs) == (jenv.num_obs, jenv.num_teacher_obs)
             assert (tenv.num_obs, tenv.num_teacher_obs, ppo_over["asymmetric_critic"]) == (
                 42, 211, True)
+    if task in DEXTREME:  # an LSTM 512 before a 512-512 MLP, its carry kept
+        assert (ppo_over["rnn_units"], ppo_over["seq_len"], ppo_over["zero_rnn_on_done"],
+                tuple(ppo_over["hidden"])) == (64 if overrides else 512, 16, False, (512, 512))
+    if task in KUKA:  # the variant from the name, or from env.subtask
+        want = {"AllegroKukaRegrasping": "regrasping", "AllegroKukaThrow": "throw"}.get(
+            task, "throw" if "env.subtask=throw" in overrides else "reorientation")
+        assert cfg.variant == jenv.cfg.variant == want
+        assert tuple(ppo_over["hidden"]) == (768, 512, 256)
+        assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots == 298
     if task == "FrankaCabinet" and overrides:  # the props ride in the drawer
         assert tenv.scene.shapes.num_objects == jenv.scene.shapes.num_objects == 3
         assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots
@@ -594,14 +650,20 @@ STANDIN_ENTRY = {"Cartpole": ["ppo.hidden=[32,32]", "ppo.minibatch_size=64"],
                                    "ppo.horizon=4"],
                  "Trifinger": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32", "ppo.horizon=4"],
                  "AllegroHand": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
-                                 "ppo.horizon=4"]}
+                                 "ppo.horizon=4"],
+                 "AllegroHandDextremeADR": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
+                                            "ppo.horizon=4", "ppo.rnn_units=16",
+                                            "ppo.seq_len=4"],
+                 "AllegroKukaReorientation": ["ppo.hidden=[32,32]", "ppo.minibatch_size=32",
+                                              "ppo.horizon=4"]}
 
 
 @pytest.mark.parametrize("task,n_env", [("Cartpole", 4), ("Ant", 16), ("Humanoid", 16),
                                         ("BallBalance", 14), ("Anymal", 14),
                                         ("AnymalTerrain", 18), ("FrankaCubeStack", 11),
                                         ("FrankaCabinet", 12), ("Trifinger", 15),
-                                        ("AllegroHand", 15)])
+                                        ("AllegroHand", 15), ("AllegroHandDextremeADR", 25),
+                                        ("AllegroKukaReorientation", 25)])
 def test_standin_checkpoints_cross(task, n_env, tmp_path):
     """The train entry point's checkpoint (1 iteration at 8 envs) read by the
     JAX loader with its own example tree, leaf for leaf; a JAX-written
@@ -626,24 +688,35 @@ def test_standin_checkpoints_cross(task, n_env, tmp_path):
     assert int(back.epoch) == 1
 
     jpath = jax_save_checkpoint(str(tmp_path / "jax_ckpt"), example, step=3, sync=True)
-    tts = tck.load_train_state(jpath, cfg=None, env_cfg=cfg)
+    # the recurrent learner's layout comes from its PPOConfig
+    tts = tck.load_train_state(jpath, cfg=tppo.ppo_config(over) if task in DEXTREME else None,
+                               env_cfg=cfg)
     assert isinstance(tts.env_state, type(treg.build_env(cfg, "cpu")).state_type)
-    np.testing.assert_array_equal(tts.env_state.progress.numpy(),
-                                  np.asarray(example.env_state.progress))
+    got_s, want_s = tts.env_state, example.env_state
+    if task in DEXTREME:  # the wrapper's own leaves, then its inner DexState's
+        pairs = [(got_s.obs, want_s.obs), *zip(got_s.adr, want_s.adr),
+                 *zip(got_s.rna, want_s.rna)]
+        for got, want in pairs:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        got_s, want_s = got_s.inner, want_s.inner
+    np.testing.assert_array_equal(got_s.progress.numpy(), np.asarray(want_s.progress))
     if task in ("Ant", "Humanoid"):
         np.testing.assert_array_equal(tts.env_state.physics.robot.tau_ext.numpy(),
                                       np.asarray(example.env_state.physics.robot.tau_ext))
     elif task != "Cartpole":  # the objects, a floating base's pose, the Cabinet's targets
-        got_s, want_s = tts.env_state, example.env_state
         pairs = list(zip(got_s.physics.objects, want_s.physics.objects))
         if want_s.physics.robot.base_pos is not None:
             pairs.append((got_s.physics.robot.base_pos, want_s.physics.robot.base_pos))
         else:
             assert got_s.physics.robot.base_pos is None
-        if task in ("FrankaCabinet", "AllegroHand"):
+        if task in ("FrankaCabinet", "AllegroHand", *DEXTREME, *KUKA):
             pairs.append((got_s.targets, want_s.targets))
-        if task == "AllegroHand":  # the scalar consecutive-success average
+        if task in ("AllegroHand", *DEXTREME):  # the scalar consecutive-success average
             pairs.append((got_s.cons_successes, want_s.cons_successes))
+        if task in KUKA:  # the goal, the bool lifted flags, the curriculum's scalars
+            pairs += [(getattr(got_s, f), getattr(want_s, f)) for f in (
+                "goal_pos", "goal_quat", "lifted", "success_ewma", "tolerance",
+                "frames_since_curriculum")]
         if task == "Trifinger":
             pairs += [(got_s.goal_pos, want_s.goal_pos), (got_s.prev_tips, want_s.prev_tips)]
         for got, want in pairs:

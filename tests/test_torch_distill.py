@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from shared_jax_cache import shared_jax_env
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 CKPT = os.path.join(REPO, "docs", "evidence", "lift_r3a", "ckpt_5200.npz")
@@ -207,7 +209,7 @@ def _jax_reference(out_path: str) -> None:
 
 def _subprocess_env(tmp):
     return dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
-                HANDARM_DISABLE_GENESIS="1", JAX_COMPILATION_CACHE_DIR=str(tmp / "jax_cache"))
+                HANDARM_DISABLE_GENESIS="1", **shared_jax_env(tmp))
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ import torch  # noqa: E402
 
 from handarm_tpu.envs import randomization as jr  # noqa: E402
 from handarm_tpu_torch.envs import randomization as tr  # noqa: E402
+from shared_jax_cache import shared_jax_env  # noqa: E402
 
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 CKPT = os.path.join(REPO, "docs", "evidence", "lift_r3a", "ckpt_5200.npz")
@@ -213,7 +214,7 @@ def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("dr") / "ref.npz"
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
                HANDARM_DISABLE_GENESIS="1",
-               JAX_COMPILATION_CACHE_DIR=str(out.parent / "jax_cache"))
+               **shared_jax_env(out.parent))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
                          capture_output=True, text=True, timeout=900)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

@@ -34,6 +34,7 @@ import pytest  # noqa: E402
 import torch  # noqa: E402
 
 from tests.test_torch_engine_lift import DR, LEAF_TOLS, _leaves, env_config  # noqa: E402
+from shared_jax_cache import shared_jax_env  # noqa: E402
 
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 TASK = "Ur5SihMultiObjectManipulation"
@@ -111,7 +112,7 @@ def ref(tmp_path_factory):
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, HANDARM_OBJECT_ROOT=str(root),
                HANDARM_SDF_CACHE=str(cache), JAX_PLATFORMS="cpu",
                HANDARM_DISABLE_GENESIS="1",
-               JAX_COMPILATION_CACHE_DIR=str(tmp / "jax_cache"))
+               **shared_jax_env(tmp))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
                          capture_output=True, text=True, timeout=1200)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from shared_jax_cache import shared_jax_env
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 B = 8
@@ -154,7 +156,7 @@ def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("family") / "ref.npz"
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
                HANDARM_DISABLE_GENESIS="1",
-               JAX_COMPILATION_CACHE_DIR=str(out.parent / "jax_cache"))
+               **shared_jax_env(out.parent))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
                          capture_output=True, text=True, timeout=900)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

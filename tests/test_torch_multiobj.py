@@ -26,6 +26,8 @@ import numpy as np
 import pytest
 import torch
 
+from shared_jax_cache import shared_jax_env
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 CKPT = os.path.join(REPO, "docs", "evidence", "multiobj_r5a", "ckpt_2700.npz")
@@ -158,7 +160,7 @@ def ref(tmp_path_factory):
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, HANDARM_OBJECT_ROOT=str(root),
                HANDARM_SDF_CACHE=str(cache), JAX_PLATFORMS="cpu",
                HANDARM_DISABLE_GENESIS="1",
-               JAX_COMPILATION_CACHE_DIR=str(tmp / "jax_cache"))
+               **shared_jax_env(tmp))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
                          capture_output=True, text=True, timeout=1200)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

@@ -19,7 +19,11 @@ the cabinet's walls (190 slots, K = 1), of the Trifinger's three 3-dof
 fingers with the cube and four walls (91 slots in 9 masks), the Allegro
 hand's four 4-dof fingers (150 slots in 16 masks) and the Shadow hand's
 wrist, palm and five fingers (160 slots in 18 masks, none on a knuckle or
-the thumb's base and hub), each with one cube, and of a random scene with an
+the thumb's base and hub), each with one cube, of the KUKA arm with the
+Allegro hand on its flange (AllegroKuka: 298 slots in 23 masks over 23
+dofs, the arm's 7 links and the fingers' 16, with three boxes: 52
+robot-table, 156 robot-object, 42 object-table and 48 object-pair slots),
+and of a random scene with an
 arbitrary set of dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
 (side, object) bin, in ascending slot order. A torch emulation of the
@@ -46,7 +50,7 @@ torch.set_num_threads(1)
 SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
           "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity",
           "Ant", "Humanoid", "BallBalance", "Anymal", "AnymalTerrain", "FrankaCubeStack",
-          "FrankaCabinet", "Trifinger", "AllegroHand", "ShadowHand"]
+          "FrankaCabinet", "Trifinger", "AllegroHand", "ShadowHand", "AllegroKukaReorientation"]
 ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
 
 
@@ -74,6 +78,9 @@ _WRIST = 0b11
 _SHADOW = sorted([0b1, _WRIST] + [_WRIST | m for f in (2, 6, 10) for m in _chain(f, 4, (0,))]
                  + [_WRIST | m for m in _chain(14, 5, (1,))]
                  + [_WRIST | m for m in _chain(19, 5, (0, 2))])
+# the KUKA arm's 7 links (the palm rides on link 7), then the Allegro's four
+# 4-dof fingers on it (dofs 7-10, 11-14, 15-18, 19-22): 23 masks
+_KUKA = _chain(0, 7) + [0x7F | m for f in (7, 11, 15, 19) for m in _chain(f, 4)]
 _ANYMAL = (30, sorted([_mask()] + [_mask(*range(a, a + k)) for a in (6, 9, 12, 15)
                                    for k in (1, 2, 3)]), 18, 0)
 CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
@@ -91,10 +98,12 @@ CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
          "FrankaCubeStack": (134, _FRANKA, 9, 2), "FrankaCabinet": (190, _FRANKA, 9, 1),
          "Trifinger": (91, sorted(sum((_chain(f, 3) for f in (0, 3, 6)), [])), 9, 1),
          "AllegroHand": (150, sorted(sum((_chain(f, 4) for f in (0, 4, 8, 12)), [])), 16, 1),
-         "ShadowHand": (160, _SHADOW, 24, 1)}
+         "ShadowHand": (160, _SHADOW, 24, 1),
+         "AllegroKukaReorientation": (298, _KUKA, 23, 3)}
 # the object bins' slot counts of the scenes with objects, (side, object) in order
 BINS = {"BallBalance": [1, 80], "FrankaCubeStack": [22, 22, 38, 38], "FrankaCabinet": [100, 30],
-        "Trifinger": [28, 21], "AllegroHand": [14, 68], "ShadowHand": [14, 73]}
+        "Trifinger": [28, 21], "AllegroHand": [14, 68], "ShadowHand": [14, 73],
+        "AllegroKukaReorientation": [30, 30, 30, 68, 68, 68]}
 B = 6
 
 

@@ -47,6 +47,7 @@ from handarm_tpu_torch.physics.model import compile_urdf as t_compile  # noqa: E
 from handarm_tpu_torch.robots import stretch as t_stretch  # noqa: E402
 from tests.test_dynamics import BRANCHED_TREE  # noqa: E402
 from tests.test_dynamics_com import FLYER  # noqa: E402
+from shared_jax_cache import shared_jax_env  # noqa: E402
 
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 STRETCH = t_stretch.STRETCH_URDF
@@ -377,7 +378,7 @@ def _jax_reference(out_path: str) -> None:
 def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("stretch_train") / "ref.npz"
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
-               JAX_COMPILATION_CACHE_DIR=str(out.parent / "jax_cache"))
+               **shared_jax_env(out.parent))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
                          capture_output=True, text=True, timeout=900)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]

@@ -32,6 +32,8 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from shared_jax_cache import shared_jax_env  # noqa: E402
+
 STANDIN = os.path.join(REPO, "handarm_tpu_torch", "assets", "ur5sih_standin")
 TASK = "StretchMultiObjectManipulation"
 B, HORIZON, MINIBATCH = 8, 16, 8
@@ -84,7 +86,7 @@ def _jax_reference(out_path: str) -> None:
 def ref(tmp_path_factory):
     out = tmp_path_factory.mktemp("stretch_lr") / "ref.npz"
     env = dict(os.environ, HANDARM_ASSET_ROOT=STANDIN, JAX_PLATFORMS="cpu",
-               JAX_COMPILATION_CACHE_DIR=str(out.parent / "jax_cache"))
+               **shared_jax_env(out.parent))
     res = subprocess.run([sys.executable, __file__, str(out)], env=env,
                          capture_output=True, text=True, timeout=900)
     assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
