@@ -7,10 +7,11 @@ build, then the named phases in this process, in the order given.
 
 Phases: a classic task's chip_smoke phase by its name (quad, ingenuity,
 franka-cube-stack, franka-cabinet, trifinger, allegro-hand, shadow-hand,
-dextreme, allegro-kuka),
+dextreme, allegro-kuka, allegro-kuka-two-arms),
 `entry:TASK` (the task's train entry
 point as `train.main` in this process, its checkpoint read back whole:
-chip_smoke's `classic_entry`) and `subprocess-entry:TASK` (the same
+chip_smoke's `classic_entry`; `entry:TASK,KEY=VALUE,...` adds overrides,
+as `entry:AllegroKukaTwoArms,env.subtask=regrasping`) and `subprocess-entry:TASK` (the same
 command in a process of its own, `python -m handarm_tpu_torch.train`).
 The seconds of each and their records go to chiprun_out/chip_phases.json.
 A phase run first in its process pays the process's first cuBLAS,
@@ -31,7 +32,8 @@ import chip_smoke as cs
 CLASSIC_PHASES = {"quad": "Quadcopter", "ingenuity": "Ingenuity",
                   "franka-cube-stack": "FrankaCubeStack", "franka-cabinet": "FrankaCabinet",
                   "trifinger": "Trifinger", "allegro-hand": "AllegroHand",
-                  "shadow-hand": "ShadowHand"}
+                  "shadow-hand": "ShadowHand", "allegro-kuka": "AllegroKukaReorientation",
+                  "allegro-kuka-two-arms": "AllegroKukaTwoArmsReorientation"}
 
 
 def main(names: list[str]) -> int:
@@ -73,17 +75,18 @@ def main(names: list[str]) -> int:
         elif kind == "dextreme":
             with cs.phase(kind):
                 rec[name] = cs.dextreme_phase(rollout, dev, ops)
-        elif kind == "allegro-kuka":
+        elif kind in ("allegro-kuka", "allegro-kuka-two-arms"):
             with cs.phase(kind):
-                rec[name] = cs.allegro_kuka_phase(rollout, dev, ops)
+                rec[name] = cs.allegro_kuka_phase(rollout, dev, ops, CLASSIC_PHASES[kind])
         elif kind in CLASSIC_PHASES:
             with cs.phase(kind):
                 rec[name] = cs.classic_phase(rollout, dev, ops, CLASSIC_PHASES[kind])[0]
         elif kind == "entry":
-            cfg, _ = resolve_task(task, [f"env.num_envs={cs.task_envs(task)}"])
+            task, *extra = task.split(",")  # entry:AllegroKukaTwoArms,env.subtask=regrasping
+            cfg, _ = resolve_task(task, [f"env.num_envs={cs.task_envs(task)}", *extra])
             with cs.phase("classic-entry"):
                 rec[name] = cs.classic_entry(rollout, dev, task,
-                                             type(build_env(cfg, "cpu")).state_type)
+                                             type(build_env(cfg, "cpu")).state_type, extra)
         elif kind == "subprocess-entry":
             with cs.phase("classic-entry"):
                 rec[name] = cs.run_module("handarm_tpu_torch.train", [

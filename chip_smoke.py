@@ -605,7 +605,27 @@ Phases, each with a deadline and one flushed progress line:
                calls; card vs CPU at 16 of those envs as phase 57; then
                one train iteration each of AllegroKukaRegrasping and
                AllegroKukaThrow at 8192 envs (16 / 32 / 16 / 0).
-               (Phases 45-47 and 49-61 run after phase 37, then 48, before
+ 62. allegro-kuka-two-arms  AllegroKukaTwoArmsReorientation as `train.py`
+               composes it (768-512-256, horizon 16, minibatch 32768) at
+               IsaacGymEnvs' 8192 envs on two KUKA iiwa 7 + Allegro
+               stand-ins facing each other (nv 46, 104 spheres, three 0.5
+               kg boxes, 506 slots, 46 dof masks, arm 1's at bits 23-45):
+               1 timed train iteration (16 / 32 / 16 / 0: B x C = 4.15M),
+               7 serving steps (1 / 2 / 1 / 0 a step); then a built contact
+               state: each env's active box resting on one hand's fingers
+               (even envs arm 0's, odd envs arm 1's), KUKA_SETTLE_STEPS
+               steps holding the joints, the last step's calls kept, the
+               envs whose robot pushes on its object counted for each arm
+               (at least 1/32 each); there spd_inverse at n = 46
+               (`spd_inverse_block_kernel<46, 47>`, a block of two warps per
+               matrix: to n cond eps), and on a dense SPD batch at n = 46 (its
+               off-block entries: to 1e-4), the sweep at nv 46 / L 46 / C
+               506 (captured, dense and robot cases, against float64) and
+               prep_deff at nv 46 against their plain versions, timed
+               beside their bounds and library calls; card vs CPU at 16 of
+               those envs as phase 57; then one train iteration of
+               AllegroKukaTwoArmsRegrasping at 8192 envs (16 / 32 / 16 / 0).
+               (Phases 45-47 and 49-62 run after phase 37, then 48, before
                phase 42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
@@ -625,7 +645,8 @@ under "parallel" (and each kernel's launches there under its "parallel"
 key in "kernels"), the classic tasks' under "classic" (and each kernel's
 launches and checks on the craft, the Ant, the Humanoid, the Cartpole,
 BallBalance, Anymal, AnymalTerrain, FrankaCubeStack, FrankaCabinet,
-Trifinger, AllegroHand, ShadowHand, DeXtreme and AllegroKuka under its "classic" key in
+Trifinger, AllegroHand, ShadowHand, DeXtreme, AllegroKuka and the two-arm
+AllegroKuka under its "classic" key in
 "kernels"; spd_inverse's compiled sizes, their layouts and the checks
 that held each under its "instances" key);
 the last line
@@ -667,7 +688,8 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "ball-balance": 240, "anymal": 240, "anymal-terrain": 300,
                     "franka-cube-stack": 240, "franka-cabinet": 240, "trifinger": 240,
                     "allegro-hand": 240, "shadow-hand": 300, "dextreme": 240,
-                    "allegro-kuka": 300, "classic-entry": 300}
+                    "allegro-kuka": 300, "allegro-kuka-two-arms": 300,
+                    "classic-entry": 300}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -3261,7 +3283,7 @@ CLASSIC = {"Quadcopter": (8192, 1), "Ingenuity": (4096, 1), "Ant": (4096, 1),
            "Anymal": (4096, 1), "AnymalTerrain": (4096, 1), "FrankaCubeStack": (8192, 1),
            "FrankaCabinet": (4096, 1), "Trifinger": (16384, 1), "AllegroHand": (16384, 1),
            "ShadowHand": (16384, 1), "AllegroHandDextremeADR": (8192, 1),
-           "AllegroKukaReorientation": (8192, 1)}
+           "AllegroKukaReorientation": (8192, 1), "AllegroKukaTwoArmsReorientation": (8192, 1)}
 LOCOMOTION = ("Ant", "Humanoid")
 CONTACT_TASKS = ("BallBalance", "Anymal", "AnymalTerrain")  # phases 52-54
 FRANKA_TASKS = ("FrankaCubeStack", "FrankaCabinet")  # phases 55-56
@@ -3278,13 +3300,15 @@ GRASP_STEPS = 10  # the Trifinger's scripted steps toward the cube's faces, then
 # IsaacGymEnvs' numEnvs (cfg/task/ShadowHandOpenAI_FF.yaml, _LSTM.yaml)
 OPENAI = {"ShadowHandOpenAI_FF": 16384, "ShadowHandOpenAI_LSTM": 8192}
 # the entry points' tasks in neither table, at IsaacGymEnvs' numEnvs
-ENTRY_ENVS = {"AllegroHandManualDR": 8192, "AllegroKuka": 8192}
+ENTRY_ENVS = {"AllegroHandManualDR": 8192, "AllegroKuka": 8192, "AllegroKukaTwoArms": 8192}
 # phases 60-61 at IsaacGymEnvs' numEnvs (cfg/task/AllegroHandDextremeADR.yaml,
 # AllegroKuka.yaml); the KUKA's other variants one train iteration each
 DEXTREME_TASK = "AllegroHandDextremeADR"
 DEXTREME_REF_HI = (0.05, 0.05, 0.2)  # ADR's ranges opened for dextreme-ref
-KUKA_TASK = "AllegroKukaReorientation"
-KUKA_ITERATION = ("AllegroKukaRegrasping", "AllegroKukaThrow")
+# phases 61-62 (the one-arm and the two-arm tasks): each task's other
+# variants, one train iteration each
+KUKA_TASKS = {"AllegroKukaReorientation": ("AllegroKukaRegrasping", "AllegroKukaThrow"),
+              "AllegroKukaTwoArmsReorientation": ("AllegroKukaTwoArmsRegrasping",)}
 KUKA_SETTLE_STEPS = 6  # steps of the objects resting on the back of the fingers
 CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
 CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
@@ -3515,7 +3539,8 @@ def per_step_launches(env) -> dict:
     a substep, sdf_gather once a sim step (its one contact generation)
     where the scene holds a mesh-SDF object, and the deff kernel once a sim
     step (its solver prep) where B * C >= 2^21 (the hands' 150 and 160
-    slots at 16384 envs, AllegroKuka's 298 at 8192); the Cartpole's contact-free step runs the
+    slots at 16384 envs, AllegroKuka's 298 and the two-arm AllegroKuka's
+    506 at 8192); the Cartpole's contact-free step runs the
     dynamics `substeps * control_freq_inv` times and nothing else."""
     import numpy as np
 
@@ -3714,8 +3739,9 @@ def classic_entry(rollout, dev, task: str, state_type, extra=()) -> dict:
     and written back leaf for leaf; at `task_envs`, with `extra` overrides:
     the DeXtreme ManualDR task at 8192 envs (2 / 4 / 0 / 0 a step, its
     recurrent learner's file read with its PPOConfig, the DextremeState's 25
-    leaves) and `AllegroKuka env.subtask=throw` at 8192 (1 / 2 / 1 / 0, the
-    AKState's 25)."""
+    leaves), `AllegroKuka env.subtask=throw` at 8192 (1 / 2 / 1 / 0, the
+    AKState's 25) and `AllegroKukaTwoArms env.subtask=regrasping` at 8192
+    (1 / 2 / 1 / 0, the AKState's 25 at nv 46)."""
     import numpy as np
 
     from handarm_tpu_torch.convert import env_state_to_leaves, train_state_to_leaves
@@ -4480,12 +4506,14 @@ def kuka_contact_state(env, ops):
     object noise: the mass matrices differ env by env), each env's active
     object set level 1 mm over the robot's spheres under its footprint,
     centred over the index, middle and ring fingers' middle and distal
-    links; then KUKA_SETTLE_STEPS steps holding those joints (the arm's
-    actions zero, the hand's its reset joints' targets), the last step's
-    kernel calls kept. Returns (state, [B] bool: the envs whose robot pushes on their
+    links of one hand (on two arms, env b's arm b % 2); then
+    KUKA_SETTLE_STEPS steps holding those joints (the arms' actions zero,
+    the hands' their reset joints' targets), the last step's kernel calls
+    kept. Returns (state, [B] bool: the envs whose robot pushes on their
     active object at the last step's end, the kept calls, steps, [B] bool:
     the envs whose object lies within 2 cm of where it was set and whose
-    episode went on)."""
+    episode went on, [arms] the envs whose robot pushes on the object with
+    each arm's slots)."""
     import torch
 
     from handarm_tpu_torch.math.quat import quat_rotate
@@ -4502,10 +4530,15 @@ def kuka_contact_state(env, ops):
                             sc.base_pos[None])
     body = torch.as_tensor(sc.spheres.body, device=dev)
     ctr = fk.body_pos[:, body] + quat_rotate(fk.body_quat[:, body], sc.spheres.offset[None])
-    names = env.art.body_names
-    under = torch.as_tensor([names[b].split("_link_")[0] in ("index", "middle", "ring")
-                             and names[b][-1] in "23" for b in sc.spheres.body], device=dev)
-    xy = ctr[:, under, :2].mean(1)  # [B, 2]
+    names, arms = env.art.body_names, env.arms
+    arm_of = lambda b: max(k for k, p in enumerate(arms) if names[b].startswith(p))
+    sph_arm = torch.as_tensor([arm_of(b) for b in sc.spheres.body], device=dev)
+    finger = torch.as_tensor([names[b][len(arms[arm_of(b)]):].split("_link_")[0]
+                              in ("index", "middle", "ring") and names[b][-1] in "23"
+                              for b in sc.spheres.body], device=dev)
+    env_arm = torch.arange(B, device=dev) % len(arms)
+    under = (finger[None] & (sph_arm[None] == env_arm[:, None])).float()  # [B, S]
+    xy = (ctr[..., :2] * under[..., None]).sum(1) / under.sum(1, keepdim=True)  # [B, 2]
     slot = env.active(B)
     half = env.obj_halves[slot]
     # the lowest level box over every sphere: a sphere at horizontal distance
@@ -4524,8 +4557,10 @@ def kuka_contact_state(env, ops):
     state = state._replace(physics=state.physics._replace(objects=o._replace(
         pos=pos, quat=quat, linvel=torch.zeros_like(o.linvel),
         angvel=torch.zeros_like(o.angvel))))
-    hold = torch.cat([torch.zeros(B, 7, device=dev),
-                      2.0 * (q0[:, 7:] - env.q_lo[7:]) / (env.q_hi - env.q_lo)[7:] - 1.0], -1)
+    # per arm block, the arm's 7 actions zero and the hand's 16 its joints'
+    hand = 2.0 * (q0 - env.q_lo) / (env.q_hi - env.q_lo) - 1.0
+    is_arm = (torch.arange(env.art.nv, device=dev) % 23) < 7
+    hold = torch.where(is_arm, 0.0, hand)
     ended = torch.zeros(B, dtype=torch.bool, device=dev)
     with Capture(ops, last_only=True) as cap:
         for k in range(KUKA_SETTLE_STEPS):
@@ -4538,23 +4573,41 @@ def kuka_contact_state(env, ops):
     on_active = rb[None] & (ob[None] == slot[:, None])  # [B, C]
     pushed = (state.physics.contact_impulse.norm(dim=-1) > 0) & on_active
     rest = ~ended & ((state.physics.objects.pos[i, slot] - start).norm(dim=-1) < 0.02)
-    return state, pushed.any(-1), cap.calls, KUKA_SETTLE_STEPS, rest
+    slot_arm = torch.as_tensor([arm_of(b) if b >= 0 else -1 for b in slots.robot_body],
+                               device=dev)
+    per_arm = [int((pushed & (slot_arm == k)[None]).any(-1).sum()) for k in range(len(arms))]
+    return state, pushed.any(-1), cap.calls, KUKA_SETTLE_STEPS, rest, per_arm
 
 
-def allegro_kuka_phase(rollout, dev, ops) -> dict:
-    """Phase 61 (AllegroKukaReorientation): the task composed as train.py
+def dense_spd(n: int, B: int, dev):
+    """[B, n, n] well-conditioned SPD matrices with every entry set (A A^T /
+    n + I, A standard normal from a fixed seed): the off-block entries a
+    block-diagonal scene never gives."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(46)
+    A = torch.randn(B, n, n, generator=g, device=dev)
+    return torch.bmm(A, A.transpose(1, 2)) / n + torch.eye(n, device=dev)
+
+
+def allegro_kuka_phase(rollout, dev, ops, task: str) -> dict:
+    """Phases 61 (AllegroKukaReorientation) and 62
+    (AllegroKukaTwoArmsReorientation): the task composed as train.py
     composes it at IsaacGymEnvs' 8192 envs on the KUKA iiwa 7 + Allegro
-    stand-in (nv 23, 298 contact slots, three box slots), its 768-512-256
-    learner, one train iteration timed from a fresh init and HAND_SERVE_STEPS
-    + 1 deterministic serving steps (`train_and_serve`: launches exactly 1
-    / 2 / 1 / 0 a step, B x C = 8192 x 298 opening prep_deff's gate); then
-    the built contact state (`kuka_contact_state`: at least 1/32 of the
-    envs' robots pushing on their object, the objects at rest counted),
-    where spd_inverse at n = 23 (`check_spd_craft`), the sweep (captured,
-    dense and robot cases, against float64) and prep_deff are held against
-    their plain versions, timed beside their bounds and their library
-    calls; card vs CPU at 16 of those envs (`contact_state_ref`); then one
-    train iteration each of AllegroKukaRegrasping and AllegroKukaThrow
+    stand-in (nv 23, 298 contact slots) or two of them facing each other
+    (nv 46, 506 slots), three box slots, its 768-512-256 learner, one
+    train iteration timed from a fresh init and HAND_SERVE_STEPS + 1
+    deterministic serving steps (`train_and_serve`: launches exactly 1 / 2
+    / 1 / 0 a step, B x C opening prep_deff's gate); then the built
+    contact state (`kuka_contact_state`: at least 1/32 of the envs pushing
+    on their object with each arm; on two arms even envs rest it on arm 0's
+    fingers, odd envs on arm 1's), where spd_inverse (`check_spd_craft`;
+    on two arms also `check_spd` on a dense batch: the scene's matrices
+    are block-diagonal, the arms sharing no link), the sweep (captured,
+    dense and robot cases, against float64) and prep_deff are held
+    against their plain versions, timed beside their bounds and their
+    library calls; card vs CPU at 16 of those envs (`contact_state_ref`);
+    then one train iteration of each of the task's other variants
     (`one_iteration`). Returns the record."""
     from handarm_tpu_torch.envs.hand_arm import tree_map
     from handarm_tpu_torch.envs.registry import build_env, resolve_task
@@ -4563,52 +4616,58 @@ def allegro_kuka_phase(rollout, dev, ops) -> dict:
     from handarm_tpu_torch.ops import prep_deff as deff_op
     from handarm_tpu_torch.ops import spd_inverse as spd_op
 
-    envs = CLASSIC[KUKA_TASK][0]
-    cfg, over = resolve_task(KUKA_TASK, [f"env.num_envs={envs}"])
+    envs = CLASSIC[task][0]
+    cfg, over = resolve_task(task, [f"env.num_envs={envs}"])
     env = build_env(cfg, dev)
     ppo = PPO(env, ppo_config(over))
     per_step = per_step_launches(env)
     sc = env.scene
     C = sc.slots.num_slots
-    log(f"{KUKA_TASK}: {envs} envs, nv {env.art.nv}, C = {C} contact slots (B x C = "
-        f"{envs * C}), K = {sc.shapes.num_objects}, {sc.spheres.body.shape[0]} robot spheres, "
-        f"obs {env.num_obs}, actions {env.num_actions}; the robot's moving bodies "
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {C} contact slots (B x C = "
+        f"{envs * C}), {sc.maps.groups.link_bits.shape[0]} dof masks, K = "
+        f"{sc.shapes.num_objects}, {sc.spheres.body.shape[0]} robot spheres, obs "
+        f"{env.num_obs}, actions {env.num_actions}; the robot's moving bodies "
         f"{float(sc.model.mass.sum()):.3f} kg; learner hidden {ppo.cfg.hidden}, horizon "
         f"{ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}; launches "
         f"per step {per_step}")
     if per_step != {"spd_inverse": 1, "contact_sweep": 2, "prep_deff": 1, "sdf_gather": 0}:
-        raise AssertionError(f"{KUKA_TASK}: launches per step {per_step}")
-    rec, ts, _ = train_and_serve(rollout, env, ppo, KUKA_TASK)
+        raise AssertionError(f"{task}: launches per step {per_step}")
+    rec, ts, _ = train_and_serve(rollout, env, ppo, task)
 
     rollout.reset_launch_counts()
-    kept, scores, calls, steps, rest = kuka_contact_state(env, ops)
-    check_launches(rollout.launch_counts(), per_step, steps, f"{KUKA_TASK} contact state")
+    kept, scores, calls, steps, rest, per_arm = kuka_contact_state(env, ops)
+    check_launches(rollout.launch_counts(), per_step, steps, f"{task} contact state")
     finite_state(tree_map, kept, env._obs(kept))
     n_contact, n_rest = int(scores.sum()), int(rest.sum())
-    log(f"{KUKA_TASK}: {n_contact} of {envs} envs with the robot pushing on its object at the "
-        f"contact state's last step (built in {steps} steps); {n_rest} with the object within "
-        f"2 cm of where it was set and no episode ended")
-    if n_contact < envs // 32:
-        raise AssertionError(f"{KUKA_TASK}: too few envs with the object in contact")
-    tag = f"{KUKA_TASK} contact state"
+    log(f"{task}: {n_contact} of {envs} envs with the robot pushing on its object at the "
+        f"contact state's last step (built in {steps} steps), by arm {per_arm}; {n_rest} "
+        "with the object within 2 cm of where it was set and no episode ended")
+    if min(per_arm) < envs // 32:
+        raise AssertionError(f"{task}: too few envs with the object in contact on an arm")
+    tag = f"{task} contact state"
     kern = {"spd_inverse": check_spd_craft(spd_op, calls["spd"][0][0][0], dev, tag),
             "contact_sweep": check_sweep(sweep_op, calls["sweep"][0], sc.maps, tag, f64=True),
             "prep_deff": check_deff(deff_op, calls["deff"][0][0])}
-    kern["contact_sweep"].update(envs_with_contacts=n_contact,
+    if len(env.arms) > 1:
+        kern["spd_inverse"]["dense"] = check_spd(spd_op, dense_spd(env.art.nv, envs, dev), dev,
+                                                 f"{task} dense SPD batch")
+    kern["contact_sweep"].update(envs_with_contacts=n_contact, envs_by_arm=per_arm,
                                  contacts="the robot on the object resting on its fingers")
     rec["kernels"] = kern
-    rec["contact_state"] = dict(steps=steps, envs_with_contacts=n_contact, envs_at_rest=n_rest)
+    rec["contact_state"] = dict(steps=steps, envs_with_contacts=n_contact,
+                                envs_by_arm=per_arm, envs_at_rest=n_rest)
     del calls
-    rec["ref"] = contact_state_ref(KUKA_TASK, ppo, ts, dev, kept, scores)
+    rec["ref"] = contact_state_ref(task, ppo, ts, dev, kept, scores)
     del env, ppo, ts, kept
-    rec["variants"] = {t: one_iteration(rollout, dev, t, envs) for t in KUKA_ITERATION}
+    rec["variants"] = {t: one_iteration(rollout, dev, t, envs) for t in KUKA_TASKS[task]}
     return rec
 
 
 def spd_instances(entry: dict) -> list:
     """Each compiled n of the spd_inverse kernel (`KERNEL_N`), its layout
-    (a thread or a warp per matrix; the warp layout's shared row stride)
-    and the records of this run that held it against the plain version."""
+    (a thread, a warp or a block of two warps per matrix; the warp and
+    block layouts' shared row stride) and the records of this run that
+    held it against the plain version."""
     from handarm_tpu_torch.ops import spd_inverse as spd_op
 
     held = {}
@@ -4621,9 +4680,9 @@ def spd_instances(entry: dict) -> list:
                 walk(v, f"{path}/{k}")
 
     walk(entry, "spd_inverse")
-    out = [dict(n=n, layout="warp" if n > 18 else "thread",
-                row_stride=n | 1 if n > 18 else None, held_on=held.get(n, []))
-           for n in spd_op.KERNEL_N]
+    layout = lambda n: "block" if n > 32 else "warp" if n > 18 else "thread"
+    out = [dict(n=n, layout=layout(n), row_stride=n | 1 if n > 18 else None,
+                held_on=held.get(n, [])) for n in spd_op.KERNEL_N]
     missing = [x["n"] for x in out if not x["held_on"]]
     if missing:
         raise AssertionError(f"spd_inverse instances held by no check: {missing}")
@@ -4631,7 +4690,7 @@ def spd_instances(entry: dict) -> list:
 
 
 def classic_phases(rollout, dev, ops) -> tuple:
-    """Phases 45-61: (their record, each kernel's classic record)."""
+    """Phases 45-62: (their record, each kernel's classic record)."""
     rec, kernels = {}, {}
     for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
         name = "quad" if task == "Quadcopter" else "ingenuity"
@@ -4657,8 +4716,9 @@ def classic_phases(rollout, dev, ops) -> tuple:
             rec[task] = hand_phase(rollout, dev, ops, task)
     with phase("dextreme"):
         rec[DEXTREME_TASK] = dextreme_phase(rollout, dev, ops)
-    with phase("allegro-kuka"):
-        rec[KUKA_TASK] = allegro_kuka_phase(rollout, dev, ops)
+    for task, name in zip(KUKA_TASKS, ("allegro-kuka", "allegro-kuka-two-arms")):
+        with phase(name):
+            rec[task] = allegro_kuka_phase(rollout, dev, ops, task)
     for task in CLASSIC:
         per_iter = rec[task]["launches_per_iteration"]
         for k in per_iter:
@@ -4685,6 +4745,8 @@ def classic_phases(rollout, dev, ops) -> tuple:
             rollout, dev, "AllegroHandManualDR", DextremeState)
         rec["entry_point"]["AllegroKuka env.subtask=throw"] = classic_entry(
             rollout, dev, "AllegroKuka", AKState, extra=["env.subtask=throw"])
+        rec["entry_point"]["AllegroKukaTwoArms env.subtask=regrasping"] = classic_entry(
+            rollout, dev, "AllegroKukaTwoArms", AKState, extra=["env.subtask=regrasping"])
     return rec, kernels
 
 
@@ -5422,11 +5484,14 @@ def main() -> int:
         for line in ptxas:
             log(line)
         # the warp layout holds three rows a lane in registers (n = 27 and 23,
-        # and n = 24 at a padded row stride of 25), and the thread-per-matrix n = 12,
-        # 16 and 18 their lower triangles (78, 136 and 171 floats): no spill
+        # and n = 24 at a padded row stride of 25), the block layout two rows
+        # a thread (n = 46, the matrix in shared memory at a row stride of
+        # 47), and the thread-per-matrix n = 12, 16 and 18 their lower
+        # triangles (78, 136 and 171 floats): no spill
         for kname in ("spd_inverse_warp_kernel<27, 27>", "spd_inverse_warp_kernel<24, 25>",
-                      "spd_inverse_warp_kernel<23, 23>", "spd_inverse_kernel<12>",
-                      "spd_inverse_kernel<16>", "spd_inverse_kernel<18>"):
+                      "spd_inverse_warp_kernel<23, 23>", "spd_inverse_block_kernel<46, 47>",
+                      "spd_inverse_kernel<12>", "spd_inverse_kernel<16>",
+                      "spd_inverse_kernel<18>"):
             lines = [x for x in ptxas if kname in x]
             if len(lines) != 1 or "0 bytes spill stores" not in lines[0]:
                 raise AssertionError(f"{kname} spills or is missing: {lines}")
@@ -5436,12 +5501,14 @@ def main() -> int:
         log("classic: contact_sweep at C = 4, 8, 30, 37 and 51 (K = 0, no object sides) "
             "launches contact_sweep_kernel<128, 6>, at C = 161, K = 1 (BallBalance), C = 134, "
             "K = 2 (FrankaCubeStack), C = 190, K = 1 (FrankaCabinet), C = 91 (Trifinger), 150 "
-            "(AllegroHand) and 160 (ShadowHand), K = 1, and C = 298, K = 3 (AllegroKuka), the "
-            "instance its launch line names; spd_inverse at n = 14, 8, 2, 12, 18, 9 and 16 its "
-            "<14>, <8>, <2>, <12>, <18>, <9> and <16>, at n = 27, 24 and 23 "
-            "spd_inverse_warp_kernel<27, 27>, <24, 25> and <23, 23> (a warp per matrix); "
-            "sdf_gather at FrankaCabinet's R = 32 drawer the one sdf_gather_kernel; prep_deff "
-            "on the hands' and AllegroKuka's B x C >= 2^21 the one prep_deff_kernel")
+            "(AllegroHand) and 160 (ShadowHand), K = 1, C = 298, K = 3 (AllegroKuka), and C = "
+            "506, K = 3, nv 46 (the two-arm AllegroKuka), the instance its launch line names; "
+            "spd_inverse at n = 14, 8, 2, 12, 18, 9 and 16 its <14>, <8>, <2>, <12>, <18>, <9> "
+            "and <16>, at n = 27, 24 and 23 spd_inverse_warp_kernel<27, 27>, <24, 25> and "
+            "<23, 23> (a warp per matrix), at n = 46 spd_inverse_block_kernel<46, 47> (a block "
+            "of two warps per matrix); sdf_gather at FrankaCabinet's R = 32 drawer the one "
+            "sdf_gather_kernel; prep_deff on the hands' and both AllegroKuka scenes' B x C >= "
+            "2^21 the one prep_deff_kernel")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis

@@ -34,8 +34,8 @@ to write checkpoints its loader reads.
   (FrankaState), 12 for FrankaCabinet (CabinetState, its persistent
   targets among them), 15 for Trifinger (TrifingerState) and the hands
   (DexState, its scalar consecutive-success average among them), 25 for
-  AllegroKuka (AKState: its bool `lifted`, three scalars of the tolerance
-  curriculum among them); the DeXtreme wrapper's DextremeState nests the
+  AllegroKuka on one arm or two (AKState: its bool `lifted`, three scalars
+  of the tolerance curriculum among them); the DeXtreme wrapper's DextremeState nests the
   DexState (with its key), the last observation, the AdrState and the
   RNA masks before its own key: 25; the
   Cartpole's ClassicState has no physics: q, qd, progress, key. Its
@@ -43,7 +43,7 @@ to write checkpoints its loader reads.
   ClassicConfig, LocomotionConfig, BallBalanceConfig, AnymalConfig,
   AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig,
   TrifingerConfig, DexHandConfig, ShadowHandConfig, DextremeConfig,
-  AllegroKukaConfig) in place of a HandArmConfig. Integer leaves are int32
+  AllegroKukaConfig, AllegroKukaTwoArmsConfig) in place of a HandArmConfig. Integer leaves are int32
   there and int64 here, bool leaves bool on both sides.
 - `rna_params_from_arrays` carries the JAX package's RNAParams (the
   DeXtreme adversary's fixed weights) into the port.

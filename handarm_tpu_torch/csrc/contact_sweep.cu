@@ -41,7 +41,16 @@
 //      link terms, then an xor tree; other warps add the bins' sums to
 //      the object velocities.                                     barrier 4
 // Four barriers per sweep (the warm apply is B-D: three). Slots are one
-// thread each, so C <= 1024.
+// thread each, so C <= 1024. A dof mask is one 64-bit word (nv <= 64, L
+// <= 64 distinct masks), staged first in shared memory so that it sits on
+// an 8-byte boundary; the loops over a mask's set dofs walk its two 32-bit
+// words (`dof_word`: a 64-bit shift or __ffsll costs several instructions
+// on the card), in ascending dof order. Every loop over links, dofs and bins strides by the
+// block's threads, so a block with fewer threads than 6 L or 4 nv (a scene
+// with few slots and many dofs) takes several passes. At the two-arm
+// AllegroKuka's nv = 46, L = 46, K = 3, S = 2, C = 506 the env's shared
+// memory is about 104 KB (W = Minv J alone 50 KB), past the 48 KB of a
+// default launch: one block of 512 threads runs on an SM at a time, or two.
 
 #include <cuda_runtime.h>
 
@@ -58,32 +67,35 @@ struct Dims {
 
 struct Shared {
   float *sc, *qd, *minv, *W, *V, *Fl, *ob, *Ok, *F, *G;
-  int *lbits, *lptr, *lslots, *optr, *oslots;
+  unsigned long long* lbits;
+  int *lptr, *lslots, *optr, *oslots;
 };
 
 __host__ __device__ inline size_t shared_bytes(const Dims& d) {
   const size_t floats = 6 * d.nv + d.nv + d.nv * d.nv + 6 * d.L * d.nv + 12 * d.L +
                         6 * d.K + (size_t)d.S * 6 * d.K + 6 * (size_t)d.C +
                         (size_t)d.S * 6 * d.C;
-  const size_t ints = d.L + (d.L + 1) + d.NL + (d.S * d.K + 1) + d.NO;
+  const size_t ints = 2 * d.L + (d.L + 1) + d.NL + (d.S * d.K + 1) + d.NO;
   return (floats + ints) * 4;
 }
 
-// The staged words (screws, qd, Minv, object velocities, then the int
-// tables) come first and in one run, so that one loop copies them all.
+// The staged words (the 64-bit masks as two words each, screws, qd, Minv,
+// object velocities, then the int tables) come first and in one run, so
+// that one loop copies them all.
 __host__ __device__ inline int staged_words(const Dims& d) {
-  return 6 * d.nv + d.nv + d.nv * d.nv + 6 * d.K + d.L + (d.L + 1) + d.NL +
+  return 2 * d.L + 6 * d.nv + d.nv + d.nv * d.nv + 6 * d.K + (d.L + 1) + d.NL +
          (d.S * d.K + 1) + d.NO;
 }
 
 __device__ __forceinline__ Shared carve(float* sm, const Dims& d) {
   Shared s;
-  s.sc = sm;                        // [6][nv] screws (ang xyz, lin xyz)
+  // [L] dof masks at the start: 8-byte aligned
+  s.lbits = reinterpret_cast<unsigned long long*>(sm);
+  s.sc = reinterpret_cast<float*>(s.lbits + d.L);  // [6][nv] screws (ang xyz, lin xyz)
   s.qd = s.sc + 6 * d.nv;           // [nv]
   s.minv = s.qd + d.nv;             // [nv][nv]
   s.ob = s.minv + d.nv * d.nv;      // [6][K] object lin / ang velocity
-  s.lbits = reinterpret_cast<int*>(s.ob + 6 * d.K);  // [L]
-  s.lptr = s.lbits + d.L;           // [L + 1]
+  s.lptr = reinterpret_cast<int*>(s.ob + 6 * d.K);  // [L + 1]
   s.lslots = s.lptr + d.L + 1;      // [NL]
   s.optr = s.lslots + d.NL;         // [S K + 1]
   s.oslots = s.optr + d.S * d.K + 1;  // [NO]
@@ -96,9 +108,15 @@ __device__ __forceinline__ Shared carve(float* sm, const Dims& d) {
   return s;
 }
 
+// Word h (0: dofs 0-31, 1: dofs 32-63) of a staged 64-bit dof mask.
+__device__ __forceinline__ unsigned dof_word(const unsigned long long* bits, int l, int h) {
+  return reinterpret_cast<const unsigned*>(bits + l)[h];
+}
+
 struct Inputs {
   const float *screws, *qd, *minv2, *obj;
-  const int *link_bits, *link_ptr, *link_slots, *obj_ptr, *obj_slots;
+  const unsigned long long* link_bits;
+  const int *link_ptr, *link_slots, *obj_ptr, *obj_slots;
 };
 
 // Source of staged word i of env b.
@@ -107,6 +125,8 @@ __device__ __forceinline__ const unsigned* staged_src(int i, int b, const Dims& 
   const int nv = d.nv, K = d.K;
   auto f = [](const float* p) { return reinterpret_cast<const unsigned*>(p); };
   auto n = [](const int* p) { return reinterpret_cast<const unsigned*>(p); };
+  if (i < 2 * d.L) return reinterpret_cast<const unsigned*>(in.link_bits) + i;
+  i -= 2 * d.L;
   if (i < 6 * nv) return f(in.screws + (size_t)(i / nv) * d.B * nv + (size_t)b * nv + i % nv);
   i -= 6 * nv;
   if (i < nv) return f(in.qd + (size_t)b * nv + i);
@@ -115,8 +135,6 @@ __device__ __forceinline__ const unsigned* staged_src(int i, int b, const Dims& 
   i -= nv * nv;
   if (i < 6 * K) return f(in.obj + (size_t)(i / K) * d.B * K + (size_t)b * K + i % K);
   i -= 6 * K;
-  if (i < d.L) return n(in.link_bits + i);
-  i -= d.L;
   if (i <= d.L) return n(in.link_ptr + i);
   i -= d.L + 1;
   if (i < d.NL) return n(in.link_slots + i);
@@ -220,14 +238,14 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) contact_sweep_kernel(
     const float* __restrict__ planes, const float* __restrict__ bias,
     const float* __restrict__ screws, const float* __restrict__ qd_in,
     const float* __restrict__ minv2, const float* __restrict__ obj_in,
-    const float* __restrict__ lam0, const int* __restrict__ link_bits,
+    const float* __restrict__ lam0, const unsigned long long* __restrict__ link_bits,
     const int* __restrict__ slot_link, const int* __restrict__ link_ptr,
     const int* __restrict__ link_slots, const int* __restrict__ obj_idx,
     const int* __restrict__ obj_ptr, const int* __restrict__ obj_slots,
     float* __restrict__ qd_out, float* __restrict__ obj_out,
     float* __restrict__ lam_out, const Dims d, int iterations, float omega,
     int apply_warm) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   const Shared s = carve(sm, d);
   const int b = blockIdx.x, t = threadIdx.x, bd = blockDim.x;
   const int C = d.C, nv = d.nv, K = d.K, L = d.L;
@@ -262,13 +280,15 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) contact_sweep_kernel(
   __syncthreads();
   // W[u][a L + l] = sum over the set dofs v of link l of Minv_uv s_av
   for (int i = t; i < nv * 6 * L; i += bd) {
-    const int u = i / (6 * L), k = i % (6 * L), m = s.lbits[k % L];
+    const int u = i / (6 * L), k = i % (6 * L), l = k % L;
     const float* mu = s.minv + u * nv;
     const float* sa = s.sc + (k / L) * nv;
     float acc = 0.0f;
-#pragma unroll 4
-    for (int v = 0; v < nv; ++v)
-      if ((m >> v) & 1) acc += mu[v] * sa[v];
+    for (int h = 0; h < 2; ++h)  // the link's set dofs v ascending
+      for (unsigned r = dof_word(s.lbits, l, h); r; r &= r - 1) {
+        const int v = 32 * h + __ffs(r) - 1;
+        acc += mu[v] * sa[v];
+      }
     s.W[i] = acc;
   }
   __syncthreads();
@@ -329,11 +349,12 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) contact_sweep_kernel(
     // Phase A: link velocities over each mask's set dofs.
     for (int j = t; j < 6 * L; j += bd) {
       const float* sa = s.sc + (j / L) * nv;
-      const int m = s.lbits[j % L];
       float acc = 0.0f;
-#pragma unroll 4
-      for (int u = 0; u < nv; ++u)
-        if ((m >> u) & 1) acc += sa[u] * s.qd[u];
+      for (int h = 0; h < 2; ++h)
+        for (unsigned r = dof_word(s.lbits, j % L, h); r; r &= r - 1) {
+          const int u = 32 * h + __ffs(r) - 1;
+          acc += sa[u] * s.qd[u];
+        }
       s.V[j] = acc;
     }
     __syncthreads();
@@ -389,7 +410,7 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) contact_sweep_kernel(
 }
 
 using Kernel = void (*)(const float*, const float*, const float*, const float*,
-                        const float*, const float*, const float*, const int*,
+                        const float*, const float*, const float*, const unsigned long long*,
                         const int*, const int*, const int*, const int*, const int*,
                         const int*, float*, float*, float*, const Dims, int, float, int);
 
@@ -414,9 +435,9 @@ int pick_kernel(int threads, size_t smem, Kernel* kernel) {
 // K = 0 (a robot alone over static geometry: the classic tasks' craft) takes
 // S = 0: no object velocities are read or written, and no bins reduced.
 bool valid(const Dims& d) {
-  return d.B >= 1 && d.nv >= 1 && d.nv <= 31 && d.K >= (d.S > 0 ? 1 : 0) && d.K <= 8 &&
+  return d.B >= 1 && d.nv >= 1 && d.nv <= 64 && d.K >= (d.S > 0 ? 1 : 0) && d.K <= 8 &&
          d.S >= 0 &&
-         d.S <= kMaxSides && d.C >= 1 && d.C <= 1024 && d.L >= 0 && d.L <= 32 &&
+         d.S <= kMaxSides && d.C >= 1 && d.C <= 1024 && d.L >= 0 && d.L <= 64 &&
          d.NL >= 0 && d.NL <= d.C && d.NO >= 0 && d.NO <= d.S * d.C &&
          shared_bytes(d) <= 227 * 1024;
 }
@@ -425,13 +446,13 @@ int threads_for(int C) { return C < 64 ? 64 : (C + 31) / 32 * 32; }
 
 }  // namespace
 
-// Limits (checked again by ops/contact_sweep.py): nv <= 31 (a dof mask is
-// an int), L <= 32, K <= 8 (K >= 1 where S > 0), S <= 2, C <= 1024 (one
-// thread per slot).
+// Limits (checked again by ops/contact_sweep.py): nv <= 64 (a dof mask is
+// one 64-bit word), L <= 64, K <= 8 (K >= 1 where S > 0), S <= 2, C <= 1024
+// (one thread per slot).
 extern "C" int contact_sweep_f32(
     const float* planes, const float* bias, const float* screws,
     const float* qd, const float* minv2, const float* obj, const float* lam0,
-    const int* link_bits, const int* slot_link, const int* link_ptr,
+    const unsigned long long* link_bits, const int* slot_link, const int* link_ptr,
     const int* link_slots, const int* obj_idx, const int* obj_ptr,
     const int* obj_slots, float* qd_out, float* obj_out, float* lam_out,
     int B, int C, int nv, int K, int S, int L, int NL, int NO, int sign_bits,

@@ -28,7 +28,13 @@
 //      robot slot reads its link's 21 values once and forms xi and
 //      xi^T Phi xi for its 3 directions.
 // Planes are read and written with neighbouring threads on neighbouring
-// slots. nv needs no template: the loops run over set bits (nv <= 31).
+// slots. nv needs no template: the loops run over set bits of a 64-bit
+// mask (nv <= 64, L <= 64), one 32-bit word after the other (`dof_word`:
+// a 64-bit shift or __ffsll costs several instructions on the card). The
+// masks are staged first in shared memory, on an 8-byte boundary. At the
+// two-arm AllegroKuka's nv = 46 and L = 46 the block's shared memory is
+// about 67 KB, past the 48 KB of a default launch: the launch raises the
+// kernel's limit first.
 
 #include <cuda_runtime.h>
 
@@ -37,17 +43,23 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kPhi = 37;  // floats per link of Phi (6 x 6, odd stride)
 
+// Word h (0: dofs 0-31, 1: dofs 32-63) of a staged 64-bit dof mask.
+__device__ __forceinline__ unsigned dof_word(const unsigned long long* bits, int l, int h) {
+  return reinterpret_cast<const unsigned*>(bits + l)[h];
+}
+
 __global__ void __launch_bounds__(kThreads) prep_deff_kernel(
     const float* __restrict__ screws, const float* __restrict__ pos,
-    const float* __restrict__ basis, const int* __restrict__ link_bits,
+    const float* __restrict__ basis, const unsigned long long* __restrict__ link_bits,
     const int* __restrict__ slot_link, const float* __restrict__ minv2,
     float* __restrict__ out, int B, int C, int nv, int L) {
-  extern __shared__ float sm[];
-  float* sc = sm;                  // [6][nv]
+  extern __shared__ __align__(16) float sm[];
+  // [L] dof masks at the start: 8-byte aligned
+  unsigned long long* bits = reinterpret_cast<unsigned long long*>(sm);
+  float* sc = reinterpret_cast<float*>(bits + L);  // [6][nv]
   float* mv = sc + 6 * nv;         // [nv][nv]
   float* X = mv + nv * nv;         // [L][6][nv]
   float* phi = X + L * 6 * nv;     // [L][kPhi], row-major 6 x 6, upper part
-  int* bits = reinterpret_cast<int*>(phi + L * kPhi);  // [L]
   const int b = blockIdx.x, t = threadIdx.x;
   for (int i = t; i < 6 * nv; i += kThreads)
     sc[i] = screws[(size_t)(i / nv) * B * nv + (size_t)b * nv + i % nv];
@@ -57,13 +69,13 @@ __global__ void __launch_bounds__(kThreads) prep_deff_kernel(
 
   for (int j = t; j < L * nv * 6; j += kThreads) {
     const int l = j / (6 * nv), v = (j / 6) % nv, a = j % 6;
-    const int m = bits[l];
-    if (!((m >> v) & 1)) continue;
+    if (!((dof_word(bits, l, v >> 5) >> (v & 31)) & 1u)) continue;
     float acc = 0.0f;
-    for (int r = m; r; r &= r - 1) {
-      const int u = __ffs(r) - 1;
-      acc += sc[a * nv + u] * mv[u * nv + v];
-    }
+    for (int h = 0; h < 2; ++h)  // the set dofs u ascending
+      for (unsigned r = dof_word(bits, l, h); r; r &= r - 1) {
+        const int u = 32 * h + __ffs(r) - 1;
+        acc += sc[a * nv + u] * mv[u * nv + v];
+      }
     X[(l * 6 + a) * nv + v] = acc;
   }
   __syncthreads();
@@ -71,10 +83,11 @@ __global__ void __launch_bounds__(kThreads) prep_deff_kernel(
     const int l = j / 36, a = (j / 6) % 6, e = j % 6;
     if (e < a) continue;
     float acc = 0.0f;
-    for (int r = bits[l]; r; r &= r - 1) {
-      const int v = __ffs(r) - 1;
-      acc += X[(l * 6 + a) * nv + v] * sc[e * nv + v];
-    }
+    for (int h = 0; h < 2; ++h)
+      for (unsigned r = dof_word(bits, l, h); r; r &= r - 1) {
+        const int v = 32 * h + __ffs(r) - 1;
+        acc += X[(l * 6 + a) * nv + v] * sc[e * nv + v];
+      }
     phi[l * kPhi + a * 6 + e] = acc;
   }
   __syncthreads();
@@ -119,22 +132,37 @@ __global__ void __launch_bounds__(kThreads) prep_deff_kernel(
 }
 
 size_t shared_bytes(int nv, int L) {
-  return (size_t)(6 * nv + nv * nv + L * 6 * nv + L * kPhi + L) * 4;
+  return (size_t)(2 * L + 6 * nv + nv * nv + L * 6 * nv + L * kPhi) * 4;
 }
 
-bool valid(int nv, int L) { return nv >= 1 && nv <= 31 && L >= 0 && L <= 32; }
+bool valid(int nv, int L) {
+  return nv >= 1 && nv <= 64 && L >= 0 && L <= 64 && shared_bytes(nv, L) <= 227 * 1024;
+}
+
+// The kernel's dynamic shared memory allowed past the 48 KB of a default
+// launch where these sizes need it; the launch and the occupancy query both
+// call it.
+int allow_shared(size_t smem) {
+  if (smem > 48 * 1024)
+    return (int)cudaFuncSetAttribute(prep_deff_kernel,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return 0;
+}
 
 }  // namespace
 
-// Limits (checked again by ops/prep_deff.py): nv <= 31 (a dof mask is an
-// int), L <= 32.
+// Limits (checked again by ops/prep_deff.py): nv <= 64 (a dof mask is one
+// 64-bit word), L <= 64.
 extern "C" int prep_deff_f32(const float* screws, const float* pos,
-                             const float* basis, const int* link_bits,
+                             const float* basis, const unsigned long long* link_bits,
                              const int* slot_link, const float* minv2,
                              float* out, int B, int C, int nv, int L,
                              void* stream) {
   if (B < 1 || C < 1 || !valid(nv, L)) return (int)cudaErrorInvalidValue;
-  prep_deff_kernel<<<B, kThreads, shared_bytes(nv, L), (cudaStream_t)stream>>>(
+  const size_t smem = shared_bytes(nv, L);
+  const int e = allow_shared(smem);
+  if (e != 0) return e;
+  prep_deff_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       screws, pos, basis, link_bits, slot_link, minv2, out, B, C, nv, L);
   return (int)cudaGetLastError();
 }
@@ -144,8 +172,11 @@ extern "C" int prep_deff_f32(const float* screws, const float* pos,
 extern "C" int prep_deff_launch_info(int nv, int L, int* info) {
   info[0] = info[1] = info[2] = 0;
   if (!valid(nv, L)) return (int)cudaErrorInvalidValue;
+  const size_t smem = shared_bytes(nv, L);
   info[0] = kThreads;
-  info[1] = (int)shared_bytes(nv, L);
+  info[1] = (int)smem;
+  const int e = allow_shared(smem);
+  if (e != 0) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[2], prep_deff_kernel,
-                                                            kThreads, shared_bytes(nv, L));
+                                                            kThreads, smem);
 }

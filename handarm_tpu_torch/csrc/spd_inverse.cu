@@ -64,6 +64,33 @@
 // unpadded one: so at n = 23 (AllegroKuka's KUKA arm and Allegro hand, LD
 // = 23; 4.2 KB a matrix, 34.7 MB at B = 8192, 10.4 us), whose lanes 23-31
 // carry zeros.
+//
+// Past a warp's 32 lanes (33 <= n <= 64) a lane per row no longer fits,
+// and three rows of n floats a thread would take more registers than the
+// card gives. So those n have a third layout (`spd_inverse_block_kernel`):
+// one block of two warps (64 threads) per matrix, the matrix in shared
+// memory at an odd row stride LD = n | 1 (the 32 threads of a warp reading
+// a column fall on 32 banks; 46 x 47 floats, 8.6 KB, at n = 46), thread i
+// holding row i of L and of W's running sums in registers (threads n..63
+// carry zeros):
+//   - Cholesky-Crout, column j: every thread i >= j sums its row against
+//     row j of L, read from shared memory (one address: a broadcast);
+//     thread j publishes its sum, the pivot; a barrier; every thread takes
+//     1 / L_jj = rsqrt(max(pivot, 1e-12)), scales its entry and stores it
+//     in row i; a barrier. Two barriers a column.
+//   - W = L^-1 row by row as in the warp layout: at step k thread k writes
+//     row k of W (its running sums times 1 / L_kk) over row k of L, which no
+//     thread reads any more; a barrier; every thread i > k subtracts L_ik
+//     times that row from its sums (each W_ir sums over k ascending, as the
+//     TPU kernel's forward substitution). One barrier a row.
+//   - Minv = W^T W: one thread per entry of the lower triangle (1,081 at n
+//     = 46, 17 a thread), each summing W_ka W_kc over k >= a from shared
+//     memory; a barrier; the sums mirrored into the buffer; a barrier; the
+//     buffer copied out.
+// Nothing assumes the two arms' block-diagonal matrices: every entry is
+// computed. At n = 46 (the two-arm AllegroKuka's 2 x 23 dofs: 8.5 KB a
+// matrix, 138.7 MB at B = 8192, 41.4 us) the bytes bound it; the design is
+// bound by its 138 barriers and the Gram phase's shared-memory loads.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -240,6 +267,96 @@ __global__ void __launch_bounds__(32 * kWarps)
   for (int e = lane; e < NN; e += 32) dst[e] = Sw[padded<N, LD>(e)];
 }
 
+// One block of kBlockThreads per matrix; see the header. 33 <= N <= 64.
+constexpr int kBlockThreads = 64;
+
+template <int N, int LD = (N | 1)>
+__global__ void __launch_bounds__(kBlockThreads)
+    spd_inverse_block_kernel(const float* __restrict__ M, float* __restrict__ Minv, int B) {
+  static_assert(N > 32 && N <= kBlockThreads, "a thread per row, past a warp's lanes");
+  static_assert(LD >= N && LD % 2 == 1, "an odd row stride");
+  constexpr int NN = N * N;
+  constexpr int NT = tri(N, 0);  // entries of the lower triangle
+  constexpr int kIter = (NT + kBlockThreads - 1) / kBlockThreads;
+  __shared__ float S[N * LD];
+  __shared__ float pivot;
+  const int i = threadIdx.x;  // the row this thread holds; threads N..63 carry zeros
+  const float* src = M + (size_t)blockIdx.x * NN;
+  for (int e = i; e < NN; e += kBlockThreads) S[padded<N, LD>(e)] = src[e];
+  __syncthreads();
+
+  float R[N];  // row i of M, then of L (the diagonal holds 1 / L_ii)
+#pragma unroll
+  for (int j = 0; j < N; ++j) R[j] = i < N ? S[i * LD + j] : 0.0f;
+
+  // Cholesky-Crout, column by column, row j of L read from shared memory
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    float a = R[j];
+    if (i >= j) {
+#pragma unroll
+      for (int k = 0; k < j; ++k) a = a - R[k] * S[j * LD + k];
+    }
+    if (i == j) pivot = a;
+    __syncthreads();
+    const float inv = rsqrtf(fmaxf(pivot, 1e-12f));
+    R[j] = i == j ? inv : (i > j ? a * inv : 0.0f);
+    if (i >= j && i < N) S[i * LD + j] = R[j];
+    __syncthreads();
+  }
+
+  // W = L^-1 row by row: thread k writes row k of W, then every thread
+  // below subtracts L_ik times it from its running sums
+  float T[N];  // row i of W: running sums of -L_ik W_kr
+#pragma unroll
+  for (int r = 0; r < N; ++r) T[r] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    if (i == k) {
+#pragma unroll
+      for (int r = 0; r < k; ++r) S[k * LD + r] = T[r] * R[k];
+      S[k * LD + k] = R[k];
+    }
+    __syncthreads();
+    if (i > k && i < N) {
+#pragma unroll
+      for (int r = 0; r <= k; ++r) T[r] = T[r] - R[k] * S[k * LD + r];
+    }
+  }
+
+  // Minv = W^T W: entry (a, c), a >= c, sums W_ka W_kc over k >= a
+  float acc[kIter];
+#pragma unroll
+  for (int it = 0; it < kIter; ++it) {
+    const int e = i + it * kBlockThreads;
+    float s = 0.0f;
+    if (e < NT) {
+      int a = (int)((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
+      while (tri(a + 1, 0) <= e) ++a;
+      while (tri(a, 0) > e) --a;
+      const int c = e - tri(a, 0);
+      for (int k = a; k < N; ++k) s += S[k * LD + a] * S[k * LD + c];
+    }
+    acc[it] = s;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < kIter; ++it) {
+    const int e = i + it * kBlockThreads;
+    if (e < NT) {
+      int a = (int)((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
+      while (tri(a + 1, 0) <= e) ++a;
+      while (tri(a, 0) > e) --a;
+      const int c = e - tri(a, 0);
+      S[a * LD + c] = acc[it];
+      S[c * LD + a] = acc[it];
+    }
+  }
+  __syncthreads();
+  float* dst = Minv + (size_t)blockIdx.x * NN;
+  for (int e = i; e < NN; e += kBlockThreads) dst[e] = S[padded<N, LD>(e)];
+}
+
 }  // namespace
 
 extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
@@ -248,6 +365,10 @@ extern "C" int spd_inverse_f32(const float* M, float* Minv, int B, int n,
   if (B == 0) return (int)cudaSuccess;
   const int blocks = (B + kMats - 1) / kMats;
   const int warp_blocks = (B + kWarps - 1) / kWarps;
+  if (n == 46) {  // the two-arm AllegroKuka's 2 x (7 + 16) dofs: a block per matrix
+    spd_inverse_block_kernel<46><<<B, kBlockThreads, 0, (cudaStream_t)stream>>>(M, Minv, B);
+    return (int)cudaGetLastError();
+  }
   if (n == 27) {  // the Humanoid's 6 + 21 dofs: a warp per matrix
     spd_inverse_warp_kernel<27><<<warp_blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
         M, Minv, B);

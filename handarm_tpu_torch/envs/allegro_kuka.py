@@ -1,7 +1,8 @@
-"""AllegroKuka, the one-arm DexPBT tasks (counterpart of the one-arm part of
+"""AllegroKuka, the DexPBT tasks on one arm and on two (counterpart of
 handarm_tpu/envs/allegro_kuka.py; reference IsaacGymEnvs
 tasks/allegro_kuka/allegro_kuka_base.py, _reorientation.py,
-_regrasping.py, _throw.py, cfg/task/AllegroKuka.yaml).
+_regrasping.py, _throw.py, allegro_kuka_two_arms*.py,
+cfg/task/AllegroKuka.yaml).
 
 A KUKA iiwa 7 (7 dofs) with an Allegro hand (16) on a narrow table lifts a
 cuboid and brings its keypoints to a goal:
@@ -34,6 +35,18 @@ succeeds or restarts. The URDF is the in-repo stand-in
 `assets/classic_standin/urdf/kuka_allegro_description/kuka_allegro_touch_sensor.urdf`
 (`KUKA_ALLEGRO_URDF`), its collision spheres fitted by `robots.spherefit`,
 two a link.
+
+The two-arm tasks (`AllegroKukaTwoArmsEnv`: reorientation and regrasping,
+as the JAX package's) mount that robot twice under one root, `a0_` at x =
+-1.1 turned +90 degrees about z and `a1_` at x = +1.1 turned -90 degrees,
+facing each other across the table (`generate_two_arms_urdf`, written
+under the checkout's `build/` directory): nv 46, 46 actions, the arm
+blocks' targets relative and the hand blocks' absolute, fingertip terms
+over all 8 tips, three larger boxes of 0.5 kg spawned over the table's
+centre. As in the JAX package, the palm's pose, velocity and offset are
+arm 0's alone, the default joints set both arms' first 7 dofs, the joint
+penalties split the dofs at 7 (arm 0's against the other 39), and a fresh
+goal is shifted by -0.05 m in y where a goal resampled on success is not.
 """
 
 from __future__ import annotations
@@ -44,6 +57,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+import hashlib
+import xml.etree.ElementTree as ET
 
 from handarm_tpu_torch import resolve_device
 from handarm_tpu_torch.envs.classic import STANDIN_ROOT
@@ -60,12 +76,14 @@ from handarm_tpu_torch.physics.engine import (
 from handarm_tpu_torch.physics.kinematics import body_velocities, forward_kinematics, site_poses
 from handarm_tpu_torch.physics.model import compile_urdf
 from handarm_tpu_torch.physics.shapes import make_box_object, stack_objects
+from handarm_tpu_torch.ops.build import BUILD_ROOT
 from handarm_tpu_torch.physics.solver import SolverParams
 from handarm_tpu_torch.robots.spherefit import make_generic_spheres
 
 KUKA_ALLEGRO_URDF = os.path.join(STANDIN_ROOT, "urdf", "kuka_allegro_description",
                                  "kuka_allegro_touch_sensor.urdf")
 ARM_DOFS = 7
+HAND_DOFS = 16
 # allegro_kuka_base.py:284, pose v1
 DEFAULT_KUKA = np.array([-1.571, 1.571, 0.0, 1.376, 0.0, 1.485, 2.358])
 FINGERTIPS = ("index_link_3", "middle_link_3", "ring_link_3", "thumb_link_3")
@@ -83,6 +101,12 @@ TVOL_ORIGIN = np.array([0.0, 0.05, 0.8])
 TVOL_MIN = TVOL_ORIGIN + np.array([-0.4, -0.05, -0.12])
 TVOL_MAX = TVOL_ORIGIN + np.array([0.4, 0.3, 0.25])
 VARIANTS = ("reorientation", "regrasping", "throw")
+# the two-arm scene (allegro_kuka_two_arms.py:598-610): each arm's prefix,
+# mount x and yaw about z; the composed file goes under TWO_ARMS_DIR
+TWO_ARMS_MOUNTS = (("a0_", -1.1, 1.5707963), ("a1_", 1.1, -1.5707963))
+TWO_ARMS_DIR = os.path.join(str(BUILD_ROOT), "urdf")
+# its three boxes: a 10 cm cube, a 12.5 cm cube, a stick
+TWO_ARMS_HALVES = ((0.05, 0.05, 0.05), (0.0625, 0.0625, 0.0625), (0.125, 0.025, 0.025))
 
 
 @dataclass(frozen=True)
@@ -129,15 +153,15 @@ class AKState(NamedTuple):
     """The JAX package's AKState without its PRNG key."""
 
     physics: PhysicsState
-    targets: torch.Tensor  # [B, 23] persistent dof targets
+    targets: torch.Tensor  # [B, nv] persistent dof targets (23 a arm)
     progress: torch.Tensor  # [B] int64
-    actions: torch.Tensor  # [B, 23]
+    actions: torch.Tensor  # [B, nv]
     goal_pos: torch.Tensor  # [B, 3]
     goal_quat: torch.Tensor  # [B, 4]
     lifted: torch.Tensor  # [B] bool
     obj_init_z: torch.Tensor  # [B] the object's spawn height
     closest_kp_dist: torch.Tensor  # [B]
-    closest_fingertip_dist: torch.Tensor  # [B, 4] (-1: not yet measured)
+    closest_fingertip_dist: torch.Tensor  # [B, tips] (4 a arm; -1: not yet measured)
     furthest_hand_dist: torch.Tensor  # [B]
     near_goal_steps: torch.Tensor  # [B] int64
     successes: torch.Tensor  # [B] int64
@@ -164,8 +188,8 @@ class AKObjectDraws(NamedTuple):
 
 
 class AKDraws(NamedTuple):
-    """The draws of fresh episodes (`dof` [B, 23] uniform in [0, 1), `dof_vel`
-    [B, 23] uniform in [-1, 1), `obj`, `goal`), of the goals resampled on
+    """The draws of fresh episodes (`dof` [B, nv] uniform in [0, 1), `dof_vel`
+    [B, nv] uniform in [-1, 1), `obj`, `goal`), of the goals resampled on
     success (`resample`) and of the objects returned to the table on
     success (`ret`, regrasping and throw)."""
 
@@ -181,6 +205,13 @@ class AllegroKukaEnv:
     """The PPO contract: reset, step, num_obs, num_actions, cfg.num_envs."""
 
     state_type = AKState
+    arms = ("",)  # the arms' name prefixes in the URDF (23 dofs each, in this order)
+    object_mass = 0.3  # kg, every box slot
+    base_pos = tuple(ARM_BASE)
+    object_start = OBJECT_START  # the spawn point, before the noise
+
+    def urdf(self) -> str:
+        return KUKA_ALLEGRO_URDF
 
     def __init__(self, cfg: AllegroKukaConfig = AllegroKukaConfig(), device=None, group=None):
         """`group` is accepted for the train entry point's ranks; the tolerance
@@ -190,46 +221,52 @@ class AllegroKukaEnv:
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         f32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev)
-        self.art = art = compile_urdf(KUKA_ALLEGRO_URDF)
-        nv = art.nv  # 23
-        shapes = stack_objects([make_box_object(list(h), mass=0.3) for h in cfg.object_halves],
-                               device=dev)
+        urdf = self.urdf()
+        self.art = art = compile_urdf(urdf)
+        nv = art.nv  # 23 a arm
+        shapes = stack_objects([make_box_object(list(h), mass=self.object_mass)
+                                for h in cfg.object_halves], device=dev)
         self.K = len(cfg.object_halves)
         self.obj_halves = f32(np.array(cfg.object_halves, np.float32))
         geom = StaticGeom(table_lo=f32(TABLE_CENTER - TABLE_HALF),
                           table_hi=f32(TABLE_CENTER + TABLE_HALF), table_height=TABLE_TOP)
-        spheres = make_generic_spheres(KUKA_ALLEGRO_URDF, art, spheres_per_link=2, device=dev)
+        spheres = make_generic_spheres(urdf, art, spheres_per_link=2, device=dev)
         # stiffness 40, damping 5 on every joint (AllegroKuka.yaml:61-68)
         self.scene = build_scene(art, shapes, spheres, geom, kp=np.full(nv, 40.0),
-                                 kd=np.full(nv, 5.0), base_pos=tuple(ARM_BASE),
+                                 kd=np.full(nv, 5.0), base_pos=self.base_pos,
                                  base_quat=(1.0, 0.0, 0.0, 0.0),
                                  params=SimParams(dt=cfg.dt, substeps=cfg.substeps,
                                                   solver=SolverParams(iterations=8),
                                                   robot_gravity=False),
                                  device=dev)
         self.q_lo, self.q_hi = f32(art.q_min), f32(art.q_max)
-        palm = art.sites["palm_link"]
-        self.site_bodies = np.array([art.sites[t].body for t in FINGERTIPS] + [palm.body])
+        # every arm's four fingertips, then the palm of the first arm alone
+        # (the JAX package's two-arm env reads a0_palm_link only)
+        tips = [a + t for a in self.arms for t in FINGERTIPS]
+        palm = art.sites[self.arms[0] + "palm_link"]
+        self.site_bodies = np.array([art.sites[t].body for t in tips] + [palm.body])
         # the offsets in the sites' bodies' frames, summed in float32
-        self.site_pos = f32(np.stack([art.sites[t].pos.astype(np.float32) + o
-                                      for t, o in zip(FINGERTIPS, FINGERTIP_OFFSETS)]
-                                     + [palm.pos.astype(np.float32) + PALM_OFFSET]))
-        self.site_quat = f32(np.stack([art.sites[t].quat for t in FINGERTIPS] + [palm.quat]))
+        self.site_pos = f32(np.stack(
+            [art.sites[t].pos.astype(np.float32) + FINGERTIP_OFFSETS[i % len(FINGERTIPS)]
+             for i, t in enumerate(tips)] + [palm.pos.astype(np.float32) + PALM_OFFSET]))
+        self.site_quat = f32(np.stack([art.sites[t].quat for t in tips] + [palm.quat]))
         self.palm_body = int(palm.body)
+        self.num_tips = nt = len(tips)
+        # per arm block: the KUKA's 7 dofs, then the hand's 16
+        arm_dof = np.tile(np.arange(ARM_DOFS + HAND_DOFS) < ARM_DOFS, len(self.arms))
         dq = np.zeros(nv, np.float32)
-        dq[:ARM_DOFS] = DEFAULT_KUKA
+        dq[arm_dof] = np.tile(DEFAULT_KUKA, len(self.arms))
         self.default_q = f32(np.clip(dq, art.q_min, art.q_max))
-        self.dof_noise = f32(np.concatenate([np.full(ARM_DOFS, cfg.reset_dof_pos_noise_arm),
-                                             np.full(nv - ARM_DOFS,
-                                                     cfg.reset_dof_pos_noise_fingers)]))
+        self.dof_noise = f32(np.where(arm_dof, cfg.reset_dof_pos_noise_arm,
+                                      cfg.reset_dof_pos_noise_fingers))
         # corner offsets (scaled by the slot's half extents and keypoint_scale),
         # or one centre point for regrasping and throw
         corners = [[1, 1, 1], [1, 1, -1], [-1, -1, 1], [-1, -1, -1]]
         self.kp_offsets = f32(corners if cfg.variant == "reorientation" else [[0, 0, 0]])
         self.num_keypoints = nk = int(self.kp_offsets.shape[0])
         self.num_actions = nv
-        # the full_state layout (allegro_kuka_base.py:196-221)
-        self.num_obs = nv + nv + 3 + 10 + 10 + 12 + nk * 3 + nk * 3 + 3 + 1 + 1 + 2 + 4 + 1
+        # the full_state layout (allegro_kuka_base.py:196-221; two arms: 8 tips)
+        self.num_obs = nv + nv + 3 + 10 + 10 + 3 * nt + nk * 3 + nk * 3 + 3 + 1 + 1 + 2 + nt + 1
         self.num_teacher_obs = 0
         self.obs_slices = {"obs": (0, self.num_obs)}
         self.gen = torch.Generator(device=dev)
@@ -238,14 +275,14 @@ class AllegroKukaEnv:
     # --- kinematics ---------------------------------------------------------
 
     def hand(self, phys: PhysicsState):
-        """(fingertips [B, 4, 3], palm position [B, 3], palm quat [B, 4], palm
+        """(fingertips [B, tips, 3], palm position [B, 3], palm quat [B, 4], palm
         linear and angular velocity [B, 3]), in the world frame."""
         sc = self.scene
         bq, bp = sc.base_quat[None], sc.base_pos[None]
         fk = forward_kinematics(sc.model, phys.robot.q, bq, bp)
         sq, sp = site_poses(fk, self.site_bodies, self.site_pos, self.site_quat, bq, bp)
         bv = body_velocities(sc.model, fk, phys.robot.qd)
-        nt = len(FINGERTIPS)
+        nt = self.num_tips
         palm_w = bv[:, self.palm_body, :3]
         palm_v = bv[:, self.palm_body, 3:] + cross(palm_w, sp[:, nt])
         return sp[:, :nt], sp[:, nt], sq[:, nt], palm_v, palm_w
@@ -302,7 +339,7 @@ class AllegroKukaEnv:
         uniform random orientation."""
         noise = d.pos * torch.as_tensor(self.cfg.reset_position_noise, dtype=torch.float32,
                                         device=self.device)
-        pos = torch.as_tensor(OBJECT_START, dtype=torch.float32, device=self.device) + noise
+        pos = torch.as_tensor(self.object_start, dtype=torch.float32, device=self.device) + noise
         return pos, d.rot / torch.linalg.vector_norm(d.rot, dim=-1, keepdim=True)
 
     def park_positions(self, B: int) -> torch.Tensor:
@@ -339,7 +376,7 @@ class AllegroKukaEnv:
             goal_pos=goal_pos, goal_quat=goal_quat,
             lifted=torch.zeros(B, dtype=torch.bool, device=dev), obj_init_z=obj_pos[:, 2],
             closest_kp_dist=torch.full((B,), 1e6, device=dev),
-            closest_fingertip_dist=torch.full((B, 4), -1.0, device=dev),
+            closest_fingertip_dist=torch.full((B, self.num_tips), -1.0, device=dev),
             furthest_hand_dist=torch.full((B,), -1.0, device=dev),
             near_goal_steps=izeros.clone(), successes=izeros.clone(),
             success_ewma=torch.zeros((), device=dev),
@@ -391,15 +428,18 @@ class AllegroKukaEnv:
         cfg = self.cfg
         d = draws if draws is not None else self.draw(actions.shape[0])
         actions = torch.clamp(actions, -1.0, 1.0)
-        # the arm's targets move relative to the last ones, the hand's are the
-        # actions scaled to the limits, with a moving average
-        a = ARM_DOFS
-        arm_t = state.targets[:, :a] + cfg.dof_speed_scale * cfg.dt * actions[:, :a]
-        hand_scaled = self.q_lo[a:][None] + 0.5 * (actions[:, a:] + 1.0) * (
-            self.q_hi[a:] - self.q_lo[a:])[None]
-        hand_t = (cfg.act_moving_average * hand_scaled
-                  + (1.0 - cfg.act_moving_average) * state.targets[:, a:])
-        targets = torch.minimum(torch.maximum(torch.cat([arm_t, hand_t], -1), self.q_lo[None]),
+        # per arm block, the arm's targets move relative to the last ones, the
+        # hand's are the actions scaled to the limits, with a moving average
+        blocks = []
+        for k in range(len(self.arms)):
+            a0 = k * (ARM_DOFS + HAND_DOFS)
+            a, h = slice(a0, a0 + ARM_DOFS), slice(a0 + ARM_DOFS, a0 + ARM_DOFS + HAND_DOFS)
+            arm_t = state.targets[:, a] + cfg.dof_speed_scale * cfg.dt * actions[:, a]
+            hand_scaled = self.q_lo[h][None] + 0.5 * (actions[:, h] + 1.0) * (
+                self.q_hi[h] - self.q_lo[h])[None]
+            blocks += [arm_t, cfg.act_moving_average * hand_scaled
+                       + (1.0 - cfg.act_moving_average) * state.targets[:, h]]
+        targets = torch.minimum(torch.maximum(torch.cat(blocks, -1), self.q_lo[None]),
                                 self.q_hi[None])
         return self._step_with_targets(state, actions, targets, d)
 
@@ -417,7 +457,7 @@ class AllegroKukaEnv:
         opos, oquat, _, _ = self.object_state(phys, slot)
 
         # the DexPBT reward (allegro_kuka_base.py:759-895)
-        tip_dist = torch.linalg.vector_norm(tips - opos[:, None], dim=-1)  # [B, 4]
+        tip_dist = torch.linalg.vector_norm(tips - opos[:, None], dim=-1)  # [B, tips]
         cfd = torch.where(state.closest_fingertip_dist < 0, tip_dist,
                           state.closest_fingertip_dist)
         fingertip_deltas = torch.clamp(cfd - tip_dist, 0.0, 10.0)
@@ -438,7 +478,7 @@ class AllegroKukaEnv:
         closest_kp_dist = torch.minimum(state.closest_kp_dist, kp_max_dist)
         keypoint_rew = kp_deltas * lifted
 
-        qd = phys.robot.qd
+        qd = phys.robot.qd  # split at 7 on two arms too, as in the JAX package
         kuka_pen = qd[:, :ARM_DOFS].abs().sum(-1) * cfg.kuka_actions_penalty_scale
         allegro_pen = qd[:, ARM_DOFS:].abs().sum(-1) * cfg.allegro_actions_penalty_scale
 
@@ -532,3 +572,91 @@ def make_allegro_kuka(variant: str = "reorientation", num_envs: int = 256,
                       episode_length: int = 600, device=None, **kw) -> AllegroKukaEnv:
     return AllegroKukaEnv(allegro_kuka_config(num_envs, variant,
                                               episode_length=episode_length, **kw), device)
+
+
+# --- the two-arm tasks ---------------------------------------------------------
+
+
+def generate_two_arms_urdf() -> str:
+    """The two-arm file: the links and joints of `KUKA_ALLEGRO_URDF` twice,
+    named with the `a0_` / `a1_` prefixes, each copy's `iiwa7_base_link`
+    fixed to one `world_root` at its mount (TWO_ARMS_MOUNTS); relative mesh
+    paths made absolute under the stand-in's parent directory. The same
+    elements, in the same order, as the JAX package's
+    `_generate_two_arms_urdf` writes from that file. Written once a
+    content under TWO_ARMS_DIR, atomically; returns its path."""
+    src = ET.parse(KUKA_ALLEGRO_URDF).getroot()
+    mesh_root = os.path.dirname(os.path.dirname(KUKA_ALLEGRO_URDF))
+    robot = ET.Element("robot", name="kuka_allegro_two_arms")
+    ET.SubElement(robot, "link", name="world_root")
+    for prefix, x_ofs, yaw in TWO_ARMS_MOUNTS:
+        for el in src:
+            if el.tag not in ("link", "joint"):
+                continue
+            el2 = ET.fromstring(ET.tostring(el))
+            el2.set("name", prefix + el2.get("name"))
+            for sub in el2.iter():
+                if sub.tag in ("parent", "child") and sub.get("link"):
+                    sub.set("link", prefix + sub.get("link"))
+                fn = sub.get("filename") if sub.tag == "mesh" else None
+                if fn and not os.path.isabs(fn):
+                    sub.set("filename", os.path.normpath(os.path.join(mesh_root, fn)))
+            robot.append(el2)
+        j = ET.SubElement(robot, "joint", name=f"{prefix}mount", type="fixed")
+        ET.SubElement(j, "parent", link="world_root")
+        ET.SubElement(j, "child", link=prefix + "iiwa7_base_link")
+        ET.SubElement(j, "origin", xyz=f"{x_ofs} 0 0", rpy=f"0 0 {yaw}")
+    text = ET.tostring(robot)
+    path = os.path.join(TWO_ARMS_DIR,
+                        f"kuka_allegro_two_arms_{hashlib.sha256(text).hexdigest()[:16]}.urdf")
+    if not os.path.exists(path):
+        os.makedirs(TWO_ARMS_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "wb") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    return path
+
+
+@dataclass(frozen=True)
+class AllegroKukaTwoArmsConfig(AllegroKukaConfig):
+    """AllegroKukaConfig with the two-arm scene's larger boxes."""
+
+    object_halves: tuple = TWO_ARMS_HALVES
+
+
+class AllegroKukaTwoArmsEnv(AllegroKukaEnv):
+    """Two KUKA + Allegro arms facing each other across the table, one object
+    (counterpart of the JAX package's AllegroKukaTwoArmsEnv; reference
+    allegro_kuka_two_arms_reorientation.py / _regrasping.py): the one-arm
+    env's step and state at nv 46, with 8 fingertips, 0.5 kg boxes spawned
+    over the table's centre, the table at the origin, and a fresh goal
+    shifted by -0.05 in y."""
+
+    arms = tuple(p for p, _, _ in TWO_ARMS_MOUNTS)
+    object_mass = 0.5
+    base_pos = (0.0, 0.0, 0.0)
+    object_start = np.array([0.0, 0.0, TABLE_TOP + 0.25])
+
+    def urdf(self) -> str:
+        return generate_two_arms_urdf()
+
+    def _fresh(self, B: int, d: AKDraws) -> AKState:
+        s = super()._fresh(B, d)  # a fresh goal shifted by -0.05 m in y, a resampled one not
+        return s._replace(goal_pos=s.goal_pos - torch.tensor([0.0, 0.05, 0.0],
+                                                             device=self.device))
+
+
+def allegro_kuka_two_arms_config(num_envs: int = 256, variant: str = "reorientation",
+                                 **kw) -> AllegroKukaTwoArmsConfig:
+    # the boxes are the scene's: an `object_halves` override raises TypeError,
+    # as the JAX package's make_allegro_kuka_two_arms does
+    return AllegroKukaTwoArmsConfig(variant=variant, num_envs=num_envs,
+                                    object_halves=TWO_ARMS_HALVES, **kw)
+
+
+def make_allegro_kuka_two_arms(variant: str = "reorientation", num_envs: int = 256,
+                               episode_length: int = 600, device=None,
+                               **kw) -> AllegroKukaTwoArmsEnv:
+    return AllegroKukaTwoArmsEnv(allegro_kuka_two_arms_config(
+        num_envs, variant, episode_length=episode_length, **kw), device)

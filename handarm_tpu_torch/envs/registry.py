@@ -7,7 +7,8 @@ Humanoid, BallBalance, Anymal, AnymalTerrain, FrankaCubeStack,
 FrankaCabinet, Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF,
 ShadowHandOpenAI_LSTM, AllegroHandDextremeADR, AllegroHandADR,
 AllegroHandManualDR, AllegroKukaReorientation, AllegroKukaRegrasping,
-AllegroKukaThrow and AllegroKuka).
+AllegroKukaThrow, AllegroKuka, AllegroKukaTwoArmsReorientation,
+AllegroKukaTwoArmsRegrasping and AllegroKukaTwoArms).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -39,16 +40,16 @@ their module constants' stand-in assets and take no path, as the JAX
 package's factories take none, and so do Trifinger and the hands; the
 ANYmal tasks' registry default of 500 steps becomes their own 1000,
 FrankaCubeStack's its own 300, Trifinger's 750 and the hands' 600 (the
-DeXtreme and AllegroKuka tasks' too). The ShadowHandOpenAI tasks are
-ShadowHand with `obs_type="openai"` and the asymmetric critic (an MLP,
-or LSTMs for actor and critic). The DeXtreme tasks (AllegroHandDextremeADR
+DeXtreme and AllegroKuka tasks' too, on one arm and on two). The
+ShadowHandOpenAI tasks are ShadowHand with `obs_type="openai"` and the
+asymmetric critic (an MLP, or LSTMs for actor and critic). The DeXtreme tasks (AllegroHandDextremeADR
 and its alias AllegroHandADR; AllegroHandManualDR with fixed ranges) wrap
 AllegroHand with ADR and the random network adversary, under an LSTM 512
-before a 512-512 MLP; the one-arm AllegroKuka tasks take their variant
-from the name, or, as `AllegroKuka`, from `env.subtask` (reorientation by
-default; that resolver takes no other env field, as the JAX package's).
-The JAX package's other classic tasks (the two-arm AllegroKuka tasks,
-Factory*, IndustReal*, HumanoidAMP) are not ported: naming one raises
+before a 512-512 MLP; the AllegroKuka tasks take their variant from the
+name, or, as `AllegroKuka` and `AllegroKukaTwoArms`, from `env.subtask`
+(reorientation by default; those resolvers take no other env field, as the
+JAX package's). The JAX package's other classic tasks (Factory*,
+IndustReal*, HumanoidAMP) are not ported: naming one raises
 NotImplementedError (ROADMAP §1.7).
 
 Each function has a `*_config` form that stops at the env's config (a
@@ -68,7 +69,10 @@ from handarm_tpu_torch.envs.adr import AdrConfig
 from handarm_tpu_torch.envs.allegro_kuka import (
     AllegroKukaConfig,
     AllegroKukaEnv,
+    AllegroKukaTwoArmsConfig,
+    AllegroKukaTwoArmsEnv,
     allegro_kuka_config,
+    allegro_kuka_two_arms_config,
 )
 from handarm_tpu_torch.envs.anymal import AnymalConfig, AnymalEnv, anymal_config
 from handarm_tpu_torch.envs.anymal_terrain import (
@@ -145,10 +149,10 @@ CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv,
                 FrankaCubeStackConfig: FrankaCubeStackEnv, FrankaCabinetConfig: FrankaCabinetEnv,
                 TrifingerConfig: TrifingerEnv, DexHandConfig: AllegroHandEnv,
                 ShadowHandConfig: ShadowHandEnv, DextremeConfig: AllegroHandDextremeEnv,
-                AllegroKukaConfig: AllegroKukaEnv}
+                AllegroKukaConfig: AllegroKukaEnv,
+                AllegroKukaTwoArmsConfig: AllegroKukaTwoArmsEnv}
 # the JAX package's classic tasks the port does not have yet
 UNPORTED_CLASSIC = (
-    "AllegroKukaTwoArms", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArmsReorientation",
     "FactoryTaskGears", "FactoryTaskInsertion", "FactoryTaskNutBoltPick",
     "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew", "HumanoidAMP",
     "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert",
@@ -284,6 +288,27 @@ def _allegro_kuka_resolver(num_envs, episode_length, subtask="reorientation"):
 
 
 register_classic("AllegroKuka", _allegro_kuka_resolver, dict(_KUKA_PPO))
+
+
+# the two-arm tasks: the same PPO (the JAX registry's overrides, the train
+# yamls' ppo blocks), reorientation and regrasping by name
+def _allegro_kuka_two_arms_factory(variant: str):
+    return _episode_rule(
+        lambda num_envs, **kw: allegro_kuka_two_arms_config(num_envs, variant, **kw), 600)
+
+
+for _variant, _name in (("reorientation", "AllegroKukaTwoArmsReorientation"),
+                        ("regrasping", "AllegroKukaTwoArmsRegrasping")):
+    register_classic(_name, _allegro_kuka_two_arms_factory(_variant), dict(_KUKA_PPO))
+
+
+def _allegro_kuka_two_arms_resolver(num_envs, episode_length, subtask="reorientation"):
+    """The reference's task-map name `AllegroKukaTwoArms`: `env.subtask`
+    picks the variant (any of the env's, as the JAX package's resolver)."""
+    return _allegro_kuka_two_arms_factory(subtask)(num_envs, episode_length)
+
+
+register_classic("AllegroKukaTwoArms", _allegro_kuka_two_arms_resolver, dict(_KUKA_PPO))
 
 
 def _refuse_unported(name: str) -> None:

@@ -33,17 +33,19 @@ BASE = dict(n=(0, 1, 2), t1=(3, 4, 5), t2=(6, 7, 8), pos=(9, 10, 11),
 NBASE = 17
 NSIDE = 10  # r(3) + Iinv sym(6) + invm(1)
 
-MAX_LINKS = 32  # distinct dof masks; a kinematic tree has at most nv
+MAX_DOFS = 64  # dofs a mask holds: one 64-bit word
+MAX_LINKS = 64  # distinct dof masks; a kinematic tree has at most nv
 
 launches = 0  # kernel launches since the last reset (CUDA path only)
 
 
 class SlotGroups(NamedTuple):
-    """A scene's static slot groups, int32 on its device: one group per
-    distinct nonzero dof mask (a hand link) and one per (side, object) bin,
-    each an ascending CSR list of slots."""
+    """A scene's static slot groups on its device: one group per distinct
+    nonzero dof mask (a hand link) and one per (side, object) bin, each an
+    ascending CSR list of slots. The masks are int64 (bit u: dof u, up to
+    MAX_DOFS), every other table int32."""
 
-    link_bits: torch.Tensor  # [L] the distinct nonzero dof masks
+    link_bits: torch.Tensor  # [L] int64, the distinct nonzero dof masks
     slot_link: torch.Tensor  # [C] group of each slot's mask, -1 without a robot dof
     link_ptr: torch.Tensor  # [L + 1] offsets of each group's slots in link_slots
     link_slots: torch.Tensor  # [NL]
@@ -54,7 +56,8 @@ class SlotGroups(NamedTuple):
 def check_groups(groups: SlotGroups, C: int, device, who: str,
                  bins: tuple[int, int] | None = None) -> None:
     """Raise unless the tables have the shapes and types the kernels take:
-    the masks and each slot's group, and with `bins` = (S, K) the slot lists."""
+    the masks (int64) and each slot's group, and with `bins` = (S, K) the
+    slot lists (int32)."""
     L = groups.link_bits.shape[0]
     expect = {"link_bits": (L,), "slot_link": (C,)}
     if bins is not None:
@@ -62,10 +65,11 @@ def check_groups(groups: SlotGroups, C: int, device, who: str,
                       obj_ptr=(bins[0] * bins[1] + 1,), obj_slots=(groups.obj_slots.shape[0],))
     for name, shape in expect.items():
         t = getattr(groups, name)
-        if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != shape \
+        dtype = torch.int64 if name == "link_bits" else torch.int32
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{who}: groups.{name} is {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device}, expected {shape} int32 contiguous on {device}")
+                             f"{t.device}, expected {shape} {dtype} contiguous on {device}")
     if L > MAX_LINKS:
         raise ValueError(f"{who}: {L} distinct dof masks, the kernels take {MAX_LINKS}")
     if bins is not None and (groups.link_slots.shape[0] > C
@@ -245,7 +249,7 @@ def contact_sweep_cuda(planes, bias, screws, qd, minv2, obj, lam0, groups,
         if not t.is_contiguous():
             raise ValueError(f"contact_sweep_cuda: {name} is not contiguous")
     # K = 0 (no objects, the classic tasks' craft) only without object sides
-    if not (1 <= nv <= 31 and (1 if S else 0) <= K <= 8 and S <= 2 and C <= 1024):
+    if not (1 <= nv <= MAX_DOFS and (1 if S else 0) <= K <= 8 and S <= 2 and C <= 1024):
         raise ValueError(f"contact_sweep_cuda: unsupported sizes nv={nv} K={K} "
                          f"sides={S} C={C}")
     check_groups(groups, C, planes.device, "contact_sweep_cuda", bins=(S, K))

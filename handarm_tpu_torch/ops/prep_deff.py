@@ -21,7 +21,7 @@ import torch
 
 from handarm_tpu_torch.math.quat import cross
 from handarm_tpu_torch.ops import build
-from handarm_tpu_torch.ops.contact_sweep import check_groups
+from handarm_tpu_torch.ops.contact_sweep import MAX_DOFS, check_groups
 
 launches = 0  # kernel launches since the last reset (CUDA path only)
 CHUNK = 128  # slots per step of the plain chain
@@ -82,8 +82,8 @@ def robot_deff_cuda(screws, pos, basis, groups, minv2) -> torch.Tensor:
                              f"expected {shape} {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"robot_deff_cuda: {name} is not contiguous")
-    if not 1 <= nv <= 31:
-        raise ValueError(f"robot_deff_cuda: nv={nv}, the dof masks hold 1 to 31 dofs")
+    if not 1 <= nv <= MAX_DOFS:
+        raise ValueError(f"robot_deff_cuda: nv={nv}, the dof masks hold 1 to {MAX_DOFS} dofs")
     check_groups(groups, C, pos.device, "robot_deff_cuda")
     out = torch.empty(3, B, C, dtype=torch.float32, device=pos.device)
     if B == 0 or C == 0:

@@ -4,10 +4,14 @@ Counterpart of handarm_tpu/ops/spd_inverse.py (`spd_inverse`, the Pallas
 `_chol_inv_kernel` plus the caller-side W^T W). On CUDA tensors the
 hand-written kernel in csrc/spd_inverse.cu runs: the unrolled Cholesky
 with the same rsqrt(max(s, 1e-12)) pivot floor, W = L^-1, and Minv = W^T W,
-all in one launch, compiled for the n in `KERNEL_N` only: one thread per
-matrix up to n = 18, one warp per matrix (a lane per row) at n = 23, 24 and
-27 (at the even 24 the rows sit 25 words apart in shared memory). On CPU
-tensors the plain version runs: a Cholesky
+all in one launch, compiled for the n in `KERNEL_N` only, in three
+layouts: one thread per matrix up to n = 18; one warp per matrix (a lane
+per row) at n = 23, 24 and 27 (at the even 24 the rows sit 25 words apart
+in shared memory); and past a warp's 32 lanes, at n = 46 (the two-arm
+AllegroKuka), one block of two warps per matrix, a thread per row, the
+matrix in shared memory at rows 47 words apart (`spd_inverse_block_kernel`;
+it takes any 33 <= n <= 64 at its own instantiation). On CPU tensors the
+plain version runs: a Cholesky
 factorization and two triangular solves, as the JAX package does off the
 TPU.
 """
@@ -22,8 +26,9 @@ launches = 0  # kernel launches since the last reset (CUDA path only)
 # matrix sizes the kernel is instantiated for: the Cartpole, the Ingenuity,
 # the Stretch (the Franka, the Trifinger), BallBalance, the Quadcopter and
 # the Ant, the Allegro hand, the UR5+SIH, the ANYmal, the KUKA arm with the
-# Allegro hand, the Shadow hand, the Humanoid
-KERNEL_N = (2, 8, 9, 12, 14, 16, 17, 18, 23, 24, 27)
+# Allegro hand, the Shadow hand, the Humanoid, the two KUKA arms with their
+# Allegro hands
+KERNEL_N = (2, 8, 9, 12, 14, 16, 17, 18, 23, 24, 27, 46)
 
 
 def spd_inverse_plain(M: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ import torch
 from handarm_tpu_torch.math.quat import cross, skew
 from handarm_tpu_torch.ops import contact_sweep as sweep_op
 from handarm_tpu_torch.ops import prep_deff as deff_op
-from handarm_tpu_torch.ops.contact_sweep import BASE, NBASE, NSIDE, SlotGroups
+from handarm_tpu_torch.ops.contact_sweep import BASE, MAX_DOFS, NBASE, NSIDE, SlotGroups
 from handarm_tpu_torch.physics.contacts import Contacts, ContactSlots
 from handarm_tpu_torch.physics.dynamics import free_body_inv_inertia_world
 from handarm_tpu_torch.physics.kinematics import FK, ModelArrays, point_jacobian
@@ -68,7 +68,7 @@ class SlotMaps:
     """Static slot couplings, built once per scene from ContactSlots."""
 
     anc_slot: torch.Tensor  # [C, nv] dof u moves slot c's robot body
-    anc_bits: torch.Tensor  # [C] int32 bitmask of anc_slot
+    anc_bits: torch.Tensor  # [C] int64 bitmask of anc_slot (bit u: dof u)
     robot_mask: torch.Tensor  # [C]
     group_onehot: torch.Tensor  # [C, G]
     group_obj: torch.Tensor  # [G, K]
@@ -97,13 +97,15 @@ def build_slot_groups(anc_bits: np.ndarray, obj_idx: np.ndarray, num_objects: in
     """The slot groups the sweep and deff kernels reduce over: one group per
     distinct nonzero dof mask (grouped by the mask itself, so any tree and
     slot layout stay exact; on a kinematic tree one per hand link), and one
-    per (side, object) bin, each as an ascending CSR list of slots."""
+    per (side, object) bin, each as an ascending CSR list of slots. The
+    masks are 64-bit words (int64, bit u for dof u), ordered as unsigned."""
     anc_bits = np.asarray(anc_bits, np.int64)
     obj_idx = np.asarray(obj_idx, np.int64).reshape(-1, anc_bits.shape[0])
-    link_bits, inverse = np.unique(anc_bits, return_inverse=True)
+    masks = anc_bits.view(np.uint64)  # bit 63 set stays a mask, not a sign
+    link_bits, inverse = np.unique(masks, return_inverse=True)
     inverse = inverse.reshape(-1) - int(link_bits[0] == 0)
     link_bits = link_bits[link_bits != 0]
-    slot_link = np.where(anc_bits != 0, inverse, -1)
+    slot_link = np.where(masks != 0, inverse, -1)
 
     def csr(lists):
         ptr = np.concatenate([[0], np.cumsum([len(x) for x in lists])])
@@ -114,8 +116,9 @@ def build_slot_groups(anc_bits: np.ndarray, obj_idx: np.ndarray, num_objects: in
     # bin q * K + k: the slots whose side q holds object k
     obj_ptr, obj_slots = csr([np.flatnonzero(row == k) for row in obj_idx for k in range(K)])
     i32 = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int32, device=device)
-    return SlotGroups(i32(link_bits), i32(slot_link), i32(link_ptr), i32(link_slots),
-                      i32(obj_ptr), i32(obj_slots))
+    return SlotGroups(torch.as_tensor(link_bits.view(np.int64), device=device),
+                      i32(slot_link), i32(link_ptr), i32(link_slots), i32(obj_ptr),
+                      i32(obj_slots))
 
 
 def build_slot_maps(slots: ContactSlots, ancestor_mask: np.ndarray,
@@ -127,9 +130,12 @@ def build_slot_maps(slots: ContactSlots, ancestor_mask: np.ndarray,
     has_robot = slots.robot_body >= 0
     body = np.where(has_robot, slots.robot_body, 0)
     anc = np.asarray(ancestor_mask)[body] * has_robot[:, None]
-    if anc.shape[1] > 31:
-        raise ValueError("the sweep kernel's slot bitmask holds at most 31 dofs")
-    bits = (anc > 0).astype(np.int64) @ (1 << np.arange(anc.shape[1]))
+    if anc.shape[1] > MAX_DOFS:
+        raise ValueError(f"{anc.shape[1]} dofs: the sweep and deff kernels' 64-bit dof masks "
+                         f"hold at most {MAX_DOFS}")
+    bits = ((anc > 0).astype(np.uint64)
+            @ np.left_shift(np.uint64(1), np.arange(anc.shape[1], dtype=np.uint64))
+            ).view(np.int64)
     onehot = _group_onehot(slots)
     slot_a = np.zeros((C, K), np.float32)
     slot_b = np.zeros((C, K), np.float32)
@@ -151,7 +157,7 @@ def build_slot_maps(slots: ContactSlots, ancestor_mask: np.ndarray,
         signs.append(sign)
     obj_idx = np.stack(idx_rows) if idx_rows else np.zeros((0, C), np.int64)
     return SlotMaps(
-        anc_slot=t(anc), anc_bits=t(bits, torch.int32), robot_mask=t(has_robot),
+        anc_slot=t(anc), anc_bits=t(bits, torch.int64), robot_mask=t(has_robot),
         group_onehot=t(onehot), group_obj=t(group_obj),
         slot_obj=(t(slot_a), t(slot_b)), side_kidx=tuple(kidx),
         side_mask=tuple(masks), side_onehot=tuple(onehots),

@@ -43,15 +43,16 @@ BallBalance, Anymal, AnymalTerrain, FrankaCubeStack, FrankaCabinet,
 Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF,
 ShadowHandOpenAI_LSTM, AllegroHandDextremeADR, AllegroHandADR,
 AllegroHandManualDR, AllegroKukaReorientation, AllegroKukaRegrasping,
-AllegroKukaThrow and AllegroKuka compose the same way (their task yamls'
-`env` block and train yamls' `ppo` block; `env.num_envs=N` or
-`num_envs=N`, and any field of the task's config dataclass:
-QuadcopterConfig, IngenuityConfig, ClassicConfig, LocomotionConfig,
-BallBalanceConfig, AnymalConfig, AnymalTerrainConfig,
+AllegroKukaThrow, AllegroKuka, AllegroKukaTwoArmsReorientation,
+AllegroKukaTwoArmsRegrasping and AllegroKukaTwoArms compose the same way
+(their task yamls' `env` block and train yamls' `ppo` block;
+`env.num_envs=N` or `num_envs=N`, and any field of the task's config
+dataclass: QuadcopterConfig, IngenuityConfig, ClassicConfig,
+LocomotionConfig, BallBalanceConfig, AnymalConfig, AnymalTerrainConfig,
 FrankaCubeStackConfig, FrankaCabinetConfig, TrifingerConfig,
-DexHandConfig, ShadowHandConfig, DextremeConfig, AllegroKukaConfig;
-`AllegroKuka` takes `env.subtask=` reorientation, regrasping or throw and
-no other field):
+DexHandConfig, ShadowHandConfig, DextremeConfig, AllegroKukaConfig,
+AllegroKukaTwoArmsConfig; `AllegroKuka` and `AllegroKukaTwoArms` take
+`env.subtask=` reorientation, regrasping or throw and no other field):
 
     python -m handarm_tpu_torch.train task=Quadcopter env.num_envs=8192
     python -m handarm_tpu_torch.train task=Ingenuity env.num_envs=4096
@@ -72,10 +73,12 @@ no other field):
     python -m handarm_tpu_torch.train task=AllegroHandManualDR env.num_envs=8192
     python -m handarm_tpu_torch.train task=AllegroKukaReorientation env.num_envs=8192
     python -m handarm_tpu_torch.train task=AllegroKuka env.subtask=regrasping env.num_envs=8192
+    python -m handarm_tpu_torch.train task=AllegroKukaTwoArms env.subtask=regrasping env.num_envs=8192
 
 Cartpole, the Ant, the Humanoid, BallBalance, the ANYmal tasks, the
 Franka tasks, Trifinger, the hands, DeXtreme and AllegroKuka (a KUKA iiwa 7
-with an Allegro hand) run on the in-repo stand-in assets
+with an Allegro hand; two of them facing each other in the two-arm tasks)
+run on the in-repo stand-in assets
 (`assets/classic_standin/`); `urdf=PATH`
 (Cartpole) and `mjcf=PATH` (Ant) take others. Their stats carry no success rate (`succ` prints 0).
 The JAX package's other classic tasks raise NotImplementedError (ROADMAP

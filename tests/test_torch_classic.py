@@ -80,9 +80,16 @@ package on the CPU.
   the inner DexState's 15, the last observation, the AdrState's 6, the
   two RNA masks, the key; its recurrent learner read with its PPOConfig)
   and AllegroKukaReorientation (25: the fixed base's physics, the bool
-  lifted flags and the tolerance curriculum's scalars among them). The
-  refusal list keeps four refused cases: FactoryTaskGears, HumanoidAMP,
-  AllegroKukaTwoArms and IndustRealTaskPegsInsert.
+  lifted flags and the tolerance curriculum's scalars among them).
+- The two-arm AllegroKuka tasks (AllegroKukaTwoArmsReorientation,
+  AllegroKukaTwoArmsRegrasping, and AllegroKukaTwoArms with its
+  `env.subtask` resolver; the JAX package's `KUKA_ALLEGRO_URDF` and
+  `TWO_ARMS_URDF` pointed at the stand-in and the port's composed file;
+  tests/test_torch_allegro_kuka_two_arms.py holds their envs and that
+  file): `compose_task` against the JAX package's, with the 500 -> 600
+  episode rule and the variant from the name or the subtask, 506 slots.
+  The refusal list keeps three refused cases: FactoryTaskGears,
+  HumanoidAMP and IndustRealTaskPegsInsert.
 """
 
 import dataclasses
@@ -253,9 +260,10 @@ def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
 
 DEXTREME = ("AllegroHandDextremeADR", "AllegroHandADR", "AllegroHandManualDR")
 KUKA = ("AllegroKukaReorientation", "AllegroKukaRegrasping", "AllegroKukaThrow", "AllegroKuka")
+KUKA2 = ("AllegroKukaTwoArmsReorientation", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArms")
 PORTED_STANDINS = ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance", "FrankaCabinet",
                    "FrankaCubeStack", "Trifinger", "AllegroHand", "ShadowHand",
-                   "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM") + DEXTREME + KUKA
+                   "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM") + DEXTREME + KUKA + KUKA2
 
 
 @pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM", "Humanoid",
@@ -265,14 +273,16 @@ PORTED_STANDINS = ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance", "Fran
                                   "AllegroHandADR", "HumanoidAMP", "AllegroKukaTwoArms",
                                   "IndustRealTaskPegsInsert", "AllegroHandDextremeADR",
                                   "AllegroHandManualDR", "AllegroKukaReorientation",
-                                  "AllegroKukaRegrasping", "AllegroKukaThrow"])
+                                  "AllegroKukaRegrasping", "AllegroKukaThrow",
+                                  "AllegroKukaTwoArmsReorientation",
+                                  "AllegroKukaTwoArmsRegrasping"])
 def test_unported_classic_task_raises(task):
     """The refusal list: the JAX package's classic tasks the port lacks raise
     NotImplementedError naming ROADMAP §1.7 (FactoryTaskGears, HumanoidAMP,
-    AllegroKukaTwoArms, IndustRealTaskPegsInsert); Ant, Cartpole, Humanoid,
-    Anymal, BallBalance, FrankaCabinet, FrankaCubeStack, Trifinger,
-    AllegroHand, ShadowHand, the ShadowHandOpenAI tasks, the DeXtreme tasks
-    and the one-arm AllegroKuka tasks are ported and off it."""
+    IndustRealTaskPegsInsert); Ant, Cartpole, Humanoid, Anymal, BallBalance,
+    FrankaCabinet, FrankaCubeStack, Trifinger, AllegroHand, ShadowHand, the
+    ShadowHandOpenAI tasks, the DeXtreme tasks and the AllegroKuka tasks on
+    one arm and on two are ported and off it."""
     assert task in jreg.CLASSIC_TASKS
     with pytest.raises(TypeError):
         treg.resolve_task("Quadcopter", ["no_such_field=1"])
@@ -472,6 +482,10 @@ def _standin_constants():
     shadow = [(jdex, "SHADOW_MJCF", tdex.SHADOW_MJCF)]
     allegro = [(jdex, "ALLEGRO_URDF", tdex.ALLEGRO_URDF)]
     kuka = ((jak, "make_allegro_kuka"), [(jak, "KUKA_ALLEGRO_URDF", tak.KUKA_ALLEGRO_URDF)])
+    # the JAX generator returns an existing file: the port's, composed alike
+    kuka2 = ((jak, "make_allegro_kuka_two_arms"),
+             [(jak, "KUKA_ALLEGRO_URDF", tak.KUKA_ALLEGRO_URDF),
+              (jak, "TWO_ARMS_URDF", tak.generate_two_arms_urdf)])
 
     return {"BallBalance": ((jbb, "make_ball_balance"), [(jbb, "BBOT_MJCF", tbb.BBOT_MJCF)]),
             "Anymal": ((jan, "make_anymal"), [(jan, "ANYMAL_URDF", tan.ANYMAL_URDF)]),
@@ -490,17 +504,18 @@ def _standin_constants():
             "AllegroHandDextremeADR": ((jdx, "make_allegro_dextreme"), allegro),
             "AllegroHandADR": ((jdx, "make_allegro_dextreme"), allegro),
             "AllegroHandManualDR": ((jdx, "make_allegro_dextreme_manual"), allegro),
-            **{task: kuka for task in KUKA}}
+            **{task: kuka for task in KUKA}, **{task: kuka2 for task in KUKA2}}
 
 
 STANDIN_CONSTANTS = _standin_constants()
 
 
 def _patch_standins(mp):
-    """Point the JAX package's asset constants at the in-repo stand-ins."""
+    """Point the JAX package's asset constants at the in-repo stand-ins (a
+    callable path: the file it writes)."""
     for _, consts in STANDIN_CONSTANTS.values():
         for mod, name, path in consts:
-            mp.setattr(mod, name, path)
+            mp.setattr(mod, name, path() if callable(path) else path)
 
 
 def test_cartpole_reset_and_steps_match():
@@ -577,6 +592,9 @@ def test_cartpole_reset_and_steps_match():
     ("AllegroKukaThrow", ["env.num_envs=16", "keypoint_scale=2.0"]),
     ("AllegroKuka", []),
     ("AllegroKuka", ["env.num_envs=16", "env.subtask=throw"]),
+    ("AllegroKukaTwoArmsReorientation", []),
+    ("AllegroKukaTwoArmsRegrasping", ["num_envs=32", "env.episode_length=300"]),
+    ("AllegroKukaTwoArms", ["env.num_envs=16", "env.subtask=regrasping"]),
 ])
 def test_compose_task_matches_standins(task, overrides, monkeypatch):
     from handarm_tpu.envs import locomotion as jl
@@ -612,7 +630,7 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
     if task == "Trifinger":
         assert cfg.episode_length == 750  # the registry's 500 -> 750
     if task in ("AllegroHand", "ShadowHand", "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM",
-                *DEXTREME, *KUKA):
+                *DEXTREME, *KUKA, *KUKA2):
         # the registry's 500 -> 600; the OpenAI tasks: 42 observations, the
         # 211-dim state as the critic's
         assert cfg.episode_length == (300 if "env.episode_length=300" in overrides else 600)
@@ -629,6 +647,13 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
         assert cfg.variant == jenv.cfg.variant == want
         assert tuple(ppo_over["hidden"]) == (768, 512, 256)
         assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots == 298
+    if task in KUKA2:  # the variant from the name, or from env.subtask; two arms
+        want = "regrasping" if "Regrasping" in task or "env.subtask=regrasping" in overrides \
+            else "reorientation"
+        assert cfg.variant == jenv.cfg.variant == want
+        assert tuple(ppo_over["hidden"]) == (768, 512, 256)
+        assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots == 506
+        assert tenv.art.nv == jenv.art.nv == 46
     if task == "FrankaCabinet" and overrides:  # the props ride in the drawer
         assert tenv.scene.shapes.num_objects == jenv.scene.shapes.num_objects == 3
         assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots

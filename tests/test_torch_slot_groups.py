@@ -23,6 +23,9 @@ the thumb's base and hub), each with one cube, of the KUKA arm with the
 Allegro hand on its flange (AllegroKuka: 298 slots in 23 masks over 23
 dofs, the arm's 7 links and the fingers' 16, with three boxes: 52
 robot-table, 156 robot-object, 42 object-table and 48 object-pair slots),
+of two such arms facing each other (the two-arm AllegroKuka: 506 slots in
+46 masks over 46 dofs, arm 1's at bits 23-45 of the 64-bit masks: 104
+robot-table, 312 robot-object, 42 object-table and 48 object-pair slots),
 and of a random scene with an
 arbitrary set of dof masks, the tables must list every robot slot under
 exactly the group of its mask and every object side under exactly its
@@ -50,7 +53,8 @@ torch.set_num_threads(1)
 SCENES = ["Ur5SihLift", "Ur5SihMultiObjectManipulation", "random",
           "Ur5SihLift arm", "Ur5SihMultiObjectManipulation arm", "Quadcopter", "Ingenuity",
           "Ant", "Humanoid", "BallBalance", "Anymal", "AnymalTerrain", "FrankaCubeStack",
-          "FrankaCabinet", "Trifinger", "AllegroHand", "ShadowHand", "AllegroKukaReorientation"]
+          "FrankaCabinet", "Trifinger", "AllegroHand", "ShadowHand", "AllegroKukaReorientation",
+          "AllegroKukaTwoArmsReorientation"]
 ARM_SLOTS = {"Ur5SihLift arm": 190, "Ur5SihMultiObjectManipulation arm": 456}
 
 
@@ -99,11 +103,15 @@ CRAFT = {"Quadcopter": (4, [_mask(u) for u in (6, 8, 10, 12)], 14, 0),
          "Trifinger": (91, sorted(sum((_chain(f, 3) for f in (0, 3, 6)), [])), 9, 1),
          "AllegroHand": (150, sorted(sum((_chain(f, 4) for f in (0, 4, 8, 12)), [])), 16, 1),
          "ShadowHand": (160, _SHADOW, 24, 1),
-         "AllegroKukaReorientation": (298, _KUKA, 23, 3)}
+         "AllegroKukaReorientation": (298, _KUKA, 23, 3),
+         # arm 1's 23 masks are arm 0's shifted past its dofs
+         "AllegroKukaTwoArmsReorientation": (506, sorted(_KUKA + [m << 23 for m in _KUKA]), 46,
+                                             3)}
 # the object bins' slot counts of the scenes with objects, (side, object) in order
 BINS = {"BallBalance": [1, 80], "FrankaCubeStack": [22, 22, 38, 38], "FrankaCabinet": [100, 30],
         "Trifinger": [28, 21], "AllegroHand": [14, 68], "ShadowHand": [14, 73],
-        "AllegroKukaReorientation": [30, 30, 30, 68, 68, 68]}
+        "AllegroKukaReorientation": [30, 30, 30, 68, 68, 68],
+        "AllegroKukaTwoArmsReorientation": [30, 30, 30, 120, 120, 120]}
 B = 6
 
 
@@ -147,7 +155,8 @@ def test_tables_group_every_slot_once(scene):
     name, (anc, bits, obj_idx, K, signs, g) = scene
     C = bits.shape[0]
     link_bits, slot_link = g.link_bits.numpy(), g.slot_link.numpy()
-    assert all(t.dtype == torch.int32 for t in g)
+    # the 64-bit dof masks, every other table int32
+    assert g.link_bits.dtype == torch.int64 and all(t.dtype == torch.int32 for t in g[1:])
     assert len(set(link_bits.tolist())) == len(link_bits) and np.all(link_bits != 0)
     assert len(link_bits) <= tsw.MAX_LINKS
     if name in CRAFT:  # a floating base's 6 dofs in every mask; the Franka's chain
@@ -340,14 +349,15 @@ def test_grouped_deff_matches_plain(scene):
 
 def test_arm_spheres_within_kernel_limits(scene):
     """The tables pass the kernels' own check (`check_groups`: at most
-    MAX_LINKS masks, int32, shapes, list lengths) and the sweep's size
-    limits (C <= 1024, nv <= 31, K <= 8 and K >= 1 with object sides, 2
-    sides) at the scene's slots, as the card will see them: the craft's
-    K = 0 scenes have no sides."""
+    MAX_LINKS = 64 masks, int64 masks and int32 lists, shapes, list lengths)
+    and the sweep's size limits (C <= 1024, nv <= 64, K <= 8 and K >= 1
+    with object sides, 2 sides) at the scene's slots, as the card will see
+    them: the craft's K = 0 scenes have no sides."""
     name, (anc, bits, obj_idx, K, signs, g) = scene
     C, nv = anc.shape
     tsw.check_groups(g, C, torch.device("cpu"), name, bins=(len(signs), K))
-    assert C <= 1024 and nv <= 31 and K <= 8 and len(signs) <= 2
+    assert tsw.MAX_LINKS == tsw.MAX_DOFS == 64 and g.link_bits.dtype == torch.int64
+    assert C <= 1024 and nv <= 64 and len(g.link_bits) <= 64 and K <= 8 and len(signs) <= 2
     if name in CRAFT and CRAFT[name][3] == 0:
         assert (C, K, len(signs), nv) == (CRAFT[name][0], 0, 0, CRAFT[name][2])
         assert tuple(g.obj_ptr.shape) == (1,) and g.obj_slots.numel() == 0
@@ -360,3 +370,35 @@ def test_arm_spheres_within_kernel_limits(scene):
         assert K >= 1
     if name in ARM_SLOTS:
         assert C == ARM_SLOTS[name]
+
+
+def test_past_64_dofs_refused():
+    """A 65th dof has no bit in a 64-bit mask: `build_slot_maps` refuses a
+    robot of 65 dofs, naming the kernels' limit, and `check_groups` refuses
+    65 distinct masks (and int32 masks); 64 dofs build, dof 63's bit set."""
+    from handarm_tpu_torch.physics.contacts import ContactSlots
+    from handarm_tpu_torch.physics.solver import build_slot_maps
+
+    def maps(nv):
+        # a chain: slot c on body c, whose ancestors are dofs 0..c
+        slots = ContactSlots(robot_body=np.arange(nv), obj_a=np.full(nv, -1),
+                             obj_b=np.full(nv, -1), friction=np.ones(nv, np.float32),
+                             num_slots=nv, queries=None)
+        return build_slot_maps(slots, np.tril(np.ones((nv, nv), np.float32)), 0)
+
+    with pytest.raises(ValueError, match="at most 64"):
+        maps(65)
+    m = maps(64)
+    assert m.groups.link_bits.dtype == torch.int64 and len(m.groups.link_bits) == 64
+    assert int(m.anc_bits[63]) == -1  # all 64 bits set: every dof an ancestor of the last
+    assert sorted(m.groups.link_bits.numpy().view(np.uint64).tolist()) == [
+        (1 << (c + 1)) - 1 for c in range(64)]  # ordered as unsigned: the full mask last
+    g = m.groups
+    tsw.check_groups(g, 64, torch.device("cpu"), "64 dofs", bins=(0, 0))
+    over = g._replace(link_bits=torch.arange(1, 66, dtype=torch.int64),
+                      slot_link=torch.zeros(65, dtype=torch.int32))
+    with pytest.raises(ValueError, match="65 distinct dof masks"):
+        tsw.check_groups(over, 65, torch.device("cpu"), "65 masks")
+    with pytest.raises(ValueError, match="int64"):
+        tsw.check_groups(g._replace(link_bits=g.link_bits.int()), 64, torch.device("cpu"),
+                         "int32 masks")
