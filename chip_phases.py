@@ -7,7 +7,7 @@ build, then the named phases in this process, in the order given.
 
 Phases: a classic task's chip_smoke phase by its name (quad, ingenuity,
 franka-cube-stack, franka-cabinet, trifinger, allegro-hand, shadow-hand,
-dextreme, allegro-kuka, allegro-kuka-two-arms),
+dextreme, allegro-kuka, allegro-kuka-two-arms, factory, industreal),
 `entry:TASK` (the task's train entry
 point as `train.main` in this process, its checkpoint read back whole:
 chip_smoke's `classic_entry`; `entry:TASK,KEY=VALUE,...` adds overrides,
@@ -78,6 +78,12 @@ def main(names: list[str]) -> int:
         elif kind in ("allegro-kuka", "allegro-kuka-two-arms"):
             with cs.phase(kind):
                 rec[name] = cs.allegro_kuka_phase(rollout, dev, ops, CLASSIC_PHASES[kind])
+        elif kind == "factory":
+            with cs.phase(kind):
+                rec[name] = cs.factory_phase(rollout, dev, ops)
+        elif kind == "industreal":
+            with cs.phase(kind):
+                rec[name] = cs.industreal_phase(rollout, dev, ops)
         elif kind in CLASSIC_PHASES:
             with cs.phase(kind):
                 rec[name] = cs.classic_phase(rollout, dev, ops, CLASSIC_PHASES[kind])[0]

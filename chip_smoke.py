@@ -432,7 +432,11 @@ Phases, each with a deadline and one flushed progress line:
                read with its PPOConfig: the DextremeState's 25 leaves, the
                inner DexState's with the AdrState and the RNA masks) and
                `task=AllegroKuka env.subtask=throw`'s at 8192 envs (16 / 32
-               / 16 / 0; the AKState's 25 leaves).
+               / 16 / 0; the AKState's 25 leaves), `task=AllegroKukaTwoArms
+               env.subtask=regrasping`'s at 8192 (16 / 32 / 16 / 0) and
+               FactoryTaskNutBoltScrew's at 512 (64 / 64 / 0 / 32; the
+               FactoryState's 16 leaves: the screw's unwrapped yaw and the
+               fingertip forces among them).
  49. ant       the Ant as `train.py` composes it (configs/task/Ant.yaml,
                configs/train/AntPPO.yaml: 256-128-64, horizon 16,
                minibatch 32768) at IsaacGymEnvs' 4096 envs, on the in-repo
@@ -625,7 +629,51 @@ Phases, each with a deadline and one flushed progress line:
                beside their bounds and library calls; card vs CPU at 16 of
                those envs as phase 57; then one train iteration of
                AllegroKukaTwoArmsRegrasping at 8192 envs (16 / 32 / 16 / 0).
-               (Phases 45-47 and 49-62 run after phase 37, then 48, before
+ 63. factory   FactoryTaskNutBoltPick as `train.py` composes it
+               (256-128-64, horizon 32, minibatch 8192) at the task yaml's
+               512 envs on the in-repo stand-in Franka with the reference's
+               M16 nut and bolt (the tracked records at R = 40, 96 surface
+               points; C = 298, K = 2, 16 sweeps): 1 timed train iteration
+               (64 / 64 / 0 / 32: OSC's and the engine's spd_inverse, the
+               sweep a substep, sdf_gather a contact generation; B x C =
+               152,576 keeps prep_deff's gate shut), 7 serving steps (2 /
+               2 / 0 / 1 a step); then FactoryTaskNutBoltPlace, the nut in
+               the closed gripper, FACTORY_GRASP_STEPS steps with the arm
+               still and the gripper closed, the last step's calls kept and
+               the envs whose fingers push on the nut counted (at least
+               1/32); there spd_inverse (n = 9, to n cond eps), the sweep
+               (captured, dense over UNSTABLE_DENSE_SWEEPS sweeps and robot
+               cases, against float64: lam per slot kind and obj per
+               object too, each at its own scale), sdf_gather at R = 40 (every
+               channel; the queries inside the grids printed) and
+               prep_deff (forced for one more step) against their plain
+               versions, bit-identical over two launches, timed beside
+               their bounds and library calls; card vs CPU at 16 of those
+               envs (2 steps, the same seeded actions and draws); then
+               FactoryTaskNutBoltScrew, the nut started SCREW_START_TURNS
+               down the thread and spun at SCREW_SPIN rad/s for SCREW_STEPS
+               steps: its height the thread pitch's within 1e-3 m, on the
+               bolt's axis, its nut-bolt slots active in at least 1/32 of
+               the envs, the sweep held on that solve; then FactoryTaskGears
+               (K = 3, C = 456, no warm start: the sweep with
+               apply_warm=False at 16 sweeps, and sdf_gather over three
+               fields) after GEARS_STEPS steps; then one train iteration
+               each of FactoryTaskNutBoltPlace, FactoryTaskGears and
+               FactoryTaskInsertion at 512 envs (64 / 64 / 0 / 32).
+ 64. industreal  IndustRealTaskPegsInsert as `train.py` composes it (the
+               same MLP with an asymmetric critic on the 47-dim state) at
+               512 envs: 1 timed train iteration (64 / 64 / 0 / 32), 7
+               serving steps; then the welded plug in the squeezing
+               gripper, IR_SQUEEZE_STEPS steps from a reset (the envs whose
+               fingers push on the plug counted: at least 1/32), where
+               spd_inverse, the 8-sweep sweep with the socket pinned by its
+               zero-travel rail and sdf_gather are held as in phase 63;
+               `sdf_reward`, `sapu_scale` and the interpenetration of every
+               env's plug card vs CPU; card vs CPU at 16 envs; and one
+               forced SBC update (every episode ending inserted, the EWMA at
+               0.9, the counter at its interval: the bound 0.01 -> 0.005 m)
+               card vs CPU.
+               (Phases 45-47 and 49-64 run after phase 37, then 48, before
                phase 42.)
 Each phase prints its seconds ("[phase] ok in ..."). The line before the
 last is a JSON object naming every kernel with its numbers (the
@@ -645,8 +693,8 @@ under "parallel" (and each kernel's launches there under its "parallel"
 key in "kernels"), the classic tasks' under "classic" (and each kernel's
 launches and checks on the craft, the Ant, the Humanoid, the Cartpole,
 BallBalance, Anymal, AnymalTerrain, FrankaCubeStack, FrankaCabinet,
-Trifinger, AllegroHand, ShadowHand, DeXtreme, AllegroKuka and the two-arm
-AllegroKuka under its "classic" key in
+Trifinger, AllegroHand, ShadowHand, DeXtreme, AllegroKuka, the two-arm
+AllegroKuka, the Factory tasks and IndustReal under its "classic" key in
 "kernels"; spd_inverse's compiled sizes, their layouts and the checks
 that held each under its "instances" key);
 the last line
@@ -688,8 +736,8 @@ PHASE_DEADLINE_S = {"device": 60, "build": 420, "rollout": 300, "kernels": 180,
                     "ball-balance": 240, "anymal": 240, "anymal-terrain": 300,
                     "franka-cube-stack": 240, "franka-cabinet": 240, "trifinger": 240,
                     "allegro-hand": 240, "shadow-hand": 300, "dextreme": 240,
-                    "allegro-kuka": 300, "allegro-kuka-two-arms": 300,
-                    "classic-entry": 300}
+                    "allegro-kuka": 300, "allegro-kuka-two-arms": 300, "factory": 240,
+                    "industreal": 180, "classic-entry": 300}
 ENVS = 8192
 STEPS = 30  # timed lift control steps, after one warm-up step
 LIFT_EXTRA_STEPS = 20  # untimed lift steps searched for robot-object contact
@@ -936,7 +984,7 @@ def sweep_groups_pushed(lam, groups) -> tuple[int, int, int, int]:
 
 
 def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool = False,
-                spread: bool = False, dense_sweeps: int | None = None):
+                spread: bool = False, dense_sweeps: int | None = None, slots=None):
     """The captured solve, then (with `synthetic`) every slot made active
     (over `dense_sweeps` sweeps, by default the captured solve's) and only
     the robot's slots active, each against the plain version.
@@ -951,7 +999,11 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool
     scale and twice the larger of the two versions' own spreads, the most
     each one's output moves when every float input is scaled by 1 +
     U(-1e-7, 1e-7) (6 draws: `own_spread`); the distances from float64 are
-    printed."""
+    printed. With `slots` (the scene's slot table; with `f64`) lam is
+    held the same way per slot kind (`slot_kinds` and the object-static
+    rest) and obj per object, each against its own float64 scale: one
+    kind's impulses (IndustReal's first arm link on the table, inv_d at
+    its 1e8 clamp: 4.6e8) then hide no other's."""
     import torch
 
     from handarm_tpu_torch.physics.solver import mass_split
@@ -960,6 +1012,14 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool
     (planes, bias, screws, qd, minv2, obj, lam0, anc, groups, obj_idx,
      signs, iters, omega) = args
     warm = kw.get("apply_warm", True)
+    parts = []  # (name, the part of a (qd, obj, lam) output) held on its own
+    if slots is not None:
+        kinds = slot_kinds(slots)
+        kinds["object-static"] = ~(kinds["robot-static"] | kinds["robot-object"]
+                                   | kinds["object-pair"])
+        parts = [(f"lam {k}", lambda o, m=m.to(planes.device): o[2][..., m])
+                 for k, m in kinds.items() if bool(m.any())]
+        parts += [(f"obj {k}", lambda o, k=k: o[1][:, :, k]) for k in range(obj.shape[2])]
 
     f64_errs = {}  # case -> output -> the kernel's and the plain version's error from f64
 
@@ -1016,6 +1076,15 @@ def check_sweep(sweep_op, captured, maps, tag, synthetic: bool = True, f64: bool
                 log(f"contact_sweep ({tag}, {case}): {name} max|kernel-f64| {ek:.3e}, "
                     f"max|plain-f64| {ep:.3e} (scale {sc:.3e})")
                 if not spread and not ek <= max(1e-4 * sc, 2.0 * ep):
+                    raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, "
+                                         f"{case})")
+            for name, part in parts:
+                ek, _ = max_err(part(got).double(), part(want64))
+                ep, sc = max_err(part(want).double(), part(want64))
+                f64_errs[case][name] = dict(kernel=ek, plain=ep, scale=sc)
+                log(f"contact_sweep ({tag}, {case}): {name} max|kernel-f64| {ek:.3e}, "
+                    f"max|plain-f64| {ep:.3e} (scale {sc:.3e})")
+                if not ek <= max(1e-4 * sc, 2.0 * ep):
                     raise AssertionError(f"contact_sweep kernel disagrees on {name} ({tag}, "
                                          f"{case})")
         bitwise(lambda: sweep_op.contact_sweep_cuda(*cuda_args), f"contact_sweep ({tag}, {case})")
@@ -3283,7 +3352,8 @@ CLASSIC = {"Quadcopter": (8192, 1), "Ingenuity": (4096, 1), "Ant": (4096, 1),
            "Anymal": (4096, 1), "AnymalTerrain": (4096, 1), "FrankaCubeStack": (8192, 1),
            "FrankaCabinet": (4096, 1), "Trifinger": (16384, 1), "AllegroHand": (16384, 1),
            "ShadowHand": (16384, 1), "AllegroHandDextremeADR": (8192, 1),
-           "AllegroKukaReorientation": (8192, 1), "AllegroKukaTwoArmsReorientation": (8192, 1)}
+           "AllegroKukaReorientation": (8192, 1), "AllegroKukaTwoArmsReorientation": (8192, 1),
+           "FactoryTaskNutBoltPick": (512, 1), "IndustRealTaskPegsInsert": (512, 1)}
 LOCOMOTION = ("Ant", "Humanoid")
 CONTACT_TASKS = ("BallBalance", "Anymal", "AnymalTerrain")  # phases 52-54
 FRANKA_TASKS = ("FrankaCubeStack", "FrankaCabinet")  # phases 55-56
@@ -3300,7 +3370,8 @@ GRASP_STEPS = 10  # the Trifinger's scripted steps toward the cube's faces, then
 # IsaacGymEnvs' numEnvs (cfg/task/ShadowHandOpenAI_FF.yaml, _LSTM.yaml)
 OPENAI = {"ShadowHandOpenAI_FF": 16384, "ShadowHandOpenAI_LSTM": 8192}
 # the entry points' tasks in neither table, at IsaacGymEnvs' numEnvs
-ENTRY_ENVS = {"AllegroHandManualDR": 8192, "AllegroKuka": 8192, "AllegroKukaTwoArms": 8192}
+ENTRY_ENVS = {"AllegroHandManualDR": 8192, "AllegroKuka": 8192, "AllegroKukaTwoArms": 8192,
+              "FactoryTaskNutBoltScrew": 512}
 # phases 60-61 at IsaacGymEnvs' numEnvs (cfg/task/AllegroHandDextremeADR.yaml,
 # AllegroKuka.yaml); the KUKA's other variants one train iteration each
 DEXTREME_TASK = "AllegroHandDextremeADR"
@@ -3310,6 +3381,22 @@ DEXTREME_REF_HI = (0.05, 0.05, 0.2)  # ADR's ranges opened for dextreme-ref
 KUKA_TASKS = {"AllegroKukaReorientation": ("AllegroKukaRegrasping", "AllegroKukaThrow"),
               "AllegroKukaTwoArmsReorientation": ("AllegroKukaTwoArmsRegrasping",)}
 KUKA_SETTLE_STEPS = 6  # steps of the objects resting on the back of the fingers
+# phases 63-64 at the task yamls' 512 envs (configs/task/Factory*.yaml,
+# IndustRealTaskPegsInsert.yaml)
+FACTORY_TASK = "FactoryTaskNutBoltPick"
+INDUSTREAL_TASK = "IndustRealTaskPegsInsert"
+FACTORY_VARIANTS = ("FactoryTaskNutBoltPlace", "FactoryTaskGears", "FactoryTaskInsertion")
+FACTORY_GRASP_STEPS = 3  # the place env's steps, the arm still and the gripper closed
+SCREW_STEPS = 10  # the screw env's steps with the nut spun
+SCREW_SPIN = -20.0  # rad/s about z before each of them (tests/test_factory.py:48-75)
+SCREW_START_TURNS = 16  # the nut's start down the thread (3.2 cm): within 2 cm of the bolt
+GEARS_STEPS = 3  # the gears env's zero-action steps
+IR_SQUEEZE_STEPS = 2  # IndustReal's zero-action steps, the gripper squeezing the plug
+# the dense case's sweeps where that case is an unstable Jacobi iteration
+# (FrankaCabinet's drawer; the Factory and IndustReal parts, whose inverse
+# inertias up to 5.4e5 take the object velocities to ~1e26 over 16 sweeps,
+# the plain version at 256 envs on the CPU): 2, as the robot case's
+UNSTABLE_DENSE_SWEEPS = 2
 CLASSIC_SERVE_STEPS = 30  # timed deterministic steps through PPO.act, after one warm-up
 CLASSIC_GROUND_HEIGHT = 0.004  # m over touching: every env's slots active at the first step
 CLASSIC_ENTRY_ITERS = 1
@@ -4134,10 +4221,11 @@ def franka_phase(rollout, dev, ops, task: str) -> dict:
     # ground) is an unstable Jacobi iteration: the plain version's float32
     # error from float64 grows 2.4e-7, 5.5e-7, 4.7e-6, 8.3e-5 over 1, 2, 4
     # and 8 sweeps at a scale of 0.7, so there two float32 orders differ
-    # by their own rounding; it runs 2 sweeps, as the robot case does
+    # by their own rounding; it runs UNSTABLE_DENSE_SWEEPS
+    dense = UNSTABLE_DENSE_SWEEPS if task == "FrankaCabinet" else None
     kern = {"spd_inverse": check_spd_craft(spd_op, calls["spd"][0][0][0], dev, tag),
             "contact_sweep": check_sweep(sweep_op, calls["sweep"][0], sc.maps, tag, f64=True,
-                                         dense_sweeps=2 if task == "FrankaCabinet" else None)}
+                                         dense_sweeps=dense)}
     kern["contact_sweep"].update(envs_with_contacts=n_contact, contacts=want)
     if "sdf" in calls:
         kern["sdf_gather"] = check_sdf(sdf_op, calls["sdf"][0][0])
@@ -4195,6 +4283,330 @@ def contact_state_ref(task: str, ppo, ts, dev, kept, scores) -> dict:
     if not bool(torch.isfinite(obs_g).all()) or pushed[0] < 16:
         raise AssertionError(f"bad card run or an env without contact ({task}-ref)")
     return dict(envs_with_impulses=pushed, **rec)
+
+
+def part_env(task: str, envs: int, dev):
+    """A Factory or IndustReal task's env as `train.py` composes it, at
+    `envs` envs, with its per-step launch prediction."""
+    from handarm_tpu_torch.envs.registry import build_env, resolve_task
+
+    cfg, _ = resolve_task(task, [f"env.num_envs={envs}"])
+    env = build_env(cfg, dev)
+    return env, per_step_launches(env)
+
+
+def pushing_envs(env, state, robot: bool):
+    """[B] bool: the envs whose last solve left an impulse on a slot of the
+    robot against part 0 (`robot`), or on a part-on-part slot."""
+    import torch
+
+    slots = env.scene.slots
+    kind = ((slots.robot_body >= 0) & (slots.obj_b == 0) if robot
+            else (slots.obj_a >= 0) & (slots.obj_b >= 0))
+    pushed = state.physics.contact_impulse.norm(dim=-1) > 0
+    return (pushed & torch.as_tensor(kind, device=pushed.device)).any(-1)
+
+
+def run_steps(env, state, steps: int, action, ops, per_step: dict, rollout, tag: str,
+              spin=None):
+    """`steps` env steps from `state` with `action(i)` (and, with `spin`,
+    part 0's spin about z forced to that rad/s before each step), the last
+    step's kernel calls kept; launches as predicted. Returns (state, calls)."""
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+
+    rollout.reset_launch_counts()
+    with Capture(ops, last_only=True) as cap:
+        for i in range(steps):
+            cap.armed = i == steps - 1
+            if spin is not None:
+                o = state.physics.objects
+                av = o.angvel.clone()
+                av[:, 0, 2] = spin
+                state = state._replace(physics=state.physics._replace(
+                    objects=o._replace(angvel=av)))
+            state, res = env.step(state, action(i))
+    check_launches(rollout.launch_counts(), per_step, steps, tag)
+    finite_state(tree_map, state, res.obs)
+    return state, cap.calls
+
+
+def parts_ref(env_g, kept, scores, dev, tag: str, closed: bool, extra=None) -> dict:
+    """Card vs CPU at 16 envs of a built contact state (those with the
+    contacts first; clocks zeroed), 2 env steps with the same seeded actions
+    (uniform in [-0.3, 0.3], the gripper closed with `closed`) and the same
+    draws: q and the parts' positions within 2e-4, observations within
+    2e-3, each times max(1, the CPU value's largest). `extra(state)`
+    replaces the start state's fields on both sides."""
+    import torch
+
+    from handarm_tpu_torch.envs.hand_arm import tree_map
+    from handarm_tpu_torch.envs.registry import build_env
+
+    cfg = dataclasses.replace(env_g.cfg, num_envs=16)
+    env_c, env_g = build_env(cfg, "cpu"), build_env(cfg, dev)
+    to = lambda x, d: tree_map(lambda t: t.to(d), x)
+    idx = torch.argsort(-scores.int(), stable=True)[:16]
+    start = tree_map(lambda t: (t[idx] if t.ndim else t).cpu(), kept)
+    start = start._replace(progress=torch.zeros_like(start.progress))
+    if extra is not None:
+        start = extra(start)
+    state_c, state_g = start, to(start, dev)
+    gen = torch.Generator().manual_seed(4)
+    rec = {"info": []}
+    for _ in range(2):
+        a = (torch.rand(16, env_c.num_actions, generator=gen) * 2.0 - 1.0) * 0.3
+        if closed:
+            a[:, 6] = -1.0
+        d = env_c.draw(16)
+        state_c, res_c = env_c.step(state_c, a, d)
+        state_g, res_g = env_g.step(state_g, a.to(dev), to(d, dev))
+        rec["info"].append({k: (float(res_g.info[k]), float(res_c.info[k]))
+                            for k in res_c.info})
+    pairs = [("obs", res_g.obs, res_c.obs, 2e-3),
+             ("q", state_g.physics.robot.q, state_c.physics.robot.q, 2e-4),
+             ("object_pos", state_g.physics.objects.pos, state_c.physics.objects.pos, 2e-4)]
+    if env_c.num_teacher_obs:
+        pairs.append(("teacher_obs", res_g.teacher_obs, res_c.teacher_obs, 2e-3))
+    for name, g, c, tol in pairs:
+        scale = max(1.0, float(c.abs().max()))
+        rec[name] = dict(err=float((g.cpu() - c).abs().max()), scale=scale, tol=tol * scale)
+    log(f"{tag}: 16 envs, 2 steps; " + ", ".join(
+        f"max|{k} gpu-cpu| {v['err']:.3e} (scale {v['scale']:.3e})"
+        for k, v in rec.items() if k != "info") + f"; info (card, cpu) {rec['info'][-1]}")
+    if not all(v["err"] <= v["tol"] for k, v in rec.items() if k != "info"):
+        raise AssertionError(f"the card's run disagrees with the CPU reference ({tag})")
+    if not bool(torch.isfinite(res_g.obs).all()):
+        raise AssertionError(f"non-finite card observations ({tag})")
+    return rec, state_g, state_c
+
+
+def factory_phase(rollout, dev, ops) -> dict:
+    """Phase 63 (see the module docstring). Returns the record."""
+    import torch
+
+    from handarm_tpu_torch.envs.factory import (
+        BOLT_HEAD_HEIGHT, BOLT_SHANK_LENGTH, TABLE_HEIGHT, THREAD_PITCH)
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import prep_deff as deff_op
+    from handarm_tpu_torch.ops import sdf_gather as sdf_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    envs = CLASSIC[FACTORY_TASK][0]
+    env, per_step = part_env(FACTORY_TASK, envs, dev)
+    _, over = resolve_task(FACTORY_TASK, [f"env.num_envs={envs}"])
+    ppo = PPO(env, ppo_config(over))
+    sc = env.scene
+    log(f"{FACTORY_TASK}: {envs} envs, nv {env.art.nv}, C = {sc.slots.num_slots}, K = "
+        f"{env.K}, R = {sc.shapes.sdf_field.shape[1]}, {sc.params.solver.iterations} sweeps, "
+        f"warm start {sc.params.solver.warm_start}; part masses "
+        f"{[round(float(m), 4) for m in sc.shapes.mass]} kg, inverse inertias up to "
+        f"{float((1.0 / sc.shapes.inertia_diag).max()):.3e}; obs {env.num_obs}, actions "
+        f"{env.num_actions}; learner hidden {ppo.cfg.hidden}, horizon {ppo.cfg.horizon}, "
+        f"{ppo.num_minibatches} minibatches of {ppo.mb_size}; launches per step {per_step}")
+    rec, _, _ = train_and_serve(rollout, env, ppo, FACTORY_TASK)
+    del env, ppo
+
+    def closed(n):  # the arm still, the gripper closed (action 6 < 0)
+        a = torch.zeros(n, 12, device=dev)
+        a[:, 6] = -1.0
+        return lambda i: a
+
+    # place: the nut in the closed gripper, the arm still
+    place, per = part_env("FactoryTaskNutBoltPlace", envs, dev)
+    state, _ = place.reset(2)
+    state, calls = run_steps(place, state, FACTORY_GRASP_STEPS, closed(envs), ops, per,
+                             rollout, "place contact state")
+    scores = pushing_envs(place, state, robot=True)
+    n_contact = int(scores.sum())
+    nut_z = state.physics.objects.pos[:, 0, 2]
+    log(f"FactoryTaskNutBoltPlace: {n_contact} of {envs} envs with the fingers pushing on the "
+        f"nut after {FACTORY_GRASP_STEPS} steps; nut z {float(nut_z.min()):.4f}-"
+        f"{float(nut_z.max()):.4f} m")
+    if n_contact < envs // 32:
+        raise AssertionError("FactoryTaskNutBoltPlace: too few envs with the fingers on the nut")
+    tag = "FactoryTaskNutBoltPlace contact state"
+    kern = {"spd_inverse": check_spd_craft(spd_op, calls["spd"][0][0][0], dev, tag),
+            "contact_sweep": check_sweep(sweep_op, calls["sweep"][0], place.scene.maps, tag,
+                                         f64=True, dense_sweeps=UNSTABLE_DENSE_SWEEPS,
+                                         slots=place.scene.slots),
+            "sdf_gather": check_sdf(sdf_op, calls["sdf"][0][0])}
+    kern["contact_sweep"].update(envs_with_contacts=n_contact,
+                                 contacts="the fingers pushing on the nut")
+    kern["sdf_gather"].update(resolution=int(place.scene.shapes.sdf_field.shape[1]))
+    # prep_deff, off this path (B x C < 2^21), forced for one more step
+    with deff_at_any_size(), Capture(ops, last_only=True) as cap:
+        cap.armed = True
+        place.step(state, closed(envs)(0))
+    torch.cuda.synchronize()
+    kern["prep_deff"] = check_deff(deff_op, cap.calls["deff"][0][0])
+    kern["prep_deff"].update(forced=True)
+    rec["kernels"] = kern
+    rec["contact_state"] = dict(task="FactoryTaskNutBoltPlace", steps=FACTORY_GRASP_STEPS,
+                                envs_with_contacts=n_contact)
+    rec["ref"], _, _ = parts_ref(place, state, scores, dev, "factory-ref (place)", True)
+    del place, state, calls, cap
+
+    # screw: the nut started SCREW_START_TURNS down the thread (within the
+    # speculative margin of the bolt, which rests lower than the thread's top),
+    # then spun on down it
+    screw, per = part_env("FactoryTaskNutBoltScrew", envs, dev)
+    state, _ = screw.reset(3)
+    z_top = TABLE_HEIGHT + BOLT_HEAD_HEIGHT + BOLT_SHANK_LENGTH
+    theta0 = torch.full((envs,), -2.0 * math.pi * SCREW_START_TURNS, device=dev)
+    o = state.physics.objects
+    pos = o.pos.clone()
+    pos[:, 0, 2] = z_top + THREAD_PITCH * theta0 / (2 * math.pi)
+    state = state._replace(theta=theta0, physics=state.physics._replace(
+        objects=o._replace(pos=pos)))
+    z0 = pos[:, 0, 2]
+    zeros = lambda i: torch.zeros(envs, 12, device=dev)
+    state, calls = run_steps(screw, state, SCREW_STEPS, zeros, ops, per, rollout,
+                             "screw", spin=SCREW_SPIN)
+    z = state.physics.objects.pos[:, 0, 2]
+    expect = torch.clamp(z_top + THREAD_PITCH * state.theta / (2 * math.pi),
+                         TABLE_HEIGHT + BOLT_HEAD_HEIGHT, z_top)
+    pitch_err = float((z - expect).abs().max())
+    xy = float(state.physics.objects.pos[:, 0, :2].abs().max())
+    descent = float((z0 - z).mean())
+    pair = pushing_envs(screw, state, robot=False)
+    # the nut-bolt slots the last solve held active (the gate: within the
+    # speculative margin), whether or not they carried an impulse
+    slots = screw.scene.slots
+    pair_slots = torch.as_tensor((slots.obj_a >= 0) & (slots.obj_b >= 0), device=dev)
+    gate = calls["sweep"][0][0][0][sweep_op.BASE["gate"]] > 0
+    pair_active = int((gate & pair_slots[None]).any(-1).sum())
+    log(f"FactoryTaskNutBoltScrew: {SCREW_STEPS} steps spun at {SCREW_SPIN} rad/s from "
+        f"{SCREW_START_TURNS} turns down: theta {float(state.theta.mean()):.3f} rad, mean "
+        f"descent {descent * 1e3:.4f} mm, max |z - pitch's| {pitch_err:.3e} m, max |xy| "
+        f"{xy:.3e} m; {pair_active} envs with "
+        f"active nut-bolt slots in the last solve, {int(pair.sum())} with nut-bolt impulses")
+    if not (pitch_err <= 1e-3 and xy <= 1e-4 and float((state.theta - theta0).max()) < -1.0
+            and pair_active >= envs // 32):
+        raise AssertionError("FactoryTaskNutBoltScrew: the nut does not follow the thread, or "
+                             "no nut-bolt slot in play")
+    kern["contact_sweep"]["screw"] = dict(
+        path="FactoryTaskNutBoltScrew, the nut spun on its cylindrical rail",
+        envs_with_active_nut_bolt_slots=pair_active,
+        envs_with_nut_bolt_impulses=int(pair.sum()), descent_m=descent, pitch_err_m=pitch_err,
+        **check_sweep(sweep_op, calls["sweep"][0], screw.scene.maps,
+                      "FactoryTaskNutBoltScrew spun", f64=True,
+                      dense_sweeps=UNSTABLE_DENSE_SWEEPS, slots=screw.scene.slots))
+    del screw, state, calls
+
+    # gears: three parts on the table, no warm start
+    gears, per = part_env("FactoryTaskGears", envs, dev)
+    state, _ = gears.reset(4)
+    state, calls = run_steps(gears, state, GEARS_STEPS, zeros, ops, per, rollout, "gears")
+    on_table = pushing_envs(gears, state, robot=False) | (
+        state.physics.contact_impulse.norm(dim=-1) > 0).any(-1)
+    log(f"FactoryTaskGears: K = {gears.K}, C = {gears.scene.slots.num_slots}, warm start "
+        f"{gears.scene.params.solver.warm_start}: {int(on_table.sum())} of {envs} envs with "
+        f"impulses after {GEARS_STEPS} steps")
+    if int(on_table.sum()) < envs // 32:
+        raise AssertionError("FactoryTaskGears: no contacts to hold the sweep on")
+    gsweep = check_sweep(sweep_op, calls["sweep"][0], gears.scene.maps, "FactoryTaskGears",
+                         f64=True, dense_sweeps=UNSTABLE_DENSE_SWEEPS, slots=gears.scene.slots)
+    if calls["sweep"][0][1].get("apply_warm", True):
+        raise AssertionError("FactoryTaskGears: the sweep applied a warm start")
+    kern["contact_sweep"]["gears"] = dict(path="FactoryTaskGears (K = 3, apply_warm=False)",
+                                          **gsweep)
+    kern["sdf_gather"]["gears"] = dict(path="FactoryTaskGears (K = 3)",
+                                       **check_sdf(sdf_op, calls["sdf"][0][0]))
+    del gears, state, calls
+    rec["variants"] = {task: one_iteration(rollout, dev, task, envs)
+                       for task in FACTORY_VARIANTS}
+    return rec
+
+
+def industreal_phase(rollout, dev, ops) -> dict:
+    """Phase 64 (see the module docstring). Returns the record."""
+    import torch
+
+    from handarm_tpu_torch.envs.registry import resolve_task
+    from handarm_tpu_torch.learn.ppo import PPO, ppo_config
+    from handarm_tpu_torch.ops import contact_sweep as sweep_op
+    from handarm_tpu_torch.ops import sdf_gather as sdf_op
+    from handarm_tpu_torch.ops import spd_inverse as spd_op
+
+    task = INDUSTREAL_TASK
+    envs = CLASSIC[task][0]
+    env, per_step = part_env(task, envs, dev)
+    _, over = resolve_task(task, [f"env.num_envs={envs}"])
+    ppo = PPO(env, ppo_config(over))
+    sc = env.scene
+    log(f"{task}: {envs} envs, nv {env.art.nv}, C = {sc.slots.num_slots}, R = "
+        f"{sc.shapes.sdf_field.shape[1]}, {sc.params.solver.iterations} sweeps; obs "
+        f"{env.num_obs}, teacher obs {env.num_teacher_obs}, actions {env.num_actions}; learner "
+        f"hidden {ppo.cfg.hidden}, asymmetric {ppo.cfg.asymmetric_critic}, horizon "
+        f"{ppo.cfg.horizon}, {ppo.num_minibatches} minibatches of {ppo.mb_size}; launches per "
+        f"step {per_step}")
+    rec, _, _ = train_and_serve(rollout, env, ppo, task)
+    del ppo
+
+    # the welded plug in the squeezing gripper: a contact state from reset
+    state, _ = env.reset(2)
+    zeros = lambda i: torch.zeros(envs, 6, device=dev)
+    state, calls = run_steps(env, state, IR_SQUEEZE_STEPS, zeros, ops, per_step, rollout,
+                             "industreal contact state")
+    scores = pushing_envs(env, state, robot=True)
+    n_contact = int(scores.sum())
+    log(f"{task}: {n_contact} of {envs} envs with the fingers pushing on the plug after "
+        f"{IR_SQUEEZE_STEPS} steps")
+    if n_contact < envs // 32:
+        raise AssertionError(f"{task}: too few envs with the fingers on the plug")
+    tag = f"{task} contact state"
+    kern = {"spd_inverse": check_spd_craft(spd_op, calls["spd"][0][0][0], dev, tag),
+            "contact_sweep": check_sweep(sweep_op, calls["sweep"][0], sc.maps, tag, f64=True,
+                                         dense_sweeps=UNSTABLE_DENSE_SWEEPS, slots=sc.slots),
+            "sdf_gather": check_sdf(sdf_op, calls["sdf"][0][0])}
+    kern["contact_sweep"].update(envs_with_contacts=n_contact,
+                                 contacts="the fingers pushing on the plug, the socket pinned")
+    rec["kernels"] = kern
+    rec["contact_state"] = dict(steps=IR_SQUEEZE_STEPS, envs_with_contacts=n_contact)
+    del calls
+
+    # sdf_reward and sapu_scale on the card's plug poses, card vs CPU
+    from handarm_tpu_torch.envs.registry import build_env
+
+    env_c = build_env(dataclasses.replace(env.cfg, num_envs=envs), "cpu")
+    o = state.physics.objects
+    got_r = env.sdf_reward(o.pos[:, 0], o.quat[:, 0])
+    got_s, got_pen = env.sapu_scale(o.pos[:, 0], o.quat[:, 0], o.pos[:, 1], o.quat[:, 1])
+    oc = tuple(x.cpu() for x in (o.pos, o.quat))
+    want_r = env_c.sdf_reward(oc[0][:, 0], oc[1][:, 0])
+    want_s, want_pen = env_c.sapu_scale(oc[0][:, 0], oc[1][:, 0], oc[0][:, 1], oc[1][:, 1])
+    rewards = {}
+    for name, g, w, tol in (("sdf_reward", got_r, want_r, 1e-4), ("sapu", got_s, want_s, 1e-4),
+                            ("interpenetration", got_pen, want_pen, 1e-6)):
+        e, scale = max_err(g.cpu(), w)
+        rewards[name] = dict(err=e, scale=scale, mean=float(w.mean()))
+        if not e <= tol * max(1.0, scale):
+            raise AssertionError(f"{task}: {name} on the card disagrees with the CPU")
+    log(f"{task} rewards at {envs} envs: " + ", ".join(
+        f"{k} mean {v['mean']:.4e}, max|gpu-cpu| {v['err']:.3e}" for k, v in rewards.items()))
+    rec["rewards"] = rewards
+    rec["ref"], _, _ = parts_ref(env, state, scores, dev, "industreal-ref", False)
+
+    # one forced SBC update: every ending episode inserted, the EWMA at 0.9,
+    # the counter at its interval
+    cfg = env.cfg
+
+    def forced(s):
+        n = s.progress.shape[0]
+        return s._replace(inserted=torch.ones(n, dtype=torch.bool),
+                          progress=torch.full((n,), cfg.episode_length - 1),
+                          success_ewma=torch.tensor(0.9), max_disp=torch.tensor(0.01),
+                          steps_since_sbc=torch.tensor(cfg.curriculum_interval - 1))
+
+    sbc, sg, scpu = parts_ref(env, state, scores, dev, "industreal-sbc", False, forced)
+    moved = (float(sg.max_disp), float(scpu.max_disp))
+    log(f"{task} SBC: the bound 0.01 -> {moved[0]:.6f} on the card, {moved[1]:.6f} on the CPU")
+    if not (abs(moved[0] - 0.005) <= 1e-6 and moved[0] == moved[1]):
+        raise AssertionError(f"{task}: SBC's forced update does not move the bound alike")
+    rec["sbc"] = dict(sbc, max_disp=moved)
+    return rec
 
 
 def hand_contact_state(env, task: str, ops):
@@ -4690,7 +5102,7 @@ def spd_instances(entry: dict) -> list:
 
 
 def classic_phases(rollout, dev, ops) -> tuple:
-    """Phases 45-62: (their record, each kernel's classic record)."""
+    """Phases 45-64: (their record, each kernel's classic record)."""
     rec, kernels = {}, {}
     for task, ref in (("Quadcopter", "quad-ref"), ("Ingenuity", None)):
         name = "quad" if task == "Quadcopter" else "ingenuity"
@@ -4719,6 +5131,10 @@ def classic_phases(rollout, dev, ops) -> tuple:
     for task, name in zip(KUKA_TASKS, ("allegro-kuka", "allegro-kuka-two-arms")):
         with phase(name):
             rec[task] = allegro_kuka_phase(rollout, dev, ops, task)
+    with phase("factory"):
+        rec[FACTORY_TASK] = factory_phase(rollout, dev, ops)
+    with phase("industreal"):
+        rec[INDUSTREAL_TASK] = industreal_phase(rollout, dev, ops)
     for task in CLASSIC:
         per_iter = rec[task]["launches_per_iteration"]
         for k in per_iter:
@@ -4747,6 +5163,10 @@ def classic_phases(rollout, dev, ops) -> tuple:
             rollout, dev, "AllegroKuka", AKState, extra=["env.subtask=throw"])
         rec["entry_point"]["AllegroKukaTwoArms env.subtask=regrasping"] = classic_entry(
             rollout, dev, "AllegroKukaTwoArms", AKState, extra=["env.subtask=regrasping"])
+        from handarm_tpu_torch.envs.factory import FactoryState
+
+        rec["entry_point"]["FactoryTaskNutBoltScrew"] = classic_entry(
+            rollout, dev, "FactoryTaskNutBoltScrew", FactoryState)
     return rec, kernels
 
 
@@ -5501,14 +5921,16 @@ def main() -> int:
         log("classic: contact_sweep at C = 4, 8, 30, 37 and 51 (K = 0, no object sides) "
             "launches contact_sweep_kernel<128, 6>, at C = 161, K = 1 (BallBalance), C = 134, "
             "K = 2 (FrankaCubeStack), C = 190, K = 1 (FrankaCabinet), C = 91 (Trifinger), 150 "
-            "(AllegroHand) and 160 (ShadowHand), K = 1, C = 298, K = 3 (AllegroKuka), and C = "
-            "506, K = 3, nv 46 (the two-arm AllegroKuka), the instance its launch line names; "
-            "spd_inverse at n = 14, 8, 2, 12, 18, 9 and 16 its <14>, <8>, <2>, <12>, <18>, <9> "
-            "and <16>, at n = 27, 24 and 23 spd_inverse_warp_kernel<27, 27>, <24, 25> and "
-            "<23, 23> (a warp per matrix), at n = 46 spd_inverse_block_kernel<46, 47> (a block "
-            "of two warps per matrix); sdf_gather at FrankaCabinet's R = 32 drawer the one "
-            "sdf_gather_kernel; prep_deff on the hands' and both AllegroKuka scenes' B x C >= "
-            "2^21 the one prep_deff_kernel")
+            "(AllegroHand) and 160 (ShadowHand), K = 1, C = 298, K = 3 (AllegroKuka), C = "
+            "506, K = 3, nv 46 (the two-arm AllegroKuka), C = 298, K = 2 (the Factory nut and "
+            "bolt, peg and hole, and IndustReal) and C = 456, K = 3 (FactoryTaskGears), the "
+            "instance its launch line names; spd_inverse at n = 14, 8, 2, 12, 18, 9 and 16 its "
+            "<14>, <8>, <2>, <12>, <18>, <9> and <16>, at n = 27, 24 and 23 "
+            "spd_inverse_warp_kernel<27, 27>, <24, 25> and <23, 23> (a warp per matrix), at n = "
+            "46 spd_inverse_block_kernel<46, 47> (a block of two warps per matrix); sdf_gather "
+            "at FrankaCabinet's R = 32 drawer and the Factory and IndustReal parts' R = 40 "
+            "fields the one sdf_gather_kernel; prep_deff on the hands' and both AllegroKuka "
+            "scenes' B x C >= 2^21 (and forced on the Factory's) the one prep_deff_kernel")
 
     from handarm_tpu_torch import rollout
     from handarm_tpu_torch.envs import genesis

@@ -35,7 +35,11 @@ to write checkpoints its loader reads.
   targets among them), 15 for Trifinger (TrifingerState) and the hands
   (DexState, its scalar consecutive-success average among them), 25 for
   AllegroKuka on one arm or two (AKState: its bool `lifted`, three scalars
-  of the tolerance curriculum among them); the DeXtreme wrapper's DextremeState nests the
+  of the tolerance curriculum among them), 16 for the Factory tasks
+  (FactoryState: its bool pick latch, the screw's unwrapped yaw, the
+  fingertip forces, the bolt's position), 19 for IndustRealTaskPegsInsert
+  (IRState: the weld, the bool insertion latch, the perception noise and
+  SBC's three scalars among them); the DeXtreme wrapper's DextremeState nests the
   DexState (with its key), the last observation, the AdrState and the
   RNA masks before its own key: 25; the
   Cartpole's ClassicState has no physics: q, qd, progress, key. Its
@@ -43,7 +47,8 @@ to write checkpoints its loader reads.
   ClassicConfig, LocomotionConfig, BallBalanceConfig, AnymalConfig,
   AnymalTerrainConfig, FrankaCubeStackConfig, FrankaCabinetConfig,
   TrifingerConfig, DexHandConfig, ShadowHandConfig, DextremeConfig,
-  AllegroKukaConfig, AllegroKukaTwoArmsConfig) in place of a HandArmConfig. Integer leaves are int32
+  AllegroKukaConfig, AllegroKukaTwoArmsConfig, FactoryConfig,
+  IndustRealConfig) in place of a HandArmConfig. Integer leaves are int32
   there and int64 here, bool leaves bool on both sides.
 - `rna_params_from_arrays` carries the JAX package's RNAParams (the
   DeXtreme adversary's fixed weights) into the port.
@@ -73,9 +78,11 @@ from handarm_tpu_torch.envs.allegro_kuka import AKState
 from handarm_tpu_torch.envs.classic import ClassicState
 from handarm_tpu_torch.envs.dexhand import DexState
 from handarm_tpu_torch.envs.dextreme import DextremeState
+from handarm_tpu_torch.envs.factory import FactoryState
 from handarm_tpu_torch.envs.franka import FrankaState
 from handarm_tpu_torch.envs.franka_cabinet import CabinetState
 from handarm_tpu_torch.envs.hand_arm import EnvState, HandArmConfig, Metrics, TaskState
+from handarm_tpu_torch.envs.industreal import IRState
 from handarm_tpu_torch.envs.locomotion import LocoState
 from handarm_tpu_torch.envs.registry import CLASSIC_ENVS
 from handarm_tpu_torch.envs.trifinger import TrifingerState
@@ -103,7 +110,8 @@ CLASSIC_STATES = {cfg: env.state_type for cfg, env in CLASSIC_ENVS.items()}
 N_CLASSIC_PHYSICS = {ClassicState: 0, LocoState: N_PHYSICS_LEAVES + 3,
                      FrankaState: N_PHYSICS_LEAVES, CabinetState: N_PHYSICS_LEAVES,
                      TrifingerState: N_PHYSICS_LEAVES, DexState: N_PHYSICS_LEAVES,
-                     AKState: N_PHYSICS_LEAVES, DextremeState: N_PHYSICS_LEAVES}
+                     AKState: N_PHYSICS_LEAVES, DextremeState: N_PHYSICS_LEAVES,
+                     FactoryState: N_PHYSICS_LEAVES, IRState: N_PHYSICS_LEAVES}
 N_RNA_LEAVES = 2  # an RNAState's masks
 
 

@@ -127,6 +127,33 @@ def franka_sites(scene, sites: FrankaSites, q):
     return fk, sq, sp
 
 
+def franka_eef(scene, sites: FrankaSites, phys: PhysicsState):
+    """(FK, grip position [B, 3], grip quat [B, 4], its linear and angular
+    velocity [B, 3] each, site positions [B, 3, 3]) of the Franka's grip
+    site (and its fingertips)."""
+    fk, sq, sp = franka_sites(scene, sites, phys.robot.q)
+    bv = body_velocities(scene.model, fk, phys.robot.qd)
+    w = bv[:, sites.hand_body, :3]
+    v = bv[:, sites.hand_body, 3:] + cross(w, sp[:, 0])
+    return fk, sp[:, 0], sq[:, 0], v, w, sp
+
+
+def franka_osc_tau(scene, sites: FrankaSites, phys: PhysicsState, dpose: torch.Tensor, *,
+                   kp: float, h: float, default_q: torch.Tensor, arm_mask: torch.Tensor,
+                   effort: torch.Tensor) -> torch.Tensor:
+    """The arm's OSC torques [B, nv] for the twist error `dpose` [B, 6] at
+    gain `kp` (the mass matrix at substep `h`), on the dofs of `arm_mask`
+    and clipped to `effort`."""
+    rob = phys.robot
+    fk, gp, _, v, w, _ = franka_eef(scene, sites, phys)
+    dyn = compute_dyn(scene.model, fk, rob.qd, torch.zeros(3, device=rob.q.device), scene.kp,
+                      scene.kd, h)
+    J = eef_jacobian(scene.model, fk, sites.hand_body, gp) * arm_mask[None, None]
+    tau = osc_torques(dyn.Minv, J, dpose, torch.cat([v, w], -1), rob.q, rob.qd, default_q,
+                      kp=kp, arm_mask=arm_mask)
+    return torch.minimum(torch.maximum(tau * arm_mask[None], -effort[None]), effort[None])
+
+
 class FrankaCubeStackEnv:
     """Engine-backed FrankaCubeStack (the PPO contract: reset, step, num_obs,
     num_actions, cfg.num_envs)."""
@@ -203,12 +230,8 @@ class FrankaCubeStackEnv:
     def _eef(self, phys: PhysicsState):
         """(FK, grip position [B, 3], grip quat [B, 4], grip twist [B, 6]
         (linear; angular), left and right fingertip positions [B, 3])."""
-        rob = phys.robot
-        fk, sq, sp = franka_sites(self.scene, self.sites, rob.q)
-        bv = body_velocities(self.scene.model, fk, rob.qd)
-        w = bv[:, self.sites.hand_body, :3]
-        v = bv[:, self.sites.hand_body, 3:] + cross(w, sp[:, 0])
-        return fk, sp[:, 0], sq[:, 0], torch.cat([v, w], -1), sp[:, 1], sp[:, 2]
+        fk, gp, gq, v, w, sp = franka_eef(self.scene, self.sites, phys)
+        return fk, gp, gq, torch.cat([v, w], -1), sp[:, 1], sp[:, 2]
 
     def _obs(self, s: FrankaState):
         phys = s.physics
@@ -219,15 +242,9 @@ class FrankaCubeStackEnv:
     def osc_tau(self, phys: PhysicsState, dpose: torch.Tensor) -> torch.Tensor:
         """The arm's OSC torques [B, nv] for the twist error `dpose` [B, 6],
         clipped to the effort limits (zero on the fingers)."""
-        sc, rob = self.scene, phys.robot
-        fk, eef_p, _, eef_v, _, _ = self._eef(phys)
-        dyn = compute_dyn(sc.model, fk, rob.qd, torch.zeros(3, device=self.device), sc.kp,
-                          sc.kd, self.cfg.dt / self.cfg.substeps)
-        J = eef_jacobian(sc.model, fk, self.sites.hand_body, eef_p) * self.arm_mask[None, None]
-        tau = osc_torques(dyn.Minv, J, dpose, eef_v, rob.q, rob.qd, self.default_q,
-                          kp=self.cfg.osc_kp, arm_mask=self.arm_mask)
-        return torch.minimum(torch.maximum(tau * self.arm_mask[None], -self._effort[None]),
-                             self._effort[None])
+        return franka_osc_tau(self.scene, self.sites, phys, dpose, kp=self.cfg.osc_kp,
+                              h=self.cfg.dt / self.cfg.substeps, default_q=self.default_q,
+                              arm_mask=self.arm_mask, effort=self._effort)
 
     # --- step -------------------------------------------------------------------
 

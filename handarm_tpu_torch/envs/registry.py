@@ -8,7 +8,9 @@ FrankaCabinet, Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF,
 ShadowHandOpenAI_LSTM, AllegroHandDextremeADR, AllegroHandADR,
 AllegroHandManualDR, AllegroKukaReorientation, AllegroKukaRegrasping,
 AllegroKukaThrow, AllegroKuka, AllegroKukaTwoArmsReorientation,
-AllegroKukaTwoArmsRegrasping and AllegroKukaTwoArms).
+AllegroKukaTwoArmsRegrasping, AllegroKukaTwoArms, FactoryTaskNutBoltPick,
+FactoryTaskNutBoltPlace, FactoryTaskNutBoltScrew, FactoryTaskGears,
+FactoryTaskInsertion and IndustRealTaskPegsInsert).
 
 `compose_task(name, overrides)` reads `configs/task/<name>.yaml` and
 `configs/train/<name>PPO.yaml`, the same files the JAX package reads:
@@ -48,8 +50,12 @@ AllegroHand with ADR and the random network adversary, under an LSTM 512
 before a 512-512 MLP; the AllegroKuka tasks take their variant from the
 name, or, as `AllegroKuka` and `AllegroKukaTwoArms`, from `env.subtask`
 (reorientation by default; those resolvers take no other env field, as the
-JAX package's). The JAX package's other classic tasks (Factory*,
-IndustReal*, HumanoidAMP) are not ported: naming one raises
+JAX package's). The Factory tasks (the variant from the name) and
+IndustRealTaskPegsInsert (with its asymmetric critic) run on the stand-in
+Franka with the tracked part records; as the JAX package's factories, they
+keep `num_envs` and `episode_length` (the registry's 500 -> 100 and 128)
+and drop every other env key. The JAX package's other classic tasks
+(HumanoidAMP, IndustRealTaskGearsInsert) are not ported: naming one raises
 NotImplementedError (ROADMAP §1.7).
 
 Each function has a `*_config` form that stops at the env's config (a
@@ -101,6 +107,7 @@ from handarm_tpu_torch.envs.dextreme import (
     dextreme_config,
     dextreme_manual_config,
 )
+from handarm_tpu_torch.envs.factory import FactoryConfig, FactoryNutBoltEnv, factory_config
 from handarm_tpu_torch.envs.franka import (
     FrankaCubeStackConfig,
     FrankaCubeStackEnv,
@@ -112,6 +119,7 @@ from handarm_tpu_torch.envs.franka_cabinet import (
     franka_cabinet_config,
 )
 from handarm_tpu_torch.envs.hand_arm import HandArmConfig, HandArmEnv
+from handarm_tpu_torch.envs.industreal import IndustRealConfig, IndustRealEnv, industreal_config
 from handarm_tpu_torch.envs.ingenuity import IngenuityConfig, IngenuityEnv
 from handarm_tpu_torch.envs.locomotion import (
     LocomotionConfig,
@@ -150,13 +158,10 @@ CLASSIC_ENVS = {QuadcopterConfig: QuadcopterEnv, IngenuityConfig: IngenuityEnv,
                 TrifingerConfig: TrifingerEnv, DexHandConfig: AllegroHandEnv,
                 ShadowHandConfig: ShadowHandEnv, DextremeConfig: AllegroHandDextremeEnv,
                 AllegroKukaConfig: AllegroKukaEnv,
-                AllegroKukaTwoArmsConfig: AllegroKukaTwoArmsEnv}
+                AllegroKukaTwoArmsConfig: AllegroKukaTwoArmsEnv,
+                FactoryConfig: FactoryNutBoltEnv, IndustRealConfig: IndustRealEnv}
 # the JAX package's classic tasks the port does not have yet
-UNPORTED_CLASSIC = (
-    "FactoryTaskGears", "FactoryTaskInsertion", "FactoryTaskNutBoltPick",
-    "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew", "HumanoidAMP",
-    "IndustRealTaskGearsInsert", "IndustRealTaskPegsInsert",
-)
+UNPORTED_CLASSIC = ("HumanoidAMP", "IndustRealTaskGearsInsert")
 
 
 def register_classic(name: str, factory, ppo_overrides: dict | None = None):
@@ -309,6 +314,29 @@ def _allegro_kuka_two_arms_resolver(num_envs, episode_length, subtask="reorienta
 
 
 register_classic("AllegroKukaTwoArms", _allegro_kuka_two_arms_resolver, dict(_KUKA_PPO))
+
+
+def _keep_two_keys(make, task: str, length: int):
+    """A factory that keeps `num_envs` and `episode_length` (the registry's
+    500 -> `length`) and drops every other env key, as the JAX package's
+    Factory and IndustReal factories do."""
+    return lambda num_envs, episode_length, **kw: make(
+        num_envs, episode_length if episode_length != 500 else length, task)
+
+
+# reference cfg/train/FactoryTaskNutBolt*PPO.yaml: units [256,128,64],
+# horizon 32; IndustRealTask*PPO.yaml: the same MLP with an asymmetric
+# central-value critic on the 47-dim privileged state
+# (IndustRealTaskPegsInsertPPO.yaml:81-100)
+for _task, _name in (("pick", "FactoryTaskNutBoltPick"), ("place", "FactoryTaskNutBoltPlace"),
+                     ("screw", "FactoryTaskNutBoltScrew"), ("gears", "FactoryTaskGears"),
+                     ("insertion", "FactoryTaskInsertion")):
+    register_classic(_name, _keep_two_keys(factory_config, _task, 100),
+                     dict(hidden=(256, 128, 64), horizon=32, minibatch_size=8192, gamma=0.99,
+                          kl_threshold=0.016, reward_scale=1.0))
+register_classic("IndustRealTaskPegsInsert", _keep_two_keys(industreal_config, "pegs", 128),
+                 dict(hidden=(256, 128, 64), horizon=32, minibatch_size=8192, gamma=0.998,
+                      kl_threshold=0.016, reward_scale=0.01, asymmetric_critic=True))
 
 
 def _refuse_unported(name: str) -> None:

@@ -1,9 +1,11 @@
 """Voxel SDF fields: host-side gradient baking and the plain trilinear
-sampler (counterpart of handarm_tpu/physics/sdf.py `bake_grad_grid` and
-`sample_sdf_channels`, plus the out-of-grid excess of
+samplers (counterpart of handarm_tpu/physics/sdf.py `bake_grad_grid`,
+`sample_sdf` and `sample_sdf_channels`, plus the out-of-grid excess of
 handarm_tpu/physics/shapes.py `object_sdf`).
 
-`sample_sdf_plain` is the plain version of the `sdf_gather` kernel
+`sample_sdf` is the single-channel sample IndustReal's rewards read (the
+JAX package computes it in jnp, outside any kernel). `sample_sdf_plain` is
+the plain version of the `sdf_gather` kernel
 (ops/sdf_gather.py): one f32 8-corner gather from a [R, R, R, C] field
 (axes x, y, z, channel) at coordinates clamped to [0, R - 1.001], with the
 euclidean out-of-grid excess, times the spacing, added to channel 0.
@@ -63,3 +65,10 @@ def sample_sdf_plain(field: torch.Tensor, lo: torch.Tensor, spacing,
     out = sample_sdf_channels(field, lo, spacing, p)
     excess = out_of_grid_excess(grid_coords(p, lo, spacing), field.shape[0])
     return torch.cat([out[..., :1] + (excess * spacing)[..., None], out[..., 1:]], dim=-1)
+
+
+def sample_sdf(grid: torch.Tensor, lo: torch.Tensor, spacing, p: torch.Tensor) -> torch.Tensor:
+    """Trilinear sample of a distance grid [R, R, R] at body-frame points p
+    [..., 3] -> [...], coordinates clamped to the grid, plus the out-of-grid
+    excess (meters), so that far points still read a growing distance."""
+    return sample_sdf_plain(grid[..., None], lo, spacing, p)[..., 0]

@@ -44,7 +44,10 @@ Trifinger, AllegroHand, ShadowHand, ShadowHandOpenAI_FF,
 ShadowHandOpenAI_LSTM, AllegroHandDextremeADR, AllegroHandADR,
 AllegroHandManualDR, AllegroKukaReorientation, AllegroKukaRegrasping,
 AllegroKukaThrow, AllegroKuka, AllegroKukaTwoArmsReorientation,
-AllegroKukaTwoArmsRegrasping and AllegroKukaTwoArms compose the same way
+AllegroKukaTwoArmsRegrasping, AllegroKukaTwoArms, the Factory tasks
+(FactoryTaskNutBoltPick, FactoryTaskNutBoltPlace, FactoryTaskNutBoltScrew,
+FactoryTaskGears, FactoryTaskInsertion) and IndustRealTaskPegsInsert (its
+asymmetric critic on the 47-dim state) compose the same way
 (their task yamls' `env` block and train yamls' `ppo` block;
 `env.num_envs=N` or `num_envs=N`, and any field of the task's config
 dataclass: QuadcopterConfig, IngenuityConfig, ClassicConfig,
@@ -52,7 +55,9 @@ LocomotionConfig, BallBalanceConfig, AnymalConfig, AnymalTerrainConfig,
 FrankaCubeStackConfig, FrankaCabinetConfig, TrifingerConfig,
 DexHandConfig, ShadowHandConfig, DextremeConfig, AllegroKukaConfig,
 AllegroKukaTwoArmsConfig; `AllegroKuka` and `AllegroKukaTwoArms` take
-`env.subtask=` reorientation, regrasping or throw and no other field):
+`env.subtask=` reorientation, regrasping or throw and no other field;
+the Factory and IndustReal tasks keep `num_envs` and `episode_length`
+and drop every other env key, as the JAX package's factories do):
 
     python -m handarm_tpu_torch.train task=Quadcopter env.num_envs=8192
     python -m handarm_tpu_torch.train task=Ingenuity env.num_envs=4096
@@ -74,15 +79,20 @@ AllegroKukaTwoArmsConfig; `AllegroKuka` and `AllegroKukaTwoArms` take
     python -m handarm_tpu_torch.train task=AllegroKukaReorientation env.num_envs=8192
     python -m handarm_tpu_torch.train task=AllegroKuka env.subtask=regrasping env.num_envs=8192
     python -m handarm_tpu_torch.train task=AllegroKukaTwoArms env.subtask=regrasping env.num_envs=8192
+    python -m handarm_tpu_torch.train task=FactoryTaskNutBoltPick env.num_envs=512
+    python -m handarm_tpu_torch.train task=FactoryTaskNutBoltScrew env.num_envs=512
+    python -m handarm_tpu_torch.train task=IndustRealTaskPegsInsert env.num_envs=512
 
 Cartpole, the Ant, the Humanoid, BallBalance, the ANYmal tasks, the
 Franka tasks, Trifinger, the hands, DeXtreme and AllegroKuka (a KUKA iiwa 7
 with an Allegro hand; two of them facing each other in the two-arm tasks)
 run on the in-repo stand-in assets
-(`assets/classic_standin/`); `urdf=PATH`
+(`assets/classic_standin/`), the Factory and IndustReal tasks on the
+stand-in Franka with the reference's parts as tracked SDF records
+(`.sdf_cache/`, `envs/objects.py` `PART_RECORD_KEYS`); `urdf=PATH`
 (Cartpole) and `mjcf=PATH` (Ant) take others. Their stats carry no success rate (`succ` prints 0).
-The JAX package's other classic tasks raise NotImplementedError (ROADMAP
-§1.7).
+The JAX package's other classic tasks (HumanoidAMP,
+IndustRealTaskGearsInsert) raise NotImplementedError (ROADMAP §1.7).
 
 Domain randomization and ADR come through the composition as well, as
 `rl.randomization_params.dr.<key>=` and `rl.randomization_params.adr.<key>=`

@@ -88,8 +88,17 @@ package on the CPU.
   tests/test_torch_allegro_kuka_two_arms.py holds their envs and that
   file): `compose_task` against the JAX package's, with the 500 -> 600
   episode rule and the variant from the name or the subtask, 506 slots.
-  The refusal list keeps three refused cases: FactoryTaskGears,
-  HumanoidAMP and IndustRealTaskPegsInsert.
+- The Factory tasks (FactoryTaskNutBoltPick, FactoryTaskNutBoltPlace,
+  FactoryTaskNutBoltScrew, FactoryTaskGears, FactoryTaskInsertion) and
+  IndustRealTaskPegsInsert on the stand-in Franka with the parts' tracked
+  records (the JAX package's `FRANKA_URDF` constants and its loader's
+  `CACHE_DIR` monkeypatched; tests/test_torch_factory.py and
+  tests/test_torch_industreal.py hold their envs): `compose_task` against
+  the JAX package's, with the 500 -> 100 and 500 -> 128 episode rules,
+  every other env key dropped as the JAX factories drop it, and
+  IndustReal's asymmetric learner.
+  The refusal list keeps two refused cases: HumanoidAMP and
+  IndustRealTaskGearsInsert.
 """
 
 import dataclasses
@@ -261,9 +270,12 @@ def test_compose_task_matches(task, overrides, tmp_path, monkeypatch):
 DEXTREME = ("AllegroHandDextremeADR", "AllegroHandADR", "AllegroHandManualDR")
 KUKA = ("AllegroKukaReorientation", "AllegroKukaRegrasping", "AllegroKukaThrow", "AllegroKuka")
 KUKA2 = ("AllegroKukaTwoArmsReorientation", "AllegroKukaTwoArmsRegrasping", "AllegroKukaTwoArms")
+FACTORY = ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew",
+           "FactoryTaskGears", "FactoryTaskInsertion")
 PORTED_STANDINS = ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance", "FrankaCabinet",
                    "FrankaCubeStack", "Trifinger", "AllegroHand", "ShadowHand",
-                   "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM") + DEXTREME + KUKA + KUKA2
+                   "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM") + DEXTREME + KUKA + KUKA2 + (
+                       FACTORY + ("IndustRealTaskPegsInsert",))
 
 
 @pytest.mark.parametrize("task", ["Ant", "Cartpole", "ShadowHandOpenAI_LSTM", "Humanoid",
@@ -275,14 +287,17 @@ PORTED_STANDINS = ("Ant", "Cartpole", "Humanoid", "Anymal", "BallBalance", "Fran
                                   "AllegroHandManualDR", "AllegroKukaReorientation",
                                   "AllegroKukaRegrasping", "AllegroKukaThrow",
                                   "AllegroKukaTwoArmsReorientation",
-                                  "AllegroKukaTwoArmsRegrasping"])
+                                  "AllegroKukaTwoArmsRegrasping", "FactoryTaskNutBoltPick",
+                                  "FactoryTaskNutBoltPlace", "FactoryTaskNutBoltScrew",
+                                  "FactoryTaskInsertion", "IndustRealTaskGearsInsert"])
 def test_unported_classic_task_raises(task):
     """The refusal list: the JAX package's classic tasks the port lacks raise
-    NotImplementedError naming ROADMAP §1.7 (FactoryTaskGears, HumanoidAMP,
-    IndustRealTaskPegsInsert); Ant, Cartpole, Humanoid, Anymal, BallBalance,
-    FrankaCabinet, FrankaCubeStack, Trifinger, AllegroHand, ShadowHand, the
-    ShadowHandOpenAI tasks, the DeXtreme tasks and the AllegroKuka tasks on
-    one arm and on two are ported and off it."""
+    NotImplementedError naming ROADMAP §1.7 (HumanoidAMP,
+    IndustRealTaskGearsInsert); Ant, Cartpole, Humanoid, Anymal,
+    BallBalance, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroHand,
+    ShadowHand, the ShadowHandOpenAI tasks, the DeXtreme tasks, the
+    AllegroKuka tasks on one arm and on two, the Factory tasks and
+    IndustRealTaskPegsInsert are ported and off it."""
     assert task in jreg.CLASSIC_TASKS
     with pytest.raises(TypeError):
         treg.resolve_task("Quadcopter", ["no_such_field=1"])
@@ -469,14 +484,18 @@ def _standin_constants():
     from handarm_tpu.envs import ball_balance as jbb
     from handarm_tpu.envs import dexhand as jdex
     from handarm_tpu.envs import dextreme as jdx
+    from handarm_tpu.envs import factory as jfac
     from handarm_tpu.envs import franka as jfr
     from handarm_tpu.envs import franka_cabinet as jcab
+    from handarm_tpu.envs import industreal as jir
+    from handarm_tpu.envs import objects as jobj
     from handarm_tpu.envs import trifinger as jtri
     from handarm_tpu_torch.envs import allegro_kuka as tak
     from handarm_tpu_torch.envs import anymal as tan
     from handarm_tpu_torch.envs import ball_balance as tbb
     from handarm_tpu_torch.envs import dexhand as tdex
     from handarm_tpu_torch.envs import franka as tfr
+    from handarm_tpu_torch.envs import objects as tobj
     from handarm_tpu_torch.envs import trifinger as ttri
 
     shadow = [(jdex, "SHADOW_MJCF", tdex.SHADOW_MJCF)]
@@ -486,6 +505,9 @@ def _standin_constants():
     kuka2 = ((jak, "make_allegro_kuka_two_arms"),
              [(jak, "KUKA_ALLEGRO_URDF", tak.KUKA_ALLEGRO_URDF),
               (jak, "TWO_ARMS_URDF", tak.generate_two_arms_urdf)])
+    # the parts' records: the tracked ones, under the reference's URDF paths
+    records = (jobj, "CACHE_DIR", str(tobj.CACHE_DIR))
+    factory = ((jfac, "make_factory"), [(jfac, "FRANKA_URDF", tfr.FRANKA_URDF), records])
 
     return {"BallBalance": ((jbb, "make_ball_balance"), [(jbb, "BBOT_MJCF", tbb.BBOT_MJCF)]),
             "Anymal": ((jan, "make_anymal"), [(jan, "ANYMAL_URDF", tan.ANYMAL_URDF)]),
@@ -504,7 +526,10 @@ def _standin_constants():
             "AllegroHandDextremeADR": ((jdx, "make_allegro_dextreme"), allegro),
             "AllegroHandADR": ((jdx, "make_allegro_dextreme"), allegro),
             "AllegroHandManualDR": ((jdx, "make_allegro_dextreme_manual"), allegro),
-            **{task: kuka for task in KUKA}, **{task: kuka2 for task in KUKA2}}
+            **{task: kuka for task in KUKA}, **{task: kuka2 for task in KUKA2},
+            **{task: factory for task in FACTORY},
+            "IndustRealTaskPegsInsert": ((jir, "make_industreal"),
+                                         [(jir, "FRANKA_URDF", tfr.FRANKA_URDF), records])}
 
 
 STANDIN_CONSTANTS = _standin_constants()
@@ -595,6 +620,15 @@ def test_cartpole_reset_and_steps_match():
     ("AllegroKukaTwoArmsReorientation", []),
     ("AllegroKukaTwoArmsRegrasping", ["num_envs=32", "env.episode_length=300"]),
     ("AllegroKukaTwoArms", ["env.num_envs=16", "env.subtask=regrasping"]),
+    ("FactoryTaskNutBoltPick", []),
+    ("FactoryTaskNutBoltPlace", ["num_envs=16", "env.episode_length=50"]),
+    ("FactoryTaskNutBoltScrew", ["env.num_envs=16", "keypoint_scale=2.0",
+                                 "ppo.minibatch_size=512"]),
+    ("FactoryTaskGears", []),
+    ("FactoryTaskInsertion", ["num_envs=32", "nut_xy_noise=0.2"]),
+    ("IndustRealTaskPegsInsert", []),
+    ("IndustRealTaskPegsInsert", ["env.num_envs=16", "env.episode_length=64",
+                                  "curriculum_interval=1", "ppo.hidden=[64,64]"]),
 ])
 def test_compose_task_matches_standins(task, overrides, monkeypatch):
     from handarm_tpu.envs import locomotion as jl
@@ -657,6 +691,18 @@ def test_compose_task_matches_standins(task, overrides, monkeypatch):
     if task == "FrankaCabinet" and overrides:  # the props ride in the drawer
         assert tenv.scene.shapes.num_objects == jenv.scene.shapes.num_objects == 3
         assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots
+    if task in FACTORY or task == "IndustRealTaskPegsInsert":
+        # the registry's 500 -> 100 (Factory) or 128; every other env key
+        # dropped (the config's defaults), as the JAX factories drop them
+        assert cfg.episode_length == (50 if "env.episode_length=50" in overrides else 64
+                                      if "env.episode_length=64" in overrides else
+                                      100 if task in FACTORY else 128)
+        defaults = type(cfg)(num_envs=cfg.num_envs, episode_length=cfg.episode_length,
+                             task=cfg.task)
+        assert cfg == defaults
+        assert tenv.scene.slots.num_slots == jenv.scene.slots.num_slots == (
+            456 if task == "FactoryTaskGears" else 298)
+        assert ppo_over.get("asymmetric_critic", False) == (task == "IndustRealTaskPegsInsert")
     if task == "Humanoid":
         with pytest.raises(TypeError, match="mjcf"):  # as the JAX factory refuses it
             treg.resolve_task(task, [f"mjcf={tl.ANT_MJCF}"])
